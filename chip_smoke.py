@@ -8,18 +8,26 @@ Run from the root of a checkout, with no arguments:
 Phases, each fatal on failure (exit code != 0, no result line):
 
 1. device: the card's name and power limit (nvidia-smi);
-2. build: both CUDA kernels from ``dots_ocr_tpu_torch/csrc`` (nvcc, sm_90a);
-3. kernels vs plain versions, bf16, at the serving path's shapes: flash
-   attention for a packed 2-image vision batch and for a causal padded
-   decoder prefill, paged decode attention over 64 slots at nq = 1 and 3;
+2. build: the CUDA kernels from ``dots_ocr_tpu_torch/csrc`` (nvcc, sm_90a);
+3. kernels vs plain versions at the serving paths' shapes: flash attention
+   for a packed 2-image vision batch, a causal padded decoder prefill and a
+   chunked-prefill chunk (q_offset 2048); paged decode attention over 64
+   slots at nq = 1 and 3, bf16 pools and int8 pools with float32 scales;
    max abs error against the stated tolerance, median CUDA-event times;
-4. end to end: the flagship model (full width, random bf16 weights from a
-   seed) in the port's continuous-batching engine at the shipping geometry,
+4. end to end, the shipped path: the flagship model (full width and depth,
+   random bf16 weights from a seed, quantized to int8) with int8 KV, k = 2
+   speculation and 2,048-token chunked prefill at the shipping geometry,
    served by the unchanged ``OpenAIServer`` on 127.0.0.1; /health, three
-   concurrent chat completions (a page, a receipt, a text prompt), /metrics;
-   both kernels' launch counters must move during that run;
-5. consistency: the page request's prefill logits and four decode steps'
-   logits through the kernels vs through their plain versions.
+   concurrent chat completions (a page, a receipt, a text prompt),
+   /metrics (prefill chunks and verify chunks counted); the flash kernel
+   (with q_offset > 0) and the int8 paged kernel must launch in that run;
+5. consistency of that path: the page request's chunked-prefill logits and
+   four int8-KV decode steps through the kernels vs their plain versions;
+6. end to end, the bf16 path (bf16 weights and KV, no speculation, one
+   4,096-token prefill), as phase 4; the flash and bf16 paged kernels must
+   launch; then the same consistency check in bf16;
+7. the cost of int8 weights in decode: one decode step for 64 slots with
+   the bf16 weights and with their int8 quantization (dequantized per call).
 
 The line before the last is one JSON object with the per-kernel numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -50,14 +58,23 @@ ATOL, RTOL = 2e-2, 2e-2
 # path by +-1 bf16 ulp at random moves the page's prefill logits by 0.19 std
 # at the max over 151,936 logits (H100 80GB HBM3, 700 W) - the kernel path
 # moves them by the same 0.19. A wrong mask or a dropped tile moves them by
-# several std.
+# several std. The int8 path holds the same bound: its paged kernel and
+# plain version share the tile and every rounding step (they differ by the
+# softmax denominator's summation order), so the flash kernel's bf16
+# rounding is what the model amplifies there too.
 LOGIT_TOL = 0.5
 PAGE_SIZE, NUM_PAGES, MAX_SLOTS, MAX_SEQ_TOKENS = 128, 2048, 64, 40960
-# The byte-level tokenizer (the repo has no checkpoint tokenizer) spends one
-# token per prompt character: the layout prompt alone is ~900 tokens, so
-# the page request (1,260 image tokens) needs a 4,096-token monolithic
-# prefill limit instead of the shipped 2,048-token chunk.
+# The shipped chunk. The byte-level tokenizer (the repo has no checkpoint
+# tokenizer) spends one token per prompt character, so the page request
+# (1,260 image tokens + the ~900-token layout prompt) takes 2 chunks.
+PREFILL_CHUNK = 2048
+# The bf16 path of the first slice: one monolithic prefill up to 4,096.
 PREFILL_LIMIT = 4096
+SHIPPED_FLAGS = ["--quantize", "int8", "--kv-cache-dtype", "int8", "--speculate-k", "2",
+                 "--spec-min-tokens-per-iter", "1.5",
+                 "--prefill-chunk-tokens", str(PREFILL_CHUNK)]
+BF16_FLAGS = ["--quantize", "none", "--kv-cache-dtype", "bf16", "--speculate-k", "0",
+              "--prefill-chunk-tokens", str(PREFILL_LIMIT)]
 REPS = 10
 
 
@@ -109,9 +126,12 @@ def kernel_phase(dev) -> dict:
     import numpy as np
     import torch
 
+    from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
     from dots_ocr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
     from dots_ocr_tpu_torch.ops.paged_attention import (
+        paged_attention_int8_reference,
         paged_attention_multiquery,
+        paged_attention_multiquery_int8,
         paged_attention_multiquery_reference,
     )
 
@@ -120,7 +140,8 @@ def kernel_phase(dev) -> dict:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    results = {"flash_attention": [], "paged_attention_multiquery": []}
+    results = {"flash_attention": [], "paged_attention_multiquery": [],
+               "paged_attention_multiquery_int8": []}
     # (a) vision: sample_page (5,040 patches) + sample_receipt (1,380)
     # packed, bucket-padded to 6,656 with -1; 12 heads x 128, non-causal.
     seg = np.full((1, 6656), -1, np.int32)
@@ -139,7 +160,20 @@ def kernel_phase(dev) -> dict:
         "flash prefill B=4 T=2048 12q/2kv D=128 causal, rows 2048/1531/800/77",
         lambda: flash_attention(q, k, v, seg, seg, causal=True),
         lambda: flash_attention_reference(q, k, v, seg, seg, causal=True)))
-    del q, k, v, seg
+    # (g) a chunked-prefill chunk as decoder_prefill_extend_batched calls
+    # it: B=2, C=2048 queries at positions 2048..4095 over the gathered
+    # [0, 4096) prefix; prompts of 4,096 and 3,100 tokens (segment -1 past
+    # each prompt, for queries and keys alike).
+    plen = torch.tensor([4096, 3100], device=dev)
+    pos = torch.arange(4096, device=dev)
+    q_seg = torch.where(pos[None, 2048:] < plen[:, None], 0, -1).to(torch.int32)
+    kv_seg = torch.where(pos[None, :] < plen[:, None], 0, -1).to(torch.int32)
+    q, k, v = randn(2, 2048, 12, 128), randn(2, 4096, 2, 128), randn(2, 4096, 2, 128)
+    results["flash_attention"].append(compare(
+        "flash prefill chunk B=2 C=2048 kv_hi=4096 q_offset=2048 12q/2kv, prompts 4096/3100",
+        lambda: flash_attention(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048),
+        lambda: flash_attention_reference(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048)))
+    del q, k, v, seg, q_seg, kv_seg
     # (c, d) paged decode: 64 slots, page 128, table width 320, lengths
     # over 0..12k with zeros, shuffled distinct pages (sized for nq = 3).
     rng = np.random.RandomState(0)
@@ -158,13 +192,23 @@ def kernel_phase(dev) -> dict:
     lens_t = torch.from_numpy(lengths.astype(np.int32)).to(dev)
     table_t = torch.from_numpy(table).to(dev)
     live = int(lengths.sum())
+    shape = (f"64 slots page 128 width 320, lengths 0..12k ({live} live tokens, "
+             f"{int((lengths == 0).sum())} empty)")
+    # (e, f) the int8 mode at the same shape: pools and scales from
+    # quantize_kv of the same N(0, 1) data; the plain version at the
+    # kernel's tile.
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
     for nq in (1, 3):
         qd = randn(MAX_SLOTS, nq, 12, 128)
         results["paged_attention_multiquery"].append(compare(
-            f"paged decode 64 slots nq={nq} page 128 width 320, "
-            f"lengths 0..12k ({live} live tokens, {int((lengths == 0).sum())} empty)",
+            f"paged decode nq={nq} bf16 {shape}",
             lambda: paged_attention_multiquery(qd, kp, vp, lens_t, table_t),
             lambda: paged_attention_multiquery_reference(qd, kp, vp, lens_t, table_t)))
+        results["paged_attention_multiquery_int8"].append(compare(
+            f"paged decode nq={nq} int8 {shape}",
+            lambda: paged_attention_multiquery_int8(qd, kq, vq, ks, vs, lens_t, table_t),
+            lambda: paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t)))
     return results
 
 
@@ -182,31 +226,61 @@ def _http(url: str, body=None, timeout: float = 600.0):
         return resp.status, resp.read().decode()
 
 
-def serve_phase(dev):
-    """Build the engine through the server's entry point, serve it, and
-    drive three concurrent requests. Returns (engine, launches, page image)."""
+KERNEL_COUNTERS = ("flash_attention", "flash_attention (q_offset > 0)",
+                   "paged_attention_multiquery", "paged_attention_multiquery_int8")
+
+
+def _counters():
+    from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
+    from dots_ocr_tpu_torch.ops.paged_attention import (
+        paged_attention_multiquery,
+        paged_attention_multiquery_int8,
+    )
+
+    return {"flash_attention": (flash_attention, "launches"),
+            "flash_attention (q_offset > 0)": (flash_attention, "offset_launches"),
+            "paged_attention_multiquery": (paged_attention_multiquery, "launches"),
+            "paged_attention_multiquery_int8": (paged_attention_multiquery_int8, "launches")}
+
+
+def reset_counts() -> None:
+    for fn, attr in _counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_counts() -> dict:
+    return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
+
+
+def serve_phase(dev, flags, label: str, required):
+    """Build the engine through the server's entry point with ``flags``,
+    serve it, and drive three concurrent requests. Every counter named in
+    ``required`` must move during the served run. Returns (engine, the
+    launch counts of the run, /metrics as a dict, the page image)."""
+    import torch
     from aiohttp import web
     from PIL import Image
 
     from dots_ocr_tpu.serve.server import OpenAIServer
     from dots_ocr_tpu.utils.image_io import pil_to_base64
     from dots_ocr_tpu.utils.prompts import dict_promptmode_to_prompt as prompts
-    from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
-    from dots_ocr_tpu_torch.ops.paged_attention import paged_attention_multiquery
     from dots_ocr_tpu_torch.serve import server as torch_server
 
     args = torch_server.build_parser().parse_args([
         "--random-flagship", "--platform", str(dev), "--num-pages", str(NUM_PAGES),
         "--page-size", str(PAGE_SIZE), "--max-slots", str(MAX_SLOTS),
-        "--max-seq-tokens", str(MAX_SEQ_TOKENS), "--kv-cache-dtype", "bf16",
-        "--vision-attn", "config", "--speculate-k", "0", "--quantize", "none",
-        "--prefill-chunk-tokens", str(PREFILL_LIMIT),
+        "--max-seq-tokens", str(MAX_SEQ_TOKENS), "--steps-per-sync", "16",
+        "--vision-attn", "config", *flags,
     ])
     t0 = time.perf_counter()
     engine = torch_server.build_engine(args)
-    log(f"  flagship engine built (random weights + KV pool) in "
-        f"{time.perf_counter() - t0:.1f} s; KV pool {NUM_PAGES} pages x {PAGE_SIZE}, "
-        f"{MAX_SLOTS} slots, table width {engine.sched.max_pages_per_seq}")
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    log(f"  [{label}] flagship engine built (random weights, {args.quantize} quantization, "
+        f"{args.kv_cache_dtype} KV pool) in {time.perf_counter() - t0:.1f} s; "
+        f"{NUM_PAGES} pages x {PAGE_SIZE}, {MAX_SLOTS} slots, table width "
+        f"{engine.sched.max_pages_per_seq}, speculate_k {engine.sched.speculate_k}, "
+        f"prefill chunk {engine.sched.prefill_chunk_tokens}")
 
     port = _free_port()
     loop = asyncio.new_event_loop()
@@ -229,7 +303,7 @@ def serve_phase(dev):
         status, body = _http(f"{base}/health")
         if status != 200:
             raise AssertionError(f"/health -> {status} {body}")
-        log(f"  /health -> {status} {body}")
+        log(f"  [{label}] /health -> {status} {body}")
         page = Image.open(os.path.join(REPO, "demo/assets/sample_page.png"))
         receipt = Image.open(os.path.join(REPO, "demo/assets/sample_receipt.png"))
 
@@ -251,14 +325,12 @@ def serve_phase(dev):
             status, text = _http(f"{base}/v1/chat/completions", body)
             return name, status, json.loads(text), time.perf_counter() - t
 
-        flash_attention.launches = 0
-        paged_attention_multiquery.launches = 0
+        reset_counts()
         t0 = time.perf_counter()
         with ThreadPoolExecutor(len(requests)) as pool:
             results = list(pool.map(post, requests))
         wall = time.perf_counter() - t0
-        launches = {"flash_attention": flash_attention.launches,
-                    "paged_attention_multiquery": paged_attention_multiquery.launches}
+        launches = read_counts()
         total_tokens = 0
         for name, status, data, secs in results:
             if status != 200:
@@ -271,36 +343,146 @@ def serve_phase(dev):
             lat = usage.get("latency", {})
             decode_s = lat.get("decode_ms", 0.0) / 1e3
             rate = (n - 1) / decode_s if decode_s > 0 else float("nan")
-            log(f"  {name}: HTTP {status}, prompt {usage['prompt_tokens']} tokens, "
+            log(f"  [{label}] {name}: HTTP {status}, prompt {usage['prompt_tokens']} tokens, "
                 f"completion {n} tokens, finish {data['choices'][0]['finish_reason']}, "
                 f"latency {secs * 1e3:.0f} ms (engine: ttft {lat.get('ttft_ms')} ms, "
                 f"decode {lat.get('decode_ms')} ms -> {rate:.1f} tok/s after the first)")
-        log(f"  3 concurrent requests: wall {wall:.2f} s, {total_tokens} completion "
+        log(f"  [{label}] 3 concurrent requests: wall {wall:.2f} s, {total_tokens} completion "
             f"tokens -> {total_tokens / wall:.1f} tok/s")
-        status, metrics = _http(f"{base}/metrics")
-        prefills = [line for line in metrics.splitlines()
-                    if line.startswith("dots_ocr_engine_prefills ")]
-        if status != 200 or not prefills or int(prefills[0].split()[1]) < 1:
-            raise AssertionError(f"/metrics shows no prefill: {prefills}")
-        log(f"  /metrics: {prefills[0]}")
-        log(f"  kernel launches during the served run: {launches}")
-        for name, count in launches.items():
-            if count < 1:
-                raise AssertionError(f"{name} was not launched on the main path")
+        status, text = _http(f"{base}/metrics")
+        metrics = {}
+        for line in text.splitlines():
+            if line.startswith("dots_ocr_engine_") and len(line.split()) == 2:
+                key, value = line.split()
+                metrics[key[len("dots_ocr_engine_"):]] = float(value)
+        if status != 200 or metrics.get("prefills", 0) < 3:
+            raise AssertionError(f"/metrics shows fewer than 3 prefills: {metrics}")
+        shown = ("prefills", "prefill_chunks", "steps", "spec_chunks", "spec_emitted",
+                 "spec_slot_iters", "spec_auto_disabled", "t_admit_s", "t_prefill_s",
+                 "t_decode_s")
+        log(f"  [{label}] /metrics: " + ", ".join(f"{k} {metrics.get(k)}" for k in shown))
+        log(f"  [{label}] kernel launches during the served run: {launches}")
+        for name in required:
+            if launches[name] < 1:
+                raise AssertionError(f"{name} was not launched on the {label} path")
     finally:
         asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(120)
         loop.call_soon_threadsafe(loop.stop)
         thread.join(60)
-    return engine, launches, page
+    return engine, launches, metrics, page
 
 
-def consistency_phase(engine, page, dev) -> None:
-    """The page request through the kernels and through the plain versions:
-    prefill logits, then four paged decode steps fed the same tokens."""
+def _page_inputs(engine, page, dev):
+    """The page request's prompt ids and packed vision inputs, as the
+    engine prepares them, with their device tensors."""
     import numpy as np
     import torch
 
     from dots_ocr_tpu.utils.prompts import dict_promptmode_to_prompt as prompts
+    from dots_ocr_tpu_torch.models.vlm import build_scatter_indices
+
+    cfg = engine.config
+    prep = engine.prepare(prompts["prompt_layout_all_en"], [page])
+    ids = np.asarray([prep.prompt_ids], np.int64)
+    sb, sp = build_scatter_indices(ids, cfg.special.imgpad_id, prep.packed.patches.shape[0] // 4,
+                                   valid_rows=prep.packed.merged_valid_rows(4))
+
+    def put(x):
+        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+    return prep.packed, ids, put, dict(scatter_batch=put(sb), scatter_pos=put(sp))
+
+
+def _report(paths, what_first: str) -> None:
+    for i, (kl, rl) in enumerate(zip(paths["kernel"]["logits"], paths["reference"]["logits"])):
+        diff, std = (kl - rl).abs(), float(rl.std())
+        ratio = float(diff.max()) / std
+        what = what_first if i == 0 else f"decode step {i}"
+        same = bool((kl.argmax(-1) == rl.argmax(-1)).all())
+        log(f"  {what}: max|logit diff| / std(plain logits) = {ratio:.4f} "
+            f"(tol {LOGIT_TOL}), mean {float(diff.mean()) / std:.4f}, std {std:.4f}, "
+            f"same argmax: {same}")
+        if not ratio <= LOGIT_TOL:
+            raise AssertionError(f"{what}: kernel path and plain path disagree ({ratio})")
+
+
+def consistency_int8_phase(engine, page, dev) -> None:
+    """The shipped path's page request through the kernels and through the
+    plain versions: the chunked prefill (2,048-token chunks, int8 KV, int8
+    weights), then four int8-KV decode steps fed the same tokens."""
+    import numpy as np
+    import torch
+
+    from dots_ocr_tpu_torch.engine.kv_cache import PageAllocator, PagedKV
+    from dots_ocr_tpu_torch.models.decoder import (
+        decoder_decode_step_paged,
+        decoder_prefill_extend_batched,
+        embed_tokens,
+        logits_from_hidden,
+    )
+    from dots_ocr_tpu_torch.models.rope import vision_rope_device
+    from dots_ocr_tpu_torch.models.vision import encode_images
+    from dots_ocr_tpu_torch.models.vlm import splice_vision_embeddings
+
+    cfg, params = engine.config, engine.params
+    packed, ids, put, scatter = _page_inputs(engine, page, dev)
+    t = ids.shape[1]
+    ct = PREFILL_CHUNK
+    bucket = -(-t // ct) * ct
+    padded = np.full((1, bucket), cfg.special.pad_token_id, np.int64)
+    padded[0, :t] = ids[0]
+    steps = 4
+    alloc = PageAllocator(-(-(t + steps) // PAGE_SIZE) + 1, PAGE_SIZE,
+                          -(-(bucket + steps) // PAGE_SIZE))
+    alloc.allocate(0, t + steps)
+    table = put(alloc.padded_table(0)[None])
+    cos, sin = vision_rope_device(put(packed.pos2d), cfg.vision.head_dim, cfg.vision.rope_theta)
+    paths = {}
+    with torch.no_grad():
+        for impl in ("kernel", "reference"):
+            vision = encode_images(params["vision"], cfg.vision, put(packed.patches), cos, sin,
+                                   put(packed.segment_ids), attn_impl=impl)
+            embeds = splice_vision_embeddings(embed_tokens(params["decoder"], put(padded)),
+                                              vision, scatter["scatter_batch"],
+                                              scatter["scatter_pos"])
+            paged = PagedKV.create(cfg.decoder, alloc.num_pages, PAGE_SIZE, cfg.torch_dtype, dev,
+                                   quantized=True)
+            for start in range(0, bucket, ct):
+                n_valid = min(ct, t - start)
+                slots = np.zeros((1, ct), np.int64)
+                slots[0, :n_valid] = alloc.slot_mapping(0, start, n_valid)
+                hidden = decoder_prefill_extend_batched(
+                    params["decoder"], cfg.decoder, embeds[:, start:start + ct],
+                    start + torch.arange(ct, device=dev), put(np.array([t])), paged.k, paged.v,
+                    table[:, :(start + ct) // PAGE_SIZE], put(slots), PAGE_SIZE, start + ct,
+                    start, attn_impl=impl, k_scales=paged.k_scale, v_scales=paged.v_scale)
+            last = hidden[:, t - 1 - (bucket - ct)]
+            paths[impl] = {"logits": [logits_from_hidden(params["decoder"], cfg.decoder, last)],
+                           "paged": paged}
+        token = paths["kernel"]["logits"][0].argmax(-1)
+        for step in range(steps):
+            pos = t + step
+            for impl, path in paths.items():
+                hidden = decoder_decode_step_paged(
+                    params["decoder"], cfg.decoder, embed_tokens(params["decoder"], token),
+                    put(np.array([pos])), path["paged"].k, path["paged"].v, table,
+                    put(np.array([pos + 1], np.int32)), put(alloc.slot_mapping(0, pos, 1)),
+                    PAGE_SIZE, attn_impl=impl, k_scales=path["paged"].k_scale,
+                    v_scales=path["paged"].v_scale)
+                path["logits"].append(logits_from_hidden(params["decoder"], cfg.decoder, hidden))
+            token = paths["kernel"]["logits"][-1].argmax(-1)
+    log(f"  page request: {t} prompt tokens ({packed.num_merged} image tokens), "
+        f"{bucket // ct} chunks of {ct}")
+    _report(paths, "chunked prefill")
+
+
+def consistency_phase(engine, page, dev) -> None:
+    """The bf16 path's page request through the kernels and through the
+    plain versions: prefill logits, then four paged decode steps fed the
+    same tokens."""
+    import numpy as np
+    import torch
+
     from dots_ocr_tpu_torch.engine.kv_cache import PageAllocator, PagedKV, write_prefill_kv
     from dots_ocr_tpu_torch.models.decoder import (
         decoder_decode_step_paged,
@@ -308,18 +490,11 @@ def consistency_phase(engine, page, dev) -> None:
         logits_from_hidden,
     )
     from dots_ocr_tpu_torch.models.rope import vision_rope_device
-    from dots_ocr_tpu_torch.models.vlm import build_scatter_indices, vlm_prefill
+    from dots_ocr_tpu_torch.models.vlm import vlm_prefill
 
     cfg, params = engine.config, engine.params
-    prep = engine.prepare(prompts["prompt_layout_all_en"], [page])
-    packed, ids = prep.packed, np.asarray([prep.prompt_ids], np.int64)
+    packed, ids, put, scatter = _page_inputs(engine, page, dev)
     t = ids.shape[1]
-    sb, sp = build_scatter_indices(ids, cfg.special.imgpad_id, packed.patches.shape[0] // 4,
-                                   valid_rows=packed.merged_valid_rows(4))
-
-    def put(x):
-        return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
     cos, sin = vision_rope_device(put(packed.pos2d), cfg.vision.head_dim, cfg.vision.rope_theta)
     steps = 4
     alloc = PageAllocator(-(-(t + steps) // PAGE_SIZE) + 1, PAGE_SIZE, 64)
@@ -331,8 +506,8 @@ def consistency_phase(engine, page, dev) -> None:
             logits, k, v = vlm_prefill(
                 params, cfg, put(ids), put(np.arange(t)[None]), put(np.array([t])),
                 patches=put(packed.patches), rope_cos=cos, rope_sin=sin,
-                segment_ids=put(packed.segment_ids), scatter_batch=put(sb),
-                scatter_pos=put(sp), attn_impl=impl, last_logit_only=True)
+                segment_ids=put(packed.segment_ids), attn_impl=impl, last_logit_only=True,
+                **scatter)
             paged = PagedKV.create(cfg.decoder, alloc.num_pages, PAGE_SIZE,
                                    cfg.torch_dtype, dev)
             write_prefill_kv(paged, k, v, put(alloc.slot_mapping(0, 0, t)))
@@ -349,16 +524,62 @@ def consistency_phase(engine, page, dev) -> None:
                 path["logits"].append(logits_from_hidden(params["decoder"], cfg.decoder, hidden))
             token = paths["kernel"]["logits"][-1].argmax(-1)
     log(f"  page request: {t} prompt tokens ({packed.num_merged} image tokens)")
-    for i, (kl, rl) in enumerate(zip(paths["kernel"]["logits"], paths["reference"]["logits"])):
-        diff, std = (kl - rl).abs(), float(rl.std())
-        ratio = float(diff.max()) / std
-        what = "prefill" if i == 0 else f"decode step {i}"
-        same = bool((kl.argmax(-1) == rl.argmax(-1)).all())
-        log(f"  {what}: max|logit diff| / std(plain logits) = {ratio:.4f} "
-            f"(tol {LOGIT_TOL}), mean {float(diff.mean()) / std:.4f}, std {std:.4f}, "
-            f"same argmax: {same}")
-        if not ratio <= LOGIT_TOL:
-            raise AssertionError(f"{what}: kernel path and plain path disagree ({ratio})")
+    _report(paths, "prefill")
+
+
+def dequant_cost_phase(engine, dev) -> dict:
+    """One decode step for 64 slots at 2,048-token contexts: the engine's
+    bf16 weights and their int8 quantization (``linear`` dequantizes it to
+    a bf16 copy on every call) over a bf16 pool, and the shipped pair,
+    int8 weights over an int8 pool. Medians of REPS CUDA-event timings,
+    taken in turns."""
+    import torch
+
+    from dots_ocr_tpu_torch.engine.kv_cache import PagedKV
+    from dots_ocr_tpu_torch.models.decoder import (
+        decoder_decode_step_paged,
+        embed_tokens,
+        logits_from_hidden,
+    )
+    from dots_ocr_tpu_torch.models.quantize import quantize_decoder_params
+
+    cfg = engine.config
+    ctx, pages_per_row = 2048, 2048 // PAGE_SIZE + 1
+    pools = {dtype: PagedKV.create(cfg.decoder, MAX_SLOTS * pages_per_row + 1, PAGE_SIZE,
+                                   cfg.torch_dtype, dev, quantized=dtype == "int8")
+             for dtype in ("bf16", "int8")}
+    table = (1 + torch.arange(MAX_SLOTS * pages_per_row, device=dev, dtype=torch.int32)
+             ).reshape(MAX_SLOTS, pages_per_row)
+    pos = torch.full((MAX_SLOTS,), ctx, dtype=torch.int64, device=dev)
+    slots = table[:, ctx // PAGE_SIZE].long() * PAGE_SIZE + ctx % PAGE_SIZE
+    lens = (pos + 1).to(torch.int32)
+    tokens = (torch.arange(MAX_SLOTS, device=dev) * 7 + 100) % cfg.decoder.vocab_size
+    weights = {"bf16": engine.params["decoder"],
+               "int8": quantize_decoder_params(engine.params["decoder"])}
+
+    def step(p, paged):
+        def run():
+            with torch.no_grad():
+                h = decoder_decode_step_paged(p, cfg.decoder, embed_tokens(p, tokens), pos,
+                                              paged.k, paged.v, table, lens, slots, PAGE_SIZE,
+                                              k_scales=paged.k_scale, v_scales=paged.v_scale)
+                return logits_from_hidden(p, cfg.decoder, h)
+        return run
+
+    fns = {"bf16 weights, bf16 KV": step(weights["bf16"], pools["bf16"]),
+           "int8 weights, bf16 KV": step(weights["int8"], pools["bf16"]),
+           "int8 weights, int8 KV": step(weights["int8"], pools["int8"])}
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for r in range(REPS):
+        order = list(fns) if r % 2 == 0 else list(fns)[::-1]
+        for name in order:
+            times[name].append(cuda_ms(fns[name]))
+    res = {name: statistics.median(ts) for name, ts in times.items()}
+    log(f"  decode step, {MAX_SLOTS} slots x {ctx} context (median of {REPS}): "
+        + ", ".join(f"{name} {ms:.3f} ms" for name, ms in res.items()))
+    return res
 
 
 def main() -> int:
@@ -374,7 +595,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     dev = torch.device("cuda")
 
-    log("[1/5] device")
+    log("[1/7] device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -383,38 +604,63 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {smi}")
 
-    log("[2/5] build the CUDA kernels")
+    log("[2/7] build the CUDA kernels")
     from dots_ocr_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
     kernel_lib.load()
     log(f"  built and loaded in {time.perf_counter() - t0:.2f} s")
     for line in kernel_lib.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if "Function properties for" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3/5] kernels vs plain versions (bf16) on {smi}")
+    log(f"[3/7] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
 
-    log(f"[4/5] end to end: flagship, random weights, OpenAIServer on {smi}")
-    engine, launches, page = serve_phase(dev)
+    log(f"[4/7] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
+        f"{PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
+    engine, shipped, metrics, page = serve_phase(
+        dev, SHIPPED_FLAGS, "shipped",
+        required=("flash_attention", "flash_attention (q_offset > 0)",
+                  "paged_attention_multiquery_int8"))
+    if metrics.get("prefill_chunks", 0) < 2 or metrics.get("spec_chunks", 0) < 1:
+        raise AssertionError(f"shipped path: prefill_chunks {metrics.get('prefill_chunks')} "
+                             f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[5/5] consistency: kernel path vs plain path, page request")
+    log("[5/7] consistency, shipped path: kernel path vs plain path, page request")
+    consistency_int8_phase(engine, page, dev)
+    del engine
+    torch.cuda.empty_cache()
+
+    log(f"[6/7] end to end, bf16 path (bf16 weights and KV, no speculation, one "
+        f"{PREFILL_LIMIT}-token prefill), full depth, on {smi}")
+    engine, bf16_path, _, page = serve_phase(
+        dev, BF16_FLAGS, "bf16", required=("flash_attention", "paged_attention_multiquery"))
+    log("  consistency, bf16 path: kernel path vs plain path, page request")
     consistency_phase(engine, page, dev)
+
+    log(f"[7/7] int8 weights in decode: per-call dequant cost on {smi}")
+    dequant = dequant_cost_phase(engine, dev)
+    del engine
+    torch.cuda.empty_cache()
 
     sources = {
         "flash_attention": ("dots_ocr_tpu_torch/csrc/flash_attention.cu",
-                            "dots_ocr_tpu/ops/flash_attention.py:330"),
+                            "dots_ocr_tpu/ops/flash_attention.py:330", shipped),
         "paged_attention_multiquery": ("dots_ocr_tpu_torch/csrc/paged_attention.cu",
-                                       "dots_ocr_tpu/ops/paged_attention.py:689"),
+                                       "dots_ocr_tpu/ops/paged_attention.py:689", bf16_path),
+        "paged_attention_multiquery_int8": (
+            "dots_ocr_tpu_torch/csrc/paged_attention.cu",
+            "dots_ocr_tpu/ops/paged_attention.py:689 (int8 mode, :400-501)", shipped),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
-         "replaces": sources[name][1], "launches": launches[name],
+         "replaces": sources[name][1], "launches": sources[name][2][name],
          "max_abs_err": max(c["max_abs_err"] for c in cases),
          "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"], "cases": cases}
         for name, cases in kernels.items()
-    ]}
+    ], "launches_by_path": {"shipped": shipped, "bf16": bf16_path},
+        "decode_step_ms": dequant}
     log(smi)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,24 +1,35 @@
 """Continuous-batching engine over the paged KV cache (port of
-``dots_ocr_tpu.engine.scheduler``, first slice).
+``dots_ocr_tpu.engine.scheduler``).
 
-A single-threaded host loop drives two programs, plain functions here:
+A single-threaded host loop drives plain functions ("programs"):
 
-  * ``prefill_program``: one admitted batch runs the full VLM forward
-    (vision encoder, splice, causal flash prefill), its K/V scattered into
-    the pages through a host-computed slot mapping, and the first token
-    sampled from each row's last valid logit;
+  * ``prefill_program``: one admitted batch of short prompts runs the full
+    VLM forward (vision encoder, splice, causal flash prefill), its K/V
+    scattered into the pages through a host-computed slot mapping, and the
+    first token sampled from each row's last valid logit;
+  * chunked prefill, for prompts longer than ``prefill_chunk_tokens``: at
+    admission the token embeddings, and per request ``encode_program`` and
+    the splice of its vision tokens (the request parks in its slot as
+    PREFILLING); then one ``prefill_extend_program`` chunk per step for the
+    lockstep group at the smallest offset, interleaved with decode;
   * ``decode_program``: ``num_steps`` decode iterations for every slot
     ([S] tokens, [S, max_pages] page tables of static width) through the
-    paged decode kernel, with one host sync per chunk.
+    paged decode kernel, with one host sync per chunk;
+  * ``spec_decode_program`` (``speculate_k`` > 0): per iteration a bigram
+    draft over each slot's generated history, one verify forward over the
+    k + 1 tokens, and greedy / exact delta-proposal acceptance; an
+    adaptive gate turns speculation off for the current load when it emits
+    fewer than ``spec_min_tokens_per_iter`` tokens per slot-iteration.
 
-Admission is page-aware (free-page watermark). Host code carries stop
-strings, stop ids, streaming and the repetition guard.
+KV pools are bf16 or int8 (``kv_cache_dtype``); weights may be int8
+(``models/quantize.py``). Admission is page-aware (free-page watermark).
+Host code carries stop strings, stop ids, streaming and the repetition
+guard.
 
 Not ported yet; ``submit`` raises ``ValueError`` naming the ROADMAP item:
-logprobs, presence/frequency penalties, ``logit_bias``, ``seed``, and
-prompts longer than ``prefill_chunk_tokens`` (chunked prefill). Also not
-ported: speculative decoding, pipelined decode and preemption; a pool
-that runs dry mid-decode raises ``OutOfPages``.
+logprobs, presence/frequency penalties, ``logit_bias`` and ``seed``. Also
+not ported: pipelined decode and preemption (a pool that runs dry
+mid-decode raises ``OutOfPages``) and the deep-chunk depth adaptation.
 """
 
 from __future__ import annotations
@@ -46,16 +57,23 @@ from dots_ocr_tpu_torch.engine.kv_cache import (
     write_prefill_kv,
 )
 from dots_ocr_tpu_torch.engine.request import prepare_request
-from dots_ocr_tpu_torch.engine.sampling import sample_logits
+from dots_ocr_tpu_torch.engine.sampling import sample_logits, spec_accept
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.decoder import (
     decoder_decode_step_paged,
+    decoder_prefill_extend_batched,
+    decoder_spec_step_paged,
     embed_tokens,
     logits_from_hidden,
 )
 from dots_ocr_tpu_torch.models.preprocess import merge_packed
 from dots_ocr_tpu_torch.models.rope import vision_rope_device
-from dots_ocr_tpu_torch.models.vlm import build_scatter_indices, vlm_prefill
+from dots_ocr_tpu_torch.models.vision import encode_images
+from dots_ocr_tpu_torch.models.vlm import (
+    build_scatter_indices,
+    splice_vision_embeddings,
+    vlm_prefill,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -66,7 +84,6 @@ NOT_PORTED = {
     "frequency_penalty": "logprobs, penalties and logit_bias",
     "logit_bias": "logprobs, penalties and logit_bias",
     "seed": "seeded position-keyed sampling",
-    "chunked": "chunked prefill",
     "preemption": "pipelined decode and preemption",
 }
 
@@ -158,6 +175,7 @@ def decode_program(
             params["decoder"], config.decoder,
             embed_tokens(params["decoder"], current), write_pos,
             paged.k, paged.v, page_tables, seq_lens, slots, page_size,
+            k_scales=paged.k_scale, v_scales=paged.v_scale,
         )
         logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
         nxt = sample_logits(logits, temperature, top_p, generator, any_sampled)
@@ -169,7 +187,152 @@ def decode_program(
     return torch.cat([tokens_out, num_decoded[:, None]], dim=1)
 
 
-WAITING, RUNNING, FINISHED = "waiting", "running", "finished"
+def encode_program(params: dict, config: DotsOCRConfig, patches: torch.Tensor,
+                   pos2d: torch.Tensor, segment_ids: torch.Tensor) -> torch.Tensor:
+    """Vision encoder for one request's packed images -> merged tokens
+    [T_pad / merge^2, D_llm] (2D-RoPE tables made on the device)."""
+    cos, sin = vision_rope_device(pos2d, config.vision.head_dim, config.vision.rope_theta)
+    return encode_images(params["vision"], config.vision, patches, cos, sin, segment_ids)
+
+
+def prefill_extend_program(
+    params: dict,
+    config: DotsOCRConfig,
+    paged: PagedKV,
+    embeds_chunk: torch.Tensor,
+    prompt_len: torch.Tensor,
+    page_table: torch.Tensor,
+    slots: torch.Tensor,
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    generator: torch.Generator,
+    any_sampled: bool,
+    page_size: int,
+    kv_hi: int,
+    q_offset: int,
+) -> torch.Tensor:
+    """One lockstep chunk of a chunked prefill for a batch of requests.
+
+    embeds_chunk [B, C, D] (slices of each request's spliced embeddings;
+    rows past a prompt are padding); prompt_len [B]; page_table
+    [B, kv_hi / page_size]; slots [B, C] write slots (padding -> the null
+    page). Samples a candidate first token from each row's last valid
+    position in the chunk; the host keeps it on a row's final chunk.
+    Returns first tokens [B] on the device."""
+    b, c, _ = embeds_chunk.shape
+    positions = q_offset + torch.arange(c, device=embeds_chunk.device)
+    hidden = decoder_prefill_extend_batched(
+        params["decoder"], config.decoder, embeds_chunk, positions, prompt_len,
+        paged.k, paged.v, page_table, slots, page_size, kv_hi, q_offset,
+        k_scales=paged.k_scale, v_scales=paged.v_scale,
+    )
+    last_row = (prompt_len.long() - 1 - q_offset).clamp(0, c - 1)
+    hidden = hidden[torch.arange(b, device=hidden.device), last_row]
+    logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
+    return sample_logits(logits, temperature, top_p, generator, any_sampled)
+
+
+def spec_decode_program(
+    params: dict,
+    config: DotsOCRConfig,
+    paged: PagedKV,
+    tokens_buf: torch.Tensor,
+    tokens: torch.Tensor,
+    positions: torch.Tensor,
+    gen_start: torch.Tensor,
+    page_tables: torch.Tensor,
+    active: torch.Tensor,
+    budgets: torch.Tensor,
+    temperature: torch.Tensor,
+    top_p: torch.Tensor,
+    generator: torch.Generator,
+    any_sampled: bool,
+    nucleus: bool,
+    page_size: int,
+    num_steps: int,
+    spec_k: int,
+) -> torch.Tensor:
+    """``num_steps`` speculative iterations for every slot, on the device.
+
+    Per iteration and live slot: (1) draft: the most recent position of
+    the slot's generated history whose bigram matches (previous, current)
+    proposes the ``spec_k`` tokens that followed it (``current`` repeated
+    when nothing matches); (2) verify: one decoder forward over the
+    ``spec_k + 1`` tokens through the multi-query paged kernel; (3)
+    accept: :func:`sampling.spec_accept`. Emits 1 to ``spec_k + 1`` tokens
+    per live slot and iteration; a row stops at EOS or its budget.
+
+    tokens_buf [S, L + 1] int64 generated history by logical position (L =
+    the page table's token capacity; the last column is a sink for
+    dropped writes), updated in place; gen_start [S]
+    first generated position (the prompt length); other arguments as in
+    :func:`decode_program`, with page tables covering positions +
+    num_steps * (spec_k + 1). Returns packed [S, num_steps * (spec_k + 1)
+    + 1] int64: emitted tokens, then each row's count.
+    """
+    eos, pad = config.special.eos_token_id, config.special.pad_token_id
+    s, length_buf = tokens_buf.shape[0], tokens_buf.shape[1] - 1
+    nq = spec_k + 1
+    capacity = page_tables.shape[1] * page_size
+    dev = tokens.device
+    rows = torch.arange(s, device=dev)
+    offs = torch.arange(nq, device=dev)
+    tpos = torch.arange(length_buf, device=dev)
+    out = torch.full((s, num_steps * nq + 1), pad, dtype=torch.int64, device=dev)
+    n_out = torch.zeros(s, dtype=torch.int64, device=dev)
+    done = ~active
+    current, pos, buf = tokens, positions, tokens_buf
+    for _ in range(num_steps):
+        live = ~done
+        buf[rows, pos.clamp(0, length_buf - 1)] = current
+        prev = buf[rows, (pos - 1).clamp(0, length_buf - 1)]
+        hist = buf[:, :length_buf]
+        b_prev = torch.nn.functional.pad(hist[:, :-1], (1, 0))  # b_prev[:, t] = hist[:, t - 1]
+        match = ((b_prev == prev[:, None]) & (hist == current[:, None])
+                 & (tpos[None] >= gen_start[:, None] + 1) & (tpos[None] <= pos[:, None] - 1))
+        t_star = torch.where(match, tpos[None], -1).amax(dim=1)
+        didx = t_star[:, None] + offs[None, 1:]
+        draft = hist.gather(1, didx.clamp(0, length_buf - 1))
+        draft = torch.where((t_star >= 0)[:, None] & (didx <= pos[:, None]), draft, current[:, None])
+        x_all = torch.cat([current[:, None], draft], dim=1)  # [S, nq]
+
+        # Writes past the table's capacity (a row at its token envelope)
+        # go to the null page instead of wrapping onto a live slot.
+        pos_all = pos[:, None] + offs[None, :]
+        writes = live[:, None] & (pos_all < capacity)
+        write_pos = torch.where(writes, pos_all, 0)
+        page = page_tables.gather(1, write_pos // page_size).to(torch.int64)
+        slots = torch.where(writes, page * page_size + write_pos % page_size, 0)
+        seq_lens = torch.where(live, pos + 1, 0).to(torch.int32)
+        hidden = decoder_spec_step_paged(
+            params["decoder"], config.decoder, embed_tokens(params["decoder"], x_all),
+            write_pos, paged.k, paged.v, page_tables, seq_lens, slots, page_size,
+            k_scales=paged.k_scale, v_scales=paged.v_scale,
+        )
+        logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
+        a, corrective = spec_accept(logits, x_all, temperature, top_p, generator,
+                                    any_sampled, nucleus)
+
+        y = torch.cat([x_all[:, 1:], torch.full_like(x_all[:, :1], pad)], dim=1)
+        y[rows, a] = corrective
+        is_eos = (y == eos) & (offs[None, :] <= a[:, None])
+        eos_idx = torch.where(is_eos, offs[None, :], nq).amin(dim=1)
+        m = torch.minimum(torch.minimum(a + 1, eos_idx + 1), budgets - n_out)
+        m = torch.where(live, m, 0)
+        val = offs[None, :] < m[:, None]
+        out[rows[:, None], torch.where(val, n_out[:, None] + offs[None, :], num_steps * nq)] = y
+        bpos = pos[:, None] + 1 + offs[None, :]
+        buf[rows[:, None], torch.where(val & (bpos < length_buf), bpos, length_buf)] = y
+        n_out = n_out + m
+        last = y[rows, (m - 1).clamp(0, nq - 1)]
+        current = torch.where(live & (m > 0), last, current)
+        pos = pos + m
+        done = done | (live & ((eos_idx < nq) | (n_out >= budgets)))
+    out[:, -1] = n_out
+    return out
+
+
+WAITING, PREFILLING, RUNNING, FINISHED = "waiting", "prefilling", "running", "finished"
 
 
 @dataclasses.dataclass
@@ -191,10 +354,20 @@ class SchedulerConfig:
     # 0 disables.
     repetition_max_period: int = 64
     repetition_min_repeats: int = 8
-    # Prompts longer than this many tokens (rounded up to a page multiple)
-    # need chunked prefill, which is not ported: submit rejects them.
-    # 0 = no limit.
+    # Chunked prefill: prompts longer than this many tokens (rounded up to a
+    # page multiple) are admitted as PREFILLING and their decoder forward
+    # runs one chunk of this size per step, between decode chunks.
+    # 0 = monolithic prefill only.
     prefill_chunk_tokens: int = 0
+    # n-gram speculative decoding: > 0 verifies this many drafted tokens per
+    # decode iteration (spec_decode_program). 0 = off.
+    speculate_k: int = 0
+    # Adaptive cut-off: speculation turns off for the current load after 3
+    # consecutive chunks whose EWMA of emitted tokens per slot-iteration is
+    # below this, and re-probes when the engine drains. <= 0 disables.
+    spec_min_tokens_per_iter: float = 1.5
+    # "bf16" (the model dtype) or "int8" (int8 pools + float32 scales).
+    kv_cache_dtype: str = "bf16"
 
 
 @dataclasses.dataclass
@@ -227,6 +400,11 @@ class ScheduledRequest:
     emitted_len: int = 0
     detok_count: int = 0
     final_text: Optional[str] = None
+    # Chunked prefill (PREFILLING only): the prompt's embeddings on the
+    # device ([t_bucket, D], vision spliced) and the prompt tokens already
+    # extended into the cache.
+    embeds: Any = None
+    prefill_pos: int = 0
 
     def timing(self) -> Dict[str, float]:
         """Millisecond latency split (0.0 for markers never reached)."""
@@ -291,9 +469,12 @@ class ContinuousBatchingEngine:
         # Sampled rows draw from one engine-wide generator; per-request
         # seeded streams are not ported yet (submit rejects ``seed``).
         self.generator = torch.Generator(device=self.device).manual_seed(0)
+        if self.sched.kv_cache_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_cache_dtype {self.sched.kv_cache_dtype!r} not in (bf16, int8)")
         self.paged = PagedKV.create(
             config.decoder, self.sched.num_pages, self.sched.page_size,
             dtype=config.torch_dtype, device=self.device,
+            quantized=self.sched.kv_cache_dtype == "int8",
         )
         self.allocator = PageAllocator(
             num_pages=self.sched.num_pages,
@@ -311,13 +492,24 @@ class ContinuousBatchingEngine:
         self._next_id = 0
         # Last-N finished-request latency splits, read by /metrics.
         self.recent_timings: Deque[Dict[str, float]] = deque(maxlen=512)
+        # Adaptive speculation: EWMA of emitted tokens per verify
+        # slot-iteration, consecutive below-threshold chunks, the gate.
+        self._spec_ewma: Optional[float] = None
+        self._spec_low_streak = 0
+        self._spec_enabled = True
         self.metrics = {
             "steps": 0,
             "prefills": 0,
+            "prefill_chunks": 0,
             "generated_tokens": 0,
-            "t_submit_s": 0.0,  # tokenize + image preprocessing
-            "t_admit_s": 0.0,   # admission incl. prefill
-            "t_decode_s": 0.0,  # decode chunks incl. the packed fetch
+            "spec_chunks": 0,
+            "spec_emitted": 0,     # tokens emitted by verify chunks
+            "spec_slot_iters": 0,  # acceptance = emitted / (iters * (k + 1))
+            "spec_auto_disabled": 0,
+            "t_submit_s": 0.0,   # tokenize + image preprocessing
+            "t_admit_s": 0.0,    # admission incl. monolithic prefill / chunk embeds
+            "t_prefill_s": 0.0,  # chunked-prefill chunks
+            "t_decode_s": 0.0,   # decode chunks incl. the packed fetch
         }
 
     # -- submission ----------------------------------------------------
@@ -355,12 +547,6 @@ class ContinuousBatchingEngine:
             prepared = self.prepare(prompt, images, system_prompt=system_prompt,
                                     min_pixels=min_pixels, max_pixels=max_pixels)
             self.metrics["t_submit_s"] += time.perf_counter() - t_sub
-        chunk = self.sched.prefill_chunk_tokens
-        if chunk > 0 and len(prepared.prompt_ids) > chunk:
-            raise ValueError(
-                f"prompt of {len(prepared.prompt_ids)} tokens exceeds "
-                f"--prefill-chunk-tokens {chunk}: " + _not_ported("chunked")
-            )
         stop = [s for s in (stop or []) if s]
         req = ScheduledRequest(
             req_id=self._next_id,
@@ -473,13 +659,21 @@ class ContinuousBatchingEngine:
 
     # -- admission -------------------------------------------------------
 
+    def _chunked(self, req: ScheduledRequest) -> bool:
+        ct = self.sched.prefill_chunk_tokens
+        return ct > 0 and len(req.prompt_ids) > ct
+
     def _try_admit(self) -> None:
+        """Admit waiting requests in order while slots and pages allow: a
+        run of long (chunked) prompts together as PREFILLING, or a batch of
+        short ones through one monolithic prefill."""
         watermark = int(self.sched.num_pages * self.sched.admit_free_page_fraction)
         while self._waiting and self._free_slots():
             room = min(self.sched.max_prefill_batch, len(self._free_slots()))
             budget = self.allocator.free_pages - watermark
+            chunked = self._chunked(self._waiting[0])
             batch: List[ScheduledRequest] = []
-            while self._waiting and len(batch) < room:
+            while self._waiting and len(batch) < room and self._chunked(self._waiting[0]) == chunked:
                 need = self.allocator.pages_needed(len(self._waiting[0].prompt_ids) + 1)
                 if need > budget:
                     break
@@ -487,7 +681,100 @@ class ContinuousBatchingEngine:
                 batch.append(self._waiting.popleft())
             if not batch:
                 return
-            self._admit_batch(batch)
+            (self._admit_chunked if chunked else self._admit_batch)(batch)
+
+    def _admit_chunked(self, reqs: List[ScheduledRequest]) -> None:
+        """Park long requests in slots as PREFILLING: token embeddings for
+        the group, then per request its vision encoder and splice. The
+        bucket is a multiple of the chunk, so every chunk is an exact slice."""
+        ct = self.sched.prefill_chunk_tokens
+        t_bucket = max(-(-len(r.prompt_ids) // ct) * ct for r in reqs)
+        input_ids = np.full((len(reqs), t_bucket), self.config.special.pad_token_id, np.int64)
+        now = time.monotonic()
+        for j, req in enumerate(reqs):
+            input_ids[j, :len(req.prompt_ids)] = req.prompt_ids
+            self.allocator.allocate(req.req_id, len(req.prompt_ids) + 1)
+            req.admitted_at = now
+        embeds = embed_tokens(self.params["decoder"], self._put(input_ids))
+        merge = self.config.vision.spatial_merge_size**2
+        for j, req in enumerate(reqs):
+            packed = req.packed
+            if packed is None:
+                continue
+            # Row-j scatter coordinates: built against the single row, then
+            # its batch index remapped (0 -> j, the sentinel 1 -> B).
+            sb, sp = build_scatter_indices(
+                input_ids[j:j + 1], self.config.special.imgpad_id,
+                packed.patches.shape[0] // merge, valid_rows=packed.merged_valid_rows(merge),
+            )
+            sb = np.where(sb == 0, j, len(reqs)).astype(np.int32)
+            vision_tokens = encode_program(
+                self.params, self.config, self._put(packed.patches),
+                self._put(packed.pos2d), self._put(packed.segment_ids),
+            )
+            embeds = splice_vision_embeddings(embeds, vision_tokens, self._put(sb), self._put(sp))
+            self.metrics["chunk_embeds"] = self.metrics.get("chunk_embeds", 0) + 1
+        for slot, (j, req) in zip(self._free_slots(), enumerate(reqs)):
+            req.embeds = embeds[j]
+            req.state = PREFILLING
+            req.slot = slot
+            req.prefill_pos = 0
+            self._slot_req[slot] = req
+            self._lengths[slot] = 0
+            self._temps[slot] = req.temperature
+            self._top_ps[slot] = req.top_p
+
+    def _run_prefill_chunk(self) -> None:
+        """One decoder chunk for the lockstep group of PREFILLING requests
+        at the smallest offset; a row's final chunk samples its first token
+        and promotes it to RUNNING."""
+        prefilling = [(i, r) for i, r in enumerate(self._slot_req)
+                      if r is not None and r.state == PREFILLING]
+        if not prefilling:
+            return
+        start = min(r.prefill_pos for _, r in prefilling)
+        group = [(i, r) for i, r in prefilling if r.prefill_pos == start]
+        group = group[: self.sched.max_prefill_batch]
+        ct, ps = self.sched.prefill_chunk_tokens, self.sched.page_size
+        kv_hi = start + ct  # both multiples of page_size
+        width = kv_hi // ps
+        n = len(group)
+        tables = np.zeros((n, width), np.int32)
+        slots = np.zeros((n, ct), np.int64)  # padding -> the null page's slot 0
+        plens = np.zeros(n, np.int64)
+        for j, (_, req) in enumerate(group):
+            plens[j] = len(req.prompt_ids)
+            full = self.allocator.padded_table(req.req_id)
+            m = min(width, len(full))
+            tables[j, :m] = full[:m]
+            n_valid = min(ct, len(req.prompt_ids) - start)
+            slots[j, :n_valid] = self.allocator.slot_mapping(req.req_id, start, n_valid)
+        temps = np.array([r.temperature for _, r in group], np.float32)
+        first = prefill_extend_program(
+            self.params, self.config, self.paged,
+            torch.stack([r.embeds[start:start + ct] for _, r in group]),
+            self._put(plens), self._put(tables), self._put(slots), self._put(temps),
+            self._put(np.array([r.top_p for _, r in group], np.float32)),
+            self.generator, bool(np.any(temps > 0)), page_size=ps, kv_hi=kv_hi, q_offset=start,
+        )
+        self.metrics["prefill_chunks"] += 1
+        first_host = None
+        for j, (slot, req) in enumerate(group):
+            req.prefill_pos += ct
+            if req.prefill_pos < len(req.prompt_ids):
+                continue
+            if first_host is None:
+                first_host = first.cpu().numpy()  # one fetch per chunk
+            token = int(first_host[j])
+            req.embeds = None
+            req.state = RUNNING
+            req.output_ids = [token]
+            req.first_token_at = time.monotonic()
+            self._tokens[slot] = token
+            self._lengths[slot] = len(req.prompt_ids)
+            self.metrics["prefills"] += 1
+            self._update_text(slot)  # may finish on a stop string
+            self._maybe_finish(slot)
 
     def _admit_batch(self, reqs: List[ScheduledRequest]) -> None:
         """Prefill a batch in one dispatch and promote it to RUNNING."""
@@ -607,21 +894,50 @@ class ContinuousBatchingEngine:
     # -- the step --------------------------------------------------------
 
     def step(self) -> List[ScheduledRequest]:
-        """Admit + prefill, then one decode chunk. Returns newly finished
-        requests."""
+        """Admit, at most one chunked-prefill chunk, then one decode chunk
+        (speculative while enabled). Returns newly finished requests."""
         before = set(self._finished)
         t0 = time.perf_counter()
         self._try_admit()
         t1 = time.perf_counter()
         self.metrics["t_admit_s"] += t1 - t0
-        active = [i for i, r in enumerate(self._slot_req) if r is not None]
+        self._run_prefill_chunk()
+        t2 = time.perf_counter()
+        self.metrics["t_prefill_s"] += t2 - t1
+        active = [i for i, r in enumerate(self._slot_req)
+                  if r is not None and r.state == RUNNING]
         if active:
             self._decode_chunk(active)
-            self.metrics["t_decode_s"] += time.perf_counter() - t1
+            self.metrics["t_decode_s"] += time.perf_counter() - t2
+        if not self._spec_enabled and not self.has_work():
+            # Drained: give the next load a fresh speculation probe.
+            self._spec_enabled, self._spec_ewma, self._spec_low_streak = True, None, 0
         return [self._finished[rid] for rid in set(self._finished) - before]
+
+    def _update_spec_gate(self, emitted: int, chunk: int, n_active: int) -> None:
+        """EWMA of emitted tokens per verify slot-iteration; 3 consecutive
+        chunks below ``spec_min_tokens_per_iter`` turn speculation off for
+        the current load."""
+        floor = self.sched.spec_min_tokens_per_iter
+        if floor <= 0 or not self._spec_enabled:
+            return
+        per_iter = emitted / max(1, chunk * n_active)
+        self._spec_ewma = (per_iter if self._spec_ewma is None
+                           else 0.7 * self._spec_ewma + 0.3 * per_iter)
+        if self._spec_ewma >= floor:
+            self._spec_low_streak = 0
+            return
+        self._spec_low_streak += 1
+        if self._spec_low_streak >= 3:
+            self._spec_enabled = False
+            self.metrics["spec_auto_disabled"] += 1
+            logger.info("speculation auto-disabled: %.2f tokens/slot-iter below the %.2f "
+                        "break-even (re-probes when the engine drains)", self._spec_ewma, floor)
 
     def _decode_chunk(self, active: List[int]) -> None:
         s, chunk = self.sched.max_slots, self.sched.steps_per_sync
+        spec_k = self.sched.speculate_k if self._spec_enabled else 0
+        per_iter = spec_k + 1
         cap = self.sched.max_pages_per_seq * self.sched.page_size
         tables = np.zeros((s, self.sched.max_pages_per_seq), np.int32)
         positions = np.zeros(s, np.int64)
@@ -630,20 +946,45 @@ class ContinuousBatchingEngine:
         for i in active:
             req = self._slot_req[i]
             try:
-                self.allocator.extend(req.req_id, min(int(self._lengths[i]) + chunk, cap))
+                self.allocator.extend(req.req_id, min(int(self._lengths[i]) + chunk * per_iter, cap))
             except OutOfPages as e:
                 raise OutOfPages(f"{e}; {_not_ported('preemption')}") from e
             tables[i] = self.allocator.padded_table(req.req_id)
             positions[i] = self._lengths[i]
             budgets[i] = req.max_new_tokens - len(req.output_ids)
             active_mask[i] = True
-        packed = decode_program(
-            self.params, self.config, self.paged, self._put(self._tokens),
-            self._put(positions), self._put(tables), self._put(active_mask),
-            self._put(budgets), self._put(self._temps), self._put(self._top_ps),
-            self.generator, bool(np.any(self._temps[active] > 0)),
-            page_size=self.sched.page_size, num_steps=chunk,
-        ).cpu().numpy()  # the chunk's one host sync
+        any_sampled = bool(np.any(self._temps[active] > 0))
+        common = dict(page_tables=self._put(tables), active=self._put(active_mask),
+                      budgets=self._put(budgets), temperature=self._put(self._temps),
+                      top_p=self._put(self._top_ps), generator=self.generator,
+                      any_sampled=any_sampled, page_size=self.sched.page_size,
+                      num_steps=chunk)
+        if spec_k:
+            # Generated history by logical position (the draft source),
+            # plus the sink column; rebuilt from host state every chunk.
+            buf = np.zeros((s, cap + 1), np.int64)
+            gen_start = np.zeros(s, np.int64)
+            for i in active:
+                req = self._slot_req[i]
+                plen = len(req.prompt_ids)
+                gen_start[i] = plen
+                end = min(plen + len(req.output_ids), cap)
+                buf[i, plen:end] = req.output_ids[: end - plen]
+            packed = spec_decode_program(
+                self.params, self.config, self.paged, self._put(buf), self._put(self._tokens),
+                self._put(positions), self._put(gen_start),
+                nucleus=bool(np.any(self._top_ps[active] < 1.0)), spec_k=spec_k, **common,
+            ).cpu().numpy()  # the chunk's one host sync
+            self.metrics["spec_chunks"] += 1
+            self.metrics["spec_slot_iters"] += chunk * len(active)
+            emitted = int(packed[active, -1].sum())
+            self.metrics["spec_emitted"] += emitted
+            self._update_spec_gate(emitted, chunk, len(active))
+        else:
+            packed = decode_program(
+                self.params, self.config, self.paged, self._put(self._tokens),
+                self._put(positions), **common,
+            ).cpu().numpy()  # the chunk's one host sync
         self.metrics["steps"] += 1
         eos = self.config.special.eos_token_id
         for i in active:

@@ -1,22 +1,27 @@
 """Qwen2.5-style causal decoder with GQA over the paged KV cache (port of
-``dots_ocr_tpu.models.decoder``: monolithic prefill and the paged decode
-step; chunked extend and the speculative verify step come later).
+``dots_ocr_tpu.models.decoder``): monolithic prefill, the chunked prefill
+extend, the paged decode step and the speculative verify step, over bf16
+or int8 pools.
 
 PyTorch runs eagerly, so the JAX ``lax.scan`` over stacked layers is a
-Python loop indexing the layer axis of the parameter tree.
+Python loop indexing the layer axis of the parameter tree. The paged steps
+update the per-layer pools (and, in int8 mode, the flat scale vectors) in
+place, where the JAX package returns new tuples.
 """
 
 from __future__ import annotations
 
-from typing import List, Tuple
+from typing import List, Optional, Tuple
 
 import torch
 
+from dots_ocr_tpu_torch.engine.kv_cache import PagedKV, write_kv_rows
 from dots_ocr_tpu_torch.models.config import DecoderConfig
 from dots_ocr_tpu_torch.models.layers import (
     embed,
     layer_params,
     linear,
+    matmul_f32,
     rms_norm,
     swiglu,
     unembed,
@@ -32,23 +37,6 @@ def _project_qkv(x: torch.Tensor, attn_p: dict, cfg: DecoderConfig):
     k = linear(x, attn_p["wk"], attn_p.get("bk")).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
     v = linear(x, attn_p["wv"], attn_p.get("bv")).reshape(*lead, cfg.num_kv_heads, cfg.head_dim)
     return q, k, v
-
-
-def scatter_kv_rows(pool: torch.Tensor, slots: torch.Tensor, updates: torch.Tensor) -> None:
-    """Write per-token K/V rows into a [KV, N, D] pool IN PLACE.
-
-    ``index_copy_`` on the flat [KV*N, D] row view: the pool is updated
-    where it lies instead of being rebuilt (the JAX package returns a new
-    array and relies on XLA buffer donation for the same effect).
-    slots: [T] flat slot ids; updates: [T, KV, D].
-    """
-    kv, n, d = pool.shape
-    rows = (
-        torch.arange(kv, device=slots.device, dtype=torch.int64)[:, None] * n
-        + slots.to(torch.int64)[None, :]
-    ).reshape(-1)
-    upd = updates.transpose(0, 1).reshape(-1, d).to(pool.dtype)
-    pool.view(kv * n, d).index_copy_(0, rows, upd)
 
 
 def decoder_prefill(
@@ -73,20 +61,34 @@ def decoder_prefill(
     vs: List[torch.Tensor] = []
     for i in range(cfg.num_layers):
         bp = layer_params(params["blocks"], i)
-        attn_p = bp["attn"]
         h = rms_norm(x, bp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _project_qkv(h, attn_p, cfg)
+        q, k, v = _project_qkv(h, bp["attn"], cfg)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
         out = attend(q, k, v, segment_ids, segment_ids, causal=True)
-        x = x + linear(out.reshape(b, t, cfg.q_dim), attn_p["wo"])
-        h = rms_norm(x, bp["post_attn_norm"], cfg.rms_norm_eps)
-        m = bp["mlp"]
-        x = x + swiglu(h, m["gate"], m["up"], m["down"])
+        x = _mlp_block(x, bp, cfg, out.reshape(b, t, cfg.q_dim))
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
     return x, torch.stack(ks), torch.stack(vs)
+
+
+def _mlp_block(x: torch.Tensor, bp: dict, cfg: DecoderConfig, out: torch.Tensor) -> torch.Tensor:
+    """The residual after attention (``out`` [..., q_dim]) and the MLP."""
+    x = x + linear(out, bp["attn"]["wo"])
+    h = rms_norm(x, bp["post_attn_norm"], cfg.rms_norm_eps)
+    m = bp["mlp"]
+    return x + swiglu(h, m["gate"], m["up"], m["down"])
+
+
+def _paged_views(paged: PagedKV, layer: int, page_size: int):
+    """One layer's pools as [KV, num_pages, page_size, D] views, and its
+    scales as keyword arguments of the paged kernel (empty in bf16 mode)."""
+    kv_heads, n_slots, head_dim = paged.k[layer].shape
+    shape = (kv_heads, n_slots // page_size, page_size, head_dim)
+    ks, vs = paged.layer_scales(layer, page_size)
+    scales = {} if ks is None else {"k_scales": ks, "v_scales": vs}
+    return paged.k[layer].view(shape), paged.v[layer].view(shape), scales
 
 
 def decoder_decode_step_paged(
@@ -101,46 +103,154 @@ def decoder_decode_step_paged(
     slots: torch.Tensor,
     page_size: int,
     attn_impl: str = "kernel",
+    k_scales: Optional[List[torch.Tensor]] = None,
+    v_scales: Optional[List[torch.Tensor]] = None,
 ) -> torch.Tensor:
     """One decode step over the paged cache (continuous batching path).
 
     inputs_embeds [S, D] (one token per slot); positions [S]; k_pages /
     v_pages: per-layer lists of [KV, N_slots, D] pools, updated IN PLACE
-    with this token's K/V; page_tables [S, max_pages] int32; seq_lens [S]
-    int32 valid length AFTER this token (0 = inactive slot); slots [S]
+    with this token's K/V; k_scales / v_scales: per-layer flat float32
+    [KV * N_slots] scales of int8 pools (None in bf16 mode), written at
+    ``head * N_slots + slot``; page_tables [S, max_pages] int32; seq_lens
+    [S] int32 valid length AFTER this token (0 = inactive slot); slots [S]
     physical flat slot of the new token (inactive slots point at the null
     page). Returns hidden [S, D].
     """
+    return decoder_spec_step_paged(
+        params, cfg, inputs_embeds[:, None], positions[:, None], k_pages, v_pages,
+        page_tables, seq_lens, slots[:, None], page_size, attn_impl, k_scales, v_scales,
+    )[:, 0]
+
+
+def decoder_spec_step_paged(
+    params: dict,
+    cfg: DecoderConfig,
+    inputs_embeds: torch.Tensor,
+    positions: torch.Tensor,
+    k_pages: List[torch.Tensor],
+    v_pages: List[torch.Tensor],
+    page_tables: torch.Tensor,
+    seq_lens: torch.Tensor,
+    slots: torch.Tensor,
+    page_size: int,
+    attn_impl: str = "kernel",
+    k_scales: Optional[List[torch.Tensor]] = None,
+    v_scales: Optional[List[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One speculative-verify step: nq tokens per slot (the current token
+    and nq - 1 drafts) in one pass.
+
+    inputs_embeds [S, nq, D]; positions [S, nq] (= base + j); pools and
+    scales as in :func:`decoder_decode_step_paged`; seq_lens [S] BASE
+    lengths (position of token 0 plus one; 0 = inactive); slots [S, nq]
+    write slots. The drafts' K/V are scattered before attention, so query j
+    sees tokens < len + j including the earlier drafts; a rejected draft
+    leaves a dead slot that a later write overwrites (reads mask by
+    length). bf16 and int8 pools go through the same kernel call. nq = 1 is
+    the plain decode step. Returns hidden [S, nq, D].
+    """
     attend = paged_attention.IMPLEMENTATIONS[attn_impl]
+    paged = PagedKV(k_pages, v_pages, k_scales, v_scales)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
-    s = inputs_embeds.shape[0]
+    s, nq, _ = inputs_embeds.shape
+    flat_slots = slots.reshape(-1)
     x = inputs_embeds
     for i in range(cfg.num_layers):
         bp = layer_params(params["blocks"], i)
-        attn_p = bp["attn"]
         h = rms_norm(x, bp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _project_qkv(h, attn_p, cfg)
+        q, k, v = _project_qkv(h, bp["attn"], cfg)  # q [S, nq, H, hd]
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        scatter_kv_rows(k_pages[i], slots, k)
-        scatter_kv_rows(v_pages[i], slots, v)
-        kv_heads, n_slots, head_dim = k_pages[i].shape
-        paged_shape = (kv_heads, n_slots // page_size, page_size, head_dim)
-        # nq = 1: the JAX package's paged_attention_multipage.
-        out = attend(q[:, None], k_pages[i].view(paged_shape),
-                     v_pages[i].view(paged_shape), seq_lens, page_tables)[:, 0]
-        x = x + linear(out.reshape(s, cfg.q_dim), attn_p["wo"])
-        h = rms_norm(x, bp["post_attn_norm"], cfg.rms_norm_eps)
-        m = bp["mlp"]
-        x = x + swiglu(h, m["gate"], m["up"], m["down"])
+        write_kv_rows(paged, i, flat_slots, k.reshape(s * nq, cfg.num_kv_heads, cfg.head_dim),
+                      v.reshape(s * nq, cfg.num_kv_heads, cfg.head_dim))
+        kp, vp, scales = _paged_views(paged, i, page_size)
+        out = attend(q, kp, vp, seq_lens, page_tables, **scales)
+        x = _mlp_block(x, bp, cfg, out.reshape(s, nq, cfg.q_dim))
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
+
+
+def decoder_prefill_extend_batched(
+    params: dict,
+    cfg: DecoderConfig,
+    inputs_embeds: torch.Tensor,
+    positions: torch.Tensor,
+    prompt_len: torch.Tensor,
+    k_pages: List[torch.Tensor],
+    v_pages: List[torch.Tensor],
+    page_table: torch.Tensor,
+    slots: torch.Tensor,
+    page_size: int,
+    kv_hi: int,
+    q_offset: int,
+    attn_impl: str = "kernel",
+    k_scales: Optional[List[torch.Tensor]] = None,
+    v_scales: Optional[List[torch.Tensor]] = None,
+) -> torch.Tensor:
+    """One lockstep chunk of a chunked prefill for a batch of sequences,
+    writing straight into the paged cache.
+
+    inputs_embeds [B, C, D] chunk embeddings (rows past each prompt are
+    padding); positions [C] absolute positions (= q_offset + arange(C));
+    prompt_len [B] total prompt tokens per row (0 = inert pad row); pools
+    and scales as in :func:`decoder_decode_step_paged`; page_table [B, W]
+    with W * page_size >= kv_hi; slots [B, C] write slots (padding -> the
+    null page); kv_hi: gather bound (>= q_offset + C, a page multiple).
+
+    Per layer the chunk's K/V are scattered first, each row's [0, kv_hi)
+    prefix is gathered from the pages (an int8 pool dequantized straight
+    to bf16, as the JAX package does), and flash attention runs causally
+    with ``q_offset``; keys past each row's prompt and padding queries are
+    segment -1. Returns hidden [B, C, D] after the final norm.
+    """
+    attend = flash_attention.IMPLEMENTATIONS[attn_impl]
+    paged = PagedKV(k_pages, v_pages, k_scales, v_scales)
+    b, c, _ = inputs_embeds.shape
+    kv_heads, head_dim = cfg.num_kv_heads, cfg.head_dim
+    cos, sin = rope_table(positions.expand(b, c), head_dim, cfg.rope_theta)
+    gather_pos = torch.arange(kv_hi, device=positions.device)
+    gather_slots = (page_table[:, gather_pos // page_size].long() * page_size
+                    + gather_pos % page_size)  # [B, kv_hi]
+    flat_gather = gather_slots.reshape(-1)
+    q_seg = torch.where(positions[None, :] < prompt_len[:, None], 0, -1).to(torch.int32)
+    kv_seg = torch.where(gather_pos[None, :] < prompt_len[:, None], 0, -1).to(torch.int32)
+    flat_slots = slots.reshape(-1)
+
+    def gather(pool, scale):
+        rows = pool[:, flat_gather]  # [KV, B * kv_hi, D]
+        if scale is not None:
+            n_slots = pool.shape[1]
+            idx = (torch.arange(kv_heads, device=pool.device)[:, None] * n_slots
+                   + flat_gather[None, :])
+            rows = rows.to(torch.bfloat16) * scale[idx].to(torch.bfloat16)[..., None]
+        # [KV, B * kv_hi, D] -> [B, kv_hi, KV, D]
+        return rows.reshape(kv_heads, b, kv_hi, head_dim).permute(1, 2, 0, 3).contiguous()
+
+    x = inputs_embeds
+    for i in range(cfg.num_layers):
+        bp = layer_params(params["blocks"], i)
+        h = rms_norm(x, bp["input_norm"], cfg.rms_norm_eps)
+        q, k, v = _project_qkv(h, bp["attn"], cfg)  # q [B, C, H, hd]
+        q = apply_rope(q, cos, sin)
+        k = apply_rope(k, cos, sin)
+        write_kv_rows(paged, i, flat_slots, k.reshape(b * c, kv_heads, head_dim),
+                      v.reshape(b * c, kv_heads, head_dim))
+        kc = gather(paged.k[i], paged.k_scale[i] if paged.quantized else None)
+        vc = gather(paged.v[i], paged.v_scale[i] if paged.quantized else None)
+        out = attend(q, kc, vc, q_seg, kv_seg, causal=True, q_offset=q_offset)
+        x = _mlp_block(x, bp, cfg, out.reshape(b, c, cfg.q_dim))
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
 def logits_from_hidden(params: dict, cfg: DecoderConfig, hidden: torch.Tensor) -> torch.Tensor:
-    """Vocab logits (tied or separate head), float32."""
+    """Vocab logits (tied or separate head), the float32 sum of the
+    product; an int8 head's per-vocab scale multiplies that sum."""
     if cfg.tie_word_embeddings or "lm_head" not in params:
         return unembed(hidden, params["embed"])
-    return torch.matmul(hidden, params["lm_head"]).to(torch.float32)
+    head = params["lm_head"]
+    if isinstance(head, dict):
+        return matmul_f32(hidden, head["qint8"].to(hidden.dtype)) * head["scale"]
+    return matmul_f32(hidden, head)
 
 
 def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:

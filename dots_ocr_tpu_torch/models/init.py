@@ -4,7 +4,8 @@ bridge from the JAX package.
 The tree is the one of ``dots_ocr_tpu.models.init.param_specs``: nested
 dicts of tensors, transformer blocks stacked on a leading layer axis,
 linear kernels ``[in, out]``. ``from_numpy_params`` takes the JAX tree
-converted to numpy (``jax.tree.map(np.asarray, params)``) unchanged.
+converted to numpy (``jax.tree.map(np.asarray, params)``) unchanged,
+including the JAX package's int8 ``{"qint8", "scale"}`` leaves.
 """
 
 from __future__ import annotations
@@ -105,13 +106,21 @@ def init_params(
 def from_numpy_params(tree, config: DotsOCRConfig, device: torch.device):
     """The JAX parameter tree as numpy arrays -> the port's tree on
     ``device`` in the config dtype. Shapes are checked against
-    :func:`param_shapes`; layouts carry over as they are."""
+    :func:`param_shapes`; layouts carry over as they are. An int8 leaf
+    ``{"qint8", "scale"}`` (``dots_ocr_tpu.models.quantize``) stays int8
+    with float32 scales."""
     dtype = config.torch_dtype
 
     def convert(path, shape):
         node = tree
         for key in path:
             node = node[key]
+        if isinstance(node, dict):
+            q = np.array(node["qint8"], dtype=np.int8)
+            if q.shape != tuple(shape):
+                raise ValueError(f"{'/'.join(path)}: int8 shape {q.shape} != {shape}")
+            return {"qint8": torch.from_numpy(q).to(device),
+                    "scale": torch.from_numpy(np.array(node["scale"], np.float32)).to(device)}
         arr = np.array(node, dtype=np.float32)  # a writable copy
         if arr.shape != tuple(shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != {shape}")

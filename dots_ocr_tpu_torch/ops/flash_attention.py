@@ -18,6 +18,7 @@ from typing import Optional
 import torch
 
 from dots_ocr_tpu_torch.ops import kernel_lib
+from dots_ocr_tpu_torch.ops.attention import make_causal_mask, make_segment_mask, mha_reference
 
 # Finite, not -inf: exp(-inf - (-inf)) is NaN, exp of this underflows to 0.
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
@@ -123,11 +124,40 @@ def flash_attention(
         )
     kernel_lib.check(err, "flash_attention")
     flash_attention.launches += 1
+    if q_offset > 0:  # chunked-prefill chunks after the first
+        flash_attention.offset_launches += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.offset_launches = 0
 
-# attn_impl of the model functions: "kernel" is the serving path, and
-# "reference" runs the plain version on any device (consistency checks).
-IMPLEMENTATIONS = {"kernel": flash_attention, "reference": flash_attention_reference}
+def flash_attention_xla(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    q_segment_ids: Optional[torch.Tensor] = None,
+    kv_segment_ids: Optional[torch.Tensor] = None,
+    causal: bool = False,
+    q_offset: int = 0,
+    sm_scale: Optional[float] = None,
+) -> torch.Tensor:
+    """The JAX package's XLA path for the same call: the dense oracle on the
+    equivalent mask. It rounds the probabilities to v.dtype after
+    normalizing them (the kernel rounds them before), and a fully masked
+    row averages instead of giving zeros."""
+    batch, q_len = q.shape[:2]
+    q_seg = _segments(q_segment_ids, batch, q_len, q.device)
+    kv_seg = _segments(kv_segment_ids, batch, k.shape[1], q.device)
+    mask = make_segment_mask(q_seg, kv_seg)
+    if causal:
+        rows = (torch.arange(q_len, device=q.device) + q_offset).expand(batch, q_len)
+        mask = mask & make_causal_mask(rows, k.shape[1])
+    return mha_reference(q, k, v, mask, sm_scale)
+
+
+# attn_impl of the model functions: "kernel" is the serving path,
+# "reference" runs the plain version on any device (consistency checks),
+# and "xla" is the JAX package's CPU path (token parity with its engine).
+IMPLEMENTATIONS = {"kernel": flash_attention, "reference": flash_attention_reference,
+                   "xla": flash_attention_xla}

@@ -40,6 +40,9 @@ _SIGNATURES = {
     # q, k_pool, v_pool, lengths, page_indices, out, B, nq, H, KV, D,
     # num_pages, page_size, max_pages, sm_scale, stream
     "dots_paged_attention_bf16": [_P] * 6 + [_I] * 8 + [_F, _P],
+    # q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices, out, B,
+    # nq, H, KV, D, num_pages, page_size, max_pages, sm_scale, stream
+    "dots_paged_attention_int8": [_P] * 8 + [_I] * 8 + [_F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -3,10 +3,13 @@
 ``main`` takes the JAX server's flags, builds the port's
 ``ContinuousBatchingEngine`` on a torch device (CUDA by default), and runs
 the JAX package's ``OpenAIServer`` unchanged (that module imports no jax).
-Flag values whose path is not ported yet exit with the ROADMAP.md item that
-will bring them.
+The shipped serving path is ported: chunked prefill, ``--speculate-k``,
+``--quantize int8`` (weight-only decoder, embedding included) and
+``--kv-cache-dtype int8``. Flag values whose path is not ported yet exit
+with the ROADMAP.md item that will bring them.
 
-    python -m dots_ocr_tpu_torch.serve.server --random-flagship --port 8000
+    python -m dots_ocr_tpu_torch.serve.server --random-flagship --port 8000 \
+        --quantize int8 --kv-cache-dtype int8 --speculate-k 2
 """
 
 from __future__ import annotations
@@ -23,6 +26,7 @@ from dots_ocr_tpu.serve.server import OpenAIServer
 from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.init import init_params
+from dots_ocr_tpu_torch.models.quantize import param_bytes, quantize_decoder_params
 
 logger = logging.getLogger(__name__)
 
@@ -50,8 +54,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-seq-tokens", type=int, default=40960)
     p.add_argument("--steps-per-sync", type=int, default=16)
     p.add_argument("--prefill-chunk-tokens", type=int, default=2048,
-                   help="longest prompt served (chunked prefill is not ported; "
-                   "longer prompts are rejected); 0 = no limit")
+                   help="chunked prefill: longer prompts run in chunks of this "
+                   "many tokens between decode chunks; 0 = monolithic only")
     p.add_argument("--warmup", nargs="?", const="full", default=None,
                    choices=("full", "background"))
     p.add_argument("--warmup-pages", type=str, default="560x420,1540x2044")
@@ -70,13 +74,8 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     refusals = [
         (args.engine == "batch", "--engine batch", "the batch engine"),
-        (args.speculate_k > 0, "--speculate-k > 0", "spec verify"),
-        (args.quantize == "int8", "--quantize int8",
-         "int8 weight-only decoder and W8A8 vision"),
         (args.quantize == "int4", "--quantize int4", "kernel 5 (int4)"),
-        (args.vision_quantize != "none", "--vision-quantize",
-         "int8 weight-only decoder and W8A8 vision"),
-        (args.kv_cache_dtype == "int8", "--kv-cache-dtype int8", "int8 KV"),
+        (args.vision_quantize != "none", "--vision-quantize", "W8A8 vision"),
         (args.tensor_parallel_size > 1, "--tensor-parallel-size > 1", "TP"),
         (args.warmup == "background", "--warmup background", "CUDA graphs and warmup"),
         (args.vision_attn == "windowed", "--vision-attn windowed",
@@ -105,6 +104,11 @@ def build_engine(args) -> ContinuousBatchingEngine:
         raise SystemExit("a windowed vision config is not ported yet "
                          "(ROADMAP.md: windowed vision, then kernel 4)")
     params = init_params(config, device, torch.Generator(device=device).manual_seed(0))
+    if args.quantize == "int8":
+        before = param_bytes(params)
+        params = quantize_decoder_params(params)
+        logger.info("int8 weight quantization: %.2f GB -> %.2f GB",
+                    before / 1e9, param_bytes(params) / 1e9)
     return ContinuousBatchingEngine(
         params, config, device,
         sched=SchedulerConfig(
@@ -114,6 +118,9 @@ def build_engine(args) -> ContinuousBatchingEngine:
             steps_per_sync=args.steps_per_sync,
             max_pages_per_seq=max(2, -(-args.max_seq_tokens // args.page_size)),
             prefill_chunk_tokens=args.prefill_chunk_tokens,
+            speculate_k=args.speculate_k,
+            spec_min_tokens_per_iter=args.spec_min_tokens_per_iter,
+            kv_cache_dtype=args.kv_cache_dtype,
         ),
     )
 

@@ -14,9 +14,14 @@ import numpy as np
 import pytest
 import torch
 
+from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
+from dots_ocr_tpu_torch.models.layers import linear, matmul_f32
 from dots_ocr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from dots_ocr_tpu_torch.ops.paged_attention import (
+    INT8_TILE,
+    paged_attention_int8_reference,
     paged_attention_multiquery,
+    paged_attention_multiquery_int8,
     paged_attention_multiquery_reference,
 )
 
@@ -38,6 +43,14 @@ def packed_segments(b, t, lens_per_row):
             seg[row, off:off + n] = i
             off += n
     return seg
+
+
+def int8_pools(k_pages, v_pages):
+    """quantize_kv of float pools: (k_i8, v_i8, k_scales, v_scales), the
+    scales shaped [KV, num_pages, page_size] as the kernel reads them."""
+    kq, ks = quantize_kv(torch.as_tensor(k_pages))
+    vq, vs = quantize_kv(torch.as_tensor(v_pages))
+    return kq, vq, ks, vs
 
 
 def paged_inputs(rng, lengths, nq, kv, h, d, page_size, max_pages):
@@ -113,6 +126,52 @@ def test_paged_kernel_matches_plain_on_card(cuda, nq, page_size):
     assert (out[1] == 0).all()  # length 0: exact zeros
 
 
+# int8 lengths: 0, one less than a kernel tile, a tile, page boundaries at
+# 16 and 128 (nq = 3 queries straddle them), several tiles.
+INT8_LENGTHS = [700, 0, INT8_TILE - 1, INT8_TILE, 127, 15, 1, 2049]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("page_size", [16, 128])
+@pytest.mark.parametrize("nq,h,kv", [(1, 12, 2), (3, 12, 2), (3, 8, 1)])
+def test_paged_int8_kernel_matches_plain_on_card(cuda, nq, h, kv, page_size, d):
+    """Kernel vs plain at the kernel's tile: the same integer products and
+    rounding steps, so only the softmax denominator's summation order and
+    bf16 output rounding differ (the bf16 tolerance covers both)."""
+    rng = np.random.RandomState(10 * nq + h)
+    q, kp, vp, lens, table = paged_inputs(
+        rng, INT8_LENGTHS, nq, kv, h, d, page_size, -(-2100 // page_size))
+    kq, vq, ks, vs = (x.to(cuda) for x in int8_pools(kp, vp))
+    qd = torch.from_numpy(q).to(cuda, torch.bfloat16)
+    lens_t, table_t = torch.from_numpy(lens).to(cuda), torch.from_numpy(table).to(cuda)
+    before = paged_attention_multiquery_int8.launches
+    out = paged_attention_multiquery(qd, kq, vq, lens_t, table_t, k_scales=ks, v_scales=vs)
+    ref = paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t)
+    torch.cuda.synchronize()
+    assert paged_attention_multiquery_int8.launches == before + 1
+    _bf16_close(out, ref)
+    assert (out[1] == 0).all()  # length 0: exact zeros
+
+
+@pytest.mark.cuda
+def test_matmul_f32_and_linear_on_card(cuda):
+    """bf16 products return their float32 sum on the card (cuBLAS with a
+    float32 output), as on the CPU."""
+    rng = np.random.RandomState(5)
+    x = torch.from_numpy(rng.randn(7, 256).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy(rng.randn(256, 96).astype(np.float32)).to(torch.bfloat16)
+    bias = torch.from_numpy(rng.randn(96).astype(np.float32)).to(torch.bfloat16)
+    out = matmul_f32(x.to(cuda), w.to(cuda))
+    assert out.dtype == torch.float32
+    ref = matmul_f32(x, w)  # CPU: upcast operands, exact products
+    np.testing.assert_allclose(out.cpu().numpy(), ref.numpy(), rtol=0, atol=1e-3)
+    y = linear(x.to(cuda), w.to(cuda), bias.to(cuda))
+    assert y.dtype == torch.bfloat16
+    ulp = 2.0 ** (np.floor(np.log2(np.abs((ref + bias.float()).numpy()) + 1e-30)) - 7)
+    assert (np.abs(y.float().cpu().numpy() - (ref + bias.float()).numpy()) <= ulp).all()
+
+
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(1, 64, 4, 96, dtype=torch.bfloat16, device=cuda)
@@ -126,3 +185,10 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     qd = torch.zeros(1, 1, 12, 128, dtype=torch.bfloat16, device=cuda)
     with pytest.raises(ValueError, match="page_size"):
         paged_attention_multiquery(qd, pages, pages, lens, table)
+    pages8 = torch.zeros(2, 4, 128, 128, dtype=torch.int8, device=cuda)
+    with pytest.raises(ValueError, match="k_scales"):
+        paged_attention_multiquery(qd, pages8, pages8, lens, table)
+    scales = torch.ones(2, 4, 128, device=cuda)
+    with pytest.raises(ValueError, match="float32"):
+        paged_attention_multiquery(qd, pages8, pages8, lens, table,
+                                   k_scales=scales.double(), v_scales=scales.double())

@@ -1,7 +1,10 @@
 """The port's serving slice against the JAX package on the CPU: the JAX
 ``ContinuousBatchingEngine`` and the port's engine on bridged tiny weights
 give identical greedy tokens; the unchanged ``OpenAIServer`` serves the
-port's engine; unported features and flags fail loudly.
+port's engine, long prompts through chunked prefill; the shipped serving
+flags (speculation, int8 weights, int8 KV) build engines that serve;
+unported features and flags fail loudly. The shipped options' token parity
+with the JAX engine is in ``test_torch_engine_parity.py``.
 """
 
 import asyncio
@@ -93,9 +96,35 @@ def test_unported_features_raise(kwargs):
         _engine().submit("hi", **kwargs)
 
 
-def test_long_prompt_needs_chunked_prefill():
-    with pytest.raises(ValueError, match="chunked prefill"):
-        _engine(prefill_chunk_tokens=16).submit("x" * 40)
+def test_long_prompt_served_through_chunked_prefill():
+    """A prompt longer than the chunk is served end to end through the
+    unchanged OpenAIServer: several prefill chunks, interleaved with a
+    short request's decode, and /metrics counts them."""
+    eng = _engine(prefill_chunk_tokens=16)
+
+    async def run():
+        client = TestClient(TestServer(OpenAIServer(eng, model_name="torch").build_app()))
+        await client.start_server()
+        try:
+            async def one(text):
+                resp = await client.post("/v1/chat/completions", json={
+                    "messages": [{"role": "user", "content": text}],
+                    "max_tokens": 5, "temperature": 0})
+                assert resp.status == 200
+                return (await resp.json())["usage"]
+
+            long, short = await asyncio.gather(one("x" * 60), one("hi"))
+            assert long["prompt_tokens"] > 3 * 16 and long["completion_tokens"] >= 1
+            assert short["completion_tokens"] >= 1
+            metrics = await (await client.get("/metrics")).text()
+            chunks = [int(line.split()[1]) for line in metrics.splitlines()
+                      if line.startswith("dots_ocr_engine_prefill_chunks ")]
+            assert chunks and chunks[0] >= 4
+        finally:
+            await client.close()
+
+    asyncio.run(run())
+    assert eng.allocator.free_pages == SCHED["num_pages"] - 1
 
 
 def test_server_round_trip_on_port_engine():
@@ -134,8 +163,7 @@ def test_server_round_trip_on_port_engine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "batch"], ["--speculate-k", "2"], ["--quantize", "int8"],
-    ["--quantize", "int4"], ["--kv-cache-dtype", "int8"], ["--vision-quantize", "int8"],
+    ["--engine", "batch"], ["--quantize", "int4"], ["--vision-quantize", "int8"],
     ["--tensor-parallel-size", "2"], ["--warmup", "background"],
     ["--vision-attn", "windowed"], ["--weights", "ckpt"], ["--compile-cache", "c"],
 ])
@@ -143,6 +171,49 @@ def test_server_refuses_unported_flags(flags):
     args = torch_server.build_parser().parse_args(["--random-tiny", "--platform", "cpu"] + flags)
     with pytest.raises(SystemExit, match="ROADMAP"):
         torch_server.build_engine(args)
+
+
+SMALL = ["--num-pages", "64", "--page-size", "8", "--max-slots", "4",
+         "--max-seq-tokens", "128", "--steps-per-sync", "4"]
+
+
+@pytest.mark.parametrize("flags", [
+    ["--speculate-k", "2", "--spec-min-tokens-per-iter", "0"],
+    ["--quantize", "int8"],
+    ["--kv-cache-dtype", "int8"],
+    ["--quantize", "int8", "--kv-cache-dtype", "int8", "--speculate-k", "2",
+     "--prefill-chunk-tokens", "16"],
+])
+def test_server_builds_shipped_flag_engines_that_serve(flags):
+    """The shipped serving flags build a CPU engine that serves requests:
+    speculation runs verify chunks, int8 weights and the int8 pool are in
+    place, and a long prompt takes the chunked prefill."""
+    args = torch_server.build_parser().parse_args(
+        ["--random-tiny", "--platform", "cpu"] + SMALL + flags)
+    eng = torch_server.build_engine(args)
+    assert eng.sched.speculate_k == args.speculate_k
+    assert eng.sched.spec_min_tokens_per_iter == args.spec_min_tokens_per_iter
+    texts = eng.generate_batch(["hello there", "y" * 30], temperature=0.0, max_new_tokens=8)
+    assert len(texts) == 2 and eng.metrics["generated_tokens"] >= 2 and not eng.has_work()
+    if args.speculate_k:
+        assert eng.metrics["spec_chunks"] >= 1 and eng.metrics["spec_emitted"] >= 2
+    if args.quantize == "int8":
+        assert eng.params["decoder"]["blocks"]["mlp"]["up"]["qint8"].dtype == torch.int8
+        assert eng.params["decoder"]["embed"]["scale"].dtype == torch.float32
+    if args.kv_cache_dtype == "int8":
+        assert eng.paged.quantized and eng.paged.v[0].dtype == torch.int8
+    if args.prefill_chunk_tokens == 16:
+        assert eng.metrics["prefill_chunks"] >= 2
+
+
+def test_spec_gate_turns_speculation_off_and_back_on():
+    """Below the break-even for 3 chunks in a row, speculation stops for
+    the current load and re-probes once the engine drains."""
+    eng = _engine(speculate_k=2, spec_min_tokens_per_iter=10.0)
+    eng.generate_batch(["hello", "world"], temperature=0.0, max_new_tokens=40)
+    assert eng.metrics["spec_chunks"] == 3 and eng.metrics["spec_auto_disabled"] == 1
+    assert eng.metrics["steps"] > 3  # plain chunks after the gate closed
+    assert eng._spec_enabled  # drained: the next load probes again
 
 
 def test_server_builds_cpu_engine_warms_up_and_refuses_missing_cuda():
