@@ -13,7 +13,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    for a packed 2-image vision batch, a causal padded decoder prefill and a
    chunked-prefill chunk (q_offset 2048); paged decode attention over 64
    slots at nq = 1 and 3, bf16 pools and int8 pools with float32 scales;
-   max abs error against the stated tolerance, median CUDA-event times;
+   the int4 matmul in both modes (W4A16, W4A8) at the four decoder linear
+   shapes and 64, 192 and 4,096 rows; max abs error against the stated
+   tolerance, median CUDA-event times; and, for context, the W8A8 vision
+   linear against the bf16 one at the vision shapes;
 4. end to end, the shipped path: the flagship model (full width and depth,
    random bf16 weights from a seed, quantized to int8) with int8 KV, k = 2
    speculation and 2,048-token chunked prefill at the shipping geometry,
@@ -23,11 +26,21 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (with q_offset > 0) and the int8 paged kernel must launch in that run;
 5. consistency of that path: the page request's chunked-prefill logits and
    four int8-KV decode steps through the kernels vs their plain versions;
-6. end to end, the bf16 path (bf16 weights and KV, no speculation, one
+6. end to end, the fully quantized path: as phase 4 with int4 decoder
+   block linears (int8 embedding) and W8A8 vision; the int4 kernel (W4A16),
+   flash (with q_offset > 0) and the int8 paged kernel must launch;
+7. consistency of that path, as phase 5, with the int4 linears switched to
+   their plain version through ``int4_matmul.IMPLEMENTATIONS``, both decoder
+   passes on the kernel path's image embeddings; the argmax must agree too.
+   The W8A8 encoder's kernel-vs-plain gap must stay within the noise of its
+   activation quantization;
+8. end to end, the bf16 path (bf16 weights and KV, no speculation, one
    4,096-token prefill), as phase 4; the flash and bf16 paged kernels must
    launch; then the same consistency check in bf16;
-7. the cost of int8 weights in decode: one decode step for 64 slots with
-   the bf16 weights and with their int8 quantization (dequantized per call).
+9. the cost of quantized weights in decode: one decode step for 64 slots
+   with the bf16 weights, their int8 quantization (dequantized per call)
+   and their int4 quantization in both modes (W4A8 launches here, on a
+   path through the model).
 
 The line before the last is one JSON object with the per-kernel numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -36,6 +49,7 @@ the last line is ``{"ok": true, "device": {...}}``.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import json
 import os
 import socket
@@ -73,6 +87,20 @@ PREFILL_LIMIT = 4096
 SHIPPED_FLAGS = ["--quantize", "int8", "--kv-cache-dtype", "int8", "--speculate-k", "2",
                  "--spec-min-tokens-per-iter", "1.5",
                  "--prefill-chunk-tokens", str(PREFILL_CHUNK)]
+FULL_QUANT_FLAGS = ["--quantize", "int4", "--vision-quantize", "int8", *SHIPPED_FLAGS[2:]]
+# int4 kernel vs plain. W4A8: exact (integer group sums, each scaled with one
+# rounding, added in the Pallas order on both sides). W4A16: the products
+# are exact in float32 and only their summation order differs: 1 bf16 ulp of
+# the output (<= 2^-7 |plain|) plus 1e-4 for the float32 order near zero.
+INT4_TOL = {False: (1e-4, 2.0**-7), True: (0.0, 0.0)}
+# The decoder's block linears (K, N) and the rows of a decode step, a k = 2
+# verify step and a 2-row prefill chunk.
+INT4_SHAPES = {"wq/wo": (1536, 1536), "wk/wv": (1536, 256), "gate/up": (1536, 8960),
+               "down": (8960, 1536)}
+INT4_ROWS = (64, 192, 4096)
+# The vision block linears (K, N) at the packed 2-image batch.
+VISION_T, VISION_SHAPES = 6656, {"wq/wk/wv/wo": (1536, 1536), "gate/up": (1536, 4224),
+                                 "down": (4224, 1536)}
 BF16_FLAGS = ["--quantize", "none", "--kv-cache-dtype", "bf16", "--speculate-k", "0",
               "--prefill-chunk-tokens", str(PREFILL_LIMIT)]
 REPS = 10
@@ -93,9 +121,21 @@ def cuda_ms(fn) -> float:
     return start.elapsed_time(end)
 
 
-def compare(name: str, kernel_fn, plain_fn) -> dict:
-    """Run kernel and plain once, check agreement, then time REPS runs of
-    each, alternating which goes first."""
+def time_in_turns(fns: dict) -> dict:
+    """Median CUDA-event ms of REPS runs of each function, after one warm
+    run, taking them in turns (the order reversed every other round)."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for r in range(REPS):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            times[name].append(cuda_ms(fns[name]))
+    return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def compare(name: str, kernel_fn, plain_fn, atol: float = ATOL, rtol: float = RTOL) -> dict:
+    """Run kernel and plain once, check |err| <= atol + rtol * |plain|, then
+    time REPS runs of each in turns."""
     import torch
 
     out, ref = kernel_fn(), plain_fn()
@@ -104,18 +144,12 @@ def compare(name: str, kernel_fn, plain_fn) -> dict:
     max_abs = float(err.max())
     if not torch.isfinite(out.float()).all():
         raise AssertionError(f"{name}: non-finite kernel output")
-    if not bool((err <= ATOL + RTOL * ref.float().abs()).all()):
+    if not bool((err <= atol + rtol * ref.float().abs()).all()):
         raise AssertionError(f"{name}: kernel disagrees with plain (max abs err {max_abs})")
     del out, ref, err
-    kernel_fn(), plain_fn()  # warm
-    k_ms, p_ms = [], []
-    for r in range(REPS):
-        pair = [(kernel_fn, k_ms), (plain_fn, p_ms)]
-        for fn, sink in (pair if r % 2 == 0 else pair[::-1]):
-            sink.append(cuda_ms(fn))
-    res = {"case": name, "max_abs_err": max_abs,
-           "ms": statistics.median(k_ms), "plain_ms": statistics.median(p_ms)}
-    log(f"  {name}: max_abs_err {max_abs:.3e} (tol {ATOL} + {RTOL}*|ref|), "
+    times = time_in_turns({"ms": kernel_fn, "plain_ms": plain_fn})
+    res = {"case": name, "max_abs_err": max_abs, **times}
+    log(f"  {name}: max_abs_err {max_abs:.3e} (tol {atol:g} + {rtol:g}*|ref|), "
         f"kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms "
         f"(median of {REPS})")
     torch.cuda.empty_cache()
@@ -209,7 +243,55 @@ def kernel_phase(dev) -> dict:
             f"paged decode nq={nq} int8 {shape}",
             lambda: paged_attention_multiquery_int8(qd, kq, vq, ks, vs, lens_t, table_t),
             lambda: paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t)))
+    del kp, vp, kq, vq, ks, vs
+    results.update(int4_cases(randn, gen, dev))
     return results
+
+
+def int4_cases(randn, gen, dev) -> dict:
+    """Kernel 5 in both modes against its plain version at the decoder's
+    linear shapes: weights from quantize_kernel_int4 of N(0, 0.02) bf16,
+    activations N(0, 1)."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.quantize import quantize_kernel_int4
+    from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    results = {"int4_matmul": [], "int4_matmul_w4a8": []}
+    for label, (k, n) in INT4_SHAPES.items():
+        qk = quantize_kernel_int4(randn(k, n) * 0.02)
+        packed, scales = qk["qint4"], qk["scale4"]
+        for rows in INT4_ROWS:
+            x = randn(rows, k)
+            for act, key in ((False, "int4_matmul"), (True, "int4_matmul_w4a8")):
+                atol, rtol = INT4_TOL[act]
+                results[key].append(compare(
+                    f"int4 {'W4A8' if act else 'W4A16'} {label} K={k} N={n} M={rows}",
+                    lambda: int4_matmul(x, packed, scales, act),
+                    lambda: int4_matmul_plain(x, packed, scales, act), atol, rtol))
+    return results
+
+
+def w8a8_vision_phase(dev) -> dict:
+    """For context: the W8A8 vision linear (per-row int8 activations,
+    torch._int_mm, scales) against the bf16 linear at the vision shapes."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.layers import linear
+    from dots_ocr_tpu_torch.models.quantize import quantize_kernel_act
+
+    gen = torch.Generator(device=dev).manual_seed(1)
+    res = {}
+    for label, (k, n) in VISION_SHAPES.items():
+        x = torch.randn(VISION_T, k, generator=gen, device=dev).to(torch.bfloat16)
+        w = (torch.randn(k, n, generator=gen, device=dev) * 0.02).to(torch.bfloat16)
+        qk = quantize_kernel_act(w)
+        res[label] = time_in_turns({"w8a8_ms": lambda: linear(x, qk),
+                                    "bf16_ms": lambda: linear(x, w)})
+        log(f"  vision linear {label} T={VISION_T} K={k} N={n}: W8A8 "
+            f"{res[label]['w8a8_ms']:.3f} ms, bf16 {res[label]['bf16_ms']:.3f} ms "
+            f"(median of {REPS})")
+    return res
 
 
 def _free_port() -> int:
@@ -226,12 +308,9 @@ def _http(url: str, body=None, timeout: float = 600.0):
         return resp.status, resp.read().decode()
 
 
-KERNEL_COUNTERS = ("flash_attention", "flash_attention (q_offset > 0)",
-                   "paged_attention_multiquery", "paged_attention_multiquery_int8")
-
-
 def _counters():
     from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
+    from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul
     from dots_ocr_tpu_torch.ops.paged_attention import (
         paged_attention_multiquery,
         paged_attention_multiquery_int8,
@@ -240,7 +319,9 @@ def _counters():
     return {"flash_attention": (flash_attention, "launches"),
             "flash_attention (q_offset > 0)": (flash_attention, "offset_launches"),
             "paged_attention_multiquery": (paged_attention_multiquery, "launches"),
-            "paged_attention_multiquery_int8": (paged_attention_multiquery_int8, "launches")}
+            "paged_attention_multiquery_int8": (paged_attention_multiquery_int8, "launches"),
+            "int4_matmul": (int4_matmul, "launches"),
+            "int4_matmul_w4a8": (int4_matmul, "w4a8_launches")}
 
 
 def reset_counts() -> None:
@@ -277,7 +358,8 @@ def serve_phase(dev, flags, label: str, required):
     if dev.type == "cuda":
         torch.cuda.synchronize()
     log(f"  [{label}] flagship engine built (random weights, {args.quantize} quantization, "
-        f"{args.kv_cache_dtype} KV pool) in {time.perf_counter() - t0:.1f} s; "
+        f"vision {args.vision_quantize}, {args.kv_cache_dtype} KV pool) in "
+        f"{time.perf_counter() - t0:.1f} s; "
         f"{NUM_PAGES} pages x {PAGE_SIZE}, {MAX_SLOTS} slots, table width "
         f"{engine.sched.max_pages_per_seq}, speculate_k {engine.sched.speculate_k}, "
         f"prefill chunk {engine.sched.prefill_chunk_tokens}")
@@ -393,7 +475,7 @@ def _page_inputs(engine, page, dev):
     return prep.packed, ids, put, dict(scatter_batch=put(sb), scatter_pos=put(sp))
 
 
-def _report(paths, what_first: str) -> None:
+def _report(paths, what_first: str, same_argmax: bool = False) -> None:
     for i, (kl, rl) in enumerate(zip(paths["kernel"]["logits"], paths["reference"]["logits"])):
         diff, std = (kl - rl).abs(), float(rl.std())
         ratio = float(diff.max()) / std
@@ -402,14 +484,40 @@ def _report(paths, what_first: str) -> None:
         log(f"  {what}: max|logit diff| / std(plain logits) = {ratio:.4f} "
             f"(tol {LOGIT_TOL}), mean {float(diff.mean()) / std:.4f}, std {std:.4f}, "
             f"same argmax: {same}")
-        if not ratio <= LOGIT_TOL:
-            raise AssertionError(f"{what}: kernel path and plain path disagree ({ratio})")
+        if not ratio <= LOGIT_TOL or (same_argmax and not same):
+            raise AssertionError(f"{what}: kernel path and plain path disagree "
+                                 f"({ratio}, same argmax {same})")
 
 
-def consistency_int8_phase(engine, page, dev) -> None:
-    """The shipped path's page request through the kernels and through the
-    plain versions: the chunked prefill (2,048-token chunks, int8 KV, int8
-    weights), then four int8-KV decode steps fed the same tokens."""
+@contextlib.contextmanager
+def int4_impl(impl: str):
+    """Point the int4 linears at ``int4_matmul.IMPLEMENTATIONS[impl]`` (the
+    model reaches them through the "kernel" entry) for the duration."""
+    from dots_ocr_tpu_torch.ops import int4_matmul
+
+    saved = int4_matmul.IMPLEMENTATIONS["kernel"]
+    int4_matmul.IMPLEMENTATIONS["kernel"] = int4_matmul.IMPLEMENTATIONS[impl]
+    try:
+        yield
+    finally:
+        int4_matmul.IMPLEMENTATIONS["kernel"] = saved
+
+
+def consistency_int8_phase(engine, page, dev, w8a8_vision: bool = False) -> None:
+    """The page request of the shipped or the fully quantized path through
+    the kernels and through the plain versions (int4 linears switched with
+    :func:`int4_impl`): the chunked prefill (2,048-token chunks, int8 KV),
+    then four int8-KV decode steps fed the same tokens.
+
+    With ``w8a8_vision`` both decoder passes take the kernel path's image
+    embeddings, and the argmax must agree too. W8A8 re-quantizes every
+    vision activation row to int8, so the flash kernel's bf16 rounding
+    flips int8 codes and the encoder amplifies it (on random weights the
+    page's logits then move by ~0.95 std where bf16 vision moves them by
+    0.18 on an H100; PERF.md). The encoder is held instead to the noise of its
+    own activation quantization: its kernel and plain outputs may differ
+    by no more than W8A8 differs from the same integer weights applied to
+    bf16 activations, both through the kernels."""
     import numpy as np
     import torch
 
@@ -439,41 +547,75 @@ def consistency_int8_phase(engine, page, dev) -> None:
     cos, sin = vision_rope_device(put(packed.pos2d), cfg.vision.head_dim, cfg.vision.rope_theta)
     paths = {}
     with torch.no_grad():
+        visions = {impl: encode_images(params["vision"], cfg.vision, put(packed.patches), cos,
+                                       sin, put(packed.segment_ids), attn_impl=impl)
+                   for impl in ("kernel", "reference")}
+        if w8a8_vision:
+            _w8a8_vision_noise(params["vision"], cfg, visions, put(packed.patches), cos, sin,
+                               put(packed.segment_ids))
         for impl in ("kernel", "reference"):
-            vision = encode_images(params["vision"], cfg.vision, put(packed.patches), cos, sin,
-                                   put(packed.segment_ids), attn_impl=impl)
-            embeds = splice_vision_embeddings(embed_tokens(params["decoder"], put(padded)),
-                                              vision, scatter["scatter_batch"],
-                                              scatter["scatter_pos"])
-            paged = PagedKV.create(cfg.decoder, alloc.num_pages, PAGE_SIZE, cfg.torch_dtype, dev,
-                                   quantized=True)
-            for start in range(0, bucket, ct):
-                n_valid = min(ct, t - start)
-                slots = np.zeros((1, ct), np.int64)
-                slots[0, :n_valid] = alloc.slot_mapping(0, start, n_valid)
-                hidden = decoder_prefill_extend_batched(
-                    params["decoder"], cfg.decoder, embeds[:, start:start + ct],
-                    start + torch.arange(ct, device=dev), put(np.array([t])), paged.k, paged.v,
-                    table[:, :(start + ct) // PAGE_SIZE], put(slots), PAGE_SIZE, start + ct,
-                    start, attn_impl=impl, k_scales=paged.k_scale, v_scales=paged.v_scale)
-            last = hidden[:, t - 1 - (bucket - ct)]
-            paths[impl] = {"logits": [logits_from_hidden(params["decoder"], cfg.decoder, last)],
-                           "paged": paged}
+            with int4_impl(impl):
+                vision = visions["kernel" if w8a8_vision else impl]
+                embeds = splice_vision_embeddings(embed_tokens(params["decoder"], put(padded)),
+                                                  vision, scatter["scatter_batch"],
+                                                  scatter["scatter_pos"])
+                paged = PagedKV.create(cfg.decoder, alloc.num_pages, PAGE_SIZE, cfg.torch_dtype,
+                                       dev, quantized=True)
+                for start in range(0, bucket, ct):
+                    n_valid = min(ct, t - start)
+                    slots = np.zeros((1, ct), np.int64)
+                    slots[0, :n_valid] = alloc.slot_mapping(0, start, n_valid)
+                    hidden = decoder_prefill_extend_batched(
+                        params["decoder"], cfg.decoder, embeds[:, start:start + ct],
+                        start + torch.arange(ct, device=dev), put(np.array([t])), paged.k,
+                        paged.v, table[:, :(start + ct) // PAGE_SIZE], put(slots), PAGE_SIZE,
+                        start + ct, start, attn_impl=impl, k_scales=paged.k_scale,
+                        v_scales=paged.v_scale)
+                last = hidden[:, t - 1 - (bucket - ct)]
+                paths[impl] = {"logits": [logits_from_hidden(params["decoder"], cfg.decoder,
+                                                             last)], "paged": paged}
         token = paths["kernel"]["logits"][0].argmax(-1)
         for step in range(steps):
             pos = t + step
             for impl, path in paths.items():
-                hidden = decoder_decode_step_paged(
-                    params["decoder"], cfg.decoder, embed_tokens(params["decoder"], token),
-                    put(np.array([pos])), path["paged"].k, path["paged"].v, table,
-                    put(np.array([pos + 1], np.int32)), put(alloc.slot_mapping(0, pos, 1)),
-                    PAGE_SIZE, attn_impl=impl, k_scales=path["paged"].k_scale,
-                    v_scales=path["paged"].v_scale)
+                with int4_impl(impl):
+                    hidden = decoder_decode_step_paged(
+                        params["decoder"], cfg.decoder, embed_tokens(params["decoder"], token),
+                        put(np.array([pos])), path["paged"].k, path["paged"].v, table,
+                        put(np.array([pos + 1], np.int32)), put(alloc.slot_mapping(0, pos, 1)),
+                        PAGE_SIZE, attn_impl=impl, k_scales=path["paged"].k_scale,
+                        v_scales=path["paged"].v_scale)
                 path["logits"].append(logits_from_hidden(params["decoder"], cfg.decoder, hidden))
             token = paths["kernel"]["logits"][-1].argmax(-1)
     log(f"  page request: {t} prompt tokens ({packed.num_merged} image tokens), "
-        f"{bucket // ct} chunks of {ct}")
-    _report(paths, "chunked prefill")
+        f"{bucket // ct} chunks of {ct}"
+        + (", the kernel path's image embeddings in both" if w8a8_vision else ""))
+    _report(paths, "chunked prefill", same_argmax=w8a8_vision)
+
+
+def _w8a8_vision_noise(vparams, cfg, visions, patches, cos, sin, segment_ids) -> None:
+    """The W8A8 encoder's kernel-vs-plain difference against the noise of
+    its activation quantization (see consistency_int8_phase)."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.quantize import BLOCK_KERNELS
+    from dots_ocr_tpu_torch.models.vision import encode_images
+
+    blocks = dict(vparams["blocks"])
+    for group, name in BLOCK_KERNELS:
+        k = blocks[group][name]
+        blocks[group] = {**blocks[group], name: (k["qint8_act"].to(torch.float32)
+                                                 * k["scale"][..., None, :]).to(cfg.torch_dtype)}
+    dense = encode_images({**vparams, "blocks": blocks}, cfg.vision, patches, cos, sin,
+                          segment_ids)
+    kern = visions["kernel"].float()
+    gap = float((kern - visions["reference"].float()).abs().max())
+    noise = float((kern - dense.float()).abs().max())
+    log(f"  W8A8 vision: kernel vs plain path max|diff| {gap:.4f}; W8A8 vs the same integer "
+        f"weights on bf16 activations {noise:.4f} (image embeddings: std {float(kern.std()):.3f})")
+    if not (torch.isfinite(kern).all() and gap <= noise):
+        raise AssertionError(f"W8A8 vision: kernel vs plain {gap} exceeds the activation "
+                             f"quantization noise {noise}")
 
 
 def consistency_phase(engine, page, dev) -> None:
@@ -527,12 +669,14 @@ def consistency_phase(engine, page, dev) -> None:
     _report(paths, "prefill")
 
 
-def dequant_cost_phase(engine, dev) -> dict:
+def decode_cost_phase(engine, dev):
     """One decode step for 64 slots at 2,048-token contexts: the engine's
     bf16 weights and their int8 quantization (``linear`` dequantizes it to
-    a bf16 copy on every call) over a bf16 pool, and the shipped pair,
-    int8 weights over an int8 pool. Medians of REPS CUDA-event timings,
-    taken in turns."""
+    a bf16 copy on every call) over a bf16 pool, the shipped pair (int8
+    weights over an int8 pool), and int4 weights over an int8 pool in both
+    of the kernel's modes (``DOTS_INT4_ACT``). Medians of REPS CUDA-event
+    timings, taken in turns. Returns (the medians, the launch counts of the
+    timed runs)."""
     import torch
 
     from dots_ocr_tpu_torch.engine.kv_cache import PagedKV
@@ -541,7 +685,10 @@ def dequant_cost_phase(engine, dev) -> dict:
         embed_tokens,
         logits_from_hidden,
     )
-    from dots_ocr_tpu_torch.models.quantize import quantize_decoder_params
+    from dots_ocr_tpu_torch.models.quantize import (
+        quantize_decoder_params,
+        quantize_decoder_params_int4,
+    )
 
     cfg = engine.config
     ctx, pages_per_row = 2048, 2048 // PAGE_SIZE + 1
@@ -555,31 +702,37 @@ def dequant_cost_phase(engine, dev) -> dict:
     lens = (pos + 1).to(torch.int32)
     tokens = (torch.arange(MAX_SLOTS, device=dev) * 7 + 100) % cfg.decoder.vocab_size
     weights = {"bf16": engine.params["decoder"],
-               "int8": quantize_decoder_params(engine.params["decoder"])}
+               "int8": quantize_decoder_params(engine.params["decoder"]),
+               "int4": quantize_decoder_params_int4(engine.params["decoder"])}
 
-    def step(p, paged):
+    def step(p, paged, w4a8=False):
         def run():
-            with torch.no_grad():
-                h = decoder_decode_step_paged(p, cfg.decoder, embed_tokens(p, tokens), pos,
-                                              paged.k, paged.v, table, lens, slots, PAGE_SIZE,
-                                              k_scales=paged.k_scale, v_scales=paged.v_scale)
-                return logits_from_hidden(p, cfg.decoder, h)
+            os.environ["DOTS_INT4_ACT"] = "1" if w4a8 else "0"
+            try:
+                with torch.no_grad():
+                    h = decoder_decode_step_paged(p, cfg.decoder, embed_tokens(p, tokens), pos,
+                                                  paged.k, paged.v, table, lens, slots, PAGE_SIZE,
+                                                  k_scales=paged.k_scale, v_scales=paged.v_scale)
+                    return logits_from_hidden(p, cfg.decoder, h)
+            finally:
+                del os.environ["DOTS_INT4_ACT"]
         return run
 
     fns = {"bf16 weights, bf16 KV": step(weights["bf16"], pools["bf16"]),
            "int8 weights, bf16 KV": step(weights["int8"], pools["bf16"]),
-           "int8 weights, int8 KV": step(weights["int8"], pools["int8"])}
-    for fn in fns.values():
-        fn()
-    times = {name: [] for name in fns}
-    for r in range(REPS):
-        order = list(fns) if r % 2 == 0 else list(fns)[::-1]
-        for name in order:
-            times[name].append(cuda_ms(fns[name]))
-    res = {name: statistics.median(ts) for name, ts in times.items()}
+           "int8 weights, int8 KV": step(weights["int8"], pools["int8"]),
+           "int4 weights, int8 KV": step(weights["int4"], pools["int8"]),
+           "int4 W4A8 weights, int8 KV": step(weights["int4"], pools["int8"], w4a8=True)}
+    reset_counts()
+    res = time_in_turns(fns)
+    launches = read_counts()
     log(f"  decode step, {MAX_SLOTS} slots x {ctx} context (median of {REPS}): "
         + ", ".join(f"{name} {ms:.3f} ms" for name, ms in res.items()))
-    return res
+    log(f"  kernel launches during the timed steps: {launches}")
+    for name in ("int4_matmul", "int4_matmul_w4a8", "paged_attention_multiquery_int8"):
+        if launches[name] < 1:
+            raise AssertionError(f"{name} was not launched in the decode steps")
+    return res, launches
 
 
 def main() -> int:
@@ -595,7 +748,7 @@ def main() -> int:
     sys.path.insert(0, REPO)
     dev = torch.device("cuda")
 
-    log("[1/7] device")
+    log("[1/9] device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -604,7 +757,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {smi}")
 
-    log("[2/7] build the CUDA kernels")
+    log("[2/9] build the CUDA kernels")
     from dots_ocr_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
@@ -614,10 +767,11 @@ def main() -> int:
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3/7] kernels vs plain versions on {smi}")
+    log(f"[3/9] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
+    w8a8_vision = w8a8_vision_phase(dev)
 
-    log(f"[4/7] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
+    log(f"[4/9] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
         f"{PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, shipped, metrics, page = serve_phase(
         dev, SHIPPED_FLAGS, "shipped",
@@ -627,20 +781,35 @@ def main() -> int:
         raise AssertionError(f"shipped path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[5/7] consistency, shipped path: kernel path vs plain path, page request")
+    log("[5/9] consistency, shipped path: kernel path vs plain path, page request")
     consistency_int8_phase(engine, page, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[6/7] end to end, bf16 path (bf16 weights and KV, no speculation, one "
+    log(f"[6/9] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
+        f"chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
+    engine, full_quant, metrics, page = serve_phase(
+        dev, FULL_QUANT_FLAGS, "int4",
+        required=("int4_matmul", "flash_attention", "flash_attention (q_offset > 0)",
+                  "paged_attention_multiquery_int8"))
+    if metrics.get("prefill_chunks", 0) < 2 or metrics.get("spec_chunks", 0) < 1:
+        raise AssertionError(f"int4 path: prefill_chunks {metrics.get('prefill_chunks')} "
+                             f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
+
+    log("[7/9] consistency, fully quantized path: kernel path vs plain path, page request")
+    consistency_int8_phase(engine, page, dev, w8a8_vision=True)
+    del engine
+    torch.cuda.empty_cache()
+
+    log(f"[8/9] end to end, bf16 path (bf16 weights and KV, no speculation, one "
         f"{PREFILL_LIMIT}-token prefill), full depth, on {smi}")
     engine, bf16_path, _, page = serve_phase(
         dev, BF16_FLAGS, "bf16", required=("flash_attention", "paged_attention_multiquery"))
     log("  consistency, bf16 path: kernel path vs plain path, page request")
     consistency_phase(engine, page, dev)
 
-    log(f"[7/7] int8 weights in decode: per-call dequant cost on {smi}")
-    dequant = dequant_cost_phase(engine, dev)
+    log(f"[9/9] quantized weights in decode: one 64-slot step on {smi}")
+    decode_ms, decode_launches = decode_cost_phase(engine, dev)
     del engine
     torch.cuda.empty_cache()
 
@@ -652,6 +821,11 @@ def main() -> int:
         "paged_attention_multiquery_int8": (
             "dots_ocr_tpu_torch/csrc/paged_attention.cu",
             "dots_ocr_tpu/ops/paged_attention.py:689 (int8 mode, :400-501)", shipped),
+        "int4_matmul": ("dots_ocr_tpu_torch/csrc/int4_matmul.cu",
+                        "dots_ocr_tpu/ops/int4_matmul.py:232", full_quant),
+        "int4_matmul_w4a8": ("dots_ocr_tpu_torch/csrc/int4_matmul.cu",
+                             "dots_ocr_tpu/ops/int4_matmul.py:232 (act_quant=True)",
+                             decode_launches),
     }
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
@@ -659,8 +833,9 @@ def main() -> int:
          "max_abs_err": max(c["max_abs_err"] for c in cases),
          "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"], "cases": cases}
         for name, cases in kernels.items()
-    ], "launches_by_path": {"shipped": shipped, "bf16": bf16_path},
-        "decode_step_ms": dequant}
+    ], "launches_by_path": {"shipped": shipped, "int4": full_quant, "bf16": bf16_path,
+                            "decode_steps": decode_launches},
+        "decode_step_ms": decode_ms, "w8a8_vision_linear_ms": w8a8_vision}
     log(smi)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,7 +5,7 @@ The tree is the one of ``dots_ocr_tpu.models.init.param_specs``: nested
 dicts of tensors, transformer blocks stacked on a leading layer axis,
 linear kernels ``[in, out]``. ``from_numpy_params`` takes the JAX tree
 converted to numpy (``jax.tree.map(np.asarray, params)``) unchanged,
-including the JAX package's int8 ``{"qint8", "scale"}`` leaves.
+including the JAX package's quantized leaves (``models/quantize.py``).
 """
 
 from __future__ import annotations
@@ -103,12 +103,34 @@ def init_params(
     return _map_tree(make, param_shapes(config))
 
 
+def _quantized_leaf(node: dict, shape: Tuple[int, ...], path: Tuple[str, ...],
+                    device: torch.device):
+    """A quantized leaf of the JAX tree, its integers and float32 scales
+    checked against the float kernel's shape [..., in, out]: int8 or W8A8
+    ``[..., in, out]`` with scales ``[..., out]``, or int4 nibble-packed
+    ``[..., in/2, out]`` with group scales ``[..., in/128, out]``. The int8
+    embedding's per-row scales are [vocab]."""
+    lead, in_dim, out_dim = shape[:-2], shape[-2], shape[-1]
+    if set(node) == {"qint4", "scale4"}:
+        keys = ("qint4", "scale4")
+        want = (lead + (in_dim // 2, out_dim), lead + (in_dim // 128, out_dim))
+    else:
+        keys = ("qint8_act" if "qint8_act" in node else "qint8", "scale")
+        want = (shape, (shape[0],) if path[-1] == "embed" else lead + (out_dim,))
+    q = np.array(node[keys[0]], dtype=np.int8)
+    s = np.array(node[keys[1]], dtype=np.float32)
+    if (q.shape, s.shape) != want:
+        raise ValueError(f"{'/'.join(path)}: {keys} shapes {q.shape}, {s.shape} != {want}")
+    return {keys[0]: torch.from_numpy(q).to(device), keys[1]: torch.from_numpy(s).to(device)}
+
+
 def from_numpy_params(tree, config: DotsOCRConfig, device: torch.device):
     """The JAX parameter tree as numpy arrays -> the port's tree on
     ``device`` in the config dtype. Shapes are checked against
-    :func:`param_shapes`; layouts carry over as they are. An int8 leaf
-    ``{"qint8", "scale"}`` (``dots_ocr_tpu.models.quantize``) stays int8
-    with float32 scales."""
+    :func:`param_shapes`; layouts carry over as they are. A quantized leaf
+    (int8 ``{"qint8", "scale"}``, W8A8 ``{"qint8_act", "scale"}`` or int4
+    ``{"qint4", "scale4"}``, ``dots_ocr_tpu.models.quantize``) keeps its
+    integer dtype and float32 scales."""
     dtype = config.torch_dtype
 
     def convert(path, shape):
@@ -116,11 +138,7 @@ def from_numpy_params(tree, config: DotsOCRConfig, device: torch.device):
         for key in path:
             node = node[key]
         if isinstance(node, dict):
-            q = np.array(node["qint8"], dtype=np.int8)
-            if q.shape != tuple(shape):
-                raise ValueError(f"{'/'.join(path)}: int8 shape {q.shape} != {shape}")
-            return {"qint8": torch.from_numpy(q).to(device),
-                    "scale": torch.from_numpy(np.array(node["scale"], np.float32)).to(device)}
+            return _quantized_leaf(node, tuple(shape), path, device)
         arr = np.array(node, dtype=np.float32)  # a writable copy
         if arr.shape != tuple(shape):
             raise ValueError(f"{'/'.join(path)}: shape {arr.shape} != {shape}")

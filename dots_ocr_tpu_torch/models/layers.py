@@ -1,9 +1,9 @@
 """Primitive layers as plain functions over parameter dicts of tensors.
 
 Linear kernels keep the JAX layout ``[in, out]`` so a parameter tree carries
-over unchanged. A kernel is a tensor or a weight-only int8 dict
-``{"qint8": int8 [in, out], "scale": f32 [out]}`` (``models/quantize.py``);
-the int4 and W8A8 dicts are not ported.
+over unchanged. A kernel is a tensor or one of the quantized dicts of
+``models/quantize.py``: weight-only int8 ``{"qint8", "scale"}``, W8A8
+``{"qint8_act", "scale"}`` or weight-only int4 ``{"qint4", "scale4"}``.
 
 Every product returns its float32 sum, as the JAX package's
 ``preferred_element_type=jnp.float32`` does: the bias and any int8 scale
@@ -16,6 +16,8 @@ from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+
+from dots_ocr_tpu_torch.ops.int4_matmul import int4_linear
 
 Kernel = Union[torch.Tensor, dict]
 
@@ -43,6 +45,17 @@ def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
     return (normed * weight.to(torch.float32)).to(x.dtype)
 
 
+def int8_matmul(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """The exact int32 product of int8 xq [..., K] and int8 q [K, N]
+    (``torch._int_mm``, cuBLASLt on the card, where the JAX package leaves it
+    to XLA). Rows are zero-padded past 16 for ``_int_mm``'s shape rule."""
+    x2 = xq.reshape(-1, xq.shape[-1])
+    rows = x2.shape[0]
+    if rows <= 16:
+        x2 = F.pad(x2, (0, 0, 0, 17 - rows))
+    return torch._int_mm(x2, q)[:rows].reshape(*xq.shape[:-1], q.shape[-1])
+
+
 def linear(x: torch.Tensor, kernel: Kernel, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ kernel (+ bias) with kernel [in, out], cast to x.dtype.
 
@@ -50,8 +63,22 @@ def linear(x: torch.Tensor, kernel: Kernel, bias: Optional[torch.Tensor] = None)
     multiplies the float32 sum (it commutes with the contraction). The
     convert writes a copy of the weight in x.dtype on every call, where
     XLA fuses it into the dot's operand read.
+
+    An int4 kernel goes through ``ops.int4_matmul.int4_linear``, which
+    returns x.dtype: the sum is rounded to x.dtype before the bias, as in
+    the JAX package. A W8A8 kernel quantizes x per row (``a_scale =
+    max(amax / 127, 1e-8)``, codes clipped to +-127), takes the exact int32
+    product, and scales it as ``acc * a_scale * s``.
     """
-    if isinstance(kernel, dict):
+    if isinstance(kernel, dict) and "qint4" in kernel:
+        out = int4_linear(x, kernel).to(torch.float32)
+    elif isinstance(kernel, dict) and "qint8_act" in kernel:
+        xf = x.to(torch.float32)
+        amax = xf.abs().amax(dim=-1, keepdim=True)
+        a_scale = (amax / amax.new_full((), 127.0)).clamp_min(1e-8)  # true division
+        xq = torch.round(xf / a_scale).clamp(-127, 127).to(torch.int8)
+        out = int8_matmul(xq, kernel["qint8_act"]).to(torch.float32) * a_scale * kernel["scale"]
+    elif isinstance(kernel, dict):
         out = matmul_f32(x, kernel["qint8"].to(x.dtype)) * kernel["scale"]
     else:
         out = matmul_f32(x, kernel)

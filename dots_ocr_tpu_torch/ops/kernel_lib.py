@@ -1,8 +1,9 @@
 """Builds and loads the port's CUDA kernels (``dots_ocr_tpu_torch/csrc``).
 
-All ``*.cu`` sources compile with ``nvcc`` into ONE shared library with a
-plain C interface, loaded through ``ctypes`` (no PyTorch headers: a build
-takes seconds instead of minutes). The library is cached under
+All ``*.cu`` sources compile with ``nvcc`` (one process per source, run in
+parallel) and link into ONE shared library with a plain C interface,
+loaded through ``ctypes`` (no PyTorch headers: a build takes seconds
+instead of minutes). The library is cached under
 ``csrc/build/`` keyed by a hash of the sources, and built at first use,
 never at import: the CPU tests import every module on hosts without a CUDA
 toolkit.
@@ -26,7 +27,7 @@ CSRC = os.path.join(os.path.dirname(os.path.dirname(__file__)), "csrc")
 BUILD_DIR = os.path.join(CSRC, "build")
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 ]
 
@@ -43,6 +44,10 @@ _SIGNATURES = {
     # q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices, out, B,
     # nq, H, KV, D, num_pages, page_size, max_pages, sm_scale, stream
     "dots_paged_attention_int8": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # x, packed, scales, out, M, K, N, stream
+    "dots_int4_matmul_w4a16": [_P] * 4 + [_I] * 3 + [_P],
+    # x, packed, scales, xq (scratch), a_scale (scratch), out, M, K, N, stream
+    "dots_int4_matmul_w4a8": [_P] * 6 + [_I] * 3 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None
@@ -73,13 +78,22 @@ def _build() -> str:
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so_path}.{os.getpid()}.tmp"
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", tmp, *sources],
-        capture_output=True, text=True, timeout=600,
-    )
-    build_log = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+    objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src], text=True,
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+             for src, obj in zip(sources, objects)]
+    build_log = "".join(proc.communicate(timeout=600)[0] for proc in procs)
+    failed = [src for src, proc in zip(sources, procs) if proc.returncode != 0]
+    if not failed:
+        link = subprocess.run([_nvcc(), "-shared", "-o", tmp, *objects],
+                              capture_output=True, text=True, timeout=600)
+        build_log += link.stdout + link.stderr
+        failed = ["link"] if link.returncode != 0 else []
+    for obj in objects:
+        if os.path.exists(obj):
+            os.remove(obj)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{build_log}")
     os.replace(tmp, so_path)  # atomic: concurrent builders never see half a file
     return so_path
 

@@ -4,12 +4,15 @@
 ``ContinuousBatchingEngine`` on a torch device (CUDA by default), and runs
 the JAX package's ``OpenAIServer`` unchanged (that module imports no jax).
 The shipped serving path is ported: chunked prefill, ``--speculate-k``,
-``--quantize int8`` (weight-only decoder, embedding included) and
-``--kv-cache-dtype int8``. Flag values whose path is not ported yet exit
-with the ROADMAP.md item that will bring them.
+``--quantize int8`` (weight-only decoder, embedding included),
+``--kv-cache-dtype int8``, and every quantized configuration the JAX
+server offers on one device: ``--quantize int4`` (decoder block linears
+through the int4 kernel, embedding and lm_head int8) and
+``--vision-quantize int8`` (W8A8 vision block linears). Flag values whose
+path is not ported yet exit with the ROADMAP.md item that will bring them.
 
     python -m dots_ocr_tpu_torch.serve.server --random-flagship --port 8000 \
-        --quantize int8 --kv-cache-dtype int8 --speculate-k 2
+        --quantize int4 --vision-quantize int8 --kv-cache-dtype int8 --speculate-k 2
 """
 
 from __future__ import annotations
@@ -26,7 +29,12 @@ from dots_ocr_tpu.serve.server import OpenAIServer
 from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.init import init_params
-from dots_ocr_tpu_torch.models.quantize import param_bytes, quantize_decoder_params
+from dots_ocr_tpu_torch.models.quantize import (
+    param_bytes,
+    quantize_decoder_params,
+    quantize_decoder_params_int4,
+    quantize_vision_params,
+)
 
 logger = logging.getLogger(__name__)
 
@@ -74,8 +82,6 @@ def build_parser() -> argparse.ArgumentParser:
 def _refuse_unported(args) -> None:
     refusals = [
         (args.engine == "batch", "--engine batch", "the batch engine"),
-        (args.quantize == "int4", "--quantize int4", "kernel 5 (int4)"),
-        (args.vision_quantize != "none", "--vision-quantize", "W8A8 vision"),
         (args.tensor_parallel_size > 1, "--tensor-parallel-size > 1", "TP"),
         (args.warmup == "background", "--warmup background", "CUDA graphs and warmup"),
         (args.vision_attn == "windowed", "--vision-attn windowed",
@@ -104,11 +110,16 @@ def build_engine(args) -> ContinuousBatchingEngine:
         raise SystemExit("a windowed vision config is not ported yet "
                          "(ROADMAP.md: windowed vision, then kernel 4)")
     params = init_params(config, device, torch.Generator(device=device).manual_seed(0))
-    if args.quantize == "int8":
+    if args.quantize in ("int8", "int4"):
         before = param_bytes(params)
-        params = quantize_decoder_params(params)
-        logger.info("int8 weight quantization: %.2f GB -> %.2f GB",
+        params = (quantize_decoder_params_int4 if args.quantize == "int4"
+                  else quantize_decoder_params)(params)
+        logger.info("%s weight quantization: %.2f GB -> %.2f GB", args.quantize,
                     before / 1e9, param_bytes(params) / 1e9)
+    if args.vision_quantize == "int8":
+        params = quantize_vision_params(params)
+        logger.info("vision tower quantized W8A8 (block linears int8 x int8; "
+                    "patch embed / merger stay %s)", config.dtype)
     return ContinuousBatchingEngine(
         params, config, device,
         sched=SchedulerConfig(

@@ -16,6 +16,8 @@ import torch
 
 from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
 from dots_ocr_tpu_torch.models.layers import linear, matmul_f32
+from dots_ocr_tpu_torch.models.quantize import quantize_kernel_act, quantize_kernel_int4
+from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
 from dots_ocr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from dots_ocr_tpu_torch.ops.paged_attention import (
     INT8_TILE,
@@ -192,3 +194,74 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         paged_attention_multiquery(qd, pages8, pages8, lens, table,
                                    k_scales=scales.double(), v_scales=scales.double())
+
+
+def int4_inputs(rows, k, n, seed):
+    """x N(0, 1) bf16 [rows, k] and int4 weights quantized from N(0, 0.02)."""
+    rng = np.random.RandomState(seed)
+    x = torch.from_numpy(rng.randn(rows, k).astype(np.float32)).to(torch.bfloat16)
+    w = torch.from_numpy((0.02 * rng.randn(k, n)).astype(np.float32)).to(torch.bfloat16)
+    qk = quantize_kernel_int4(w)
+    return x, qk["qint4"], qk["scale4"]
+
+
+def int4_close(out, ref, act_quant):
+    """W4A8: bit-identical (integer group sums, one rounding per scaled
+    group, the Pallas order on both sides). W4A16: the products are exact in
+    float32 and only their summation order differs, so 1 bf16 ulp of the
+    output (2^-7 |ref|) plus 1e-4 for the float32 order near zero."""
+    assert torch.isfinite(out.float()).all()
+    if act_quant:
+        assert torch.equal(out, ref), float((out.float() - ref.float()).abs().max())
+    else:
+        err = (out.float() - ref.float()).abs()
+        assert bool((err <= 2.0**-7 * ref.float().abs() + 1e-4).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("act_quant", [False, True])
+@pytest.mark.parametrize("rows", [1, 15, 17, 64, 192, 4096])
+def test_int4_kernel_matches_plain_on_card(cuda, rows, act_quant):
+    """N = 256 (a 4-block row of tiles), K = 8,960 (the down projection's
+    35 packed-row blocks); rows below, at and past a 64-row tile."""
+    x, packed, scales = (t.to(cuda) for t in int4_inputs(rows, 8960, 256, rows))
+    counter = "w4a8_launches" if act_quant else "launches"
+    before = getattr(int4_matmul, counter)
+    out = int4_matmul(x, packed, scales, act_quant)
+    ref = int4_matmul_plain(x, packed, scales, act_quant)
+    torch.cuda.synchronize()
+    assert getattr(int4_matmul, counter) == before + 1
+    assert out.shape == (rows, 256) and out.dtype == torch.bfloat16
+    int4_close(out, ref, act_quant)
+
+
+@pytest.mark.cuda
+def test_int4_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, packed, scales = (t.to(cuda) for t in int4_inputs(8, 512, 256, 0))
+    with pytest.raises(ValueError, match="bfloat16"):
+        int4_matmul(x.float(), packed, scales)
+    with pytest.raises(ValueError, match="multiple of 256"):
+        int4_matmul(x[:, :384].contiguous(), packed[:192].contiguous(), scales[:3].contiguous())
+    with pytest.raises(ValueError, match="multiple of 128"):
+        int4_matmul(x, packed[:, :192].contiguous(), scales[:, :192].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_matmul(x.t().contiguous().t(), packed, scales)
+    with pytest.raises(ValueError, match="contiguous"):
+        int4_matmul(x, packed[:, ::2], scales[:, ::2])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [5, 300])
+def test_w8a8_linear_on_card(cuda, rows):
+    """The W8A8 product on the card (``torch._int_mm``, rows padded past 16)
+    against the CPU: equal integer products and codes, so equal up to the
+    float32 scale multiplies (1 bf16 ulp of the output)."""
+    rng = np.random.RandomState(rows)
+    x = torch.from_numpy(rng.randn(rows, 1536).astype(np.float32)).to(torch.bfloat16)
+    qk = quantize_kernel_act(torch.from_numpy((0.02 * rng.randn(1536, 4224)).astype(np.float32)))
+    bias = torch.from_numpy(rng.randn(4224).astype(np.float32)).to(torch.bfloat16)
+    ref = linear(x, qk, bias).float()
+    out = linear(x.to(cuda), {k: v.to(cuda) for k, v in qk.items()}, bias.to(cuda))
+    assert out.dtype == torch.bfloat16
+    ulp = 2.0 ** (torch.floor(torch.log2(ref.abs() + 1e-30)) - 7)
+    assert bool(((out.float().cpu() - ref).abs() <= ulp).all())

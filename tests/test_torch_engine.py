@@ -163,7 +163,7 @@ def test_server_round_trip_on_port_engine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "batch"], ["--quantize", "int4"], ["--vision-quantize", "int8"],
+    ["--engine", "batch"], ["--quantize", "int4", "--tensor-parallel-size", "2"],
     ["--tensor-parallel-size", "2"], ["--warmup", "background"],
     ["--vision-attn", "windowed"], ["--weights", "ckpt"], ["--compile-cache", "c"],
 ])
@@ -183,11 +183,16 @@ SMALL = ["--num-pages", "64", "--page-size", "8", "--max-slots", "4",
     ["--kv-cache-dtype", "int8"],
     ["--quantize", "int8", "--kv-cache-dtype", "int8", "--speculate-k", "2",
      "--prefill-chunk-tokens", "16"],
+    ["--quantize", "int4", "--vision-quantize", "int8", "--kv-cache-dtype", "int8",
+     "--speculate-k", "2", "--prefill-chunk-tokens", "16"],
 ])
 def test_server_builds_shipped_flag_engines_that_serve(flags):
-    """The shipped serving flags build a CPU engine that serves requests:
-    speculation runs verify chunks, int8 weights and the int8 pool are in
-    place, and a long prompt takes the chunked prefill."""
+    """The shipped serving flags, and the fully quantized configuration,
+    build a CPU engine that serves requests: speculation runs verify
+    chunks, int8 weights and the int8 pool are in place, and a long prompt
+    takes the chunked prefill. ``--quantize int4`` on the tiny config
+    (hidden 64, not int4-aligned) falls back to int8 kernel by kernel;
+    ``--vision-quantize int8`` makes the vision block linears W8A8."""
     args = torch_server.build_parser().parse_args(
         ["--random-tiny", "--platform", "cpu"] + SMALL + flags)
     eng = torch_server.build_engine(args)
@@ -197,9 +202,11 @@ def test_server_builds_shipped_flag_engines_that_serve(flags):
     assert len(texts) == 2 and eng.metrics["generated_tokens"] >= 2 and not eng.has_work()
     if args.speculate_k:
         assert eng.metrics["spec_chunks"] >= 1 and eng.metrics["spec_emitted"] >= 2
-    if args.quantize == "int8":
+    if args.quantize in ("int8", "int4"):
         assert eng.params["decoder"]["blocks"]["mlp"]["up"]["qint8"].dtype == torch.int8
         assert eng.params["decoder"]["embed"]["scale"].dtype == torch.float32
+    if args.vision_quantize == "int8":
+        assert eng.params["vision"]["blocks"]["attn"]["wq"]["qint8_act"].dtype == torch.int8
     if args.kv_cache_dtype == "int8":
         assert eng.paged.quantized and eng.paged.v[0].dtype == torch.int8
     if args.prefill_chunk_tokens == 16:
