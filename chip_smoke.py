@@ -11,16 +11,22 @@ Phases, each fatal on failure (exit code != 0, no result line):
 2. build: the CUDA kernels from ``dots_ocr_tpu_torch/csrc`` (nvcc, sm_90a);
 3. kernels vs plain versions at the serving paths' shapes: flash attention
    for a packed 2-image vision batch, a causal padded decoder prefill and a
-   chunked-prefill chunk (q_offset 2048); paged decode attention over 64
-   slots at nq = 1 and 3, bf16 pools and int8 pools with float32 scales;
-   the int4 matmul in both modes (W4A16, W4A8) at the four decoder linear
-   shapes and 64, 192 and 4,096 rows; max abs error against the stated
-   tolerance, median CUDA-event times; and, for context, the W8A8 vision
+   chunked-prefill chunk (q_offset 2048); paged decode attention (kernel 2)
+   over 64 slots at nq = 1 and 3, bf16 pools and int8 pools with float32
+   scales; the int4 matmul in both modes (W4A16, W4A8) at the four decoder
+   linear shapes and 64, 192 and 4,096 rows; the window kernel at the
+   windowed vision batch (the same 2 images packed window-major, a padded
+   edge window and a fully padded bucket window), beside flash with the
+   windows as segments; the v1 paged kernel (kernel 3) in both modes over
+   64 slots x 2,048 tokens at page 64 and 128, and in bf16 at D 64; max abs
+   error against the stated tolerance, median CUDA-event times, the least
+   time the card could take (bound) and, where one PyTorch call computes the
+   same function, that call's time; and, for context, the W8A8 vision
    linear against the bf16 one at the vision shapes;
 4. end to end, the shipped path: the flagship model (full width and depth,
    random bf16 weights from a seed, quantized to int8) with int8 KV, k = 2
    speculation and 2,048-token chunked prefill at the shipping geometry,
-   served by the unchanged ``OpenAIServer`` on 127.0.0.1; /health, three
+   served by the port's ``OpenAIServer`` on 127.0.0.1; /health, three
    concurrent chat completions (a page, a receipt, a text prompt),
    /metrics (prefill chunks and verify chunks counted); the flash kernel
    (with q_offset > 0) and the int8 paged kernel must launch in that run;
@@ -40,7 +46,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
 9. the cost of quantized weights in decode: one decode step for 64 slots
    with the bf16 weights, their int8 quantization (dequantized per call)
    and their int4 quantization in both modes (W4A8 launches here, on a
-   path through the model).
+   path through the model), and the bf16 step with ``attn_impl="v1"``
+   (kernel 3's bf16 mode on a path through the model);
+10. end to end, windowed vision and int8 KV at page 64: int8 weights, int8
+   KV, page 64 (kernel 3 on every decode step, as the JAX package runs it),
+   no speculation, 2,048-token chunks, the encoder windowed (16 x 16-patch
+   windows, layers 6, 13, 20, 27, 34, 41 image-wide), served as phase 4;
+   the window kernel, flash and kernel 3's int8 mode must launch; then the
+   consistency check of phase 5 on that path.
 
 The line before the last is one JSON object with the per-kernel numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -103,6 +116,20 @@ VISION_T, VISION_SHAPES = 6656, {"wq/wk/wv/wo": (1536, 1536), "gate/up": (1536, 
                                  "down": (4224, 1536)}
 BF16_FLAGS = ["--quantize", "none", "--kv-cache-dtype", "bf16", "--speculate-k", "0",
               "--prefill-chunk-tokens", str(PREFILL_LIMIT)]
+# Phase 10: the windowed encoder of deploy/shipping.env's VISION_WINDOW /
+# VISION_FULL_LAYERS, int8 KV at page 64.
+WINDOW_PATCHES, FULL_LAYERS = 16, (6, 13, 20, 27, 34, 41)
+WINDOWED_FLAGS = ["--quantize", "int8", "--kv-cache-dtype", "int8", "--page-size", "64",
+                  "--num-pages", "4096", "--speculate-k", "0",
+                  "--prefill-chunk-tokens", str(PREFILL_CHUNK), "--vision-attn", "windowed",
+                  "--vision-window-patches", str(WINDOW_PATCHES),
+                  "--vision-full-layers", ",".join(map(str, FULL_LAYERS))]
+# Kernel 3 at a 64-slot decode step: 2,048 tokens per row.
+V1_CONTEXT = 2048
+# The bound: NVIDIA H100 SXM data sheet (dense, 700 W): HBM 3.35 TB/s,
+# 989 TFLOP/s bf16, 1,979 TOP/s int8.
+HBM_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 REPS = 10
 
 
@@ -133,9 +160,22 @@ def time_in_turns(fns: dict) -> dict:
     return {name: statistics.median(ts) for name, ts in times.items()}
 
 
-def compare(name: str, kernel_fn, plain_fn, atol: float = ATOL, rtol: float = RTOL) -> dict:
+def bound(flops: float, nbytes: float, kind: str = "bf16") -> dict:
+    """The least time the card could take for work of ``flops`` operations
+    (at the ``kind`` tensor-core peak) that must move ``nbytes`` (each
+    input read once, each output written once) through HBM."""
+    t_ops, t_bytes = flops / PEAK_OPS_PER_S[kind], nbytes / HBM_BYTES_PER_S
+    return {"bound_ms": max(t_ops, t_bytes) * 1e3,
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "flops": flops, "bytes": nbytes, "peak": kind}
+
+
+def compare(name: str, kernel_fn, plain_fn, atol: float = ATOL, rtol: float = RTOL,
+            work: dict = None, library_fn=None, extra: dict = None) -> dict:
     """Run kernel and plain once, check |err| <= atol + rtol * |plain|, then
-    time REPS runs of each in turns."""
+    time REPS runs of each in turns (with ``library_fn``, one PyTorch call
+    that computes the same function, and the ``extra`` functions, timed in
+    the same turns for comparison). ``work`` is the case's :func:`bound`."""
     import torch
 
     out, ref = kernel_fn(), plain_fn()
@@ -147,13 +187,57 @@ def compare(name: str, kernel_fn, plain_fn, atol: float = ATOL, rtol: float = RT
     if not bool((err <= atol + rtol * ref.float().abs()).all()):
         raise AssertionError(f"{name}: kernel disagrees with plain (max abs err {max_abs})")
     del out, ref, err
-    times = time_in_turns({"ms": kernel_fn, "plain_ms": plain_fn})
-    res = {"case": name, "max_abs_err": max_abs, **times}
+    fns = {"ms": kernel_fn, "plain_ms": plain_fn, **(extra or {})}
+    if library_fn is not None:
+        fns["library_ms"] = library_fn
+    times = time_in_turns(fns)
+    res = {"case": name, "max_abs_err": max_abs, "library_ms": None, **times, **(work or {})}
     log(f"  {name}: max_abs_err {max_abs:.3e} (tol {atol:g} + {rtol:g}*|ref|), "
-        f"kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms "
-        f"(median of {REPS})")
+        f"kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
+        + "".join(f"{k} {v:.3f} ms, " for k, v in times.items() if k not in ("ms", "plain_ms"))
+        + (f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) " if work else "")
+        + f"(median of {REPS})")
     torch.cuda.empty_cache()
     return res
+
+
+def _flash_work(q, k, q_seg, kv_seg, causal=False, q_offset=0) -> dict:
+    """Kernel 1's bound: 4 H D operations per (query, key) pair the masks
+    keep (QK^T and PV), and q, k, v, out and the segment ids once."""
+    import torch
+
+    mask = (q_seg[:, :, None] == kv_seg[:, None, :]) & (q_seg[:, :, None] >= 0)
+    if causal:
+        rows = torch.arange(q.shape[1], device=q.device) + q_offset
+        mask &= torch.arange(k.shape[1], device=q.device)[None, None, :] <= rows[None, :, None]
+    pairs = int(mask.sum())
+    nbytes = 2 * (q.numel() + k.numel()) * 2 + 4 * (q_seg.numel() + kv_seg.numel())
+    return bound(4.0 * pairs * q.shape[2] * q.shape[3], nbytes)
+
+
+def _paged_work(q, lengths, kv_heads, int8: bool) -> dict:
+    """Kernels 2 and 3's bound: 4 H D operations per live (query, token)
+    pair; each row's live K and V read once (int8: one byte per value and
+    a float32 scale per token and head), q and out once."""
+    import torch
+
+    batch, nq, heads, head_dim = q.shape if q.dim() == 4 else (q.shape[0], 1, *q.shape[1:])
+    lens = lengths.long()
+    seen = torch.where(lens > 0, lens + nq - 1, 0)
+    pairs = int(sum(torch.where(lens > 0, lens + j, 0).sum() for j in range(nq)))
+    per_token = kv_heads * (head_dim * (1 if int8 else 2) + (4 if int8 else 0))
+    nbytes = 2 * int(seen.sum()) * per_token + 2 * 2 * q.numel() + 4 * lengths.numel()
+    return bound(4.0 * pairs * heads * head_dim, nbytes, "int8" if int8 else "bf16")
+
+
+def _sdpa(q, k, v, mask=None, causal=False):
+    """One PyTorch call computing attention over [B, T, H, D] tensors (head
+    axis moved by views, no copies): the library yardstick."""
+    import torch.nn.functional as F
+
+    return F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), attn_mask=mask,
+        is_causal=causal, enable_gqa=q.shape[2] != k.shape[2])
 
 
 def kernel_phase(dev) -> dict:
@@ -164,7 +248,7 @@ def kernel_phase(dev) -> dict:
     from dots_ocr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
     from dots_ocr_tpu_torch.ops.paged_attention import (
         paged_attention_int8_reference,
-        paged_attention_multiquery,
+        paged_attention_multiquery_bf16,
         paged_attention_multiquery_int8,
         paged_attention_multiquery_reference,
     )
@@ -182,10 +266,13 @@ def kernel_phase(dev) -> dict:
     seg[0, :5040], seg[0, 5040:6420] = 0, 1
     seg = torch.from_numpy(seg).to(dev)
     q, k, v = randn(1, 6656, 12, 128), randn(1, 6656, 12, 128), randn(1, 6656, 12, 128)
+    block = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0))[:, None]
     results["flash_attention"].append(compare(
         "flash vision T=6656 (5040+1380 packed, -1 pad) H=12 D=128",
         lambda: flash_attention(q, k, v, seg, seg),
-        lambda: flash_attention_reference(q, k, v, seg, seg)))
+        lambda: flash_attention_reference(q, k, v, seg, seg),
+        work=_flash_work(q, k, seg, seg), library_fn=lambda: _sdpa(q, k, v, block)))
+    del block
     # (b) decoder prefill: B=4, T=2048, GQA 12q/2kv, causal, padded rows.
     lens = torch.tensor([2048, 1531, 800, 77], device=dev)
     seg = torch.where(torch.arange(2048, device=dev)[None] < lens[:, None], 0, -1).to(torch.int32)
@@ -193,7 +280,9 @@ def kernel_phase(dev) -> dict:
     results["flash_attention"].append(compare(
         "flash prefill B=4 T=2048 12q/2kv D=128 causal, rows 2048/1531/800/77",
         lambda: flash_attention(q, k, v, seg, seg, causal=True),
-        lambda: flash_attention_reference(q, k, v, seg, seg, causal=True)))
+        lambda: flash_attention_reference(q, k, v, seg, seg, causal=True),
+        work=_flash_work(q, k, seg, seg, causal=True),
+        library_fn=lambda: _sdpa(q, k, v, causal=True)))
     # (g) a chunked-prefill chunk as decoder_prefill_extend_batched calls
     # it: B=2, C=2048 queries at positions 2048..4095 over the gathered
     # [0, 4096) prefix; prompts of 4,096 and 3,100 tokens (segment -1 past
@@ -203,55 +292,185 @@ def kernel_phase(dev) -> dict:
     q_seg = torch.where(pos[None, 2048:] < plen[:, None], 0, -1).to(torch.int32)
     kv_seg = torch.where(pos[None, :] < plen[:, None], 0, -1).to(torch.int32)
     q, k, v = randn(2, 2048, 12, 128), randn(2, 4096, 2, 128), randn(2, 4096, 2, 128)
+    chunk_mask = ((q_seg[:, :, None] == kv_seg[:, None, :]) & (q_seg[:, :, None] >= 0)
+                  & (pos[None, None, :] <= pos[None, 2048:, None]))[:, None]
     results["flash_attention"].append(compare(
         "flash prefill chunk B=2 C=2048 kv_hi=4096 q_offset=2048 12q/2kv, prompts 4096/3100",
         lambda: flash_attention(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048),
-        lambda: flash_attention_reference(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048)))
-    del q, k, v, seg, q_seg, kv_seg
+        lambda: flash_attention_reference(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048),
+        work=_flash_work(q, k, q_seg, kv_seg, causal=True, q_offset=2048),
+        library_fn=lambda: _sdpa(q, k, v, chunk_mask)))
+    del q, k, v, seg, q_seg, kv_seg, chunk_mask
     # (c, d) paged decode: 64 slots, page 128, table width 320, lengths
     # over 0..12k with zeros, shuffled distinct pages (sized for nq = 3).
     rng = np.random.RandomState(0)
     lengths = rng.randint(1, 12001, MAX_SLOTS)
     lengths[::8] = 0
-    width = MAX_SEQ_TOKENS // PAGE_SIZE
-    need = [-(-(n + 2) // PAGE_SIZE) if n else 0 for n in lengths]
-    pool_pages = sum(need) + 1
-    perm = rng.permutation(pool_pages - 1) + 1
-    table = np.zeros((MAX_SLOTS, width), np.int32)
-    off = 0
-    for row, n in enumerate(need):
-        table[row, :n] = perm[off:off + n]
-        off += n
-    kp, vp = randn(2, pool_pages, PAGE_SIZE, 128), randn(2, pool_pages, PAGE_SIZE, 128)
-    lens_t = torch.from_numpy(lengths.astype(np.int32)).to(dev)
-    table_t = torch.from_numpy(table).to(dev)
+    kp, vp, lens_t, table_t = _paged_pool(randn, rng, lengths, PAGE_SIZE, 128,
+                                          MAX_SEQ_TOKENS // PAGE_SIZE, extra=2)
     live = int(lengths.sum())
     shape = (f"64 slots page 128 width 320, lengths 0..12k ({live} live tokens, "
              f"{int((lengths == 0).sum())} empty)")
     # (e, f) the int8 mode at the same shape: pools and scales from
     # quantize_kv of the same N(0, 1) data; the plain version at the
-    # kernel's tile.
+    # kernel's tile. No single PyTorch call reads a paged pool: no
+    # library time.
     kq, ks = quantize_kv(kp)
     vq, vs = quantize_kv(vp)
     for nq in (1, 3):
         qd = randn(MAX_SLOTS, nq, 12, 128)
         results["paged_attention_multiquery"].append(compare(
             f"paged decode nq={nq} bf16 {shape}",
-            lambda: paged_attention_multiquery(qd, kp, vp, lens_t, table_t),
-            lambda: paged_attention_multiquery_reference(qd, kp, vp, lens_t, table_t)))
+            lambda: paged_attention_multiquery_bf16(qd, kp, vp, lens_t, table_t),
+            lambda: paged_attention_multiquery_reference(qd, kp, vp, lens_t, table_t),
+            work=_paged_work(qd, lens_t, 2, int8=False)))
         results["paged_attention_multiquery_int8"].append(compare(
             f"paged decode nq={nq} int8 {shape}",
             lambda: paged_attention_multiquery_int8(qd, kq, vq, ks, vs, lens_t, table_t),
-            lambda: paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t)))
+            lambda: paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t),
+            work=_paged_work(qd, lens_t, 2, int8=True)))
     del kp, vp, kq, vq, ks, vs
+    results.update(window_cases(randn, dev))
+    results.update(paged_v1_cases(randn, dev))
     results.update(int4_cases(randn, gen, dev))
+    return results
+
+
+def _paged_pool(randn, rng, lengths, page_size, head_dim, width, extra=0):
+    """bf16 N(0, 1) pools [2, pages, page_size, D] with shuffled distinct
+    pages for each row's ``length + extra`` tokens, the int32 lengths and
+    [rows, width] table (null page 0 past each row's end), on the device."""
+    import numpy as np
+    import torch
+
+    need = [-(-(n + extra) // page_size) if n else 0 for n in lengths]
+    pool_pages = sum(need) + 1
+    perm = rng.permutation(pool_pages - 1) + 1
+    table = np.zeros((len(lengths), width), np.int32)
+    off = 0
+    for row, n in enumerate(need):
+        table[row, :n] = perm[off:off + n]
+        off += n
+    kp, vp = randn(2, pool_pages, page_size, head_dim), randn(2, pool_pages, page_size, head_dim)
+    return (kp, vp, torch.from_numpy(np.asarray(lengths, np.int32)).to(kp.device),
+            torch.from_numpy(table).to(kp.device))
+
+
+def window_cases(randn, dev) -> dict:
+    """Kernel 4 at the windowed vision batch: the demo page and receipt,
+    smart-resized as the engine does, packed window-major with 16 x
+    16-patch windows (edge windows padded), and a fully padded window of
+    the bucket's tail; 12 heads x 128. Beside it, kernel 1 over the same tokens with
+    each window as a segment (same function on the valid rows), and SDPA
+    on the windows with the key mask."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.preprocess import pack_images
+    from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
+    from dots_ocr_tpu_torch.ops.window_attention import (
+        window_attention,
+        window_attention_reference,
+    )
+    from dots_ocr_tpu_torch.utils.consts import MAX_PIXELS, MIN_PIXELS
+    from dots_ocr_tpu_torch.utils.image_io import fetch_image
+
+    vcfg = dataclasses.replace(DotsOCRConfig.flagship().vision, window_size=WINDOW_PATCHES,
+                               full_attn_layers=FULL_LAYERS)
+    images = [fetch_image(Image.open(os.path.join(REPO, "demo/assets", name)),
+                          min_pixels=MIN_PIXELS, max_pixels=MAX_PIXELS)
+              for name in ("sample_page.png", "sample_receipt.png")]
+    packed = pack_images(images, vcfg)
+    w = WINDOW_PATCHES**2
+    # plus one window of the bucket's tail (segment -1 throughout), which a
+    # bucket longer than the packed tokens adds (here they fill it exactly)
+    seg = np.concatenate([packed.segment_ids, np.full(w, -1, np.int32)])
+    nw = len(seg) // w
+    seg = torch.from_numpy(seg.reshape(nw, w)).to(dev)
+    valid_keys = (seg >= 0).sum(dim=1)
+    if not (((valid_keys > 0) & (valid_keys < w)).any() and (valid_keys == 0).any()):
+        raise AssertionError("the windowed batch lacks a padded edge window or a padded "
+                             "bucket window")
+    q, k, v = randn(nw, w, 12, 128), randn(nw, w, 12, 128), randn(nw, w, 12, 128)
+    # the function's pairs: each query row over its window's valid keys,
+    # over every key where none is valid (the uniform average of V)
+    pairs = int(torch.where(valid_keys > 0, valid_keys, w).sum()) * w
+    work = bound(4.0 * pairs * 12 * 128, 4 * q.numel() * 2 + 4 * seg.numel())
+    win_seg = torch.where(seg >= 0, torch.arange(nw, device=dev)[:, None], -1)
+    win_seg = win_seg.reshape(1, -1).to(torch.int32)
+    flat = [x.reshape(1, nw * w, 12, 128) for x in (q, k, v)]
+    key_mask = (seg >= 0)[:, None, None, :]
+    out = window_attention(q, k, v, seg).reshape(1, nw * w, 12, 128)
+    flash = flash_attention(*flat, win_seg, win_seg)
+    rows = win_seg[0] >= 0
+    diff = float((out[0, rows].float() - flash[0, rows].float()).abs().max())
+    log(f"  window kernel vs flash with the windows as segments, valid rows: max abs "
+        f"diff {diff:.3e}")
+    if not diff <= ATOL + RTOL * float(flash[0, rows].float().abs().max()):
+        raise AssertionError(f"window kernel and flash disagree on valid rows ({diff})")
+    res = compare(
+        f"window attention nw={nw} W={w} H=12 D=128 ({packed.num_tokens} packed tokens of "
+        f"{nw * w}, {int((valid_keys == 0).sum())} padded window(s))",
+        lambda: window_attention(q, k, v, seg),
+        lambda: window_attention_reference(q, k, v, seg), work=work,
+        library_fn=lambda: _sdpa(q, k, v, key_mask),
+        extra={"flash_same_windows_ms": lambda: flash_attention(*flat, win_seg, win_seg)})
+    return {"window_attention": [res]}
+
+
+def paged_v1_cases(randn, dev) -> dict:
+    """Kernel 3 against its plain version: 64 slots x 2,048 tokens, 12q/2kv,
+    D 128, pages of 64 and 128 in both modes, and D 64 in bf16 (the JAX
+    rule's head_dim case); the pool is the middle layer of a 3-layer stack.
+    No single PyTorch call reads a paged pool: no library time."""
+    import numpy as np
+    import torch
+
+    from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
+    from dots_ocr_tpu_torch.ops.paged_attention import (
+        paged_attention_stacked,
+        paged_attention_v1_reference,
+    )
+
+    def stack(x):
+        flat = x.reshape(1, x.shape[0], -1, *x.shape[3:])
+        return torch.cat([torch.zeros_like(flat), flat, torch.zeros_like(flat)]).contiguous()
+
+    results = {"paged_attention_v1": [], "paged_attention_v1_int8": []}
+    rng = np.random.RandomState(1)
+    lengths = np.full(MAX_SLOTS, V1_CONTEXT)
+    for page_size, head_dim, modes in ((64, 128, (False, True)), (128, 128, (False, True)),
+                                       (64, 64, (False,))):
+        kp, vp, lens_t, table_t = _paged_pool(randn, rng, lengths, page_size, head_dim,
+                                              -(-V1_CONTEXT // page_size))
+        qd = randn(MAX_SLOTS, 12, head_dim)
+        for int8 in modes:
+            if int8:
+                (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+                k_all, v_all, ks_all, vs_all = stack(kq), stack(vq), stack(ks), stack(vs)
+            else:
+                k_all, v_all, ks_all, vs_all = stack(kp), stack(vp), None, None
+            args = (qd, k_all, v_all, 1, lens_t, table_t, page_size, ks_all, vs_all)
+            results["paged_attention_v1_int8" if int8 else "paged_attention_v1"].append(compare(
+                f"paged v1 {'int8' if int8 else 'bf16'} 64 slots x {V1_CONTEXT} page "
+                f"{page_size} 12q/2kv D={head_dim}",
+                lambda: paged_attention_stacked(*args),
+                lambda: paged_attention_v1_reference(*args),
+                work=_paged_work(qd, lens_t, 2, int8=int8)))
+            del k_all, v_all, ks_all, vs_all, args
+        del kp, vp
     return results
 
 
 def int4_cases(randn, gen, dev) -> dict:
     """Kernel 5 in both modes against its plain version at the decoder's
     linear shapes: weights from quantize_kernel_int4 of N(0, 0.02) bf16,
-    activations N(0, 1)."""
+    activations N(0, 1). No single PyTorch call unpacks int4: no library
+    time."""
     import torch
 
     from dots_ocr_tpu_torch.models.quantize import quantize_kernel_int4
@@ -263,12 +482,15 @@ def int4_cases(randn, gen, dev) -> dict:
         packed, scales = qk["qint4"], qk["scale4"]
         for rows in INT4_ROWS:
             x = randn(rows, k)
+            # x and out bf16, the packed nibbles and float32 group scales
+            nbytes = 2 * rows * k + packed.numel() + 4 * scales.numel() + 2 * rows * n
             for act, key in ((False, "int4_matmul"), (True, "int4_matmul_w4a8")):
                 atol, rtol = INT4_TOL[act]
                 results[key].append(compare(
                     f"int4 {'W4A8' if act else 'W4A16'} {label} K={k} N={n} M={rows}",
                     lambda: int4_matmul(x, packed, scales, act),
-                    lambda: int4_matmul_plain(x, packed, scales, act), atol, rtol))
+                    lambda: int4_matmul_plain(x, packed, scales, act), atol, rtol,
+                    work=bound(2.0 * rows * k * n, nbytes, "int8" if act else "bf16")))
     return results
 
 
@@ -312,14 +534,19 @@ def _counters():
     from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
     from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul
     from dots_ocr_tpu_torch.ops.paged_attention import (
-        paged_attention_multiquery,
+        paged_attention_multiquery_bf16,
         paged_attention_multiquery_int8,
+        paged_attention_stacked,
     )
+    from dots_ocr_tpu_torch.ops.window_attention import window_attention
 
     return {"flash_attention": (flash_attention, "launches"),
             "flash_attention (q_offset > 0)": (flash_attention, "offset_launches"),
-            "paged_attention_multiquery": (paged_attention_multiquery, "launches"),
+            "paged_attention_multiquery": (paged_attention_multiquery_bf16, "launches"),
             "paged_attention_multiquery_int8": (paged_attention_multiquery_int8, "launches"),
+            "paged_attention_v1": (paged_attention_stacked, "launches"),
+            "paged_attention_v1_int8": (paged_attention_stacked, "int8_launches"),
+            "window_attention": (window_attention, "launches"),
             "int4_matmul": (int4_matmul, "launches"),
             "int4_matmul_w4a8": (int4_matmul, "w4a8_launches")}
 
@@ -342,9 +569,9 @@ def serve_phase(dev, flags, label: str, required):
     from aiohttp import web
     from PIL import Image
 
-    from dots_ocr_tpu.serve.server import OpenAIServer
-    from dots_ocr_tpu.utils.image_io import pil_to_base64
-    from dots_ocr_tpu.utils.prompts import dict_promptmode_to_prompt as prompts
+    from dots_ocr_tpu_torch.serve.openai_server import OpenAIServer
+    from dots_ocr_tpu_torch.utils.image_io import pil_to_base64
+    from dots_ocr_tpu_torch.utils.prompts import dict_promptmode_to_prompt as prompts
     from dots_ocr_tpu_torch.serve import server as torch_server
 
     args = torch_server.build_parser().parse_args([
@@ -360,9 +587,10 @@ def serve_phase(dev, flags, label: str, required):
     log(f"  [{label}] flagship engine built (random weights, {args.quantize} quantization, "
         f"vision {args.vision_quantize}, {args.kv_cache_dtype} KV pool) in "
         f"{time.perf_counter() - t0:.1f} s; "
-        f"{NUM_PAGES} pages x {PAGE_SIZE}, {MAX_SLOTS} slots, table width "
+        f"{args.num_pages} pages x {args.page_size}, {MAX_SLOTS} slots, table width "
         f"{engine.sched.max_pages_per_seq}, speculate_k {engine.sched.speculate_k}, "
-        f"prefill chunk {engine.sched.prefill_chunk_tokens}")
+        f"prefill chunk {engine.sched.prefill_chunk_tokens}, vision window "
+        f"{engine.config.vision.window_size} (full layers {engine.config.vision.full_attn_layers})")
 
     port = _free_port()
     loop = asyncio.new_event_loop()
@@ -460,7 +688,7 @@ def _page_inputs(engine, page, dev):
     import numpy as np
     import torch
 
-    from dots_ocr_tpu.utils.prompts import dict_promptmode_to_prompt as prompts
+    from dots_ocr_tpu_torch.utils.prompts import dict_promptmode_to_prompt as prompts
     from dots_ocr_tpu_torch.models.vlm import build_scatter_indices
 
     cfg = engine.config
@@ -504,10 +732,12 @@ def int4_impl(impl: str):
 
 
 def consistency_int8_phase(engine, page, dev, w8a8_vision: bool = False) -> None:
-    """The page request of the shipped or the fully quantized path through
-    the kernels and through the plain versions (int4 linears switched with
-    :func:`int4_impl`): the chunked prefill (2,048-token chunks, int8 KV),
-    then four int8-KV decode steps fed the same tokens.
+    """The page request of the shipped, the fully quantized or the windowed
+    page-64 path through the kernels and through the plain versions (int4
+    linears switched with :func:`int4_impl`) at the engine's page size and
+    vision config: the chunked prefill (2,048-token chunks, int8 KV), then
+    four int8-KV decode steps fed the same tokens (kernel 2, or at page 64
+    kernel 3, and their plain versions).
 
     With ``w8a8_vision`` both decoder passes take the kernel path's image
     embeddings, and the argmax must agree too. W8A8 re-quantizes every
@@ -533,6 +763,7 @@ def consistency_int8_phase(engine, page, dev, w8a8_vision: bool = False) -> None
     from dots_ocr_tpu_torch.models.vlm import splice_vision_embeddings
 
     cfg, params = engine.config, engine.params
+    page_size = engine.sched.page_size
     packed, ids, put, scatter = _page_inputs(engine, page, dev)
     t = ids.shape[1]
     ct = PREFILL_CHUNK
@@ -540,8 +771,8 @@ def consistency_int8_phase(engine, page, dev, w8a8_vision: bool = False) -> None
     padded = np.full((1, bucket), cfg.special.pad_token_id, np.int64)
     padded[0, :t] = ids[0]
     steps = 4
-    alloc = PageAllocator(-(-(t + steps) // PAGE_SIZE) + 1, PAGE_SIZE,
-                          -(-(bucket + steps) // PAGE_SIZE))
+    alloc = PageAllocator(-(-(t + steps) // page_size) + 1, page_size,
+                          -(-(bucket + steps) // page_size))
     alloc.allocate(0, t + steps)
     table = put(alloc.padded_table(0)[None])
     cos, sin = vision_rope_device(put(packed.pos2d), cfg.vision.head_dim, cfg.vision.rope_theta)
@@ -559,7 +790,7 @@ def consistency_int8_phase(engine, page, dev, w8a8_vision: bool = False) -> None
                 embeds = splice_vision_embeddings(embed_tokens(params["decoder"], put(padded)),
                                                   vision, scatter["scatter_batch"],
                                                   scatter["scatter_pos"])
-                paged = PagedKV.create(cfg.decoder, alloc.num_pages, PAGE_SIZE, cfg.torch_dtype,
+                paged = PagedKV.create(cfg.decoder, alloc.num_pages, page_size, cfg.torch_dtype,
                                        dev, quantized=True)
                 for start in range(0, bucket, ct):
                     n_valid = min(ct, t - start)
@@ -568,7 +799,7 @@ def consistency_int8_phase(engine, page, dev, w8a8_vision: bool = False) -> None
                     hidden = decoder_prefill_extend_batched(
                         params["decoder"], cfg.decoder, embeds[:, start:start + ct],
                         start + torch.arange(ct, device=dev), put(np.array([t])), paged.k,
-                        paged.v, table[:, :(start + ct) // PAGE_SIZE], put(slots), PAGE_SIZE,
+                        paged.v, table[:, :(start + ct) // page_size], put(slots), page_size,
                         start + ct, start, attn_impl=impl, k_scales=paged.k_scale,
                         v_scales=paged.v_scale)
                 last = hidden[:, t - 1 - (bucket - ct)]
@@ -583,7 +814,7 @@ def consistency_int8_phase(engine, page, dev, w8a8_vision: bool = False) -> None
                         params["decoder"], cfg.decoder, embed_tokens(params["decoder"], token),
                         put(np.array([pos])), path["paged"].k, path["paged"].v, table,
                         put(np.array([pos + 1], np.int32)), put(alloc.slot_mapping(0, pos, 1)),
-                        PAGE_SIZE, attn_impl=impl, k_scales=path["paged"].k_scale,
+                        page_size, attn_impl=impl, k_scales=path["paged"].k_scale,
                         v_scales=path["paged"].v_scale)
                 path["logits"].append(logits_from_hidden(params["decoder"], cfg.decoder, hidden))
             token = paths["kernel"]["logits"][-1].argmax(-1)
@@ -673,10 +904,11 @@ def decode_cost_phase(engine, dev):
     """One decode step for 64 slots at 2,048-token contexts: the engine's
     bf16 weights and their int8 quantization (``linear`` dequantizes it to
     a bf16 copy on every call) over a bf16 pool, the shipped pair (int8
-    weights over an int8 pool), and int4 weights over an int8 pool in both
-    of the kernel's modes (``DOTS_INT4_ACT``). Medians of REPS CUDA-event
-    timings, taken in turns. Returns (the medians, the launch counts of the
-    timed runs)."""
+    weights over an int8 pool), int4 weights over an int8 pool in both of
+    the kernel's modes (``DOTS_INT4_ACT``), and the bf16 step with
+    ``attn_impl="v1"`` (kernel 3's bf16 mode on every layer, the JAX
+    decoder's ``paged_v1``). Medians of REPS CUDA-event timings, taken in
+    turns. Returns (the medians, the launch counts of the timed runs)."""
     import torch
 
     from dots_ocr_tpu_torch.engine.kv_cache import PagedKV
@@ -705,14 +937,15 @@ def decode_cost_phase(engine, dev):
                "int8": quantize_decoder_params(engine.params["decoder"]),
                "int4": quantize_decoder_params_int4(engine.params["decoder"])}
 
-    def step(p, paged, w4a8=False):
+    def step(p, paged, w4a8=False, attn_impl="kernel"):
         def run():
             os.environ["DOTS_INT4_ACT"] = "1" if w4a8 else "0"
             try:
                 with torch.no_grad():
                     h = decoder_decode_step_paged(p, cfg.decoder, embed_tokens(p, tokens), pos,
                                                   paged.k, paged.v, table, lens, slots, PAGE_SIZE,
-                                                  k_scales=paged.k_scale, v_scales=paged.v_scale)
+                                                  attn_impl=attn_impl, k_scales=paged.k_scale,
+                                                  v_scales=paged.v_scale)
                     return logits_from_hidden(p, cfg.decoder, h)
             finally:
                 del os.environ["DOTS_INT4_ACT"]
@@ -722,14 +955,17 @@ def decode_cost_phase(engine, dev):
            "int8 weights, bf16 KV": step(weights["int8"], pools["bf16"]),
            "int8 weights, int8 KV": step(weights["int8"], pools["int8"]),
            "int4 weights, int8 KV": step(weights["int4"], pools["int8"]),
-           "int4 W4A8 weights, int8 KV": step(weights["int4"], pools["int8"], w4a8=True)}
+           "int4 W4A8 weights, int8 KV": step(weights["int4"], pools["int8"], w4a8=True),
+           "bf16 weights, bf16 KV, v1 kernel": step(weights["bf16"], pools["bf16"],
+                                                    attn_impl="v1")}
     reset_counts()
     res = time_in_turns(fns)
     launches = read_counts()
     log(f"  decode step, {MAX_SLOTS} slots x {ctx} context (median of {REPS}): "
         + ", ".join(f"{name} {ms:.3f} ms" for name, ms in res.items()))
     log(f"  kernel launches during the timed steps: {launches}")
-    for name in ("int4_matmul", "int4_matmul_w4a8", "paged_attention_multiquery_int8"):
+    for name in ("int4_matmul", "int4_matmul_w4a8", "paged_attention_multiquery_int8",
+                 "paged_attention_v1"):
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched in the decode steps")
     return res, launches
@@ -747,8 +983,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, REPO)
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
-    log("[1/9] device")
+    log("[1/10] device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -757,7 +994,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {smi}")
 
-    log("[2/9] build the CUDA kernels")
+    log("[2/10] build the CUDA kernels")
     from dots_ocr_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
@@ -767,11 +1004,11 @@ def main() -> int:
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3/9] kernels vs plain versions on {smi}")
+    log(f"[3/10] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
     w8a8_vision = w8a8_vision_phase(dev)
 
-    log(f"[4/9] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
+    log(f"[4/10] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
         f"{PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, shipped, metrics, page = serve_phase(
         dev, SHIPPED_FLAGS, "shipped",
@@ -781,12 +1018,12 @@ def main() -> int:
         raise AssertionError(f"shipped path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[5/9] consistency, shipped path: kernel path vs plain path, page request")
+    log("[5/10] consistency, shipped path: kernel path vs plain path, page request")
     consistency_int8_phase(engine, page, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[6/9] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
+    log(f"[6/10] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
         f"chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, full_quant, metrics, page = serve_phase(
         dev, FULL_QUANT_FLAGS, "int4",
@@ -796,20 +1033,33 @@ def main() -> int:
         raise AssertionError(f"int4 path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[7/9] consistency, fully quantized path: kernel path vs plain path, page request")
+    log("[7/10] consistency, fully quantized path: kernel path vs plain path, page request")
     consistency_int8_phase(engine, page, dev, w8a8_vision=True)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[8/9] end to end, bf16 path (bf16 weights and KV, no speculation, one "
+    log(f"[8/10] end to end, bf16 path (bf16 weights and KV, no speculation, one "
         f"{PREFILL_LIMIT}-token prefill), full depth, on {smi}")
     engine, bf16_path, _, page = serve_phase(
         dev, BF16_FLAGS, "bf16", required=("flash_attention", "paged_attention_multiquery"))
     log("  consistency, bf16 path: kernel path vs plain path, page request")
     consistency_phase(engine, page, dev)
 
-    log(f"[9/9] quantized weights in decode: one 64-slot step on {smi}")
+    log(f"[9/10] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
     decode_ms, decode_launches = decode_cost_phase(engine, dev)
+    del engine
+    torch.cuda.empty_cache()
+
+    log(f"[10/10] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
+        f"speculation, chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
+    engine, windowed, metrics, page = serve_phase(
+        dev, WINDOWED_FLAGS, "windowed",
+        required=("window_attention", "flash_attention", "paged_attention_v1_int8"))
+    if metrics.get("prefill_chunks", 0) < 2:
+        raise AssertionError(f"windowed path: prefill_chunks {metrics.get('prefill_chunks')} "
+                             f"(need >= 2)")
+    log("  consistency, windowed page-64 path: kernel path vs plain path, page request")
+    consistency_int8_phase(engine, page, dev)
     del engine
     torch.cuda.empty_cache()
 
@@ -826,16 +1076,28 @@ def main() -> int:
         "int4_matmul_w4a8": ("dots_ocr_tpu_torch/csrc/int4_matmul.cu",
                              "dots_ocr_tpu/ops/int4_matmul.py:232 (act_quant=True)",
                              decode_launches),
+        "window_attention": ("dots_ocr_tpu_torch/csrc/window_attention.cu",
+                             "dots_ocr_tpu/ops/window_attention.py:96", windowed),
+        "paged_attention_v1": ("dots_ocr_tpu_torch/csrc/paged_attention_v1.cu",
+                               "dots_ocr_tpu/ops/paged_attention.py:268", decode_launches),
+        "paged_attention_v1_int8": ("dots_ocr_tpu_torch/csrc/paged_attention_v1.cu",
+                                    "dots_ocr_tpu/ops/paged_attention.py:268 (int8 mode, "
+                                    ":142-148)", windowed),
     }
+    # The case whose numbers head each kernel's entry: the main path's shape
+    # (kernel 3's bf16 mode runs at page 128 in phase 9), else the first.
+    main_case = {"paged_attention_v1": 1}
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],
          "replaces": sources[name][1], "launches": sources[name][2][name],
          "max_abs_err": max(c["max_abs_err"] for c in cases),
-         "ms": cases[0]["ms"], "plain_ms": cases[0]["plain_ms"], "cases": cases}
+         **{key: cases[main_case.get(name, 0)][key] for key in keys}, "cases": cases}
         for name, cases in kernels.items()
     ], "launches_by_path": {"shipped": shipped, "int4": full_quant, "bf16": bf16_path,
-                            "decode_steps": decode_launches},
+                            "decode_steps": decode_launches, "windowed": windowed},
         "decode_step_ms": decode_ms, "w8a8_vision_linear_ms": w8a8_vision}
+    log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -5,14 +5,15 @@ The layout mirrors the JAX package (``models/``, ``ops/``, ``engine/``,
 ``serve/``) so each module's counterpart is found by name; public functions
 keep the JAX tensor layouts (``q [B, T, H, D]``, paged pools
 ``[KV, N_slots, D]`` per layer, linear kernels ``[in, out]``) so the parity
-tests compare like with like. The two Pallas kernels on the serving path
-(flash attention and multi-query paged decode attention) are hand-written
-CUDA C++ for ``sm_90a`` in ``csrc/``, built with ``nvcc`` at first use.
+tests compare like with like. Every Pallas kernel of the JAX package (flash
+attention, the multi-query and the v1 paged decode attention, the window
+attention, the int4 matmul) is hand-written CUDA C++ for ``sm_90a`` in
+``csrc/``, built with ``nvcc`` at first use.
 
-This package imports ``torch`` and never ``jax``. It reuses only the JAX
-package's jax-free host modules (the OpenAI server, the engine worker, the
-tokenizers, the chat template, the repetition guard, ``utils`` and the
-native patchifier).
+This package imports ``torch`` and never ``jax``, and nothing of the JAX
+package: it carries its own copies of the jax-free host modules it needs
+(the OpenAI server, the engine worker, the tokenizers, the chat template,
+the repetition guard, ``utils`` and the native patchifier).
 """
 
 import torch

@@ -9,10 +9,10 @@ from typing import List, Optional, Sequence, Union
 
 from PIL import Image
 
-from dots_ocr_tpu.engine.chat_template import build_prompt_ids
-from dots_ocr_tpu.engine.tokenizer import TokenizerLike
-from dots_ocr_tpu.utils.consts import MAX_PIXELS, MIN_PIXELS
-from dots_ocr_tpu.utils.image_io import fetch_image
+from dots_ocr_tpu_torch.engine.chat_template import build_prompt_ids
+from dots_ocr_tpu_torch.engine.tokenizer import TokenizerLike
+from dots_ocr_tpu_torch.utils.consts import MAX_PIXELS, MIN_PIXELS
+from dots_ocr_tpu_torch.utils.image_io import fetch_image
 from dots_ocr_tpu_torch.models import preprocess
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 

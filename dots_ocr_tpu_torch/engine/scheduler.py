@@ -43,8 +43,8 @@ from typing import Any, Deque, Dict, List, Optional, Sequence
 import numpy as np
 import torch
 
-from dots_ocr_tpu.engine.repetition import detect_repetition
-from dots_ocr_tpu.engine.tokenizer import (
+from dots_ocr_tpu_torch.engine.repetition import detect_repetition
+from dots_ocr_tpu_torch.engine.tokenizer import (
     ByteTokenizer,
     IncrementalDetokenizer,
     TokenizerLike,
@@ -465,6 +465,15 @@ class ContinuousBatchingEngine:
             ps = self.sched.page_size
             rounded = -(-self.sched.prefill_chunk_tokens // ps) * ps
             self.sched = dataclasses.replace(self.sched, prefill_chunk_tokens=rounded)
+        if self.sched.kv_cache_dtype == "int8" and self.sched.page_size % 128:
+            # The JAX package's warning, for its rule that the port keeps
+            # (paged_attention.choose_paged_kernel).
+            logger.warning(
+                "int8 KV with page_size %d: decode steps fall back from the "
+                "multi-page kernel to the slower v1 kernel (verify steps to "
+                "the XLA reference), as in the JAX package — prefer page_size 128+",
+                self.sched.page_size,
+            )
         self.default_max_new_tokens = default_max_new_tokens
         # Sampled rows draw from one engine-wide generator; per-request
         # seeded streams are not ported yet (submit rejects ``seed``).

@@ -31,8 +31,10 @@ class VisionConfig:
     rope_theta: float = 10000.0
     post_norm: bool = True
     qkv_bias: bool = True
-    # 0 = image-wide attention in every layer. The windowed policy is not
-    # ported yet; the serving entry point refuses a windowed config.
+    # 0 = image-wide attention in every layer. >0 = windowed attention over
+    # window_size x window_size raw-patch tiles (a multiple of
+    # spatial_merge_size), packed window-major with every window padded to
+    # window_size^2 tokens; layers in full_attn_layers stay image-wide.
     window_size: int = 0
     full_attn_layers: tuple = ()
     image_mean: tuple = (0.48145466, 0.4578275, 0.40821073)

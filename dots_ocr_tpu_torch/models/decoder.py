@@ -115,7 +115,9 @@ def decoder_decode_step_paged(
     ``head * N_slots + slot``; page_tables [S, max_pages] int32; seq_lens
     [S] int32 valid length AFTER this token (0 = inactive slot); slots [S]
     physical flat slot of the new token (inactive slots point at the null
-    page). Returns hidden [S, D].
+    page). ``attn_impl="v1"`` runs kernel 3 (``paged_attention.paged_attention``)
+    on every layer, the JAX decoder's ``paged_v1`` branch; the verify step
+    refuses it. Returns hidden [S, D].
     """
     return decoder_spec_step_paged(
         params, cfg, inputs_embeds[:, None], positions[:, None], k_pages, v_pages,

@@ -1,12 +1,19 @@
 """NaViT-style vision encoder over packed tokens (port of
-``dots_ocr_tpu.models.vision``, image-wide attention branch).
+``dots_ocr_tpu.models.vision``).
 
 All images of a batch pack into one token axis [T, patch_dim] with
-per-token segment ids; attention is block-diagonal through the flash
-kernel's segment masking. The patch embed is a [T, patch_dim] x
+per-token segment ids; image-wide attention is block-diagonal through the
+flash kernel's segment masking. The patch embed is a [T, patch_dim] x
 [patch_dim, D] matmul (host-side im2col), and the 2x2 merger is a reshape
 because the packing keeps each merge group contiguous. The 42 stacked
 blocks run as a Python loop over the layer axis.
+
+With ``cfg.window_size > 0`` the packing is window-major with every window
+padded to W = window_size^2 tokens, and each layer not in
+``cfg.full_attn_layers`` attends within its windows: [T, H, D] reshapes
+to [T / W, W, H, D] and runs ``window_attention.IMPLEMENTATIONS``
+(the window kernel on the serving path). The JAX package picks the branch
+per layer with ``lax.cond``; here a Python ``if`` on the layer index does.
 """
 
 from __future__ import annotations
@@ -17,7 +24,7 @@ import torch.nn.functional as F
 from dots_ocr_tpu_torch.models.config import VisionConfig
 from dots_ocr_tpu_torch.models.layers import layer_params, linear, rms_norm, swiglu
 from dots_ocr_tpu_torch.models.rope import apply_rope
-from dots_ocr_tpu_torch.ops import flash_attention
+from dots_ocr_tpu_torch.ops import flash_attention, window_attention
 
 
 def vision_block(
@@ -28,9 +35,11 @@ def vision_block(
     sin: torch.Tensor,
     segment_ids: torch.Tensor,
     attn_impl: str = "kernel",
+    windowed: bool = False,
 ) -> torch.Tensor:
     """One post-norm block over packed tokens x [T, D]. ``attn_impl``
-    "kernel" runs the flash wrapper, "reference" its plain version."""
+    "kernel" runs the flash (or, with ``windowed``, the window) wrapper,
+    "reference" its plain version, "xla" the JAX package's CPU path."""
     attn_p = block_params["attn"]
     t = x.shape[0]
     heads, head_dim = cfg.num_heads, cfg.head_dim
@@ -41,8 +50,15 @@ def vision_block(
         v = linear(h, attn_p["wv"], attn_p.get("bv")).reshape(t, heads, head_dim)
         q = apply_rope(q, cos, sin)
         k = apply_rope(k, cos, sin)
-        seg = segment_ids[None]
-        out = flash_attention.IMPLEMENTATIONS[attn_impl](q[None], k[None], v[None], seg, seg)[0]
+        if windowed:
+            w = cfg.window_size**2
+            segw = segment_ids.reshape(t // w, w)
+            out = window_attention.IMPLEMENTATIONS[attn_impl](
+                q.reshape(t // w, w, heads, head_dim), k.reshape(t // w, w, heads, head_dim),
+                v.reshape(t // w, w, heads, head_dim), segw)
+        else:
+            seg = segment_ids[None]
+            out = flash_attention.IMPLEMENTATIONS[attn_impl](q[None], k[None], v[None], seg, seg)[0]
         return linear(out.reshape(t, heads * head_dim), attn_p["wo"])
 
     def mlp(h: torch.Tensor) -> torch.Tensor:
@@ -66,12 +82,10 @@ def vision_forward(
     attn_impl: str = "kernel",
 ) -> torch.Tensor:
     """Encoder over packed patches [T, patch_dim] (uint8 are normalized
-    here with the config's CLIP mean/std); returns pre-merge hidden [T, D]."""
-    if cfg.window_size > 0:
-        raise NotImplementedError(
-            "windowed vision attention is not ported yet "
-            "(ROADMAP.md: windowed vision, then kernel 4)"
-        )
+    here with the config's CLIP mean/std); returns pre-merge hidden [T, D].
+    Windowed layers (module notes) need T a multiple of window_size^2, as
+    window-major packing gives; otherwise every layer attends image-wide,
+    as in the JAX package."""
     dtype = params["patch_embed"]["kernel"].dtype
     if patches.dtype == torch.uint8:
         pixels = cfg.patch_dim // cfg.in_channels  # channel fastest in a patch
@@ -81,9 +95,10 @@ def vision_forward(
     x = linear(patches.to(dtype), params["patch_embed"]["kernel"],
                params["patch_embed"].get("bias"))
     cos, sin = rope_cos.to(torch.float32), rope_sin.to(torch.float32)
+    windows = cfg.window_size > 0 and x.shape[0] % cfg.window_size**2 == 0
     for i in range(cfg.num_layers):
-        x = vision_block(x, layer_params(params["blocks"], i), cfg, cos, sin,
-                         segment_ids, attn_impl)
+        x = vision_block(x, layer_params(params["blocks"], i), cfg, cos, sin, segment_ids,
+                         attn_impl, windowed=windows and i not in cfg.full_attn_layers)
     return rms_norm(x, params["post_norm"], cfg.rms_norm_eps)
 
 

@@ -48,6 +48,14 @@ _SIGNATURES = {
     "dots_int4_matmul_w4a16": [_P] * 4 + [_I] * 3 + [_P],
     # x, packed, scales, xq (scratch), a_scale (scratch), out, M, K, N, stream
     "dots_int4_matmul_w4a8": [_P] * 6 + [_I] * 3 + [_P],
+    # q, k, v, segment_ids, out, nw, W, H, D, sm_scale, stream
+    "dots_window_attention_bf16": [_P] * 5 + [_I] * 4 + [_F, _P],
+    # q, k_all, v_all, lengths, page_indices, out, B, H, KV, D, n_slots,
+    # page_size, max_pages, layer, sm_scale, stream
+    "dots_paged_attention_v1_bf16": [_P] * 6 + [_I] * 8 + [_F, _P],
+    # q, k_all, v_all, k_scales_all, v_scales_all, lengths, page_indices,
+    # out, then as the bf16 mode
+    "dots_paged_attention_v1_int8": [_P] * 8 + [_I] * 8 + [_F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -2,14 +2,18 @@
 
 ``main`` takes the JAX server's flags, builds the port's
 ``ContinuousBatchingEngine`` on a torch device (CUDA by default), and runs
-the JAX package's ``OpenAIServer`` unchanged (that module imports no jax).
-The shipped serving path is ported: chunked prefill, ``--speculate-k``,
-``--quantize int8`` (weight-only decoder, embedding included),
-``--kv-cache-dtype int8``, and every quantized configuration the JAX
-server offers on one device: ``--quantize int4`` (decoder block linears
-through the int4 kernel, embedding and lm_head int8) and
-``--vision-quantize int8`` (W8A8 vision block linears). Flag values whose
-path is not ported yet exit with the ROADMAP.md item that will bring them.
+the port's copy of the JAX package's ``OpenAIServer``
+(``serve/openai_server.py``). The shipped serving path is ported: chunked
+prefill, ``--speculate-k``, ``--quantize int8`` (weight-only decoder,
+embedding included), ``--kv-cache-dtype int8``, and every quantized
+configuration the JAX server offers on one device: ``--quantize int4``
+(decoder block linears through the int4 kernel, embedding and lm_head
+int8) and ``--vision-quantize int8`` (W8A8 vision block linears). So is
+the windowed encoder (``--vision-attn windowed --vision-window-patches
+--vision-full-layers``: window kernel on the windowed layers) and int8 KV
+at a page size that is not a multiple of 128 (the v1 paged kernel on
+every decode step, as the JAX package runs it). Flag values whose path is
+not ported yet exit with the ROADMAP.md item that will bring them.
 
     python -m dots_ocr_tpu_torch.serve.server --random-flagship --port 8000 \
         --quantize int4 --vision-quantize int8 --kv-cache-dtype int8 --speculate-k 2
@@ -18,6 +22,7 @@ path is not ported yet exit with the ROADMAP.md item that will bring them.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import logging
 import os
 
@@ -25,7 +30,6 @@ import numpy as np
 import torch
 from PIL import Image
 
-from dots_ocr_tpu.serve.server import OpenAIServer
 from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.init import init_params
@@ -35,6 +39,7 @@ from dots_ocr_tpu_torch.models.quantize import (
     quantize_decoder_params_int4,
     quantize_vision_params,
 )
+from dots_ocr_tpu_torch.serve.openai_server import OpenAIServer
 
 logger = logging.getLogger(__name__)
 
@@ -84,8 +89,6 @@ def _refuse_unported(args) -> None:
         (args.engine == "batch", "--engine batch", "the batch engine"),
         (args.tensor_parallel_size > 1, "--tensor-parallel-size > 1", "TP"),
         (args.warmup == "background", "--warmup background", "CUDA graphs and warmup"),
-        (args.vision_attn == "windowed", "--vision-attn windowed",
-         "windowed vision, then kernel 4"),
         (args.compile_cache is not None, "--compile-cache", "CUDA graphs and warmup"),
         (args.weights is not None, "--weights", "the loader"),
     ]
@@ -106,9 +109,16 @@ def build_engine(args) -> ContinuousBatchingEngine:
     else:
         raise SystemExit("pass --random-flagship or --random-tiny "
                          "(--weights needs the loader, not ported yet)")
-    if config.vision.window_size > 0:
-        raise SystemExit("a windowed vision config is not ported yet "
-                         "(ROADMAP.md: windowed vision, then kernel 4)")
+    if args.vision_attn != "config":
+        if args.vision_attn == "full":
+            vision = dataclasses.replace(config.vision, window_size=0, full_attn_layers=())
+        else:  # windowed
+            full = tuple(int(i) for i in args.vision_full_layers.split(",") if i.strip())
+            vision = dataclasses.replace(config.vision, window_size=args.vision_window_patches,
+                                         full_attn_layers=full)
+        config = config.replace(vision=vision)
+        logger.info("vision attention override: %s (window_size=%d patches, full layers=%s)",
+                    args.vision_attn, vision.window_size, vision.full_attn_layers)
     params = init_params(config, device, torch.Generator(device=device).manual_seed(0))
     if args.quantize in ("int8", "int4"):
         before = param_bytes(params)

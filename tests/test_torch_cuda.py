@@ -21,11 +21,16 @@ from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
 from dots_ocr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
 from dots_ocr_tpu_torch.ops.paged_attention import (
     INT8_TILE,
+    paged_attention,
     paged_attention_int8_reference,
     paged_attention_multiquery,
+    paged_attention_multiquery_bf16,
     paged_attention_multiquery_int8,
     paged_attention_multiquery_reference,
+    paged_attention_stacked,
+    paged_attention_v1_reference,
 )
+from dots_ocr_tpu_torch.ops.window_attention import window_attention, window_attention_reference
 
 FLASH_CASES = {
     # name: (B, Tq, S, H, KV, D, segment lengths per row, causal, q_offset)
@@ -121,8 +126,10 @@ def test_paged_kernel_matches_plain_on_card(cuda, nq, page_size):
         rng, lengths, nq, 2, 12, 128, page_size, -(-2100 // page_size))
     args = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, kp, vp)]
     args += [torch.from_numpy(x).to(cuda) for x in (lens, table)]
-    out = paged_attention_multiquery(*args)
+    before = paged_attention_multiquery_bf16.launches
+    out = paged_attention_multiquery_bf16(*args)
     ref = paged_attention_multiquery_reference(*args)
+    assert paged_attention_multiquery_bf16.launches == before + 1
     torch.cuda.synchronize()
     _bf16_close(out, ref)
     assert (out[1] == 0).all()  # length 0: exact zeros
@@ -148,12 +155,121 @@ def test_paged_int8_kernel_matches_plain_on_card(cuda, nq, h, kv, page_size, d):
     qd = torch.from_numpy(q).to(cuda, torch.bfloat16)
     lens_t, table_t = torch.from_numpy(lens).to(cuda), torch.from_numpy(table).to(cuda)
     before = paged_attention_multiquery_int8.launches
-    out = paged_attention_multiquery(qd, kq, vq, lens_t, table_t, k_scales=ks, v_scales=vs)
+    out = paged_attention_multiquery_int8(qd, kq, vq, ks, vs, lens_t, table_t)
     ref = paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t)
     torch.cuda.synchronize()
     assert paged_attention_multiquery_int8.launches == before + 1
     _bf16_close(out, ref)
     assert (out[1] == 0).all()  # length 0: exact zeros
+
+
+def _stack(pages, scales):
+    """One layer's [KV, num_pages, page_size, D] pool as kernel 3's stack of
+    3 layers, the pool in the middle one (the layer pointer offset)."""
+    kv, n, ps, d = pages.shape
+    flat = pages.reshape(1, kv, n * ps, d)
+    stack = torch.cat([torch.zeros_like(flat), flat, torch.zeros_like(flat)]).contiguous()
+    if scales is None:
+        return stack, None
+    sf = scales.reshape(1, kv, n * ps)
+    return stack, torch.cat([torch.zeros_like(sf), sf, torch.zeros_like(sf)]).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("page_size", [16, 64, 128])
+def test_paged_v1_kernel_matches_plain_on_card(cuda, page_size, d, quantized):
+    """Kernel 3 vs its plain version (the same page tiles and rounding
+    steps; float32 summation order and bf16 output rounding differ), on
+    the middle layer of a 3-layer stack, with a length-0 row, partial last
+    pages and null-page table padding."""
+    rng = np.random.RandomState(page_size + d)
+    q, kp, vp, lens, table = paged_inputs(
+        rng, INT8_LENGTHS, 1, 2, 12, d, page_size, -(-2100 // page_size))
+    qd = torch.from_numpy(q[:, 0]).to(cuda, torch.bfloat16)
+    lens_t, table_t = torch.from_numpy(lens).to(cuda), torch.from_numpy(table).to(cuda)
+    if quantized:
+        kq, vq, ks, vs = (x.to(cuda) for x in int8_pools(kp, vp))
+    else:
+        kq, vq = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (kp, vp))
+        ks = vs = None
+    (k_all, ks_all), (v_all, vs_all) = _stack(kq, ks), _stack(vq, vs)
+    counter = "int8_launches" if quantized else "launches"
+    before = getattr(paged_attention_stacked, counter)
+    out = paged_attention_stacked(qd, k_all, v_all, 1, lens_t, table_t, page_size, ks_all, vs_all)
+    ref = paged_attention_v1_reference(qd, k_all, v_all, 1, lens_t, table_t, page_size,
+                                       ks_all, vs_all)
+    single = paged_attention(qd, kq, vq, lens_t, table_t, k_scales=ks, v_scales=vs)
+    torch.cuda.synchronize()
+    assert getattr(paged_attention_stacked, counter) == before + 2
+    _bf16_close(out, ref)
+    assert torch.equal(out, single)
+    assert (out[1] == 0).all()  # length 0: exact zeros
+
+
+@pytest.mark.cuda
+def test_paged_dispatch_follows_the_jax_rule_on_card(cuda):
+    """int8 K/V at page 64: nq = 1 goes to kernel 3, nq = 3 to the XLA
+    reference's twin; at page 128 both go to kernel 2. bf16 at D = 64:
+    nq = 1 to kernel 3."""
+    for page_size, d, quantized in ((64, 128, True), (128, 128, True), (64, 64, False)):
+        for nq in (1, 3):
+            rng = np.random.RandomState(nq)
+            q, kp, vp, lens, table = paged_inputs(rng, [300, 0, 77], nq, 2, 12, d, page_size,
+                                                  -(-400 // page_size))
+            qd = torch.from_numpy(q).to(cuda, torch.bfloat16)
+            lens_t, table_t = torch.from_numpy(lens).to(cuda), torch.from_numpy(table).to(cuda)
+            if quantized:
+                kq, vq, ks, vs = (x.to(cuda) for x in int8_pools(kp, vp))
+            else:
+                kq, vq = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (kp, vp))
+                ks = vs = None
+            counts = lambda: (paged_attention_stacked.launches,  # noqa: E731
+                              paged_attention_stacked.int8_launches,
+                              paged_attention_multiquery_bf16.launches,
+                              paged_attention_multiquery_int8.launches)
+            before = counts()
+            out = paged_attention_multiquery(qd, kq, vq, lens_t, table_t, k_scales=ks,
+                                             v_scales=vs)
+            moved = [a - b for a, b in zip(counts(), before)]
+            if page_size == 128:
+                assert moved == [0, 0, 0, 1]
+            elif nq == 1:
+                assert moved == ([0, 1, 0, 0] if quantized else [1, 0, 0, 0])
+                ref = paged_attention(qd[:, 0], kq, vq, lens_t, table_t, k_scales=ks,
+                                      v_scales=vs)
+                assert torch.equal(out[:, 0], ref)
+            else:
+                assert moved == [0, 0, 0, 0]
+                ref = paged_attention_multiquery_reference(qd, kq, vq, lens_t, table_t,
+                                                           k_scales=ks, v_scales=vs)
+                assert torch.equal(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("w", [64, 256])
+def test_window_kernel_matches_plain_on_card(cuda, w, d):
+    """Kernel 4 vs its plain version on every row (padded query rows and a
+    fully padded bucket window included): the same order of rounding, the
+    float32 summation order and bf16 output rounding differ."""
+    nw, h = 5, 12
+    gen = torch.Generator(device=cuda).manual_seed(w + d)
+    q, k, v = (torch.randn(nw, w, h, d, generator=gen, device=cuda).to(torch.bfloat16)
+               for _ in range(3))
+    seg = torch.zeros(nw, w, dtype=torch.int32, device=cuda)
+    seg[1] = 1
+    seg[2, w // 3:] = -1  # an edge window's padding
+    seg[4] = -1  # a window of the bucket's tail
+    before = window_attention.launches
+    out = window_attention(q, k, v, seg)
+    ref = window_attention_reference(q, k, v, seg)
+    torch.cuda.synchronize()
+    assert window_attention.launches == before + 1
+    _bf16_close(out, ref)
+    mean_v = v[4].float().mean(dim=0, keepdim=True).expand(w, h, d)
+    assert torch.allclose(out[4].float(), mean_v, atol=2e-2)
 
 
 @pytest.mark.cuda
@@ -194,6 +310,11 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
     with pytest.raises(ValueError, match="float32"):
         paged_attention_multiquery(qd, pages8, pages8, lens, table,
                                    k_scales=scales.double(), v_scales=scales.double())
+    qw = torch.zeros(2, 96, 4, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        window_attention(qw, qw, qw, torch.zeros(2, 96, dtype=torch.int32, device=cuda))
+    with pytest.raises(ValueError, match="page_size"):
+        paged_attention(qd[:, 0], pages, pages, lens, table)
 
 
 def int4_inputs(rows, k, n, seed):

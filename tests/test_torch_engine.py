@@ -1,7 +1,7 @@
 """The port's serving slice against the JAX package on the CPU: the JAX
 ``ContinuousBatchingEngine`` and the port's engine on bridged tiny weights
-give identical greedy tokens; the unchanged ``OpenAIServer`` serves the
-port's engine, long prompts through chunked prefill; the shipped serving
+give identical greedy tokens; the port's copy of ``OpenAIServer`` serves
+its engine, long prompts through chunked prefill; the shipped serving
 flags (speculation, int8 weights, int8 KV) build engines that serve;
 unported features and flags fail loudly. The shipped options' token parity
 with the JAX engine is in ``test_torch_engine_parity.py``.
@@ -21,12 +21,12 @@ from dots_ocr_tpu.engine.scheduler import ContinuousBatchingEngine as JaxEngine
 from dots_ocr_tpu.engine.scheduler import SchedulerConfig as JaxSched
 from dots_ocr_tpu.models.config import DotsOCRConfig as JaxConfig
 from dots_ocr_tpu.models.init import init_params as jax_init
-from dots_ocr_tpu.serve.server import OpenAIServer
-from dots_ocr_tpu.utils.image_io import pil_to_base64
 from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.init import from_numpy_params, init_params
 from dots_ocr_tpu_torch.serve import server as torch_server
+from dots_ocr_tpu_torch.serve.openai_server import OpenAIServer
+from dots_ocr_tpu_torch.utils.image_io import pil_to_base64
 
 CPU = torch.device("cpu")
 RECEIPT = os.path.join(os.path.dirname(__file__), "..", "demo", "assets", "sample_receipt.png")
@@ -98,7 +98,7 @@ def test_unported_features_raise(kwargs):
 
 def test_long_prompt_served_through_chunked_prefill():
     """A prompt longer than the chunk is served end to end through the
-    unchanged OpenAIServer: several prefill chunks, interleaved with a
+    port's OpenAIServer: several prefill chunks, interleaved with a
     short request's decode, and /metrics counts them."""
     eng = _engine(prefill_chunk_tokens=16)
 
@@ -165,7 +165,8 @@ def test_server_round_trip_on_port_engine():
 @pytest.mark.parametrize("flags", [
     ["--engine", "batch"], ["--quantize", "int4", "--tensor-parallel-size", "2"],
     ["--tensor-parallel-size", "2"], ["--warmup", "background"],
-    ["--vision-attn", "windowed"], ["--weights", "ckpt"], ["--compile-cache", "c"],
+    ["--tensor-parallel-size", "4", "--vision-attn", "windowed"], ["--weights", "ckpt"],
+    ["--compile-cache", "c"],
 ])
 def test_server_refuses_unported_flags(flags):
     args = torch_server.build_parser().parse_args(["--random-tiny", "--platform", "cpu"] + flags)
@@ -211,6 +212,29 @@ def test_server_builds_shipped_flag_engines_that_serve(flags):
         assert eng.paged.quantized and eng.paged.v[0].dtype == torch.int8
     if args.prefill_chunk_tokens == 16:
         assert eng.metrics["prefill_chunks"] >= 2
+
+
+def test_server_builds_windowed_engine_and_full_clears_it(monkeypatch):
+    """``--vision-attn windowed`` with a window and full layers builds a
+    windowed tiny engine that serves an image (window-major packs); the
+    ``full`` override clears a window the config has."""
+    args = torch_server.build_parser().parse_args(
+        ["--random-tiny", "--platform", "cpu", *SMALL, "--kv-cache-dtype", "int8",
+         "--vision-attn", "windowed", "--vision-window-patches", "4",
+         "--vision-full-layers", "1"])
+    eng = torch_server.build_engine(args)
+    assert eng.config.vision.window_size == 4 and eng.config.vision.full_attn_layers == (1,)
+    img = Image.fromarray(np.random.RandomState(1).randint(0, 255, (56, 84, 3), np.uint8))
+    texts = eng.generate_batch(["read this"], [[img]], temperature=0.0, max_new_tokens=4)
+    assert len(texts) == 1 and eng.metrics["prefills"] == 1 and not eng.has_work()
+    packed = eng.prepare("read this", [img]).packed
+    assert packed.window_ids is not None and len(packed.segment_ids) % 16 == 0
+    windowed = eng.config
+    args = torch_server.build_parser().parse_args(
+        ["--random-tiny", "--platform", "cpu", *SMALL, "--vision-attn", "full"])
+    monkeypatch.setattr(DotsOCRConfig, "tiny", staticmethod(lambda: windowed))
+    eng = torch_server.build_engine(args)
+    assert eng.config.vision.window_size == 0 and eng.config.vision.full_attn_layers == ()
 
 
 def test_spec_gate_turns_speculation_off_and_back_on():

@@ -1,7 +1,10 @@
-"""The port stands alone: no module of dots_ocr_tpu_torch imports jax, even
-transitively, and chip_smoke.py refuses to run without a GPU or outside a
-checkout (non-zero exit, no result line)."""
+"""The port stands alone: no module of dots_ocr_tpu_torch (nor chip_smoke.py)
+imports jax or anything of the JAX package dots_ocr_tpu, even transitively
+or inside a function, and chip_smoke.py refuses to run without a GPU or
+outside a checkout (non-zero exit, no result line)."""
 
+import ast
+import glob
 import os
 import pkgutil
 import shutil
@@ -31,7 +34,7 @@ def test_no_module_imports_jax():
         f"for name in {modules!r}:\n"
         "    importlib.import_module(name)\n"
         "import chip_smoke\n"
-        "leaked = sorted(m for m in sys.modules if m == 'jax' or m.startswith('jax.'))\n"
+        "leaked = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'dots_ocr_tpu'))\n"
         "assert not leaked, leaked\n"
         "import torch\n"
         "assert torch.backends.cuda.matmul.allow_tf32 is False\n"
@@ -41,6 +44,41 @@ def test_no_module_imports_jax():
     proc = _run(["-c", code])
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.startswith("ok")
+
+
+def _imported_modules(path, package):
+    """Every module an ``import`` or ``from ... import`` names in the file,
+    at any depth (function-level imports included); relative imports are
+    resolved against ``package``."""
+    with open(path) as f:
+        tree = ast.parse(f.read(), path)
+    names = []
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names += [alias.name for alias in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            base = package.split(".")[:len(package.split(".")) - node.level + 1] if node.level else []
+            names.append(".".join(base + ([node.module] if node.module else [])))
+    return names
+
+
+def test_no_source_line_imports_the_jax_package(tmp_path):
+    files = sorted(glob.glob(os.path.join(REPO, "dots_ocr_tpu_torch", "**", "*.py"),
+                             recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) > 30
+    offending = []
+    for path in files:
+        package = os.path.dirname(os.path.relpath(path, REPO)).replace(os.sep, ".")
+        offending += [(os.path.relpath(path, REPO), name)
+                      for name in _imported_modules(path, package)
+                      if name.split(".")[0] in ("jax", "dots_ocr_tpu")]
+    assert not offending, offending
+    # the scan sees function-level and relative imports
+    probe = tmp_path / "probe.py"
+    probe.write_text("def f():\n    import dots_ocr_tpu.native\n"
+                     "    from dots_ocr_tpu.utils import x\n    from ..ops import y\n")
+    assert _imported_modules(str(probe), "dots_ocr_tpu_torch.models") == [
+        "dots_ocr_tpu.native", "dots_ocr_tpu.utils", "dots_ocr_tpu_torch.ops"]
 
 
 def test_chip_smoke_refuses_without_gpu_or_checkout(tmp_path):
