@@ -17,9 +17,13 @@ Phases, each fatal on failure (exit code != 0, no result line):
    linear shapes and 64, 192 and 4,096 rows; the window kernel at the
    windowed vision batch (the same 2 images packed window-major, a padded
    edge window and a fully padded bucket window), beside flash with the
-   windows as segments; the v1 paged kernel (kernel 3) in both modes over
-   64 slots x 2,048 tokens at page 64 and 128, and in bf16 at D 64; max abs
-   error against the stated tolerance, median CUDA-event times, the least
+   windows as segments (and flash's own case on those windows); the v1
+   paged kernel (kernel 3) in both modes over 64 slots x 2,048 tokens at
+   page 64 and 128 (kernel 2's bf16 mode timed beside it at page 128), and
+   in bf16 at D 64; max abs
+   error against the stated tolerance (kernels 1 and 2 in bf16 also
+   against a bound scaled to the output, which a control must fail),
+   median CUDA-event times per call over back-to-back calls, the least
    time the card could take (bound) and, where one PyTorch call computes the
    same function, that call's time; and, for context, the W8A8 vision
    linear against the bf16 one at the vision shapes;
@@ -53,7 +57,16 @@ Phases, each fatal on failure (exit code != 0, no result line):
    no speculation, 2,048-token chunks, the encoder windowed (16 x 16-patch
    windows, layers 6, 13, 20, 27, 34, 41 image-wide), served as phase 4;
    the window kernel, flash and kernel 3's int8 mode must launch; then the
-   consistency check of phase 5 on that path.
+   consistency check of phase 5 on that path;
+11. end to end, ``deploy/shipping.env`` as written: its PAGE_SIZE, KV_DTYPE,
+   QUANTIZE, SPECULATE_K, PREFILL_CHUNK, NUM_PAGES, MAX_SLOTS,
+   MAX_SEQ_TOKENS, STEPS_PER_SYNC and VISION_ATTN, nothing overridden
+   (today int8 weights, bf16 KV, k = 2), served as phase 4, then the same
+   three requests again sampled at temperature 1 for 128 tokens, so that
+   the engine's speculation gate turns speculation off and plain decode
+   steps run too (SHIPPING_WAVES); flash (with q_offset > 0) and
+   kernel 2's bf16 mode at nq = 1 (decode) and nq = 3 (verify) must
+   launch; then the consistency check of phase 5 on that configuration.
 
 The line before the last is one JSON object with the per-kernel numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -79,6 +92,22 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # are N(0, 1); both sides round their output to bf16 (2^-8 relative) and
 # sum in different orders; P enters P @ V rounded to bf16 on both sides.
 ATOL, RTOL = 2e-2, 2e-2
+# ATOL is about one typical output of kernels 1 and 2 at their long rows
+# (an output averages V over ~5k tokens: ~0.02), so their cases are also
+# held to a bound scaled to the output (tight_errors): per element one
+# bf16 ulp of the plain value (2^-7 |plain|: both sides round an f32
+# result to bf16) plus TIGHT_ROW times the RMS over D of that (row, head)
+# of the plain output, and over the whole output a relative RMS error of
+# at most TIGHT_RMS. Both sides round P to bf16, against different running
+# maxima: that moves an f32 output by ~0.2% of its row's RMS, ~1% at the
+# max over 10^7 values, and the relative RMS error by ~3e-3. A control
+# must fail the bound: the plain version with V rounded through fp8 e4m3
+# (3 mantissa bits: ~3e-2 relative RMS), a coarser rounding than either
+# side's.
+TIGHT_ROW, TIGHT_RMS = 0.05, 1e-2
+# Those cases also repeat the kernel call REPEAT_CALLS times on the same
+# inputs: each output must equal the first bit for bit (a race would not).
+REPEAT_CALLS = 20
 # Kernel path vs plain path through the whole model (bf16, random weights):
 # max |logit difference| <= LOGIT_TOL * std(plain logits). The model itself
 # amplifies bf16 rounding: perturbing every attention output of the plain
@@ -126,37 +155,60 @@ WINDOWED_FLAGS = ["--quantize", "int8", "--kv-cache-dtype", "int8", "--page-size
                   "--vision-full-layers", ",".join(map(str, FULL_LAYERS))]
 # Kernel 3 at a 64-slot decode step: 2,048 tokens per row.
 V1_CONTEXT = 2048
+# Phase 11: the deployment file, and its serve flags by key (read as written).
+SHIPPING_ENV = os.path.join(REPO, "deploy", "shipping.env")
+SHIPPING_KEYS = {"PAGE_SIZE": "--page-size", "KV_DTYPE": "--kv-cache-dtype",
+                 "QUANTIZE": "--quantize", "SPECULATE_K": "--speculate-k",
+                 "PREFILL_CHUNK": "--prefill-chunk-tokens", "NUM_PAGES": "--num-pages",
+                 "MAX_SLOTS": "--max-slots", "MAX_SEQ_TOKENS": "--max-seq-tokens",
+                 "STEPS_PER_SYNC": "--steps-per-sync", "VISION_ATTN": "--vision-attn"}
+# Phase 11's waves of the three requests, (temperature, max_tokens): the
+# greedy wave of phases 4-10, then the same requests sampled for long
+# enough that the engine's speculation gate (spec_min_tokens_per_iter,
+# 1.5) sees the drafts of near-uniform samples fail for three chunks and
+# turns speculation off, so plain decode steps (nq = 1) run too: on random
+# weights greedy text repeats and its drafts are accepted (1.70 tokens per
+# slot-iteration on the card), so a greedy wave runs verify steps only.
+SHIPPING_WAVES = ((0.0, 32), (1.0, 128))
 # The bound: NVIDIA H100 SXM data sheet (dense, 700 W): HBM 3.35 TB/s,
 # 989 TFLOP/s bf16, 1,979 TOP/s int8.
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
 REPS = 10
+# Calls per timed sample: a kernel's time is taken over back-to-back calls,
+# so that what is timed is the device's work rather than one call's host
+# time before its launch.
+INNER = 5
 
 
 def log(msg: str = "") -> None:
     print(msg, flush=True)
 
 
-def cuda_ms(fn) -> float:
+def cuda_ms(fn, calls: int = 1) -> float:
     import torch
 
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    fn()
+    for _ in range(calls):
+        fn()
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end)
 
 
-def time_in_turns(fns: dict) -> dict:
-    """Median CUDA-event ms of REPS runs of each function, after one warm
-    run, taking them in turns (the order reversed every other round)."""
+def time_in_turns(fns: dict, inner: int = INNER) -> dict:
+    """Median CUDA-event ms per call of REPS samples of each function, a
+    sample being ``inner`` calls back to back (so the wrapper's host time
+    before each launch overlaps the previous call's device time), after
+    one warm call, taking them in turns (the order reversed every other
+    round)."""
     for fn in fns.values():
         fn()
     times = {name: [] for name in fns}
     for r in range(REPS):
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
-            times[name].append(cuda_ms(fns[name]))
+            times[name].append(cuda_ms(fns[name], inner) / inner)
     return {name: statistics.median(ts) for name, ts in times.items()}
 
 
@@ -170,12 +222,43 @@ def bound(flops: float, nbytes: float, kind: str = "bf16") -> dict:
             "flops": flops, "bytes": nbytes, "peak": kind}
 
 
+def tight_errors(out, ref) -> dict:
+    """``out`` against ``ref`` [..., D] by the bound of TIGHT_ROW and
+    TIGHT_RMS: the relative RMS error, and the largest ratio of an
+    element's error to its allowance (2^-7 |ref| + TIGHT_ROW * the RMS of
+    ref over D there; inf where ref's row is 0 and out's is not). Passes
+    when ``rel_rms_err`` <= TIGHT_RMS and ``tight_ratio`` <= 1."""
+    import torch
+
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    allow = 2.0**-7 * ref.abs() + TIGHT_ROW * ref.pow(2).mean(-1, keepdim=True).sqrt()
+    ratio = torch.where(err > 0, err / allow, 0.0)
+    return {"rel_rms_err": float(err.norm() / ref.norm().clamp_min(1e-30)),
+            "tight_ratio": float(ratio.max())}
+
+
+def _tight_pass(e: dict) -> bool:
+    return e["rel_rms_err"] <= TIGHT_RMS and e["tight_ratio"] <= 1.0
+
+
+def fp8_round(x):
+    """``x`` rounded through float8 e4m3 and back: the tight bound's control."""
+    import torch
+
+    return x.to(torch.float8_e4m3fn).to(x.dtype)
+
+
 def compare(name: str, kernel_fn, plain_fn, atol: float = ATOL, rtol: float = RTOL,
-            work: dict = None, library_fn=None, extra: dict = None) -> dict:
+            work: dict = None, library_fn=None, extra: dict = None, control_fn=None) -> dict:
     """Run kernel and plain once, check |err| <= atol + rtol * |plain|, then
     time REPS runs of each in turns (with ``library_fn``, one PyTorch call
     that computes the same function, and the ``extra`` functions, timed in
-    the same turns for comparison). ``work`` is the case's :func:`bound`."""
+    the same turns for comparison). ``work`` is the case's :func:`bound`.
+    With ``control_fn`` (the plain version on V rounded through fp8) the
+    kernel must also pass :func:`tight_errors`' bound, the control must
+    fail it, and REPEAT_CALLS more kernel calls must repeat the output bit
+    for bit."""
     import torch
 
     out, ref = kernel_fn(), plain_fn()
@@ -186,17 +269,37 @@ def compare(name: str, kernel_fn, plain_fn, atol: float = ATOL, rtol: float = RT
         raise AssertionError(f"{name}: non-finite kernel output")
     if not bool((err <= atol + rtol * ref.float().abs()).all()):
         raise AssertionError(f"{name}: kernel disagrees with plain (max abs err {max_abs})")
-    del out, ref, err
+    del err
+    tight = {}
+    if control_fn is not None:
+        tight = tight_errors(out, ref)
+        control = tight_errors(control_fn(), ref)
+        same = sum(bool(torch.equal(kernel_fn(), out)) for _ in range(REPEAT_CALLS))
+        log(f"  {name}: kernel rel RMS err {tight['rel_rms_err']:.3e} (tol {TIGHT_RMS:g}), max "
+            f"err / (2^-7|ref| + {TIGHT_ROW:g} rms_D(ref)) {tight['tight_ratio']:.3f} (tol 1); "
+            f"control, plain on V through fp8: {control['rel_rms_err']:.3e}, "
+            f"{control['tight_ratio']:.3f} (must fail); {same} of {REPEAT_CALLS} repeated "
+            f"calls bit-identical")
+        if same != REPEAT_CALLS:
+            raise AssertionError(f"{name}: {REPEAT_CALLS - same} of {REPEAT_CALLS} repeated "
+                                 f"calls differ from the first")
+        if not _tight_pass(tight):
+            raise AssertionError(f"{name}: kernel fails the tight bound ({tight})")
+        if _tight_pass(control):
+            raise AssertionError(f"{name}: the fp8 control passes the tight bound ({control})")
+        tight.update({f"control_{key}": value for key, value in control.items()})
+    del out, ref
     fns = {"ms": kernel_fn, "plain_ms": plain_fn, **(extra or {})}
     if library_fn is not None:
         fns["library_ms"] = library_fn
     times = time_in_turns(fns)
-    res = {"case": name, "max_abs_err": max_abs, "library_ms": None, **times, **(work or {})}
+    res = {"case": name, "max_abs_err": max_abs, "library_ms": None, **tight, **times,
+           **(work or {})}
     log(f"  {name}: max_abs_err {max_abs:.3e} (tol {atol:g} + {rtol:g}*|ref|), "
         f"kernel {res['ms']:.3f} ms, plain {res['plain_ms']:.3f} ms, "
         + "".join(f"{k} {v:.3f} ms, " for k, v in times.items() if k not in ("ms", "plain_ms"))
         + (f"bound {res['bound_ms']:.4f} ms ({res['bound_by']}) " if work else "")
-        + f"(median of {REPS})")
+        + f"(median of {REPS} samples of {INNER} calls)")
     torch.cuda.empty_cache()
     return res
 
@@ -271,7 +374,8 @@ def kernel_phase(dev) -> dict:
         "flash vision T=6656 (5040+1380 packed, -1 pad) H=12 D=128",
         lambda: flash_attention(q, k, v, seg, seg),
         lambda: flash_attention_reference(q, k, v, seg, seg),
-        work=_flash_work(q, k, seg, seg), library_fn=lambda: _sdpa(q, k, v, block)))
+        work=_flash_work(q, k, seg, seg), library_fn=lambda: _sdpa(q, k, v, block),
+        control_fn=lambda: flash_attention_reference(q, k, fp8_round(v), seg, seg)))
     del block
     # (b) decoder prefill: B=4, T=2048, GQA 12q/2kv, causal, padded rows.
     lens = torch.tensor([2048, 1531, 800, 77], device=dev)
@@ -282,7 +386,9 @@ def kernel_phase(dev) -> dict:
         lambda: flash_attention(q, k, v, seg, seg, causal=True),
         lambda: flash_attention_reference(q, k, v, seg, seg, causal=True),
         work=_flash_work(q, k, seg, seg, causal=True),
-        library_fn=lambda: _sdpa(q, k, v, causal=True)))
+        library_fn=lambda: _sdpa(q, k, v, causal=True),
+        control_fn=lambda: flash_attention_reference(q, k, fp8_round(v), seg, seg,
+                                                     causal=True)))
     # (g) a chunked-prefill chunk as decoder_prefill_extend_batched calls
     # it: B=2, C=2048 queries at positions 2048..4095 over the gathered
     # [0, 4096) prefix; prompts of 4,096 and 3,100 tokens (segment -1 past
@@ -299,7 +405,9 @@ def kernel_phase(dev) -> dict:
         lambda: flash_attention(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048),
         lambda: flash_attention_reference(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048),
         work=_flash_work(q, k, q_seg, kv_seg, causal=True, q_offset=2048),
-        library_fn=lambda: _sdpa(q, k, v, chunk_mask)))
+        library_fn=lambda: _sdpa(q, k, v, chunk_mask),
+        control_fn=lambda: flash_attention_reference(q, k, fp8_round(v), q_seg, kv_seg,
+                                                     causal=True, q_offset=2048)))
     del q, k, v, seg, q_seg, kv_seg, chunk_mask
     # (c, d) paged decode: 64 slots, page 128, table width 320, lengths
     # over 0..12k with zeros, shuffled distinct pages (sized for nq = 3).
@@ -323,17 +431,46 @@ def kernel_phase(dev) -> dict:
             f"paged decode nq={nq} bf16 {shape}",
             lambda: paged_attention_multiquery_bf16(qd, kp, vp, lens_t, table_t),
             lambda: paged_attention_multiquery_reference(qd, kp, vp, lens_t, table_t),
-            work=_paged_work(qd, lens_t, 2, int8=False)))
+            work=_paged_work(qd, lens_t, 2, int8=False),
+            control_fn=lambda: paged_attention_multiquery_reference(qd, kp, fp8_round(vp),
+                                                                    lens_t, table_t)))
         results["paged_attention_multiquery_int8"].append(compare(
             f"paged decode nq={nq} int8 {shape}",
             lambda: paged_attention_multiquery_int8(qd, kq, vq, ks, vs, lens_t, table_t),
             lambda: paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t),
             work=_paged_work(qd, lens_t, 2, int8=True)))
     del kp, vp, kq, vq, ks, vs
-    results.update(window_cases(randn, dev))
+    windows = window_cases(randn, dev)
+    results["flash_attention"].append(windows.pop("flash_windowed"))
+    results.update(windows)
     results.update(paged_v1_cases(randn, dev))
     results.update(int4_cases(randn, gen, dev))
     return results
+
+
+def tiny_call_phase(dev) -> dict:
+    """The floor under every single-call time above: CUDA-event ms of one
+    wrapper call at a tiny shape (kernel 1 over 128 tokens, kernel 2's bf16
+    mode over one 16-token page), where the kernel's own work is a few
+    microseconds and the wrapper's host time before the launch shows."""
+    import torch
+
+    from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
+    from dots_ocr_tpu_torch.ops.paged_attention import paged_attention_multiquery_bf16
+
+    q = torch.zeros(1, 128, 1, 128, dtype=torch.bfloat16, device=dev)
+    seg = torch.zeros(1, 128, dtype=torch.int32, device=dev)
+    pages = torch.zeros(1, 2, 16, 128, dtype=torch.bfloat16, device=dev)
+    qd = torch.zeros(1, 1, 1, 128, dtype=torch.bfloat16, device=dev)
+    lens = torch.full((1,), 16, dtype=torch.int32, device=dev)
+    table = torch.ones(1, 1, dtype=torch.int32, device=dev)
+    res = time_in_turns({
+        "flash_attention": lambda: flash_attention(q, q, q, seg, seg),
+        "paged_attention_multiquery": lambda: paged_attention_multiquery_bf16(
+            qd, pages, pages, lens, table)}, inner=1)
+    log("  one call at a tiny shape (median of "
+        f"{REPS}): " + ", ".join(f"{name} {ms:.3f} ms" for name, ms in res.items()))
+    return res
 
 
 def _paged_pool(randn, rng, lengths, page_size, head_dim, width, extra=0):
@@ -356,13 +493,11 @@ def _paged_pool(randn, rng, lengths, page_size, head_dim, width, extra=0):
             torch.from_numpy(table).to(kp.device))
 
 
-def window_cases(randn, dev) -> dict:
-    """Kernel 4 at the windowed vision batch: the demo page and receipt,
-    smart-resized as the engine does, packed window-major with 16 x
-    16-patch windows (edge windows padded), and a fully padded window of
-    the bucket's tail; 12 heads x 128. Beside it, kernel 1 over the same tokens with
-    each window as a segment (same function on the valid rows), and SDPA
-    on the windows with the key mask."""
+def windowed_segments(dev):
+    """The windowed vision batch's segment ids [nw, W] on ``dev`` and its
+    packed token count: the demo page and receipt, smart-resized as the
+    engine does, packed window-major with 16 x 16-patch windows (edge
+    windows padded), plus a fully padded window of the bucket's tail."""
     import dataclasses
 
     import numpy as np
@@ -371,11 +506,6 @@ def window_cases(randn, dev) -> dict:
 
     from dots_ocr_tpu_torch.models.config import DotsOCRConfig
     from dots_ocr_tpu_torch.models.preprocess import pack_images
-    from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
-    from dots_ocr_tpu_torch.ops.window_attention import (
-        window_attention,
-        window_attention_reference,
-    )
     from dots_ocr_tpu_torch.utils.consts import MAX_PIXELS, MIN_PIXELS
     from dots_ocr_tpu_torch.utils.image_io import fetch_image
 
@@ -389,8 +519,24 @@ def window_cases(randn, dev) -> dict:
     # plus one window of the bucket's tail (segment -1 throughout), which a
     # bucket longer than the packed tokens adds (here they fill it exactly)
     seg = np.concatenate([packed.segment_ids, np.full(w, -1, np.int32)])
-    nw = len(seg) // w
-    seg = torch.from_numpy(seg.reshape(nw, w)).to(dev)
+    return torch.from_numpy(seg.reshape(-1, w)).to(dev), packed.num_tokens
+
+
+def window_cases(randn, dev) -> dict:
+    """Kernel 4 at the windowed vision batch (:func:`windowed_segments`);
+    12 heads x 128. Beside it, kernel 1 over the same tokens with each
+    window as a segment (same function on the valid rows), and SDPA on the
+    windows with the key mask."""
+    import torch
+
+    from dots_ocr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from dots_ocr_tpu_torch.ops.window_attention import (
+        window_attention,
+        window_attention_reference,
+    )
+
+    seg, num_tokens = windowed_segments(dev)
+    nw, w = seg.shape
     valid_keys = (seg >= 0).sum(dim=1)
     if not (((valid_keys > 0) & (valid_keys < w)).any() and (valid_keys == 0).any()):
         raise AssertionError("the windowed batch lacks a padded edge window or a padded "
@@ -413,13 +559,25 @@ def window_cases(randn, dev) -> dict:
     if not diff <= ATOL + RTOL * float(flash[0, rows].float().abs().max()):
         raise AssertionError(f"window kernel and flash disagree on valid rows ({diff})")
     res = compare(
-        f"window attention nw={nw} W={w} H=12 D=128 ({packed.num_tokens} packed tokens of "
+        f"window attention nw={nw} W={w} H=12 D=128 ({num_tokens} packed tokens of "
         f"{nw * w}, {int((valid_keys == 0).sum())} padded window(s))",
         lambda: window_attention(q, k, v, seg),
         lambda: window_attention_reference(q, k, v, seg), work=work,
         library_fn=lambda: _sdpa(q, k, v, key_mask),
         extra={"flash_same_windows_ms": lambda: flash_attention(*flat, win_seg, win_seg)})
-    return {"window_attention": [res]}
+    # Kernel 1's own case on these windows (its tile list skips the other
+    # windows' tiles): the valid rows' pairs only (a padded window's rows
+    # are -1 and give zeros here).
+    del out, flash
+    flash_res = compare(
+        f"flash windowed segments {nw} x {w} as segment ids, T={nw * w} H=12 D=128",
+        lambda: flash_attention(*flat, win_seg, win_seg),
+        lambda: flash_attention_reference(*flat, win_seg, win_seg),
+        work=_flash_work(flat[0], flat[1], win_seg, win_seg),
+        library_fn=lambda: _sdpa(q, k, v, key_mask),
+        control_fn=lambda: flash_attention_reference(flat[0], flat[1], fp8_round(flat[2]),
+                                                     win_seg, win_seg))
+    return {"window_attention": [res], "flash_windowed": flash_res}
 
 
 def paged_v1_cases(randn, dev) -> dict:
@@ -432,6 +590,7 @@ def paged_v1_cases(randn, dev) -> dict:
 
     from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
     from dots_ocr_tpu_torch.ops.paged_attention import (
+        paged_attention_multiquery_bf16,
         paged_attention_stacked,
         paged_attention_v1_reference,
     )
@@ -455,12 +614,30 @@ def paged_v1_cases(randn, dev) -> dict:
             else:
                 k_all, v_all, ks_all, vs_all = stack(kp), stack(vp), None, None
             args = (qd, k_all, v_all, 1, lens_t, table_t, page_size, ks_all, vs_all)
+            # Kernel 2's bf16 mode on the same rows, timed in the same turns
+            # (the JAX rule sends bf16 decode at head_dim 128 to kernel 2).
+            extra = {}
+            if page_size == 128 and head_dim == 128 and not int8:
+                def k2():
+                    return paged_attention_multiquery_bf16(qd[:, None], kp, vp, lens_t,
+                                                           table_t)[:, 0]
+                # held to the tight bound against each other
+                out2, out3 = k2(), paged_attention_stacked(*args)
+                diff = float((out2.float() - out3.float()).abs().max())
+                cross = tight_errors(out2, out3)
+                log(f"  kernel 2 bf16 vs kernel 3 bf16 at 64 x {V1_CONTEXT}, page 128: max abs "
+                    f"diff {diff:.3e}, rel RMS diff {cross['rel_rms_err']:.3e} (tol "
+                    f"{TIGHT_RMS:g}), tight ratio {cross['tight_ratio']:.3f} (tol 1)")
+                if not (diff <= ATOL and _tight_pass(cross)):
+                    raise AssertionError(f"kernels 2 and 3 disagree ({diff}, {cross})")
+                del out2, out3
+                extra = {"kernel2_bf16_ms": k2}
             results["paged_attention_v1_int8" if int8 else "paged_attention_v1"].append(compare(
                 f"paged v1 {'int8' if int8 else 'bf16'} 64 slots x {V1_CONTEXT} page "
                 f"{page_size} 12q/2kv D={head_dim}",
                 lambda: paged_attention_stacked(*args),
                 lambda: paged_attention_v1_reference(*args),
-                work=_paged_work(qd, lens_t, 2, int8=int8)))
+                work=_paged_work(qd, lens_t, 2, int8=int8), extra=extra))
             del k_all, v_all, ks_all, vs_all, args
         del kp, vp
     return results
@@ -512,7 +689,7 @@ def w8a8_vision_phase(dev) -> dict:
                                     "bf16_ms": lambda: linear(x, w)})
         log(f"  vision linear {label} T={VISION_T} K={k} N={n}: W8A8 "
             f"{res[label]['w8a8_ms']:.3f} ms, bf16 {res[label]['bf16_ms']:.3f} ms "
-            f"(median of {REPS})")
+            f"(median of {REPS} samples of {INNER} calls)")
     return res
 
 
@@ -543,6 +720,8 @@ def _counters():
     return {"flash_attention": (flash_attention, "launches"),
             "flash_attention (q_offset > 0)": (flash_attention, "offset_launches"),
             "paged_attention_multiquery": (paged_attention_multiquery_bf16, "launches"),
+            "paged_attention_multiquery (nq > 1)": (paged_attention_multiquery_bf16,
+                                                    "verify_launches"),
             "paged_attention_multiquery_int8": (paged_attention_multiquery_int8, "launches"),
             "paged_attention_v1": (paged_attention_stacked, "launches"),
             "paged_attention_v1_int8": (paged_attention_stacked, "int8_launches"),
@@ -560,11 +739,14 @@ def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
-def serve_phase(dev, flags, label: str, required):
-    """Build the engine through the server's entry point with ``flags``,
-    serve it, and drive three concurrent requests. Every counter named in
-    ``required`` must move during the served run. Returns (engine, the
-    launch counts of the run, /metrics as a dict, the page image)."""
+def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 32),)):
+    """Build the engine through the server's entry point with ``flags``
+    (after ``base_flags``, by default the shipping geometry of phases 4-10),
+    serve it, and drive three concurrent requests per wave, one wave after
+    the other, each wave's requests at its (temperature, max_tokens). Every
+    counter named in ``required`` must move during the served run (all
+    waves). Returns (engine, the launch counts of the run, /metrics as a
+    dict, the page image)."""
     import torch
     from aiohttp import web
     from PIL import Image
@@ -574,11 +756,12 @@ def serve_phase(dev, flags, label: str, required):
     from dots_ocr_tpu_torch.utils.prompts import dict_promptmode_to_prompt as prompts
     from dots_ocr_tpu_torch.serve import server as torch_server
 
+    if base_flags is None:
+        base_flags = ["--num-pages", str(NUM_PAGES), "--page-size", str(PAGE_SIZE),
+                      "--max-slots", str(MAX_SLOTS), "--max-seq-tokens", str(MAX_SEQ_TOKENS),
+                      "--steps-per-sync", "16", "--vision-attn", "config"]
     args = torch_server.build_parser().parse_args([
-        "--random-flagship", "--platform", str(dev), "--num-pages", str(NUM_PAGES),
-        "--page-size", str(PAGE_SIZE), "--max-slots", str(MAX_SLOTS),
-        "--max-seq-tokens", str(MAX_SEQ_TOKENS), "--steps-per-sync", "16",
-        "--vision-attn", "config", *flags,
+        "--random-flagship", "--platform", str(dev), *base_flags, *flags,
     ])
     t0 = time.perf_counter()
     engine = torch_server.build_engine(args)
@@ -587,7 +770,7 @@ def serve_phase(dev, flags, label: str, required):
     log(f"  [{label}] flagship engine built (random weights, {args.quantize} quantization, "
         f"vision {args.vision_quantize}, {args.kv_cache_dtype} KV pool) in "
         f"{time.perf_counter() - t0:.1f} s; "
-        f"{args.num_pages} pages x {args.page_size}, {MAX_SLOTS} slots, table width "
+        f"{args.num_pages} pages x {args.page_size}, {args.max_slots} slots, table width "
         f"{engine.sched.max_pages_per_seq}, speculate_k {engine.sched.speculate_k}, "
         f"prefill chunk {engine.sched.prefill_chunk_tokens}, vision window "
         f"{engine.config.vision.window_size} (full layers {engine.config.vision.full_attn_layers})")
@@ -622,8 +805,7 @@ def serve_phase(dev, flags, label: str, required):
             if img is not None:
                 content = [{"type": "image_url", "image_url": {"url": pil_to_base64(img)}},
                            {"type": "text", "text": "<|img|><|imgpad|><|endofimg|>" + text}]
-            return {"model": "flagship-random", "temperature": 0, "max_tokens": 32,
-                    "messages": [{"role": "user", "content": content}]}
+            return {"model": "flagship-random", "messages": [{"role": "user", "content": content}]}
 
         requests = [("page/prompt_layout_all_en", chat(page, prompts["prompt_layout_all_en"])),
                     ("receipt/prompt_ocr", chat(receipt, prompts["prompt_ocr"])),
@@ -636,29 +818,12 @@ def serve_phase(dev, flags, label: str, required):
             return name, status, json.loads(text), time.perf_counter() - t
 
         reset_counts()
-        t0 = time.perf_counter()
-        with ThreadPoolExecutor(len(requests)) as pool:
-            results = list(pool.map(post, requests))
-        wall = time.perf_counter() - t0
+        for wave, (temperature, max_tokens) in enumerate(waves):
+            wave_label = label if len(waves) == 1 else f"{label} wave {wave + 1}"
+            batch = [(name, {**body, "temperature": temperature, "max_tokens": max_tokens})
+                     for name, body in requests]
+            _serve_wave(post, batch, wave_label, temperature)
         launches = read_counts()
-        total_tokens = 0
-        for name, status, data, secs in results:
-            if status != 200:
-                raise AssertionError(f"{name}: HTTP {status} {data}")
-            usage = data["usage"]
-            n = usage["completion_tokens"]
-            if n < 1:
-                raise AssertionError(f"{name}: no completion tokens")
-            total_tokens += n
-            lat = usage.get("latency", {})
-            decode_s = lat.get("decode_ms", 0.0) / 1e3
-            rate = (n - 1) / decode_s if decode_s > 0 else float("nan")
-            log(f"  [{label}] {name}: HTTP {status}, prompt {usage['prompt_tokens']} tokens, "
-                f"completion {n} tokens, finish {data['choices'][0]['finish_reason']}, "
-                f"latency {secs * 1e3:.0f} ms (engine: ttft {lat.get('ttft_ms')} ms, "
-                f"decode {lat.get('decode_ms')} ms -> {rate:.1f} tok/s after the first)")
-        log(f"  [{label}] 3 concurrent requests: wall {wall:.2f} s, {total_tokens} completion "
-            f"tokens -> {total_tokens / wall:.1f} tok/s")
         status, text = _http(f"{base}/metrics")
         metrics = {}
         for line in text.splitlines():
@@ -680,6 +845,33 @@ def serve_phase(dev, flags, label: str, required):
         loop.call_soon_threadsafe(loop.stop)
         thread.join(60)
     return engine, launches, metrics, page
+
+
+def _serve_wave(post, batch, label: str, temperature: float) -> None:
+    """Post the wave's requests concurrently; each must come back HTTP 200
+    with completion tokens. Logs each request and the wave's wall."""
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(batch)) as pool:
+        results = list(pool.map(post, batch))
+    wall = time.perf_counter() - t0
+    total_tokens = 0
+    for name, status, data, secs in results:
+        if status != 200:
+            raise AssertionError(f"{name}: HTTP {status} {data}")
+        usage = data["usage"]
+        n = usage["completion_tokens"]
+        if n < 1:
+            raise AssertionError(f"{name}: no completion tokens")
+        total_tokens += n
+        lat = usage.get("latency", {})
+        decode_s = lat.get("decode_ms", 0.0) / 1e3
+        rate = (n - 1) / decode_s if decode_s > 0 else float("nan")
+        log(f"  [{label}] {name}: HTTP {status}, prompt {usage['prompt_tokens']} tokens, "
+            f"completion {n} tokens, finish {data['choices'][0]['finish_reason']}, "
+            f"latency {secs * 1e3:.0f} ms (engine: ttft {lat.get('ttft_ms')} ms, "
+            f"decode {lat.get('decode_ms')} ms -> {rate:.1f} tok/s after the first)")
+    log(f"  [{label}] 3 concurrent requests at temperature {temperature:g}: wall {wall:.2f} s, "
+        f"{total_tokens} completion tokens -> {total_tokens / wall:.1f} tok/s")
 
 
 def _page_inputs(engine, page, dev):
@@ -731,13 +923,14 @@ def int4_impl(impl: str):
         int4_matmul.IMPLEMENTATIONS["kernel"] = saved
 
 
-def consistency_int8_phase(engine, page, dev, w8a8_vision: bool = False) -> None:
-    """The page request of the shipped, the fully quantized or the windowed
-    page-64 path through the kernels and through the plain versions (int4
-    linears switched with :func:`int4_impl`) at the engine's page size and
-    vision config: the chunked prefill (2,048-token chunks, int8 KV), then
-    four int8-KV decode steps fed the same tokens (kernel 2, or at page 64
-    kernel 3, and their plain versions).
+def consistency_chunked_phase(engine, page, dev, w8a8_vision: bool = False) -> None:
+    """The page request of the shipped, the fully quantized, the windowed
+    page-64 or the shipping.env path through the kernels and through the
+    plain versions (int4 linears switched with :func:`int4_impl`) at the
+    engine's page size, KV dtype and vision config: the chunked prefill
+    (2,048-token chunks), then four decode steps fed the same tokens
+    (kernel 2 in the engine's KV mode, or at page 64 int8 kernel 3, and
+    their plain versions).
 
     With ``w8a8_vision`` both decoder passes take the kernel path's image
     embeddings, and the argmax must agree too. W8A8 re-quantizes every
@@ -791,7 +984,7 @@ def consistency_int8_phase(engine, page, dev, w8a8_vision: bool = False) -> None
                                                   vision, scatter["scatter_batch"],
                                                   scatter["scatter_pos"])
                 paged = PagedKV.create(cfg.decoder, alloc.num_pages, page_size, cfg.torch_dtype,
-                                       dev, quantized=True)
+                                       dev, quantized=engine.sched.kv_cache_dtype == "int8")
                 for start in range(0, bucket, ct):
                     n_valid = min(ct, t - start)
                     slots = np.zeros((1, ct), np.int64)
@@ -826,7 +1019,7 @@ def consistency_int8_phase(engine, page, dev, w8a8_vision: bool = False) -> None
 
 def _w8a8_vision_noise(vparams, cfg, visions, patches, cos, sin, segment_ids) -> None:
     """The W8A8 encoder's kernel-vs-plain difference against the noise of
-    its activation quantization (see consistency_int8_phase)."""
+    its activation quantization (see consistency_chunked_phase)."""
     import torch
 
     from dots_ocr_tpu_torch.models.quantize import BLOCK_KERNELS
@@ -959,7 +1152,7 @@ def decode_cost_phase(engine, dev):
            "bf16 weights, bf16 KV, v1 kernel": step(weights["bf16"], pools["bf16"],
                                                     attn_impl="v1")}
     reset_counts()
-    res = time_in_turns(fns)
+    res = time_in_turns(fns, inner=1)
     launches = read_counts()
     log(f"  decode step, {MAX_SLOTS} slots x {ctx} context (median of {REPS}): "
         + ", ".join(f"{name} {ms:.3f} ms" for name, ms in res.items()))
@@ -969,6 +1162,21 @@ def decode_cost_phase(engine, dev):
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched in the decode steps")
     return res, launches
+
+
+def shipping_env() -> dict:
+    """deploy/shipping.env's KEY=VALUE lines (comments and blanks skipped)."""
+    env = {}
+    with open(SHIPPING_ENV) as f:
+        for line in f:
+            line = line.strip()
+            if line and not line.startswith("#") and "=" in line:
+                key, value = line.split("=", 1)
+                env[key.strip()] = value.strip()
+    missing = [key for key in SHIPPING_KEYS if key not in env]
+    if missing:
+        raise AssertionError(f"{SHIPPING_ENV} lacks {missing}")
+    return env
 
 
 def main() -> int:
@@ -985,7 +1193,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    log("[1/10] device")
+    log("[1/11] device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -994,7 +1202,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {smi}")
 
-    log("[2/10] build the CUDA kernels")
+    log("[2/11] build the CUDA kernels")
     from dots_ocr_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
@@ -1004,11 +1212,12 @@ def main() -> int:
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3/10] kernels vs plain versions on {smi}")
+    log(f"[3/11] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
+    tiny_call = tiny_call_phase(dev)
     w8a8_vision = w8a8_vision_phase(dev)
 
-    log(f"[4/10] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
+    log(f"[4/11] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
         f"{PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, shipped, metrics, page = serve_phase(
         dev, SHIPPED_FLAGS, "shipped",
@@ -1018,12 +1227,12 @@ def main() -> int:
         raise AssertionError(f"shipped path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[5/10] consistency, shipped path: kernel path vs plain path, page request")
-    consistency_int8_phase(engine, page, dev)
+    log("[5/11] consistency, shipped path: kernel path vs plain path, page request")
+    consistency_chunked_phase(engine, page, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[6/10] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
+    log(f"[6/11] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
         f"chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, full_quant, metrics, page = serve_phase(
         dev, FULL_QUANT_FLAGS, "int4",
@@ -1033,24 +1242,24 @@ def main() -> int:
         raise AssertionError(f"int4 path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[7/10] consistency, fully quantized path: kernel path vs plain path, page request")
-    consistency_int8_phase(engine, page, dev, w8a8_vision=True)
+    log("[7/11] consistency, fully quantized path: kernel path vs plain path, page request")
+    consistency_chunked_phase(engine, page, dev, w8a8_vision=True)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[8/10] end to end, bf16 path (bf16 weights and KV, no speculation, one "
+    log(f"[8/11] end to end, bf16 path (bf16 weights and KV, no speculation, one "
         f"{PREFILL_LIMIT}-token prefill), full depth, on {smi}")
     engine, bf16_path, _, page = serve_phase(
         dev, BF16_FLAGS, "bf16", required=("flash_attention", "paged_attention_multiquery"))
     log("  consistency, bf16 path: kernel path vs plain path, page request")
     consistency_phase(engine, page, dev)
 
-    log(f"[9/10] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
+    log(f"[9/11] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
     decode_ms, decode_launches = decode_cost_phase(engine, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[10/10] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
+    log(f"[10/11] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
         f"speculation, chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, windowed, metrics, page = serve_phase(
         dev, WINDOWED_FLAGS, "windowed",
@@ -1059,7 +1268,30 @@ def main() -> int:
         raise AssertionError(f"windowed path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2)")
     log("  consistency, windowed page-64 path: kernel path vs plain path, page request")
-    consistency_int8_phase(engine, page, dev)
+    consistency_chunked_phase(engine, page, dev)
+    del engine
+    torch.cuda.empty_cache()
+
+    env = shipping_env()
+    env_flags = [item for key, flag in SHIPPING_KEYS.items() for item in (flag, env[key])]
+    settings = ", ".join(f"{key}={env[key]}" for key in SHIPPING_KEYS)
+    log(f"[11/11] end to end, deploy/shipping.env as written ({settings}): flagship, random "
+        f"weights, waves (temperature, max_tokens) {SHIPPING_WAVES}, OpenAIServer on {smi}")
+    engine, shipping, metrics, page = serve_phase(
+        dev, [], "shipping.env", base_flags=env_flags, waves=SHIPPING_WAVES,
+        required=("flash_attention", "flash_attention (q_offset > 0)",
+                  "paged_attention_multiquery", "paged_attention_multiquery (nq > 1)"))
+    decode_calls = (shipping["paged_attention_multiquery"]
+                    - shipping["paged_attention_multiquery (nq > 1)"])
+    log(f"  [shipping.env] kernel 2 bf16: {decode_calls} launches at nq = 1 (decode), "
+        f"{shipping['paged_attention_multiquery (nq > 1)']} at nq = 3 (verify)")
+    if (decode_calls < 1 or metrics.get("prefill_chunks", 0) < 2
+            or metrics.get("spec_chunks", 0) < 1):
+        raise AssertionError(f"shipping.env path: {decode_calls} nq = 1 launches (need >= 1), "
+                             f"prefill_chunks {metrics.get('prefill_chunks')} (need >= 2), "
+                             f"spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
+    log("  consistency, shipping.env path: kernel path vs plain path, page request")
+    consistency_chunked_phase(engine, page, dev)
     del engine
     torch.cuda.empty_cache()
 
@@ -1067,7 +1299,7 @@ def main() -> int:
         "flash_attention": ("dots_ocr_tpu_torch/csrc/flash_attention.cu",
                             "dots_ocr_tpu/ops/flash_attention.py:330", shipped),
         "paged_attention_multiquery": ("dots_ocr_tpu_torch/csrc/paged_attention.cu",
-                                       "dots_ocr_tpu/ops/paged_attention.py:689", bf16_path),
+                                       "dots_ocr_tpu/ops/paged_attention.py:689", shipping),
         "paged_attention_multiquery_int8": (
             "dots_ocr_tpu_torch/csrc/paged_attention.cu",
             "dots_ocr_tpu/ops/paged_attention.py:689 (int8 mode, :400-501)", shipped),
@@ -1095,8 +1327,10 @@ def main() -> int:
          **{key: cases[main_case.get(name, 0)][key] for key in keys}, "cases": cases}
         for name, cases in kernels.items()
     ], "launches_by_path": {"shipped": shipped, "int4": full_quant, "bf16": bf16_path,
-                            "decode_steps": decode_launches, "windowed": windowed},
-        "decode_step_ms": decode_ms, "w8a8_vision_linear_ms": w8a8_vision}
+                            "decode_steps": decode_launches, "windowed": windowed,
+                            "shipping.env": shipping},
+        "decode_step_ms": decode_ms, "w8a8_vision_linear_ms": w8a8_vision,
+        "tiny_call_ms": tiny_call}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps(line))

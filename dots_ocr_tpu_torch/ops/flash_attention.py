@@ -22,6 +22,10 @@ from dots_ocr_tpu_torch.ops.attention import make_causal_mask, make_segment_mask
 
 # Finite, not -inf: exp(-inf - (-inf)) is NaN, exp of this underflows to 0.
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
+# The CUDA kernel's tiles: query rows per block, keys per KV tile.
+BLOCK_Q, BLOCK_K = 128, 64
+# flash_tile_plan's codes.
+TILE_SKIP, TILE_MASKED, TILE_UNMASKED = 0, 1, 2
 
 
 def _segments(ids: Optional[torch.Tensor], batch: int, length: int, device) -> torch.Tensor:
@@ -69,6 +73,42 @@ def flash_attention_reference(
     return out.reshape(batch, q_len, num_heads, head_dim).to(q.dtype)
 
 
+def _tile_ranges(ids: torch.Tensor, block: int):
+    """Per tile of ``block`` ids (the tail padded with -1): the min and max
+    id >= 0 (int32 max / -1 when there is none) and the tile's single id
+    when every position holds it (else -1)."""
+    batch, length = ids.shape
+    n = -(-length // block)
+    tiles = torch.full((batch, n * block), -1, dtype=torch.int64, device=ids.device)
+    tiles[:, :length] = ids
+    tiles = tiles.reshape(batch, n, block)
+    live = tiles >= 0
+    lo = torch.where(live, tiles, torch.iinfo(torch.int32).max).amin(-1)
+    hi = tiles.amax(-1)
+    return lo, hi, torch.where(live.all(-1) & (lo == hi), lo, -1)
+
+
+def flash_tile_plan(q_seg: torch.Tensor, kv_seg: torch.Tensor, causal: bool = False,
+                    q_offset: int = 0) -> torch.Tensor:
+    """Which KV tiles each Q tile of the CUDA kernel visits, by the rule of
+    its tile list (``csrc/flash_attention.cu``): [B, ceil(Tq / BLOCK_Q),
+    ceil(S / BLOCK_K)] of TILE_SKIP (the id ranges over ids >= 0 cannot
+    meet, or the tile lies wholly above the causal diagonal), TILE_UNMASKED
+    (both tiles one and the same segment, no -1 and no position past Tq or
+    S, and the tile wholly at or below the diagonal: the Pallas body's
+    ``no_mask_needed``) or TILE_MASKED. Ids need not be sorted."""
+    q_lo, q_hi, q_one = (x[:, :, None] for x in _tile_ranges(q_seg, BLOCK_Q))
+    k_lo, k_hi, k_one = (x[:, None, :] for x in _tile_ranges(kv_seg, BLOCK_K))
+    run = (q_hi >= 0) & (k_hi >= 0) & (q_lo <= k_hi) & (k_lo <= q_hi)
+    unmasked = (q_one >= 0) & (k_one == q_one)
+    if causal:
+        q0 = torch.arange(q_lo.shape[1], device=q_seg.device)[:, None] * BLOCK_Q + q_offset
+        k0 = torch.arange(k_lo.shape[2], device=q_seg.device)[None, :] * BLOCK_K
+        run = run & (k0 < q0 + BLOCK_Q)[None]
+        unmasked = unmasked & (k0 + BLOCK_K - 1 <= q0)[None]
+    return torch.where(run, torch.where(unmasked, TILE_UNMASKED, TILE_MASKED), TILE_SKIP)
+
+
 def _require(cond: bool, message: str) -> None:
     if not cond:
         raise ValueError(f"flash_attention: {message}")
@@ -113,13 +153,26 @@ def flash_attention(
              "segment id shapes")
     _require(q_offset >= 0, "q_offset must be >= 0")
     scale = sm_scale if sm_scale is not None else head_dim**-0.5
+    # The pre-pass's per-KV-tile id records, from which each block builds
+    # its tile list.
+    tile_info = torch.empty((batch, -(-kv_len // BLOCK_K), 4), dtype=torch.int32,
+                            device=q.device)
+    return _flash_launch(q, k, v, q_seg, kv_seg, tile_info, causal, q_offset, scale)
 
+
+def _flash_launch(q, k, v, q_seg, kv_seg, tile_info, causal, q_offset, scale) -> torch.Tensor:
+    """Launch the kernel on checked CUDA inputs with the caller's
+    ``tile_info`` scratch [B, ceil(S / BLOCK_K), 4] int32, which holds the
+    pre-pass's records afterwards: per KV tile, the ``_tile_ranges`` of
+    kv_seg and a 0."""
+    batch, q_len, num_heads, head_dim = q.shape
+    kv_len, kv_heads = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = kernel_lib.load().dots_flash_attention_bf16(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), q_seg.data_ptr(),
-            kv_seg.data_ptr(), out.data_ptr(), batch, q_len, kv_len, num_heads,
-            kv_heads, head_dim, int(causal), int(q_offset), ctypes.c_float(scale),
+            kv_seg.data_ptr(), tile_info.data_ptr(), out.data_ptr(), batch, q_len, kv_len,
+            num_heads, kv_heads, head_dim, int(causal), int(q_offset), ctypes.c_float(scale),
             torch.cuda.current_stream().cuda_stream,
         )
     kernel_lib.check(err, "flash_attention")

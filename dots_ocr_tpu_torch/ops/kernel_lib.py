@@ -35,12 +35,13 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # q, k, v, q_seg, kv_seg, out, B, Tq, S, H, KV, D, causal, q_offset,
+    # q, k, v, q_seg, kv_seg, tile_info (scratch), out, B, Tq, S, H, KV, D,
+    # causal, q_offset, sm_scale, stream
+    "dots_flash_attention_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
+    # q, k_pool, v_pool, lengths, page_indices, part_o, part_ml (scratch),
+    # out, B, nq, H, KV, D, num_pages, page_size, max_pages, chunk, n_split,
     # sm_scale, stream
-    "dots_flash_attention_bf16": [_P] * 6 + [_I] * 8 + [_F, _P],
-    # q, k_pool, v_pool, lengths, page_indices, out, B, nq, H, KV, D,
-    # num_pages, page_size, max_pages, sm_scale, stream
-    "dots_paged_attention_bf16": [_P] * 6 + [_I] * 8 + [_F, _P],
+    "dots_paged_attention_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
     # q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices, out, B,
     # nq, H, KV, D, num_pages, page_size, max_pages, sm_scale, stream
     "dots_paged_attention_int8": [_P] * 8 + [_I] * 8 + [_F, _P],

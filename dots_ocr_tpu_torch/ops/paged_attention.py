@@ -42,6 +42,7 @@ tensor launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import logging
 from typing import Optional
 
@@ -54,6 +55,21 @@ logger = logging.getLogger(__name__)
 
 MAX_QUERY_ROWS = 24  # (H / KV) * nq rows one kernel block serves
 INT8_TILE = 64  # tokens per tile of the int8 CUDA kernel
+# The bf16 kernel's split-K plan (paged_split_plan): splits are whole
+# multiples of SPLIT_ALIGN tokens and at least MIN_SPLIT_TOKENS long, their
+# float32 partials fit SPLIT_SCRATCH_BYTES, and the grid holds at most
+# SPLIT_BLOCKS_PER_SM blocks per SM. That is the grid's size, not blocks
+# resident at once (two fit on an SM): a block past its row's end exits at
+# once, and with rows of mixed lengths most do. kernel_ab.py's sweep on an
+# H100 at the shipping geometry (64 slots, lengths 0..12k, 320 pages of
+# 128) set it: 28 splits were fastest at nq = 1 and 3, 16-32 within 8%,
+# 40-48 8-13% slower, 64-80 20-37% slower (more partials to merge, shorter
+# splits) and 8 splits 25-30% slower (too few blocks for the long rows).
+SPLIT_ALIGN = 64
+MIN_SPLIT_TOKENS = 256
+SPLIT_SCRATCH_BYTES = 32 * 2**20
+SPLIT_BLOCKS_PER_SM = 28
+LOG2E = 1.4426950408889634
 
 
 def paged_attention_multiquery_reference(
@@ -102,6 +118,85 @@ def paged_attention_multiquery_reference(
         "bjkgs,kbsd->bjkgd", probs.to(v.dtype).to(torch.float32), v.to(torch.float32)
     )
     return out.reshape(batch, nq, num_heads, head_dim).to(q.dtype)
+
+
+def paged_split_plan(batch: int, kv_heads: int, rows: int, head_dim: int, max_tokens: int,
+                     num_sms: int) -> tuple:
+    """The bf16 kernel's split of the token axis, from static shapes only
+    (no device value, so a decode step never syncs): ``(chunk, n_split)``,
+    split s covering tokens [s * chunk, (s + 1) * chunk) of every row, with
+    ``n_split * chunk >= max_tokens`` (the table's max_pages * page_size)
+    and ``rows`` = (H / KV) * nq query rows per (slot, KV head). As many
+    splits as the three limits allow: MIN_SPLIT_TOKENS per split, float32
+    partials (O and m, l: ``rows * (head_dim + 2)`` floats per slot, KV head
+    and split) within SPLIT_SCRATCH_BYTES, SPLIT_BLOCKS_PER_SM blocks per SM."""
+    per_split = batch * kv_heads * rows * (head_dim + 2) * 4
+    n_split = max(1, min(SPLIT_SCRATCH_BYTES // per_split,
+                         -(-max_tokens // MIN_SPLIT_TOKENS),
+                         -(-SPLIT_BLOCKS_PER_SM * num_sms // (batch * kv_heads))))
+    chunk = -(-max(1, -(-max_tokens // n_split)) // SPLIT_ALIGN) * SPLIT_ALIGN
+    return chunk, max(1, -(-max_tokens // chunk))
+
+
+def paged_split_partials(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    lengths: torch.Tensor,
+    page_indices: torch.Tensor,
+    chunk: int,
+    sm_scale: Optional[float] = None,
+):
+    """Plain version of the bf16 kernel's first pass: per split of ``chunk``
+    tokens, the float32 partials (m, l in the base-2 domain, unnormalized
+    O) of each query row over the split's visible tokens. Returns m, l
+    [B, n_split, nq, H] and o [B, n_split, nq, H, D]; a split with no
+    visible token has m = -inf, l = 0, o = 0."""
+    kv_heads, _, page_size, head_dim = k_pages.shape
+    batch, nq, num_heads, _ = q.shape
+    s_max = page_indices.shape[1] * page_size
+    n_split = -(-s_max // chunk)
+    scale = sm_scale if sm_scale is not None else head_dim**-0.5
+    pos = torch.arange(s_max, device=q.device)
+    slots = page_indices[:, pos // page_size].long() * page_size + pos % page_size
+    k = k_pages.reshape(kv_heads, -1, head_dim)[:, slots].to(torch.float32)
+    v = v_pages.reshape(kv_heads, -1, head_dim)[:, slots].to(torch.float32)
+    group = num_heads // kv_heads
+    qg = q.reshape(batch, nq, kv_heads, group, head_dim).to(torch.float32)
+    scores = torch.einsum("bjkgd,kbsd->bjkgs", qg, k) * (scale * LOG2E)
+    lens = lengths.long()
+    j = torch.arange(nq, device=q.device)
+    seen = (pos[None, None, :] < lens[:, None, None] + j[None, :, None]) & (lens[:, None, None] > 0)
+    seen = seen[:, :, None, None, :]  # [B, nq, 1, 1, S]
+    ms, ls, os_ = [], [], []
+    for s0 in range(0, s_max, chunk):
+        sc, ok = scores[..., s0:s0 + chunk], seen[..., s0:s0 + chunk]
+        m = torch.where(ok, sc, float("-inf")).amax(dim=-1, keepdim=True)
+        p = torch.where(ok, torch.exp2(sc - torch.where(torch.isinf(m), 0.0, m)), 0.0)
+        ms.append(m[..., 0])
+        ls.append(p.sum(dim=-1))
+        os_.append(torch.einsum("bjkgs,kbsd->bjkgd", p, v[:, :, s0:s0 + chunk]))
+    shape = (batch, n_split, nq, num_heads)
+    return (torch.stack(ms, 1).reshape(shape), torch.stack(ls, 1).reshape(shape),
+            torch.stack(os_, 1).reshape(*shape, head_dim))
+
+
+def merge_split_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
+    """Plain version of the bf16 kernel's merge: the log-sum-exp combination
+    of per-split partials (m, l [B, n_split, nq, H] base 2; o [..., D])
+    over the split axis, exact zeros where no split saw a token. Returns
+    float32 [B, nq, H, D]."""
+    m_all = m.amax(dim=1, keepdim=True)
+    w = torch.where(torch.isinf(m), 0.0, torch.exp2(m - torch.where(torch.isinf(m_all), 0.0,
+                                                                     m_all)))
+    l_all = (l * w).sum(dim=1)
+    o_all = (o * w[..., None]).sum(dim=1)
+    return torch.where(l_all[..., None] > 0, o_all / l_all.clamp_min(1e-30)[..., None], 0.0)
+
+
+@functools.lru_cache(maxsize=None)
+def _num_sms(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def _round_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
@@ -285,7 +380,10 @@ def paged_attention_multiquery_bf16(
 ) -> torch.Tensor:
     """Kernel 2's bf16 mode at any shape it takes. On CUDA: bf16 q and
     pages, int32 lengths and table, all contiguous; D in {64, 128};
-    page_size a multiple of 16; (H / KV) * nq <= 24."""
+    page_size a multiple of 16; (H / KV) * nq <= 24. On CUDA the call
+    launches the split-K kernel and its merge (``csrc/paged_attention.cu``)
+    over :func:`paged_split_plan`'s splits, with float32 scratch for the
+    partials."""
     if q.device.type == "cpu":
         return paged_attention_multiquery_reference(
             q, k_pages, v_pages, lengths, page_indices, sm_scale
@@ -299,16 +397,42 @@ def paged_attention_multiquery_bf16(
              "pages must be bfloat16 or int8")
     scale = sm_scale if sm_scale is not None else head_dim**-0.5
 
+    rows = num_heads // kv_heads * nq
+    chunk, n_split = paged_split_plan(batch, kv_heads, rows, head_dim, max_pages * page_size,
+                                      _num_sms(q.device.index or 0))
+    part_o = torch.empty((batch, kv_heads, n_split, rows, head_dim), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((batch, kv_heads, n_split, rows, 2), dtype=torch.float32,
+                          device=q.device)
+    return _paged_bf16_launch(q, k_pages, v_pages, lengths, page_indices, part_o, part_ml, chunk,
+                              n_split, scale)
+
+
+def _paged_bf16_launch(q, k_pages, v_pages, lengths, page_indices, part_o, part_ml, chunk,
+                       n_split, scale) -> torch.Tensor:
+    """Launch the split kernel and its merge on checked CUDA inputs, split
+    s covering tokens [s * chunk, (s + 1) * chunk), with the caller's
+    float32 scratch: part_o [B, KV, n_split, R, D] and part_ml [B, KV,
+    n_split, R, 2] (R = (H / KV) * nq, row r = g * nq + j serving query
+    head kv_head * (H / KV) + g at query j). Afterwards each live split
+    (one that starts before its row's n_tok) holds its unnormalized O and
+    (m, l) in the base-2 domain (l = 0 and O = 0 for a query row that saw
+    no token of it); the other splits are left unwritten."""
+    batch, nq, num_heads, head_dim = q.shape
+    kv_heads, num_pages, page_size, _ = k_pages.shape
+    max_pages = page_indices.shape[1]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = kernel_lib.load().dots_paged_attention_bf16(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), lengths.data_ptr(),
-            page_indices.data_ptr(), out.data_ptr(), batch, nq, num_heads, kv_heads,
-            head_dim, num_pages, page_size, max_pages, ctypes.c_float(scale),
-            torch.cuda.current_stream().cuda_stream,
+            page_indices.data_ptr(), part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(),
+            batch, nq, num_heads, kv_heads, head_dim, num_pages, page_size, max_pages, chunk,
+            n_split, ctypes.c_float(scale), torch.cuda.current_stream().cuda_stream,
         )
     kernel_lib.check(err, "paged_attention_multiquery_bf16")
     paged_attention_multiquery_bf16.launches += 1
+    if nq > 1:  # speculative verify steps
+        paged_attention_multiquery_bf16.verify_launches += 1
     return out
 
 
@@ -358,6 +482,7 @@ def paged_attention_multiquery_int8(
 
 
 paged_attention_multiquery_bf16.launches = 0
+paged_attention_multiquery_bf16.verify_launches = 0
 paged_attention_multiquery_int8.launches = 0
 
 

@@ -18,9 +18,21 @@ from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
 from dots_ocr_tpu_torch.models.layers import linear, matmul_f32
 from dots_ocr_tpu_torch.models.quantize import quantize_kernel_act, quantize_kernel_int4
 from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
-from dots_ocr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+from dots_ocr_tpu_torch.ops.flash_attention import (
+    BLOCK_K,
+    TILE_MASKED,
+    TILE_SKIP,
+    TILE_UNMASKED,
+    _flash_launch,
+    _tile_ranges,
+    flash_attention,
+    flash_attention_reference,
+    flash_tile_plan,
+)
 from dots_ocr_tpu_torch.ops.paged_attention import (
     INT8_TILE,
+    _paged_bf16_launch,
+    merge_split_partials,
     paged_attention,
     paged_attention_int8_reference,
     paged_attention_multiquery,
@@ -29,6 +41,8 @@ from dots_ocr_tpu_torch.ops.paged_attention import (
     paged_attention_multiquery_reference,
     paged_attention_stacked,
     paged_attention_v1_reference,
+    paged_split_partials,
+    paged_split_plan,
 )
 from dots_ocr_tpu_torch.ops.window_attention import window_attention, window_attention_reference
 
@@ -92,6 +106,20 @@ def _bf16_close(out, ref):
     assert bool((err <= 2e-2 + 2e-2 * ref.float().abs()).all()), float(err.max())
 
 
+def _attention_close(out, ref):
+    """The bound of chip_smoke.py's tight_errors for the redesigned kernels
+    1 and 2 (bf16), scaled to the output: per element one bf16 ulp of the
+    plain value plus 5% of the RMS over D of that (row, head) of the plain
+    output, and a relative RMS error of at most 1e-2 over the whole output
+    (P rounded to bf16 against another running max gives ~3e-3; V rounded
+    through fp8 e4m3 ~3e-2)."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs()
+    allow = 2.0**-7 * ref.abs() + 0.05 * ref.pow(2).mean(-1, keepdim=True).sqrt()
+    assert bool((err <= allow).all()), float(torch.where(err > 0, err / allow, 0.0).max())
+    assert float(err.norm()) <= 1e-2 * float(ref.norm()), float(err.norm() / ref.norm())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
 @pytest.mark.parametrize("case", sorted(FLASH_CASES))
@@ -113,6 +141,7 @@ def test_flash_kernel_matches_plain_on_card(cuda, case, d):
     ref = flash_attention_reference(q, k, v, q_seg, kv_seg, causal=causal, q_offset=q_offset)
     torch.cuda.synchronize()
     _bf16_close(out, ref)
+    _attention_close(out, ref)
     assert (out[q_seg < 0] == 0).all()
 
 
@@ -132,7 +161,208 @@ def test_paged_kernel_matches_plain_on_card(cuda, nq, page_size):
     assert paged_attention_multiquery_bf16.launches == before + 1
     torch.cuda.synchronize()
     _bf16_close(out, ref)
+    _attention_close(out, ref)
     assert (out[1] == 0).all()  # length 0: exact zeros
+
+
+def _segment_runs(runs):
+    """Segment ids from (id, count) runs, in the given (unsorted) order."""
+    return np.concatenate([np.full(n, i, np.int32) for i, n in runs])
+
+
+# name: (Tq, q (id, count) runs, kv runs or None (= q's), causal, q_offset);
+# H = 4 query heads over KV = 2 heads.
+FLASH_TILE_CASES = {
+    # 8 windows of 256 tokens and a partial one: most tiles skipped, the
+    # rest unmasked; Tq is not a multiple of 128.
+    "windowed": (2148, [(w, 256) for w in range(8)] + [(8, 100)], None, False, 0),
+    # id 0 twice, -1 between segments, ids out of order.
+    "non_monotonic": (560, [(0, 150), (-1, 30), (2, 200), (1, 90), (-1, 20), (0, 70)], None,
+                      False, 0),
+    # Q tile one segment; KV tile 1 that segment except its last key (-1),
+    # and KV tile 3 except its last key (another id).
+    "tile_uniform_but_last_key": (128, [(0, 128)], [(0, 127), (-1, 1), (0, 127), (5, 1), (0, 64)],
+                                  False, 0),
+    # causal chunk at an offset that is no tile multiple, Tq not a multiple
+    # of 128, padding past the prompt.
+    "q_offset_unaligned": (300, [(0, 260), (-1, 40)], [(0, 337), (-1, 40)], True, 77),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("case", sorted(FLASH_TILE_CASES))
+def test_flash_kernel_tile_list_cases_on_card(cuda, case, d):
+    """The tile list's skipped, masked and unmasked tiles (flash_tile_plan
+    shows every class occurs) against the plain version."""
+    tq, q_runs, kv_runs, causal, q_offset = FLASH_TILE_CASES[case]
+    q_seg = _segment_runs(q_runs)
+    kv_seg = q_seg if kv_runs is None else _segment_runs(kv_runs)
+    s = len(kv_seg)
+    assert len(q_seg) == tq
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    q = torch.randn(1, tq, 4, d, generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn(1, s, 2, d, generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn(1, s, 2, d, generator=gen, device=cuda).to(torch.bfloat16)
+    qs, ks = (torch.from_numpy(x[None]).to(cuda) for x in (q_seg, kv_seg))
+    plan = flash_tile_plan(qs, ks, causal, q_offset)
+    if case == "windowed":
+        assert {TILE_SKIP, TILE_UNMASKED} <= set(plan.unique().tolist())
+    if case == "tile_uniform_but_last_key":
+        assert plan[0, 0].tolist() == [TILE_UNMASKED, TILE_MASKED, TILE_UNMASKED, TILE_MASKED,
+                                       TILE_UNMASKED]
+    out = flash_attention(q, k, v, qs, ks, causal=causal, q_offset=q_offset)
+    ref = flash_attention_reference(q, k, v, qs, ks, causal=causal, q_offset=q_offset)
+    torch.cuda.synchronize()
+    _bf16_close(out, ref)
+    _attention_close(out, ref)
+    assert (out[qs < 0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size,d,nq", [(16, 128, 1), (16, 128, 3), (128, 128, 1),
+                                            (128, 128, 3), (16, 64, 3), (128, 64, 1)])
+def test_paged_bf16_split_cases_on_card(cuda, page_size, d, nq):
+    """The split-K bf16 kernel against its plain version: a row longer than
+    one split, rows whose visible span ends exactly on a split, a 64-token
+    tile and a page boundary, nq = 3 across a page boundary, length 0, and
+    every pool position no row may see (unreferenced pages, the null page,
+    the tails of live pages) set to NaN: the kernel's output stays finite
+    and equal to the plain version on the same pool with those set to 0."""
+    kv, h = 2, 12
+    max_pages = -(-4096 // page_size)
+    chunk, n_split = paged_split_plan(8, kv, h // kv * nq, d, max_pages * page_size,
+                                      torch.cuda.get_device_properties(cuda).multi_processor_count)
+    assert n_split > 1 and chunk < 2500
+    ends = [2 * chunk + 37, chunk, 2 * chunk, 5 * 64, 3 * page_size, 2 * page_size + 1, nq]
+    lengths = [0] + [n - nq + 1 for n in ends]  # visible span len + nq - 1 = n
+    rng = np.random.RandomState(page_size + d + nq)
+    q, kp, vp, lens, table = paged_inputs(rng, lengths, nq, kv, h, d, page_size, max_pages)
+    live = np.zeros(kp.shape[1:3], bool)  # [num_pages, page_size]
+    for row, n in enumerate(lengths):
+        span = n + nq - 1 if n > 0 else 0
+        for pos in range(span):
+            live[table[row, pos // page_size], pos % page_size] = True
+    kp[:, ~live], vp[:, ~live] = np.nan, np.nan
+    args = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, kp, vp)]
+    args += [torch.from_numpy(x).to(cuda) for x in (lens, table)]
+    before = (paged_attention_multiquery_bf16.launches,
+              paged_attention_multiquery_bf16.verify_launches)
+    out = paged_attention_multiquery_bf16(*args)
+    assert paged_attention_multiquery_bf16.launches == before[0] + 1
+    assert paged_attention_multiquery_bf16.verify_launches == before[1] + (nq > 1)
+    ref = paged_attention_multiquery_reference(args[0], *(torch.nan_to_num(x) for x in args[1:3]),
+                                               *args[3:])
+    torch.cuda.synchronize()
+    _bf16_close(out, ref)
+    _attention_close(out, ref)
+    assert (out[0] == 0).all()  # length 0: exact zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", sorted(FLASH_TILE_CASES))
+def test_flash_tile_info_matches_tile_ranges_on_card(cuda, case):
+    """The kernel's pre-pass records, read back from its tile_info scratch,
+    are flash_tile_plan's per-KV-tile ranges (_tile_ranges), and the output
+    equals the wrapper's."""
+    tq, q_runs, kv_runs, causal, q_offset = FLASH_TILE_CASES[case]
+    q_seg = _segment_runs(q_runs)
+    kv_seg = q_seg if kv_runs is None else _segment_runs(kv_runs)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    q = torch.randn(1, tq, 4, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(1, len(kv_seg), 2, 128, generator=gen, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    qs, ks = (torch.from_numpy(x[None]).to(cuda) for x in (q_seg, kv_seg))
+    tile_info = torch.full((1, -(-len(kv_seg) // BLOCK_K), 4), -7, dtype=torch.int32,
+                           device=cuda)
+    out = _flash_launch(q, k, v, qs, ks, tile_info, causal, q_offset, 128**-0.5)
+    lo, hi, one = _tile_ranges(ks, BLOCK_K)
+    assert torch.equal(tile_info.long(), torch.stack([lo, hi, one, torch.zeros_like(lo)], -1))
+    assert torch.equal(out, flash_attention(q, k, v, qs, ks, causal=causal, q_offset=q_offset))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size,nq", [(16, 1), (16, 3), (128, 3)])
+def test_paged_split_scratch_matches_plain_partials_on_card(cuda, page_size, nq):
+    """The split kernel's float32 partials, read back from its scratch:
+    each live split's (m, l) equal paged_split_partials', its O / l agrees
+    within the bound of _attention_close (the kernel rounds P to bf16), a
+    row that saw no token of a live split holds l = 0 and O = 0, splits
+    past a row's n_tok stay unwritten, and merge_split_partials of the
+    kernel's partials gives the kernel's output within one bf16 ulp."""
+    kv, h, d = 2, 12, 128
+    g = h // kv
+    rows = g * nq
+    max_pages = -(-4096 // page_size)
+    cap = max_pages * page_size
+    chunk, n_split = paged_split_plan(8, kv, rows, d, cap,
+                                      torch.cuda.get_device_properties(cuda).multi_processor_count)
+    lengths = [0, 1, chunk - nq + 1, chunk + 5, 2 * chunk + 37, 3 * page_size, cap - nq + 1,
+               700]
+    rng = np.random.RandomState(page_size + nq)
+    q, kp, vp, lens, table = paged_inputs(rng, lengths, nq, kv, h, d, page_size, max_pages)
+    args = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, kp, vp)]
+    args += [torch.from_numpy(x).to(cuda) for x in (lens, table)]
+    batch = len(lengths)
+    part_o = torch.full((batch, kv, n_split, rows, d), float("nan"), device=cuda)
+    part_ml = torch.full((batch, kv, n_split, rows, 2), float("nan"), device=cuda)
+    out = _paged_bf16_launch(*args, part_o, part_ml, chunk, n_split, d**-0.5)
+
+    def plain_layout(x):  # [B, KV, n_split, G * nq, ...] -> [B, n_split, nq, H, ...]
+        x = x.reshape(batch, kv, n_split, g, nq, *x.shape[4:])
+        return x.permute(0, 2, 4, 1, 3, *range(5, x.dim())).reshape(batch, n_split, nq, h,
+                                                                    *x.shape[5:])
+
+    k_o, k_m, k_l = plain_layout(part_o), plain_layout(part_ml[..., 0]), plain_layout(
+        part_ml[..., 1])
+    p_m, p_l, p_o = paged_split_partials(*args, chunk=chunk)
+    n_tok = np.where(lens > 0, np.minimum(lens + nq - 1, cap), 0)
+    live = torch.from_numpy(np.arange(n_split)[None] * chunk < n_tok[:, None]).to(cuda)
+    assert torch.isnan(k_l[~live]).all() and torch.isnan(k_o[~live]).all()
+    seen = live[:, :, None, None] & (p_l > 0)
+    empty = live[:, :, None, None] & (p_l == 0)
+    assert (k_l[empty] == 0).all() and (k_o[empty] == 0).all()
+    assert torch.allclose(k_m[seen], p_m[seen], rtol=1e-4, atol=1e-4)
+    assert torch.allclose(k_l[seen], p_l[seen], rtol=1e-4, atol=0)
+    _attention_close(k_o[seen] / k_l[seen][:, None], p_o[seen] / p_l[seen][:, None])
+    live_ = live[:, :, None, None]
+    merged = merge_split_partials(torch.where(live_, k_m, float("-inf")),
+                                  torch.where(live_, k_l, 0.0),
+                                  torch.where(live_[..., None], k_o, 0.0))
+    err = (merged.to(torch.bfloat16).float() - out.float()).abs()
+    assert bool((err <= 2.0**-7 * out.float().abs()).all()), float(err.max())
+    assert (out[0] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", ["flash", "paged_bf16"])
+def test_redesigned_kernels_repeat_bit_for_bit_on_card(cuda, kernel):
+    """100 calls on the same inputs give the same output bit for bit: a
+    causal padded prefill (4 rows of 2,048 positions, 12 heads over 2) for
+    kernel 1, a 16-row split-K decode step for kernel 2's bf16 mode."""
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    if kernel == "flash":
+        lens = torch.tensor([2048, 1531, 800, 77], device=cuda)
+        seg = torch.where(torch.arange(2048, device=cuda)[None] < lens[:, None], 0, -1)
+        seg = seg.to(torch.int32)
+        q = torch.randn(4, 2048, 12, 128, generator=gen, device=cuda).to(torch.bfloat16)
+        k, v = (torch.randn(4, 2048, 2, 128, generator=gen, device=cuda).to(torch.bfloat16)
+                for _ in range(2))
+
+        def call():
+            return flash_attention(q, k, v, seg, seg, causal=True)
+    else:
+        rng = np.random.RandomState(3)
+        q, kp, vp, lens, table = paged_inputs(rng, list(rng.randint(0, 3000, 16)), 3, 2, 12,
+                                              128, 128, 24)
+        args = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, kp, vp)]
+        args += [torch.from_numpy(x).to(cuda) for x in (lens, table)]
+
+        def call():
+            return paged_attention_multiquery_bf16(*args)
+    first = call()
+    differ = sum(not torch.equal(call(), first) for _ in range(100))
+    assert differ == 0, f"{differ} of 100 calls differ from the first"
 
 
 # int8 lengths: 0, one less than a kernel tile, a tile, page boundaries at

@@ -1,5 +1,5 @@
-"""The port stands alone: no module of dots_ocr_tpu_torch (nor chip_smoke.py)
-imports jax or anything of the JAX package dots_ocr_tpu, even transitively
+"""The port stands alone: no module of dots_ocr_tpu_torch (nor chip_smoke.py
+or kernel_ab.py) imports jax or anything of the JAX package dots_ocr_tpu, even transitively
 or inside a function, and chip_smoke.py refuses to run without a GPU or
 outside a checkout (non-zero exit, no result line)."""
 
@@ -64,7 +64,8 @@ def _imported_modules(path, package):
 
 def test_no_source_line_imports_the_jax_package(tmp_path):
     files = sorted(glob.glob(os.path.join(REPO, "dots_ocr_tpu_torch", "**", "*.py"),
-                             recursive=True)) + [os.path.join(REPO, "chip_smoke.py")]
+                             recursive=True)) + [os.path.join(REPO, name)
+                                                 for name in ("chip_smoke.py", "kernel_ab.py")]
     assert len(files) > 30
     offending = []
     for path in files:
