@@ -28,8 +28,10 @@ guard.
 
 Not ported yet; ``submit`` raises ``ValueError`` naming the ROADMAP item:
 logprobs, presence/frequency penalties, ``logit_bias`` and ``seed``. Also
-not ported: pipelined decode and preemption (a pool that runs dry
-mid-decode raises ``OutOfPages``) and the deep-chunk depth adaptation.
+not ported: pipelined (lookahead-1) decode and the deep-chunk depth
+adaptation. A pool that runs dry mid-decode preempts the youngest request
+(recompute preemption: it re-queues with its generated tokens appended to
+its prompt) and every request still finishes with the same greedy tokens.
 """
 
 from __future__ import annotations
@@ -84,7 +86,6 @@ NOT_PORTED = {
     "frequency_penalty": "logprobs, penalties and logit_bias",
     "logit_bias": "logprobs, penalties and logit_bias",
     "seed": "seeded position-keyed sampling",
-    "preemption": "pipelined decode and preemption",
 }
 
 
@@ -381,9 +382,10 @@ class ScheduledRequest:
     state: str = WAITING
     slot: int = -1
     output_ids: List[int] = dataclasses.field(default_factory=list)
-    # Tokens generated before a preemption; always empty until preemption
-    # is ported (the serving layer counts them).
+    # Tokens generated before a preemption (they moved into prompt_ids);
+    # the client-visible output is prior_output + output_ids.
     prior_output: List[int] = dataclasses.field(default_factory=list)
+    preempted: int = 0
     submitted_at: float = dataclasses.field(default_factory=time.monotonic)
     finished_reason: Optional[str] = None
     admitted_at: Optional[float] = None
@@ -515,6 +517,7 @@ class ContinuousBatchingEngine:
             "spec_emitted": 0,     # tokens emitted by verify chunks
             "spec_slot_iters": 0,  # acceptance = emitted / (iters * (k + 1))
             "spec_auto_disabled": 0,
+            "preemptions": 0,
             "t_submit_s": 0.0,   # tokenize + image preprocessing
             "t_admit_s": 0.0,    # admission incl. monolithic prefill / chunk embeds
             "t_prefill_s": 0.0,  # chunked-prefill chunks
@@ -602,16 +605,26 @@ class ContinuousBatchingEngine:
 
     # -- stop strings / streaming ------------------------------------------
 
-    def _push_detok(self, req: ScheduledRequest) -> str:
-        """Advance the detokenizer to the client-visible limit (a trailing
-        EOS / stop-token id is excluded)."""
-        upto = len(req.output_ids)
+    def _detok_limit(self, req: ScheduledRequest) -> int:
+        """Client-visible token count over prior_output + output_ids (a
+        trailing EOS / stop-token id is excluded)."""
+        total = len(req.prior_output) + len(req.output_ids)
         if req.output_ids and (req.output_ids[-1] == self.config.special.eos_token_id
                                or req.output_ids[-1] in req.stop_token_ids):
-            upto -= 1
+            return total - 1
+        return total
+
+    def _push_detok(self, req: ScheduledRequest) -> str:
+        """Advance the detokenizer to the client-visible limit; tokens
+        generated before a preemption are counted, never pushed twice."""
+        upto = self._detok_limit(req)
         if upto <= req.detok_count:
             return ""
-        chunk = req.output_ids[req.detok_count:upto]
+        plen = len(req.prior_output)
+        if req.detok_count >= plen:
+            chunk = req.output_ids[req.detok_count - plen:upto - plen]
+        else:  # only right after a preemption replay
+            chunk = req.prior_output[req.detok_count:] + req.output_ids[:max(0, upto - plen)]
         req.detok_count = upto
         return req.detok.push(chunk)
 
@@ -703,7 +716,7 @@ class ContinuousBatchingEngine:
         for j, req in enumerate(reqs):
             input_ids[j, :len(req.prompt_ids)] = req.prompt_ids
             self.allocator.allocate(req.req_id, len(req.prompt_ids) + 1)
-            req.admitted_at = now
+            req.admitted_at = req.admitted_at or now
         embeds = embed_tokens(self.params["decoder"], self._put(input_ids))
         merge = self.config.vision.spatial_merge_size**2
         for j, req in enumerate(reqs):
@@ -778,7 +791,7 @@ class ContinuousBatchingEngine:
             req.embeds = None
             req.state = RUNNING
             req.output_ids = [token]
-            req.first_token_at = time.monotonic()
+            req.first_token_at = req.first_token_at or time.monotonic()
             self._tokens[slot] = token
             self._lengths[slot] = len(req.prompt_ids)
             self.metrics["prefills"] += 1
@@ -795,7 +808,7 @@ class ContinuousBatchingEngine:
         slot_mapping = np.full((n, t_bucket), -1, np.int64)
         now = time.monotonic()
         for j, req in enumerate(reqs):
-            req.admitted_at = now
+            req.admitted_at = req.admitted_at or now
             plen = len(req.prompt_ids)
             input_ids[j, :plen] = req.prompt_ids
             seq_lens[j] = plen
@@ -832,7 +845,7 @@ class ContinuousBatchingEngine:
             req.state = RUNNING
             req.slot = slot
             req.output_ids = [token]
-            req.first_token_at = time.monotonic()
+            req.first_token_at = req.first_token_at or time.monotonic()
             self._slot_req[slot] = req
             self._tokens[slot] = token
             self._lengths[slot] = len(req.prompt_ids)
@@ -872,6 +885,7 @@ class ContinuousBatchingEngine:
         req.finished_reason = reason
         req.finished_at = time.monotonic()
         self.recent_timings.append(req.timing())
+        req.embeds = None  # a PREFILLING request's device embeddings
         if req.detok is not None and req.final_text is None:
             req.text += self._push_detok(req)
             req.text += req.detok.flush()
@@ -899,6 +913,31 @@ class ContinuousBatchingEngine:
                 self._finish(slot, "cancelled")
                 return True
         return False
+
+    def _preempt_youngest(self) -> None:
+        """Recompute preemption: the youngest request in a slot goes back to
+        the head of the waiting queue with prompt := prompt + generated so
+        far; its pages are freed. A PREFILLING victim restarts its prefill
+        (chunk progress and device embeddings dropped)."""
+        candidates = [r for r in self._slot_req if r is not None]
+        if not candidates:
+            raise OutOfPages("no pages free and nothing to preempt")
+        victim = max(candidates, key=lambda r: r.submitted_at)
+        slot = victim.slot
+        self.allocator.free(victim.req_id)
+        self._slot_req[slot] = None
+        self._lengths[slot] = 0
+        victim.embeds = None
+        victim.prefill_pos = 0
+        victim.prompt_ids = victim.prompt_ids + victim.output_ids
+        victim.max_new_tokens = max(1, victim.max_new_tokens - len(victim.output_ids))
+        victim.prior_output = victim.prior_output + victim.output_ids
+        victim.output_ids = []
+        victim.state = WAITING
+        victim.slot = -1
+        victim.preempted += 1
+        self.metrics["preemptions"] += 1
+        self._waiting.appendleft(victim)
 
     # -- the step --------------------------------------------------------
 
@@ -948,16 +987,34 @@ class ContinuousBatchingEngine:
         spec_k = self.sched.speculate_k if self._spec_enabled else 0
         per_iter = spec_k + 1
         cap = self.sched.max_pages_per_seq * self.sched.page_size
+        # Pass 1: reserve the chunk's pages per slot. The target is clamped
+        # to the per-sequence capacity (submit clamps the token budget), so
+        # OutOfPages here always means pool pressure: preempt the youngest
+        # request and retry. Preemption may clear any slot, also one that
+        # already reserved, so the live set is re-read for pass 2.
+        for i in active:
+            req = self._slot_req[i]
+            if req is None:  # preempted by an earlier iteration
+                continue
+            target = min(int(self._lengths[i]) + chunk * per_iter, cap)
+            while True:
+                try:
+                    self.allocator.extend(req.req_id, target)
+                    break
+                except OutOfPages:
+                    self._preempt_youngest()
+                    if self._slot_req[i] is None:
+                        break  # this row preempted itself
+        active = [i for i in active if self._slot_req[i] is not None]
+        if not active:
+            return
+        # Pass 2: device inputs from host state.
         tables = np.zeros((s, self.sched.max_pages_per_seq), np.int32)
         positions = np.zeros(s, np.int64)
         budgets = np.zeros(s, np.int64)
         active_mask = np.zeros(s, bool)
         for i in active:
             req = self._slot_req[i]
-            try:
-                self.allocator.extend(req.req_id, min(int(self._lengths[i]) + chunk * per_iter, cap))
-            except OutOfPages as e:
-                raise OutOfPages(f"{e}; {_not_ported('preemption')}") from e
             tables[i] = self.allocator.padded_table(req.req_id)
             positions[i] = self._lengths[i]
             budgets[i] = req.max_new_tokens - len(req.output_ids)
@@ -971,6 +1028,8 @@ class ContinuousBatchingEngine:
         if spec_k:
             # Generated history by logical position (the draft source),
             # plus the sink column; rebuilt from host state every chunk.
+            # After a preemption gen_start is the grown prompt's length and
+            # the history holds only the tokens generated since.
             buf = np.zeros((s, cap + 1), np.int64)
             gen_start = np.zeros(s, np.int64)
             for i in active:
@@ -1069,7 +1128,7 @@ class ContinuousBatchingEngine:
         req = self._finished[req_id]
         if req.final_text is not None:
             return req.final_text
-        toks = req.output_ids
+        toks = req.prior_output + req.output_ids
         if toks and (toks[-1] == self.config.special.eos_token_id
                      or toks[-1] in req.stop_token_ids):
             toks = toks[:-1]

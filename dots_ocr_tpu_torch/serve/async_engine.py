@@ -210,9 +210,15 @@ class EngineWorker:
                 finished = self.engine.step()
             except Exception as e:  # noqa: BLE001
                 logger.exception("engine step failed")
-                for sub in self._futures.values():
-                    self._fail(sub, e)
+                failed = dict(self._futures)
                 self._futures.clear()
+                for rid, sub in failed.items():
+                    self._fail(sub, e)
+                    # Take the request out of the engine too (slot, pages,
+                    # finished map), or has_work() stays true and every
+                    # later step() raises again in a tight loop.
+                    self.engine.cancel(rid)
+                    self.engine.take_finished(rid)
                 continue
             for req in finished:
                 self._resolve(req)
