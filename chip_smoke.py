@@ -21,8 +21,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    paged kernel (kernel 3) in both modes over 64 slots x 2,048 tokens at
    page 64 and 128 (kernel 2's bf16 mode timed beside it at page 128), and
    in bf16 at D 64; max abs
-   error against the stated tolerance (kernels 1 and 2 in bf16 also
-   against a bound scaled to the output, which a control must fail),
+   error against the stated tolerance (kernels 1, 2 in both modes and 4
+   also against a bound scaled to the output, which a control must fail),
    median CUDA-event times per call over back-to-back calls, the least
    time the card could take (bound) and, where one PyTorch call computes the
    same function, that call's time; and, for context, the W8A8 vision
@@ -66,7 +66,14 @@ Phases, each fatal on failure (exit code != 0, no result line):
    the engine's speculation gate turns speculation off and plain decode
    steps run too (SHIPPING_WAVES); flash (with q_offset > 0) and
    kernel 2's bf16 mode at nq = 1 (decode) and nq = 3 (verify) must
-   launch; then the consistency check of phase 5 on that configuration.
+   launch; then the consistency check of phase 5 on that configuration;
+12. a pool that runs dry: phase 4's flags with ``--num-pages`` cut to what
+   the three prompts and the admission watermark take, so that the
+   requests cannot all grow to their ``max_tokens``; the engine must
+   preempt (``preemptions`` >= 1 in /metrics), answer every request HTTP
+   200 with the greedy text phase 4's full pool gave for the same
+   requests at the same ``max_tokens`` (its second wave), and serve one
+   more request afterwards. Kernel 2's int8 mode must launch here too.
 
 The line before the last is one JSON object with the per-kernel numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -170,6 +177,15 @@ SHIPPING_KEYS = {"PAGE_SIZE": "--page-size", "KV_DTYPE": "--kv-cache-dtype",
 # weights greedy text repeats and its drafts are accepted (1.70 tokens per
 # slot-iteration on the card), so a greedy wave runs verify steps only.
 SHIPPING_WAVES = ((0.0, 32), (1.0, 128))
+# Phases 4 and 12: the greedy wave, then the same requests for DRY_TOKENS
+# tokens: with the decode chunk's 48-token reservation each request grows
+# by 3 pages of 128, 9 in all. Phase 12's pool holds the prompts, the
+# watermark and DRY_SLACK_PAGES more (a request admitted a chunk before the
+# others has grown by then, and the last prompt must still be admitted), so
+# the three cannot all grow to the end, even if one stops early.
+DRY_TOKENS, DRY_SLACK_PAGES = 256, 3
+SHIPPED_WAVES = ((0.0, 32), (0.0, DRY_TOKENS))
+ADMIT_FREE_FRACTION = 0.05  # SchedulerConfig.admit_free_page_fraction
 # The bound: NVIDIA H100 SXM data sheet (dense, 700 W): HBM 3.35 TB/s,
 # 989 TFLOP/s bf16, 1,979 TOP/s int8.
 HBM_BYTES_PER_S = 3.35e12
@@ -250,15 +266,16 @@ def fp8_round(x):
 
 
 def compare(name: str, kernel_fn, plain_fn, atol: float = ATOL, rtol: float = RTOL,
-            work: dict = None, library_fn=None, extra: dict = None, control_fn=None) -> dict:
+            work: dict = None, library_fn=None, extra: dict = None, control_fn=None,
+            control: str = "plain on V through fp8") -> dict:
     """Run kernel and plain once, check |err| <= atol + rtol * |plain|, then
     time REPS runs of each in turns (with ``library_fn``, one PyTorch call
     that computes the same function, and the ``extra`` functions, timed in
     the same turns for comparison). ``work`` is the case's :func:`bound`.
-    With ``control_fn`` (the plain version on V rounded through fp8) the
-    kernel must also pass :func:`tight_errors`' bound, the control must
-    fail it, and REPEAT_CALLS more kernel calls must repeat the output bit
-    for bit."""
+    With ``control_fn`` (``control`` says what: by default the plain
+    version on V rounded through fp8) the kernel must also pass
+    :func:`tight_errors`' bound, the control must fail it, and REPEAT_CALLS
+    more kernel calls must repeat the output bit for bit."""
     import torch
 
     out, ref = kernel_fn(), plain_fn()
@@ -273,21 +290,22 @@ def compare(name: str, kernel_fn, plain_fn, atol: float = ATOL, rtol: float = RT
     tight = {}
     if control_fn is not None:
         tight = tight_errors(out, ref)
-        control = tight_errors(control_fn(), ref)
+        ctrl = tight_errors(control_fn(), ref)
         same = sum(bool(torch.equal(kernel_fn(), out)) for _ in range(REPEAT_CALLS))
         log(f"  {name}: kernel rel RMS err {tight['rel_rms_err']:.3e} (tol {TIGHT_RMS:g}), max "
             f"err / (2^-7|ref| + {TIGHT_ROW:g} rms_D(ref)) {tight['tight_ratio']:.3f} (tol 1); "
-            f"control, plain on V through fp8: {control['rel_rms_err']:.3e}, "
-            f"{control['tight_ratio']:.3f} (must fail); {same} of {REPEAT_CALLS} repeated "
+            f"control, {control}: {ctrl['rel_rms_err']:.3e}, "
+            f"{ctrl['tight_ratio']:.3f} (must fail); {same} of {REPEAT_CALLS} repeated "
             f"calls bit-identical")
         if same != REPEAT_CALLS:
             raise AssertionError(f"{name}: {REPEAT_CALLS - same} of {REPEAT_CALLS} repeated "
                                  f"calls differ from the first")
         if not _tight_pass(tight):
             raise AssertionError(f"{name}: kernel fails the tight bound ({tight})")
-        if _tight_pass(control):
-            raise AssertionError(f"{name}: the fp8 control passes the tight bound ({control})")
-        tight.update({f"control_{key}": value for key, value in control.items()})
+        if _tight_pass(ctrl):
+            raise AssertionError(f"{name}: the control ({control}) passes the tight bound "
+                                 f"({ctrl})")
+        tight.update({f"control_{key}": value for key, value in ctrl.items()})
     del out, ref
     fns = {"ms": kernel_fn, "plain_ms": plain_fn, **(extra or {})}
     if library_fn is not None:
@@ -350,10 +368,13 @@ def kernel_phase(dev) -> dict:
     from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
     from dots_ocr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
     from dots_ocr_tpu_torch.ops.paged_attention import (
+        INT8_SPLIT_BLOCKS_PER_SM,
+        SPLIT_WARPS,
         paged_attention_int8_reference,
         paged_attention_multiquery_bf16,
         paged_attention_multiquery_int8,
         paged_attention_multiquery_reference,
+        paged_split_plan,
     )
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -421,10 +442,15 @@ def kernel_phase(dev) -> dict:
              f"{int((lengths == 0).sum())} empty)")
     # (e, f) the int8 mode at the same shape: pools and scales from
     # quantize_kv of the same N(0, 1) data; the plain version at the
-    # kernel's tile. No single PyTorch call reads a paged pool: no
-    # library time.
+    # kernel's tile, split and warps. No single PyTorch call reads a paged
+    # pool: no library time; the bf16 mode on the same rows is timed in the
+    # same turns. The tight bound's control is the plain version on V's
+    # int8 codes rounded to 4 bits (multiples of 16: ~10% of a code's RMS
+    # at N(0, 1) data, the strength of fp8's 3 mantissa bits on bf16 V).
     kq, ks = quantize_kv(kp)
     vq, vs = quantize_kv(vp)
+    vq4 = (torch.round(vq.float() / 16) * 16).clamp(-127, 127).to(torch.int8)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     for nq in (1, 3):
         qd = randn(MAX_SLOTS, nq, 12, 128)
         results["paged_attention_multiquery"].append(compare(
@@ -434,12 +460,20 @@ def kernel_phase(dev) -> dict:
             work=_paged_work(qd, lens_t, 2, int8=False),
             control_fn=lambda: paged_attention_multiquery_reference(qd, kp, fp8_round(vp),
                                                                     lens_t, table_t)))
+        chunk, n_split = paged_split_plan(MAX_SLOTS, 2, 6 * nq, 128, MAX_SEQ_TOKENS, num_sms,
+                                          INT8_SPLIT_BLOCKS_PER_SM)
         results["paged_attention_multiquery_int8"].append(compare(
-            f"paged decode nq={nq} int8 {shape}",
+            f"paged decode nq={nq} int8 {shape}, {n_split} splits of {chunk}",
             lambda: paged_attention_multiquery_int8(qd, kq, vq, ks, vs, lens_t, table_t),
-            lambda: paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t),
-            work=_paged_work(qd, lens_t, 2, int8=True)))
-    del kp, vp, kq, vq, ks, vs
+            lambda: paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t,
+                                                   chunk=chunk, warps=SPLIT_WARPS),
+            work=_paged_work(qd, lens_t, 2, int8=True),
+            extra={"bf16_mode_ms": lambda: paged_attention_multiquery_bf16(qd, kp, vp, lens_t,
+                                                                           table_t)},
+            control_fn=lambda: paged_attention_int8_reference(
+                qd, kq, vq4, ks, vs, lens_t, table_t, chunk=chunk, warps=SPLIT_WARPS),
+            control="plain on V's codes rounded to 4 bits"))
+    del kp, vp, kq, vq, vq4, ks, vs
     windows = window_cases(randn, dev)
     results["flash_attention"].append(windows.pop("flash_windowed"))
     results.update(windows)
@@ -564,7 +598,8 @@ def window_cases(randn, dev) -> dict:
         lambda: window_attention(q, k, v, seg),
         lambda: window_attention_reference(q, k, v, seg), work=work,
         library_fn=lambda: _sdpa(q, k, v, key_mask),
-        extra={"flash_same_windows_ms": lambda: flash_attention(*flat, win_seg, win_seg)})
+        extra={"flash_same_windows_ms": lambda: flash_attention(*flat, win_seg, win_seg)},
+        control_fn=lambda: window_attention_reference(q, k, fp8_round(v), seg))
     # Kernel 1's own case on these windows (its tile list skips the other
     # windows' tiles): the valid rows' pairs only (a padded window's rows
     # are -1 and give zeros here).
@@ -723,6 +758,8 @@ def _counters():
             "paged_attention_multiquery (nq > 1)": (paged_attention_multiquery_bf16,
                                                     "verify_launches"),
             "paged_attention_multiquery_int8": (paged_attention_multiquery_int8, "launches"),
+            "paged_attention_multiquery_int8 (nq > 1)": (paged_attention_multiquery_int8,
+                                                         "verify_launches"),
             "paged_attention_v1": (paged_attention_stacked, "launches"),
             "paged_attention_v1_int8": (paged_attention_stacked, "int8_launches"),
             "window_attention": (window_attention, "launches"),
@@ -739,14 +776,17 @@ def read_counts() -> dict:
     return {name: getattr(fn, attr) for name, (fn, attr) in _counters().items()}
 
 
-def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 32),)):
+def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 32),),
+                replies=None, one_more: bool = False):
     """Build the engine through the server's entry point with ``flags``
     (after ``base_flags``, by default the shipping geometry of phases 4-10),
     serve it, and drive three concurrent requests per wave, one wave after
     the other, each wave's requests at its (temperature, max_tokens). Every
     counter named in ``required`` must move during the served run (all
-    waves). Returns (engine, the launch counts of the run, /metrics as a
-    dict, the page image)."""
+    waves). ``replies``, a list, receives each wave's {request name: (text,
+    usage)}; with ``one_more`` a further text request is served after the
+    waves and must come back HTTP 200. Returns (engine, the launch counts
+    of the run, /metrics as a dict, the page image)."""
     import torch
     from aiohttp import web
     from PIL import Image
@@ -822,7 +862,13 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
             wave_label = label if len(waves) == 1 else f"{label} wave {wave + 1}"
             batch = [(name, {**body, "temperature": temperature, "max_tokens": max_tokens})
                      for name, body in requests]
-            _serve_wave(post, batch, wave_label, temperature)
+            answers = _serve_wave(post, batch, wave_label, temperature)
+            if replies is not None:
+                replies.append(answers)
+        if one_more:
+            _serve_wave(post, [("one more text request",
+                                {**requests[2][1], "temperature": 0.0, "max_tokens": 8})],
+                        f"{label}, afterwards", 0.0)
         launches = read_counts()
         status, text = _http(f"{base}/metrics")
         metrics = {}
@@ -833,8 +879,8 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
         if status != 200 or metrics.get("prefills", 0) < 3:
             raise AssertionError(f"/metrics shows fewer than 3 prefills: {metrics}")
         shown = ("prefills", "prefill_chunks", "steps", "spec_chunks", "spec_emitted",
-                 "spec_slot_iters", "spec_auto_disabled", "t_admit_s", "t_prefill_s",
-                 "t_decode_s")
+                 "spec_slot_iters", "spec_auto_disabled", "preemptions", "t_admit_s",
+                 "t_prefill_s", "t_decode_s")
         log(f"  [{label}] /metrics: " + ", ".join(f"{k} {metrics.get(k)}" for k in shown))
         log(f"  [{label}] kernel launches during the served run: {launches}")
         for name in required:
@@ -847,9 +893,10 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
     return engine, launches, metrics, page
 
 
-def _serve_wave(post, batch, label: str, temperature: float) -> None:
+def _serve_wave(post, batch, label: str, temperature: float) -> dict:
     """Post the wave's requests concurrently; each must come back HTTP 200
-    with completion tokens. Logs each request and the wave's wall."""
+    with completion tokens. Logs each request and the wave's wall. Returns
+    {request name: (text, usage)}."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(batch)) as pool:
         results = list(pool.map(post, batch))
@@ -870,8 +917,10 @@ def _serve_wave(post, batch, label: str, temperature: float) -> None:
             f"completion {n} tokens, finish {data['choices'][0]['finish_reason']}, "
             f"latency {secs * 1e3:.0f} ms (engine: ttft {lat.get('ttft_ms')} ms, "
             f"decode {lat.get('decode_ms')} ms -> {rate:.1f} tok/s after the first)")
-    log(f"  [{label}] 3 concurrent requests at temperature {temperature:g}: wall {wall:.2f} s, "
-        f"{total_tokens} completion tokens -> {total_tokens / wall:.1f} tok/s")
+    log(f"  [{label}] {len(batch)} concurrent request(s) at temperature {temperature:g}: wall "
+        f"{wall:.2f} s, {total_tokens} completion tokens -> {total_tokens / wall:.1f} tok/s")
+    return {name: (data["choices"][0]["message"]["content"], data["usage"])
+            for name, _, data, _ in results}
 
 
 def _page_inputs(engine, page, dev):
@@ -1164,6 +1213,51 @@ def decode_cost_phase(engine, dev):
     return res, launches
 
 
+def dry_pool_pages(prompt_tokens, page_size: int) -> int:
+    """A pool that admits all the prompts at once and little more: the null
+    page, each prompt's pages (its tokens and the first generated one),
+    DRY_SLACK_PAGES, and the admission watermark (ADMIT_FREE_FRACTION of
+    the pool, kept free at admission)."""
+    need = sum(-(-(n + 1) // page_size) for n in prompt_tokens) + DRY_SLACK_PAGES
+    pages = need + 1
+    while pages - 1 - int(pages * ADMIT_FREE_FRACTION) < need:
+        pages += 1
+    return pages
+
+
+def dry_pool_phase(dev, roomy: dict, label: str = "dry pool"):
+    """Phase 12: phase 4's flags on a pool cut to :func:`dry_pool_pages` of
+    the three prompts, the requests of ``roomy`` (phase 4's DRY_TOKENS
+    wave on the full pool: {name: (text, usage)}) again at DRY_TOKENS. All
+    HTTP 200, at least one preemption, the same greedy text, one more
+    request served afterwards. Returns the run's launch counts and metrics."""
+    pages = dry_pool_pages([usage["prompt_tokens"] for _, usage in roomy.values()], PAGE_SIZE)
+    log(f"  prompts of {[usage['prompt_tokens'] for _, usage in roomy.values()]} tokens: a pool "
+        f"of {pages} pages x {PAGE_SIZE} (the full pool has {NUM_PAGES}), {DRY_TOKENS} tokens "
+        f"each")
+    replies = []
+    engine, launches, metrics, _ = serve_phase(
+        dev, [*SHIPPED_FLAGS, "--num-pages", str(pages)], label,
+        required=("flash_attention", "paged_attention_multiquery_int8"),
+        waves=((0.0, DRY_TOKENS),), replies=replies, one_more=True)
+    if metrics.get("preemptions", 0) < 1:
+        raise AssertionError(f"{label}: no preemption on a pool of {pages} pages ({metrics})")
+    for name, (text, usage) in replies[0].items():
+        want, want_usage = roomy[name]
+        same = text == want and usage["completion_tokens"] == want_usage["completion_tokens"]
+        log(f"  [{label}] {name}: {usage['completion_tokens']} completion tokens, text equal to "
+            f"the full pool's: {same}")
+        if not same:
+            raise AssertionError(f"{label}: {name} differs from the full pool's answer:\n"
+                                 f"{text!r}\nvs\n{want!r}")
+    if engine.has_work() or engine.allocator.free_pages != pages - 1:
+        raise AssertionError(f"{label}: the engine did not drain "
+                             f"({engine.allocator.free_pages} of {pages - 1} pages free)")
+    log(f"  [{label}] {int(metrics['preemptions'])} preemption(s), every request HTTP 200 with "
+        f"the full pool's text, one more request served, the pool drained")
+    return launches, metrics
+
+
 def shipping_env() -> dict:
     """deploy/shipping.env's KEY=VALUE lines (comments and blanks skipped)."""
     env = {}
@@ -1193,7 +1287,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    log("[1/11] device")
+    log("[1/12] device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1202,7 +1296,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {smi}")
 
-    log("[2/11] build the CUDA kernels")
+    log("[2/12] build the CUDA kernels")
     from dots_ocr_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
@@ -1212,27 +1306,30 @@ def main() -> int:
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3/11] kernels vs plain versions on {smi}")
+    log(f"[3/12] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
     tiny_call = tiny_call_phase(dev)
     w8a8_vision = w8a8_vision_phase(dev)
 
-    log(f"[4/11] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
+    log(f"[4/12] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
         f"{PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
+    shipped_replies = []
     engine, shipped, metrics, page = serve_phase(
-        dev, SHIPPED_FLAGS, "shipped",
+        dev, SHIPPED_FLAGS, "shipped", waves=SHIPPED_WAVES, replies=shipped_replies,
         required=("flash_attention", "flash_attention (q_offset > 0)",
                   "paged_attention_multiquery_int8"))
+    if metrics.get("preemptions", 0) != 0:
+        raise AssertionError(f"shipped path: the full pool preempted ({metrics})")
     if metrics.get("prefill_chunks", 0) < 2 or metrics.get("spec_chunks", 0) < 1:
         raise AssertionError(f"shipped path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[5/11] consistency, shipped path: kernel path vs plain path, page request")
+    log("[5/12] consistency, shipped path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[6/11] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
+    log(f"[6/12] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
         f"chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, full_quant, metrics, page = serve_phase(
         dev, FULL_QUANT_FLAGS, "int4",
@@ -1242,24 +1339,24 @@ def main() -> int:
         raise AssertionError(f"int4 path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[7/11] consistency, fully quantized path: kernel path vs plain path, page request")
+    log("[7/12] consistency, fully quantized path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev, w8a8_vision=True)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[8/11] end to end, bf16 path (bf16 weights and KV, no speculation, one "
+    log(f"[8/12] end to end, bf16 path (bf16 weights and KV, no speculation, one "
         f"{PREFILL_LIMIT}-token prefill), full depth, on {smi}")
     engine, bf16_path, _, page = serve_phase(
         dev, BF16_FLAGS, "bf16", required=("flash_attention", "paged_attention_multiquery"))
     log("  consistency, bf16 path: kernel path vs plain path, page request")
     consistency_phase(engine, page, dev)
 
-    log(f"[9/11] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
+    log(f"[9/12] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
     decode_ms, decode_launches = decode_cost_phase(engine, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[10/11] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
+    log(f"[10/12] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
         f"speculation, chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, windowed, metrics, page = serve_phase(
         dev, WINDOWED_FLAGS, "windowed",
@@ -1275,7 +1372,7 @@ def main() -> int:
     env = shipping_env()
     env_flags = [item for key, flag in SHIPPING_KEYS.items() for item in (flag, env[key])]
     settings = ", ".join(f"{key}={env[key]}" for key in SHIPPING_KEYS)
-    log(f"[11/11] end to end, deploy/shipping.env as written ({settings}): flagship, random "
+    log(f"[11/12] end to end, deploy/shipping.env as written ({settings}): flagship, random "
         f"weights, waves (temperature, max_tokens) {SHIPPING_WAVES}, OpenAIServer on {smi}")
     engine, shipping, metrics, page = serve_phase(
         dev, [], "shipping.env", base_flags=env_flags, waves=SHIPPING_WAVES,
@@ -1294,6 +1391,10 @@ def main() -> int:
     consistency_chunked_phase(engine, page, dev)
     del engine
     torch.cuda.empty_cache()
+
+    log(f"[12/12] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
+        f"weights, OpenAIServer on {smi}")
+    dry_launches, dry_metrics = dry_pool_phase(dev, shipped_replies[1])
 
     sources = {
         "flash_attention": ("dots_ocr_tpu_torch/csrc/flash_attention.cu",
@@ -1328,7 +1429,8 @@ def main() -> int:
         for name, cases in kernels.items()
     ], "launches_by_path": {"shipped": shipped, "int4": full_quant, "bf16": bf16_path,
                             "decode_steps": decode_launches, "windowed": windowed,
-                            "shipping.env": shipping},
+                            "shipping.env": shipping, "dry_pool": dry_launches},
+        "dry_pool_preemptions": dry_metrics["preemptions"],
         "decode_step_ms": decode_ms, "w8a8_vision_linear_ms": w8a8_vision,
         "tiny_call_ms": tiny_call}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

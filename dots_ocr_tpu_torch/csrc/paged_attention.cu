@@ -382,7 +382,11 @@ paged_decode_split_kernel(const uint16_t* __restrict__ q, const uint16_t* __rest
 }
 
 // One warp per output row (slot b, KV head, row r): the log-sum-exp merge
-// of the row's live splits; exact zeros where nothing was seen.
+// of the row's live splits; exact zeros where nothing was seen. BASE2: the
+// partials' m is in the base-2 domain (the bf16 mode) or the natural-exp
+// domain (the int8 mode, whose sums are issued unfused, in split order, as
+// its plain version takes them).
+template <bool BASE2>
 __global__ void paged_merge_kernel(const float* __restrict__ part_o,
                                    const float* __restrict__ part_ml,
                                    const int* __restrict__ lengths, uint16_t* __restrict__ out,
@@ -401,9 +405,12 @@ __global__ void paged_merge_kernel(const float* __restrict__ part_o,
   float lb = 0.f;
   for (int s = 0; s < n_live; ++s) {
     const float ms = part_ml[(row0 + (size_t)s * R) * 2];
-    lb += ms == -INFINITY ? 0.f : part_ml[(row0 + (size_t)s * R) * 2 + 1] * exp2f(ms - mb);
+    if (ms == -INFINITY) continue;
+    const float ls = part_ml[(row0 + (size_t)s * R) * 2 + 1];
+    if (BASE2) lb += ls * exp2f(ms - mb);
+    else lb = __fadd_rn(lb, __fmul_rn(ls, expf(__fsub_rn(ms, mb))));
   }
-  const float inv = lb == 0.f ? 0.f : 1.f / lb;
+  const float inv = lb == 0.f ? 0.f : __fdiv_rn(1.f, lb);
   const int gh = r / nq, j = r % nq;
   uint16_t* dst = out + (((size_t)b * nq + j) * H + kvh * G + gh) * D;
   for (int d = lane; d < D; d += 32) {
@@ -411,9 +418,11 @@ __global__ void paged_merge_kernel(const float* __restrict__ part_o,
     for (int s = 0; s < n_live; ++s) {
       const size_t row = row0 + (size_t)s * R;
       const float ms = part_ml[row * 2];
-      if (ms != -INFINITY) x += part_o[row * D + d] * exp2f(ms - mb);
+      if (ms == -INFINITY) continue;
+      if (BASE2) x += part_o[row * D + d] * exp2f(ms - mb);
+      else x = __fadd_rn(x, __fmul_rn(part_o[row * D + d], expf(__fsub_rn(ms, mb))));
     }
-    dst[d] = __bfloat16_as_ushort(__float2bfloat16_rn(x * inv));
+    dst[d] = __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(x, inv)));
   }
 }
 
@@ -439,7 +448,8 @@ int launch_split(const void* q, const void* k_pool, const void* v_pool, const vo
 
 
 // ---------------------------------------------------------------------------
-// int8 mode: the Pallas body's quantized path (paged_attention.py:400-509).
+// int8 mode: the Pallas body's quantized path (paged_attention.py:400-509),
+// in the bf16 mode's shape.
 //
 // Same function and masking as above, with int8 pools and f32 scales
 // [KV, num_pages, page_size] (the flat per-layer scale vector viewed as
@@ -450,87 +460,129 @@ int launch_split(const void* q, const void* k_pool, const void* v_pool, const vo
 // amax / 127, or 1), and O += int32(P_i8 . V_i8) * pscale after the alpha
 // rescale. The re-quantization depends on the tile (INT8_TILE tokens here,
 // 512 in the Pallas kernel); the plain PyTorch version takes the tile
-// length, so on the card kernel and plain agree up to the softmax
-// denominator's summation order (f32 ops are issued with __fmul_rn /
-// __fadd_rn so nvcc contracts none of them into an FMA the plain version
-// does not have).
+// length, the split and the number of warps that share a split, so on the
+// card kernel and plain agree up to the softmax denominator's summation
+// order (f32 ops are issued with __fmul_rn / __fadd_rn so nvcc contracts
+// none of them into an FMA the plain version does not have).
 //
 // What bounds it: the same live-K/V read as the bf16 mode at half the
-// bytes (the capacity mode's point). Both products run on the tensor cores
-// with mma.sync m16n8k32 s8 x s8 -> s32: Q [32 rows, D] x K^T for the
-// scores (rows past (H/KV)*nq are zero), P [32 rows, 64 tokens] x V for
-// the output. V is the column-major B operand of the second product and
-// ldmatrix.trans only moves b16, so the tile's V is stored transposed in
-// shared memory ([D][tokens], byte stores) as it is loaded; K is stored
-// row-major and read directly as the B operand of the first. Shared rows
-// are padded by 16 bytes so the 8 rows of a fragment hit distinct banks.
-// Tokens past a row's live span are zero-filled, scales included, and a
-// masked probability never meets a scale (it is 0 before the multiply).
-// Simple first: one block per (KV head, slot) walks its tiles serially,
-// loads are not overlapped with compute.
+// bytes (the capacity mode's point). What the design does about it:
+// (a) The bf16 mode's split-K: grid (split, KV head, slot) over the same
+//     static plan, a block past its row's end exits at once, float32
+//     partials (m, l in the natural-exp domain, unnormalized O) go to the
+//     caller's scratch and paged_merge_kernel<false> merges them. Splits
+//     start on multiples of 64 = INT8_TILE, so P is re-quantized over the
+//     same 64-token tiles whatever the split.
+// (b) One warp owns all 64 tokens of a tile for every query row: warp w
+//     of a block takes tiles w, w + 4, ... of the block's range, with its
+//     own (m, l, O) and its own cp.async buffers: one K tile with K's
+//     scales and one V tile with V's (gathered through the page table;
+//     16-byte copies, zero-filled past the row's live span, scales
+//     included, so a masked probability never meets a scale; table entries
+//     past a row's end are never read). The next K tile is requested as
+//     soon as the scores of this one are scaled, and lands during the
+//     softmax and P V; the next V tile is requested after P V and lands
+//     during the next Q K^T. One buffer each keeps a block at 79 KB, so
+//     two blocks (8 warps) share an SM. The row max, the row sum and the
+//     row's pamax are quad shuffles: no block barrier per tile, and the
+//     four warps' states merge once at the end, in shared memory, in warp
+//     order.
+// (c) Both products on mma.sync m16n8k32 s8 x s8 -> s32, the scores never
+//     leaving registers. Q (rows past (H/KV)*nq zero) and K come through
+//     ldmatrix as they lie. V lies [token][D] and the second product wants
+//     four consecutive tokens of one column in a register; ldmatrix.trans
+//     moves 16-bit units, so it delivers two tokens x two columns, and two
+//     prmt turn a pair of such registers into the fragments of an even and
+//     an odd column. The product sums over tokens, so the ORDER of tokens
+//     inside a 32-token step is free: it is chosen so that the S
+//     accumulators a thread already holds (n-tiles 4u .. 4u + 3) are, after
+//     softmax and re-quantization, exactly its A fragment of step u. No
+//     byte stores, no score buffer, no transposed copy of V.
+// (d) P's re-quantization divides 16 values a thread by the row's pscale:
+//     one correctly rounded reciprocal, then q = x r corrected by two
+//     FMAs (q += (x - pscale q) r), which is the quotient's correct
+//     rounding as a true division gives it.
+// Shared rows are padded by 16 bytes, so ldmatrix's 8 rows hit distinct
+// banks.
 
 constexpr int INT8_TILE = 64;
-constexpr int ROWS_PAD = 32;  // two m16 tiles
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
-                                       uint32_t a3, uint32_t b0, uint32_t b1) {
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const int8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+// 16 bytes, of which the first src_bytes come from src and the rest are zero.
+__device__ __forceinline__ void cp_async16_part(uint32_t dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(src_bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ uint32_t prmt(uint32_t a, uint32_t b, uint32_t sel) {
+  uint32_t d;
+  asm("prmt.b32 %0, %1, %2, %3;\n" : "=r"(d) : "r"(a), "r"(b), "r"(sel));
+  return d;
+}
+
+__device__ __forceinline__ uint32_t pack_s8(int b0, int b1, int b2, int b3) {
+  return (uint32_t)(b0 & 0xff) | ((uint32_t)(b1 & 0xff) << 8) | ((uint32_t)(b2 & 0xff) << 16) |
+         ((uint32_t)(b3 & 0xff) << 24);
 }
 
 template <int D>
-__global__ void __launch_bounds__(NUM_THREADS)
-paged_decode_int8_kernel(const uint16_t* __restrict__ q, const int8_t* __restrict__ k_pool,
-                         const int8_t* __restrict__ v_pool, const float* __restrict__ k_scale,
-                         const float* __restrict__ v_scale, const int* __restrict__ lengths,
-                         const int* __restrict__ page_indices, uint16_t* __restrict__ out,
-                         int nq, int H, int KV, int num_slots, int page_size, int max_pages,
-                         float sm_scale) {
+struct Int8Smem {
+  static constexpr int PITCH = D + 16;               // bytes per Q / K / V row
+  static constexpr int KV_TILE = INT8_TILE * PITCH;  // one K or V tile
+  static constexpr int SCALES = 2 * KV_TILE;         // k scales, then v scales
+  static constexpr int WARP = 2 * KV_TILE + 2 * INT8_TILE * 4;  // one warp's K, V, scales
+  static constexpr int Q = 32 * PITCH + 32 * 4;      // int8 query rows, their scales
+  static constexpr int BYTES = Q + SPLIT_WARPS * WARP;
+};
+
+template <int D, int MT>
+__global__ void __launch_bounds__(NUM_THREADS, 2)
+paged_decode_int8_split_kernel(const uint16_t* __restrict__ q, const int8_t* __restrict__ k_pool,
+                               const int8_t* __restrict__ v_pool,
+                               const float* __restrict__ k_scale,
+                               const float* __restrict__ v_scale, const int* __restrict__ lengths,
+                               const int* __restrict__ page_indices, float* __restrict__ part_o,
+                               float* __restrict__ part_ml, int nq, int H, int KV, int num_slots,
+                               int page_size, int max_pages, int chunk, int n_split,
+                               float sm_scale) {
+  using L = Int8Smem<D>;
   constexpr int T = INT8_TILE;
-  constexpr int QP = D + 16;  // Qs / Ks row pitch in bytes
-  constexpr int VP = T + 16;  // Vt / Ps row pitch in bytes
   constexpr int CH = D / 16;  // 16-byte chunks per token row
-  constexpr int PER_THREAD = T * CH / NUM_THREADS;
-  constexpr int NT_PV = D / 32;  // n8 output tiles per warp in P.V
-  __shared__ __align__(16) int8_t Qs[ROWS_PAD * QP];
-  __shared__ __align__(16) int8_t Ks[T * QP];
-  __shared__ __align__(16) int8_t Vt[D * VP];
-  __shared__ __align__(16) int8_t Ps[ROWS_PAD * VP];
-  __shared__ float Ss[MAX_ROWS * T];
-  __shared__ float ks_s[T], vs_s[T];
-  __shared__ float qs_s[ROWS_PAD], m_s[ROWS_PAD], l_s[ROWS_PAD];
-  __shared__ float alpha_s[ROWS_PAD], pscale_s[ROWS_PAD];
+  constexpr int ROWS = 16 * MT;
+  extern __shared__ __align__(16) uint8_t smem[];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int grp = lane >> 2, tig = lane & 3;  // mma groupID, thread in group
-  const int kvh = blockIdx.x, b = blockIdx.y;
+  const int g = lane >> 2, c = lane & 3;       // mma groupID, thread in group
+  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: matrix, row within it
+  const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
+  const int len = lengths[b];
+  const int n_tok = len > 0 ? min(len + nq - 1, max_pages * page_size) : 0;
+  const int t_begin = split * chunk;
+  if (t_begin >= n_tok) return;  // the merge reads only live splits
+  const int t_end = min(t_begin + chunk, n_tok);
   const int G = H / KV;
   const int R = G * nq;  // row r = g * nq + j serves query head kvh * G + g, query j
-  const int MT = R > 16 ? 2 : 1;  // m16 tiles holding live rows
-
-  // Zero the padded rows of Qs and all of Ps (rows >= R stay zero), and the
-  // per-row state of rows >= R (alpha, pscale 0: they never accumulate).
-  for (int i = tid; i < ROWS_PAD * QP / 4; i += NUM_THREADS) reinterpret_cast<uint32_t*>(Qs)[i] = 0u;
-  for (int i = tid; i < ROWS_PAD * VP / 4; i += NUM_THREADS) reinterpret_cast<uint32_t*>(Ps)[i] = 0u;
-  if (tid < ROWS_PAD) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.f;
-    alpha_s[tid] = 0.f;
-    pscale_s[tid] = 0.f;
-  }
-  __syncthreads();
+  const int* table = page_indices + (size_t)b * max_pages;
+  const size_t head_base = (size_t)kvh * num_slots;
 
   // Quantize each query row once: one warp per row, D / 32 values a lane.
-  for (int r = warp; r < R; r += NUM_THREADS / 32) {
-    const int g = r / nq, j = r % nq;
-    const uint16_t* qr = q + (((size_t)b * nq + j) * H + kvh * G + g) * D;
+  // Rows >= R stay zero.
+  int8_t* Qs = reinterpret_cast<int8_t*>(smem);
+  float* qs_s = reinterpret_cast<float*>(smem + 32 * L::PITCH);
+  for (int i = tid; i < L::Q / 4; i += NUM_THREADS) reinterpret_cast<uint32_t*>(smem)[i] = 0u;
+  __syncthreads();
+  for (int r = warp; r < R; r += SPLIT_WARPS) {
+    const int gh = r / nq, j = r % nq;
+    const uint16_t* qr = q + (((size_t)b * nq + j) * H + kvh * G + gh) * D;
     float x[D / 32];
     float amax = 0.f;
 #pragma unroll
@@ -542,212 +594,352 @@ paged_decode_int8_kernel(const uint16_t* __restrict__ q, const int8_t* __restric
     const float qs = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
 #pragma unroll
     for (int e = 0; e < D / 32; ++e)
-      Qs[r * QP + lane + 32 * e] = (int8_t)__float2int_rn(__fdiv_rn(x[e], qs));
+      Qs[r * L::PITCH + lane + 32 * e] = (int8_t)__float2int_rn(__fdiv_rn(x[e], qs));
     if (lane == 0) qs_s[r] = qs;
   }
-
-  const int len = lengths[b];
-  const int n_tok = len > 0 ? min(len + nq - 1, max_pages * page_size) : 0;
-  const int* table = page_indices + (size_t)b * max_pages;
-  const size_t head_base = (size_t)kvh * num_slots;
-
-  float acc[2][NT_PV][4];
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT_PV; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
   __syncthreads();
 
-  for (int t0 = 0; t0 < n_tok; t0 += T) {
-    // Load: K row-major, V transposed, the tile's scales; zeros past n_tok.
-    uint4 kst[PER_THREAD], vst[PER_THREAD];
+  const uint32_t qsm = smem_u32(Qs);
+  uint8_t* buf_p = smem + L::Q + warp * L::WARP;
+  const uint32_t ks = smem_u32(buf_p), vs = ks + L::KV_TILE;
+  const float* ksc = reinterpret_cast<const float*>(buf_p + L::SCALES);
+  const float* vsc = ksc + T;
+  const int span = t_end - t_begin - warp * T;
+  constexpr int STRIDE = SPLIT_WARPS * T;  // tokens between a warp's tiles
+  const int n_steps = span > 0 ? (span + STRIDE - 1) / STRIDE : 0;
+  const bool one_page = page_size % T == 0;
+
+  // One tile of K (with K's scales) or of V (with V's) into the warp's buffer.
+  auto load = [&](int step, bool is_v) {
+    const int t0 = t_begin + (step * SPLIT_WARPS + warp) * T;
+    const int8_t* pool = is_v ? v_pool : k_pool;
+    const uint32_t dst = is_v ? vs : ks;
+    // Pages of whole tiles (the shipping 128): one table entry a tile.
+    const size_t tile_slot =
+        one_page ? (size_t)table[t0 / page_size] * page_size + t0 % page_size : 0;
 #pragma unroll
-    for (int it = 0; it < PER_THREAD; ++it) {
-      const int i = tid + it * NUM_THREADS;
-      const int pos = t0 + i / CH;
-      kst[it] = vst[it] = make_uint4(0u, 0u, 0u, 0u);
-      if (pos < n_tok) {
-        const int slot = table[pos / page_size] * page_size + pos % page_size;
-        const size_t off = (head_base + slot) * D + (i % CH) * 16;
-        kst[it] = *reinterpret_cast<const uint4*>(k_pool + off);
-        vst[it] = *reinterpret_cast<const uint4*>(v_pool + off);
-      }
-    }
-    if (tid < T) {
-      const int pos = t0 + tid;
-      float ksv = 0.f, vsv = 0.f;
-      if (pos < n_tok) {
-        const size_t si = head_base + table[pos / page_size] * page_size + pos % page_size;
-        ksv = k_scale[si];
-        vsv = v_scale[si];
-      }
-      ks_s[tid] = ksv;
-      vs_s[tid] = vsv;
-    }
-#pragma unroll
-    for (int it = 0; it < PER_THREAD; ++it) {
-      const int i = tid + it * NUM_THREADS;
+    for (int i = lane; i < T * CH; i += 32) {
       const int row = i / CH, ch = i % CH;
-      *reinterpret_cast<uint4*>(&Ks[row * QP + ch * 16]) = kst[it];
-      const uint32_t w[4] = {vst[it].x, vst[it].y, vst[it].z, vst[it].w};
-#pragma unroll
-      for (int e = 0; e < 16; ++e)
-        Vt[(ch * 16 + e) * VP + row] = (int8_t)((w[e >> 2] >> (8 * (e & 3))) & 0xffu);
+      const int pos = t0 + row;
+      const bool ok = pos < t_end;
+      size_t off = 0;
+      if (ok) {
+        const size_t slot = one_page ? tile_slot + row
+                                     : (size_t)table[pos / page_size] * page_size + pos % page_size;
+        off = (head_base + slot) * D + ch * 16;
+      }
+      cp_async16(dst + row * L::PITCH + ch * 16, pool + off, ok);
     }
-    __syncthreads();
+    // The tile's scales, four tokens (one page: page_size % 4 == 0) a copy.
+    if (lane < T / 4) {
+      const int j4 = lane * 4, pos = t0 + j4;
+      const int n_ok = max(0, min(4, t_end - pos));
+      size_t off = 0;
+      if (n_ok > 0)
+        off = head_base + (one_page ? tile_slot + j4
+                                    : (size_t)table[pos / page_size] * page_size + pos % page_size);
+      cp_async16_part(ks + L::SCALES + (is_v ? T * 4 : 0) + j4 * 4,
+                      (is_v ? v_scale : k_scale) + off, n_ok * 4);
+    }
+  };
 
-    // Scores: warp w owns tokens [16w, 16w + 16) (two n8 tiles), all rows.
-    {
-      int c[2][2][4];
+  // This thread's rows: mt * 16 + g (+ 8); the last position each may see
+  // and its query scale.
+  int limit[MT][2];
+  float qsr[MT][2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt)
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = mt * 16 + g + hf * 8;
+      limit[mt][hf] = r < R ? min(len + r % nq, t_end) : 0;  // query j sees tokens < len + j
+      qsr[mt][hf] = r < R ? qs_s[r] : 0.f;
+    }
+  // acc[mt][dc][hf][i]: row mt * 16 + g + 8 hf, column 16 dc + 4 c + i.
+  float acc[MT][D / 16][2][4];
+  float m[MT][2], l[MT][2];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) c[mt][nt][i] = 0;
+  for (int mt = 0; mt < MT; ++mt) {
 #pragma unroll
-      for (int kk = 0; kk < D / 32; ++kk) {
+    for (int dc = 0; dc < D / 16; ++dc)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
-          const int8_t* kb = &Ks[(warp * 16 + nt * 8 + grp) * QP + kk * 32 + tig * 4];
-          const uint32_t b0 = ld32(kb), b1 = ld32(kb + 16);
+      for (int e = 0; e < 8; ++e) acc[mt][dc][e >> 2][e & 3] = 0.f;
+    m[mt][0] = m[mt][1] = -INFINITY;
+    l[mt][0] = l[mt][1] = 0.f;
+  }
+
+  // Two cp.async groups are pending at the top of every step, K's then
+  // V's, and one group is committed at each of the two refill points
+  // whether or not a tile is left, so "all but the newest" is always the
+  // tile needed next.
+  if (n_steps > 0) load(0, false);
+  cp_async_commit();
+  if (n_steps > 0) load(0, true);
+  cp_async_commit();
+  for (int step = 0; step < n_steps; ++step) {
+    cp_async_wait<1>();  // this step's K
+    __syncwarp();
+    const int t0 = t_begin + (step * SPLIT_WARPS + warp) * T;
+
+    // S = Q K^T: MT m16 tiles x 8 n8 tiles (64 tokens), int32.
+    int sc[MT][8][4];
 #pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            if (mt >= MT) continue;  // static register indices, dynamic skip
-            const int8_t* qa = &Qs[(mt * 16 + grp) * QP + kk * 32 + tig * 4];
-            mma_s8(c[mt][nt], ld32(qa), ld32(qa + 8 * QP), ld32(qa + 16), ld32(qa + 8 * QP + 16),
-                   b0, b1);
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sc[mt][j][e] = 0;
+#pragma unroll
+    for (int kk = 0; kk < D / 32; ++kk) {
+      uint32_t qa[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldsm_x4(qa[mt], qsm + (mt * 16 + ((mat & 1) << 3) + mrow) * L::PITCH +
+                            (2 * kk + (mat >> 1)) * 16);
+#pragma unroll
+      for (int jp = 0; jp < 4; ++jp) {
+        uint32_t bk[4];
+        ldsm_x4(bk, ks + ((2 * jp + (mat >> 1)) * 8 + mrow) * L::PITCH + (2 * kk + (mat & 1)) * 16);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_s8(sc[mt][2 * jp], qa[mt], bk[0], bk[1]);
+          mma_s8(sc[mt][2 * jp + 1], qa[mt], bk[2], bk[3]);
+        }
+      }
+    }
+
+    // The scaled, masked scores, in the registers of the int32 sums; then
+    // K's buffer is free and the next K tile is requested.
+    float x[MT][2][8][2];
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        if (mt * 16 + hf * 8 >= R) continue;  // no live row in this half (warp-uniform)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 kv2 = *reinterpret_cast<const float2*>(&ksc[j * 8 + 2 * c]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool ok = t0 + j * 8 + 2 * c + e < limit[mt][hf];
+            const float sv = __fmul_rn(
+                __fmul_rn(__fmul_rn((float)sc[mt][j][2 * hf + e], qsr[mt][hf]), e ? kv2.y : kv2.x),
+                sm_scale);
+            x[mt][hf][j][e] = ok ? sv : MASK_VALUE;
           }
         }
       }
+    __syncwarp();
+    if (step + 1 < n_steps) load(step + 1, false);
+    cp_async_commit();
+    cp_async_wait<1>();  // this step's V (the K just requested may be pending)
+    __syncwarp();
+
+    // Online softmax (natural exp) and P's re-quantization per row over
+    // the tile; the thread's S values become its A fragments of P.
+    uint32_t pa[MT][2][4];
+    float alpha[MT][2], pscale[MT][2];
 #pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        if (mt >= MT) continue;
+    for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-        for (int nt = 0; nt < 2; ++nt) {
+      for (int hf = 0; hf < 2; ++hf) {
+        if (mt * 16 + hf * 8 >= R) {
+          alpha[mt][hf] = pscale[mt][hf] = 0.f;
+          pa[mt][0][hf] = pa[mt][0][2 + hf] = pa[mt][1][hf] = pa[mt][1][2 + hf] = 0u;
+          continue;
+        }
+        float mx = -INFINITY;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(x[mt][hf][j][0], x[mt][hf][j][1]));
+        mx = quad_max(mx);
+        const float m_prev = m[mt][hf];
+        const float mn = fmaxf(m_prev, mx);
+        float sum = 0.f, pamax = 0.f;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float2 vv2 = *reinterpret_cast<const float2*>(&vsc[j * 8 + 2 * c]);
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const bool ok = t0 + j * 8 + 2 * c + e < limit[mt][hf];
+            const float p = ok ? expf(__fsub_rn(x[mt][hf][j][e], mn)) : 0.f;
+            sum = __fadd_rn(sum, p);
+            const float pp = ok ? __fmul_rn(p, e ? vv2.y : vv2.x) : 0.f;
+            pamax = fmaxf(pamax, fabsf(pp));
+            x[mt][hf][j][e] = pp;
+          }
+        }
+        sum = quad_sum(sum);
+        pamax = quad_max(pamax);
+        const float ps = pamax > 0.f ? __fdiv_rn(pamax, 127.f) : 1.f;
+        const float ps_inv = __frcp_rn(ps);
+        int qi[8][2];
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            // pp / ps, correctly rounded: the quotient by the reciprocal,
+            // corrected by its remainder.
+            const float pp = x[mt][hf][j][e];
+            const float q0 = __fmul_rn(pp, ps_inv);
+            qi[j][e] = __float2int_rn(__fmaf_rn(__fmaf_rn(-ps, q0, pp), ps_inv, q0));
+          }
+        // k-slot 4c + i of 32-token step u holds token 32u + 8(i >> 1) + 2c +
+        // (i & 1), and slot 16 + 4c + i token 32u + 16 + 8(i >> 1) + 2c + (i & 1):
+        // this thread's values of n-tiles 4u, 4u + 1 and 4u + 2, 4u + 3.
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          pa[mt][u][hf] = pack_s8(qi[4 * u][0], qi[4 * u][1], qi[4 * u + 1][0], qi[4 * u + 1][1]);
+          pa[mt][u][2 + hf] =
+              pack_s8(qi[4 * u + 2][0], qi[4 * u + 2][1], qi[4 * u + 3][0], qi[4 * u + 3][1]);
+        }
+        alpha[mt][hf] = expf(__fsub_rn(m_prev, mn));  // 0 on the first tile
+        pscale[mt][hf] = ps;
+        l[mt][hf] = __fadd_rn(__fmul_rn(l[mt][hf], alpha[mt][hf]), sum);
+        m[mt][hf] = mn;
+      }
+
+    bool max_moved = false;
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf)
+        if (mt * 16 + hf * 8 < R) max_moved |= alpha[mt][hf] != 1.f;
+    max_moved = __any_sync(0xffffffffu, max_moved);
+
+    // O = alpha * O + (P_i8 . V_i8) * pscale, 16 columns at a time: one
+    // ldmatrix.x4.trans per 32-token step gives, after prmt, the B
+    // fragments of the chunk's 8 even and 8 odd columns in P's token order.
+#pragma unroll
+    for (int dc = 0; dc < D / 16; ++dc) {
+      int ce[MT][4], co[MT][4];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) ce[mt][e] = co[mt][e] = 0;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        uint32_t vt[4];
+        ldsm_x4_t(vt, vs + (u * 32 + mat * 8 + mrow) * L::PITCH + dc * 16);
+        const uint32_t be0 = prmt(vt[0], vt[1], 0x6420u), bo0 = prmt(vt[0], vt[1], 0x7531u);
+        const uint32_t be1 = prmt(vt[2], vt[3], 0x6420u), bo1 = prmt(vt[2], vt[3], 0x7531u);
+#pragma unroll
+        for (int mt = 0; mt < MT; ++mt) {
+          mma_s8(ce[mt], pa[mt][u], be0, be1);
+          mma_s8(co[mt], pa[mt][u], bo0, bo1);
+        }
+      }
+      // Even tile column 2c + (e & 1) is column 16 dc + 4c + 2 (e & 1); the
+      // odd tile's is one further.
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          if (mt * 16 + hf * 8 >= R) continue;
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const int r = mt * 16 + grp + (i >> 1) * 8;
-            const int tok = warp * 16 + nt * 8 + tig * 2 + (i & 1);
-            if (r < R) {
-              const int limit = min(len + r % nq, n_tok);  // query j sees tokens < len + j
-              const float sv = __fmul_rn(
-                  __fmul_rn(__fmul_rn((float)c[mt][nt][i], qs_s[r]), ks_s[tok]), sm_scale);
-              Ss[r * T + tok] = t0 + tok < limit ? sv : MASK_VALUE;
+            const int cv = (i & 1) ? co[mt][2 * hf + (i >> 1)] : ce[mt][2 * hf + (i >> 1)];
+            // acc * 1 is acc: the product is skipped where no row's max moved
+            const float prev = max_moved ? __fmul_rn(acc[mt][dc][hf][i], alpha[mt][hf])
+                                         : acc[mt][dc][hf][i];
+            acc[mt][dc][hf][i] = __fadd_rn(prev, __fmul_rn((float)cv, pscale[mt][hf]));
+          }
+        }
+    }
+    __syncwarp();  // V's buffer is free: request the next V tile
+    if (step + 1 < n_steps) load(step + 1, true);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the buffers are free: reuse them to merge the warps
+
+  float* wm = reinterpret_cast<float*>(smem + L::Q);  // [warp][ROWS]
+  float* wl = wm + SPLIT_WARPS * ROWS;
+  float* accs = wl + SPLIT_WARPS * ROWS;  // [ROWS][D]
+  if (c == 0) {
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+      for (int hf = 0; hf < 2; ++hf) {
+        const int r = mt * 16 + g + hf * 8;
+        wm[warp * ROWS + r] = m[mt][hf];
+        wl[warp * ROWS + r] = l[mt][hf];
+      }
+  }
+  __syncthreads();
+  float f[MT][2];  // this warp's weight in the block's sum
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int hf = 0; hf < 2; ++hf) {
+      const int r = mt * 16 + g + hf * 8;
+      float mb = -INFINITY;
+#pragma unroll
+      for (int w = 0; w < SPLIT_WARPS; ++w) mb = fmaxf(mb, wm[w * ROWS + r]);
+      f[mt][hf] = m[mt][hf] == -INFINITY ? 0.f : expf(__fsub_rn(m[mt][hf], mb));
+    }
+  for (int w = 0; w < SPLIT_WARPS; ++w) {  // in warp order: a fixed summation order
+    if (warp == w) {
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int dc = 0; dc < D / 16; ++dc)
+#pragma unroll
+          for (int hf = 0; hf < 2; ++hf) {
+            const int r = mt * 16 + g + hf * 8;
+            float4* dst = reinterpret_cast<float4*>(accs + r * D + dc * 16 + 4 * c);
+            float4 val = w == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *dst;
+            const float fw = f[mt][hf];
+            if (w == 0) {
+              val.x = __fmul_rn(acc[mt][dc][hf][0], fw);
+              val.y = __fmul_rn(acc[mt][dc][hf][1], fw);
+              val.z = __fmul_rn(acc[mt][dc][hf][2], fw);
+              val.w = __fmul_rn(acc[mt][dc][hf][3], fw);
+            } else {
+              val.x = __fadd_rn(val.x, __fmul_rn(acc[mt][dc][hf][0], fw));
+              val.y = __fadd_rn(val.y, __fmul_rn(acc[mt][dc][hf][1], fw));
+              val.z = __fadd_rn(val.z, __fmul_rn(acc[mt][dc][hf][2], fw));
+              val.w = __fadd_rn(val.w, __fmul_rn(acc[mt][dc][hf][3], fw));
             }
+            *dst = val;
           }
-        }
-      }
     }
     __syncthreads();
-
-    // Online softmax and P re-quantization, one warp per row.
-    for (int r = warp; r < R; r += NUM_THREADS / 32) {
-      const int limit = min(len + r % nq, n_tok);
-      float sv[2];
-      bool ok[2];
-      float mx = -INFINITY;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int tok = lane + 32 * e;
-        ok[e] = t0 + tok < limit;
-        sv[e] = Ss[r * T + tok];
-        mx = fmaxf(mx, sv[e]);
-      }
-      mx = warp_max(mx);
-      const float m_prev = m_s[r];
-      const float mn = fmaxf(m_prev, mx);
-      float sum = 0.f, pp[2], pamax = 0.f;
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const float p = ok[e] ? expf(__fsub_rn(sv[e], mn)) : 0.f;
-        sum = __fadd_rn(sum, p);
-        pp[e] = ok[e] ? __fmul_rn(p, vs_s[lane + 32 * e]) : 0.f;
-        pamax = fmaxf(pamax, fabsf(pp[e]));
-      }
-      sum = warp_sum(sum);
-      pamax = warp_max(pamax);
-      const float pscale = pamax > 0.f ? __fdiv_rn(pamax, 127.f) : 1.f;
-#pragma unroll
-      for (int e = 0; e < 2; ++e)
-        Ps[r * VP + lane + 32 * e] = (int8_t)__float2int_rn(__fdiv_rn(pp[e], pscale));
-      if (lane == 0) {
-        const float alpha = expf(__fsub_rn(m_prev, mn));  // 0 on the first tile
-        alpha_s[r] = alpha;
-        pscale_s[r] = pscale;
-        l_s[r] = __fadd_rn(__fmul_rn(l_s[r], alpha), sum);
-        m_s[r] = mn;
-      }
-    }
-    __syncthreads();
-
-    // O = alpha * O + (P_i8 . V_i8) * pscale: warp w owns columns
-    // [w * D / 4, (w + 1) * D / 4) (NT_PV n8 tiles).
-    {
-      int c[2][NT_PV][4];
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT_PV; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) c[mt][nt][i] = 0;
-#pragma unroll
-      for (int kk = 0; kk < T / 32; ++kk) {
-#pragma unroll
-        for (int nt = 0; nt < NT_PV; ++nt) {
-          const int8_t* vb = &Vt[(warp * (D / 4) + nt * 8 + grp) * VP + kk * 32 + tig * 4];
-          const uint32_t b0 = ld32(vb), b1 = ld32(vb + 16);
-#pragma unroll
-          for (int mt = 0; mt < 2; ++mt) {
-            if (mt >= MT) continue;
-            const int8_t* pa = &Ps[(mt * 16 + grp) * VP + kk * 32 + tig * 4];
-            mma_s8(c[mt][nt], ld32(pa), ld32(pa + 8 * VP), ld32(pa + 16), ld32(pa + 8 * VP + 16),
-                   b0, b1);
-          }
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < 2; ++mt) {
-        if (mt >= MT) continue;
-#pragma unroll
-        for (int nt = 0; nt < NT_PV; ++nt) {
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int r = mt * 16 + grp + (i >> 1) * 8;
-            acc[mt][nt][i] = __fadd_rn(__fmul_rn(acc[mt][nt][i], alpha_s[r]),
-                                       __fmul_rn((float)c[mt][nt][i], pscale_s[r]));
-          }
-        }
-      }
-    }
-    __syncthreads();  // Ks / Vt / Ss / Ps are refilled by the next tile
   }
-
-#pragma unroll
-  for (int mt = 0; mt < 2; ++mt) {
-    if (mt >= MT) continue;
-#pragma unroll
-    for (int nt = 0; nt < NT_PV; ++nt) {
-#pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int r = mt * 16 + grp + half * 8;
-        if (r < R) {
-          const float l = l_s[r];
-          const float l_inv = l == 0.f ? 0.f : __fdiv_rn(1.f, l);
-          const int g = r / nq, j = r % nq;
-          const int d = warp * (D / 4) + nt * 8 + tig * 2;
-          const uint32_t lo = __bfloat16_as_ushort(
-              __float2bfloat16_rn(__fmul_rn(acc[mt][nt][half * 2], l_inv)));
-          const uint32_t hi = __bfloat16_as_ushort(
-              __float2bfloat16_rn(__fmul_rn(acc[mt][nt][half * 2 + 1], l_inv)));
-          *reinterpret_cast<uint32_t*>(out + (((size_t)b * nq + j) * H + kvh * G + g) * D + d) =
-              lo | (hi << 16);
-        }
-      }
+  const size_t row0 = (((size_t)b * KV + kvh) * n_split + split) * R;
+  for (int i = tid; i < R * D; i += NUM_THREADS) part_o[row0 * D + i] = accs[i];
+  for (int r = tid; r < R; r += NUM_THREADS) {
+    float mb = -INFINITY;
+    for (int w = 0; w < SPLIT_WARPS; ++w) mb = fmaxf(mb, wm[w * ROWS + r]);
+    float lb = 0.f;
+    for (int w = 0; w < SPLIT_WARPS; ++w) {
+      const float mw = wm[w * ROWS + r];
+      if (mw != -INFINITY) lb = __fadd_rn(lb, __fmul_rn(wl[w * ROWS + r], expf(__fsub_rn(mw, mb))));
     }
+    part_ml[(row0 + r) * 2] = mb;
+    part_ml[(row0 + r) * 2 + 1] = lb;
   }
+}
+
+template <int D, int MT>
+int launch_int8_split(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+                      const void* v_scale, const void* lengths, const void* page_indices,
+                      float* part_o, float* part_ml, int B, int nq, int H, int KV, int num_slots,
+                      int page_size, int max_pages, int chunk, int n_split, float sm_scale,
+                      cudaStream_t st) {
+  auto kernel = paged_decode_int8_split_kernel<D, MT>;
+  constexpr int smem = Int8Smem<D>::BYTES;
+  static_assert(Int8Smem<D>::WARP * SPLIT_WARPS >= 2 * SPLIT_WARPS * 32 * 4 + 32 * D * 4,
+                "the merge area must fit in the warps' buffers");
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  kernel<<<dim3(n_split, KV, B), NUM_THREADS, smem, st>>>(
+      static_cast<const uint16_t*>(q), static_cast<const int8_t*>(k_pool),
+      static_cast<const int8_t*>(v_pool), static_cast<const float*>(k_scale),
+      static_cast<const float*>(v_scale), static_cast<const int*>(lengths),
+      static_cast<const int*>(page_indices), part_o, part_ml, nq, H, KV, num_slots, page_size,
+      max_pages, chunk, n_split, sm_scale);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -787,38 +979,51 @@ extern "C" int dots_paged_attention_bf16(const void* q, const void* k_pool, cons
     return static_cast<int>(cudaErrorInvalidValue);
   if (err != 0) return err;
   const int warps = B * KV * R;
-  paged_merge_kernel<<<(warps + 3) / 4, 128, 0, st>>>(
+  paged_merge_kernel<true><<<(warps + 3) / 4, 128, 0, st>>>(
       po, pml, static_cast<const int*>(lengths), static_cast<uint16_t*>(out), B, nq, H, KV, D,
       max_pages * page_size, chunk, n_split);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The int8 mode: the same scratch and plan as the bf16 mode.
 extern "C" int dots_paged_attention_int8(const void* q, const void* k_pool, const void* v_pool,
                                          const void* k_scale, const void* v_scale,
                                          const void* lengths, const void* page_indices,
-                                         void* out, int B, int nq, int H, int KV, int D,
-                                         int num_pages, int page_size, int max_pages,
-                                         float sm_scale, void* stream) {
-  if ((H / KV) * nq > MAX_ROWS) return static_cast<int>(cudaErrorInvalidValue);
-  const dim3 grid(KV, B);
+                                         void* part_o, void* part_ml, void* out, int B, int nq,
+                                         int H, int KV, int D, int num_pages, int page_size,
+                                         int max_pages, int chunk, int n_split, float sm_scale,
+                                         void* stream) {
+  const int R = (H / KV) * nq;
+  if (R > MAX_ROWS || page_size % 4 != 0 || chunk <= 0 || chunk % INT8_TILE != 0 ||
+      (long long)n_split * chunk < (long long)max_pages * page_size)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int num_slots = num_pages * page_size;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const auto* qp = static_cast<const uint16_t*>(q);
-  const auto* kp = static_cast<const int8_t*>(k_pool);
-  const auto* vp = static_cast<const int8_t*>(v_pool);
-  const auto* ksp = static_cast<const float*>(k_scale);
-  const auto* vsp = static_cast<const float*>(v_scale);
-  const auto* lp = static_cast<const int*>(lengths);
-  const auto* tp = static_cast<const int*>(page_indices);
-  auto* op = static_cast<uint16_t*>(out);
-  if (D == 128) {
-    paged_decode_int8_kernel<128><<<grid, NUM_THREADS, 0, st>>>(
-        qp, kp, vp, ksp, vsp, lp, tp, op, nq, H, KV, num_slots, page_size, max_pages, sm_scale);
-  } else if (D == 64) {
-    paged_decode_int8_kernel<64><<<grid, NUM_THREADS, 0, st>>>(
-        qp, kp, vp, ksp, vsp, lp, tp, op, nq, H, KV, num_slots, page_size, max_pages, sm_scale);
-  } else {
+  auto* po = static_cast<float*>(part_o);
+  auto* pml = static_cast<float*>(part_ml);
+  int err;
+  if (D == 128 && R <= 16)
+    err = launch_int8_split<128, 1>(q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices,
+                                    po, pml, B, nq, H, KV, num_slots, page_size, max_pages, chunk,
+                                    n_split, sm_scale, st);
+  else if (D == 128)
+    err = launch_int8_split<128, 2>(q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices,
+                                    po, pml, B, nq, H, KV, num_slots, page_size, max_pages, chunk,
+                                    n_split, sm_scale, st);
+  else if (D == 64 && R <= 16)
+    err = launch_int8_split<64, 1>(q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices,
+                                   po, pml, B, nq, H, KV, num_slots, page_size, max_pages, chunk,
+                                   n_split, sm_scale, st);
+  else if (D == 64)
+    err = launch_int8_split<64, 2>(q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices,
+                                   po, pml, B, nq, H, KV, num_slots, page_size, max_pages, chunk,
+                                   n_split, sm_scale, st);
+  else
     return static_cast<int>(cudaErrorInvalidValue);
-  }
+  if (err != 0) return err;
+  const int warps = B * KV * R;
+  paged_merge_kernel<false><<<(warps + 3) / 4, 128, 0, st>>>(
+      po, pml, static_cast<const int*>(lengths), static_cast<uint16_t*>(out), B, nq, H, KV, D,
+      max_pages * page_size, chunk, n_split);
   return static_cast<int>(cudaGetLastError());
 }

@@ -13,21 +13,39 @@
 // What bounds it on this card: at the encoder's shape (W = 256 raw patches,
 // H = 12, D = 128) each (window, head) reads 3 x 64 KB and writes 64 KB but
 // does 2 x 256 x 256 x 128 x 2 = 33.6 MFLOP: ~130 FLOP per byte, below the
-// H100's ~295 bf16 ridge, so on paper memory bound; in practice the two
-// tensor-core products and the float32 softmax set the time at this size.
+// H100's ~295 bf16 ridge, so memory bound on paper (0.029 ms at 31 windows
+// against 0.011 ms of products). In practice what a design has to keep out
+// of the way is shared-memory traffic and the time the tensor cores sit
+// idle behind loads and the softmax.
 //
-// What the design does about it: one block (8 warps) per (head, window).
-// The window's K and V for that head are staged in shared memory once
-// (2 x W x (D + 8) halfwords: 139 KB at W = 256, D = 128), read strided
-// straight from the [nw, W, H, D] layout: no head-major copy, which is
-// what cost the TPU kernel end to end. Each warp owns 16-row query tiles
-// (held as mma fragments in registers) and makes two passes over the keys
-// on mma.sync m16n8k16 bf16 -> f32: the first finds the row max, the
-// second recomputes the scores, forms p against that final max (the Pallas
-// order of rounding; an online softmax would round p against a running
-// max), sums l from the float32 p and accumulates bf16(p) @ V. The second
-// pass re-does QK^T, 1.5x the products of one pass, to keep 64 KB of
-// scores out of registers and shared memory.
+// What the design does about it:
+// (a) One 128-thread block (4 warps) per (window, head, 64 query rows);
+//     each warp owns one 16-row query tile. At most 255 registers a thread
+//     and ~81 KB of shared memory, so TWO blocks share an SM and one
+//     block's loads and softmax hide behind the other's products (the
+//     earlier design staged K and V whole, 139 KB: one block per SM, and
+//     nothing computed until 128 KB had landed).
+// (b) One pass, scores kept: a warp's 16 x W float32 scores stay in
+//     registers (128 a thread at W = 256), so Q K^T runs once. p is formed
+//     from the float32 s against the FINAL row max, l sums the unrounded
+//     float32 p, and P is rounded to bf16 only as the A operand of P V:
+//     the Pallas order of rounding, with no running max to rescale.
+//     exp(x) is computed as 2^(x log2 e) by the special-function unit
+//     (ex2.approx, 2 ulp), and O / l as O times one reciprocal a row.
+// (c) K and V stream through a ring of four 64-key tiles (16 KB each at
+//     D = 128) filled by cp.async, one commit group a tile, read strided
+//     straight from the [nw, W, H, D] layout (no head-major copy): the
+//     block starts Q K^T on the first K tile while the rest are in flight,
+//     and V tiles land during the last K tiles and the softmax. The four
+//     blocks of a (window, head) read the same K and V; they are launched
+//     side by side so the repeats are L2 hits.
+// (d) Operands through ldmatrix from rows whose 16-byte chunks are XOR
+//     swizzled by the row index (conflict free, no padding): Q and K
+//     fragments with ldmatrix.x4, V with ldmatrix.x4.trans (V lies [key][D];
+//     .trans gives the [D][key] B operand in one instruction where the
+//     earlier design assembled it from four 16-bit loads a product).
+// (e) The output tile goes back through shared memory (the warp's own Q
+//     rows) and is written as 16-byte row segments.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -36,9 +54,37 @@
 
 namespace {
 
-constexpr int NUM_THREADS = 256;  // 8 warps
-constexpr int KEY_TILE = 64;
+constexpr int NUM_THREADS = 128;  // 4 warps, 16 query rows each
+constexpr int TILE = 64;          // keys per ring tile, query rows per block
+constexpr int STAGES = 4;
 constexpr float MASK_VALUE = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst), "l"(src) : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           uint32_t b0, uint32_t b1) {
@@ -49,14 +95,17 @@ __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ uint32_t ld32(const uint16_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
 // Two floats -> bf16x2, the first in the low half (the lower index).
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// 2^x by the special-function unit (2 ulp; denormal results flush to 0).
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
 __device__ __forceinline__ float quad_max(float x) {
@@ -69,145 +118,202 @@ __device__ __forceinline__ float quad_sum(float x) {
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
 }
 
-// The scores of one 64-key tile for this warp's 16 query rows, scaled and
-// masked: s[j][e] is key k0 + j*8 + 2c + (e & 1) of row g (e < 2) or g + 8.
+// Byte offset of 16-byte chunk `ch` of row `row` in a swizzled tile whose
+// rows are D bf16 wide: the chunk index is XORed with the row's low bits,
+// so the 8 rows of an ldmatrix land in 8 different bank groups.
 template <int D>
-__device__ __forceinline__ void tile_scores(float (&s)[8][4], const uint32_t (&qf)[D / 16][4],
-                                            const uint16_t* Ks, const int* valid_s, int k0,
-                                            int g, int c, float scale) {
-  constexpr int PITCH = D + 8;
-#pragma unroll
-  for (int j = 0; j < 8; ++j) {
-    s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-    const uint16_t* kr = &Ks[(k0 + j * 8 + g) * PITCH + 2 * c];
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      mma_16816(s[j], qf[kk], ld32(kr + kk * 16), ld32(kr + kk * 16 + 8));
-    }
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const bool ok = valid_s[k0 + j * 8 + 2 * c + (e & 1)];
-      s[j][e] = ok ? s[j][e] * scale : MASK_VALUE;
-    }
-  }
+__device__ __forceinline__ uint32_t swz(int row, int ch) {
+  return static_cast<uint32_t>(row * (D * 2) + ((ch ^ (row & 7)) << 4));
 }
 
-template <int D>
-__global__ void __launch_bounds__(NUM_THREADS, 1)
+// NT = W / 64 key tiles. Shared memory: the block's Q tile, then STAGES
+// ring tiles, each 64 rows x D bf16 swizzled, then W key-validity flags.
+template <int D, int NT>
+__global__ void __launch_bounds__(NUM_THREADS, 2)
 window_attention_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
                         const uint16_t* __restrict__ v, const int* __restrict__ seg,
-                        uint16_t* __restrict__ out, int W, int H, float scale) {
-  constexpr int PITCH = D + 8;  // smem row pitch in halfwords: conflict-free fragments
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* Ks = reinterpret_cast<uint16_t*>(smem);
-  uint16_t* Vs = Ks + (size_t)W * PITCH;
-  int* valid_s = reinterpret_cast<int*>(Vs + (size_t)W * PITCH);
+                        uint16_t* __restrict__ out, int H, float scale_log2) {
+  constexpr int W = NT * TILE;
+  constexpr int CH = D / 8;                // 16-byte chunks a row
+  constexpr int TILE_BYTES = TILE * D * 2;
+  constexpr int N_TILES = 2 * NT;          // K tiles, then V tiles
+  extern __shared__ __align__(128) unsigned char smem[];
+  const uint32_t q_s = smem_u32(smem);
+  const uint32_t ring = q_s + TILE_BYTES;
+  int* valid_s = reinterpret_cast<int*>(smem + (1 + STAGES) * TILE_BYTES);
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g = lane >> 2, c = lane & 3;  // mma fragment row group / column pair
-  const int h = blockIdx.x, w = blockIdx.y;
+  const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: matrix, row within it
+  const int qb = blockIdx.x % NT, h = blockIdx.x / NT, w = blockIdx.y;
   const size_t pitch = (size_t)H * D;  // elements between consecutive tokens
   const size_t base = (size_t)w * W * pitch + (size_t)h * D;
 
-  for (int i = tid; i < W * (D / 8); i += NUM_THREADS) {
-    const int row = i / (D / 8), ch = i % (D / 8);
-    const size_t src = base + row * pitch + ch * 8;
-    *reinterpret_cast<uint4*>(&Ks[row * PITCH + ch * 8]) =
-        *reinterpret_cast<const uint4*>(k + src);
-    *reinterpret_cast<uint4*>(&Vs[row * PITCH + ch * 8]) =
-        *reinterpret_cast<const uint4*>(v + src);
+  // One 64-row tile, global rows row0.. of `src`, into swizzled shared memory.
+  auto load_tile = [&](const uint16_t* src, int row0, uint32_t dst) {
+#pragma unroll
+    for (int i = tid; i < TILE * CH; i += NUM_THREADS) {
+      const int row = i / CH, ch = i % CH;
+      cp_async16(dst + swz<D>(row, ch), src + base + (size_t)(row0 + row) * pitch + ch * 8);
+    }
+  };
+  auto load_kv = [&](int t) {
+    load_tile(t < NT ? k : v, (t % NT) * TILE, ring + (t % STAGES) * TILE_BYTES);
+  };
+
+  load_tile(q, qb * TILE, q_s);
+  cp_async_commit();
+#pragma unroll
+  for (int t = 0; t < STAGES; ++t) {
+    if (t < N_TILES) load_kv(t);
+    cp_async_commit();
   }
   for (int i = tid; i < W; i += NUM_THREADS) valid_s[i] = seg[(size_t)w * W + i] >= 0;
+
+  cp_async_wait<STAGES>();  // Q has landed (the ring tiles may not have)
   __syncthreads();
-
-  for (int mt = warp; mt < W / 16; mt += NUM_THREADS / 32) {
-    const int r0 = mt * 16 + g, r1 = r0 + 8;
-    const uint16_t* q0 = q + base + r0 * pitch;
-    const uint16_t* q1 = q + base + r1 * pitch;
-    uint32_t qf[D / 16][4];
+  uint32_t qf[D / 16][4];
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int col = kk * 16 + 2 * c;
-      qf[kk][0] = ld32(q0 + col);
-      qf[kk][1] = ld32(q1 + col);
-      qf[kk][2] = ld32(q0 + col + 8);
-      qf[kk][3] = ld32(q1 + col + 8);
-    }
+  for (int kk = 0; kk < D / 16; ++kk)
+    ldsm_x4(qf[kk], q_s + swz<D>(warp * 16 + ((mat & 1) << 3) + mrow, 2 * kk + (mat >> 1)));
 
-    // Pass 1: the row max over every key.
-    float m0 = -INFINITY, m1 = -INFINITY;
-    for (int k0 = 0; k0 < W; k0 += KEY_TILE) {
-      float s[8][4];
-      tile_scores<D>(s, qf, Ks, valid_s, k0, g, c, scale);
+  // s[t][j][e]: key t * 64 + j * 8 + 2c + (e & 1) of row g (e < 2) or g + 8.
+  float s[NT][8][4];
+  float o[D / 8][4];
+  uint32_t pa[NT][4][4];  // P as bf16 A fragments, one per 16-key step
+  float l0 = 0.f, l1 = 0.f;
+
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        m0 = fmaxf(m0, fmaxf(s[j][0], s[j][1]));
-        m1 = fmaxf(m1, fmaxf(s[j][2], s[j][3]));
+  for (int t = 0; t < N_TILES; ++t) {
+    // One group was committed per tile so far: tile t is group t + 1 of
+    // 1 + STAGES + t, so at most STAGES - 1 younger groups may be pending.
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();
+    const uint32_t tile = ring + (t % STAGES) * TILE_BYTES;
+    if (t < NT) {
+      // S = Q K^T for keys [64 t, 64 t + 64): K fragments by ldmatrix.x4,
+      // two 8-key n-tiles at a time.
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[t][j][0] = s[t][j][1] = s[t][j][2] = s[t][j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int jp = 0; jp < 4; ++jp) {
+          uint32_t bk[4];
+          ldsm_x4(bk, tile + swz<D>((2 * jp + (mat >> 1)) * 8 + mrow, 2 * kk + (mat & 1)));
+          mma_16816(s[t][2 * jp], qf[kk], bk[0], bk[1]);
+          mma_16816(s[t][2 * jp + 1], qf[kk], bk[2], bk[3]);
+        }
       }
-    }
-    m0 = quad_max(m0);
-    m1 = quad_max(m1);
-
-    // Pass 2: p against the final max, l from the float32 p, O += bf16(p) V.
-    float o[D / 8][4];
+      if (t == NT - 1) {
+        // Every score is here: mask, the final row max, p, l, P as bf16.
+        float m0 = -INFINITY, m1 = -INFINITY;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
-    float l0 = 0.f, l1 = 0.f;
-    for (int k0 = 0; k0 < W; k0 += KEY_TILE) {
-      float s[8][4];
-      tile_scores<D>(s, qf, Ks, valid_s, k0, g, c, scale);
+        for (int tt = 0; tt < NT; ++tt)
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        s[j][0] = expf(s[j][0] - m0);
-        s[j][1] = expf(s[j][1] - m0);
-        s[j][2] = expf(s[j][2] - m1);
-        s[j][3] = expf(s[j][3] - m1);
-        l0 += s[j][0] + s[j][1];
-        l1 += s[j][2] + s[j][3];
+          for (int j = 0; j < 8; ++j) {
+            const int2 ok = *reinterpret_cast<const int2*>(&valid_s[tt * TILE + j * 8 + 2 * c]);
+            s[tt][j][0] = ok.x ? s[tt][j][0] * scale_log2 : MASK_VALUE;
+            s[tt][j][1] = ok.y ? s[tt][j][1] * scale_log2 : MASK_VALUE;
+            s[tt][j][2] = ok.x ? s[tt][j][2] * scale_log2 : MASK_VALUE;
+            s[tt][j][3] = ok.y ? s[tt][j][3] * scale_log2 : MASK_VALUE;
+            m0 = fmaxf(m0, fmaxf(s[tt][j][0], s[tt][j][1]));
+            m1 = fmaxf(m1, fmaxf(s[tt][j][2], s[tt][j][3]));
+          }
+        m0 = quad_max(m0);
+        m1 = quad_max(m1);
+#pragma unroll
+        for (int tt = 0; tt < NT; ++tt) {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+            s[tt][j][0] = ex2(s[tt][j][0] - m0);
+            s[tt][j][1] = ex2(s[tt][j][1] - m0);
+            s[tt][j][2] = ex2(s[tt][j][2] - m1);
+            s[tt][j][3] = ex2(s[tt][j][3] - m1);
+            l0 += s[tt][j][0] + s[tt][j][1];
+            l1 += s[tt][j][2] + s[tt][j][3];
+          }
+          // The S accumulators of n-tiles 2u, 2u + 1 are the A fragment of
+          // the 16-key step u.
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            pa[tt][u][0] = pack_bf16(s[tt][2 * u][0], s[tt][2 * u][1]);
+            pa[tt][u][1] = pack_bf16(s[tt][2 * u][2], s[tt][2 * u][3]);
+            pa[tt][u][2] = pack_bf16(s[tt][2 * u + 1][0], s[tt][2 * u + 1][1]);
+            pa[tt][u][3] = pack_bf16(s[tt][2 * u + 1][2], s[tt][2 * u + 1][3]);
+          }
+        }
+        l0 = quad_sum(l0);
+        l1 = quad_sum(l1);
       }
-      // The S accumulators of n-tiles 2t, 2t+1 are the A fragment of the
-      // 16-key k-step t.
+    } else {
+      // O += P V for keys [64 (t - NT), + 64): V fragments by
+      // ldmatrix.x4.trans, two 8-column n-tiles at a time.
+      if (t == NT) {
 #pragma unroll
-      for (int t = 0; t < 4; ++t) {
-        const uint32_t pa[4] = {
-            pack_bf16(s[2 * t][0], s[2 * t][1]), pack_bf16(s[2 * t][2], s[2 * t][3]),
-            pack_bf16(s[2 * t + 1][0], s[2 * t + 1][1]),
-            pack_bf16(s[2 * t + 1][2], s[2 * t + 1][3])};
-        const uint16_t* vr = &Vs[(k0 + t * 16 + 2 * c) * PITCH + g];
+        for (int nd = 0; nd < D / 8; ++nd) o[nd][0] = o[nd][1] = o[nd][2] = o[nd][3] = 0.f;
+      }
 #pragma unroll
-        for (int nd = 0; nd < D / 8; ++nd) {
-          const uint16_t* p = vr + nd * 8;
-          const uint32_t b0 = (uint32_t)p[0] | ((uint32_t)p[PITCH] << 16);
-          const uint32_t b1 = (uint32_t)p[8 * PITCH] | ((uint32_t)p[9 * PITCH] << 16);
-          mma_16816(o[nd], pa, b0, b1);
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int np = 0; np < D / 16; ++np) {
+          uint32_t bv[4];
+          ldsm_x4_t(bv, tile + swz<D>(u * 16 + ((mat & 1) << 3) + mrow, 2 * np + (mat >> 1)));
+          mma_16816(o[2 * np], pa[t - NT][u], bv[0], bv[1]);
+          mma_16816(o[2 * np + 1], pa[t - NT][u], bv[2], bv[3]);
         }
       }
     }
-    l0 = quad_sum(l0);
-    l1 = quad_sum(l1);
+    __syncthreads();  // every warp is done with this stage
+    if (t + STAGES < N_TILES) load_kv(t + STAGES);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();
 
-    uint16_t* o0 = out + base + r0 * pitch;
-    uint16_t* o1 = out + base + r1 * pitch;
+  // O / l (one division a row, then products) as bf16 into this warp's own
+  // rows of the Q tile (no other warp reads them), then 16-byte row
+  // segments to global memory.
+  const float inv0 = 1.f / l0, inv1 = 1.f / l1;
+  unsigned char* q_tile = smem;
 #pragma unroll
-    for (int nd = 0; nd < D / 8; ++nd) {
-      const int col = nd * 8 + 2 * c;
-      *reinterpret_cast<uint32_t*>(o0 + col) = pack_bf16(o[nd][0] / l0, o[nd][1] / l0);
-      *reinterpret_cast<uint32_t*>(o1 + col) = pack_bf16(o[nd][2] / l1, o[nd][3] / l1);
-    }
+  for (int nd = 0; nd < D / 8; ++nd) {
+    const int r0 = warp * 16 + g, r1 = r0 + 8;
+    *reinterpret_cast<uint32_t*>(q_tile + swz<D>(r0, nd) + 4 * c) =
+        pack_bf16(o[nd][0] * inv0, o[nd][1] * inv0);
+    *reinterpret_cast<uint32_t*>(q_tile + swz<D>(r1, nd) + 4 * c) =
+        pack_bf16(o[nd][2] * inv1, o[nd][3] * inv1);
+  }
+  __syncwarp();
+#pragma unroll
+  for (int i = lane; i < 16 * CH; i += 32) {
+    const int row = warp * 16 + i / CH, ch = i % CH;
+    const uint4 val = *reinterpret_cast<const uint4*>(q_tile + swz<D>(row, ch));
+    *reinterpret_cast<uint4*>(out + base + (size_t)(qb * TILE + row) * pitch + ch * 8) = val;
   }
 }
 
-template <int D>
+template <int D, int NT>
 int launch(const uint16_t* q, const uint16_t* k, const uint16_t* v, const int* seg,
-           uint16_t* out, int nw, int W, int H, float scale, cudaStream_t st) {
-  const size_t smem = 2 * (size_t)W * (D + 8) * sizeof(uint16_t) + W * sizeof(int);
-  cudaError_t err = cudaFuncSetAttribute(window_attention_kernel<D>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+           uint16_t* out, int nw, int H, float scale_log2, cudaStream_t st) {
+  const size_t smem = (size_t)(1 + STAGES) * TILE * D * 2 + NT * TILE * sizeof(int);
+  auto kernel = window_attention_kernel<D, NT>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  window_attention_kernel<D><<<dim3(H, nw), NUM_THREADS, smem, st>>>(q, k, v, seg, out, W, H,
-                                                                     scale);
+  kernel<<<dim3(NT * H, nw), NUM_THREADS, smem, st>>>(q, k, v, seg, out, H, scale_log2);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch_nt(const uint16_t* q, const uint16_t* k, const uint16_t* v, const int* seg,
+              uint16_t* out, int nw, int W, int H, float scale_log2, cudaStream_t st) {
+  switch (W / TILE) {
+    case 1: return launch<D, 1>(q, k, v, seg, out, nw, H, scale_log2, st);
+    case 2: return launch<D, 2>(q, k, v, seg, out, nw, H, scale_log2, st);
+    case 3: return launch<D, 3>(q, k, v, seg, out, nw, H, scale_log2, st);
+    case 4: return launch<D, 4>(q, k, v, seg, out, nw, H, scale_log2, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
@@ -215,14 +321,15 @@ int launch(const uint16_t* q, const uint16_t* k, const uint16_t* v, const int* s
 extern "C" int dots_window_attention_bf16(const void* q, const void* k, const void* v,
                                           const void* seg, void* out, int nw, int W, int H,
                                           int D, float sm_scale, void* stream) {
-  if (W % KEY_TILE != 0 || W > 256) return static_cast<int>(cudaErrorInvalidValue);
+  if (W <= 0 || W % TILE != 0 || W > 4 * TILE) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const auto* qp = static_cast<const uint16_t*>(q);
   const auto* kp = static_cast<const uint16_t*>(k);
   const auto* vp = static_cast<const uint16_t*>(v);
   const auto* sp = static_cast<const int*>(seg);
   auto* op = static_cast<uint16_t*>(out);
-  if (D == 128) return launch<128>(qp, kp, vp, sp, op, nw, W, H, sm_scale, st);
-  if (D == 64) return launch<64>(qp, kp, vp, sp, op, nw, W, H, sm_scale, st);
+  const float scale_log2 = sm_scale * LOG2E;
+  if (D == 128) return launch_nt<128>(qp, kp, vp, sp, op, nw, W, H, scale_log2, st);
+  if (D == 64) return launch_nt<64>(qp, kp, vp, sp, op, nw, W, H, scale_log2, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -42,9 +42,9 @@ _SIGNATURES = {
     # out, B, nq, H, KV, D, num_pages, page_size, max_pages, chunk, n_split,
     # sm_scale, stream
     "dots_paged_attention_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
-    # q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices, out, B,
-    # nq, H, KV, D, num_pages, page_size, max_pages, sm_scale, stream
-    "dots_paged_attention_int8": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices, part_o,
+    # part_ml (scratch), out, then as the bf16 mode
+    "dots_paged_attention_int8": [_P] * 10 + [_I] * 10 + [_F, _P],
     # x, packed, scales, out, M, K, N, stream
     "dots_int4_matmul_w4a16": [_P] * 4 + [_I] * 3 + [_P],
     # x, packed, scales, xq (scratch), a_scale (scratch), out, M, K, N, stream

@@ -33,7 +33,10 @@ probabilities are multiplied by V's scales, re-quantized to int8 per row
 and multiplied by int8 V. That re-quantization depends on the tile it is
 taken over, so the plain version takes the tile length: INT8_TILE, the
 CUDA kernel's, by default; the Pallas kernel's is ``pages_per_block *
-page_size`` (512 tokens capped by the table width).
+page_size`` (512 tokens capped by the table width). The CUDA kernel also
+splits the token axis as the bf16 mode does (a fresh online softmax per
+split and per warp, merged afterwards), and the plain version takes that
+split too (``chunk``, ``warps``); on the CPU the wrapper runs it unsplit.
 
 The wrapper runs the plain version only for tensors on the CPU. A CUDA
 tensor launches the kernel or raises.
@@ -55,6 +58,7 @@ logger = logging.getLogger(__name__)
 
 MAX_QUERY_ROWS = 24  # (H / KV) * nq rows one kernel block serves
 INT8_TILE = 64  # tokens per tile of the int8 CUDA kernel
+SPLIT_WARPS = 4  # warps of a split-kernel block; each walks its own tiles
 # The bf16 kernel's split-K plan (paged_split_plan): splits are whole
 # multiples of SPLIT_ALIGN tokens and at least MIN_SPLIT_TOKENS long, their
 # float32 partials fit SPLIT_SCRATCH_BYTES, and the grid holds at most
@@ -69,6 +73,8 @@ SPLIT_ALIGN = 64
 MIN_SPLIT_TOKENS = 256
 SPLIT_SCRATCH_BYTES = 32 * 2**20
 SPLIT_BLOCKS_PER_SM = 28
+# The int8 kernel takes the same plan with its own cap on the grid.
+INT8_SPLIT_BLOCKS_PER_SM = 28
 LOG2E = 1.4426950408889634
 
 
@@ -121,19 +127,19 @@ def paged_attention_multiquery_reference(
 
 
 def paged_split_plan(batch: int, kv_heads: int, rows: int, head_dim: int, max_tokens: int,
-                     num_sms: int) -> tuple:
-    """The bf16 kernel's split of the token axis, from static shapes only
+                     num_sms: int, blocks_per_sm: int = SPLIT_BLOCKS_PER_SM) -> tuple:
+    """Kernel 2's split of the token axis (both modes), from static shapes only
     (no device value, so a decode step never syncs): ``(chunk, n_split)``,
     split s covering tokens [s * chunk, (s + 1) * chunk) of every row, with
     ``n_split * chunk >= max_tokens`` (the table's max_pages * page_size)
     and ``rows`` = (H / KV) * nq query rows per (slot, KV head). As many
     splits as the three limits allow: MIN_SPLIT_TOKENS per split, float32
     partials (O and m, l: ``rows * (head_dim + 2)`` floats per slot, KV head
-    and split) within SPLIT_SCRATCH_BYTES, SPLIT_BLOCKS_PER_SM blocks per SM."""
+    and split) within SPLIT_SCRATCH_BYTES, ``blocks_per_sm`` blocks per SM."""
     per_split = batch * kv_heads * rows * (head_dim + 2) * 4
     n_split = max(1, min(SPLIT_SCRATCH_BYTES // per_split,
                          -(-max_tokens // MIN_SPLIT_TOKENS),
-                         -(-SPLIT_BLOCKS_PER_SM * num_sms // (batch * kv_heads))))
+                         -(-blocks_per_sm * num_sms // (batch * kv_heads))))
     chunk = -(-max(1, -(-max_tokens // n_split)) // SPLIT_ALIGN) * SPLIT_ALIGN
     return chunk, max(1, -(-max_tokens // chunk))
 
@@ -181,17 +187,30 @@ def paged_split_partials(
             torch.stack(os_, 1).reshape(*shape, head_dim))
 
 
-def merge_split_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor) -> torch.Tensor:
-    """Plain version of the bf16 kernel's merge: the log-sum-exp combination
-    of per-split partials (m, l [B, n_split, nq, H] base 2; o [..., D])
-    over the split axis, exact zeros where no split saw a token. Returns
-    float32 [B, nq, H, D]."""
-    m_all = m.amax(dim=1, keepdim=True)
-    w = torch.where(torch.isinf(m), 0.0, torch.exp2(m - torch.where(torch.isinf(m_all), 0.0,
-                                                                     m_all)))
-    l_all = (l * w).sum(dim=1)
-    o_all = (o * w[..., None]).sum(dim=1)
-    return torch.where(l_all[..., None] > 0, o_all / l_all.clamp_min(1e-30)[..., None], 0.0)
+def merge_split_partials(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor,
+                         base2: bool = True) -> torch.Tensor:
+    """Plain version of kernel 2's merge: the log-sum-exp combination of
+    per-split partials (m, l [B, n_split, nq, H]; o [..., D]) over the split
+    axis, summed in split order as the merge kernel does, exact zeros where
+    no split saw a token. ``base2``: m is in the base-2 domain (the bf16
+    mode) or the natural-exp domain (the int8 mode). Returns float32
+    [B, nq, H, D]."""
+    l_all, o_all = _weighted_sum(m, l, o, base2, dim=1)
+    return o_all * torch.where(l_all == 0, 0.0, 1.0 / l_all)[..., None]
+
+
+def _weighted_sum(m: torch.Tensor, l: torch.Tensor, o: torch.Tensor, base2: bool, dim: int):
+    """(sum_i l_i w_i, sum_i o_i w_i) over ``dim`` in index order, with
+    w_i = exp(m_i - max_i m_i), 0 for a part that saw nothing (m = -inf)."""
+    exp = torch.exp2 if base2 else torch.exp
+    m_all = m.amax(dim=dim, keepdim=True)
+    w = torch.where(torch.isinf(m), 0.0, exp(m - torch.where(torch.isinf(m_all), 0.0, m_all)))
+    l_all = torch.zeros_like(l.select(dim, 0))
+    o_all = torch.zeros_like(o.select(dim, 0))
+    for i in range(m.shape[dim]):
+        l_all = l_all + l.select(dim, i) * w.select(dim, i)
+        o_all = o_all + o.select(dim, i) * w.select(dim, i)[..., None]
+    return l_all, o_all
 
 
 @functools.lru_cache(maxsize=None)
@@ -213,29 +232,13 @@ def _amax_scale(x: torch.Tensor) -> torch.Tensor:
     return torch.where(amax > 0, amax / amax.new_full((), 127.0), torch.ones_like(amax))
 
 
-def paged_attention_int8_reference(
-    q: torch.Tensor,
-    k_pages: torch.Tensor,
-    v_pages: torch.Tensor,
-    k_scales: torch.Tensor,
-    v_scales: torch.Tensor,
-    lengths: torch.Tensor,
-    page_indices: torch.Tensor,
-    sm_scale: Optional[float] = None,
-    tile: int = INT8_TILE,
-) -> torch.Tensor:
-    """Plain version of the int8 mode: the Pallas body's arithmetic as a
-    tiled online softmax over ``tile``-token tiles. The integer products
-    run in float32, where they are exact (|sum| <= 127^2 * D < 2^24 for
-    D <= 128), and every other step takes the kernel's order of
-    operations, so on one device kernel and plain differ by the summation
-    order of the softmax denominator. Tokens past each row's last visible
-    position are zero-filled (K, V and both scales), as the kernel does.
-
-    This is NOT the JAX package's ``paged_attention_multiquery_reference``
-    in int8 mode, which dequantizes K/V to bf16 and runs float attention
-    (ROADMAP queue C, item 2); it agrees with that within 3e-2.
-    """
+def _int8_scores(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, sm_scale, tile):
+    """The int8 mode's scaled, masked scores and its gathered V, as the
+    plain versions share them: s [B, nq, KV, G, S] float32 (masked positions
+    at DEFAULT_MASK_VALUE), valid [B, nq, 1, 1, S], v [KV, B, S, D] (exact
+    integers in float32), vs [B, 1, KV, 1, S], with S the longest live span
+    rounded up to ``tile``. Tokens past each row's last visible position are
+    zero-filled (K, V and both scales), as the kernel does."""
     kv_heads, _, page_size, head_dim = k_pages.shape
     batch, nq, num_heads, _ = q.shape
     group = num_heads // kv_heads
@@ -267,24 +270,127 @@ def paged_attention_int8_reference(
     valid = (pos[None, None, :] < lens[:, None, None] + j[None, :, None]) & live[:, None, :]
     valid = valid[:, :, None, None, :]  # [B, nq, 1, 1, S]
     s = torch.where(valid, s, DEFAULT_MASK_VALUE)
-    vs = vs.permute(1, 0, 2)[:, None, :, None, :]  # [B, 1, KV, 1, S]
+    return s, valid, v, vs.permute(1, 0, 2)[:, None, :, None, :]
 
-    m = torch.full((batch, nq, kv_heads, group, 1), float("-inf"), device=dev)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((batch, nq, kv_heads, group, head_dim), device=dev)
-    for t0 in range(0, span, tile):
+
+def _int8_tile_walk(s, valid, v, vs, t_begin: int, t_end: int, tile: int, warps: int):
+    """The int8 mode's online softmax over the ``tile``-token tiles of
+    tokens [t_begin, t_end), from a fresh state. Tile i belongs to warp
+    i % ``warps``; each warp keeps its own (m, l, acc), as the kernel's do.
+    Returns m, l [warps, B, nq, KV, G] and acc [warps, B, nq, KV, G, D]."""
+    shape = s.shape[:-1]
+    m = [torch.full((*shape, 1), float("-inf"), device=s.device) for _ in range(warps)]
+    l = [torch.zeros_like(m[0]) for _ in range(warps)]
+    acc = [torch.zeros((*shape, v.shape[-1]), device=s.device) for _ in range(warps)]
+    for i, t0 in enumerate(range(t_begin, t_end, tile)):
+        w = i % warps
         st, ok = s[..., t0:t0 + tile], valid[..., t0:t0 + tile]
-        m_next = torch.maximum(m, st.amax(dim=-1, keepdim=True))
+        m_next = torch.maximum(m[w], st.amax(dim=-1, keepdim=True))
         p = torch.where(ok, torch.exp(st - m_next), 0.0)
-        alpha = torch.exp(m - m_next)
-        l = l * alpha + p.sum(dim=-1, keepdim=True)
+        alpha = torch.exp(m[w] - m_next)
+        l[w] = l[w] * alpha + p.sum(dim=-1, keepdim=True)
         pp = torch.where(ok, p * vs[..., t0:t0 + tile], 0.0)
         pscale = _amax_scale(pp)
         pv = torch.einsum("bjkgs,kbsd->bjkgd", _round_int8(pp, pscale),
                           v[:, :, t0:t0 + tile])  # exact
-        acc = acc * alpha + pv * pscale
-        m = m_next
-    l_inv = torch.where(l == 0, 0.0, 1.0 / l)
+        acc[w] = acc[w] * alpha + pv * pscale
+        m[w] = m_next
+    return torch.stack(m)[..., 0], torch.stack(l)[..., 0], torch.stack(acc)
+
+
+def paged_int8_split_partials(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scales: torch.Tensor,
+    v_scales: torch.Tensor,
+    lengths: torch.Tensor,
+    page_indices: torch.Tensor,
+    chunk: int,
+    sm_scale: Optional[float] = None,
+    tile: int = INT8_TILE,
+    warps: int = SPLIT_WARPS,
+):
+    """Plain version of the int8 kernel's first pass: per split of ``chunk``
+    tokens (a multiple of ``tile``), the float32 partials of each query row:
+    the split's tiles walked by ``warps`` warps in turn, their states merged
+    in warp order. m, l are in the natural-exp domain, o is unnormalized.
+    Returns m, l [B, n_split, nq, H] and o [B, n_split, nq, H, D] with
+    n_split covering the table; a split past the longest row has m = -inf,
+    l = 0, o = 0 (so has, for one row, a split past that row's end, which
+    the kernel leaves unwritten)."""
+    if chunk % tile:
+        raise ValueError(f"chunk {chunk} is not a multiple of the tile {tile}")
+    s, valid, v, vs = _int8_scores(q, k_pages, v_pages, k_scales, v_scales, lengths,
+                                   page_indices, sm_scale, tile)
+    batch, nq, num_heads, head_dim = q.shape
+    span = s.shape[-1]
+    n_split = max(1, -(-page_indices.shape[1] * k_pages.shape[2] // chunk))
+    lens = lengths.long()
+    n_tok = torch.where(lens > 0, (lens + nq - 1).clamp_max(page_indices.shape[1]
+                                                            * k_pages.shape[2]), 0)
+    ms, ls, os_ = [], [], []
+    for i in range(n_split):
+        t_begin = i * chunk
+        wm, wl, wacc = _int8_tile_walk(s, valid, v, vs, t_begin, min(t_begin + chunk, span),
+                                       tile, warps)
+        l_b, o_b = _weighted_sum(wm, wl, wacc, base2=False, dim=0)
+        m_b = wm.amax(dim=0)
+        # a row's split that starts at or past its n_tok: nothing was seen
+        dead = (t_begin >= n_tok)[:, None, None, None]
+        ms.append(torch.where(dead, float("-inf"), m_b))
+        ls.append(torch.where(dead, 0.0, l_b))
+        os_.append(torch.where(dead[..., None], 0.0, o_b))
+    shape = (batch, n_split, nq, num_heads)
+    return (torch.stack(ms, 1).reshape(shape), torch.stack(ls, 1).reshape(shape),
+            torch.stack(os_, 1).reshape(*shape, head_dim))
+
+
+def paged_attention_int8_reference(
+    q: torch.Tensor,
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    k_scales: torch.Tensor,
+    v_scales: torch.Tensor,
+    lengths: torch.Tensor,
+    page_indices: torch.Tensor,
+    sm_scale: Optional[float] = None,
+    tile: int = INT8_TILE,
+    chunk: Optional[int] = None,
+    warps: int = 1,
+) -> torch.Tensor:
+    """Plain version of the int8 mode: the Pallas body's arithmetic as a
+    tiled online softmax over ``tile``-token tiles. The integer products
+    run in float32, where they are exact (|sum| <= 127^2 * D < 2^24 for
+    D <= 128), and every other step takes the kernel's order of
+    operations, so on one device kernel and plain differ by the summation
+    order of the softmax denominator. Tokens past each row's last visible
+    position are zero-filled (K, V and both scales), as the kernel does.
+
+    ``chunk`` None: one online softmax over the whole row (what the CPU
+    wrapper runs). With ``chunk`` (the kernel's split, a multiple of
+    ``tile``) and ``warps`` (SPLIT_WARPS for the kernel) it follows the CUDA
+    kernel: a fresh (m, l, acc) per split and warp, the tile walk inside
+    each as above, the warps merged in order, then the splits
+    (:func:`paged_int8_split_partials` + :func:`merge_split_partials`).
+
+    This is NOT the JAX package's ``paged_attention_multiquery_reference``
+    in int8 mode, which dequantizes K/V to bf16 and runs float attention
+    (ROADMAP queue C, item 2); it agrees with that within 3e-2.
+    """
+    batch, nq, num_heads, head_dim = q.shape
+    if chunk is not None:
+        m, l, o = paged_int8_split_partials(q, k_pages, v_pages, k_scales, v_scales, lengths,
+                                            page_indices, chunk, sm_scale, tile, warps)
+        return merge_split_partials(m, l, o, base2=False).to(q.dtype)
+    s, valid, v, vs = _int8_scores(q, k_pages, v_pages, k_scales, v_scales, lengths,
+                                   page_indices, sm_scale, tile)
+    m, l, acc = _int8_tile_walk(s, valid, v, vs, 0, s.shape[-1], tile, warps)
+    if warps > 1:
+        l, acc = _weighted_sum(m, l, acc, base2=False, dim=0)
+    else:
+        l, acc = l[0], acc[0]
+    l_inv = torch.where(l == 0, 0.0, 1.0 / l)[..., None]
     return (acc * l_inv).reshape(batch, nq, num_heads, head_dim).to(q.dtype)
 
 
@@ -448,9 +554,10 @@ def paged_attention_multiquery_int8(
 ) -> torch.Tensor:
     """Kernel 2's int8 mode (module notes) at any shape it takes: int8
     pools with float32 scales [KV, num_pages, page_size]. On CUDA it
-    launches the int8 kernel of ``csrc/paged_attention.cu`` (tile
-    INT8_TILE) or raises; the same limits as the bf16 mode apply, and q
-    stays bf16."""
+    launches the int8 split-K kernel of ``csrc/paged_attention.cu`` (tile
+    INT8_TILE) and the merge over :func:`paged_split_plan`'s splits, or
+    raises; the same limits as the bf16 mode apply, and q stays bf16. On
+    the CPU it runs the unsplit plain version."""
     _require(k_scales is not None and v_scales is not None,
              "an int8 pool needs k_scales and v_scales")
     if q.device.type == "cpu":
@@ -465,25 +572,49 @@ def paged_attention_multiquery_int8(
     _require(k_scales.dtype == v_scales.dtype == torch.float32, "scales must be float32")
     _require(k_scales.shape == v_scales.shape == (kv_heads, num_pages, page_size),
              f"scales {tuple(k_scales.shape)} vs pages {tuple(k_pages.shape)}")
+    _require(k_scales.data_ptr() % 16 == 0 and v_scales.data_ptr() % 16 == 0,
+             "scales must be 16-byte aligned")
     scale = sm_scale if sm_scale is not None else head_dim**-0.5
 
+    rows = num_heads // kv_heads * nq
+    chunk, n_split = paged_split_plan(batch, kv_heads, rows, head_dim, max_pages * page_size,
+                                      _num_sms(q.device.index or 0), INT8_SPLIT_BLOCKS_PER_SM)
+    part_o = torch.empty((batch, kv_heads, n_split, rows, head_dim), dtype=torch.float32,
+                         device=q.device)
+    part_ml = torch.empty((batch, kv_heads, n_split, rows, 2), dtype=torch.float32,
+                          device=q.device)
+    return _paged_int8_launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
+                              part_o, part_ml, chunk, n_split, scale)
+
+
+def _paged_int8_launch(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices, part_o,
+                       part_ml, chunk, n_split, scale) -> torch.Tensor:
+    """Launch the int8 split kernel and its merge on checked CUDA inputs
+    with the caller's scratch, laid out as :func:`_paged_bf16_launch`'s;
+    here (m, l) are in the natural-exp domain."""
+    batch, nq, num_heads, head_dim = q.shape
+    kv_heads, num_pages, page_size, _ = k_pages.shape
+    max_pages = page_indices.shape[1]
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = kernel_lib.load().dots_paged_attention_int8(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scales.data_ptr(),
             v_scales.data_ptr(), lengths.data_ptr(), page_indices.data_ptr(),
-            out.data_ptr(), batch, nq, num_heads, kv_heads, head_dim, num_pages,
-            page_size, max_pages, ctypes.c_float(scale),
-            torch.cuda.current_stream().cuda_stream,
+            part_o.data_ptr(), part_ml.data_ptr(), out.data_ptr(), batch, nq, num_heads,
+            kv_heads, head_dim, num_pages, page_size, max_pages, chunk, n_split,
+            ctypes.c_float(scale), torch.cuda.current_stream().cuda_stream,
         )
     kernel_lib.check(err, "paged_attention_multiquery_int8")
     paged_attention_multiquery_int8.launches += 1
+    if nq > 1:  # speculative verify steps
+        paged_attention_multiquery_int8.verify_launches += 1
     return out
 
 
 paged_attention_multiquery_bf16.launches = 0
 paged_attention_multiquery_bf16.verify_launches = 0
 paged_attention_multiquery_int8.launches = 0
+paged_attention_multiquery_int8.verify_launches = 0
 
 
 def paged_attention_v1_reference(

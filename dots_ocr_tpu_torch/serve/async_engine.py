@@ -247,7 +247,8 @@ class EngineWorker:
             {
                 "text": text,
                 "completion_tokens": len(req.prior_output) + len(req.output_ids),
-                "prompt_tokens": len(req.prompt_ids),
+                # A preempted request's generated tokens joined its prompt.
+                "prompt_tokens": len(req.prompt_ids) - len(req.prior_output),
                 "finish_reason": req.finished_reason or "stop",
                 "logprobs": logprobs,
                 # Per-request latency split (queue/ttft/prefill/decode ms) —

@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Kernel 1 and kernel 2's bf16 mode of two checkouts, timed the same way
-in one run on one GPU, and kernel 2's split count swept.
+"""Kernels 1, 2 (bf16 and int8 modes) and 4 of two checkouts, timed the
+same way in one run on one GPU, and kernel 2's split count swept per mode.
 
     mkdir -p _archive/parent && git archive <parent commit> | tar -x -C _archive/parent
     python3 kernel_ab.py --parent _archive/parent
@@ -9,19 +9,22 @@ Runs one worker process per tree, in the order parent, this checkout,
 this checkout, parent. Each worker imports ``dots_ocr_tpu_torch`` from its
 tree (building that tree's kernels), makes the same inputs from the same
 seeds on the card, and times, through the public wrappers a caller uses,
-``flash_attention`` at chip_smoke.py's four shapes and
-``paged_attention_multiquery_bf16`` at its three: per call as single calls
-(inner 1) and as back-to-back calls (inner INNER, chip_smoke.py's
-method), median of REPS samples taken in turns with, at the flash shapes,
-one SDPA call (the same in every worker: a yardstick of the card). Each
+``flash_attention`` at chip_smoke.py's four shapes,
+``paged_attention_multiquery_bf16`` at its three,
+``paged_attention_multiquery_int8`` at the shipping geometry (nq = 1 and 3)
+and ``window_attention`` at the windowed vision batch: per call as single
+calls (inner 1) and as back-to-back calls (inner INNER, chip_smoke.py's
+method), median of REPS samples taken in turns with, at the flash and
+window shapes, one SDPA call (the same in every worker: a yardstick of the
+card). Each
 output's max abs error against its tree's plain version is kept, and
 REPEATS more calls on the same inputs are compared with the first bit for
 bit: the count that differ shows a race.
 
-The worker of this checkout also times kernel 2's bf16 split kernel and
-merge at the shipping geometry (64 slots, lengths 0..12k, table width
-320 x page 128) at nq = 1 and 3 over SWEEP split counts, in the same
-turns, through ``_paged_bf16_launch``.
+A worker whose tree has them also times kernel 2's split kernels and merge
+(bf16 and int8) at the shipping geometry (64 slots, lengths 0..12k, table
+width 320 x page 128) at nq = 1 and 3 over SWEEP split counts, in the same
+turns, through ``_paged_bf16_launch`` and ``_paged_int8_launch``.
 
 Prints a summary and, as its last line, one JSON object with every
 worker's numbers.
@@ -55,7 +58,7 @@ def _chip_smoke():
 
 
 def worker(root: str) -> dict:
-    """Time the tree at ``root``'s kernels 1 and 2 (bf16) at the shapes."""
+    """Time the tree at ``root``'s kernels 1, 2 (both modes) and 4 at the shapes."""
     import numpy as np
     import torch
 
@@ -66,6 +69,11 @@ def worker(root: str) -> dict:
     from dots_ocr_tpu_torch.ops import paged_attention as paged_mod
     from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
     from dots_ocr_tpu_torch.ops.flash_attention import flash_attention_reference as flash_plain
+    from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
+    from dots_ocr_tpu_torch.ops.window_attention import (
+        window_attention,
+        window_attention_reference,
+    )
 
     if not os.path.abspath(dots_ocr_tpu_torch.__file__).startswith(root + os.sep):
         raise RuntimeError(f"dots_ocr_tpu_torch came from {dots_ocr_tpu_torch.__file__}")
@@ -142,6 +150,9 @@ def worker(root: str) -> dict:
     key_mask = (wseg >= 0)[:, None, None, :]
     case(f"flash windowed {nw} x {w}", lambda: flash_attention(*flat, win_seg, win_seg),
          lambda: flash_plain(*flat, win_seg, win_seg), lambda: cs._sdpa(q, k, v, key_mask))
+    # Kernel 4 on the same windows.
+    case(f"window attention {nw} x {w}", lambda: window_attention(q, k, v, wseg),
+         lambda: window_attention_reference(q, k, v, wseg), lambda: cs._sdpa(q, k, v, key_mask))
     del q, k, v, flat
 
     # Kernel 2's bf16 mode at chip_smoke.py's shapes.
@@ -159,8 +170,23 @@ def worker(root: str) -> dict:
              lambda: paged_plain(qd, kp, vp, lens_t, table_t))
     sweep = {}
     if hasattr(paged_mod, "_paged_bf16_launch"):
-        sweep = _split_sweep(paged_mod, shipping_q, kp, vp, lens_t, table_t, cs)
+        sweep["bf16"] = _split_sweep(paged_mod, paged_mod._paged_bf16_launch, shipping_q,
+                                     (kp, vp), lens_t, table_t, cs)
+    # Kernel 2's int8 mode on the same rows (pools from quantize_kv), against
+    # the tree's unsplit plain version.
+    (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
     del kp, vp
+    kernel2_int8 = paged_mod.paged_attention_multiquery_int8
+    for nq, qd in shipping_q.items():
+        case(f"paged int8 nq={nq} 64 slots 0..12k",
+             lambda: kernel2_int8(qd, kq, vq, ks, vs, lens_t, table_t),
+             lambda: paged_mod.paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t,
+                                                              table_t))
+    if hasattr(paged_mod, "_paged_int8_launch"):
+        sweep["int8"] = _split_sweep(paged_mod, paged_mod._paged_int8_launch, shipping_q,
+                                     (kq, vq, ks, vs), lens_t, table_t, cs,
+                                     paged_mod.INT8_SPLIT_BLOCKS_PER_SM)
+    del kq, vq, ks, vs
     rng = np.random.RandomState(1)
     kp, vp, lens_t, table_t = cs._paged_pool(randn, rng, np.full(cs.MAX_SLOTS, cs.V1_CONTEXT),
                                              128, 128, cs.V1_CONTEXT // 128)
@@ -171,18 +197,22 @@ def worker(root: str) -> dict:
     return {"root": root, "build_s": build_s, "cases": cases, "split_sweep": sweep}
 
 
-def _split_sweep(paged_mod, shipping_q, kp, vp, lens_t, table_t, cs) -> dict:
-    """Kernel 2's bf16 split kernel and merge at each SWEEP split count, in
-    the same turns (inner INNER); the plan's own choice marked."""
+def _split_sweep(paged_mod, launch, shipping_q, pools, lens_t, table_t, cs,
+                 blocks_per_sm=None) -> dict:
+    """One mode of kernel 2 (``launch`` on ``pools``: K and V, then the
+    scales in int8 mode): its split kernel and merge at each SWEEP split
+    count, in the same turns (inner INNER); the plan's own choice marked."""
     import torch
 
     batch, max_pages = table_t.shape
-    max_tokens = max_pages * kp.shape[2]
+    max_tokens = max_pages * pools[0].shape[2]
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    plan_args = () if blocks_per_sm is None else (blocks_per_sm,)
     out = {}
     for nq, qd in shipping_q.items():
         rows = 12 // 2 * nq
-        planned = paged_mod.paged_split_plan(batch, 2, rows, 128, max_tokens, num_sms)
+        planned = paged_mod.paged_split_plan(batch, 2, rows, 128, max_tokens, num_sms,
+                                             *plan_args)
         fns, meta = {}, {}
         for count in SWEEP:
             chunk = -(-(-(-max_tokens // count)) // 64) * 64
@@ -193,12 +223,14 @@ def _split_sweep(paged_mod, shipping_q, kp, vp, lens_t, table_t, cs) -> dict:
                                   device=qd.device)
             key = f"{n_split} x {chunk}"
             fns[key] = (lambda po=part_o, pm=part_ml, c=chunk, n=n_split:
-                        paged_mod._paged_bf16_launch(qd, kp, vp, lens_t, table_t, po, pm, c, n,
-                                                     128**-0.5))
+                        launch(qd, *pools, lens_t, table_t, po, pm, c, n, 128**-0.5))
             meta[key] = {"n_split": n_split, "chunk": chunk,
                          "scratch_mb": (part_o.numel() + part_ml.numel()) * 4 / 1e6,
                          "planned": (chunk, n_split) == planned}
-        ref = paged_mod.paged_attention_multiquery_bf16(qd, kp, vp, lens_t, table_t).float()
+        scratch = torch.empty((2, batch, 2, planned[1], rows, 128), dtype=torch.float32,
+                              device=qd.device)
+        ref = launch(qd, *pools, lens_t, table_t, scratch[0], scratch[1, ..., :2].contiguous(),
+                     *planned, 128**-0.5).float()  # what the wrapper computes
         for key, fn in fns.items():
             meta[key]["max_abs_diff_vs_wrapper"] = float((fn().float() - ref).abs().max())
         times = cs.time_in_turns(fns, inner=cs.INNER)
@@ -253,9 +285,11 @@ def main() -> int:
                   f"max abs err {c['max_abs_err']:.3e}; {c['repeats_differing']} of "
                   f"{c['repeats']} repeats differ (worst err {c['worst_abs_err']:.3e})")
     for res in runs:
-        for nq, rows in res["split_sweep"].items():
-            print(f"split sweep, {res['tree']} worker, {nq}: " + ", ".join(
-                f"{key}{'*' if r['planned'] else ''} {r['ms']:.3f} ms" for key, r in rows.items()))
+        for mode, sweep in res["split_sweep"].items():
+            for nq, rows in sweep.items():
+                print(f"split sweep, {res['tree']} worker, {mode}, {nq}: " + ", ".join(
+                    f"{key}{'*' if r['planned'] else ''} {r['ms']:.3f} ms"
+                    for key, r in rows.items()))
     line = {"device": smi, "order": [r["tree"] for r in runs], "runs": runs}
     print(json.dumps(line))
     return 0

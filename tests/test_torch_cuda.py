@@ -30,8 +30,11 @@ from dots_ocr_tpu_torch.ops.flash_attention import (
     flash_tile_plan,
 )
 from dots_ocr_tpu_torch.ops.paged_attention import (
+    INT8_SPLIT_BLOCKS_PER_SM,
     INT8_TILE,
+    SPLIT_WARPS,
     _paged_bf16_launch,
+    _paged_int8_launch,
     merge_split_partials,
     paged_attention,
     paged_attention_int8_reference,
@@ -41,6 +44,7 @@ from dots_ocr_tpu_torch.ops.paged_attention import (
     paged_attention_multiquery_reference,
     paged_attention_stacked,
     paged_attention_v1_reference,
+    paged_int8_split_partials,
     paged_split_partials,
     paged_split_plan,
 )
@@ -335,11 +339,13 @@ def test_paged_split_scratch_matches_plain_partials_on_card(cuda, page_size, nq)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["flash", "paged_bf16"])
+@pytest.mark.parametrize("kernel", ["flash", "paged_bf16", "paged_int8", "window"])
 def test_redesigned_kernels_repeat_bit_for_bit_on_card(cuda, kernel):
     """100 calls on the same inputs give the same output bit for bit: a
     causal padded prefill (4 rows of 2,048 positions, 12 heads over 2) for
-    kernel 1, a 16-row split-K decode step for kernel 2's bf16 mode."""
+    kernel 1, a 16-row split-K verify step for kernel 2 in its bf16 and
+    int8 modes, 9 windows of 256 tokens (a padded edge window and a fully
+    padded one) for kernel 4."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     if kernel == "flash":
         lens = torch.tensor([2048, 1531, 800, 77], device=cuda)
@@ -351,15 +357,30 @@ def test_redesigned_kernels_repeat_bit_for_bit_on_card(cuda, kernel):
 
         def call():
             return flash_attention(q, k, v, seg, seg, causal=True)
+    elif kernel == "window":
+        q, k, v = (torch.randn(9, 256, 12, 128, generator=gen, device=cuda).to(torch.bfloat16)
+                   for _ in range(3))
+        seg = torch.zeros(9, 256, dtype=torch.int32, device=cuda)
+        seg[3, 100:], seg[8] = -1, -1
+
+        def call():
+            return window_attention(q, k, v, seg)
     else:
         rng = np.random.RandomState(3)
         q, kp, vp, lens, table = paged_inputs(rng, list(rng.randint(0, 3000, 16)), 3, 2, 12,
                                               128, 128, 24)
-        args = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (q, kp, vp)]
-        args += [torch.from_numpy(x).to(cuda) for x in (lens, table)]
+        qd = torch.from_numpy(q).to(cuda, torch.bfloat16)
+        tail = [torch.from_numpy(x).to(cuda) for x in (lens, table)]
+        if kernel == "paged_int8":
+            kq, vq, ks, vs = (x.to(cuda) for x in int8_pools(kp, vp))
 
-        def call():
-            return paged_attention_multiquery_bf16(*args)
+            def call():
+                return paged_attention_multiquery_int8(qd, kq, vq, ks, vs, *tail)
+        else:
+            pools = [torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (kp, vp)]
+
+            def call():
+                return paged_attention_multiquery_bf16(qd, *pools, *tail)
     first = call()
     differ = sum(not torch.equal(call(), first) for _ in range(100))
     assert differ == 0, f"{differ} of 100 calls differ from the first"
@@ -377,20 +398,110 @@ INT8_LENGTHS = [700, 0, INT8_TILE - 1, INT8_TILE, 127, 15, 1, 2049]
 def test_paged_int8_kernel_matches_plain_on_card(cuda, nq, h, kv, page_size, d):
     """Kernel vs plain at the kernel's tile: the same integer products and
     rounding steps, so only the softmax denominator's summation order and
-    bf16 output rounding differ (the bf16 tolerance covers both)."""
+    bf16 output rounding differ (the bf16 tolerance covers both, against
+    the unsplit plain version too). Against the plain version at the
+    kernel's split and warps it also holds the bound scaled to the output
+    (_attention_close), and at most 1 in 1,000 outputs differs at all."""
     rng = np.random.RandomState(10 * nq + h)
     q, kp, vp, lens, table = paged_inputs(
         rng, INT8_LENGTHS, nq, kv, h, d, page_size, -(-2100 // page_size))
     kq, vq, ks, vs = (x.to(cuda) for x in int8_pools(kp, vp))
     qd = torch.from_numpy(q).to(cuda, torch.bfloat16)
     lens_t, table_t = torch.from_numpy(lens).to(cuda), torch.from_numpy(table).to(cuda)
-    before = paged_attention_multiquery_int8.launches
+    before = (paged_attention_multiquery_int8.launches,
+              paged_attention_multiquery_int8.verify_launches)
     out = paged_attention_multiquery_int8(qd, kq, vq, ks, vs, lens_t, table_t)
     ref = paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t)
+    chunk, _ = paged_split_plan(
+        len(INT8_LENGTHS), kv, h // kv * nq, d, table.shape[1] * page_size,
+        torch.cuda.get_device_properties(cuda).multi_processor_count, INT8_SPLIT_BLOCKS_PER_SM)
+    split = paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t, chunk=chunk,
+                                           warps=SPLIT_WARPS)
     torch.cuda.synchronize()
-    assert paged_attention_multiquery_int8.launches == before + 1
+    assert paged_attention_multiquery_int8.launches == before[0] + 1
+    assert paged_attention_multiquery_int8.verify_launches == before[1] + (nq > 1)
     _bf16_close(out, ref)
+    _bf16_close(out, split)
+    _attention_close(out, split)
+    assert float((out != split).float().mean()) <= 1e-3
     assert (out[1] == 0).all()  # length 0: exact zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("page_size,nq", [(16, 1), (16, 3), (128, 3)])
+def test_paged_int8_split_scratch_matches_plain_partials_on_card(cuda, page_size, nq):
+    """The int8 split kernel's float32 partials, read back from its
+    scratch, against paged_int8_split_partials at the kernel's split and
+    warps: each live split's m is equal, l agrees within 1e-5 relative (the
+    summation order), O / l within the bound of _attention_close and 1e-4
+    relative RMS; a row that saw no token of a live split holds l = 0 and
+    O = 0; splits past a row's n_tok stay unwritten; merge_split_partials
+    of the kernel's partials gives the kernel's output within one bf16 ulp.
+    Every pool position no row may see holds junk codes under NaN scales:
+    the output stays finite and equal to the one on a zeroed pool."""
+    kv, h, d = 2, 12, 128
+    g = h // kv
+    rows = g * nq
+    max_pages = -(-4096 // page_size)
+    cap = max_pages * page_size
+    chunk, n_split = paged_split_plan(
+        8, kv, rows, d, cap, torch.cuda.get_device_properties(cuda).multi_processor_count,
+        INT8_SPLIT_BLOCKS_PER_SM)
+    assert n_split > 1 and chunk % INT8_TILE == 0
+    lengths = [0, 1, chunk - nq + 1, chunk + 5, 2 * chunk + 37, 3 * page_size, cap - nq + 1,
+               700]
+    rng = np.random.RandomState(page_size + nq)
+    q, kp, vp, lens, table = paged_inputs(rng, lengths, nq, kv, h, d, page_size, max_pages)
+    live_pos = np.zeros(kp.shape[1:3], bool)  # [num_pages, page_size]
+    for row, n in enumerate(lengths):
+        for pos in range(n + nq - 1 if n > 0 else 0):
+            live_pos[table[row, pos // page_size], pos % page_size] = True
+    dead_pos = torch.from_numpy(~live_pos).to(cuda)
+    kq, vq, ks, vs = (x.to(cuda) for x in int8_pools(kp, vp))
+    clean = [x.clone() for x in (kq, vq, ks, vs)]
+    for pool, scales in ((kq, ks), (vq, vs)):
+        pool[:, dead_pos] = 127
+        scales[:, dead_pos] = float("nan")
+    for pool, scales in zip(clean[:2], clean[2:]):
+        pool[:, dead_pos] = 0
+        scales[:, dead_pos] = 0.0
+    qd = torch.from_numpy(q).to(cuda, torch.bfloat16)
+    tail = [torch.from_numpy(x).to(cuda) for x in (lens, table)]
+    batch = len(lengths)
+    part_o = torch.full((batch, kv, n_split, rows, d), float("nan"), device=cuda)
+    part_ml = torch.full((batch, kv, n_split, rows, 2), float("nan"), device=cuda)
+    out = _paged_int8_launch(qd, kq, vq, ks, vs, *tail, part_o, part_ml, chunk, n_split,
+                             d**-0.5)
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, paged_attention_multiquery_int8(qd, *clean, *tail))
+
+    def plain_layout(x):  # [B, KV, n_split, G * nq, ...] -> [B, n_split, nq, H, ...]
+        x = x.reshape(batch, kv, n_split, g, nq, *x.shape[4:])
+        return x.permute(0, 2, 4, 1, 3, *range(5, x.dim())).reshape(batch, n_split, nq, h,
+                                                                    *x.shape[5:])
+
+    k_o, k_m, k_l = plain_layout(part_o), plain_layout(part_ml[..., 0]), plain_layout(
+        part_ml[..., 1])
+    p_m, p_l, p_o = paged_int8_split_partials(qd, *clean, *tail, chunk=chunk, warps=SPLIT_WARPS)
+    n_tok = np.where(lens > 0, np.minimum(lens + nq - 1, cap), 0)
+    live = torch.from_numpy(np.arange(n_split)[None] * chunk < n_tok[:, None]).to(cuda)
+    assert torch.isnan(k_l[~live]).all() and torch.isnan(k_o[~live]).all()
+    assert torch.isinf(p_m[~live]).all()
+    seen = live[:, :, None, None] & (p_l > 0)
+    empty = live[:, :, None, None] & (p_l == 0)
+    assert (k_l[empty] == 0).all() and (k_o[empty] == 0).all()
+    assert torch.equal(k_m[live], p_m[live])
+    assert torch.allclose(k_l[seen], p_l[seen], rtol=1e-5, atol=0)
+    k_avg, p_avg = k_o[seen] / k_l[seen][:, None], p_o[seen] / p_l[seen][:, None]
+    _attention_close(k_avg, p_avg)
+    assert float((k_avg - p_avg).norm()) <= 1e-4 * float(p_avg.norm())
+    live_ = live[:, :, None, None]
+    merged = merge_split_partials(torch.where(live_, k_m, float("-inf")),
+                                  torch.where(live_, k_l, 0.0),
+                                  torch.where(live_[..., None], k_o, 0.0), base2=False)
+    err = (merged.to(torch.bfloat16).float() - out.float()).abs()
+    assert bool((err <= 2.0**-7 * out.float().abs()).all()), float(err.max())
+    assert (out[0] == 0).all()
 
 
 def _stack(pages, scales):
@@ -479,11 +590,12 @@ def test_paged_dispatch_follows_the_jax_rule_on_card(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("w", [64, 256])
+@pytest.mark.parametrize("w", [64, 128, 192, 256])
 def test_window_kernel_matches_plain_on_card(cuda, w, d):
     """Kernel 4 vs its plain version on every row (padded query rows and a
     fully padded bucket window included): the same order of rounding, the
-    float32 summation order and bf16 output rounding differ."""
+    float32 summation order and bf16 output rounding differ; it also holds
+    the bound scaled to the output (_attention_close)."""
     nw, h = 5, 12
     gen = torch.Generator(device=cuda).manual_seed(w + d)
     q, k, v = (torch.randn(nw, w, h, d, generator=gen, device=cuda).to(torch.bfloat16)
@@ -498,6 +610,7 @@ def test_window_kernel_matches_plain_on_card(cuda, w, d):
     torch.cuda.synchronize()
     assert window_attention.launches == before + 1
     _bf16_close(out, ref)
+    _attention_close(out, ref)
     mean_v = v[4].float().mean(dim=0, keepdim=True).expand(w, h, d)
     assert torch.allclose(out[4].float(), mean_v, atol=2e-2)
 
@@ -545,6 +658,9 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(cuda):
         window_attention(qw, qw, qw, torch.zeros(2, 96, dtype=torch.int32, device=cuda))
     with pytest.raises(ValueError, match="page_size"):
         paged_attention(qd[:, 0], pages, pages, lens, table)
+    qw = torch.zeros(2, 320, 4, 128, dtype=torch.bfloat16, device=cuda)
+    with pytest.raises(ValueError, match="<= 256"):
+        window_attention(qw, qw, qw, torch.zeros(2, 320, dtype=torch.int32, device=cuda))
 
 
 def int4_inputs(rows, k, n, seed):

@@ -1,10 +1,12 @@
-"""The Python around the redesigned kernels 1 and 2, on the CPU.
+"""The Python around the redesigned kernels 1 and 2 (both modes), on the CPU.
 
 Kernel 1's tile list (``flash_tile_plan``) against the dense mask of the
 function it computes; kernel 2's split of the token axis
 (``paged_split_plan``) and its log-sum-exp merge of per-split partials
 (``paged_split_partials`` + ``merge_split_partials``) against the plain
-version and the JAX package's reference. Float32, numpy-seeded inputs.
+version and the JAX package's reference; the int8 mode's plain version
+with the kernel's split and warps (``paged_int8_split_partials``) against
+its unsplit self. Float32, numpy-seeded inputs.
 """
 
 import jax.numpy as jnp
@@ -24,14 +26,19 @@ from dots_ocr_tpu_torch.ops.flash_attention import (
     flash_tile_plan,
 )
 from dots_ocr_tpu_torch.ops.paged_attention import (
+    INT8_SPLIT_BLOCKS_PER_SM,
+    INT8_TILE,
     SPLIT_ALIGN,
     SPLIT_SCRATCH_BYTES,
+    SPLIT_WARPS,
     merge_split_partials,
+    paged_attention_int8_reference,
     paged_attention_multiquery_reference,
+    paged_int8_split_partials,
     paged_split_partials,
     paged_split_plan,
 )
-from test_torch_cuda import paged_inputs
+from test_torch_cuda import int8_pools, paged_inputs
 
 
 def _runs(rng, length, kind):
@@ -150,3 +157,61 @@ def test_split_partials_merge_to_the_reference(nq, page_size, chunk):
     jax_out = np.asarray(jax_paged_reference(*(jnp.asarray(x) for x in (q, kp, vp, lens, table))))
     assert float(np.abs(merged.numpy() - jax_out).max()) <= 1e-6
     assert (merged[0] == 0).all()
+
+
+INT8_CAP = 7 * INT8_TILE  # the table's capacity in the int8 split tests (28 pages of 16)
+
+
+@pytest.mark.parametrize("nq", [1, 3])
+@pytest.mark.parametrize("chunk,warps", [
+    (INT8_CAP, 1), (INT8_CAP, SPLIT_WARPS), (256, 1), (256, SPLIT_WARPS), (192, SPLIT_WARPS),
+    (128, SPLIT_WARPS), (INT8_TILE, 1), (INT8_TILE, SPLIT_WARPS)])
+def test_int8_split_plain_matches_unsplit(nq, chunk, warps):
+    """The int8 plain version with the kernel's split: 1 split walked by 1
+    warp is the unsplit function bit for bit; 2 to 7 splits, and 4 warps
+    taking the tiles in turn, agree with it within 1e-6 in float32 (the
+    tiles P is re-quantized over are the same; only the running max the
+    exponentials are taken against, and so the order of the float32
+    rescales, differs). Its partials merged by the plain merge are its own
+    output bit for bit. Rows of length 0, a tile less one, a tile, a tile
+    and one, a page boundary, and one that ends at the table's cap."""
+    rng = np.random.RandomState(nq)
+    lengths = [0, INT8_TILE - 1, INT8_TILE, INT8_TILE + 1, 5 * 16, INT8_CAP - nq + 1, 300, 129]
+    q, kp, vp, lens, table = paged_inputs(rng, lengths, nq, 2, 6, 64, 16, INT8_CAP // 16)
+    kq, vq, ks, vs = int8_pools(kp, vp)
+    args = (torch.from_numpy(q), kq, vq, ks, vs, torch.from_numpy(lens), torch.from_numpy(table))
+    unsplit = paged_attention_int8_reference(*args)
+    split = paged_attention_int8_reference(*args, chunk=chunk, warps=warps)
+    if chunk == INT8_CAP and warps == 1:
+        assert torch.equal(split, unsplit)
+    else:
+        assert float((split - unsplit).abs().max()) <= 1e-6
+    m, l, o = paged_int8_split_partials(*args, chunk=chunk, warps=warps)
+    n_split = -(-INT8_CAP // chunk)
+    assert m.shape == (len(lengths), n_split, nq, 6) and o.shape == (*m.shape, 64)
+    assert torch.equal(merge_split_partials(m, l, o, base2=False), split)
+    assert (split[0] == 0).all() and torch.isfinite(split).all()
+    assert torch.isinf(m[0]).all()  # the empty row: every split is dead
+    if n_split > 1:  # a split that starts at or past a row's n_tok is dead for it
+        dead = -(-(INT8_TILE - 1 + nq - 1) // chunk)
+        assert torch.isinf(m[1, dead:]).all() and (l[1, dead:] == 0).all()
+        assert (o[1, dead:] == 0).all() and torch.isfinite(m[1, :dead]).all()
+        assert torch.isfinite(m[5]).all()  # the row at the cap reaches every split
+
+
+def test_int8_split_rejects_a_chunk_that_cuts_a_tile():
+    rng = np.random.RandomState(0)
+    q, kp, vp, lens, table = paged_inputs(rng, [70], 1, 1, 2, 64, 16, 8)
+    kq, vq, ks, vs = int8_pools(kp, vp)
+    with pytest.raises(ValueError, match="multiple of the tile"):
+        paged_int8_split_partials(torch.from_numpy(q), kq, vq, ks, vs, torch.from_numpy(lens),
+                                  torch.from_numpy(table), chunk=96)
+
+
+def test_int8_split_plan_at_the_shipping_geometry():
+    """The int8 mode takes the bf16 mode's plan with its own cap on the
+    grid; splits start on tile boundaries."""
+    for rows in (6, 18):
+        chunk, n_split = paged_split_plan(64, 2, rows, 128, 40960, 132, INT8_SPLIT_BLOCKS_PER_SM)
+        assert chunk % INT8_TILE == 0 and n_split * chunk >= 40960
+        assert 64 * 2 * n_split * rows * 130 * 4 <= SPLIT_SCRATCH_BYTES

@@ -252,6 +252,8 @@ def test_worker_serves_on_after_a_dry_pool(make_engine):
         futures = [worker.submit(_submission(text)) for text, _ in REQUESTS]
         results = [f.result(timeout=120) for f in futures]
         assert all(r["completion_tokens"] == MAX_NEW for r in results)
+        # the generated tokens that joined a victim's prompt are not billed as prompt
+        assert [r["prompt_tokens"] for r in results] == [30, 47, 60]
         assert eng.metrics["preemptions"] >= 1
         after = worker.submit(_submission("one more", max_new=6)).result(timeout=60)
         assert after["completion_tokens"] == 6 and after["finish_reason"] == "length"

@@ -228,6 +228,30 @@ def test_int8_paged_plain_matches_pallas_and_xla_reference(nq, page_size):
     np.testing.assert_allclose(wrapped[rows], xla[rows], rtol=3e-2, atol=3e-2)
 
 
+@pytest.mark.parametrize("nq", [1, 3])
+def test_int8_split_plain_matches_pallas_across_its_blocks(nq):
+    """Rows longer than the Pallas kernel's 512-token block, so that it
+    carries its online softmax across blocks: the plain version at that
+    tile, split as the CUDA kernel splits (a fresh state per 512- or
+    1,024-token split and per warp, merged afterwards), still equals the
+    Pallas kernel in interpret mode within 1e-5, and the XLA reference
+    within the 3e-2 of the JAX package's own test."""
+    rng = np.random.RandomState(10 + nq)
+    lengths = [700, 0, 1500, 513, 1024 - nq + 1]
+    q, kp, vp, lens, table = paged_inputs(rng, lengths, nq, 2, 8, 32, 128, 12)
+    kq, vq, ks, vs = int8_pools(kp, vp)
+    jargs = (q, jnp.asarray(kq.numpy()), jnp.asarray(vq.numpy()), lens, table)
+    jscales = dict(k_scales=jnp.asarray(ks.numpy()), v_scales=jnp.asarray(vs.numpy()))
+    targs = (_t(q), kq, vq, ks, vs, _t(lens), _t(table))
+    pallas = np.asarray(jax_paged(*jargs, interpret=True, **jscales))
+    xla = np.asarray(jax_paged_ref(*jargs, **jscales), np.float32)
+    for chunk, warps in ((None, 1), (512, 1), (1024, 4), (512, 4)):
+        ours = paged_attention_int8_reference(*targs, tile=512, chunk=chunk, warps=warps).numpy()
+        np.testing.assert_allclose(ours, pallas, rtol=0, atol=1e-5)
+        np.testing.assert_allclose(ours, xla, rtol=3e-2, atol=3e-2)
+        assert (ours[1] == 0).all()
+
+
 def test_int8_plain_card_shapes_on_cpu():
     """The card test's lengths (0, a tile less one, page boundaries) through
     the plain version at two tiles: agreement within the int8 noise, exact
