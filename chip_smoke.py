@@ -178,12 +178,17 @@ SHIPPING_KEYS = {"PAGE_SIZE": "--page-size", "KV_DTYPE": "--kv-cache-dtype",
 # slot-iteration on the card), so a greedy wave runs verify steps only.
 SHIPPING_WAVES = ((0.0, 32), (1.0, 128))
 # Phases 4 and 12: the greedy wave, then the same requests for DRY_TOKENS
-# tokens: with the decode chunk's 48-token reservation each request grows
-# by 3 pages of 128, 9 in all. Phase 12's pool holds the prompts, the
-# watermark and DRY_SLACK_PAGES more (a request admitted a chunk before the
-# others has grown by then, and the last prompt must still be admitted), so
-# the three cannot all grow to the end, even if one stops early.
-DRY_TOKENS, DRY_SLACK_PAGES = 256, 3
+# tokens. Phase 12's pool (25 pages) holds the prompts (17 + 4 + 1 pages),
+# the watermark (1) and DRY_SLACK_PAGES more. The receipt and the text are
+# sent first and the page request once both are admitted: it still fits if
+# one of them has grown by a page (the text does, 14 tokens on), and then
+# at most one page is free. The page request wants an 18th page at its
+# first decode chunk (its 2,169 tokens end 7 short of a page; a chunk
+# reserves 48 ahead) and the receipt (407 tokens) its fifth at its fourth
+# chunk, which 128 tokens at no more than 48 a chunk always reach: the
+# later of the two finds the pool dry, and the youngest request, the page
+# with its image, is preempted.
+DRY_TOKENS, DRY_SLACK_PAGES = 128, 1
 SHIPPED_WAVES = ((0.0, 32), (0.0, DRY_TOKENS))
 ADMIT_FREE_FRACTION = 0.05  # SchedulerConfig.admit_free_page_fraction
 # The bound: NVIDIA H100 SXM data sheet (dense, 700 W): HBM 3.35 TB/s,
@@ -368,13 +373,12 @@ def kernel_phase(dev) -> dict:
     from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
     from dots_ocr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
     from dots_ocr_tpu_torch.ops.paged_attention import (
-        INT8_SPLIT_BLOCKS_PER_SM,
-        SPLIT_WARPS,
+        int8_tile_walkers,
         paged_attention_int8_reference,
         paged_attention_multiquery_bf16,
         paged_attention_multiquery_int8,
         paged_attention_multiquery_reference,
-        paged_split_plan,
+        paged_int8_split_plan,
     )
 
     gen = torch.Generator(device=dev).manual_seed(0)
@@ -460,18 +464,19 @@ def kernel_phase(dev) -> dict:
             work=_paged_work(qd, lens_t, 2, int8=False),
             control_fn=lambda: paged_attention_multiquery_reference(qd, kp, fp8_round(vp),
                                                                     lens_t, table_t)))
-        chunk, n_split = paged_split_plan(MAX_SLOTS, 2, 6 * nq, 128, MAX_SEQ_TOKENS, num_sms,
-                                          INT8_SPLIT_BLOCKS_PER_SM)
+        chunk, n_split = paged_int8_split_plan(MAX_SLOTS, 2, 6 * nq, 128, MAX_SEQ_TOKENS,
+                                               num_sms)
         results["paged_attention_multiquery_int8"].append(compare(
             f"paged decode nq={nq} int8 {shape}, {n_split} splits of {chunk}",
             lambda: paged_attention_multiquery_int8(qd, kq, vq, ks, vs, lens_t, table_t),
             lambda: paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t,
-                                                   chunk=chunk, warps=SPLIT_WARPS),
+                                                   chunk=chunk, warps=int8_tile_walkers(6 * nq)),
             work=_paged_work(qd, lens_t, 2, int8=True),
             extra={"bf16_mode_ms": lambda: paged_attention_multiquery_bf16(qd, kp, vp, lens_t,
                                                                            table_t)},
             control_fn=lambda: paged_attention_int8_reference(
-                qd, kq, vq4, ks, vs, lens_t, table_t, chunk=chunk, warps=SPLIT_WARPS),
+                qd, kq, vq4, ks, vs, lens_t, table_t, chunk=chunk,
+                warps=int8_tile_walkers(6 * nq)),
             control="plain on V's codes rounded to 4 bits"))
     del kp, vp, kq, vq, vq4, ks, vs
     windows = window_cases(randn, dev)
@@ -777,7 +782,7 @@ def read_counts() -> dict:
 
 
 def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 32),),
-                replies=None, one_more: bool = False):
+                replies=None, one_more: bool = False, page_last: bool = False):
     """Build the engine through the server's entry point with ``flags``
     (after ``base_flags``, by default the shipping geometry of phases 4-10),
     serve it, and drive three concurrent requests per wave, one wave after
@@ -785,8 +790,10 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
     counter named in ``required`` must move during the served run (all
     waves). ``replies``, a list, receives each wave's {request name: (text,
     usage)}; with ``one_more`` a further text request is served after the
-    waves and must come back HTTP 200. Returns (engine, the launch counts
-    of the run, /metrics as a dict, the page image)."""
+    waves and must come back HTTP 200; with ``page_last`` a wave's first
+    request (the page) is posted once /metrics shows the other two
+    prefilled. Returns (engine, the launch counts of the run, /metrics as a
+    dict, the page image)."""
     import torch
     from aiohttp import web
     from PIL import Image
@@ -857,12 +864,27 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
             status, text = _http(f"{base}/v1/chat/completions", body)
             return name, status, json.loads(text), time.perf_counter() - t
 
+        def read_metrics():
+            status, text = _http(f"{base}/metrics")
+            values = {}
+            for line in text.splitlines():
+                if line.startswith("dots_ocr_engine_") and len(line.split()) == 2:
+                    key, value = line.split()
+                    values[key[len("dots_ocr_engine_"):]] = float(value)
+            return status, values
+
         reset_counts()
         for wave, (temperature, max_tokens) in enumerate(waves):
             wave_label = label if len(waves) == 1 else f"{label} wave {wave + 1}"
             batch = [(name, {**body, "temperature": temperature, "max_tokens": max_tokens})
                      for name, body in requests]
-            answers = _serve_wave(post, batch, wave_label, temperature)
+            others_admitted = None
+            if page_last:
+                before = read_metrics()[1].get("prefills", 0)
+
+                def others_admitted(before=before):
+                    return read_metrics()[1].get("prefills", 0) >= before + len(batch) - 1
+            answers = _serve_wave(post, batch, wave_label, temperature, others_admitted)
             if replies is not None:
                 replies.append(answers)
         if one_more:
@@ -870,12 +892,7 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
                                 {**requests[2][1], "temperature": 0.0, "max_tokens": 8})],
                         f"{label}, afterwards", 0.0)
         launches = read_counts()
-        status, text = _http(f"{base}/metrics")
-        metrics = {}
-        for line in text.splitlines():
-            if line.startswith("dots_ocr_engine_") and len(line.split()) == 2:
-                key, value = line.split()
-                metrics[key[len("dots_ocr_engine_"):]] = float(value)
+        status, metrics = read_metrics()
         if status != 200 or metrics.get("prefills", 0) < 3:
             raise AssertionError(f"/metrics shows fewer than 3 prefills: {metrics}")
         shown = ("prefills", "prefill_chunks", "steps", "spec_chunks", "spec_emitted",
@@ -893,13 +910,20 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
     return engine, launches, metrics, page
 
 
-def _serve_wave(post, batch, label: str, temperature: float) -> dict:
-    """Post the wave's requests concurrently; each must come back HTTP 200
-    with completion tokens. Logs each request and the wave's wall. Returns
-    {request name: (text, usage)}."""
+def _serve_wave(post, batch, label: str, temperature: float, others_admitted=None) -> dict:
+    """Post the wave's requests concurrently (with ``others_admitted``, all
+    but the first, and the first once that returns true); each must come
+    back HTTP 200 with completion tokens. Logs each request and the wave's
+    wall. Returns {request name: (text, usage)}."""
     t0 = time.perf_counter()
     with ThreadPoolExecutor(len(batch)) as pool:
-        results = list(pool.map(post, batch))
+        futures = [pool.submit(post, item) for item in batch[1:]]
+        while others_admitted is not None and not others_admitted():
+            if time.perf_counter() - t0 > 120:
+                raise AssertionError(f"{label}: the first requests were not admitted in 120 s")
+            time.sleep(0.01)
+        futures.insert(0, pool.submit(post, batch[0]))
+        results = [f.result() for f in futures]
     wall = time.perf_counter() - t0
     total_tokens = 0
     for name, status, data, secs in results:
@@ -1214,8 +1238,8 @@ def decode_cost_phase(engine, dev):
 
 
 def dry_pool_pages(prompt_tokens, page_size: int) -> int:
-    """A pool that admits all the prompts at once and little more: the null
-    page, each prompt's pages (its tokens and the first generated one),
+    """A pool that admits all the prompts and little more: the null page,
+    each prompt's pages (its tokens and the first generated one),
     DRY_SLACK_PAGES, and the admission watermark (ADMIT_FREE_FRACTION of
     the pool, kept free at admission)."""
     need = sum(-(-(n + 1) // page_size) for n in prompt_tokens) + DRY_SLACK_PAGES
@@ -1228,9 +1252,10 @@ def dry_pool_pages(prompt_tokens, page_size: int) -> int:
 def dry_pool_phase(dev, roomy: dict, label: str = "dry pool"):
     """Phase 12: phase 4's flags on a pool cut to :func:`dry_pool_pages` of
     the three prompts, the requests of ``roomy`` (phase 4's DRY_TOKENS
-    wave on the full pool: {name: (text, usage)}) again at DRY_TOKENS. All
-    HTTP 200, at least one preemption, the same greedy text, one more
-    request served afterwards. Returns the run's launch counts and metrics."""
+    wave on the full pool: {name: (text, usage)}) again at DRY_TOKENS, the
+    page request last. All HTTP 200, at least one preemption, the same
+    greedy text, one more request served afterwards. Returns the run's
+    launch counts and metrics."""
     pages = dry_pool_pages([usage["prompt_tokens"] for _, usage in roomy.values()], PAGE_SIZE)
     log(f"  prompts of {[usage['prompt_tokens'] for _, usage in roomy.values()]} tokens: a pool "
         f"of {pages} pages x {PAGE_SIZE} (the full pool has {NUM_PAGES}), {DRY_TOKENS} tokens "
@@ -1239,7 +1264,7 @@ def dry_pool_phase(dev, roomy: dict, label: str = "dry pool"):
     engine, launches, metrics, _ = serve_phase(
         dev, [*SHIPPED_FLAGS, "--num-pages", str(pages)], label,
         required=("flash_attention", "paged_attention_multiquery_int8"),
-        waves=((0.0, DRY_TOKENS),), replies=replies, one_more=True)
+        waves=((0.0, DRY_TOKENS),), replies=replies, one_more=True, page_last=True)
     if metrics.get("preemptions", 0) < 1:
         raise AssertionError(f"{label}: no preemption on a pool of {pages} pages ({metrics})")
     for name, (text, usage) in replies[0].items():

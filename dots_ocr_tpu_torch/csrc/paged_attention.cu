@@ -1,6 +1,6 @@
 // Multi-query paged decode attention for Hopper (sm_90a): bf16 K/V (split-K
 // flash-decoding, below), and int8 K/V with per-token f32 scales (the
-// int8 kernel, further below).
+// int8 kernel, further below: the same split-K and merge kernel).
 //
 // Replaces the Pallas kernel dots_ocr_tpu/ops/paged_attention.py:
 // paged_attention_multiquery -> _multipage_kernel (the pl.pallas_call at
@@ -460,35 +460,41 @@ int launch_split(const void* q, const void* k_pool, const void* v_pool, const vo
 // amax / 127, or 1), and O += int32(P_i8 . V_i8) * pscale after the alpha
 // rescale. The re-quantization depends on the tile (INT8_TILE tokens here,
 // 512 in the Pallas kernel); the plain PyTorch version takes the tile
-// length, the split and the number of warps that share a split, so on the
-// card kernel and plain agree up to the softmax denominator's summation
-// order (f32 ops are issued with __fmul_rn / __fadd_rn so nvcc contracts
-// none of them into an FMA the plain version does not have).
+// length, the split and the number of tile walkers that share a split, so
+// on the card kernel and plain agree up to the softmax denominator's
+// summation order (f32 ops are issued with __fmul_rn / __fadd_rn so nvcc
+// contracts none of them into an FMA the plain version does not have).
 //
 // What bounds it: the same live-K/V read as the bf16 mode at half the
-// bytes (the capacity mode's point). What the design does about it:
+// bytes (the capacity mode's point); in practice the float32 softmax and
+// re-quantization (an exp, a division and six roundings a score), a long
+// dependent chain a warp cannot hide alone. What the design does about it:
 // (a) The bf16 mode's split-K: grid (split, KV head, slot) over the same
 //     static plan, a block past its row's end exits at once, float32
 //     partials (m, l in the natural-exp domain, unnormalized O) go to the
 //     caller's scratch and paged_merge_kernel<false> merges them. Splits
 //     start on multiples of 64 = INT8_TILE, so P is re-quantized over the
 //     same 64-token tiles whatever the split.
-// (b) One warp owns all 64 tokens of a tile for every query row: warp w
-//     of a block takes tiles w, w + 4, ... of the block's range, with its
-//     own (m, l, O) and its own cp.async buffers: one K tile with K's
-//     scales and one V tile with V's (gathered through the page table;
-//     16-byte copies, zero-filled past the row's live span, scales
-//     included, so a masked probability never meets a scale; table entries
-//     past a row's end are never read). The next K tile is requested as
-//     soon as the scores of this one are scaled, and lands during the
-//     softmax and P V; the next V tile is requested after P V and lands
-//     during the next Q K^T. One buffer each keeps a block at 79 KB, so
-//     two blocks (8 warps) share an SM. The row max, the row sum and the
-//     row's pamax are quad shuffles: no block barrier per tile, and the
-//     four warps' states merge once at the end, in shared memory, in warp
-//     order.
+// (b) Rows over warps, tiles over groups. A group of WT = ceil(rows / 8)
+//     warps walks its own 64-token tiles (group i of a block's n takes
+//     tiles i, i + n, ...); warp w of the group owns query rows 8w .. 8w + 7
+//     for ALL 64 tokens of the tile, so the row max, the row sum and the
+//     row's pamax are quad shuffles and no warp waits on another's rows; a
+//     verify step's 18 rows take three warps side by side where one warp
+//     walking three row groups in turn took three times a decode step's
+//     time. Each group has its own (m, l, O) per row and one K tile and one
+//     V tile with their scales in shared memory (cp.async, gathered through
+//     the page table; 16-byte copies, zero-filled past the row's live span,
+//     scales included, so a masked probability never meets a scale; table
+//     entries past a row's end are never read). The next K tile is
+//     requested as soon as this one's scores are scaled and lands during
+//     the softmax and P V; the next V tile is requested after P V and lands
+//     during the next Q K^T. A group of several warps meets at a named
+//     barrier around those two requests; the groups' states merge once at
+//     the end, in shared memory, in group order.
 // (c) Both products on mma.sync m16n8k32 s8 x s8 -> s32, the scores never
-//     leaving registers. Q (rows past (H/KV)*nq zero) and K come through
+//     leaving registers (the m16 tile's upper 8 rows are another warp's
+//     rows or zeros: their products are dropped). Q and K come through
 //     ldmatrix as they lie. V lies [token][D] and the second product wants
 //     four consecutive tokens of one column in a register; ldmatrix.trans
 //     moves 16-bit units, so it delivers two tokens x two columns, and two
@@ -503,7 +509,13 @@ int launch_split(const void* q, const void* k_pool, const void* v_pool, const vo
 //     FMAs (q += (x - pscale q) r), which is the quotient's correct
 //     rounding as a true division gives it.
 // Shared rows are padded by 16 bytes, so ldmatrix's 8 rows hit distinct
-// banks.
+// banks. Per group 18.5 KB at D = 128; a block is 4 groups of one warp
+// (79 KB, two blocks an SM: 8 tiles in flight) or 2 groups of two or three
+// warps (42 KB; registers capped for 4 and 3 blocks an SM: 8 and 6 tiles).
+// Registers (nvcc -Xptxas -v, sm_90a, D = 128): 150 a thread with one warp
+// a group, no spills; capped at 128 / 96 with two / three (156 / 76 bytes
+// spilled). More tiles in flight beat fewer spills: uncapped (150
+// registers, 4 tiles an SM) the verify step took 12% longer.
 
 constexpr int INT8_TILE = 64;
 
@@ -534,18 +546,34 @@ __device__ __forceinline__ uint32_t pack_s8(int b0, int b1, int b2, int b3) {
          ((uint32_t)(b3 & 0xff) << 24);
 }
 
-template <int D>
+// WT warps a group (8 query rows each), GROUPS groups a block.
+template <int D, int WT>
 struct Int8Smem {
+  static constexpr int GROUPS = WT == 1 ? 4 : 2;
+  static constexpr int THREADS = GROUPS * WT * 32;
+  // Blocks an SM should hold (registers are capped to allow it): 8 groups of
+  // one warp, 8 of two, 6 of three in flight.
+  static constexpr int MIN_BLOCKS = WT == 1 ? 2 : (WT == 2 ? 4 : 3);
   static constexpr int PITCH = D + 16;               // bytes per Q / K / V row
   static constexpr int KV_TILE = INT8_TILE * PITCH;  // one K or V tile
   static constexpr int SCALES = 2 * KV_TILE;         // k scales, then v scales
-  static constexpr int WARP = 2 * KV_TILE + 2 * INT8_TILE * 4;  // one warp's K, V, scales
+  static constexpr int GROUP = 2 * KV_TILE + 2 * INT8_TILE * 4;  // one group's K, V, scales
   static constexpr int Q = 32 * PITCH + 32 * 4;      // int8 query rows, their scales
-  static constexpr int BYTES = Q + SPLIT_WARPS * WARP;
+  static constexpr int BYTES = Q + GROUPS * GROUP;
 };
 
-template <int D, int MT>
-__global__ void __launch_bounds__(NUM_THREADS, 2)
+// Barrier of one group's warps (named barrier 1 + group; a warp alone syncs itself).
+template <int WT>
+__device__ __forceinline__ void group_sync(int group) {
+  if (WT == 1) {
+    __syncwarp();
+  } else {
+    asm volatile("bar.sync %0, %1;\n" ::"r"(group + 1), "r"(WT * 32) : "memory");
+  }
+}
+
+template <int D, int WT>
+__global__ void __launch_bounds__(Int8Smem<D, WT>::THREADS, Int8Smem<D, WT>::MIN_BLOCKS)
 paged_decode_int8_split_kernel(const uint16_t* __restrict__ q, const int8_t* __restrict__ k_pool,
                                const int8_t* __restrict__ v_pool,
                                const float* __restrict__ k_scale,
@@ -554,13 +582,15 @@ paged_decode_int8_split_kernel(const uint16_t* __restrict__ q, const int8_t* __r
                                float* __restrict__ part_ml, int nq, int H, int KV, int num_slots,
                                int page_size, int max_pages, int chunk, int n_split,
                                float sm_scale) {
-  using L = Int8Smem<D>;
+  using L = Int8Smem<D, WT>;
   constexpr int T = INT8_TILE;
   constexpr int CH = D / 16;  // 16-byte chunks per token row
-  constexpr int ROWS = 16 * MT;
+  constexpr int GROUPS = L::GROUPS, THREADS = L::THREADS;
   extern __shared__ __align__(16) uint8_t smem[];
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int grp = warp / WT, wr = warp % WT;   // group, warp in the group
+  const int gt = tid - grp * WT * 32;          // thread in the group
   const int g = lane >> 2, c = lane & 3;       // mma groupID, thread in group
   const int mat = lane >> 3, mrow = lane & 7;  // ldmatrix: matrix, row within it
   const int split = blockIdx.x, kvh = blockIdx.y, b = blockIdx.z;
@@ -574,51 +604,28 @@ paged_decode_int8_split_kernel(const uint16_t* __restrict__ q, const int8_t* __r
   const int* table = page_indices + (size_t)b * max_pages;
   const size_t head_base = (size_t)kvh * num_slots;
 
-  // Quantize each query row once: one warp per row, D / 32 values a lane.
-  // Rows >= R stay zero.
   int8_t* Qs = reinterpret_cast<int8_t*>(smem);
   float* qs_s = reinterpret_cast<float*>(smem + 32 * L::PITCH);
-  for (int i = tid; i < L::Q / 4; i += NUM_THREADS) reinterpret_cast<uint32_t*>(smem)[i] = 0u;
-  __syncthreads();
-  for (int r = warp; r < R; r += SPLIT_WARPS) {
-    const int gh = r / nq, j = r % nq;
-    const uint16_t* qr = q + (((size_t)b * nq + j) * H + kvh * G + gh) * D;
-    float x[D / 32];
-    float amax = 0.f;
-#pragma unroll
-    for (int e = 0; e < D / 32; ++e) {
-      x[e] = __uint_as_float((uint32_t)qr[lane + 32 * e] << 16);
-      amax = fmaxf(amax, fabsf(x[e]));
-    }
-    amax = warp_max(amax);
-    const float qs = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
-#pragma unroll
-    for (int e = 0; e < D / 32; ++e)
-      Qs[r * L::PITCH + lane + 32 * e] = (int8_t)__float2int_rn(__fdiv_rn(x[e], qs));
-    if (lane == 0) qs_s[r] = qs;
-  }
-  __syncthreads();
-
   const uint32_t qsm = smem_u32(Qs);
-  uint8_t* buf_p = smem + L::Q + warp * L::WARP;
+  uint8_t* buf_p = smem + L::Q + grp * L::GROUP;
   const uint32_t ks = smem_u32(buf_p), vs = ks + L::KV_TILE;
   const float* ksc = reinterpret_cast<const float*>(buf_p + L::SCALES);
   const float* vsc = ksc + T;
-  const int span = t_end - t_begin - warp * T;
-  constexpr int STRIDE = SPLIT_WARPS * T;  // tokens between a warp's tiles
+  const int span = t_end - t_begin - grp * T;
+  constexpr int STRIDE = GROUPS * T;  // tokens between a group's tiles
   const int n_steps = span > 0 ? (span + STRIDE - 1) / STRIDE : 0;
   const bool one_page = page_size % T == 0;
 
-  // One tile of K (with K's scales) or of V (with V's) into the warp's buffer.
+  // One tile of K (with K's scales) or of V (with V's) into the group's
+  // buffer, the group's threads sharing the copies.
   auto load = [&](int step, bool is_v) {
-    const int t0 = t_begin + (step * SPLIT_WARPS + warp) * T;
+    const int t0 = t_begin + (step * GROUPS + grp) * T;
     const int8_t* pool = is_v ? v_pool : k_pool;
     const uint32_t dst = is_v ? vs : ks;
     // Pages of whole tiles (the shipping 128): one table entry a tile.
     const size_t tile_slot =
         one_page ? (size_t)table[t0 / page_size] * page_size + t0 % page_size : 0;
-#pragma unroll
-    for (int i = lane; i < T * CH; i += 32) {
+    for (int i = gt; i < T * CH; i += WT * 32) {
       const int row = i / CH, ch = i % CH;
       const int pos = t0 + row;
       const bool ok = pos < t_end;
@@ -631,8 +638,8 @@ paged_decode_int8_split_kernel(const uint16_t* __restrict__ q, const int8_t* __r
       cp_async16(dst + row * L::PITCH + ch * 16, pool + off, ok);
     }
     // The tile's scales, four tokens (one page: page_size % 4 == 0) a copy.
-    if (lane < T / 4) {
-      const int j4 = lane * 4, pos = t0 + j4;
+    if (gt < T / 4) {
+      const int j4 = gt * 4, pos = t0 + j4;
       const int n_ok = max(0, min(4, t_end - pos));
       size_t off = 0;
       if (n_ok > 0)
@@ -643,31 +650,6 @@ paged_decode_int8_split_kernel(const uint16_t* __restrict__ q, const int8_t* __r
     }
   };
 
-  // This thread's rows: mt * 16 + g (+ 8); the last position each may see
-  // and its query scale.
-  int limit[MT][2];
-  float qsr[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = mt * 16 + g + hf * 8;
-      limit[mt][hf] = r < R ? min(len + r % nq, t_end) : 0;  // query j sees tokens < len + j
-      qsr[mt][hf] = r < R ? qs_s[r] : 0.f;
-    }
-  // acc[mt][dc][hf][i]: row mt * 16 + g + 8 hf, column 16 dc + 4 c + i.
-  float acc[MT][D / 16][2][4];
-  float m[MT][2], l[MT][2];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt) {
-#pragma unroll
-    for (int dc = 0; dc < D / 16; ++dc)
-#pragma unroll
-      for (int e = 0; e < 8; ++e) acc[mt][dc][e >> 2][e & 3] = 0.f;
-    m[mt][0] = m[mt][1] = -INFINITY;
-    l[mt][0] = l[mt][1] = 0.f;
-  }
-
   // Two cp.async groups are pending at the top of every step, K's then
   // V's, and one group is committed at each of the two refill points
   // whether or not a tile is left, so "all but the newest" is always the
@@ -676,264 +658,240 @@ paged_decode_int8_split_kernel(const uint16_t* __restrict__ q, const int8_t* __r
   cp_async_commit();
   if (n_steps > 0) load(0, true);
   cp_async_commit();
+
+  // Quantize each query row once: one warp per row, D / 32 values a lane,
+  // a warp's rows loaded together. Rows >= R stay zero. (The first K and V
+  // tiles are already on their way.)
+  for (int i = tid; i < L::Q / 4; i += THREADS) reinterpret_cast<uint32_t*>(smem)[i] = 0u;
+  __syncthreads();
+  {
+    constexpr int WARPS = THREADS / 32, ROUNDS = (MAX_ROWS + WARPS - 1) / WARPS;
+    float x[ROUNDS][D / 32];
+#pragma unroll
+    for (int i = 0; i < ROUNDS; ++i) {
+      const int r = warp + i * WARPS;
+      const uint16_t* qr = q + (((size_t)b * nq + r % nq) * H + kvh * G + r / nq) * D;
+#pragma unroll
+      for (int e = 0; e < D / 32; ++e)
+        x[i][e] = r < R ? __uint_as_float((uint32_t)qr[lane + 32 * e] << 16) : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < ROUNDS; ++i) {
+      const int r = warp + i * WARPS;
+      if (r >= R) break;  // uniform across the warp
+      float amax = 0.f;
+#pragma unroll
+      for (int e = 0; e < D / 32; ++e) amax = fmaxf(amax, fabsf(x[i][e]));
+      amax = warp_max(amax);
+      const float qs = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
+#pragma unroll
+      for (int e = 0; e < D / 32; ++e)
+        Qs[r * L::PITCH + lane + 32 * e] = (int8_t)__float2int_rn(__fdiv_rn(x[i][e], qs));
+      if (lane == 0) qs_s[r] = qs;
+    }
+  }
+  __syncthreads();
+
+  // This thread's row: 8 wr + g (rows g + 8 of the warp's m16 tile belong
+  // to the next warp or are zero, and are dropped); the last position it
+  // may see and its query scale.
+  const int row = 8 * wr + g;
+  const int limit = row < R ? min(len + row % nq, t_end) : 0;  // query j sees tokens < len + j
+  const float qsr = row < R ? qs_s[row] : 0.f;
+  // acc[dc][i]: column 16 dc + 4 c + i of the row.
+  float acc[D / 16][4];
+#pragma unroll
+  for (int dc = 0; dc < D / 16; ++dc)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) acc[dc][i] = 0.f;
+  float m = -INFINITY, l = 0.f;
+
   for (int step = 0; step < n_steps; ++step) {
     cp_async_wait<1>();  // this step's K
-    __syncwarp();
-    const int t0 = t_begin + (step * SPLIT_WARPS + warp) * T;
+    group_sync<WT>(grp);
+    const int t0 = t_begin + (step * GROUPS + grp) * T;
 
-    // S = Q K^T: MT m16 tiles x 8 n8 tiles (64 tokens), int32.
-    int sc[MT][8][4];
+    // S = Q K^T: the warp's m16 tile x 8 n8 tiles (64 tokens), int32.
+    int sc[8][4];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) sc[mt][j][e] = 0;
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0;
 #pragma unroll
     for (int kk = 0; kk < D / 32; ++kk) {
-      uint32_t qa[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-        ldsm_x4(qa[mt], qsm + (mt * 16 + ((mat & 1) << 3) + mrow) * L::PITCH +
-                            (2 * kk + (mat >> 1)) * 16);
+      uint32_t qa[4];
+      ldsm_x4(qa, qsm + (8 * wr + ((mat & 1) << 3) + mrow) * L::PITCH +
+                      (2 * kk + (mat >> 1)) * 16);
 #pragma unroll
       for (int jp = 0; jp < 4; ++jp) {
         uint32_t bk[4];
         ldsm_x4(bk, ks + ((2 * jp + (mat >> 1)) * 8 + mrow) * L::PITCH + (2 * kk + (mat & 1)) * 16);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_s8(sc[mt][2 * jp], qa[mt], bk[0], bk[1]);
-          mma_s8(sc[mt][2 * jp + 1], qa[mt], bk[2], bk[3]);
-        }
+        mma_s8(sc[2 * jp], qa, bk[0], bk[1]);
+        mma_s8(sc[2 * jp + 1], qa, bk[2], bk[3]);
       }
     }
 
-    // The scaled, masked scores, in the registers of the int32 sums; then
-    // K's buffer is free and the next K tile is requested.
-    float x[MT][2][8][2];
+    // The scaled, masked scores; then K's buffer is free and the next K
+    // tile is requested.
+    float x[8][2];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int j = 0; j < 8; ++j) {
+      const float2 kv2 = *reinterpret_cast<const float2*>(&ksc[j * 8 + 2 * c]);
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        if (mt * 16 + hf * 8 >= R) continue;  // no live row in this half (warp-uniform)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 kv2 = *reinterpret_cast<const float2*>(&ksc[j * 8 + 2 * c]);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool ok = t0 + j * 8 + 2 * c + e < limit[mt][hf];
-            const float sv = __fmul_rn(
-                __fmul_rn(__fmul_rn((float)sc[mt][j][2 * hf + e], qsr[mt][hf]), e ? kv2.y : kv2.x),
-                sm_scale);
-            x[mt][hf][j][e] = ok ? sv : MASK_VALUE;
-          }
-        }
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = t0 + j * 8 + 2 * c + e < limit;
+        const float sv = __fmul_rn(
+            __fmul_rn(__fmul_rn((float)sc[j][e], qsr), e ? kv2.y : kv2.x), sm_scale);
+        x[j][e] = ok ? sv : MASK_VALUE;
       }
-    __syncwarp();
+    }
+    group_sync<WT>(grp);
     if (step + 1 < n_steps) load(step + 1, false);
     cp_async_commit();
     cp_async_wait<1>();  // this step's V (the K just requested may be pending)
-    __syncwarp();
+    group_sync<WT>(grp);
 
     // Online softmax (natural exp) and P's re-quantization per row over
     // the tile; the thread's S values become its A fragments of P.
-    uint32_t pa[MT][2][4];
-    float alpha[MT][2], pscale[MT][2];
+    float mx = -INFINITY;
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(x[j][0], x[j][1]));
+    mx = quad_max(mx);
+    const float mn = fmaxf(m, mx);
+    float sum = 0.f, pamax = 0.f;
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        if (mt * 16 + hf * 8 >= R) {
-          alpha[mt][hf] = pscale[mt][hf] = 0.f;
-          pa[mt][0][hf] = pa[mt][0][2 + hf] = pa[mt][1][hf] = pa[mt][1][2 + hf] = 0u;
-          continue;
-        }
-        float mx = -INFINITY;
+    for (int j = 0; j < 8; ++j) {
+      const float2 vv2 = *reinterpret_cast<const float2*>(&vsc[j * 8 + 2 * c]);
 #pragma unroll
-        for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(x[mt][hf][j][0], x[mt][hf][j][1]));
-        mx = quad_max(mx);
-        const float m_prev = m[mt][hf];
-        const float mn = fmaxf(m_prev, mx);
-        float sum = 0.f, pamax = 0.f;
-#pragma unroll
-        for (int j = 0; j < 8; ++j) {
-          const float2 vv2 = *reinterpret_cast<const float2*>(&vsc[j * 8 + 2 * c]);
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            const bool ok = t0 + j * 8 + 2 * c + e < limit[mt][hf];
-            const float p = ok ? expf(__fsub_rn(x[mt][hf][j][e], mn)) : 0.f;
-            sum = __fadd_rn(sum, p);
-            const float pp = ok ? __fmul_rn(p, e ? vv2.y : vv2.x) : 0.f;
-            pamax = fmaxf(pamax, fabsf(pp));
-            x[mt][hf][j][e] = pp;
-          }
-        }
-        sum = quad_sum(sum);
-        pamax = quad_max(pamax);
-        const float ps = pamax > 0.f ? __fdiv_rn(pamax, 127.f) : 1.f;
-        const float ps_inv = __frcp_rn(ps);
-        int qi[8][2];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-#pragma unroll
-          for (int e = 0; e < 2; ++e) {
-            // pp / ps, correctly rounded: the quotient by the reciprocal,
-            // corrected by its remainder.
-            const float pp = x[mt][hf][j][e];
-            const float q0 = __fmul_rn(pp, ps_inv);
-            qi[j][e] = __float2int_rn(__fmaf_rn(__fmaf_rn(-ps, q0, pp), ps_inv, q0));
-          }
-        // k-slot 4c + i of 32-token step u holds token 32u + 8(i >> 1) + 2c +
-        // (i & 1), and slot 16 + 4c + i token 32u + 16 + 8(i >> 1) + 2c + (i & 1):
-        // this thread's values of n-tiles 4u, 4u + 1 and 4u + 2, 4u + 3.
-#pragma unroll
-        for (int u = 0; u < 2; ++u) {
-          pa[mt][u][hf] = pack_s8(qi[4 * u][0], qi[4 * u][1], qi[4 * u + 1][0], qi[4 * u + 1][1]);
-          pa[mt][u][2 + hf] =
-              pack_s8(qi[4 * u + 2][0], qi[4 * u + 2][1], qi[4 * u + 3][0], qi[4 * u + 3][1]);
-        }
-        alpha[mt][hf] = expf(__fsub_rn(m_prev, mn));  // 0 on the first tile
-        pscale[mt][hf] = ps;
-        l[mt][hf] = __fadd_rn(__fmul_rn(l[mt][hf], alpha[mt][hf]), sum);
-        m[mt][hf] = mn;
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = t0 + j * 8 + 2 * c + e < limit;
+        const float p = ok ? expf(__fsub_rn(x[j][e], mn)) : 0.f;
+        sum = __fadd_rn(sum, p);
+        const float pp = ok ? __fmul_rn(p, e ? vv2.y : vv2.x) : 0.f;
+        pamax = fmaxf(pamax, fabsf(pp));
+        x[j][e] = pp;
       }
-
-    bool max_moved = false;
+    }
+    sum = quad_sum(sum);
+    pamax = quad_max(pamax);
+    const float ps = pamax > 0.f ? __fdiv_rn(pamax, 127.f) : 1.f;
+    const float ps_inv = __frcp_rn(ps);
+    int qi[8][2];
 #pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
+    for (int j = 0; j < 8; ++j)
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf)
-        if (mt * 16 + hf * 8 < R) max_moved |= alpha[mt][hf] != 1.f;
-    max_moved = __any_sync(0xffffffffu, max_moved);
+      for (int e = 0; e < 2; ++e) {
+        // pp / ps, correctly rounded: the quotient by the reciprocal,
+        // corrected by its remainder.
+        const float q0 = __fmul_rn(x[j][e], ps_inv);
+        qi[j][e] = __float2int_rn(__fmaf_rn(__fmaf_rn(-ps, q0, x[j][e]), ps_inv, q0));
+      }
+    const float alpha = expf(__fsub_rn(m, mn));  // 0 on the first tile
+    l = __fadd_rn(__fmul_rn(l, alpha), sum);
+    m = mn;
 
-    // O = alpha * O + (P_i8 . V_i8) * pscale, 16 columns at a time: one
-    // ldmatrix.x4.trans per 32-token step gives, after prmt, the B
-    // fragments of the chunk's 8 even and 8 odd columns in P's token order.
+    // O = alpha * O + (P_i8 . V_i8) * pscale, 16 columns at a time. k-slot
+    // 4c + i of 32-token step u holds token 32u + 8(i >> 1) + 2c + (i & 1),
+    // and slot 16 + 4c + i token 32u + 16 + 8(i >> 1) + 2c + (i & 1): this
+    // thread's values of n-tiles 4u, 4u + 1 and 4u + 2, 4u + 3 (the
+    // fragment's rows g + 8 are zero). One ldmatrix.x4.trans per step
+    // gives, after prmt, the B fragments of the chunk's 8 even and 8 odd
+    // columns in that token order.
+    uint32_t pa[2][4];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      pa[u][0] = pack_s8(qi[4 * u][0], qi[4 * u][1], qi[4 * u + 1][0], qi[4 * u + 1][1]);
+      pa[u][2] = pack_s8(qi[4 * u + 2][0], qi[4 * u + 2][1], qi[4 * u + 3][0], qi[4 * u + 3][1]);
+      pa[u][1] = pa[u][3] = 0u;
+    }
 #pragma unroll
     for (int dc = 0; dc < D / 16; ++dc) {
-      int ce[MT][4], co[MT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) ce[mt][e] = co[mt][e] = 0;
+      int ce[4] = {0, 0, 0, 0}, co[4] = {0, 0, 0, 0};
 #pragma unroll
       for (int u = 0; u < 2; ++u) {
         uint32_t vt[4];
         ldsm_x4_t(vt, vs + (u * 32 + mat * 8 + mrow) * L::PITCH + dc * 16);
-        const uint32_t be0 = prmt(vt[0], vt[1], 0x6420u), bo0 = prmt(vt[0], vt[1], 0x7531u);
-        const uint32_t be1 = prmt(vt[2], vt[3], 0x6420u), bo1 = prmt(vt[2], vt[3], 0x7531u);
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          mma_s8(ce[mt], pa[mt][u], be0, be1);
-          mma_s8(co[mt], pa[mt][u], bo0, bo1);
-        }
+        mma_s8(ce, pa[u], prmt(vt[0], vt[1], 0x6420u), prmt(vt[2], vt[3], 0x6420u));
+        mma_s8(co, pa[u], prmt(vt[0], vt[1], 0x7531u), prmt(vt[2], vt[3], 0x7531u));
       }
-      // Even tile column 2c + (e & 1) is column 16 dc + 4c + 2 (e & 1); the
-      // odd tile's is one further.
+      // Even tile column 2c + i' is column 16 dc + 4c + 2 i'; the odd
+      // tile's is one further.
 #pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int hf = 0; hf < 2; ++hf) {
-          if (mt * 16 + hf * 8 >= R) continue;
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int cv = (i & 1) ? co[mt][2 * hf + (i >> 1)] : ce[mt][2 * hf + (i >> 1)];
-            // acc * 1 is acc: the product is skipped where no row's max moved
-            const float prev = max_moved ? __fmul_rn(acc[mt][dc][hf][i], alpha[mt][hf])
-                                         : acc[mt][dc][hf][i];
-            acc[mt][dc][hf][i] = __fadd_rn(prev, __fmul_rn((float)cv, pscale[mt][hf]));
-          }
-        }
+      for (int i = 0; i < 4; ++i) {
+        const int cv = (i & 1) ? co[i >> 1] : ce[i >> 1];
+        acc[dc][i] = __fadd_rn(__fmul_rn(acc[dc][i], alpha), __fmul_rn((float)cv, ps));
+      }
     }
-    __syncwarp();  // V's buffer is free: request the next V tile
+    group_sync<WT>(grp);  // V's buffer is free: request the next V tile
     if (step + 1 < n_steps) load(step + 1, true);
     cp_async_commit();
   }
   cp_async_wait<0>();
-  __syncthreads();  // the buffers are free: reuse them to merge the warps
+  __syncthreads();  // the buffers are free: reuse them to merge the groups
 
-  float* wm = reinterpret_cast<float*>(smem + L::Q);  // [warp][ROWS]
-  float* wl = wm + SPLIT_WARPS * ROWS;
-  float* accs = wl + SPLIT_WARPS * ROWS;  // [ROWS][D]
+  float* wm = reinterpret_cast<float*>(smem + L::Q);  // [group][32 rows]
+  float* wl = wm + GROUPS * 32;
+  float* accs = wl + GROUPS * 32;  // [32 rows][D]
   if (c == 0) {
-#pragma unroll
-    for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const int r = mt * 16 + g + hf * 8;
-        wm[warp * ROWS + r] = m[mt][hf];
-        wl[warp * ROWS + r] = l[mt][hf];
-      }
+    wm[grp * 32 + row] = m;
+    wl[grp * 32 + row] = l;
   }
   __syncthreads();
-  float f[MT][2];  // this warp's weight in the block's sum
+  float mb = -INFINITY;
 #pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
+  for (int gi = 0; gi < GROUPS; ++gi) mb = fmaxf(mb, wm[gi * 32 + row]);
+  const float fw = m == -INFINITY ? 0.f : expf(__fsub_rn(m, mb));  // this group's weight
+  for (int gi = 0; gi < GROUPS; ++gi) {  // in group order: a fixed summation order
+    if (grp == gi) {
 #pragma unroll
-    for (int hf = 0; hf < 2; ++hf) {
-      const int r = mt * 16 + g + hf * 8;
-      float mb = -INFINITY;
-#pragma unroll
-      for (int w = 0; w < SPLIT_WARPS; ++w) mb = fmaxf(mb, wm[w * ROWS + r]);
-      f[mt][hf] = m[mt][hf] == -INFINITY ? 0.f : expf(__fsub_rn(m[mt][hf], mb));
-    }
-  for (int w = 0; w < SPLIT_WARPS; ++w) {  // in warp order: a fixed summation order
-    if (warp == w) {
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int dc = 0; dc < D / 16; ++dc)
-#pragma unroll
-          for (int hf = 0; hf < 2; ++hf) {
-            const int r = mt * 16 + g + hf * 8;
-            float4* dst = reinterpret_cast<float4*>(accs + r * D + dc * 16 + 4 * c);
-            float4 val = w == 0 ? make_float4(0.f, 0.f, 0.f, 0.f) : *dst;
-            const float fw = f[mt][hf];
-            if (w == 0) {
-              val.x = __fmul_rn(acc[mt][dc][hf][0], fw);
-              val.y = __fmul_rn(acc[mt][dc][hf][1], fw);
-              val.z = __fmul_rn(acc[mt][dc][hf][2], fw);
-              val.w = __fmul_rn(acc[mt][dc][hf][3], fw);
-            } else {
-              val.x = __fadd_rn(val.x, __fmul_rn(acc[mt][dc][hf][0], fw));
-              val.y = __fadd_rn(val.y, __fmul_rn(acc[mt][dc][hf][1], fw));
-              val.z = __fadd_rn(val.z, __fmul_rn(acc[mt][dc][hf][2], fw));
-              val.w = __fadd_rn(val.w, __fmul_rn(acc[mt][dc][hf][3], fw));
-            }
-            *dst = val;
-          }
+      for (int dc = 0; dc < D / 16; ++dc) {
+        float4* dst = reinterpret_cast<float4*>(accs + row * D + dc * 16 + 4 * c);
+        float4 val;
+        if (gi == 0) {
+          val = make_float4(__fmul_rn(acc[dc][0], fw), __fmul_rn(acc[dc][1], fw),
+                            __fmul_rn(acc[dc][2], fw), __fmul_rn(acc[dc][3], fw));
+        } else {
+          val = *dst;
+          val.x = __fadd_rn(val.x, __fmul_rn(acc[dc][0], fw));
+          val.y = __fadd_rn(val.y, __fmul_rn(acc[dc][1], fw));
+          val.z = __fadd_rn(val.z, __fmul_rn(acc[dc][2], fw));
+          val.w = __fadd_rn(val.w, __fmul_rn(acc[dc][3], fw));
+        }
+        *dst = val;
+      }
     }
     __syncthreads();
   }
   const size_t row0 = (((size_t)b * KV + kvh) * n_split + split) * R;
-  for (int i = tid; i < R * D; i += NUM_THREADS) part_o[row0 * D + i] = accs[i];
-  for (int r = tid; r < R; r += NUM_THREADS) {
-    float mb = -INFINITY;
-    for (int w = 0; w < SPLIT_WARPS; ++w) mb = fmaxf(mb, wm[w * ROWS + r]);
+  for (int i = tid; i < R * D; i += THREADS) part_o[row0 * D + i] = accs[i];
+  for (int r = tid; r < R; r += THREADS) {
+    float mr = -INFINITY;
+    for (int gi = 0; gi < GROUPS; ++gi) mr = fmaxf(mr, wm[gi * 32 + r]);
     float lb = 0.f;
-    for (int w = 0; w < SPLIT_WARPS; ++w) {
-      const float mw = wm[w * ROWS + r];
-      if (mw != -INFINITY) lb = __fadd_rn(lb, __fmul_rn(wl[w * ROWS + r], expf(__fsub_rn(mw, mb))));
+    for (int gi = 0; gi < GROUPS; ++gi) {
+      const float mw = wm[gi * 32 + r];
+      if (mw != -INFINITY) lb = __fadd_rn(lb, __fmul_rn(wl[gi * 32 + r], expf(__fsub_rn(mw, mr))));
     }
-    part_ml[(row0 + r) * 2] = mb;
+    part_ml[(row0 + r) * 2] = mr;
     part_ml[(row0 + r) * 2 + 1] = lb;
   }
 }
 
-template <int D, int MT>
+template <int D, int WT>
 int launch_int8_split(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
                       const void* v_scale, const void* lengths, const void* page_indices,
                       float* part_o, float* part_ml, int B, int nq, int H, int KV, int num_slots,
                       int page_size, int max_pages, int chunk, int n_split, float sm_scale,
                       cudaStream_t st) {
-  auto kernel = paged_decode_int8_split_kernel<D, MT>;
-  constexpr int smem = Int8Smem<D>::BYTES;
-  static_assert(Int8Smem<D>::WARP * SPLIT_WARPS >= 2 * SPLIT_WARPS * 32 * 4 + 32 * D * 4,
-                "the merge area must fit in the warps' buffers");
+  using L = Int8Smem<D, WT>;
+  auto kernel = paged_decode_int8_split_kernel<D, WT>;
+  constexpr int smem = L::BYTES;
+  static_assert(L::GROUP * L::GROUPS >= 2 * L::GROUPS * 32 * 4 + 32 * D * 4,
+                "the merge area must fit in the groups' buffers");
   cudaError_t err =
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3(n_split, KV, B), NUM_THREADS, smem, st>>>(
+  kernel<<<dim3(n_split, KV, B), L::THREADS, smem, st>>>(
       static_cast<const uint16_t*>(q), static_cast<const int8_t*>(k_pool),
       static_cast<const int8_t*>(v_pool), static_cast<const float*>(k_scale),
       static_cast<const float*>(v_scale), static_cast<const int*>(lengths),
@@ -1001,25 +959,20 @@ extern "C" int dots_paged_attention_int8(const void* q, const void* k_pool, cons
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   auto* po = static_cast<float*>(part_o);
   auto* pml = static_cast<float*>(part_ml);
-  int err;
-  if (D == 128 && R <= 16)
-    err = launch_int8_split<128, 1>(q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices,
-                                    po, pml, B, nq, H, KV, num_slots, page_size, max_pages, chunk,
-                                    n_split, sm_scale, st);
-  else if (D == 128)
-    err = launch_int8_split<128, 2>(q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices,
-                                    po, pml, B, nq, H, KV, num_slots, page_size, max_pages, chunk,
-                                    n_split, sm_scale, st);
-  else if (D == 64 && R <= 16)
-    err = launch_int8_split<64, 1>(q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices,
-                                   po, pml, B, nq, H, KV, num_slots, page_size, max_pages, chunk,
-                                   n_split, sm_scale, st);
-  else if (D == 64)
-    err = launch_int8_split<64, 2>(q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices,
-                                   po, pml, B, nq, H, KV, num_slots, page_size, max_pages, chunk,
-                                   n_split, sm_scale, st);
-  else
-    return static_cast<int>(cudaErrorInvalidValue);
+  const int wt = (R + 7) / 8;  // warps a tile: 8 query rows each
+  int err = static_cast<int>(cudaErrorInvalidValue);
+#define DOTS_INT8_CASE(D_, WT_)                                                               \
+  if (D == D_ && wt == WT_)                                                                   \
+    err = launch_int8_split<D_, WT_>(q, k_pool, v_pool, k_scale, v_scale, lengths,            \
+                                     page_indices, po, pml, B, nq, H, KV, num_slots,          \
+                                     page_size, max_pages, chunk, n_split, sm_scale, st);
+  DOTS_INT8_CASE(128, 1)
+  DOTS_INT8_CASE(128, 2)
+  DOTS_INT8_CASE(128, 3)
+  DOTS_INT8_CASE(64, 1)
+  DOTS_INT8_CASE(64, 2)
+  DOTS_INT8_CASE(64, 3)
+#undef DOTS_INT8_CASE
   if (err != 0) return err;
   const int warps = B * KV * R;
   paged_merge_kernel<false><<<(warps + 3) / 4, 128, 0, st>>>(

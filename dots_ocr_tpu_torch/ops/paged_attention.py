@@ -35,8 +35,9 @@ taken over, so the plain version takes the tile length: INT8_TILE, the
 CUDA kernel's, by default; the Pallas kernel's is ``pages_per_block *
 page_size`` (512 tokens capped by the table width). The CUDA kernel also
 splits the token axis as the bf16 mode does (a fresh online softmax per
-split and per warp, merged afterwards), and the plain version takes that
-split too (``chunk``, ``warps``); on the CPU the wrapper runs it unsplit.
+split and per group of warps, merged afterwards), and the plain version
+takes that split too (``chunk``, ``warps``); on the CPU the wrapper runs it
+unsplit.
 
 The wrapper runs the plain version only for tensors on the CPU. A CUDA
 tensor launches the kernel or raises.
@@ -58,7 +59,7 @@ logger = logging.getLogger(__name__)
 
 MAX_QUERY_ROWS = 24  # (H / KV) * nq rows one kernel block serves
 INT8_TILE = 64  # tokens per tile of the int8 CUDA kernel
-SPLIT_WARPS = 4  # warps of a split-kernel block; each walks its own tiles
+INT8_WARP_ROWS = 8  # query rows one warp of the int8 kernel serves
 # The bf16 kernel's split-K plan (paged_split_plan): splits are whole
 # multiples of SPLIT_ALIGN tokens and at least MIN_SPLIT_TOKENS long, their
 # float32 partials fit SPLIT_SCRATCH_BYTES, and the grid holds at most
@@ -73,8 +74,12 @@ SPLIT_ALIGN = 64
 MIN_SPLIT_TOKENS = 256
 SPLIT_SCRATCH_BYTES = 32 * 2**20
 SPLIT_BLOCKS_PER_SM = 28
-# The int8 kernel takes the same plan with its own cap on the grid.
-INT8_SPLIT_BLOCKS_PER_SM = 28
+# The int8 kernel takes the same plan with its own cap on the grid, by
+# the groups of warps a block has (int8_tile_walkers): kernel_ab.py's
+# sweep at the same geometry found 28 splits fastest for 4 groups of one
+# warp (nq = 1) and, among the counts whose partials fit the scratch
+# budget, 16-17 for 2 groups of three (nq = 3; PERF.md has the sweep).
+INT8_SPLIT_BLOCKS_PER_SM = {4: 28, 2: 16}
 LOG2E = 1.4426950408889634
 
 
@@ -142,6 +147,13 @@ def paged_split_plan(batch: int, kv_heads: int, rows: int, head_dim: int, max_to
                          -(-blocks_per_sm * num_sms // (batch * kv_heads))))
     chunk = -(-max(1, -(-max_tokens // n_split)) // SPLIT_ALIGN) * SPLIT_ALIGN
     return chunk, max(1, -(-max_tokens // chunk))
+
+
+def paged_int8_split_plan(batch: int, kv_heads: int, rows: int, head_dim: int,
+                          max_tokens: int, num_sms: int) -> tuple:
+    """:func:`paged_split_plan` for the int8 kernel (INT8_SPLIT_BLOCKS_PER_SM)."""
+    return paged_split_plan(batch, kv_heads, rows, head_dim, max_tokens, num_sms,
+                            INT8_SPLIT_BLOCKS_PER_SM[int8_tile_walkers(rows)])
 
 
 def paged_split_partials(
@@ -218,6 +230,14 @@ def _num_sms(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
 
 
+def int8_tile_walkers(rows: int) -> int:
+    """Groups of warps of an int8 split-kernel block for ``rows`` = (H / KV)
+    * nq query rows. A group (one warp per INT8_WARP_ROWS rows) walks its
+    own tiles of the split with its own online-softmax state: 4 groups of
+    one warp up to 8 rows, 2 groups of two or three warps beyond."""
+    return 4 if rows <= INT8_WARP_ROWS else 2
+
+
 def _round_int8(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     """round(x / scale) as float32 integers (half to even, as the kernel's
     ``__float2int_rn`` and ``jnp.round``)."""
@@ -275,8 +295,8 @@ def _int8_scores(q, k_pages, v_pages, k_scales, v_scales, lengths, page_indices,
 
 def _int8_tile_walk(s, valid, v, vs, t_begin: int, t_end: int, tile: int, warps: int):
     """The int8 mode's online softmax over the ``tile``-token tiles of
-    tokens [t_begin, t_end), from a fresh state. Tile i belongs to warp
-    i % ``warps``; each warp keeps its own (m, l, acc), as the kernel's do.
+    tokens [t_begin, t_end), from a fresh state. Tile i belongs to walker
+    i % ``warps``; each keeps its own (m, l, acc), as the kernel's groups do.
     Returns m, l [warps, B, nq, KV, G] and acc [warps, B, nq, KV, G, D]."""
     shape = s.shape[:-1]
     m = [torch.full((*shape, 1), float("-inf"), device=s.device) for _ in range(warps)]
@@ -309,12 +329,13 @@ def paged_int8_split_partials(
     chunk: int,
     sm_scale: Optional[float] = None,
     tile: int = INT8_TILE,
-    warps: int = SPLIT_WARPS,
+    warps: Optional[int] = None,
 ):
     """Plain version of the int8 kernel's first pass: per split of ``chunk``
     tokens (a multiple of ``tile``), the float32 partials of each query row:
-    the split's tiles walked by ``warps`` warps in turn, their states merged
-    in warp order. m, l are in the natural-exp domain, o is unnormalized.
+    the split's tiles walked by ``warps`` walkers in turn (default: the
+    kernel's :func:`int8_tile_walkers`), their states merged in walker
+    order. m, l are in the natural-exp domain, o is unnormalized.
     Returns m, l [B, n_split, nq, H] and o [B, n_split, nq, H, D] with
     n_split covering the table; a split past the longest row has m = -inf,
     l = 0, o = 0 (so has, for one row, a split past that row's end, which
@@ -324,6 +345,8 @@ def paged_int8_split_partials(
     s, valid, v, vs = _int8_scores(q, k_pages, v_pages, k_scales, v_scales, lengths,
                                    page_indices, sm_scale, tile)
     batch, nq, num_heads, head_dim = q.shape
+    if warps is None:
+        warps = int8_tile_walkers(num_heads // k_pages.shape[0] * nq)
     span = s.shape[-1]
     n_split = max(1, -(-page_indices.shape[1] * k_pages.shape[2] // chunk))
     lens = lengths.long()
@@ -369,10 +392,11 @@ def paged_attention_int8_reference(
 
     ``chunk`` None: one online softmax over the whole row (what the CPU
     wrapper runs). With ``chunk`` (the kernel's split, a multiple of
-    ``tile``) and ``warps`` (SPLIT_WARPS for the kernel) it follows the CUDA
-    kernel: a fresh (m, l, acc) per split and warp, the tile walk inside
-    each as above, the warps merged in order, then the splits
-    (:func:`paged_int8_split_partials` + :func:`merge_split_partials`).
+    ``tile``) and ``warps`` (:func:`int8_tile_walkers` for the kernel) it
+    follows the CUDA kernel: a fresh (m, l, acc) per split and tile walker,
+    the tile walk inside each as above, the walkers merged in order, then
+    the splits (:func:`paged_int8_split_partials` +
+    :func:`merge_split_partials`).
 
     This is NOT the JAX package's ``paged_attention_multiquery_reference``
     in int8 mode, which dequantizes K/V to bf16 and runs float attention
@@ -555,7 +579,7 @@ def paged_attention_multiquery_int8(
     """Kernel 2's int8 mode (module notes) at any shape it takes: int8
     pools with float32 scales [KV, num_pages, page_size]. On CUDA it
     launches the int8 split-K kernel of ``csrc/paged_attention.cu`` (tile
-    INT8_TILE) and the merge over :func:`paged_split_plan`'s splits, or
+    INT8_TILE) and the merge over :func:`paged_int8_split_plan`'s splits, or
     raises; the same limits as the bf16 mode apply, and q stays bf16. On
     the CPU it runs the unsplit plain version."""
     _require(k_scales is not None and v_scales is not None,
@@ -577,8 +601,8 @@ def paged_attention_multiquery_int8(
     scale = sm_scale if sm_scale is not None else head_dim**-0.5
 
     rows = num_heads // kv_heads * nq
-    chunk, n_split = paged_split_plan(batch, kv_heads, rows, head_dim, max_pages * page_size,
-                                      _num_sms(q.device.index or 0), INT8_SPLIT_BLOCKS_PER_SM)
+    chunk, n_split = paged_int8_split_plan(batch, kv_heads, rows, head_dim,
+                                           max_pages * page_size, _num_sms(q.device.index or 0))
     part_o = torch.empty((batch, kv_heads, n_split, rows, head_dim), dtype=torch.float32,
                          device=q.device)
     part_ml = torch.empty((batch, kv_heads, n_split, rows, 2), dtype=torch.float32,

@@ -185,7 +185,7 @@ def worker(root: str) -> dict:
     if hasattr(paged_mod, "_paged_int8_launch"):
         sweep["int8"] = _split_sweep(paged_mod, paged_mod._paged_int8_launch, shipping_q,
                                      (kq, vq, ks, vs), lens_t, table_t, cs,
-                                     paged_mod.INT8_SPLIT_BLOCKS_PER_SM)
+                                     paged_mod.paged_int8_split_plan)
     del kq, vq, ks, vs
     rng = np.random.RandomState(1)
     kp, vp, lens_t, table_t = cs._paged_pool(randn, rng, np.full(cs.MAX_SLOTS, cs.V1_CONTEXT),
@@ -198,23 +198,23 @@ def worker(root: str) -> dict:
 
 
 def _split_sweep(paged_mod, launch, shipping_q, pools, lens_t, table_t, cs,
-                 blocks_per_sm=None) -> dict:
+                 plan=None) -> dict:
     """One mode of kernel 2 (``launch`` on ``pools``: K and V, then the
     scales in int8 mode): its split kernel and merge at each SWEEP split
-    count, in the same turns (inner INNER); the plan's own choice marked."""
+    count, in the same turns (inner INNER), and at ``plan``'s own choice
+    (default ``paged_split_plan``), which is marked."""
     import torch
 
     batch, max_pages = table_t.shape
     max_tokens = max_pages * pools[0].shape[2]
     num_sms = torch.cuda.get_device_properties(0).multi_processor_count
-    plan_args = () if blocks_per_sm is None else (blocks_per_sm,)
+    plan = plan or paged_mod.paged_split_plan
     out = {}
     for nq, qd in shipping_q.items():
         rows = 12 // 2 * nq
-        planned = paged_mod.paged_split_plan(batch, 2, rows, 128, max_tokens, num_sms,
-                                             *plan_args)
+        planned = plan(batch, 2, rows, 128, max_tokens, num_sms)
         fns, meta = {}, {}
-        for count in SWEEP:
+        for count in sorted({*SWEEP, planned[1]}):
             chunk = -(-(-(-max_tokens // count)) // 64) * 64
             n_split = -(-max_tokens // chunk)
             part_o = torch.empty((batch, 2, n_split, rows, 128), dtype=torch.float32,

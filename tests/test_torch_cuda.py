@@ -30,9 +30,8 @@ from dots_ocr_tpu_torch.ops.flash_attention import (
     flash_tile_plan,
 )
 from dots_ocr_tpu_torch.ops.paged_attention import (
-    INT8_SPLIT_BLOCKS_PER_SM,
     INT8_TILE,
-    SPLIT_WARPS,
+    int8_tile_walkers,
     _paged_bf16_launch,
     _paged_int8_launch,
     merge_split_partials,
@@ -45,6 +44,7 @@ from dots_ocr_tpu_torch.ops.paged_attention import (
     paged_attention_stacked,
     paged_attention_v1_reference,
     paged_int8_split_partials,
+    paged_int8_split_plan,
     paged_split_partials,
     paged_split_plan,
 )
@@ -412,11 +412,11 @@ def test_paged_int8_kernel_matches_plain_on_card(cuda, nq, h, kv, page_size, d):
               paged_attention_multiquery_int8.verify_launches)
     out = paged_attention_multiquery_int8(qd, kq, vq, ks, vs, lens_t, table_t)
     ref = paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t)
-    chunk, _ = paged_split_plan(
+    chunk, _ = paged_int8_split_plan(
         len(INT8_LENGTHS), kv, h // kv * nq, d, table.shape[1] * page_size,
-        torch.cuda.get_device_properties(cuda).multi_processor_count, INT8_SPLIT_BLOCKS_PER_SM)
+        torch.cuda.get_device_properties(cuda).multi_processor_count)
     split = paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t, chunk=chunk,
-                                           warps=SPLIT_WARPS)
+                                           warps=int8_tile_walkers(h // kv * nq))
     torch.cuda.synchronize()
     assert paged_attention_multiquery_int8.launches == before[0] + 1
     assert paged_attention_multiquery_int8.verify_launches == before[1] + (nq > 1)
@@ -444,9 +444,8 @@ def test_paged_int8_split_scratch_matches_plain_partials_on_card(cuda, page_size
     rows = g * nq
     max_pages = -(-4096 // page_size)
     cap = max_pages * page_size
-    chunk, n_split = paged_split_plan(
-        8, kv, rows, d, cap, torch.cuda.get_device_properties(cuda).multi_processor_count,
-        INT8_SPLIT_BLOCKS_PER_SM)
+    chunk, n_split = paged_int8_split_plan(
+        8, kv, rows, d, cap, torch.cuda.get_device_properties(cuda).multi_processor_count)
     assert n_split > 1 and chunk % INT8_TILE == 0
     lengths = [0, 1, chunk - nq + 1, chunk + 5, 2 * chunk + 37, 3 * page_size, cap - nq + 1,
                700]
@@ -482,7 +481,7 @@ def test_paged_int8_split_scratch_matches_plain_partials_on_card(cuda, page_size
 
     k_o, k_m, k_l = plain_layout(part_o), plain_layout(part_ml[..., 0]), plain_layout(
         part_ml[..., 1])
-    p_m, p_l, p_o = paged_int8_split_partials(qd, *clean, *tail, chunk=chunk, warps=SPLIT_WARPS)
+    p_m, p_l, p_o = paged_int8_split_partials(qd, *clean, *tail, chunk=chunk)
     n_tok = np.where(lens > 0, np.minimum(lens + nq - 1, cap), 0)
     live = torch.from_numpy(np.arange(n_split)[None] * chunk < n_tok[:, None]).to(cuda)
     assert torch.isnan(k_l[~live]).all() and torch.isnan(k_o[~live]).all()

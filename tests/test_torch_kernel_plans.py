@@ -26,15 +26,15 @@ from dots_ocr_tpu_torch.ops.flash_attention import (
     flash_tile_plan,
 )
 from dots_ocr_tpu_torch.ops.paged_attention import (
-    INT8_SPLIT_BLOCKS_PER_SM,
     INT8_TILE,
     SPLIT_ALIGN,
     SPLIT_SCRATCH_BYTES,
-    SPLIT_WARPS,
+    int8_tile_walkers,
     merge_split_partials,
     paged_attention_int8_reference,
     paged_attention_multiquery_reference,
     paged_int8_split_partials,
+    paged_int8_split_plan,
     paged_split_partials,
     paged_split_plan,
 )
@@ -164,12 +164,13 @@ INT8_CAP = 7 * INT8_TILE  # the table's capacity in the int8 split tests (28 pag
 
 @pytest.mark.parametrize("nq", [1, 3])
 @pytest.mark.parametrize("chunk,warps", [
-    (INT8_CAP, 1), (INT8_CAP, SPLIT_WARPS), (256, 1), (256, SPLIT_WARPS), (192, SPLIT_WARPS),
-    (128, SPLIT_WARPS), (INT8_TILE, 1), (INT8_TILE, SPLIT_WARPS)])
+    (INT8_CAP, 1), (INT8_CAP, 4), (256, 1), (256, 2), (192, None), (128, None), (INT8_TILE, 1),
+    (INT8_TILE, None)])
 def test_int8_split_plain_matches_unsplit(nq, chunk, warps):
     """The int8 plain version with the kernel's split: 1 split walked by 1
-    warp is the unsplit function bit for bit; 2 to 7 splits, and 4 warps
-    taking the tiles in turn, agree with it within 1e-6 in float32 (the
+    walker is the unsplit function bit for bit; 2 to 7 splits, and 2 or 4
+    walkers taking the tiles in turn (None: the kernel's count for these
+    rows, 4 at nq = 1 and 2 at nq = 3), agree with it within 1e-6 in float32 (the
     tiles P is re-quantized over are the same; only the running max the
     exponentials are taken against, and so the order of the float32
     rescales, differs). Its partials merged by the plain merge are its own
@@ -181,6 +182,9 @@ def test_int8_split_plain_matches_unsplit(nq, chunk, warps):
     kq, vq, ks, vs = int8_pools(kp, vp)
     args = (torch.from_numpy(q), kq, vq, ks, vs, torch.from_numpy(lens), torch.from_numpy(table))
     unsplit = paged_attention_int8_reference(*args)
+    if warps is None:
+        warps = int8_tile_walkers(6 * nq)
+        assert warps == (4 if nq == 1 else 2)
     split = paged_attention_int8_reference(*args, chunk=chunk, warps=warps)
     if chunk == INT8_CAP and warps == 1:
         assert torch.equal(split, unsplit)
@@ -210,8 +214,12 @@ def test_int8_split_rejects_a_chunk_that_cuts_a_tile():
 
 def test_int8_split_plan_at_the_shipping_geometry():
     """The int8 mode takes the bf16 mode's plan with its own cap on the
-    grid; splits start on tile boundaries."""
+    grid (28 blocks per SM for a decode step's 4 one-warp groups, 16 for a
+    verify step's 2 groups of three warps); splits start on tile
+    boundaries."""
+    assert paged_int8_split_plan(64, 2, 6, 128, 40960, 132) == (1472, 28)
+    assert paged_int8_split_plan(64, 2, 18, 128, 40960, 132) == (2432, 17)
     for rows in (6, 18):
-        chunk, n_split = paged_split_plan(64, 2, rows, 128, 40960, 132, INT8_SPLIT_BLOCKS_PER_SM)
+        chunk, n_split = paged_int8_split_plan(64, 2, rows, 128, 40960, 132)
         assert chunk % INT8_TILE == 0 and n_split * chunk >= 40960
         assert 64 * 2 * n_split * rows * 130 * 4 <= SPLIT_SCRATCH_BYTES
