@@ -14,15 +14,17 @@ Phases, each fatal on failure (exit code != 0, no result line):
    chunked-prefill chunk (q_offset 2048); paged decode attention (kernel 2)
    over 64 slots at nq = 1 and 3, bf16 pools and int8 pools with float32
    scales; the int4 matmul in both modes (W4A16, W4A8) at the four decoder
-   linear shapes and 64, 192 and 4,096 rows; the window kernel at the
+   linear shapes and 64, 192, 2,048 and 4,096 rows (W4A16 beside cuBLAS bf16
+   on the dequantized weight and torch._weight_int4pack_mm); the window kernel at the
    windowed vision batch (the same 2 images packed window-major, a padded
    edge window and a fully padded bucket window), beside flash with the
    windows as segments (and flash's own case on those windows); the v1
    paged kernel (kernel 3) in both modes over 64 slots x 2,048 tokens at
-   page 64 and 128 (kernel 2's bf16 mode timed beside it at page 128), and
-   in bf16 at D 64; max abs
-   error against the stated tolerance (kernels 1, 2 in both modes and 4
-   also against a bound scaled to the output, which a control must fail),
+   page 64 and 128 (kernel 2's bf16 mode timed beside it at page 128), in
+   bf16 at D 64, and in int8 at phase 10's served shape (3 live rows among
+   64 slots, a table of 640 pages of 64); max abs
+   error against the stated tolerance (kernels 1-4 also against a bound
+   scaled to the output, which a control must fail),
    median CUDA-event times per call over back-to-back calls, the least
    time the card could take (bound) and, where one PyTorch call computes the
    same function, that call's time; and, for context, the W8A8 vision
@@ -143,10 +145,10 @@ FULL_QUANT_FLAGS = ["--quantize", "int4", "--vision-quantize", "int8", *SHIPPED_
 # the output (<= 2^-7 |plain|) plus 1e-4 for the float32 order near zero.
 INT4_TOL = {False: (1e-4, 2.0**-7), True: (0.0, 0.0)}
 # The decoder's block linears (K, N) and the rows of a decode step, a k = 2
-# verify step and a 2-row prefill chunk.
+# verify step, the shipped 2,048-token prefill chunk and a 2-row chunk.
 INT4_SHAPES = {"wq/wo": (1536, 1536), "wk/wv": (1536, 256), "gate/up": (1536, 8960),
                "down": (8960, 1536)}
-INT4_ROWS = (64, 192, 4096)
+INT4_ROWS = (64, 192, PREFILL_CHUNK, 4096)
 # The vision block linears (K, N) at the packed 2-image batch.
 VISION_T, VISION_SHAPES = 6656, {"wq/wk/wv/wo": (1536, 1536), "gate/up": (1536, 4224),
                                  "down": (4224, 1536)}
@@ -160,8 +162,12 @@ WINDOWED_FLAGS = ["--quantize", "int8", "--kv-cache-dtype", "int8", "--page-size
                   "--prefill-chunk-tokens", str(PREFILL_CHUNK), "--vision-attn", "windowed",
                   "--vision-window-patches", str(WINDOW_PATCHES),
                   "--vision-full-layers", ",".join(map(str, FULL_LAYERS))]
-# Kernel 3 at a 64-slot decode step: 2,048 tokens per row.
+# Kernel 3 at a 64-slot decode step: 2,048 tokens per row; and at phase
+# 10's served shape: the three requests' rows (the page request's ~2.2k
+# tokens, the receipt's, the text's) among 64 slots, a table of
+# MAX_SEQ_TOKENS / 64 pages of 64.
 V1_CONTEXT = 2048
+V1_SERVED_LENGTHS, V1_SERVED_PAGE = (2200, 420, 40), 64
 # Phase 11: the deployment file, and its serve flags by key (read as written).
 SHIPPING_ENV = os.path.join(REPO, "deploy", "shipping.env")
 SHIPPING_KEYS = {"PAGE_SIZE": "--page-size", "KV_DTYPE": "--kv-cache-dtype",
@@ -620,74 +626,152 @@ def window_cases(randn, dev) -> dict:
     return {"window_attention": [res], "flash_windowed": flash_res}
 
 
-def paged_v1_cases(randn, dev) -> dict:
-    """Kernel 3 against its plain version: 64 slots x 2,048 tokens, 12q/2kv,
-    D 128, pages of 64 and 128 in both modes, and D 64 in bf16 (the JAX
-    rule's head_dim case); the pool is the middle layer of a 3-layer stack.
-    No single PyTorch call reads a paged pool: no library time."""
-    import numpy as np
+def v1_inputs(randn, rng, lengths, page_size, head_dim, width, int8: bool):
+    """Kernel 3's arguments over :func:`_paged_pool`'s pools as the middle
+    layer of a 3-layer stack (int8: quantize_kv's codes and scales), with
+    q [rows, 12, D]; and the bf16 pools."""
     import torch
 
     from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
+
+    def stack(x):
+        flat = x.reshape(1, x.shape[0], -1, *x.shape[3:])
+        return torch.cat([torch.zeros_like(flat), flat, torch.zeros_like(flat)]).contiguous()
+
+    kp, vp, lens_t, table_t = _paged_pool(randn, rng, lengths, page_size, head_dim, width)
+    qd = randn(len(lengths), 12, head_dim)
+    if int8:
+        (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+        pools, scales = (stack(kq), stack(vq)), (stack(ks), stack(vs))
+    else:
+        pools, scales = (stack(kp), stack(vp)), (None, None)
+    return (qd, *pools, 1, lens_t, table_t, page_size, *scales), (kp, vp)
+
+
+def v1_split(args) -> tuple:
+    """Kernel 3's plan (chunk, n_split) for these arguments on this card."""
+    import torch
+
+    from dots_ocr_tpu_torch.ops.paged_attention import paged_v1_split_plan
+
+    qd, k_all, _, _, _, table_t, page_size = args[:7]
+    return paged_v1_split_plan(qd.shape[0], k_all.shape[1], qd.shape[1] // k_all.shape[1],
+                               qd.shape[2], table_t.shape[1] * page_size, page_size,
+                               torch.cuda.get_device_properties(qd.device).multi_processor_count)
+
+
+def fp8_codes(codes):
+    """int8 codes rounded through float8 e4m3 (3 mantissa bits, as fp8_round
+    does to bf16 values): the tight bound's control in int8 mode."""
+    import torch
+
+    return fp8_round(codes.float()).clamp(-127, 127).to(torch.int8)
+
+
+def paged_v1_cases(randn, dev) -> dict:
+    """Kernel 3 against its plain version in the kernel's order (its split):
+    64 slots x 2,048 tokens, 12q/2kv, D 128, pages of 64 and 128 in both
+    modes, D 64 in bf16 (the JAX rule's head_dim case), and int8 at phase
+    10's served shape (V1_SERVED_LENGTHS among 64 slots, table width
+    MAX_SEQ_TOKENS / 64); the pool is the middle layer of a 3-layer stack.
+    Each is held to the tight bound, with the control on V rounded through
+    fp8 (int8 mode: V's codes). No single PyTorch call reads a paged pool:
+    no library time."""
+    import numpy as np
+
     from dots_ocr_tpu_torch.ops.paged_attention import (
         paged_attention_multiquery_bf16,
         paged_attention_stacked,
         paged_attention_v1_reference,
     )
 
-    def stack(x):
-        flat = x.reshape(1, x.shape[0], -1, *x.shape[3:])
-        return torch.cat([torch.zeros_like(flat), flat, torch.zeros_like(flat)]).contiguous()
-
     results = {"paged_attention_v1": [], "paged_attention_v1_int8": []}
     rng = np.random.RandomState(1)
-    lengths = np.full(MAX_SLOTS, V1_CONTEXT)
-    for page_size, head_dim, modes in ((64, 128, (False, True)), (128, 128, (False, True)),
-                                       (64, 64, (False,))):
-        kp, vp, lens_t, table_t = _paged_pool(randn, rng, lengths, page_size, head_dim,
-                                              -(-V1_CONTEXT // page_size))
-        qd = randn(MAX_SLOTS, 12, head_dim)
-        for int8 in modes:
-            if int8:
-                (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
-                k_all, v_all, ks_all, vs_all = stack(kq), stack(vq), stack(ks), stack(vs)
-            else:
-                k_all, v_all, ks_all, vs_all = stack(kp), stack(vp), None, None
-            args = (qd, k_all, v_all, 1, lens_t, table_t, page_size, ks_all, vs_all)
-            # Kernel 2's bf16 mode on the same rows, timed in the same turns
-            # (the JAX rule sends bf16 decode at head_dim 128 to kernel 2).
-            extra = {}
-            if page_size == 128 and head_dim == 128 and not int8:
-                def k2():
-                    return paged_attention_multiquery_bf16(qd[:, None], kp, vp, lens_t,
-                                                           table_t)[:, 0]
-                # held to the tight bound against each other
-                out2, out3 = k2(), paged_attention_stacked(*args)
-                diff = float((out2.float() - out3.float()).abs().max())
-                cross = tight_errors(out2, out3)
-                log(f"  kernel 2 bf16 vs kernel 3 bf16 at 64 x {V1_CONTEXT}, page 128: max abs "
-                    f"diff {diff:.3e}, rel RMS diff {cross['rel_rms_err']:.3e} (tol "
-                    f"{TIGHT_RMS:g}), tight ratio {cross['tight_ratio']:.3f} (tol 1)")
-                if not (diff <= ATOL and _tight_pass(cross)):
-                    raise AssertionError(f"kernels 2 and 3 disagree ({diff}, {cross})")
-                del out2, out3
-                extra = {"kernel2_bf16_ms": k2}
-            results["paged_attention_v1_int8" if int8 else "paged_attention_v1"].append(compare(
-                f"paged v1 {'int8' if int8 else 'bf16'} 64 slots x {V1_CONTEXT} page "
-                f"{page_size} 12q/2kv D={head_dim}",
-                lambda: paged_attention_stacked(*args),
-                lambda: paged_attention_v1_reference(*args),
-                work=_paged_work(qd, lens_t, 2, int8=int8), extra=extra))
-            del k_all, v_all, ks_all, vs_all, args
-        del kp, vp
+    full = np.full(MAX_SLOTS, V1_CONTEXT)
+    served = np.zeros(MAX_SLOTS, np.int64)
+    served[:len(V1_SERVED_LENGTHS)] = V1_SERVED_LENGTHS
+    cases = [(64, 128, False, full), (64, 128, True, full), (128, 128, False, full),
+             (128, 128, True, full), (64, 64, False, full), (V1_SERVED_PAGE, 128, True, served)]
+    for page_size, head_dim, int8, lengths in cases:
+        width = (MAX_SEQ_TOKENS if lengths is served else V1_CONTEXT) // page_size
+        args, (kp, vp) = v1_inputs(randn, rng, lengths, page_size, head_dim, width, int8)
+        chunk, n_split = v1_split(args)
+        control = list(args)
+        if int8:
+            control[2] = fp8_codes(args[2])
+        else:
+            control[2] = fp8_round(args[2])
+        # Kernel 2's bf16 mode on the same rows, timed in the same turns
+        # (the JAX rule sends bf16 decode at head_dim 128 to kernel 2).
+        extra = {}
+        if page_size == 128 and not int8:
+            qd, lens_t, table_t = args[0], args[4], args[5]
+
+            def k2():
+                return paged_attention_multiquery_bf16(qd[:, None], kp, vp, lens_t, table_t)[:, 0]
+            # held to the tight bound against each other
+            out2, out3 = k2(), paged_attention_stacked(*args)
+            diff = float((out2.float() - out3.float()).abs().max())
+            cross = tight_errors(out2, out3)
+            log(f"  kernel 2 bf16 vs kernel 3 bf16 at 64 x {V1_CONTEXT}, page 128: max abs "
+                f"diff {diff:.3e}, rel RMS diff {cross['rel_rms_err']:.3e} (tol "
+                f"{TIGHT_RMS:g}), tight ratio {cross['tight_ratio']:.3f} (tol 1)")
+            if not (diff <= ATOL and _tight_pass(cross)):
+                raise AssertionError(f"kernels 2 and 3 disagree ({diff}, {cross})")
+            del out2, out3
+            extra = {"kernel2_bf16_ms": k2}
+        rows = (f"rows {'/'.join(map(str, V1_SERVED_LENGTHS))} of {MAX_SLOTS} slots, width "
+                f"{width}" if lengths is served else f"{MAX_SLOTS} slots x {V1_CONTEXT}")
+        results["paged_attention_v1_int8" if int8 else "paged_attention_v1"].append(compare(
+            f"paged v1 {'int8' if int8 else 'bf16'} {rows} page {page_size} 12q/2kv "
+            f"D={head_dim}, {n_split} splits of {chunk}",
+            lambda: paged_attention_stacked(*args),
+            lambda: paged_attention_v1_reference(*args, chunk=chunk),
+            work=_paged_work(args[0], args[4], 2, int8=int8), extra=extra,
+            control_fn=lambda: paged_attention_v1_reference(*control, chunk=chunk),
+            control="plain on V's codes through fp8" if int8 else "plain on V through fp8"))
+        del args, control, kp, vp
     return results
+
+
+def int4_yardsticks(x, packed, scales) -> tuple:
+    """Library calls computing W4A16's function at x's shape, timed beside
+    kernel 5 and used nowhere in the port: cuBLAS bf16 on the dequantized
+    weight (bf16(q s)), and, where the card's torch has it,
+    ``torch._weight_int4pack_mm`` (tinygemm: 128-row groups, zero point 0,
+    scales rounded to bf16) on the same int4 values, packed once here.
+    Returns ({name: fn}, the int4pack call's max abs difference from cuBLAS
+    on bf16-rounded scales, or the reason it is missing)."""
+    import torch
+
+    from dots_ocr_tpu_torch.ops.int4_matmul import GROUP, unpack_int4
+
+    q = unpack_int4(packed)  # [K, N]
+    k, n = q.shape
+    per_group = q.float().reshape(k // GROUP, GROUP, n)
+    w = (per_group * scales[:, None, :]).reshape(k, n).to(torch.bfloat16)
+    fns = {"cublas_bf16": lambda: x @ w}
+    try:
+        u = (q.to(torch.int32) + 8).t().contiguous()  # [N, K], 0..15
+        w4 = torch._convert_weight_to_int4pack((u[:, ::2] << 4 | u[:, 1::2]).to(torch.uint8), 8)
+        sz = torch.stack([scales.to(torch.bfloat16), torch.zeros_like(scales, dtype=torch.bfloat16)],
+                         dim=-1).contiguous()
+        got = torch._weight_int4pack_mm(x, w4, GROUP, sz).float()
+    except (AttributeError, RuntimeError) as exc:
+        return fns, f"torch._weight_int4pack_mm unavailable: {str(exc).splitlines()[0][:120]}"
+    w_bf = (per_group * scales.to(torch.bfloat16).float()[:, None, :]).reshape(k, n)
+    check = float((got - (x.float() @ w_bf)).abs().max())
+    fns["int4pack_mm"] = lambda: torch._weight_int4pack_mm(x, w4, GROUP, sz)
+    return fns, check
 
 
 def int4_cases(randn, gen, dev) -> dict:
     """Kernel 5 in both modes against its plain version at the decoder's
     linear shapes: weights from quantize_kernel_int4 of N(0, 0.02) bf16,
-    activations N(0, 1). No single PyTorch call unpacks int4: no library
-    time."""
+    activations N(0, 1). The library time of W4A16 is
+    ``torch._weight_int4pack_mm``'s (:func:`int4_yardsticks`; its scales
+    are bf16), with cuBLAS bf16 on the dequantized weight beside it; W4A8
+    has none."""
     import torch
 
     from dots_ocr_tpu_torch.models.quantize import quantize_kernel_int4
@@ -703,11 +787,21 @@ def int4_cases(randn, gen, dev) -> dict:
             nbytes = 2 * rows * k + packed.numel() + 4 * scales.numel() + 2 * rows * n
             for act, key in ((False, "int4_matmul"), (True, "int4_matmul_w4a8")):
                 atol, rtol = INT4_TOL[act]
+                library, extra = None, {}
+                if not act:
+                    fns, check = int4_yardsticks(x, packed, scales)
+                    extra = {"cublas_bf16_ms": fns["cublas_bf16"]}
+                    library = fns.get("int4pack_mm")
+                    log(f"  int4 {label} M={rows}: torch._weight_int4pack_mm vs cuBLAS on "
+                        f"bf16-rounded scales: "
+                        + (f"max abs diff {check:.3e}" if library else check))
                 results[key].append(compare(
                     f"int4 {'W4A8' if act else 'W4A16'} {label} K={k} N={n} M={rows}",
                     lambda: int4_matmul(x, packed, scales, act),
                     lambda: int4_matmul_plain(x, packed, scales, act), atol, rtol,
-                    work=bound(2.0 * rows * k * n, nbytes, "int8" if act else "bf16")))
+                    work=bound(2.0 * rows * k * n, nbytes, "int8" if act else "bf16"),
+                    library_fn=library, extra=extra))
+                del library, extra
     return results
 
 
@@ -1443,8 +1537,9 @@ def main() -> int:
                                     ":142-148)", windowed),
     }
     # The case whose numbers head each kernel's entry: the main path's shape
-    # (kernel 3's bf16 mode runs at page 128 in phase 9), else the first.
-    main_case = {"paged_attention_v1": 1}
+    # (kernel 3's bf16 mode runs at page 128 in phase 9, its int8 mode at
+    # phase 10's served shape), else the first.
+    main_case = {"paged_attention_v1": 1, "paged_attention_v1_int8": 2}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

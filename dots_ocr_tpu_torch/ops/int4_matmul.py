@@ -19,7 +19,11 @@ per 128-row input group and output column: ``w ~= q * s`` with q in
 
 The JAX package's ``_pick_tile`` and ``DOTS_INT4_MIN_STEPS`` size the
 Pallas grid to the TPU's VMEM; they have no counterpart here. The CUDA
-kernel tiles itself and takes any number of rows.
+kernel tiles itself and takes any number of rows. Its W4A16 mode has two
+regimes, picked from the row count alone (:func:`int4_regime`): a split
+over the contraction at M <= SPLIT_ROWS (:func:`int4_split_plan`) and a
+wgmma kernel above. Both add the same exact float32 group products as the
+plain version in another order, so the plain version takes no split.
 
 ``int4_matmul`` runs the plain version for tensors on the CPU; a CUDA tensor
 launches the kernel or raises.
@@ -27,6 +31,7 @@ launches the kernel or raises.
 
 from __future__ import annotations
 
+import functools
 import os
 
 import numpy as np
@@ -35,6 +40,14 @@ import torch
 from dots_ocr_tpu_torch.ops import kernel_lib
 
 GROUP = 128  # input rows per scale group
+# W4A16 regimes: at most SPLIT_ROWS rows (decode and k = 2 verify steps of
+# 64 slots) split the contraction into units of SPLIT_UNIT packed rows over
+# about SPLIT_BLOCKS_PER_SM blocks an SM (two fit); more rows (prefill
+# chunks) run the wgmma kernel.
+SPLIT_ROWS = 192
+SPLIT_UNIT = 64
+SPLIT_TILE_ROWS, SPLIT_TILE_COLS = 64, 128
+SPLIT_BLOCKS_PER_SM = 2
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -127,14 +140,38 @@ def _require(cond: bool, message: str) -> None:
         raise ValueError(f"int4_matmul: {message}")
 
 
-def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
-                act_quant: bool = False) -> torch.Tensor:
-    """[S, in] x packed [in/2, out] -> [S, out] in x's dtype (module notes).
-    On CUDA: bf16 x, int8 packed, float32 scales, all contiguous on one
-    device; in a multiple of 256, out of 128; any S >= 1. Counts launches in
-    ``int4_matmul.launches`` (W4A16) and ``int4_matmul.w4a8_launches``."""
-    if x.device.type == "cpu":
-        return int4_matmul_plain(x, packed, scales, act_quant)
+def int4_regime(rows: int) -> str:
+    """The W4A16 kernel for ``rows`` rows: "split" (split-K) or "wgmma"."""
+    return "split" if rows <= SPLIT_ROWS else "wgmma"
+
+
+def int4_split_plan(rows: int, in_dim: int, out_dim: int, num_sms: int) -> tuple:
+    """The split-K kernel's plan from static shapes only: ``(units_per_split,
+    n_split)``, split s of every output tile taking the contraction's units
+    [s u, (s + 1) u) of SPLIT_UNIT packed rows (half a low and half a high
+    group), as many splits as put SPLIT_BLOCKS_PER_SM blocks on each SM, at
+    most one a unit; every unit in exactly one split."""
+    units = in_dim // 2 // SPLIT_UNIT
+    tiles = -(-rows // SPLIT_TILE_ROWS) * (out_dim // SPLIT_TILE_COLS)
+    n_split = max(1, min(units, -(-SPLIT_BLOCKS_PER_SM * num_sms // tiles)))
+    per_split = -(-units // n_split)
+    return per_split, -(-units // per_split)
+
+
+def _check(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> None:
+    """Raise on what the kernel does not take (the fast test first: it runs
+    on every call)."""
+    dev = x.device
+    if (x.dtype == torch.bfloat16 and packed.dtype == torch.int8
+            and scales.dtype == torch.float32 and x.dim() == 2 and packed.dim() == 2
+            and packed.device == dev and scales.device == dev and x.shape[0] >= 1
+            and x.shape[1] % (2 * GROUP) == 0 and packed.shape[1] % 128 == 0
+            and packed.shape[0] * 2 == x.shape[1]
+            and scales.shape == (x.shape[1] // GROUP, packed.shape[1])
+            and x.is_contiguous() and packed.is_contiguous() and scales.is_contiguous()
+            and x.data_ptr() % 16 == 0 and packed.data_ptr() % 16 == 0
+            and scales.data_ptr() % 16 == 0):
+        return
     tensors = (x, packed, scales)
     _require(all(t.is_cuda and t.device == x.device for t in tensors),
              "all inputs must be on x's CUDA device")
@@ -145,27 +182,40 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
              "packed must be int8 and scales float32")
     _require(x.dim() == 2 and packed.dim() == 2 and x.shape[0] >= 1,
              f"x {tuple(x.shape)} must be [S >= 1, in], packed [in/2, out]")
-    rows, in_dim = x.shape
-    out_dim = packed.shape[1]
+    in_dim, out_dim = x.shape[1], packed.shape[1]
     _require(in_dim % (2 * GROUP) == 0, f"in {in_dim} is not a multiple of {2 * GROUP}")
     _require(out_dim % 128 == 0, f"out {out_dim} is not a multiple of 128")
-    _require(packed.shape[0] * 2 == in_dim and scales.shape == (in_dim // GROUP, out_dim),
-             f"packed {tuple(packed.shape)} / scales {tuple(scales.shape)} vs x {tuple(x.shape)}")
+    _require(False, f"packed {tuple(packed.shape)} / scales {tuple(scales.shape)} vs x "
+                    f"{tuple(x.shape)}")
 
+
+def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
+                act_quant: bool = False) -> torch.Tensor:
+    """[S, in] x packed [in/2, out] -> [S, out] in x's dtype (module notes).
+    On CUDA: bf16 x, int8 packed, float32 scales, all contiguous on one
+    device; in a multiple of 256, out of 128; any S >= 1. Counts launches in
+    ``int4_matmul.launches`` (W4A16) and ``int4_matmul.w4a8_launches``."""
+    if x.device.type == "cpu":
+        return int4_matmul_plain(x, packed, scales, act_quant)
+    _check(x, packed, scales)
+    index = x.device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return int4_matmul(x, packed, scales, act_quant)
+    rows, in_dim = x.shape
+    out_dim = packed.shape[1]
     out = torch.empty(rows, out_dim, dtype=torch.bfloat16, device=x.device)
-    stream = torch.cuda.current_stream(x.device).cuda_stream
-    with torch.cuda.device(x.device):
-        lib = kernel_lib.load()
-        if act_quant:
-            xq = torch.empty(rows, in_dim, dtype=torch.int8, device=x.device)
-            a_scale = torch.empty(rows, dtype=torch.float32, device=x.device)
-            err = lib.dots_int4_matmul_w4a8(
-                x.data_ptr(), packed.data_ptr(), scales.data_ptr(), xq.data_ptr(),
-                a_scale.data_ptr(), out.data_ptr(), rows, in_dim, out_dim, stream)
-        else:
-            err = lib.dots_int4_matmul_w4a16(
-                x.data_ptr(), packed.data_ptr(), scales.data_ptr(), out.data_ptr(),
-                rows, in_dim, out_dim, stream)
+    stream = torch._C._cuda_getCurrentRawStream(index)
+    lib = kernel_lib.load()
+    if act_quant:
+        xq = torch.empty(rows, in_dim, dtype=torch.int8, device=x.device)
+        a_scale = torch.empty(rows, dtype=torch.float32, device=x.device)
+        err = lib.dots_int4_matmul_w4a8(
+            x.data_ptr(), packed.data_ptr(), scales.data_ptr(), xq.data_ptr(),
+            a_scale.data_ptr(), out.data_ptr(), rows, in_dim, out_dim, stream)
+    else:
+        per_split, n_split = _w4a16_plan(rows, in_dim, out_dim, index)
+        err = _w4a16_launch(lib, x, packed, scales, out, per_split, n_split, stream)
     kernel_lib.check(err, "int4_matmul")
     if act_quant:
         int4_matmul.w4a8_launches += 1
@@ -174,8 +224,31 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     return out
 
 
+@functools.lru_cache(maxsize=None)
+def _w4a16_plan(rows: int, in_dim: int, out_dim: int, index: int) -> tuple:
+    """(units_per_split, n_split) of the split-K kernel, (0, 1) for wgmma."""
+    if int4_regime(rows) == "wgmma":
+        return 0, 1
+    num_sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return int4_split_plan(rows, in_dim, out_dim, num_sms)
+
+
 int4_matmul.launches = 0
 int4_matmul.w4a8_launches = 0
+
+
+def _w4a16_launch(lib, x, packed, scales, out, per_split: int, n_split: int, stream) -> int:
+    """The W4A16 entry on checked CUDA inputs: split-K over ``n_split``
+    splits of ``per_split`` units with float32 scratch for their partials,
+    or (``per_split`` 0) the wgmma kernel. Returns the cudaError_t."""
+    rows, in_dim = x.shape
+    part = None
+    if n_split > 1:
+        part = torch.empty(n_split * rows * out.shape[1], dtype=torch.float32, device=x.device)
+    return lib.dots_int4_matmul_w4a16(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
+        0 if part is None else part.data_ptr(), out.data_ptr(), rows, in_dim, out.shape[1],
+        per_split, n_split, stream)
 
 
 def int4_matmul_xla(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,

@@ -45,18 +45,20 @@ _SIGNATURES = {
     # q, k_pool, v_pool, k_scale, v_scale, lengths, page_indices, part_o,
     # part_ml (scratch), out, then as the bf16 mode
     "dots_paged_attention_int8": [_P] * 10 + [_I] * 10 + [_F, _P],
-    # x, packed, scales, out, M, K, N, stream
-    "dots_int4_matmul_w4a16": [_P] * 4 + [_I] * 3 + [_P],
+    # x, packed, scales, part (scratch), out, M, K, N, units_per_split,
+    # n_split, stream
+    "dots_int4_matmul_w4a16": [_P] * 5 + [_I] * 5 + [_P],
     # x, packed, scales, xq (scratch), a_scale (scratch), out, M, K, N, stream
     "dots_int4_matmul_w4a8": [_P] * 6 + [_I] * 3 + [_P],
     # q, k, v, segment_ids, out, nw, W, H, D, sm_scale, stream
     "dots_window_attention_bf16": [_P] * 5 + [_I] * 4 + [_F, _P],
-    # q, k_all, v_all, lengths, page_indices, out, B, H, KV, D, n_slots,
-    # page_size, max_pages, layer, sm_scale, stream
-    "dots_paged_attention_v1_bf16": [_P] * 6 + [_I] * 8 + [_F, _P],
+    # q, k_all, v_all, lengths, page_indices, part_o, part_ml (scratch), out,
+    # B, H, KV, D, n_slots, page_size, max_pages, layer, chunk, n_split,
+    # sm_scale, stream
+    "dots_paged_attention_v1_bf16": [_P] * 8 + [_I] * 10 + [_F, _P],
     # q, k_all, v_all, k_scales_all, v_scales_all, lengths, page_indices,
-    # out, then as the bf16 mode
-    "dots_paged_attention_v1_int8": [_P] * 8 + [_I] * 8 + [_F, _P],
+    # part_o, part_ml, out, then as the bf16 mode
+    "dots_paged_attention_v1_int8": [_P] * 10 + [_I] * 10 + [_F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -10,7 +10,10 @@ one with ``q[:, None]``. And of the v1 kernel ``paged_attention_stacked``
 (body ``_paged_kernel``, kernel 3) with its single-layer wrapper
 ``paged_attention``: one query per row over a layer-stacked cache, a
 page-by-page online softmax whose int8 mode dequantizes K and V (it does
-not re-quantize P as kernel 2 does).
+not re-quantize P as kernel 2 does). Its CUDA kernel splits the token axis
+too (:func:`paged_v1_split_plan`) and steps through each split V1_STEP
+tokens at a time; its plain version takes that split and step, and on the
+CPU the wrapper runs it unsplit, one page a step: the Pallas order.
 
 ``paged_attention_multiquery`` dispatches as the JAX package does
 (:func:`choose_paged_kernel`) for CUDA tensors: head_dim not a multiple of
@@ -48,6 +51,7 @@ from __future__ import annotations
 import ctypes
 import functools
 import logging
+import math
 from typing import Optional
 
 import torch
@@ -641,6 +645,108 @@ paged_attention_multiquery_int8.launches = 0
 paged_attention_multiquery_int8.verify_launches = 0
 
 
+def _v1_walk(qf, k_layer, v_layer, ks_layer, vs_layer, page_indices, page_size, limit,
+             t_begin: int, t_end: int, tile: int, scale: float):
+    """Kernel 3's online softmax over the ``tile``-token tiles of tokens
+    [t_begin, t_end) from a fresh state, in the Pallas body's order of
+    rounding: q in float32; K promoted to float32 (int8: K times its scale,
+    kept in float32) and V in its dtype (int8: V times its scale, rounded to
+    bf16); p rounded to V's dtype before P @ V; the NaN guard on alpha. Row b
+    sees tokens < limit[b] and updates only on tiles that start before it.
+    Positions it may not see are masked and their V zeroed (an unwritten
+    slot may hold NaN). Returns m, l [B, KV, G, 1] and acc [B, KV, G, D]."""
+    batch, kv_heads, group, head_dim = qf.shape
+    max_pages = page_indices.shape[1]
+    dev = qf.device
+    m = torch.full((batch, kv_heads, group, 1), float("-inf"), device=dev)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((batch, kv_heads, group, head_dim), device=dev)
+    p_dtype = torch.bfloat16 if ks_layer is not None else v_layer.dtype  # V's dtype
+    offs = torch.arange(tile, device=dev)
+    for t0 in range(t_begin, t_end, tile):
+        pos = t0 + offs
+        col = (pos // page_size).clamp_max(max_pages - 1)
+        slots = page_indices[:, col].long() * page_size + pos % page_size  # [B, tile]
+        valid = pos[None, :] < limit[:, None]  # [B, tile]
+        k = k_layer[:, slots].to(torch.float32)  # [KV, B, tile, D]
+        v = v_layer[:, slots]
+        if ks_layer is not None:
+            k = k * ks_layer[:, slots][..., None]
+            v = (v.to(torch.float32) * vs_layer[:, slots][..., None]).to(torch.bfloat16)
+        v = torch.where(valid[None, :, :, None], v.to(torch.float32), 0.0)
+        valid = valid[:, None, None, :]
+        s = torch.einsum("bkgd,kbsd->bkgs", qf, k) * scale
+        s = torch.where(valid, s, DEFAULT_MASK_VALUE)
+        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        p = torch.where(valid, torch.exp(s - m_next), 0.0)
+        alpha = torch.exp(m - m_next)
+        alpha = torch.where(torch.isnan(alpha), 0.0, alpha)
+        pv = torch.einsum("bkgs,kbsd->bkgd", p.to(p_dtype).to(torch.float32), v)
+        run = (t0 < limit)[:, None, None, None]  # rows this tile runs for
+        l = torch.where(run, alpha * l + p.sum(dim=-1, keepdim=True), l)
+        acc = torch.where(run, acc * alpha + pv, acc)
+        m = torch.where(run, m_next, m)
+    return m, l, acc
+
+
+def _v1_args(q, k_pages_all, v_pages_all, layer, lengths, page_indices, page_size,
+             k_scales_all, v_scales_all, sm_scale):
+    """The plain versions' shared set-up: q in float32 [B, KV, G, D], the
+    layer's pools and scales, each row's visible tokens (its length capped at
+    the table's capacity), the scale."""
+    _, kv_heads, _, head_dim = k_pages_all.shape
+    batch, num_heads, _ = q.shape
+    qf = q.to(torch.float32).reshape(batch, kv_heads, num_heads // kv_heads, head_dim)
+    quantized = k_scales_all is not None
+    n_tok = lengths.long().clamp(0, page_indices.shape[1] * page_size)
+    return (qf, k_pages_all[layer], v_pages_all[layer],
+            k_scales_all[layer] if quantized else None,
+            v_scales_all[layer] if quantized else None, n_tok,
+            sm_scale if sm_scale is not None else head_dim**-0.5)
+
+
+def paged_v1_split_partials(
+    q: torch.Tensor,
+    k_pages_all: torch.Tensor,
+    v_pages_all: torch.Tensor,
+    layer: int,
+    lengths: torch.Tensor,
+    page_indices: torch.Tensor,
+    page_size: int,
+    chunk: int,
+    k_scales_all: Optional[torch.Tensor] = None,
+    v_scales_all: Optional[torch.Tensor] = None,
+    sm_scale: Optional[float] = None,
+):
+    """Plain version of kernel 3's first pass: per split of ``chunk`` tokens,
+    the float32 partials of each query row over the split's visible tokens,
+    from :func:`_v1_walk` over the kernel's V1_STEP-token steps. m, l are in
+    the natural-exp domain, o is unnormalized.
+    Returns m, l [B, n_split, 1, H] and o [B, n_split, 1, H, D] (the layout
+    of :func:`merge_split_partials`) with n_split covering the table; a split
+    that starts at or past a row's visible tokens has m = -inf, l = 0,
+    o = 0 (the kernel leaves it unwritten)."""
+    qf, k_layer, v_layer, ks, vs, n_tok, scale = _v1_args(
+        q, k_pages_all, v_pages_all, layer, lengths, page_indices, page_size, k_scales_all,
+        v_scales_all, sm_scale)
+    batch, num_heads, head_dim = q.shape
+    n_split = max(1, -(-page_indices.shape[1] * page_size // chunk))
+    span = int(n_tok.max()) if batch else 0  # host sync: plain version only
+    ms, ls, os_ = [], [], []
+    for i in range(n_split):
+        t_begin = i * chunk
+        limit = n_tok.clamp_max(t_begin + chunk)
+        m, l, acc = _v1_walk(qf, k_layer, v_layer, ks, vs, page_indices, page_size, limit,
+                             t_begin, min(t_begin + chunk, span), V1_STEP, scale)
+        dead = (t_begin >= n_tok)[:, None, None, None]
+        ms.append(torch.where(dead, float("-inf"), m)[..., 0])
+        ls.append(torch.where(dead, 0.0, l)[..., 0])
+        os_.append(torch.where(dead, 0.0, acc))
+    shape = (batch, n_split, 1, num_heads)
+    return (torch.stack(ms, 1).reshape(shape), torch.stack(ls, 1).reshape(shape),
+            torch.stack(os_, 1).reshape(*shape, head_dim))
+
+
 def paged_attention_v1_reference(
     q: torch.Tensor,
     k_pages_all: torch.Tensor,
@@ -652,55 +758,68 @@ def paged_attention_v1_reference(
     k_scales_all: Optional[torch.Tensor] = None,
     v_scales_all: Optional[torch.Tensor] = None,
     sm_scale: Optional[float] = None,
+    chunk: Optional[int] = None,
 ) -> torch.Tensor:
-    """Plain version of kernel 3 (:func:`paged_attention_stacked`): the
-    Pallas body's online softmax over ``page_size``-token tiles, in its
-    order of rounding. q in float32; bf16 K promoted to float32 (int8: K
-    times its scale, kept in float32) and V in the pool's dtype (int8: V
-    times its scale, rounded to bf16); p rounded to V's dtype before P @ V;
-    the NaN guard on alpha; a row of length 0 gives exact zeros. Returns
-    [B, H, D]."""
-    _, kv_heads, _, head_dim = k_pages_all.shape
-    batch, num_heads, _ = q.shape
-    group = num_heads // kv_heads
-    scale = sm_scale if sm_scale is not None else head_dim**-0.5
-    dev = q.device
-    k_layer, v_layer = k_pages_all[layer], v_pages_all[layer]  # [KV, N, D]
-    quantized = k_scales_all is not None
+    """Plain version of kernel 3 (:func:`paged_attention_stacked`), the
+    online softmax of :func:`_v1_walk`; a row of length 0 gives exact zeros.
+    Returns [B, H, D].
 
-    lens = lengths.long()
-    n_pages = min(-(-int(lens.max()) // page_size), page_indices.shape[1]) if batch else 0
-    qf = q.to(torch.float32).reshape(batch, kv_heads, group, head_dim)
-    m = torch.full((batch, kv_heads, group, 1), float("-inf"), device=dev)
-    l = torch.zeros_like(m)
-    acc = torch.zeros((batch, kv_heads, group, head_dim), device=dev)
-    offs = torch.arange(page_size, device=dev)
-    for i in range(n_pages):  # host sync above: plain version only
-        slots = page_indices[:, i].long()[:, None] * page_size + offs  # [B, ps]
-        k = k_layer[:, slots].to(torch.float32)  # [KV, B, ps, D]
-        v = v_layer[:, slots]
-        if quantized:
-            k = k * k_scales_all[layer][:, slots][..., None]
-            v = (v.to(torch.float32) * v_scales_all[layer][:, slots][..., None]).to(torch.bfloat16)
-        valid = ((i * page_size + offs)[None, :] < lens[:, None])[:, None, None, :]
-        s = torch.einsum("bkgd,kbsd->bkgs", qf, k) * scale
-        s = torch.where(valid, s, DEFAULT_MASK_VALUE)
-        m_next = torch.maximum(m, s.amax(dim=-1, keepdim=True))
-        p = torch.where(valid, torch.exp(s - m_next), 0.0)
-        alpha = torch.exp(m - m_next)
-        alpha = torch.where(torch.isnan(alpha), 0.0, alpha)
-        pv = torch.einsum("bkgs,kbsd->bkgd", p.to(v.dtype).to(torch.float32),
-                          v.to(torch.float32))
-        run = (i * page_size < lens)[:, None, None, None]  # rows this page runs for
-        l = torch.where(run, alpha * l + p.sum(dim=-1, keepdim=True), l)
-        acc = torch.where(run, acc * alpha + pv, acc)
-        m = torch.where(run, m_next, m)
+    ``chunk`` None: one online softmax over the whole row a page a step (the
+    Pallas body's order, what the CPU wrapper runs). With ``chunk`` (the
+    kernel's split, from :func:`paged_v1_split_plan`) it follows the CUDA
+    kernel: a fresh state per split over V1_STEP-token steps, the splits
+    merged in order
+    (:func:`paged_v1_split_partials` + :func:`merge_split_partials`)."""
+    batch, num_heads, head_dim = q.shape
+    if chunk is not None:
+        m, l, o = paged_v1_split_partials(q, k_pages_all, v_pages_all, layer, lengths,
+                                          page_indices, page_size, chunk, k_scales_all,
+                                          v_scales_all, sm_scale)
+        return merge_split_partials(m, l, o, base2=False)[:, 0].to(q.dtype)
+    qf, k_layer, v_layer, ks, vs, n_tok, scale = _v1_args(
+        q, k_pages_all, v_pages_all, layer, lengths, page_indices, page_size, k_scales_all,
+        v_scales_all, sm_scale)
+    span = int(n_tok.max()) if batch else 0  # host sync: plain version only
+    m, l, acc = _v1_walk(qf, k_layer, v_layer, ks, vs, page_indices, page_size, n_tok, 0, span,
+                         page_size, scale)
     l_inv = torch.where(l == 0, 0.0, 1.0 / l)
     return (acc * l_inv).reshape(batch, num_heads, head_dim).to(q.dtype)
 
 
 MAX_V1_GROUP = 8  # H / KV query rows one kernel-3 block serves
-MAX_V1_PAGE = 1024  # tokens per page kernel 3's score buffer holds
+MAX_V1_PAGE = 1024  # the largest page kernel 3 takes
+# Kernel 3's split plan (paged_v1_split_plan): an online-softmax step is
+# V1_STEP tokens (16 a warp); splits are whole steps and whole pages, at
+# least V1_MIN_SPLIT_TOKENS long, their partials within SPLIT_SCRATCH_BYTES,
+# and the grid holds at most V1_SPLIT_BLOCKS_PER_SM blocks per SM. The cap
+# is set for the served shape, where a few live rows sit among 64 slots
+# with a wide table: blocks past a row's end exit at once, so only the
+# live rows' splits run, and a long row wants many. kernel_ab.py's sweep on
+# an H100 (PERF.md): at the served shape (table 640 x 64) 64-80 splits of
+# 640-512 tokens were fastest, 4-16 splits 2-2.5x slower; at 64 x 2,048
+# tokens 4 splits of 512 beat 8 of 256 by 17% and 32 of 64 by 2x (every
+# block pays a set-up and a merge of the warps), hence the 512-token floor.
+V1_STEP = 64
+V1_MIN_SPLIT_TOKENS = 512
+V1_SPLIT_BLOCKS_PER_SM = 64
+
+
+def paged_v1_split_plan(batch: int, kv_heads: int, group: int, head_dim: int, max_tokens: int,
+                        page_size: int, num_sms: int) -> tuple:
+    """Kernel 3's split of the token axis, from static shapes only (no
+    device value, so a decode step never syncs): ``(chunk, n_split)``, split
+    s covering tokens [s * chunk, (s + 1) * chunk), chunk a multiple of
+    V1_STEP and of ``page_size``, ``n_split * chunk >= max_tokens`` (the
+    table's max_pages * page_size). As many splits as the three limits of
+    :func:`paged_split_plan` allow, with kernel 3's own: V1_MIN_SPLIT_TOKENS
+    a split and V1_SPLIT_BLOCKS_PER_SM blocks per SM."""
+    align = math.lcm(V1_STEP, page_size)
+    per_split = batch * kv_heads * group * (head_dim + 2) * 4
+    n_split = max(1, min(SPLIT_SCRATCH_BYTES // per_split,
+                         -(-max_tokens // V1_MIN_SPLIT_TOKENS),
+                         -(-V1_SPLIT_BLOCKS_PER_SM * num_sms // (batch * kv_heads))))
+    chunk = -(-max(1, -(-max_tokens // n_split)) // align) * align
+    return chunk, max(1, -(-max_tokens // chunk))
 
 
 def paged_attention_stacked(
@@ -720,17 +839,76 @@ def paged_attention_stacked(
     [L, KV, N_slots, D] (N_slots = num_pages * page_size), bf16 or int8
     with float32 scales [L, KV, N_slots]; lengths [B] int32 (tokens valid,
     the current one included); page_indices [B, max_pages] int32. Returns
-    [B, H, D]. On CUDA it launches ``csrc/paged_attention_v1.cu`` or
-    raises: bf16 q, contiguous inputs, D in {64, 128}, page_size a multiple
-    of 16 up to 1,024, H / KV <= 8."""
+    [B, H, D]. On CUDA it launches the split kernel and its merge
+    (``csrc/paged_attention_v1.cu``) over :func:`paged_v1_split_plan`'s
+    splits, with float32 scratch for the partials, or raises: bf16 q,
+    contiguous inputs, D in {64, 128}, page_size a multiple of 16 up to
+    1,024, H / KV <= 8. On the CPU it runs the unsplit plain version."""
     if q.device.type == "cpu":
         return paged_attention_v1_reference(
             q, k_pages_all, v_pages_all, layer, lengths, page_indices, page_size,
             k_scales_all, v_scales_all, sm_scale)
+    _v1_check(q, k_pages_all, v_pages_all, layer, lengths, page_indices, page_size,
+              k_scales_all, v_scales_all)
+    index = q.device.index
+    if index != torch.cuda.current_device():
+        with torch.cuda.device(index):
+            return paged_attention_stacked(q, k_pages_all, v_pages_all, layer, lengths,
+                                           page_indices, page_size, k_scales_all, v_scales_all,
+                                           sm_scale)
+    batch, num_heads, head_dim = q.shape
+    kv_heads = k_pages_all.shape[1]
+    group = num_heads // kv_heads
+    chunk, n_split = _v1_plan(batch, kv_heads, group, head_dim, page_indices.shape[1],
+                              page_size, index)
+    # One float32 scratch: part_o [B, KV, n_split, G, D], then part_ml [..., 2].
+    n_o = batch * kv_heads * n_split * group * head_dim
+    part = torch.empty(n_o + 2 * n_o // head_dim, dtype=torch.float32, device=q.device)
+    scale = sm_scale if sm_scale is not None else head_dim**-0.5
+    return _paged_v1_launch(q, k_pages_all, v_pages_all, layer, lengths, page_indices, page_size,
+                            k_scales_all, v_scales_all, part.data_ptr(),
+                            part.data_ptr() + 4 * n_o, chunk, n_split, scale)
+
+
+@functools.lru_cache(maxsize=None)
+def _v1_plan(batch, kv_heads, group, head_dim, max_pages, page_size, index) -> tuple:
+    return paged_v1_split_plan(batch, kv_heads, group, head_dim, max_pages * page_size,
+                               page_size, _num_sms(index))
+
+
+def _v1_check(q, k_pages_all, v_pages_all, layer, lengths, page_indices, page_size,
+              k_scales_all, v_scales_all) -> None:
+    """Raise on what kernel 3 does not take (the fast test first: it runs
+    on every decode step)."""
     batch, num_heads, head_dim = q.shape
     num_layers, kv_heads, n_slots, _ = k_pages_all.shape
-    max_pages = page_indices.shape[1]
     quantized = k_pages_all.dtype == torch.int8
+    dev = q.device
+    pools_ok = (v_pages_all.dtype == k_pages_all.dtype
+                and (quantized or k_pages_all.dtype == torch.bfloat16))
+    if quantized:
+        pools_ok = (pools_ok and k_scales_all is not None and v_scales_all is not None
+                    and k_scales_all.dtype == torch.float32
+                    and v_scales_all.dtype == torch.float32
+                    and k_scales_all.shape == (num_layers, kv_heads, n_slots)
+                    and v_scales_all.shape == k_scales_all.shape
+                    and k_scales_all.device == dev and v_scales_all.device == dev
+                    and k_scales_all.is_contiguous() and v_scales_all.is_contiguous()
+                    and k_scales_all.data_ptr() % 16 == 0 and v_scales_all.data_ptr() % 16 == 0)
+    if (pools_ok and q.dtype == torch.bfloat16 and lengths.dtype == torch.int32
+            and page_indices.dtype == torch.int32 and head_dim in (64, 128)
+            and page_size % 16 == 0 and page_size <= MAX_V1_PAGE and n_slots % page_size == 0
+            and v_pages_all.shape == k_pages_all.shape and k_pages_all.shape[3] == head_dim
+            and lengths.shape == (batch,) and page_indices.dim() == 2
+            and page_indices.shape[0] == batch and num_heads % kv_heads == 0
+            and num_heads // kv_heads <= MAX_V1_GROUP and 0 <= layer < num_layers
+            and k_pages_all.device == dev and v_pages_all.device == dev
+            and lengths.device == dev and page_indices.device == dev
+            and q.is_contiguous() and k_pages_all.is_contiguous()
+            and v_pages_all.is_contiguous() and lengths.is_contiguous()
+            and page_indices.is_contiguous()):
+        return
+    max_pages = page_indices.shape[1]
     tensors = (q, k_pages_all, v_pages_all, lengths, page_indices)
     if quantized:
         _require(k_scales_all is not None and v_scales_all is not None,
@@ -758,26 +936,40 @@ def paged_attention_stacked(
                  "scales must be float32")
         _require(k_scales_all.shape == v_scales_all.shape == (num_layers, kv_heads, n_slots),
                  f"scales {tuple(k_scales_all.shape)} vs pages {tuple(k_pages_all.shape)}")
-    else:
-        _require(k_pages_all.dtype == v_pages_all.dtype == torch.bfloat16,
-                 "pages must be bfloat16 or int8")
-    scale = sm_scale if sm_scale is not None else head_dim**-0.5
+        _require(k_scales_all.data_ptr() % 16 == 0 and v_scales_all.data_ptr() % 16 == 0,
+                 "scales must be 16-byte aligned")
+    _require(False, "pages must be bfloat16 or int8")
 
+
+def _paged_v1_launch(q, k_pages_all, v_pages_all, layer, lengths, page_indices, page_size,
+                     k_scales_all, v_scales_all, part_o: int, part_ml: int, chunk, n_split,
+                     scale) -> torch.Tensor:
+    """Launch kernel 3's split kernel and its merge on checked CUDA inputs,
+    on q's device (the current one), with the caller's float32 scratch
+    given by address: part_o [B, KV, n_split, G, D] and part_ml [B, KV,
+    n_split, G, 2]. Afterwards each live split (one that starts before its
+    row's visible tokens end) holds its unnormalized O and (m, l) in the
+    natural-exp domain; the other splits are left unwritten. Counts the
+    launch."""
+    batch, num_heads, head_dim = q.shape
+    _, kv_heads, n_slots, _ = k_pages_all.shape
+    max_pages = page_indices.shape[1]
+    quantized = k_pages_all.dtype == torch.int8
     out = torch.empty_like(q)
     lib = kernel_lib.load()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        dims = (batch, num_heads, kv_heads, head_dim, n_slots, page_size, max_pages, int(layer),
-                ctypes.c_float(scale), stream)
-        if quantized:
-            err = lib.dots_paged_attention_v1_int8(
-                q.data_ptr(), k_pages_all.data_ptr(), v_pages_all.data_ptr(),
-                k_scales_all.data_ptr(), v_scales_all.data_ptr(), lengths.data_ptr(),
-                page_indices.data_ptr(), out.data_ptr(), *dims)
-        else:
-            err = lib.dots_paged_attention_v1_bf16(
-                q.data_ptr(), k_pages_all.data_ptr(), v_pages_all.data_ptr(),
-                lengths.data_ptr(), page_indices.data_ptr(), out.data_ptr(), *dims)
+    dims = (batch, num_heads, kv_heads, head_dim, n_slots, page_size, max_pages, int(layer),
+            chunk, n_split, ctypes.c_float(scale),
+            torch._C._cuda_getCurrentRawStream(q.device.index))
+    if quantized:
+        err = lib.dots_paged_attention_v1_int8(
+            q.data_ptr(), k_pages_all.data_ptr(), v_pages_all.data_ptr(),
+            k_scales_all.data_ptr(), v_scales_all.data_ptr(), lengths.data_ptr(),
+            page_indices.data_ptr(), part_o, part_ml, out.data_ptr(), *dims)
+    else:
+        err = lib.dots_paged_attention_v1_bf16(
+            q.data_ptr(), k_pages_all.data_ptr(), v_pages_all.data_ptr(),
+            lengths.data_ptr(), page_indices.data_ptr(), part_o, part_ml, out.data_ptr(),
+            *dims)
     kernel_lib.check(err, "paged_attention_stacked")
     if quantized:
         paged_attention_stacked.int8_launches += 1

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Kernels 1, 2 (bf16 and int8 modes) and 4 of two checkouts, timed the
-same way in one run on one GPU, and kernel 2's split count swept per mode.
+"""Kernels 1-5 of two checkouts (kernel 2 in both modes, kernel 3 in both,
+kernel 5 in W4A16), timed the same way in one run on one GPU, and the split
+counts of kernel 2 (per mode) and kernel 3 swept.
 
     mkdir -p _archive/parent && git archive <parent commit> | tar -x -C _archive/parent
     python3 kernel_ab.py --parent _archive/parent
@@ -11,12 +12,16 @@ tree (building that tree's kernels), makes the same inputs from the same
 seeds on the card, and times, through the public wrappers a caller uses,
 ``flash_attention`` at chip_smoke.py's four shapes,
 ``paged_attention_multiquery_bf16`` at its three,
-``paged_attention_multiquery_int8`` at the shipping geometry (nq = 1 and 3)
-and ``window_attention`` at the windowed vision batch: per call as single
-calls (inner 1) and as back-to-back calls (inner INNER, chip_smoke.py's
-method), median of REPS samples taken in turns with, at the flash and
-window shapes, one SDPA call (the same in every worker: a yardstick of the
-card). Each
+``paged_attention_multiquery_int8`` at the shipping geometry (nq = 1 and 3),
+``window_attention`` at the windowed vision batch, ``paged_attention_stacked``
+(kernel 3) at chip_smoke.py's ``paged_v1_cases`` shapes and phase 10's served
+shape (3 live rows among 64 slots, a table of 640 pages of 64), and
+``int4_matmul`` (W4A16) at the four decoder shapes x INT4_ROWS: per call as
+single calls (inner 1) and as back-to-back calls (inner INNER, chip_smoke.py's
+method), median of REPS samples taken in turns with the yardsticks (the same
+in every worker): one SDPA call at the flash and window shapes; cuBLAS bf16
+on the dequantized weight and ``torch._weight_int4pack_mm`` at the int4
+shapes (chip_smoke.py's ``int4_yardsticks``). Each
 output's max abs error against its tree's plain version is kept, and
 REPEATS more calls on the same inputs are compared with the first bit for
 bit: the count that differ shows a race.
@@ -24,7 +29,8 @@ bit: the count that differ shows a race.
 A worker whose tree has them also times kernel 2's split kernels and merge
 (bf16 and int8) at the shipping geometry (64 slots, lengths 0..12k, table
 width 320 x page 128) at nq = 1 and 3 over SWEEP split counts, in the same
-turns, through ``_paged_bf16_launch`` and ``_paged_int8_launch``.
+turns, through ``_paged_bf16_launch`` and ``_paged_int8_launch``, and
+kernel 3's over V1_SWEEP counts through ``_paged_v1_launch``.
 
 Prints a summary and, as its last line, one JSON object with every
 worker's numbers.
@@ -44,6 +50,12 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Split counts of the sweep (chunk = the next multiple of 64 of the
 # table's tokens / count).
 SWEEP = (8, 16, 24, 28, 32, 40, 48, 64, 80)
+# Kernel 3's split counts of its sweep (chunk = the next multiple of 64 and
+# of the page of the table's tokens / count).
+V1_SWEEP = (4, 8, 16, 24, 32, 48, 64, 80)
+# Kernel 5's rows: decode and verify steps, the shipped prefill chunk, the
+# 2-row chunk.
+INT4_ROWS = (64, 192, 2048, 4096)
 # Calls per case after the first, each compared with it bit for bit.
 REPEATS = 200
 
@@ -90,7 +102,7 @@ def worker(root: str) -> dict:
 
     cases = {}
 
-    def case(name, kernel_fn, plain_fn, library_fn=None):
+    def case(name, kernel_fn, plain_fn, library_fn=None, library=None):
         first, plain = kernel_fn(), plain_fn().float()
         err = float((first.float() - plain).abs().max())
         # REPEATS more calls on the same inputs: each must equal the first
@@ -102,7 +114,7 @@ def worker(root: str) -> dict:
                 differ += 1
                 worst = max(worst, float((out.float() - plain).abs().max()))
         del first, plain, out
-        fns = {"kernel": kernel_fn}
+        fns = {"kernel": kernel_fn, **(library or {})}
         if library_fn is not None:
             fns["sdpa"] = library_fn
         res = {"max_abs_err": err, "repeats": REPEATS, "repeats_differing": differ,
@@ -110,6 +122,7 @@ def worker(root: str) -> dict:
         for inner in (1, cs.INNER):
             res.update({f"{key}_ms_inner{inner}": ms
                         for key, ms in cs.time_in_turns(fns, inner=inner).items()})
+        res.update({f"{key}_graph_ms": graph_ms(fn, cs) for key, fn in fns.items()})
         cases[name] = res
         torch.cuda.empty_cache()
 
@@ -194,7 +207,167 @@ def worker(root: str) -> dict:
     case("paged bf16 nq=1 64 x 2048 page 128",
          lambda: kernel2(qd, kp, vp, lens_t, table_t),
          lambda: paged_plain(qd, kp, vp, lens_t, table_t))
-    return {"root": root, "build_s": build_s, "cases": cases, "split_sweep": sweep}
+    del kp, vp
+
+    # Kernel 3 at chip_smoke.py's paged_v1_cases shapes and phase 10's served
+    # shape, against the tree's plain version in its kernel's order.
+    stacked = paged_mod.paged_attention_stacked
+    v1_plain = paged_mod.paged_attention_v1_reference
+    split = hasattr(paged_mod, "paged_v1_split_plan")
+    rng = np.random.RandomState(1)
+    full = np.full(cs.MAX_SLOTS, cs.V1_CONTEXT)
+    served = np.zeros(cs.MAX_SLOTS, np.int64)
+    served[:len(cs.V1_SERVED_LENGTHS)] = cs.V1_SERVED_LENGTHS
+    v1_served = {}
+    for page_size, head_dim, int8, lengths in (
+            (64, 128, True, full), (128, 128, True, full), (64, 128, False, full),
+            (128, 128, False, full), (64, 64, False, full), (64, 128, True, served),
+            (64, 128, False, served)):
+        width = (cs.MAX_SEQ_TOKENS if lengths is served else cs.V1_CONTEXT) // page_size
+        args, _ = cs.v1_inputs(randn, rng, lengths, page_size, head_dim, width, int8)
+        chunk = {"chunk": cs.v1_split(args)[0]} if split else {}
+        rows = "served 2200/420/40 of 64, width 640" if lengths is served else "64 x 2048"
+        case(f"paged v1 {'int8' if int8 else 'bf16'} {rows} page {page_size} D={head_dim}",
+             lambda: stacked(*args), lambda: v1_plain(*args, **chunk))
+        if lengths is served:
+            v1_served["int8" if int8 else "bf16"] = args
+        elif page_size == 64 and int8:
+            v1_served["int8 64 x 2048"] = args
+    if hasattr(paged_mod, "_paged_v1_launch"):
+        sweep["v1"] = _v1_sweep(paged_mod, v1_served, cs)
+    del v1_served, args
+
+    # Kernel 5's W4A16 mode at the decoder's linear shapes, with cuBLAS bf16
+    # on the dequantized weight and torch._weight_int4pack_mm in the same turns.
+    from dots_ocr_tpu_torch.models.quantize import quantize_kernel_int4
+    from dots_ocr_tpu_torch.ops import int4_matmul as int4_mod
+    from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+
+    int4_checks = {}
+    for label, (k, n) in cs.INT4_SHAPES.items():
+        qk = quantize_kernel_int4(randn(k, n) * 0.02)
+        packed, scales = qk["qint4"], qk["scale4"]
+        for rows in INT4_ROWS:
+            x = randn(rows, k)
+            library, check = cs.int4_yardsticks(x, packed, scales)
+            name = f"int4 W4A16 {label} K={k} N={n} M={rows}"
+            int4_checks[name] = check
+            case(name, lambda: int4_matmul(x, packed, scales),
+                 lambda: int4_matmul_plain(x, packed, scales), library=library)
+        del qk, packed, scales, x, library
+    if hasattr(int4_mod, "_w4a16_launch"):
+        sweep["int4"] = _int4_sweep(int4_mod, randn, cs)
+    return {"root": root, "build_s": build_s, "cases": cases, "split_sweep": sweep,
+            "int4pack_check": int4_checks}
+
+
+def graph_ms(fn, cs, calls: int = 10):
+    """Device ms per call of ``fn``: CALLS calls captured in a CUDA graph,
+    the replay timed with CUDA events (median of REPS), so the wrapper's
+    host time is not in it; None where the calls cannot be captured."""
+    import statistics
+
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+            for _ in range(calls):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        return statistics.median(cs.cuda_ms(graph.replay) / calls for _ in range(cs.REPS))
+    except RuntimeError:
+        torch.cuda.synchronize()
+        return None
+
+
+def _int4_sweep(int4_mod, randn, cs) -> dict:
+    """Kernel 5 W4A16's split-K kernel (and reduce) at the four decoder
+    shapes, M = 64 and 192, over split counts (each a whole number of units
+    a split), device ms by CUDA graph and back-to-back eager ms; the plan's
+    choice is marked."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.quantize import quantize_kernel_int4
+    from dots_ocr_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.load()
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, (k, n) in cs.INT4_SHAPES.items():
+        qk = quantize_kernel_int4(randn(k, n) * 0.02)
+        packed, scales = qk["qint4"], qk["scale4"]
+        units = k // 2 // int4_mod.SPLIT_UNIT
+        for rows in (64, 192):
+            x = randn(rows, k)
+            y = torch.empty(rows, n, dtype=torch.bfloat16, device=x.device)
+            planned = int4_mod.int4_split_plan(rows, k, n, num_sms)
+            plans = sorted({(-(-units // c), -(-units // -(-units // c)))
+                            for c in (1, 2, 3, 4, 6, 8, 12, 16, 24, 35, 48, 70) if c <= units}
+                           | {planned})
+            fns = {}
+            for per, count in plans:
+                def fn(per=per, count=count):
+                    err = int4_mod._w4a16_launch(
+                        lib, x, packed, scales, y, per, count,
+                        torch.cuda.current_stream().cuda_stream)
+                    kernel_lib.check(err, "int4 sweep")
+                    return y
+                fns[f"{count} x {per}{'*' if (per, count) == planned else ''}"] = fn
+            eager = cs.time_in_turns(fns, inner=cs.INNER)
+            out[f"{label} M={rows}"] = {key: {"ms": eager[key], "graph_ms": graph_ms(fn, cs)}
+                                        for key, fn in fns.items()}
+    return out
+
+
+def _v1_sweep(paged_mod, served: dict, cs) -> dict:
+    """Kernel 3's split kernel and merge over V1_SWEEP split counts (chunk =
+    the next multiple of 64 and of the page of the table's tokens / count)
+    at the served shape (both modes) and at 64 x 2,048 int8, in the same
+    turns, through ``_paged_v1_launch``; the plan's own choice is marked."""
+    import math
+
+    import torch
+
+    out = {}
+    for key, args in served.items():
+        qd, k_all, v_all, layer, lens_t, table_t, page_size, ks, vs = args
+        batch, kv = qd.shape[0], k_all.shape[1]
+        group, head_dim = qd.shape[1] // kv, qd.shape[2]
+        max_tokens = table_t.shape[1] * page_size
+        align = math.lcm(64, page_size)
+        planned = cs.v1_split(args)
+        fns, meta = {}, {}
+        for count in sorted({*V1_SWEEP, planned[1]}):
+            chunk = -(-(-(-max_tokens // count)) // align) * align
+            n_split = -(-max_tokens // chunk)
+            key_ = f"{n_split} x {chunk}"
+            if key_ in fns:
+                continue
+            part_o = torch.empty((batch, kv, n_split, group, head_dim), dtype=torch.float32,
+                                 device=qd.device)
+            part_ml = torch.empty((batch, kv, n_split, group, 2), dtype=torch.float32,
+                                  device=qd.device)
+            fns[key_] = (lambda po=part_o, pm=part_ml, c=chunk, n=n_split:
+                         paged_mod._paged_v1_launch(qd, k_all, v_all, layer, lens_t, table_t,
+                                                    page_size, ks, vs, po.data_ptr(),
+                                                    pm.data_ptr(), c, n, head_dim**-0.5))
+            meta[key_] = {"n_split": n_split, "chunk": chunk,
+                          "planned": (chunk, n_split) == planned}
+        ref = paged_mod.paged_attention_stacked(*args).float()
+        for key_, fn in fns.items():
+            meta[key_]["max_abs_diff_vs_wrapper"] = float((fn().float() - ref).abs().max())
+        times = cs.time_in_turns(fns, inner=cs.INNER)
+        out[key] = {key_: {**meta[key_], "ms": times[key_]} for key_ in fns}
+        del fns
+        torch.cuda.empty_cache()
+    return out
 
 
 def _split_sweep(paged_mod, launch, shipping_q, pools, lens_t, table_t, cs,
@@ -245,6 +418,8 @@ def main() -> int:
     parser.add_argument("--parent", help="root of the parent checkout (git archive)")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     parser.add_argument("--timeout", type=float, default=600.0)
+    parser.add_argument("--order", default="parent,change,change,parent",
+                        help="the workers' trees in turn (tuning: 'change')")
     args = parser.parse_args()
     import torch
 
@@ -254,15 +429,17 @@ def main() -> int:
     if args.worker:
         print(json.dumps(worker(args.worker)), flush=True)
         return 0
-    if not args.parent or not os.path.isdir(os.path.join(args.parent, "dots_ocr_tpu_torch")):
+    order = args.order.split(",")
+    if "parent" in order and (
+            not args.parent or not os.path.isdir(os.path.join(args.parent, "dots_ocr_tpu_torch"))):
         print("kernel_ab: --parent must name a checkout holding dots_ocr_tpu_torch/")
         return 2
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip()
     print(f"kernel_ab on {smi}", flush=True)
-    trees = {"parent": os.path.abspath(args.parent), "change": HERE}
+    trees = {"parent": os.path.abspath(args.parent or HERE), "change": HERE}
     runs = []
-    for label in ("parent", "change", "change", "parent"):
+    for label in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
                                trees[label]], capture_output=True, text=True,
                               timeout=args.timeout, cwd=trees[label])
@@ -274,22 +451,37 @@ def main() -> int:
         runs.append(res)
         print(f"  {label} worker done (build {res['build_s']:.1f} s)", flush=True)
     inner = _chip_smoke().INNER
-    for name in runs[0]["cases"]:
+    names = [name for name in runs[-1]["cases"] if all(name in r["cases"] for r in runs)]
+    for name in names:
         print(f"{name}:")
         for res in runs:
             c = res["cases"][name]
-            sdpa = (f"; sdpa {c['sdpa_ms_inner1']:.3f} / {c[f'sdpa_ms_inner{inner}']:.3f}"
-                    if "sdpa_ms_inner1" in c else "")
-            print(f"  {res['tree']:7s} kernel {c['kernel_ms_inner1']:.3f} ms (1 call) / "
-                  f"{c[f'kernel_ms_inner{inner}']:.3f} ms ({inner} back to back){sdpa}; "
+            libs = "".join(
+                f"; {key[:-len('_ms_inner1')]} {c[key]:.4f} / "
+                f"{c[key.replace('inner1', f'inner{inner}')]:.4f}"
+                for key in c if key.endswith("_ms_inner1") and not key.startswith("kernel"))
+            graphs = ", ".join(f"{key[:-len('_graph_ms')]} {c[key]:.4f}" for key in c
+                               if key.endswith("_graph_ms") and c[key] is not None)
+            print(f"  {res['tree']:7s} kernel {c['kernel_ms_inner1']:.4f} ms (1 call) / "
+                  f"{c[f'kernel_ms_inner{inner}']:.4f} ms ({inner} back to back){libs}; "
+                  f"device (CUDA graph) {graphs}; "
                   f"max abs err {c['max_abs_err']:.3e}; {c['repeats_differing']} of "
                   f"{c['repeats']} repeats differ (worst err {c['worst_abs_err']:.3e})")
     for res in runs:
         for mode, sweep in res["split_sweep"].items():
+            if mode == "int4":
+                continue
             for nq, rows in sweep.items():
                 print(f"split sweep, {res['tree']} worker, {mode}, {nq}: " + ", ".join(
-                    f"{key}{'*' if r['planned'] else ''} {r['ms']:.3f} ms"
+                    f"{key}{'*' if r['planned'] else ''} {r['ms']:.4f} ms"
                     for key, r in rows.items()))
+    for res in runs:
+        for shape, rows in res["split_sweep"].get("int4", {}).items():
+            print(f"int4 split sweep, {res['tree']} worker, {shape}: " + ", ".join(
+                f"{key} {r['ms']:.4f} / {r['graph_ms'] or float('nan'):.4f} ms"
+                for key, r in rows.items()))
+    for name, check in runs[-1].get("int4pack_check", {}).items():
+        print(f"{name}: torch._weight_int4pack_mm vs cuBLAS on bf16-rounded scales: {check}")
     line = {"device": smi, "order": [r["tree"] for r in runs], "runs": runs}
     print(json.dumps(line))
     return 0

@@ -17,7 +17,7 @@ import torch
 from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
 from dots_ocr_tpu_torch.models.layers import linear, matmul_f32
 from dots_ocr_tpu_torch.models.quantize import quantize_kernel_act, quantize_kernel_int4
-from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain, int4_regime
 from dots_ocr_tpu_torch.ops.flash_attention import (
     BLOCK_K,
     TILE_MASKED,
@@ -47,6 +47,7 @@ from dots_ocr_tpu_torch.ops.paged_attention import (
     paged_int8_split_plan,
     paged_split_partials,
     paged_split_plan,
+    paged_v1_split_plan,
 )
 from dots_ocr_tpu_torch.ops.window_attention import window_attention, window_attention_reference
 
@@ -339,15 +340,31 @@ def test_paged_split_scratch_matches_plain_partials_on_card(cuda, page_size, nq)
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("kernel", ["flash", "paged_bf16", "paged_int8", "window"])
+@pytest.mark.parametrize("kernel", ["flash", "paged_bf16", "paged_int8", "window", "v1_bf16",
+                                    "v1_int8", "int4_split", "int4_wgmma"])
 def test_redesigned_kernels_repeat_bit_for_bit_on_card(cuda, kernel):
     """100 calls on the same inputs give the same output bit for bit: a
     causal padded prefill (4 rows of 2,048 positions, 12 heads over 2) for
     kernel 1, a 16-row split-K verify step for kernel 2 in its bf16 and
     int8 modes, 9 windows of 256 tokens (a padded edge window and a fully
-    padded one) for kernel 4."""
+    padded one) for kernel 4, a 16-row split decode step for kernel 3 in
+    both modes (its merge), and kernel 5 W4A16's down projection at 64 rows
+    (split-K and its reduce) and 2,048 rows (wgmma)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
-    if kernel == "flash":
+    if kernel.startswith("v1"):
+        rng = np.random.RandomState(3)
+        args, _, _ = _v1_case(cuda, rng, list(rng.randint(0, 3000, 16)), 128, 64, 48,
+                              kernel == "v1_int8")
+
+        def call():
+            return paged_attention_stacked(*args)
+    elif kernel.startswith("int4"):
+        rows = 64 if kernel == "int4_split" else 2048
+        x, packed, scales = (t.to(cuda) for t in int4_inputs(rows, 8960, 1536, 3))
+
+        def call():
+            return int4_matmul(x, packed, scales)
+    elif kernel == "flash":
         lens = torch.tensor([2048, 1531, 800, 77], device=cuda)
         seg = torch.where(torch.arange(2048, device=cuda)[None] < lens[:, None], 0, -1)
         seg = seg.to(torch.int32)
@@ -515,18 +532,11 @@ def _stack(pages, scales):
     return stack, torch.cat([torch.zeros_like(sf), sf, torch.zeros_like(sf)]).contiguous()
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("quantized", [False, True])
-@pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("page_size", [16, 64, 128])
-def test_paged_v1_kernel_matches_plain_on_card(cuda, page_size, d, quantized):
-    """Kernel 3 vs its plain version (the same page tiles and rounding
-    steps; float32 summation order and bf16 output rounding differ), on
-    the middle layer of a 3-layer stack, with a length-0 row, partial last
-    pages and null-page table padding."""
-    rng = np.random.RandomState(page_size + d)
-    q, kp, vp, lens, table = paged_inputs(
-        rng, INT8_LENGTHS, 1, 2, 12, d, page_size, -(-2100 // page_size))
+def _v1_case(cuda, rng, lengths, d, page_size, max_pages, quantized):
+    """Kernel 3's arguments over paged_inputs' pools on the card (the middle
+    layer of a 3-layer stack), the one-layer pools and their scales, and
+    the kernel's plan for them."""
+    q, kp, vp, lens, table = paged_inputs(rng, lengths, 1, 2, 12, d, page_size, max_pages)
     qd = torch.from_numpy(q[:, 0]).to(cuda, torch.bfloat16)
     lens_t, table_t = torch.from_numpy(lens).to(cuda), torch.from_numpy(table).to(cuda)
     if quantized:
@@ -535,17 +545,77 @@ def test_paged_v1_kernel_matches_plain_on_card(cuda, page_size, d, quantized):
         kq, vq = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (kp, vp))
         ks = vs = None
     (k_all, ks_all), (v_all, vs_all) = _stack(kq, ks), _stack(vq, vs)
+    args = (qd, k_all, v_all, 1, lens_t, table_t, page_size, ks_all, vs_all)
+    plan = paged_v1_split_plan(len(lengths), 2, 6, d, max_pages * page_size, page_size,
+                               torch.cuda.get_device_properties(cuda).multi_processor_count)
+    return args, (kq, vq, ks, vs), plan
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("page_size", [16, 64, 128])
+def test_paged_v1_kernel_matches_plain_on_card(cuda, page_size, d, quantized):
+    """Kernel 3 vs its plain version, on the middle layer of a 3-layer
+    stack, with rows of length 0 and 1, exactly one split and one more,
+    partial last pages and null-page table padding. Against the plain
+    version in the kernel's order (its split) it holds the bound scaled to
+    the output (_attention_close: the products are exact, the float32 sums
+    run in another order, the int8 K scale multiplies after the dot), and
+    against the unsplit one (the Pallas order) the bf16 tolerance."""
+    rng = np.random.RandomState(page_size + d)
+    max_pages = -(-2100 // page_size)
+    _, _, (chunk, n_split) = _v1_case(cuda, rng, INT8_LENGTHS, d, page_size, max_pages, quantized)
+    assert n_split > 1
+    lengths = INT8_LENGTHS + [chunk, chunk + 1]
+    args, (kq, vq, ks, vs), (chunk, _) = _v1_case(cuda, rng, lengths, d, page_size, max_pages,
+                                                  quantized)
     counter = "int8_launches" if quantized else "launches"
     before = getattr(paged_attention_stacked, counter)
-    out = paged_attention_stacked(qd, k_all, v_all, 1, lens_t, table_t, page_size, ks_all, vs_all)
-    ref = paged_attention_v1_reference(qd, k_all, v_all, 1, lens_t, table_t, page_size,
-                                       ks_all, vs_all)
-    single = paged_attention(qd, kq, vq, lens_t, table_t, k_scales=ks, v_scales=vs)
+    out = paged_attention_stacked(*args)
+    ref = paged_attention_v1_reference(*args)
+    split = paged_attention_v1_reference(*args, chunk=chunk)
+    single = paged_attention(args[0], kq, vq, args[4], args[5], k_scales=ks, v_scales=vs)
     torch.cuda.synchronize()
     assert getattr(paged_attention_stacked, counter) == before + 2
     _bf16_close(out, ref)
+    _attention_close(out, split)
     assert torch.equal(out, single)
     assert (out[1] == 0).all()  # length 0: exact zeros
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("quantized", [False, True])
+@pytest.mark.parametrize("page_size", [16, 64])
+def test_paged_v1_kernel_ignores_nan_past_each_row_on_card(cuda, page_size, quantized):
+    """Every pool position no row may see holds NaN (int8: junk codes under
+    NaN scales), the slots of each row's last page past its length
+    included: the output is finite and equal bit for bit to the one on a
+    pool zeroed there."""
+    rng = np.random.RandomState(page_size)
+    lengths = [0, 1, 700, 63, 1500, 5, 2049, 300]
+    max_pages = -(-2100 // page_size)
+    args, _, _ = _v1_case(cuda, rng, lengths, 128, page_size, max_pages, quantized)
+    table = args[5].cpu().numpy()
+    live = torch.zeros(args[1].shape[2], dtype=torch.bool)
+    for row, n in enumerate(lengths):
+        pos = np.arange(n)
+        live[torch.from_numpy(table[row, pos // page_size] * page_size + pos % page_size)] = True
+    dead = (~live).to(cuda)
+    clean, junk = list(args), list(args)
+    for i in (1, 2):
+        clean[i], junk[i] = args[i].clone(), args[i].clone()
+        clean[i][:, :, dead] = 0
+        junk[i][:, :, dead] = 127 if quantized else float("nan")
+    if quantized:
+        for i in (7, 8):
+            clean[i], junk[i] = args[i].clone(), args[i].clone()
+            clean[i][:, :, dead] = 0.0
+            junk[i][:, :, dead] = float("nan")
+    out = paged_attention_stacked(*junk)
+    assert torch.isfinite(out.float()).all()
+    assert torch.equal(out, paged_attention_stacked(*clean))
+    assert (out[0] == 0).all()
 
 
 @pytest.mark.cuda
@@ -686,7 +756,7 @@ def int4_close(out, ref, act_quant):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("act_quant", [False, True])
-@pytest.mark.parametrize("rows", [1, 15, 17, 64, 192, 4096])
+@pytest.mark.parametrize("rows", [1, 15, 17, 64, 192, 2048, 4096])
 def test_int4_kernel_matches_plain_on_card(cuda, rows, act_quant):
     """N = 256 (a 4-block row of tiles), K = 8,960 (the down projection's
     35 packed-row blocks); rows below, at and past a 64-row tile."""
@@ -699,6 +769,21 @@ def test_int4_kernel_matches_plain_on_card(cuda, rows, act_quant):
     assert getattr(int4_matmul, counter) == before + 1
     assert out.shape == (rows, 256) and out.dtype == torch.bfloat16
     int4_close(out, ref, act_quant)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 15, 17, 64, 192, 2048, 4096])
+@pytest.mark.parametrize("k,n", [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)],
+                         ids=["wq_wo", "wk_wv", "gate_up", "down"])
+def test_int4_w4a16_decoder_shapes_on_card(cuda, k, n, rows):
+    """W4A16 at the decoder's four linear shapes, in both regimes (split-K
+    up to 192 rows with its plan's split, wgmma above), against the plain
+    version within INT4_TOL."""
+    x, packed, scales = (t.to(cuda) for t in int4_inputs(rows, k, n, k + n + rows))
+    assert int4_regime(rows) == ("split" if rows <= 192 else "wgmma")
+    out = int4_matmul(x, packed, scales)
+    int4_close(out, int4_matmul_plain(x, packed, scales), False)
+    assert out.shape == (rows, n)
 
 
 @pytest.mark.cuda

@@ -1,4 +1,4 @@
-"""The Python around the redesigned kernels 1 and 2 (both modes), on the CPU.
+"""The Python around the redesigned kernels 1, 2 (both modes), 3 and 5, on the CPU.
 
 Kernel 1's tile list (``flash_tile_plan``) against the dense mask of the
 function it computes; kernel 2's split of the token axis
@@ -6,7 +6,9 @@ function it computes; kernel 2's split of the token axis
 (``paged_split_partials`` + ``merge_split_partials``) against the plain
 version and the JAX package's reference; the int8 mode's plain version
 with the kernel's split and warps (``paged_int8_split_partials``) against
-its unsplit self. Float32, numpy-seeded inputs.
+its unsplit self; kernel 3's split plan (``paged_v1_split_plan``); kernel 5's
+W4A16 regime rule and split plan (``int4_regime``, ``int4_split_plan``).
+Float32, numpy-seeded inputs.
 """
 
 import jax.numpy as jnp
@@ -38,6 +40,15 @@ from dots_ocr_tpu_torch.ops.paged_attention import (
     paged_split_partials,
     paged_split_plan,
 )
+from dots_ocr_tpu_torch.ops.int4_matmul import (
+    SPLIT_ROWS,
+    SPLIT_TILE_COLS,
+    SPLIT_TILE_ROWS,
+    SPLIT_UNIT,
+    int4_regime,
+    int4_split_plan,
+)
+from dots_ocr_tpu_torch.ops.paged_attention import V1_STEP, paged_v1_split_plan
 from test_torch_cuda import int8_pools, paged_inputs
 
 
@@ -223,3 +234,65 @@ def test_int8_split_plan_at_the_shipping_geometry():
         chunk, n_split = paged_int8_split_plan(64, 2, rows, 128, 40960, 132)
         assert chunk % INT8_TILE == 0 and n_split * chunk >= 40960
         assert 64 * 2 * n_split * rows * 130 * 4 <= SPLIT_SCRATCH_BYTES
+
+
+@pytest.mark.parametrize("batch,kv_heads,group,head_dim,width,page_size,num_sms", [
+    (64, 2, 6, 128, 640, 64, 132),   # phase 10's served table: 640 pages of 64
+    (64, 2, 6, 128, 32, 64, 132),    # 64 slots x 2,048 tokens, page 64
+    (64, 2, 6, 128, 16, 128, 132),   # the same rows at page 128
+    (3, 1, 8, 64, 40, 16, 78),
+    (5, 2, 4, 128, 7, 48, 132),      # a page that is not a power of two
+    (1, 1, 1, 64, 3, 1024, 132),
+    (256, 8, 8, 128, 100, 256, 132),
+])
+def test_paged_v1_split_plan_covers_every_page_once(batch, kv_heads, group, head_dim, width,
+                                                    page_size, num_sms):
+    """Kernel 3's splits are whole pages and whole 64-token steps, every
+    page of every row lies in exactly one split, no split starts past the
+    table, and more than one split fits the scratch budget."""
+    max_tokens = width * page_size
+    chunk, n_split = paged_v1_split_plan(batch, kv_heads, group, head_dim, max_tokens,
+                                         page_size, num_sms)
+    assert chunk % V1_STEP == 0 and chunk % page_size == 0 and n_split >= 1
+    covered = np.zeros(width, np.int64)
+    for split in range(n_split):
+        covered[split * chunk // page_size:(split + 1) * chunk // page_size] += 1
+    assert (covered == 1).all()
+    assert (n_split - 1) * chunk < max_tokens
+    if n_split > 1:
+        assert batch * kv_heads * n_split * group * (head_dim + 2) * 4 <= SPLIT_SCRATCH_BYTES
+
+
+def test_paged_v1_split_plan_at_the_served_shapes():
+    """Phase 10's served table (64 slots, 640 pages of 64): 64 splits of
+    640 tokens, so its ~2.2k-token row runs in 4 splits (a plan sized by
+    kernel 2's cap of 28 blocks an SM would give it 2 of 1,472); 64 x 2,048:
+    4 splits of 512 at page 64 and 128."""
+    assert paged_v1_split_plan(64, 2, 6, 128, 40960, 64, 132) == (640, 64)
+    assert -(-2200 // 640) == 4
+    assert paged_v1_split_plan(64, 2, 6, 128, 2048, 64, 132) == (512, 4)
+    assert paged_v1_split_plan(64, 2, 6, 128, 2048, 128, 132) == (512, 4)
+
+
+def test_int4_regime_rule():
+    """W4A16 splits the contraction up to SPLIT_ROWS rows (a 64-slot k = 2
+    verify step) and runs the wgmma kernel above (prefill chunks)."""
+    assert SPLIT_ROWS == 192
+    assert [int4_regime(m) for m in (1, 64, 192, 193, 2048, 4096)] == [
+        "split", "split", "split", "wgmma", "wgmma", "wgmma"]
+
+
+@pytest.mark.parametrize("rows", [1, 64, 192])
+@pytest.mark.parametrize("in_dim,out_dim", [(1536, 1536), (1536, 256), (1536, 8960),
+                                            (8960, 1536)])
+def test_int4_split_plan_covers_every_unit_once(in_dim, out_dim, rows):
+    """Every unit of SPLIT_UNIT packed rows in exactly one split, no split
+    empty, and at least two blocks an SM where the units allow it."""
+    per_split, n_split = int4_split_plan(rows, in_dim, out_dim, 132)
+    units = in_dim // 2 // SPLIT_UNIT
+    covered = np.zeros(units, np.int64)
+    for split in range(n_split):
+        covered[split * per_split:(split + 1) * per_split] += 1
+    assert (covered == 1).all() and (n_split - 1) * per_split < units
+    tiles = -(-rows // SPLIT_TILE_ROWS) * (out_dim // SPLIT_TILE_COLS)
+    assert tiles * n_split >= min(2 * 132, tiles * units) * 0.75

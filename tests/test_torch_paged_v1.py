@@ -72,6 +72,60 @@ def test_v1_reference_matches_pallas_interpret(page_size, quantized):
     np.testing.assert_array_equal(stacked.float().numpy(), ours)
 
 
+# Rows of length 0 and 1, exactly one split of 64, a split and one, split
+# boundaries inside rows, a row shorter than one split.
+V1_SPLIT_LENGTHS = [0, 1, 64, 65, 150, 30, 127, 191]
+
+
+@pytest.mark.parametrize("chunk", [64, 128])
+@pytest.mark.parametrize("page_size", [8, 16])
+@pytest.mark.parametrize("quantized", [False, True], ids=["bf16", "int8"])
+def test_v1_split_plain_matches_unsplit_and_pallas(quantized, page_size, chunk):
+    """Kernel 3's plain version in its kernel's order (a fresh online
+    softmax per split of ``chunk`` tokens over 64-token steps, the splits
+    merged by log-sum-exp) against the unsplit one (the CPU wrapper's,
+    bit for bit the Pallas kernel in interpret mode here) and the Pallas
+    kernel: P is rounded to bf16 against other running maxima, so outputs
+    move by at most 2^-7 |ref| + 0.05 x the RMS over D of the row (the card's
+    tight bound), and 1e-2 relative RMS. Its partials merge to its output
+    bit for bit; a split past a row's length is dead (m = -inf, l = 0,
+    o = 0); length 0 gives exact zeros on every side."""
+    rng = np.random.RandomState(page_size + chunk)
+    q, kp, vp, lens, table = paged_inputs(rng, V1_SPLIT_LENGTHS, 1, 2, 8, 32, page_size,
+                                          192 // page_size)
+    q = jnp.asarray(q[:, 0], jnp.bfloat16)
+    if quantized:
+        (kp, ks), (vp, vs) = jax_quantize_kv(jnp.asarray(kp)), jax_quantize_kv(jnp.asarray(vp))
+    else:
+        kp, vp = jnp.asarray(kp, jnp.bfloat16), jnp.asarray(vp, jnp.bfloat16)
+        ks = vs = None
+    pallas = torch.from_numpy(np.asarray(jpaged.paged_attention(
+        q, kp, vp, jnp.asarray(lens), jnp.asarray(table), interpret=True, k_scales=ks,
+        v_scales=vs), np.float32))
+    tq, tk, tv, tks, tvs = (_torch(x) for x in (q, kp, vp, ks, vs))
+    (k_all, ks_all), (v_all, vs_all) = tpaged._stack_one(tk, tks), tpaged._stack_one(tv, tvs)
+    args = (tq, k_all, v_all, 0, torch.from_numpy(lens), torch.from_numpy(table), page_size,
+            ks_all, vs_all)
+    unsplit = tpaged.paged_attention_v1_reference(*args)
+    split = tpaged.paged_attention_v1_reference(*args, chunk=chunk)
+    assert torch.equal(unsplit.float(), pallas)
+    err = (split.float() - pallas).abs()
+    allow = 2.0**-7 * pallas.abs() + 0.05 * pallas.pow(2).mean(-1, keepdim=True).sqrt()
+    assert bool((err <= allow).all()), float(torch.where(err > 0, err / allow, 0.0).max())
+    assert float(err.norm()) <= 1e-2 * float(pallas.norm())
+    assert (split[0] == 0).all() and (pallas[0] == 0).all()
+    m, l, o = tpaged.paged_v1_split_partials(*args[:7], chunk, *args[7:])
+    n_split = -(-192 // chunk)
+    assert m.shape == (len(V1_SPLIT_LENGTHS), n_split, 1, 8) and o.shape == (*m.shape, 32)
+    assert torch.equal(tpaged.merge_split_partials(m, l, o, base2=False)[:, 0].to(split.dtype),
+                       split)
+    for row, n in enumerate(V1_SPLIT_LENGTHS):
+        live = -(-n // chunk)
+        assert torch.isfinite(m[row, :live]).all() and (l[row, :live] > 0).all()
+        assert torch.isinf(m[row, live:]).all() and (l[row, live:] == 0).all()
+        assert (o[row, live:] == 0).all()
+
+
 def _jax_route(head_dim, page_size, quantized, nq, monkeypatch):
     """Which function the JAX package's paged_attention_multiquery computes
     at these shapes: its two fallbacks are replaced by recorders and its
