@@ -15,7 +15,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    over 64 slots at nq = 1 and 3, bf16 pools and int8 pools with float32
    scales; the int4 matmul in both modes (W4A16, W4A8) at the four decoder
    linear shapes and 64, 192, 2,048 and 4,096 rows (W4A16 beside cuBLAS bf16
-   on the dequantized weight and torch._weight_int4pack_mm); the window kernel at the
+   on the dequantized weight and torch._weight_int4pack_mm; W4A8, exact and
+   20 repeats bit-identical, beside torch._int_mm on the quantized rows and
+   the unpacked int8 weight for context); the window kernel at the
    windowed vision batch (the same 2 images packed window-major, a padded
    edge window and a fully padded bucket window), beside flash with the
    windows as segments (and flash's own case on those windows); the v1
@@ -40,7 +42,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    four int8-KV decode steps through the kernels vs their plain versions;
 6. end to end, the fully quantized path: as phase 4 with int4 decoder
    block linears (int8 embedding) and W8A8 vision; the int4 kernel (W4A16),
-   flash (with q_offset > 0) and the int8 paged kernel must launch;
+   flash (with q_offset > 0) and the int8 paged kernel must launch; then a
+   second greedy wave of the three requests with ``DOTS_INT4_ACT=1`` set
+   around it (W4A8, read by ``int4_linear`` at each call), in which the
+   W4A8 kernel's prefill regime (the 2,048-token chunks) and its decode
+   regime (decode and verify steps) must both launch;
 7. consistency of that path, as phase 5, with the int4 linears switched to
    their plain version through ``int4_matmul.IMPLEMENTATIONS``, both decoder
    passes on the kernel path's image embeddings; the argmax must agree too.
@@ -51,8 +57,8 @@ Phases, each fatal on failure (exit code != 0, no result line):
    launch; then the same consistency check in bf16;
 9. the cost of quantized weights in decode: one decode step for 64 slots
    with the bf16 weights, their int8 quantization (dequantized per call)
-   and their int4 quantization in both modes (W4A8 launches here, on a
-   path through the model), and the bf16 step with ``attn_impl="v1"``
+   and their int4 quantization in both modes (W4A8's decode regime at a
+   64-slot step), and the bf16 step with ``attn_impl="v1"``
    (kernel 3's bf16 mode on a path through the model);
 10. end to end, windowed vision and int8 KV at page 64: int8 weights, int8
    KV, page 64 (kernel 3 on every decode step, as the JAX package runs it),
@@ -139,6 +145,9 @@ SHIPPED_FLAGS = ["--quantize", "int8", "--kv-cache-dtype", "int8", "--speculate-
                  "--spec-min-tokens-per-iter", "1.5",
                  "--prefill-chunk-tokens", str(PREFILL_CHUNK)]
 FULL_QUANT_FLAGS = ["--quantize", "int4", "--vision-quantize", "int8", *SHIPPED_FLAGS[2:]]
+# Phase 6's waves: the greedy wave in W4A16, then the same requests in W4A8
+# (the only W4A8 launches of phase 6: the kernels line takes them from it).
+FULL_QUANT_WAVES = ((0.0, 32), (0.0, 32, {"DOTS_INT4_ACT": "1"}))
 # int4 kernel vs plain. W4A8: exact (integer group sums, each scaled with one
 # rounding, added in the Pallas order on both sides). W4A16: the products
 # are exact in float32 and only their summation order differs: 1 bf16 ulp of
@@ -771,26 +780,46 @@ def int4_cases(randn, gen, dev) -> dict:
     activations N(0, 1). The library time of W4A16 is
     ``torch._weight_int4pack_mm``'s (:func:`int4_yardsticks`; its scales
     are bf16), with cuBLAS bf16 on the dequantized weight beside it; W4A8
-    has none."""
+    has none: for context, cuBLAS bf16 and ``torch._int_mm`` on the
+    quantized rows and the unpacked int8 weight (the same int8 products, no
+    group scales) are timed beside it, and REPEAT_CALLS more calls must
+    repeat its output bit for bit."""
     import torch
 
     from dots_ocr_tpu_torch.models.quantize import quantize_kernel_int4
-    from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+    from dots_ocr_tpu_torch.ops.int4_matmul import (
+        int4_matmul,
+        int4_matmul_plain,
+        quantize_rows,
+        unpack_int4,
+    )
 
     results = {"int4_matmul": [], "int4_matmul_w4a8": []}
     for label, (k, n) in INT4_SHAPES.items():
         qk = quantize_kernel_int4(randn(k, n) * 0.02)
         packed, scales = qk["qint4"], qk["scale4"]
+        q8 = unpack_int4(packed)
         for rows in INT4_ROWS:
             x = randn(rows, k)
+            xq = quantize_rows(x)[0].to(torch.int8)
             # x and out bf16, the packed nibbles and float32 group scales
             nbytes = 2 * rows * k + packed.numel() + 4 * scales.numel() + 2 * rows * n
+            fns, check = int4_yardsticks(x, packed, scales)
             for act, key in ((False, "int4_matmul"), (True, "int4_matmul_w4a8")):
                 atol, rtol = INT4_TOL[act]
-                library, extra = None, {}
-                if not act:
-                    fns, check = int4_yardsticks(x, packed, scales)
-                    extra = {"cublas_bf16_ms": fns["cublas_bf16"]}
+                library, extra = None, {"cublas_bf16_ms": fns["cublas_bf16"]}
+                if act:
+                    extra["int_mm_ms"] = lambda: torch._int_mm(xq, q8)
+                    first = int4_matmul(x, packed, scales, True)
+                    same = sum(bool(torch.equal(int4_matmul(x, packed, scales, True), first))
+                               for _ in range(REPEAT_CALLS))
+                    log(f"  int4 W4A8 {label} M={rows}: {same} of {REPEAT_CALLS} repeated calls "
+                        f"bit-identical")
+                    if same != REPEAT_CALLS:
+                        raise AssertionError(f"int4 W4A8 {label} M={rows}: "
+                                             f"{REPEAT_CALLS - same} repeated calls differ")
+                    del first
+                else:
                     library = fns.get("int4pack_mm")
                     log(f"  int4 {label} M={rows}: torch._weight_int4pack_mm vs cuBLAS on "
                         f"bf16-rounded scales: "
@@ -802,6 +831,7 @@ def int4_cases(randn, gen, dev) -> dict:
                     work=bound(2.0 * rows * k * n, nbytes, "int8" if act else "bf16"),
                     library_fn=library, extra=extra))
                 del library, extra
+            del fns, xq
     return results
 
 
@@ -863,7 +893,9 @@ def _counters():
             "paged_attention_v1_int8": (paged_attention_stacked, "int8_launches"),
             "window_attention": (window_attention, "launches"),
             "int4_matmul": (int4_matmul, "launches"),
-            "int4_matmul_w4a8": (int4_matmul, "w4a8_launches")}
+            "int4_matmul_w4a8": (int4_matmul, "w4a8_launches"),
+            "int4_matmul_w4a8 (split)": (int4_matmul, "w4a8_split_launches"),
+            "int4_matmul_w4a8 (wgmma)": (int4_matmul, "w4a8_wgmma_launches")}
 
 
 def reset_counts() -> None:
@@ -880,7 +912,9 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
     """Build the engine through the server's entry point with ``flags``
     (after ``base_flags``, by default the shipping geometry of phases 4-10),
     serve it, and drive three concurrent requests per wave, one wave after
-    the other, each wave's requests at its (temperature, max_tokens). Every
+    the other, each wave's requests at its (temperature, max_tokens[, env]):
+    a wave's env entries are set in os.environ around it (the server runs in
+    this process) and restored after. Every
     counter named in ``required`` must move during the served run (all
     waves). ``replies``, a list, receives each wave's {request name: (text,
     usage)}; with ``one_more`` a further text request is served after the
@@ -968,8 +1002,10 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
             return status, values
 
         reset_counts()
-        for wave, (temperature, max_tokens) in enumerate(waves):
+        for wave, (temperature, max_tokens, *wave_env) in enumerate(waves):
+            env = wave_env[0] if wave_env else {}
             wave_label = label if len(waves) == 1 else f"{label} wave {wave + 1}"
+            wave_label += "".join(f", {key}={value}" for key, value in env.items())
             batch = [(name, {**body, "temperature": temperature, "max_tokens": max_tokens})
                      for name, body in requests]
             others_admitted = None
@@ -978,7 +1014,16 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
 
                 def others_admitted(before=before):
                     return read_metrics()[1].get("prefills", 0) >= before + len(batch) - 1
-            answers = _serve_wave(post, batch, wave_label, temperature, others_admitted)
+            saved = {key: os.environ.get(key) for key in env}
+            os.environ.update(env)
+            try:
+                answers = _serve_wave(post, batch, wave_label, temperature, others_admitted)
+            finally:
+                for key, value in saved.items():
+                    if value is None:
+                        os.environ.pop(key, None)
+                    else:
+                        os.environ[key] = value
             if replies is not None:
                 replies.append(answers)
         if one_more:
@@ -1451,9 +1496,14 @@ def main() -> int:
     log(f"[6/12] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
         f"chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, full_quant, metrics, page = serve_phase(
-        dev, FULL_QUANT_FLAGS, "int4",
-        required=("int4_matmul", "flash_attention", "flash_attention (q_offset > 0)",
-                  "paged_attention_multiquery_int8"))
+        dev, FULL_QUANT_FLAGS, "int4", waves=FULL_QUANT_WAVES,
+        required=("int4_matmul", "int4_matmul_w4a8", "int4_matmul_w4a8 (split)",
+                  "int4_matmul_w4a8 (wgmma)", "flash_attention",
+                  "flash_attention (q_offset > 0)", "paged_attention_multiquery_int8"))
+    log(f"  [int4] W4A8 wave: {full_quant['int4_matmul_w4a8']} launches of the W4A8 kernel, "
+        f"{full_quant['int4_matmul_w4a8 (wgmma)']} in the prefill regime (wgmma), "
+        f"{full_quant['int4_matmul_w4a8 (split)']} in the decode regime (cluster split); "
+        f"W4A16 wave: {full_quant['int4_matmul']} launches")
     if metrics.get("prefill_chunks", 0) < 2 or metrics.get("spec_chunks", 0) < 1:
         raise AssertionError(f"int4 path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
@@ -1527,7 +1577,7 @@ def main() -> int:
                         "dots_ocr_tpu/ops/int4_matmul.py:232", full_quant),
         "int4_matmul_w4a8": ("dots_ocr_tpu_torch/csrc/int4_matmul.cu",
                              "dots_ocr_tpu/ops/int4_matmul.py:232 (act_quant=True)",
-                             decode_launches),
+                             full_quant),
         "window_attention": ("dots_ocr_tpu_torch/csrc/window_attention.cu",
                              "dots_ocr_tpu/ops/window_attention.py:96", windowed),
         "paged_attention_v1": ("dots_ocr_tpu_torch/csrc/paged_attention_v1.cu",

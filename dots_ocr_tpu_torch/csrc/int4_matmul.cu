@@ -27,19 +27,42 @@
 // verify step, a prefill chunk of up to 4,096 rows) it is on the compute
 // side, where the tensor cores set the ceiling and the unpack is overhead.
 //
-// W4A8 (the W4A8 kernel below, int4_matmul_kernel<true>): one block (4
-// warps, 2 x 2 warp tiles of 32 x 32) per 64 x 64 output tile walks K one
-// packed-row block of 128 at a time. Each packed 128 x 64 byte tile is read
-// once from device memory with coalesced 16-byte loads, unpacked and
-// transposed in registers (4 x 4 byte transposes) and stored to shared
-// memory k-contiguous, the column-major B operand of mma.sync s8 m16n8k32
-// with s32 sums. It walks the packed rows twice, low nibbles then high, so
-// it adds its group sums in the Pallas order (every low group, then every
-// high group): the sums are integers, each scaled with one rounding, so
-// kernel and plain version agree bit for bit (a split over K would break
-// that). Shared rows are padded by 16 bytes so a fragment's 8 rows hit
-// distinct banks. The next step's global loads are issued into registers
-// before the current step's products run.
+// W4A8, exact by contract: group g's term is fl(float(I_g) * s_g), I_g the
+// exact int32 sum of its int8 x int4 products; the terms are added into a
+// float32 accumulator one after another in the Pallas order (every low
+// group, then every high group), multiplied by a_scale, rounded to bf16, so
+// kernel and plain version agree bit for bit. The integer sums may come
+// from any block in any order: only the chain of float32 adds is ordered.
+// A pre-pass (quantize_rows_kernel, a block a row) quantizes the rows into
+// the wrapper's one scratch buffer. Two regimes, picked by the wrapper from
+// the row count alone (int4_w4a8_plan in ops/int4_matmul.py):
+// (a) M <= 192 (decode and verify steps), int4_w4a8_cluster_kernel: the
+//     read of the packed weights bounds it (at M = 64 a down call moves
+//     ~8.7 MB: 2.6 us at 3.35 TB/s). A thread block cluster of C CTAs
+//     (C <= 8) shares a 64-row x BN-column output tile (BN 32 or 64, from the
+//     plan); rank r takes the contiguous packed-row blocks [r nkb / C,
+//     (r + 1) nkb / C). Each CTA reads each of its packed tiles once,
+//     through a cp.async ring (at least three stages, every step of the
+//     rank where they fit) with the block's low and high x slices and the
+//     two groups' scales, unpacks both nibbles of that one copy into two
+//     128-byte-swizzled K-major s8 B tiles, and runs one group on each
+//     warpgroup (wgmma m64nBNk32 s8); it scales each group's sums once and
+//     keeps the terms in its own shared memory. After a cluster barrier the
+//     cluster's threads, an even share of the tile's outputs a rank, run the
+//     float32 chain over every rank's terms in the Pallas order, read through
+//     distributed shared memory (mapa + ld.shared::cluster, up to 16 bytes a
+//     load) a batch ahead of the adds.
+// (b) M > 192 (prefill chunks), int4_w4a8_wgmma_kernel: the tensor cores
+//     bound it. A 128 x WBN tile per CTA (WBN 128, or 64 where 128-column
+//     tiles leave SMs idle): a producer warpgroup keeps a four-stage ring of
+//     (xq slice, packed tile, the group's scales) in flight with cp.async
+//     and full/empty mbarriers; two consumer warpgroups unpack each group's
+//     nibbles to a K-major 128-byte-swizzled s8 B tile (double-buffered, so
+//     the next group's unpack runs under this group's wgmma), run wgmma
+//     m64nWBNk32 s8 into a per-group s32 accumulator and add fl(I * s) into
+//     the float32 one. The walk is the Pallas order: every low group, then
+//     every high group, whose packed tiles are read again (from L2). Column
+//     tiles vary fastest in the grid, so a wave of CTAs shares x's rows.
 //
 // W4A16, two regimes picked by the wrapper from M alone (int4_regime in
 // ops/int4_matmul.py):
@@ -79,31 +102,16 @@
 // (low and high group of each packed block in turn, splits last); the
 // products are exact in float32, so only the order of float32 sums differs.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include <type_traits>
+namespace cg = cooperative_groups;
 
 namespace {
 
-constexpr int KB = 128;           // packed rows per step: one low and one high group
-constexpr int BM = 64, BN = 64;   // output tile of a block
-constexpr int NUM_THREADS = 128;  // 4 warps, 2 x 2 over the tile
-constexpr int WM = 32, WN = 32;   // warp tile
-constexpr int MT = WM / 16, NT = WN / 8;
-
-template <bool A8>
-struct Mode {
-  static constexpr int ESIZE = A8 ? 1 : 2;            // bytes per x element
-  static constexpr int ROW = KB * ESIZE;              // bytes of one group row
-  static constexpr int PITCH = ROW + 16;              // shared row pitch (4 mod 32 words)
-  static constexpr int NIB = A8 ? 1 : 2;              // group products per step
-  static constexpr int PASSES = A8 ? 2 : 1;           // walks over the packed rows
-  static constexpr int XCH = ROW / 16;                // 16-byte chunks per x row
-  static constexpr int XPT = BM * XCH / NUM_THREADS;  // x chunks per thread per group
-  static constexpr int SMEM = NIB * (BM + BN) * PITCH;
-};
+constexpr int KB = 128;  // packed rows per step: one low and one high group
 
 __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {
@@ -112,19 +120,6 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4], uint3
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ void mma(int (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t ld32(const uint8_t* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 __device__ __forceinline__ float bf_lo(uint32_t w) { return __uint_as_float(w << 16); }
@@ -138,6 +133,12 @@ __device__ __forceinline__ float warp_max(float x) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
   return x;
+}
+
+// float(i) exactly for |i| < 2^22 with an integer and a float add (full
+// rate), not a conversion (16 a clock an SM): 1.5 * 2^23 + i has ulp 1.
+__device__ __forceinline__ float exact_float(int i) {
+  return __fsub_rn(__int_as_float(0x4B400000 + i), 12582912.f);
 }
 
 // 4 x 4 byte transpose: w[i] holds row i's bytes of 4 columns; t[j] gets
@@ -157,6 +158,15 @@ __device__ __forceinline__ uint32_t biased_nibbles(uint32_t t, bool high) {
   return high ? (((t >> 4) & 0x0F0F0F0Fu) ^ 0x08080808u) : (t & 0x0F0F0F0Fu);
 }
 
+// Four signed bytes q from the low nibbles (stored biased: (q + 8) ^ 8 is
+// q's two's complement nibble) or the high nibbles (two's complement), each
+// nibble sign-extended by a multiply that cannot carry between bytes
+// (8 * 30 = 0xF0).
+__device__ __forceinline__ uint32_t s8_nibbles(uint32_t t, bool high) {
+  const uint32_t q = high ? ((t >> 4) & 0x0F0F0F0Fu) : ((t & 0x0F0F0F0Fu) ^ 0x08080808u);
+  return q | ((q & 0x08080808u) * 30u);
+}
+
 // Four biased nibbles u -> four bf16 q = u - 8, exactly: 0x43uu is the
 // bf16 value 128 + u, and 128 + u - 136 is exact.
 __device__ __forceinline__ uint2 nibbles_bf16(uint32_t u) {
@@ -167,192 +177,38 @@ __device__ __forceinline__ uint2 nibbles_bf16(uint32_t u) {
   return make_uint2(*reinterpret_cast<uint32_t*>(&v0), *reinterpret_cast<uint32_t*>(&v1));
 }
 
-template <bool A8>
-__global__ void __launch_bounds__(NUM_THREADS)
-int4_matmul_kernel(const uint8_t* __restrict__ x, const int8_t* __restrict__ packed,
-                   const float* __restrict__ scales, const float* __restrict__ a_scale,
-                   uint16_t* __restrict__ out, int M, int K, int N) {
-  using Md = Mode<A8>;
-  using Acc = typename std::conditional<A8, int, float>::type;
-  constexpr int P = Md::PITCH;
-  extern __shared__ __align__(16) uint8_t smem[];
-  uint8_t* const Xs = smem;                     // [NIB][BM][P], k contiguous
-  uint8_t* const Ws = smem + Md::NIB * BM * P;  // [NIB][BN][P], k contiguous
-
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, c = lane & 3;  // mma groupID, thread in group
-  const int wm = warp >> 1, wn = warp & 1;
-  const int n0 = blockIdx.x * BN, m0 = blockIdx.y * BM;
-  const int half = K / 2, nkb = half / KB;  // packed-row blocks = groups per half
-  const size_t x_pitch = (size_t)K * Md::ESIZE;
-  // This thread's share of a packed tile: rows 4 kq .. 4 kq + 3, columns
-  // 16 c16 .. 16 c16 + 15 (a warp reads 8 rows x 64 contiguous bytes).
-  const int kq = (tid & 7) + 8 * warp, c16 = (tid >> 3) & 3;
-
-  uint4 wreg[4];
-  uint4 xreg[Md::NIB][Md::XPT];
-
-  auto load = [&](int step) {
-    const int pass = step / nkb, kb = step % nkb;
-    const int8_t* wp = packed + (size_t)(kb * KB + 4 * kq) * N + n0 + 16 * c16;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) wreg[i] = __ldg(reinterpret_cast<const uint4*>(wp + (size_t)i * N));
-#pragma unroll
-    for (int nib = 0; nib < Md::NIB; ++nib) {
-      const int high = A8 ? pass : nib;
-      const size_t col = ((size_t)high * half + (size_t)kb * KB) * Md::ESIZE;
-#pragma unroll
-      for (int it = 0; it < Md::XPT; ++it) {
-        const int idx = tid + it * NUM_THREADS;
-        const int row = idx / Md::XCH, ch = idx % Md::XCH;
-        xreg[nib][it] = m0 + row < M
-            ? __ldg(reinterpret_cast<const uint4*>(x + (m0 + row) * x_pitch + col + ch * 16))
-            : make_uint4(0u, 0u, 0u, 0u);
-      }
-    }
-  };
-
-  auto store = [&](int pass) {
-#pragma unroll
-    for (int nib = 0; nib < Md::NIB; ++nib)
-#pragma unroll
-      for (int it = 0; it < Md::XPT; ++it) {
-        const int idx = tid + it * NUM_THREADS;
-        const int row = idx / Md::XCH, ch = idx % Md::XCH;
-        *reinterpret_cast<uint4*>(Xs + (nib * BM + row) * P + ch * 16) = xreg[nib][it];
-      }
-#pragma unroll
-    for (int j4 = 0; j4 < 4; ++j4) {
-      uint32_t w[4], t[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) w[i] = word(wreg[i], j4);
-      transpose4x4(w, t);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int n = 16 * c16 + 4 * j4 + j;
-#pragma unroll
-        for (int nib = 0; nib < Md::NIB; ++nib) {
-          const uint32_t u = biased_nibbles(t[j], (A8 ? pass : nib) != 0);
-          uint8_t* row = Ws + (nib * BN + n) * P + 4 * kq * Md::ESIZE;
-          if constexpr (A8) {
-            *reinterpret_cast<uint32_t*>(row) = __vsub4(u, 0x08080808u);
-          } else {
-            *reinterpret_cast<uint2*>(row) = nibbles_bf16(u);
-          }
-        }
-      }
-    }
-  };
-
-  float acc[MT][NT][4];
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) acc[mt][nt][i] = 0.f;
-
-  const int steps = Md::PASSES * nkb;
-  load(0);
-  for (int step = 0; step < steps; ++step) {
-    const int pass = step / nkb, kb = step % nkb;
-    store(pass);
-    __syncthreads();
-    if (step + 1 < steps) load(step + 1);  // in flight during the products
-#pragma unroll
-    for (int nib = 0; nib < Md::NIB; ++nib) {
-      const int grp = (A8 ? pass : nib) * nkb + kb;  // low groups first, then high
-      float2 sv[NT];
-#pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
-        sv[nt] = __ldg(reinterpret_cast<const float2*>(
-            scales + (size_t)grp * N + n0 + wn * WN + nt * 8 + 2 * c));
-      Acc part[MT][NT][4];
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) part[mt][nt][i] = 0;
-      const uint8_t* xa = Xs + (nib * BM + wm * WM + g) * P + 4 * c;
-      const uint8_t* wb = Ws + (nib * BN + wn * WN + g) * P + 4 * c;
-#pragma unroll
-      for (int kk = 0; kk < Md::ROW / 32; ++kk) {  // k16 (bf16) or k32 (s8) steps
-        uint32_t a[MT][4];
-#pragma unroll
-        for (int mt = 0; mt < MT; ++mt) {
-          const uint8_t* p = xa + mt * 16 * P + kk * 32;
-          a[mt][0] = ld32(p);
-          a[mt][1] = ld32(p + 8 * P);
-          a[mt][2] = ld32(p + 16);
-          a[mt][3] = ld32(p + 8 * P + 16);
-        }
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt) {
-          const uint8_t* p = wb + nt * 8 * P + kk * 32;
-          const uint32_t b0 = ld32(p), b1 = ld32(p + 16);
-#pragma unroll
-          for (int mt = 0; mt < MT; ++mt) mma(part[mt][nt], a[mt], b0, b1);
-        }
-      }
-#pragma unroll
-      for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-        for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const float s = (i & 1) ? sv[nt].y : sv[nt].x;
-            if constexpr (A8) {  // one rounding each, in the plain version's order
-              acc[mt][nt][i] = __fadd_rn(acc[mt][nt][i], __fmul_rn((float)part[mt][nt][i], s));
-            } else {
-              acc[mt][nt][i] = fmaf(part[mt][nt][i], s, acc[mt][nt][i]);
-            }
-          }
-    }
-    __syncthreads();  // Xs / Ws are refilled by the next step
-  }
-
-#pragma unroll
-  for (int mt = 0; mt < MT; ++mt)
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * WM + mt * 16 + g + 8 * h;
-        if (row >= M) continue;
-        const int col = n0 + wn * WN + nt * 8 + 2 * c;
-        float v0 = acc[mt][nt][2 * h], v1 = acc[mt][nt][2 * h + 1];
-        if constexpr (A8) {
-          const float as = a_scale[row];
-          v0 = __fmul_rn(v0, as);
-          v1 = __fmul_rn(v1, as);
-        }
-        *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + col) =
-            __floats2bfloat162_rn(v0, v1);
-      }
-}
-
-// W4A8's pre-pass: one warp per row of x [M, K] bf16 -> xq [M, K] int8 and
+// W4A8's pre-pass: one block per row of x [M, K] bf16 -> xq [M, K] int8 and
 // a_scale [M] f32, with true division and round-half-to-even (as the plain
-// version's torch.round and the Pallas body's jnp.round).
-__global__ void __launch_bounds__(NUM_THREADS)
+// version's torch.round and the Pallas body's jnp.round). A row's 16-byte
+// chunks are spread over the block and loaded four at a time, so the row
+// takes a few load latencies, not one per chunk; the second pass reads
+// them again from the cache.
+constexpr int QR_THREADS = 256;
+
+__global__ void __launch_bounds__(QR_THREADS)
 quantize_rows_kernel(const uint16_t* __restrict__ x, int8_t* __restrict__ xq,
-                     float* __restrict__ a_scale, int M, int K) {
+                     float* __restrict__ a_scale, int K) {
+  __shared__ float warp_amax[QR_THREADS / 32];
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int row = blockIdx.x * (NUM_THREADS / 32) + warp;
-  if (row >= M) return;
-  const uint16_t* xr = x + (size_t)row * K;
+  const uint16_t* xr = x + (size_t)blockIdx.x * K;
   float amax = 0.f;
-  for (int k = lane * 8; k < K; k += 256) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr + k));
+#pragma unroll 4
+  for (int k = threadIdx.x * 8; k < K; k += QR_THREADS * 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
     for (int e = 0; e < 4; ++e) amax = fmaxf(amax, fmaxf(fabsf(bf_lo(w[e])), fabsf(bf_hi(w[e]))));
   }
   amax = warp_max(amax);
+  if (lane == 0) warp_amax[warp] = amax;
+  __syncthreads();
+  amax = warp_amax[0];
+#pragma unroll
+  for (int i = 1; i < QR_THREADS / 32; ++i) amax = fmaxf(amax, warp_amax[i]);
   const float s = amax > 0.f ? __fdiv_rn(amax, 127.f) : 1.f;
-  for (int k = lane * 8; k < K; k += 256) {
-    const uint4 v = __ldg(reinterpret_cast<const uint4*>(xr + k));
+#pragma unroll 4
+  for (int k = threadIdx.x * 8; k < K; k += QR_THREADS * 8) {
+    const uint4 v = *reinterpret_cast<const uint4*>(xr + k);
     const uint32_t w[4] = {v.x, v.y, v.z, v.w};
     uint32_t q[2] = {0u, 0u};
 #pragma unroll
@@ -361,9 +217,9 @@ quantize_rows_kernel(const uint16_t* __restrict__ x, int8_t* __restrict__ xq,
       const uint32_t hi = (uint32_t)__float2int_rn(__fdiv_rn(bf_hi(w[e]), s)) & 0xffu;
       q[e >> 1] |= (lo | (hi << 8)) << (16 * (e & 1));
     }
-    *reinterpret_cast<uint2*>(xq + (size_t)row * K + k) = make_uint2(q[0], q[1]);
+    *reinterpret_cast<uint2*>(xq + (size_t)blockIdx.x * K + k) = make_uint2(q[0], q[1]);
   }
-  if (lane == 0) a_scale[row] = s;
+  if (threadIdx.x == 0) a_scale[blockIdx.x] = s;
 }
 
 // ---------------------------------------------------------------------------
@@ -397,6 +253,20 @@ __device__ __forceinline__ void cp_async_commit() {
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// cp.async.wait_group with a count known at run time (up to 7).
+__device__ __forceinline__ void cp_async_wait_dyn(int n) {
+  switch (n) {
+    case 0: cp_async_wait<0>(); break;
+    case 1: cp_async_wait<1>(); break;
+    case 2: cp_async_wait<2>(); break;
+    case 3: cp_async_wait<3>(); break;
+    case 4: cp_async_wait<4>(); break;
+    case 5: cp_async_wait<5>(); break;
+    case 6: cp_async_wait<6>(); break;
+    default: cp_async_wait<7>(); break;
+  }
 }
 
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -793,12 +663,577 @@ int4_wgmma_kernel(const uint16_t* __restrict__ x, const int8_t* __restrict__ pac
       }
 }
 
+// ---------------------------------------------------------------------------
+// s8 wgmma (both W4A8 regimes).
+
+__device__ __forceinline__ void fence_operand(int& r) { asm volatile("" : "+r"(r)::"memory"); }
+
+// wgmma m64n32k32, s8 x s8 -> s32, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n32k32_s8(int (&d)[16], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 "
+      "{%0,%1,%2,%3,%4,%5,%6,%7,%8,%9,%10,%11,%12,%13,%14,%15}, %16, %17, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// wgmma m64n128k32, s8 x s8 -> s32, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n128k32_s8(int (&d)[64], uint64_t desc_a,
+                                                    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 "
+      "{"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31,"
+      "%32,%33,%34,%35,%36,%37,%38,%39,"
+      "%40,%41,%42,%43,%44,%45,%46,%47,"
+      "%48,%49,%50,%51,%52,%53,%54,%55,"
+      "%56,%57,%58,%59,%60,%61,%62,%63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31]),
+        "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]),
+        "+r"(d[40]), "+r"(d[41]), "+r"(d[42]), "+r"(d[43]),
+        "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]),
+        "+r"(d[52]), "+r"(d[53]), "+r"(d[54]), "+r"(d[55]),
+        "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// wgmma m64n64k32, s8 x s8 -> s32, A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_m64n64k32_s8(int (&d)[32], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 "
+      "{"
+      "%0,%1,%2,%3,%4,%5,%6,%7,"
+      "%8,%9,%10,%11,%12,%13,%14,%15,"
+      "%16,%17,%18,%19,%20,%21,%22,%23,"
+      "%24,%25,%26,%27,%28,%29,%30,%31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]),
+        "+r"(d[4]), "+r"(d[5]), "+r"(d[6]), "+r"(d[7]),
+        "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]),
+        "+r"(d[16]), "+r"(d[17]), "+r"(d[18]), "+r"(d[19]),
+        "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]),
+        "+r"(d[28]), "+r"(d[29]), "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+template <int WBN>
+__device__ __forceinline__ void wgmma_s8(int (&d)[WBN / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  if constexpr (WBN == 128) {
+    wgmma_m64n128k32_s8(d, desc_a, desc_b, scale_d);
+  } else if constexpr (WBN == 64) {
+    wgmma_m64n64k32_s8(d, desc_a, desc_b, scale_d);
+  } else {
+    wgmma_m64n32k32_s8(d, desc_a, desc_b, scale_d);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// W4A8, regime (a): the ordered split over a cluster at M <= 192.
+
+constexpr int MAX_SMEM = 232448;     // 227 KB: a block's dynamic shared memory on Hopper
+constexpr int CL_THREADS = 256;      // two warpgroups: warpgroup u runs group u (low, high) of a step
+constexpr int CL_BM = 64;            // rows of a tile
+constexpr int CL_X = CL_BM * KB;     // one x slice: 64 rows x 128 bytes, 128-byte swizzled
+constexpr int CL_MAX_STAGES = 8;     // all of a rank's steps in flight where they fit
+
+// The cluster kernel's shared memory for a BN-column tile (mirrored by
+// _w4a8_layout in ops/int4_matmul.py), from a 1,024-byte aligned base:
+// `stages` ring stages (x's low and high slices, swizzled for wgmma; the
+// packed tile; the two groups' scales for the tile's columns), the two
+// unpacked s8 B tiles (low group, high group; swizzled), the terms of the
+// rank's 2 * per_rank groups, the tile's row scales, the chain's table.
+template <int BN>
+struct ClusterLayout {
+  static constexpr int PCH = BN / 16;          // 16-byte chunks of a packed row
+  static constexpr int PK = KB * BN;           // one packed tile (quad_chunk order)
+  static constexpr int SC = 2 * BN * 4;        // the low and high groups' scales for the tile
+  static constexpr int STAGE = (2 * CL_X + PK + SC + 1023) / 1024 * 1024;
+  static constexpr int B = BN * KB;            // one unpacked B tile: BN n x 128 k, swizzled
+  static constexpr int TP = BN + 8;            // term row pitch, floats (float2 stores hit distinct banks)
+  static constexpr int TERM = CL_BM * TP;      // one group's terms, floats
+  static int smem(int stages, int per_rank, int groups) {
+    return 1024 + stages * STAGE + 2 * B + 2 * per_rank * TERM * 4 + CL_BM * 4 + groups * 4;
+  }
+  // The deepest ring that fits: every step of a rank in flight where the
+  // shared memory allows, 0 where not even min(3, per_rank) stages fit.
+  static int stages(int per_rank, int groups) {
+    for (int st = per_rank < CL_MAX_STAGES ? per_rank : CL_MAX_STAGES; st >= 1; --st)
+      if (smem(st, per_rank, groups) <= MAX_SMEM) return st >= (per_rank < 3 ? per_rank : 3) ? st : 0;
+    return 0;
+  }
+};
+
+__device__ __forceinline__ uint32_t mapa_cluster(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+// Byte offset of 16-byte chunk `ch` of packed row `row` in the cluster
+// kernel's packed tile: the four rows of a row quad q hold their chunk ch
+// in four consecutive 16-byte slots (row i of the quad at slot i ^ (q & 3),
+// chunk ch at ch ^ ((q >> 2) & 1)), so the unpack's lanes, one quad each,
+// read eight distinct bank groups in every quarter warp.
+template <int PCH>
+__device__ __forceinline__ uint32_t quad_chunk(int row, int ch) {
+  const int q = row >> 2, i = row & 3;
+  return static_cast<uint32_t>(((q * PCH + (ch ^ ((q >> 2) & 1))) * 4 + (i ^ (q & 3))) * 16);
+}
+
+// VEC consecutive floats of another rank's shared memory (a shared::cluster address).
+template <int VEC>
+__device__ __forceinline__ void ld_cluster(float (&v)[VEC], uint32_t addr) {
+  if constexpr (VEC == 4) {
+    asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+                 : "=f"(v[0]), "=f"(v[1]), "=f"(v[2]), "=f"(v[3])
+                 : "r"(addr)
+                 : "memory");
+  } else if constexpr (VEC == 2) {
+    asm volatile("ld.shared::cluster.v2.f32 {%0, %1}, [%2];\n"
+                 : "=f"(v[0]), "=f"(v[1])
+                 : "r"(addr)
+                 : "memory");
+  } else {
+    asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v[0]) : "r"(addr) : "memory");
+  }
+}
+
+// The ordered chain of a tile's outputs, VEC columns an item: rank `rank`
+// takes an even, contiguous share of the rows * BN / VEC items, a thread
+// one item at a time. For each item, its n_groups terms (group q at the
+// table's rank and offset) are loaded 48 floats ahead of the float32 adds,
+// which run in the Pallas order; then * a_scale, bf16.
+template <int BN, int VEC>
+__device__ __forceinline__ void w4a8_chain(const int* table, uint32_t terms_u32,
+                                           const float* row_scale,
+                                           uint16_t* __restrict__ out, int m0, int n0, int N,
+                                           int rows, int n_groups, int rank, int C, int tid) {
+  using L = ClusterLayout<BN>;
+  constexpr int BATCH = 48 / VEC, PER_ROW = BN / VEC;
+  const int items = rows * PER_ROW, share = (items + C - 1) / C;
+  const int end = min(items, (rank + 1) * share);
+  for (int it = rank * share + tid; it < end; it += CL_THREADS) {
+    const int row = it / PER_ROW, col = VEC * (it % PER_ROW);
+    const uint32_t off = terms_u32 + (row * L::TP + col) * 4;
+    const float as = row_scale[row];
+    float acc[VEC];
+#pragma unroll
+    for (int e = 0; e < VEC; ++e) acc[e] = 0.f;
+    for (int q0 = 0; q0 < n_groups; q0 += BATCH) {
+      float v[BATCH][VEC];
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u) {
+        if (q0 + u < n_groups) {
+          const int entry = table[q0 + u];
+          ld_cluster<VEC>(v[u], mapa_cluster(off + (entry >> 3) * 4, entry & 7));
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < BATCH; ++u)
+        if (q0 + u < n_groups)
+#pragma unroll
+          for (int e = 0; e < VEC; ++e) acc[e] = __fadd_rn(acc[e], v[u][e]);
+    }
+    uint16_t* o = out + (size_t)(m0 + row) * N + n0 + col;
+    if constexpr (VEC == 1) {
+      *o = __bfloat16_as_ushort(__float2bfloat16_rn(__fmul_rn(acc[0], as)));
+    } else {
+#pragma unroll
+      for (int e = 0; e < VEC; e += 2) {
+        const __nv_bfloat162 b = __floats2bfloat162_rn(__fmul_rn(acc[e], as), __fmul_rn(acc[e + 1], as));
+        *reinterpret_cast<__nv_bfloat162*>(o + e) = b;
+      }
+    }
+  }
+}
+
+// Grid (C, N / BN, ceil(M / 64)), clusters of (C, 1, 1): the C ranks of a
+// cluster share a 64 x BN output tile; rank r takes packed-row blocks
+// [r nkb / C, (r + 1) nkb / C) (nkb = K / 256 blocks, each one low and one
+// high group).
+template <int BN>
+__global__ void __launch_bounds__(CL_THREADS)
+int4_w4a8_cluster_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ packed,
+                         const float* __restrict__ scales, const float* __restrict__ a_scale,
+                         uint16_t* __restrict__ out, int M, int K, int N, int stages) {
+  using L = ClusterLayout<BN>;
+  constexpr int PCH = BN / 16;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* const smem = smem_raw + (base - smem_u32(smem_raw));
+  cg::cluster_group cluster = cg::this_cluster();
+  const int C = static_cast<int>(cluster.num_blocks());
+  const int rank = static_cast<int>(cluster.block_rank());
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, c = lane & 3;
+  const int n0 = blockIdx.y * BN, m0 = blockIdx.z * CL_BM;
+  const int half = K / 2, nkb = half / KB, n_groups = 2 * nkb;
+  const int per_rank = (nkb + C - 1) / C;
+  const int kb0 = rank * nkb / C, cnt = (rank + 1) * nkb / C - kb0;
+  uint8_t* const Bs = smem + stages * L::STAGE;
+  float* const terms = reinterpret_cast<float*>(Bs + 2 * L::B);  // [2 per_rank][64][TP]
+  float* const row_scale = terms + 2 * per_rank * L::TERM;  // a_scale of the tile's rows
+  int* const table = reinterpret_cast<int*>(row_scale + CL_BM);
+
+  // The chain's table: group q (low groups, then high) lies in rank r's
+  // terms at float offset o: (o << 3) | r.
+  for (int q = tid; q < n_groups; q += CL_THREADS) {
+    const int nib = q >= nkb ? 1 : 0, kb = q - nib * nkb;
+    const int r = ((kb + 1) * C - 1) / nkb, slot = nib * per_rank + kb - r * nkb / C;
+    table[q] = (slot * L::TERM) << 3 | r;
+  }
+
+  auto load = [&](int s, int stage) {
+    const int kb = kb0 + s;
+    const uint32_t st = smem_u32(smem + stage * L::STAGE);
+#pragma unroll
+    for (int it = 0; it < 2 * CL_BM * 8 / CL_THREADS; ++it) {
+      const int i = tid + it * CL_THREADS;
+      const int hi = i / (CL_BM * 8), row = (i >> 3) % CL_BM, ch = i & 7;
+      const bool ok = m0 + row < M;
+      const int8_t* src = ok ? xq + (size_t)(m0 + row) * K + hi * half + kb * KB + ch * 16 : xq;
+      cp_async16(st + hi * CL_X + swz128(row, ch), src, ok ? 16 : 0);
+    }
+#pragma unroll
+    for (int it = 0; it < (KB * PCH + CL_THREADS - 1) / CL_THREADS; ++it) {
+      const int i = tid + it * CL_THREADS, row = i / PCH, ch = i % PCH;
+      if (i < KB * PCH)
+        cp_async16(st + 2 * CL_X + quad_chunk<L::PCH>(row, ch),
+                   packed + (size_t)(kb * KB + row) * N + n0 + ch * 16, 16);
+    }
+    if (tid < L::SC / 16) {  // the scales of groups kb and nkb + kb for the tile's columns
+      const int hi = tid / (BN / 4), ch = tid % (BN / 4);
+      cp_async16(st + 2 * CL_X + L::PK + tid * 16,
+                 scales + (size_t)(hi * nkb + kb) * N + n0 + ch * 4, 16);
+    }
+  };
+
+  // The unpack: thread (kq, c16, unib, js) takes packed rows 4 kq .. 4 kq +
+  // 3 and columns 16 c16 .. 16 c16 + 15, and writes group unib's values of
+  // its JS-th share of those columns (every warp has a share).
+  constexpr int JS = CL_THREADS / 32 / (2 * PCH);  // warps sharing a (c16, group) unpack
+  const int kq = lane, c16 = warp % PCH, unib = (warp / PCH) & 1, js = warp / (2 * PCH);
+  // The products: warpgroup nib runs group nib of the step (wgmma m64nBNk32
+  // on x's slice and the B tile); warp wr of it holds rows 16 wr .. 16 wr + 15.
+  const int nib = warp >> 2, wr = warp & 3;
+  // The ring: `ahead` steps' loads in flight before the first (all of them
+  // where the stages allow), each step issuing the one `ahead` later.
+  const int ahead = stages > 1 ? stages - 1 : 1;
+  int part[BN / 2];  // a group's int32 sums (the first k32 step overwrites them)
+#pragma unroll
+  for (int r = 0; r < BN / 2; ++r) part[r] = 0;
+  if (tid < CL_BM / 4) {  // the tile's row scales, with the first stage (0 past M)
+    const int rows_ok = min(4, max(0, M - m0 - 4 * tid));
+    cp_async16(smem_u32(row_scale + 4 * tid), a_scale + (rows_ok > 0 ? m0 + 4 * tid : 0),
+               4 * rows_ok);
+  }
+  for (int s = 0; s < ahead; ++s) {
+    if (s < cnt) load(s, s);
+    cp_async_commit();
+  }
+  for (int s = 0; s < cnt; ++s) {
+    cp_async_wait_dyn(ahead - 1);  // step s's stage landed (this thread's copies)
+    fence_async_proxy();  // ... visible to wgmma's reads
+    __syncthreads();  // ... every thread's; every warp is done with step s - 1's stage and B tiles
+    if (s + ahead < cnt) load(s + ahead, (s + ahead) % stages);
+    cp_async_commit();
+    const uint8_t* st = smem + (s % stages) * L::STAGE;
+    {
+      uint4 w[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+        w[i] = *reinterpret_cast<const uint4*>(st + 2 * CL_X + quad_chunk<L::PCH>(4 * kq + i, c16));
+#pragma unroll
+      for (int jj = 0; jj < 4 / JS; ++jj) {
+        const int j4 = js * (4 / JS) + jj;
+        const uint32_t wq[4] = {word(w[0], j4), word(w[1], j4), word(w[2], j4), word(w[3], j4)};
+        uint32_t t[4];
+        transpose4x4(wq, t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          *reinterpret_cast<uint32_t*>(Bs + unib * L::B + swz128(16 * c16 + 4 * j4 + j, kq >> 2) +
+                                       (kq & 3) * 4) = s8_nibbles(t[j], unib != 0);
+      }
+      fence_async_proxy();
+    }
+    __syncthreads();  // both B tiles are complete
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KB / 32; ++kk)
+      wgmma_s8<BN>(part, make_desc(smem_u32(st + nib * CL_X) + kk * 32, 16, 1024),
+                   make_desc(smem_u32(Bs + nib * L::B) + kk * 32, 16, 1024), kk > 0 ? 1 : 0);
+    wgmma_commit();
+    wgmma_wait0();
+#pragma unroll
+    for (int r = 0; r < BN / 2; ++r) fence_operand(part[r]);
+    // The group's terms fl(I * s), one rounding each, in this rank's slot:
+    // part[4 j + e] is row 16 wr + g (+ 8 for e >= 2), column 8 j + 2c + (e & 1).
+    float* tt = terms + (nib * per_rank + s) * L::TERM + (16 * wr + g) * L::TP + 2 * c;
+    const float* sc = reinterpret_cast<const float*>(st + 2 * CL_X + L::PK) + nib * BN + 2 * c;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const float2 sv = *reinterpret_cast<const float2*>(sc + j * 8);
+      *reinterpret_cast<float2*>(tt + j * 8) =
+          make_float2(__fmul_rn(exact_float(part[4 * j]), sv.x),
+                      __fmul_rn(exact_float(part[4 * j + 1]), sv.y));
+      *reinterpret_cast<float2*>(tt + 8 * L::TP + j * 8) =
+          make_float2(__fmul_rn(exact_float(part[4 * j + 2]), sv.x),
+                      __fmul_rn(exact_float(part[4 * j + 3]), sv.y));
+    }
+  }
+
+  cluster.sync();  // every rank's terms are written and visible to the cluster
+  // The ordered chain, VEC columns at a time (the widest load that keeps at
+  // least half of every rank's threads busy: a shared::cluster load costs
+  // per request): each rank takes an even share of the tile's outputs.
+  const int rows = min(CL_BM, M - m0);
+  const uint32_t terms_u32 = smem_u32(terms);
+  if (rows * BN / 4 >= C * CL_THREADS / 2) {
+    w4a8_chain<BN, 4>(table, terms_u32, row_scale, out, m0, n0, N, rows, n_groups, rank, C, tid);
+  } else if (rows * BN / 2 >= C * CL_THREADS / 2) {
+    w4a8_chain<BN, 2>(table, terms_u32, row_scale, out, m0, n0, N, rows, n_groups, rank, C, tid);
+  } else {
+    w4a8_chain<BN, 1>(table, terms_u32, row_scale, out, m0, n0, N, rows, n_groups, rank, C, tid);
+  }
+  cluster.sync();  // no block leaves while another still reads its terms
+}
+
+// ---------------------------------------------------------------------------
+// W4A8, regime (b): s8 wgmma at M > 192.
+
+constexpr int W8_CONSUMERS = 256;  // two warpgroups of 64 rows
+constexpr int W8_PRODUCERS = 128;  // a producer warpgroup: one warp on each SM sub-partition
+constexpr int W8_THREADS = W8_CONSUMERS + W8_PRODUCERS;
+constexpr int W8_BM = 128;
+constexpr int W8_STAGES = 4;
+constexpr int W8_X = W8_BM * KB;  // an xq slice: 128 rows x 128 bytes, swizzled
+
+// The wgmma kernel's tile at WBN columns (128, or 64 where 128-column tiles
+// leave SMs idle): a packed tile of 128 rows x WBN bytes, an unpacked s8 B
+// tile of WBN n x 128 k.
+template <int WBN>
+struct WgLayout {
+  static constexpr int CH = WBN / 16;     // 16-byte chunks of a packed row
+  static constexpr int P = KB * WBN;
+  static constexpr int SC = WBN * 4;      // the group's scales for the tile's columns
+  static constexpr int STAGE = (W8_X + P + SC + 1023) / 1024 * 1024;  // x stays 1,024-aligned
+  static constexpr int B = WBN * KB;
+  static constexpr int SMEM = W8_STAGES * STAGE + 2 * B + 1024;  // + the swizzle atom's alignment
+};
+
+// Byte offset of 16-byte chunk `ch` of row `row` of a packed tile of `ch_n`
+// chunks a row: chunks XOR-swizzled by the row's quad, so the unpack's
+// threads, one row quad each, read distinct banks.
+__device__ __forceinline__ uint32_t packed_off_n(int row, int ch, int ch_n) {
+  return static_cast<uint32_t>(row * ch_n * 16 + ((ch ^ ((row >> 2) & (ch_n - 1))) << 4));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// Arrives once this thread's earlier cp.async copies have landed.
+__device__ __forceinline__ void mbar_arrive_cp_async(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(bar) : "memory");
+}
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  asm volatile(
+      "{\n.reg .pred P1;\nLAB_WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 P1, [%0], %1;\n"
+      "@P1 bra DONE;\nbra LAB_WAIT;\nDONE:\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+__device__ __forceinline__ void consumer_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(W8_CONSUMERS) : "memory");
+}
+
+// Shared memory (1,024-byte aligned): W8_STAGES ring stages (the xq slice,
+// swizzled, the packed tile, chunks swizzled by row quad, the group's
+// scales for the tile's columns), then two
+// unpacked B tiles. Step i is group i: packed block i of the low groups for
+// i < nkb, block i - nkb of the high groups after. Group i's wgmma reads B
+// tile i % 2 while the consumers unpack group i + 1 into the other.
+template <int WBN>
+__global__ void __launch_bounds__(W8_THREADS, 1)
+int4_w4a8_wgmma_kernel(const int8_t* __restrict__ xq, const int8_t* __restrict__ packed,
+                       const float* __restrict__ scales, const float* __restrict__ a_scale,
+                       uint16_t* __restrict__ out, int M, int K, int N) {
+  using L = WgLayout<WBN>;
+  constexpr int NA = WBN / 2;  // accumulator registers a thread
+  extern __shared__ unsigned char smem_raw[];
+  __shared__ __align__(8) uint64_t full_bar[W8_STAGES], empty_bar[W8_STAGES];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  unsigned char* const sm = smem_raw + (base - smem_u32(smem_raw));
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int n0 = blockIdx.x * WBN, m0 = blockIdx.y * W8_BM;
+  const int half = K / 2, nkb = half / KB, steps = 2 * nkb;
+
+  if (tid == 0) {
+    for (int st = 0; st < W8_STAGES; ++st) {
+      mbar_init(smem_u32(&full_bar[st]), W8_PRODUCERS);   // every producer thread
+      mbar_init(smem_u32(&empty_bar[st]), W8_CONSUMERS);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp >= W8_CONSUMERS / 32) {
+    // Producer warpgroup: fills step i's stage once the consumers have
+    // released the step W8_STAGES before it there (the copies of a stage are
+    // spread over four warps: one warp's cp.async issue cannot keep up).
+    const int pt = tid - W8_CONSUMERS;
+    for (int i = 0; i < steps; ++i) {
+      const int st = i % W8_STAGES, round = i / W8_STAGES;
+      if (round > 0) mbar_wait(smem_u32(&empty_bar[st]), (round - 1) & 1);
+      const int hi = i >= nkb ? 1 : 0, kb = i - hi * nkb;
+      const uint32_t xs = base + st * L::STAGE, ps = xs + W8_X;
+#pragma unroll
+      for (int it = 0; it < W8_BM * 8 / W8_PRODUCERS; ++it) {
+        const int idx = pt + W8_PRODUCERS * it, row = idx >> 3, ch = idx & 7;
+        const bool ok = m0 + row < M;
+        const int8_t* src = ok ? xq + (size_t)(m0 + row) * K + hi * half + kb * KB + ch * 16 : xq;
+        cp_async16(xs + swz128(row, ch), src, ok ? 16 : 0);
+      }
+#pragma unroll
+      for (int it = 0; it < KB * L::CH / W8_PRODUCERS; ++it) {
+        const int idx = pt + W8_PRODUCERS * it, row = idx / L::CH, ch = idx % L::CH;
+        cp_async16(ps + packed_off_n(row, ch, L::CH),
+                   packed + (size_t)(kb * KB + row) * N + n0 + ch * 16, 16);
+      }
+      if (pt < L::SC / 16)  // group i's scales
+        cp_async16(ps + L::P + pt * 16, scales + (size_t)i * N + n0 + pt * 4, 16);
+      mbar_arrive_cp_async(smem_u32(&full_bar[st]));
+    }
+    cp_async_wait<0>();
+    return;
+  }
+
+  const int wg = warp >> 2, wr = warp & 3, g = lane >> 2, c = lane & 3;
+  // The unpack of group i into B tile i % 2: warp w < CH takes columns 16 w
+  // .. 16 w + 15, lane kq packed rows 4 kq .. 4 kq + 3 (a warp's stores fill
+  // whole 128-byte rows).
+  const int kq = lane, c16 = warp;
+  auto unpack = [&](int i) {
+    const int st = i % W8_STAGES;
+    mbar_wait(smem_u32(&full_bar[st]), (i / W8_STAGES) & 1);
+    fence_async_proxy();
+    if (c16 < L::CH) {
+      const unsigned char* pk = sm + st * L::STAGE + W8_X;
+      unsigned char* bt = sm + W8_STAGES * L::STAGE + (i & 1) * L::B;
+      const bool high = i >= nkb;
+      uint4 w[4];
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        w[r] = *reinterpret_cast<const uint4*>(pk + packed_off_n(4 * kq + r, c16, L::CH));
+#pragma unroll
+      for (int j4 = 0; j4 < 4; ++j4) {
+        const uint32_t wq[4] = {word(w[0], j4), word(w[1], j4), word(w[2], j4), word(w[3], j4)};
+        uint32_t t[4];
+        transpose4x4(wq, t);
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int n = 16 * c16 + 4 * j4 + j;
+          *reinterpret_cast<uint32_t*>(bt + swz128(n, kq >> 2) + (kq & 3) * 4) =
+              s8_nibbles(t[j], high);
+        }
+      }
+      fence_async_proxy();
+    }
+  };
+
+  // acc[4 j + e]: row 64 wg + 16 wr + g (+ 8 for e >= 2), column 8 j + 2c +
+  // (e & 1) of the block's tile; accg the same for one group's int32 sums.
+  float acc[NA];
+  int accg[NA];
+#pragma unroll
+  for (int i = 0; i < NA; ++i) {
+    acc[i] = 0.f;
+    accg[i] = 0;
+  }
+  unpack(0);
+  consumer_sync();
+  const uint32_t b_tiles = base + W8_STAGES * L::STAGE;
+  for (int i = 0; i < steps; ++i) {
+    const int st = i % W8_STAGES;
+    const uint32_t xs = base + st * L::STAGE + wg * 64 * KB;
+    const uint32_t bt = b_tiles + (i & 1) * L::B;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < KB / 32; ++kk)
+      wgmma_s8<WBN>(accg, make_desc(xs + kk * 32, 16, 1024), make_desc(bt + kk * 32, 16, 1024),
+                    kk > 0 ? 1 : 0);
+    wgmma_commit();
+#pragma unroll
+    for (int r = 0; r < NA; ++r) fence_operand(accg[r]);
+    if (i + 1 < steps) unpack(i + 1);  // B tile (i + 1) % 2: group i - 1's wgmma has completed
+    const float* sg = reinterpret_cast<const float*>(sm + st * L::STAGE + W8_X + L::P) + 2 * c;
+    wgmma_wait0();
+#pragma unroll
+    for (int r = 0; r < NA; ++r) fence_operand(accg[r]);
+    // One rounding each, in the plain version's order: acc + fl(I * s).
+#pragma unroll
+    for (int j = 0; j < WBN / 8; ++j) {
+      const float2 sv = *reinterpret_cast<const float2*>(sg + 8 * j);
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        acc[4 * j + e] = __fadd_rn(acc[4 * j + e],
+                                   __fmul_rn(exact_float(accg[4 * j + e]), (e & 1) ? sv.y : sv.x));
+    }
+    mbar_arrive(smem_u32(&empty_bar[st]));
+    // Group i + 1's B tile is complete, and both warpgroups are done with
+    // group i's (the next step's unpack overwrites it).
+    consumer_sync();
+  }
+
+#pragma unroll
+  for (int e2 = 0; e2 < 2; ++e2) {
+    const int row = m0 + 64 * wg + 16 * wr + g + 8 * e2;
+    if (row >= M) continue;
+    const float as = a_scale[row];
+#pragma unroll
+    for (int j = 0; j < WBN / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(out + (size_t)row * N + n0 + 8 * j + 2 * c) =
+          __floats2bfloat162_rn(__fmul_rn(acc[4 * j + 2 * e2], as),
+                                __fmul_rn(acc[4 * j + 2 * e2 + 1], as));
+  }
+}
+
 // cudaFuncSetAttribute for `bytes` of dynamic shared memory, once per
 // device for kernel `which` (it costs host time on every launch otherwise).
 template <typename F>
 cudaError_t allow_smem(F kernel, int bytes, int which) {
   constexpr int MAX_DEVICES = 64;
-  static bool done[2][MAX_DEVICES] = {};
+  static bool done[6][MAX_DEVICES] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess || (dev < MAX_DEVICES && done[which][dev])) return err;
@@ -807,7 +1242,51 @@ cudaError_t allow_smem(F kernel, int bytes, int which) {
   return err;
 }
 
-bool shapes_ok(int M, int K, int N) { return M >= 1 && K % (2 * KB) == 0 && N % BN == 0; }
+bool shapes_ok(int M, int K, int N) { return M >= 1 && K % (2 * KB) == 0 && N % 128 == 0; }
+
+// The cluster kernel at BN columns: C ranks over the packed-row blocks,
+// C <= 8 (the portable limit) and at most one rank a block.
+template <int BN>
+cudaError_t launch_w4a8_cluster(const int8_t* xq, const int8_t* packed, const float* scales,
+                                const float* a_scale, uint16_t* out, int M, int K, int N,
+                                int cluster, cudaStream_t stream, int which) {
+  const int nkb = K / 2 / KB;
+  if (N % BN != 0 || cluster < 1 || cluster > 8 || cluster > nkb) return cudaErrorInvalidValue;
+  const int per_rank = (nkb + cluster - 1) / cluster;
+  const int stages = ClusterLayout<BN>::stages(per_rank, 2 * nkb);
+  if (stages == 0) return cudaErrorInvalidValue;
+  const int smem = ClusterLayout<BN>::smem(stages, per_rank, 2 * nkb);
+  const cudaError_t set = allow_smem(int4_w4a8_cluster_kernel<BN>, MAX_SMEM, which);
+  if (set != cudaSuccess) return set;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cluster, N / BN, (M + CL_BM - 1) / CL_BM);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, int4_w4a8_cluster_kernel<BN>, xq, packed, scales, a_scale, out,
+                            M, K, N, stages);
+}
+
+// The wgmma kernel at WBN columns.
+template <int WBN>
+cudaError_t launch_w4a8_wgmma(const int8_t* xq, const int8_t* packed, const float* scales,
+                              const float* a_scale, uint16_t* out, int M, int K, int N,
+                              cudaStream_t stream, int which) {
+  if (N % WBN != 0) return cudaErrorInvalidValue;
+  const cudaError_t set = allow_smem(int4_w4a8_wgmma_kernel<WBN>, WgLayout<WBN>::SMEM, which);
+  if (set != cudaSuccess) return set;
+  int4_w4a8_wgmma_kernel<WBN><<<dim3(N / WBN, (M + W8_BM - 1) / W8_BM), W8_THREADS,
+                                WgLayout<WBN>::SMEM, stream>>>(xq, packed, scales, a_scale, out,
+                                                               M, K, N);
+  return cudaGetLastError();
+}
 
 }  // namespace
 
@@ -847,21 +1326,32 @@ extern "C" int dots_int4_matmul_w4a16(const void* x, const void* packed, const v
   return static_cast<int>(cudaGetLastError());
 }
 
+// scratch: M * K bytes of xq, then M float32 row scales. cluster > 0:
+// regime (a), `cols` 32 or 64, clusters of `cluster` CTAs; cluster 0:
+// regime (b), `cols` 128 or 64.
 extern "C" int dots_int4_matmul_w4a8(const void* x, const void* packed, const void* scales,
-                                     void* xq, void* a_scale, void* out, int M, int K, int N,
-                                     void* stream) {
-  if (!shapes_ok(M, K, N)) return static_cast<int>(cudaErrorInvalidValue);
+                                     void* scratch, void* out, int M, int K, int N, int cols,
+                                     int cluster, void* stream) {
+  if (!shapes_ok(M, K, N) || scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  constexpr int rows_per_block = NUM_THREADS / 32;
-  quantize_rows_kernel<<<(M + rows_per_block - 1) / rows_per_block, NUM_THREADS, 0, st>>>(
-      static_cast<const uint16_t*>(x), static_cast<int8_t*>(xq), static_cast<float*>(a_scale),
-      M, K);
+  auto* xq = static_cast<int8_t*>(scratch);
+  auto* a_scale = reinterpret_cast<float*>(xq + (size_t)M * K);
+  quantize_rows_kernel<<<M, QR_THREADS, 0, st>>>(static_cast<const uint16_t*>(x), xq, a_scale,
+                                                  K);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(N / BN, (M + BM - 1) / BM);
-  int4_matmul_kernel<true><<<grid, NUM_THREADS, Mode<true>::SMEM, st>>>(
-      static_cast<const uint8_t*>(xq), static_cast<const int8_t*>(packed),
-      static_cast<const float*>(scales), static_cast<const float*>(a_scale),
-      static_cast<uint16_t*>(out), M, K, N);
-  return static_cast<int>(cudaGetLastError());
+  const auto* pp = static_cast<const int8_t*>(packed);
+  const auto* sp = static_cast<const float*>(scales);
+  auto* op = static_cast<uint16_t*>(out);
+  if (cluster > 0 && cols == 32)
+    return static_cast<int>(
+        launch_w4a8_cluster<32>(xq, pp, sp, a_scale, op, M, K, N, cluster, st, 2));
+  if (cluster > 0 && cols == 64)
+    return static_cast<int>(
+        launch_w4a8_cluster<64>(xq, pp, sp, a_scale, op, M, K, N, cluster, st, 3));
+  if (cols == 128) return static_cast<int>(launch_w4a8_wgmma<128>(xq, pp, sp, a_scale, op, M, K, N,
+                                                                  st, 4));
+  if (cols == 64) return static_cast<int>(launch_w4a8_wgmma<64>(xq, pp, sp, a_scale, op, M, K, N,
+                                                                st, 5));
+  return static_cast<int>(cudaErrorInvalidValue);
 }

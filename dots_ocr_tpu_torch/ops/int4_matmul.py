@@ -19,11 +19,15 @@ per 128-row input group and output column: ``w ~= q * s`` with q in
 
 The JAX package's ``_pick_tile`` and ``DOTS_INT4_MIN_STEPS`` size the
 Pallas grid to the TPU's VMEM; they have no counterpart here. The CUDA
-kernel tiles itself and takes any number of rows. Its W4A16 mode has two
-regimes, picked from the row count alone (:func:`int4_regime`): a split
-over the contraction at M <= SPLIT_ROWS (:func:`int4_split_plan`) and a
-wgmma kernel above. Both add the same exact float32 group products as the
-plain version in another order, so the plain version takes no split.
+kernel tiles itself and takes any number of rows. Both modes have two
+regimes, picked from the row count alone (:func:`int4_regime`): up to
+SPLIT_ROWS rows the contraction is split, above it a wgmma kernel runs.
+W4A16 splits it over blocks (:func:`int4_split_plan`) and adds the same
+exact float32 group products as the plain version in another order, so the
+plain version takes no split. W4A8 stays bit-identical to the plain
+version: its decode regime splits the integer group sums over the ranks of
+a thread block cluster and adds the scaled terms in the Pallas order
+(:func:`int4_w4a8_plan`).
 
 ``int4_matmul`` runs the plain version for tensors on the CPU; a CUDA tensor
 launches the kernel or raises.
@@ -33,6 +37,7 @@ from __future__ import annotations
 
 import functools
 import os
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -48,6 +53,24 @@ SPLIT_ROWS = 192
 SPLIT_UNIT = 64
 SPLIT_TILE_ROWS, SPLIT_TILE_COLS = 64, 128
 SPLIT_BLOCKS_PER_SM = 2
+# W4A8's decode regime (csrc/int4_matmul.cu, int4_w4a8_cluster_kernel): a
+# cluster of up to W4A8_MAX_CLUSTER CTAs shares a W4A8_TILE_ROWS x cols
+# output tile (cols in W4A8_COLS), each CTA a contiguous range of packed-row
+# blocks; shared memory per CTA must stay under W4A8_SMEM_LIMIT.
+W4A8_TILE_ROWS = 64
+W4A8_COLS = (32, 64)
+W4A8_MAX_CLUSTER = 8
+W4A8_SMEM_LIMIT = 232448  # 227 KB: a block's dynamic shared memory on Hopper
+W4A8_MAX_STAGES = 8
+W4A8_PREFILL_ROWS, W4A8_PREFILL_COLS = 128, 128  # the wgmma regime's widest tile
+# The plan's targets, from the sweep of kernel_ab.py (PERF.md): the split
+# regime's fewest CTAs that reach W4A8_CTAS_PER_SM an SM; the wgmma
+# regime's 128-column tiles where they give W4A8_WGMMA_TILES_PER_SM an SM.
+# Cluster sizes that leave ranks idle for most of the kernel (per_rank *
+# cluster more than W4A8_MAX_IMBALANCE times the blocks) are not taken.
+W4A8_CTAS_PER_SM = 2
+W4A8_MAX_IMBALANCE = 1.25
+W4A8_WGMMA_TILES_PER_SM = 2
 
 
 def pack_int4(q: torch.Tensor) -> torch.Tensor:
@@ -141,7 +164,8 @@ def _require(cond: bool, message: str) -> None:
 
 
 def int4_regime(rows: int) -> str:
-    """The W4A16 kernel for ``rows`` rows: "split" (split-K) or "wgmma"."""
+    """Kernel 5's regime for ``rows`` rows in either mode: "split" (the
+    contraction split over blocks) or "wgmma"."""
     return "split" if rows <= SPLIT_ROWS else "wgmma"
 
 
@@ -156,6 +180,97 @@ def int4_split_plan(rows: int, in_dim: int, out_dim: int, num_sms: int) -> tuple
     n_split = max(1, min(units, -(-SPLIT_BLOCKS_PER_SM * num_sms // tiles)))
     per_split = -(-units // n_split)
     return per_split, -(-units // per_split)
+
+
+class W4A8Plan(NamedTuple):
+    """Kernel 5 W4A8's launch: ``regime`` "split" (the ordered cluster
+    split, tiles of W4A8_TILE_ROWS x ``cols``, clusters of ``cluster`` CTAs)
+    or "wgmma" (tiles of 128 rows x ``cols``, ``cluster`` 0: no cluster)."""
+    regime: str
+    cols: int
+    cluster: int
+
+
+def w4a8_ranges(in_dim: int, cluster: int) -> list:
+    """The packed-row blocks [start, end) of each rank of a cluster, in rank
+    order: the in_dim / 256 blocks (block kb holds low group kb and high
+    group in_dim / 256 + kb) cut into contiguous, balanced ranges."""
+    blocks = in_dim // 2 // GROUP
+    return [(r * blocks // cluster, (r + 1) * blocks // cluster) for r in range(cluster)]
+
+
+def _w4a8_layout(cols: int, cluster: int, in_dim: int) -> tuple:
+    """(stages, bytes) of one CTA of the cluster kernel (its
+    ``ClusterLayout::stages`` and ``smem``): the deepest ring, up to every
+    step of a rank (W4A8_MAX_STAGES), that fits W4A8_SMEM_LIMIT, else
+    min(3, per_rank) stages (0 stages: nothing fits)."""
+    blocks = in_dim // 2 // GROUP
+    per_rank = -(-blocks // cluster)
+    # x's low and high 64-row slices (128 bytes a row), a packed tile of 128
+    # rows x cols bytes, the two groups' float32 scales; 1,024-byte aligned
+    stage = -(-(2 * W4A8_TILE_ROWS * GROUP + GROUP * cols + 2 * cols * 4) // 1024) * 1024
+    # the base's alignment slack, the two unpacked s8 B tiles, the terms of
+    # the rank's 2 * per_rank groups (64 rows x (cols + 8) float32), the
+    # tile's row scales, the chain's table (an int a group)
+    fixed = (1024 + 2 * cols * GROUP + 2 * per_rank * W4A8_TILE_ROWS * (cols + 8) * 4
+             + 4 * W4A8_TILE_ROWS + 4 * 2 * blocks)
+    for stages in range(min(per_rank, W4A8_MAX_STAGES), 0, -1):
+        if stages * stage + fixed <= W4A8_SMEM_LIMIT:
+            return (stages if stages >= min(3, per_rank) else 0), stages * stage + fixed
+    least = min(3, per_rank)
+    return 0, least * stage + fixed
+
+
+def w4a8_smem(cols: int, cluster: int, in_dim: int) -> int:
+    """Bytes of shared memory of one CTA of the cluster kernel at its
+    deepest ring that fits (see ``_w4a8_layout``)."""
+    return _w4a8_layout(cols, cluster, in_dim)[1]
+
+
+def w4a8_stages(cols: int, cluster: int, in_dim: int) -> int:
+    """Ring stages of the cluster kernel (0 where even min(3, per_rank)
+    stages do not fit)."""
+    return _w4a8_layout(cols, cluster, in_dim)[0]
+
+
+def w4a8_candidates(rows: int, in_dim: int, out_dim: int) -> list:
+    """Every (cols, cluster) the cluster kernel takes at these shapes: cols
+    dividing out_dim, at most one rank a packed-row block, at most
+    W4A8_MAX_CLUSTER ranks, the shared memory under W4A8_SMEM_LIMIT."""
+    blocks = in_dim // 2 // GROUP
+    return [(cols, cluster) for cols in W4A8_COLS if out_dim % cols == 0
+            for cluster in range(1, min(W4A8_MAX_CLUSTER, blocks) + 1)
+            if w4a8_stages(cols, cluster, in_dim) > 0]
+
+
+def int4_w4a8_plan(rows: int, in_dim: int, out_dim: int, num_sms: int) -> W4A8Plan:
+    """W4A8's regime and launch from static shapes only. Above SPLIT_ROWS
+    rows: the wgmma kernel, on 128-column tiles where they give every SM
+    W4A8_WGMMA_TILES_PER_SM tiles, else on 64. Up to it: the widest tile,
+    then the fewest CTAs, that put W4A8_CTAS_PER_SM CTAs on every SM (each
+    cluster rank reads its own packed tiles once; wider tiles re-read x
+    less), else the most CTAs the shared memory allows, among the balanced
+    cluster sizes. A contraction too long for any cluster's terms to fit
+    its shared memory (in > ~14k) takes the wgmma kernel at any row count."""
+    blocks = in_dim // 2 // GROUP
+    options = [(cols, cluster) for cols, cluster in w4a8_candidates(rows, in_dim, out_dim)
+               if -(-blocks // cluster) * cluster <= W4A8_MAX_IMBALANCE * blocks]
+    if int4_regime(rows) == "wgmma" or not options:
+        tiles = out_dim // W4A8_PREFILL_COLS * -(-rows // W4A8_PREFILL_ROWS)
+        wide = tiles >= W4A8_WGMMA_TILES_PER_SM * num_sms
+        return W4A8Plan("wgmma", W4A8_PREFILL_COLS if wide else W4A8_PREFILL_COLS // 2, 0)
+    row_tiles = -(-rows // W4A8_TILE_ROWS)
+
+    def ctas(option):
+        cols, cluster = option
+        return out_dim // cols * row_tiles * cluster
+
+    enough = [o for o in options if ctas(o) >= W4A8_CTAS_PER_SM * num_sms]
+    if enough:
+        cols, cluster = min(enough, key=lambda o: (-o[0], ctas(o)))
+    else:
+        cols, cluster = max(options, key=lambda o: (ctas(o), o[0]))
+    return W4A8Plan("split", cols, cluster)
 
 
 def _check(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor) -> None:
@@ -194,7 +309,8 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     """[S, in] x packed [in/2, out] -> [S, out] in x's dtype (module notes).
     On CUDA: bf16 x, int8 packed, float32 scales, all contiguous on one
     device; in a multiple of 256, out of 128; any S >= 1. Counts launches in
-    ``int4_matmul.launches`` (W4A16) and ``int4_matmul.w4a8_launches``."""
+    ``int4_matmul.launches`` (W4A16) and ``int4_matmul.w4a8_launches``, the
+    latter also by regime (``w4a8_split_launches``, ``w4a8_wgmma_launches``)."""
     if x.device.type == "cpu":
         return int4_matmul_plain(x, packed, scales, act_quant)
     _check(x, packed, scales)
@@ -208,17 +324,18 @@ def int4_matmul(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,
     stream = torch._C._cuda_getCurrentRawStream(index)
     lib = kernel_lib.load()
     if act_quant:
-        xq = torch.empty(rows, in_dim, dtype=torch.int8, device=x.device)
-        a_scale = torch.empty(rows, dtype=torch.float32, device=x.device)
-        err = lib.dots_int4_matmul_w4a8(
-            x.data_ptr(), packed.data_ptr(), scales.data_ptr(), xq.data_ptr(),
-            a_scale.data_ptr(), out.data_ptr(), rows, in_dim, out_dim, stream)
+        plan = _w4a8_plan(rows, in_dim, out_dim, index)
+        err = _w4a8_launch(lib, x, packed, scales, out, plan.cols, plan.cluster, stream)
     else:
         per_split, n_split = _w4a16_plan(rows, in_dim, out_dim, index)
         err = _w4a16_launch(lib, x, packed, scales, out, per_split, n_split, stream)
     kernel_lib.check(err, "int4_matmul")
     if act_quant:
         int4_matmul.w4a8_launches += 1
+        if plan.regime == "split":
+            int4_matmul.w4a8_split_launches += 1
+        else:
+            int4_matmul.w4a8_wgmma_launches += 1
     else:
         int4_matmul.launches += 1
     return out
@@ -233,8 +350,16 @@ def _w4a16_plan(rows: int, in_dim: int, out_dim: int, index: int) -> tuple:
     return int4_split_plan(rows, in_dim, out_dim, num_sms)
 
 
+@functools.lru_cache(maxsize=None)
+def _w4a8_plan(rows: int, in_dim: int, out_dim: int, index: int) -> W4A8Plan:
+    num_sms = torch.cuda.get_device_properties(index).multi_processor_count
+    return int4_w4a8_plan(rows, in_dim, out_dim, num_sms)
+
+
 int4_matmul.launches = 0
 int4_matmul.w4a8_launches = 0
+int4_matmul.w4a8_split_launches = 0
+int4_matmul.w4a8_wgmma_launches = 0
 
 
 def _w4a16_launch(lib, x, packed, scales, out, per_split: int, n_split: int, stream) -> int:
@@ -249,6 +374,19 @@ def _w4a16_launch(lib, x, packed, scales, out, per_split: int, n_split: int, str
         x.data_ptr(), packed.data_ptr(), scales.data_ptr(),
         0 if part is None else part.data_ptr(), out.data_ptr(), rows, in_dim, out.shape[1],
         per_split, n_split, stream)
+
+
+def _w4a8_launch(lib, x, packed, scales, out, cols: int, cluster: int, stream) -> int:
+    """The W4A8 entry on checked CUDA inputs: the row quantization into one
+    scratch buffer (xq [S, in] int8, then the S float32 row scales), then
+    the cluster kernel at ``cols`` columns and clusters of ``cluster`` CTAs,
+    or (``cluster`` 0) the wgmma kernel at ``cols`` columns. Returns the
+    cudaError_t."""
+    rows, in_dim = x.shape
+    scratch = torch.empty(rows * in_dim + 4 * rows, dtype=torch.int8, device=x.device)
+    return lib.dots_int4_matmul_w4a8(
+        x.data_ptr(), packed.data_ptr(), scales.data_ptr(), scratch.data_ptr(), out.data_ptr(),
+        rows, in_dim, out.shape[1], cols, cluster, stream)
 
 
 def int4_matmul_xla(x: torch.Tensor, packed: torch.Tensor, scales: torch.Tensor,

@@ -48,8 +48,9 @@ _SIGNATURES = {
     # x, packed, scales, part (scratch), out, M, K, N, units_per_split,
     # n_split, stream
     "dots_int4_matmul_w4a16": [_P] * 5 + [_I] * 5 + [_P],
-    # x, packed, scales, xq (scratch), a_scale (scratch), out, M, K, N, stream
-    "dots_int4_matmul_w4a8": [_P] * 6 + [_I] * 3 + [_P],
+    # x, packed, scales, scratch (xq, then the row scales), out, M, K, N,
+    # cols (0: the wgmma kernel), cluster, stream
+    "dots_int4_matmul_w4a8": [_P] * 5 + [_I] * 5 + [_P],
     # q, k, v, segment_ids, out, nw, W, H, D, sm_scale, stream
     "dots_window_attention_bf16": [_P] * 5 + [_I] * 4 + [_F, _P],
     # q, k_all, v_all, lengths, page_indices, part_o, part_ml (scratch), out,

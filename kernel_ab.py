@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Kernels 1-5 of two checkouts (kernel 2 in both modes, kernel 3 in both,
-kernel 5 in W4A16), timed the same way in one run on one GPU, and the split
-counts of kernel 2 (per mode) and kernel 3 swept.
+"""Kernels 1-5 of two checkouts (kernels 2, 3 and 5 in both modes), timed
+the same way in one run on one GPU, and the split counts of kernel 2 (per
+mode), kernel 3 and kernel 5 (W4A16 splits, W4A8 cluster sizes and column
+widths) swept.
 
     mkdir -p _archive/parent && git archive <parent commit> | tar -x -C _archive/parent
     python3 kernel_ab.py --parent _archive/parent
@@ -16,12 +17,16 @@ seeds on the card, and times, through the public wrappers a caller uses,
 ``window_attention`` at the windowed vision batch, ``paged_attention_stacked``
 (kernel 3) at chip_smoke.py's ``paged_v1_cases`` shapes and phase 10's served
 shape (3 live rows among 64 slots, a table of 640 pages of 64), and
-``int4_matmul`` (W4A16) at the four decoder shapes x INT4_ROWS: per call as
+``int4_matmul`` in both modes (W4A16, W4A8) at the four decoder shapes x
+INT4_ROWS: per call as
 single calls (inner 1) and as back-to-back calls (inner INNER, chip_smoke.py's
 method), median of REPS samples taken in turns with the yardsticks (the same
 in every worker): one SDPA call at the flash and window shapes; cuBLAS bf16
-on the dequantized weight and ``torch._weight_int4pack_mm`` at the int4
-shapes (chip_smoke.py's ``int4_yardsticks``). Each
+on the dequantized weight and ``torch._weight_int4pack_mm`` at the W4A16
+shapes (chip_smoke.py's ``int4_yardsticks``); beside W4A8, for context and
+not the same function, ``torch._int_mm`` on the quantized rows and the
+unpacked int8 weight (the same int8 products, twice the weight bytes, no
+group scales) and cuBLAS bf16 on the dequantized weight. Each
 output's max abs error against its tree's plain version is kept, and
 REPEATS more calls on the same inputs are compared with the first bit for
 bit: the count that differ shows a race.
@@ -30,7 +35,13 @@ A worker whose tree has them also times kernel 2's split kernels and merge
 (bf16 and int8) at the shipping geometry (64 slots, lengths 0..12k, table
 width 320 x page 128) at nq = 1 and 3 over SWEEP split counts, in the same
 turns, through ``_paged_bf16_launch`` and ``_paged_int8_launch``, and
-kernel 3's over V1_SWEEP counts through ``_paged_v1_launch``.
+kernel 3's over V1_SWEEP counts through ``_paged_v1_launch``, kernel 5
+W4A16's split counts through ``_w4a16_launch`` and kernel 5 W4A8's decode
+regime over cluster sizes and column widths through ``_w4a8_launch``.
+
+``--only`` takes comma-separated prefixes of case names (and "sweep int4",
+"sweep w4a8", "sweep paged") and times only those: a tuning run's way to
+spend less card time.
 
 Prints a summary and, as its last line, one JSON object with every
 worker's numbers.
@@ -69,8 +80,9 @@ def _chip_smoke():
     return mod
 
 
-def worker(root: str) -> dict:
-    """Time the tree at ``root``'s kernels 1, 2 (both modes) and 4 at the shapes."""
+def worker(root: str, only: tuple = ()) -> dict:
+    """Time the tree at ``root``'s kernels at the shapes (with ``only``, the
+    cases named with those prefixes)."""
     import numpy as np
     import torch
 
@@ -100,9 +112,15 @@ def worker(root: str) -> dict:
     def randn(*shape):
         return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
 
-    cases = {}
+    cases, sweep, int4_checks = {}, {}, {}
+
+    def want(prefix: str) -> bool:
+        """Whether ``only`` selects cases named with ``prefix`` (or some of them)."""
+        return not only or any(p.startswith(prefix) or prefix.startswith(p) for p in only)
 
     def case(name, kernel_fn, plain_fn, library_fn=None, library=None):
+        if not want(name):
+            return
         first, plain = kernel_fn(), plain_fn().float()
         err = float((first.float() - plain).abs().max())
         # REPEATS more calls on the same inputs: each must equal the first
@@ -123,142 +141,182 @@ def worker(root: str) -> dict:
             res.update({f"{key}_ms_inner{inner}": ms
                         for key, ms in cs.time_in_turns(fns, inner=inner).items()})
         res.update({f"{key}_graph_ms": graph_ms(fn, cs) for key, fn in fns.items()})
+        res["kernel_device_us"] = device_breakdown(kernel_fn)
         cases[name] = res
         torch.cuda.empty_cache()
 
-    # Kernel 1 at chip_smoke.py's shapes (kernel_phase and window_cases).
-    seg = np.full((1, 6656), -1, np.int32)
-    seg[0, :5040], seg[0, 5040:6420] = 0, 1
-    seg = torch.from_numpy(seg).to(dev)
-    q, k, v = randn(1, 6656, 12, 128), randn(1, 6656, 12, 128), randn(1, 6656, 12, 128)
-    block = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0))[:, None]
-    case("flash vision T=6656", lambda: flash_attention(q, k, v, seg, seg),
-         lambda: flash_plain(q, k, v, seg, seg), lambda: cs._sdpa(q, k, v, block))
-    del block
-    lens = torch.tensor([2048, 1531, 800, 77], device=dev)
-    seg = torch.where(torch.arange(2048, device=dev)[None] < lens[:, None], 0, -1).to(torch.int32)
-    q, k, v = randn(4, 2048, 12, 128), randn(4, 2048, 2, 128), randn(4, 2048, 2, 128)
-    case("flash prefill B=4 x 2048 causal",
-         lambda: flash_attention(q, k, v, seg, seg, causal=True),
-         lambda: flash_plain(q, k, v, seg, seg, causal=True),
-         lambda: cs._sdpa(q, k, v, causal=True))
-    plen = torch.tensor([4096, 3100], device=dev)
-    pos = torch.arange(4096, device=dev)
-    q_seg = torch.where(pos[None, 2048:] < plen[:, None], 0, -1).to(torch.int32)
-    kv_seg = torch.where(pos[None, :] < plen[:, None], 0, -1).to(torch.int32)
-    q, k, v = randn(2, 2048, 12, 128), randn(2, 4096, 2, 128), randn(2, 4096, 2, 128)
-    chunk_mask = ((q_seg[:, :, None] == kv_seg[:, None, :]) & (q_seg[:, :, None] >= 0)
-                  & (pos[None, None, :] <= pos[None, 2048:, None]))[:, None]
-    case("flash chunk C=2048 at q_offset 2048",
-         lambda: flash_attention(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048),
-         lambda: flash_plain(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048),
-         lambda: cs._sdpa(q, k, v, chunk_mask))
-    del chunk_mask
-    wseg, _ = cs.windowed_segments(dev)
-    nw, w = wseg.shape
-    win_seg = torch.where(wseg >= 0, torch.arange(nw, device=dev)[:, None], -1)
-    win_seg = win_seg.reshape(1, -1).to(torch.int32)
-    q, k, v = randn(nw, w, 12, 128), randn(nw, w, 12, 128), randn(nw, w, 12, 128)
-    flat = [x.reshape(1, nw * w, 12, 128) for x in (q, k, v)]
-    key_mask = (wseg >= 0)[:, None, None, :]
-    case(f"flash windowed {nw} x {w}", lambda: flash_attention(*flat, win_seg, win_seg),
-         lambda: flash_plain(*flat, win_seg, win_seg), lambda: cs._sdpa(q, k, v, key_mask))
-    # Kernel 4 on the same windows.
-    case(f"window attention {nw} x {w}", lambda: window_attention(q, k, v, wseg),
-         lambda: window_attention_reference(q, k, v, wseg), lambda: cs._sdpa(q, k, v, key_mask))
-    del q, k, v, flat
+    if want("flash") or want("window"):
+        # Kernel 1 at chip_smoke.py's shapes (kernel_phase and window_cases).
+        seg = np.full((1, 6656), -1, np.int32)
+        seg[0, :5040], seg[0, 5040:6420] = 0, 1
+        seg = torch.from_numpy(seg).to(dev)
+        q, k, v = randn(1, 6656, 12, 128), randn(1, 6656, 12, 128), randn(1, 6656, 12, 128)
+        block = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0))[:, None]
+        case("flash vision T=6656", lambda: flash_attention(q, k, v, seg, seg),
+             lambda: flash_plain(q, k, v, seg, seg), lambda: cs._sdpa(q, k, v, block))
+        del block
+        lens = torch.tensor([2048, 1531, 800, 77], device=dev)
+        seg = torch.where(torch.arange(2048, device=dev)[None] < lens[:, None], 0, -1).to(torch.int32)
+        q, k, v = randn(4, 2048, 12, 128), randn(4, 2048, 2, 128), randn(4, 2048, 2, 128)
+        case("flash prefill B=4 x 2048 causal",
+             lambda: flash_attention(q, k, v, seg, seg, causal=True),
+             lambda: flash_plain(q, k, v, seg, seg, causal=True),
+             lambda: cs._sdpa(q, k, v, causal=True))
+        plen = torch.tensor([4096, 3100], device=dev)
+        pos = torch.arange(4096, device=dev)
+        q_seg = torch.where(pos[None, 2048:] < plen[:, None], 0, -1).to(torch.int32)
+        kv_seg = torch.where(pos[None, :] < plen[:, None], 0, -1).to(torch.int32)
+        q, k, v = randn(2, 2048, 12, 128), randn(2, 4096, 2, 128), randn(2, 4096, 2, 128)
+        chunk_mask = ((q_seg[:, :, None] == kv_seg[:, None, :]) & (q_seg[:, :, None] >= 0)
+                      & (pos[None, None, :] <= pos[None, 2048:, None]))[:, None]
+        case("flash chunk C=2048 at q_offset 2048",
+             lambda: flash_attention(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048),
+             lambda: flash_plain(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048),
+             lambda: cs._sdpa(q, k, v, chunk_mask))
+        del chunk_mask
+        wseg, _ = cs.windowed_segments(dev)
+        nw, w = wseg.shape
+        win_seg = torch.where(wseg >= 0, torch.arange(nw, device=dev)[:, None], -1)
+        win_seg = win_seg.reshape(1, -1).to(torch.int32)
+        q, k, v = randn(nw, w, 12, 128), randn(nw, w, 12, 128), randn(nw, w, 12, 128)
+        flat = [x.reshape(1, nw * w, 12, 128) for x in (q, k, v)]
+        key_mask = (wseg >= 0)[:, None, None, :]
+        case(f"flash windowed {nw} x {w}", lambda: flash_attention(*flat, win_seg, win_seg),
+             lambda: flash_plain(*flat, win_seg, win_seg), lambda: cs._sdpa(q, k, v, key_mask))
+        # Kernel 4 on the same windows.
+        case(f"window attention {nw} x {w}", lambda: window_attention(q, k, v, wseg),
+             lambda: window_attention_reference(q, k, v, wseg), lambda: cs._sdpa(q, k, v, key_mask))
+        del q, k, v, flat
 
-    # Kernel 2's bf16 mode at chip_smoke.py's shapes.
-    kernel2 = paged_mod.paged_attention_multiquery_bf16
-    rng = np.random.RandomState(0)
-    lengths = rng.randint(1, 12001, cs.MAX_SLOTS)
-    lengths[::8] = 0
-    kp, vp, lens_t, table_t = cs._paged_pool(randn, rng, lengths, cs.PAGE_SIZE, 128,
-                                             cs.MAX_SEQ_TOKENS // cs.PAGE_SIZE, extra=2)
-    shipping_q = {}
-    for nq in (1, 3):
-        qd = shipping_q[nq] = randn(cs.MAX_SLOTS, nq, 12, 128)
-        case(f"paged bf16 nq={nq} 64 slots 0..12k",
+    if want("paged"):
+        # Kernel 2's bf16 mode at chip_smoke.py's shapes.
+        kernel2 = paged_mod.paged_attention_multiquery_bf16
+        rng = np.random.RandomState(0)
+        lengths = rng.randint(1, 12001, cs.MAX_SLOTS)
+        lengths[::8] = 0
+        kp, vp, lens_t, table_t = cs._paged_pool(randn, rng, lengths, cs.PAGE_SIZE, 128,
+                                                 cs.MAX_SEQ_TOKENS // cs.PAGE_SIZE, extra=2)
+        shipping_q = {}
+        for nq in (1, 3):
+            qd = shipping_q[nq] = randn(cs.MAX_SLOTS, nq, 12, 128)
+            case(f"paged bf16 nq={nq} 64 slots 0..12k",
+                 lambda: kernel2(qd, kp, vp, lens_t, table_t),
+                 lambda: paged_plain(qd, kp, vp, lens_t, table_t))
+        if hasattr(paged_mod, "_paged_bf16_launch") and want("sweep paged"):
+            sweep["bf16"] = _split_sweep(paged_mod, paged_mod._paged_bf16_launch, shipping_q,
+                                         (kp, vp), lens_t, table_t, cs)
+        # Kernel 2's int8 mode on the same rows (pools from quantize_kv), against
+        # the tree's unsplit plain version.
+        (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+        del kp, vp
+        kernel2_int8 = paged_mod.paged_attention_multiquery_int8
+        for nq, qd in shipping_q.items():
+            case(f"paged int8 nq={nq} 64 slots 0..12k",
+                 lambda: kernel2_int8(qd, kq, vq, ks, vs, lens_t, table_t),
+                 lambda: paged_mod.paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t,
+                                                                  table_t))
+        if hasattr(paged_mod, "_paged_int8_launch") and want("sweep paged"):
+            sweep["int8"] = _split_sweep(paged_mod, paged_mod._paged_int8_launch, shipping_q,
+                                         (kq, vq, ks, vs), lens_t, table_t, cs,
+                                         paged_mod.paged_int8_split_plan)
+        del kq, vq, ks, vs
+        rng = np.random.RandomState(1)
+        kp, vp, lens_t, table_t = cs._paged_pool(randn, rng, np.full(cs.MAX_SLOTS, cs.V1_CONTEXT),
+                                                 128, 128, cs.V1_CONTEXT // 128)
+        qd = randn(cs.MAX_SLOTS, 1, 12, 128)
+        case("paged bf16 nq=1 64 x 2048 page 128",
              lambda: kernel2(qd, kp, vp, lens_t, table_t),
              lambda: paged_plain(qd, kp, vp, lens_t, table_t))
-    sweep = {}
-    if hasattr(paged_mod, "_paged_bf16_launch"):
-        sweep["bf16"] = _split_sweep(paged_mod, paged_mod._paged_bf16_launch, shipping_q,
-                                     (kp, vp), lens_t, table_t, cs)
-    # Kernel 2's int8 mode on the same rows (pools from quantize_kv), against
-    # the tree's unsplit plain version.
-    (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
-    del kp, vp
-    kernel2_int8 = paged_mod.paged_attention_multiquery_int8
-    for nq, qd in shipping_q.items():
-        case(f"paged int8 nq={nq} 64 slots 0..12k",
-             lambda: kernel2_int8(qd, kq, vq, ks, vs, lens_t, table_t),
-             lambda: paged_mod.paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t,
-                                                              table_t))
-    if hasattr(paged_mod, "_paged_int8_launch"):
-        sweep["int8"] = _split_sweep(paged_mod, paged_mod._paged_int8_launch, shipping_q,
-                                     (kq, vq, ks, vs), lens_t, table_t, cs,
-                                     paged_mod.paged_int8_split_plan)
-    del kq, vq, ks, vs
-    rng = np.random.RandomState(1)
-    kp, vp, lens_t, table_t = cs._paged_pool(randn, rng, np.full(cs.MAX_SLOTS, cs.V1_CONTEXT),
-                                             128, 128, cs.V1_CONTEXT // 128)
-    qd = randn(cs.MAX_SLOTS, 1, 12, 128)
-    case("paged bf16 nq=1 64 x 2048 page 128",
-         lambda: kernel2(qd, kp, vp, lens_t, table_t),
-         lambda: paged_plain(qd, kp, vp, lens_t, table_t))
-    del kp, vp
+        del kp, vp
 
-    # Kernel 3 at chip_smoke.py's paged_v1_cases shapes and phase 10's served
-    # shape, against the tree's plain version in its kernel's order.
-    stacked = paged_mod.paged_attention_stacked
-    v1_plain = paged_mod.paged_attention_v1_reference
-    split = hasattr(paged_mod, "paged_v1_split_plan")
-    rng = np.random.RandomState(1)
-    full = np.full(cs.MAX_SLOTS, cs.V1_CONTEXT)
-    served = np.zeros(cs.MAX_SLOTS, np.int64)
-    served[:len(cs.V1_SERVED_LENGTHS)] = cs.V1_SERVED_LENGTHS
-    v1_served = {}
-    for page_size, head_dim, int8, lengths in (
-            (64, 128, True, full), (128, 128, True, full), (64, 128, False, full),
-            (128, 128, False, full), (64, 64, False, full), (64, 128, True, served),
-            (64, 128, False, served)):
-        width = (cs.MAX_SEQ_TOKENS if lengths is served else cs.V1_CONTEXT) // page_size
-        args, _ = cs.v1_inputs(randn, rng, lengths, page_size, head_dim, width, int8)
-        chunk = {"chunk": cs.v1_split(args)[0]} if split else {}
-        rows = "served 2200/420/40 of 64, width 640" if lengths is served else "64 x 2048"
-        case(f"paged v1 {'int8' if int8 else 'bf16'} {rows} page {page_size} D={head_dim}",
-             lambda: stacked(*args), lambda: v1_plain(*args, **chunk))
-        if lengths is served:
-            v1_served["int8" if int8 else "bf16"] = args
-        elif page_size == 64 and int8:
-            v1_served["int8 64 x 2048"] = args
-    if hasattr(paged_mod, "_paged_v1_launch"):
-        sweep["v1"] = _v1_sweep(paged_mod, v1_served, cs)
-    del v1_served, args
+        # Kernel 3 at chip_smoke.py's paged_v1_cases shapes and phase 10's served
+        # shape, against the tree's plain version in its kernel's order.
+        stacked = paged_mod.paged_attention_stacked
+        v1_plain = paged_mod.paged_attention_v1_reference
+        split = hasattr(paged_mod, "paged_v1_split_plan")
+        rng = np.random.RandomState(1)
+        full = np.full(cs.MAX_SLOTS, cs.V1_CONTEXT)
+        served = np.zeros(cs.MAX_SLOTS, np.int64)
+        served[:len(cs.V1_SERVED_LENGTHS)] = cs.V1_SERVED_LENGTHS
+        v1_served = {}
+        for page_size, head_dim, int8, lengths in (
+                (64, 128, True, full), (128, 128, True, full), (64, 128, False, full),
+                (128, 128, False, full), (64, 64, False, full), (64, 128, True, served),
+                (64, 128, False, served)):
+            width = (cs.MAX_SEQ_TOKENS if lengths is served else cs.V1_CONTEXT) // page_size
+            args, _ = cs.v1_inputs(randn, rng, lengths, page_size, head_dim, width, int8)
+            chunk = {"chunk": cs.v1_split(args)[0]} if split else {}
+            rows = "served 2200/420/40 of 64, width 640" if lengths is served else "64 x 2048"
+            case(f"paged v1 {'int8' if int8 else 'bf16'} {rows} page {page_size} D={head_dim}",
+                 lambda: stacked(*args), lambda: v1_plain(*args, **chunk))
+            if lengths is served:
+                v1_served["int8" if int8 else "bf16"] = args
+            elif page_size == 64 and int8:
+                v1_served["int8 64 x 2048"] = args
+        if hasattr(paged_mod, "_paged_v1_launch") and want("sweep paged"):
+            sweep["v1"] = _v1_sweep(paged_mod, v1_served, cs)
+        del v1_served, args
 
-    # Kernel 5's W4A16 mode at the decoder's linear shapes, with cuBLAS bf16
-    # on the dequantized weight and torch._weight_int4pack_mm in the same turns.
-    from dots_ocr_tpu_torch.models.quantize import quantize_kernel_int4
-    from dots_ocr_tpu_torch.ops import int4_matmul as int4_mod
-    from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain
+    if want("int4"):
+        # Kernel 5 at the decoder's linear shapes: W4A16 with cuBLAS bf16 on
+        # the dequantized weight and torch._weight_int4pack_mm in the same
+        # turns; W4A8 with torch._int_mm on the quantized rows and the
+        # unpacked int8 weight, and cuBLAS bf16, for context.
+        from dots_ocr_tpu_torch.models.quantize import quantize_kernel_int4
+        from dots_ocr_tpu_torch.ops import int4_matmul as int4_mod
+        from dots_ocr_tpu_torch.ops.int4_matmul import (
+            int4_matmul,
+            int4_matmul_plain,
+            quantize_rows,
+            unpack_int4,
+        )
 
-    int4_checks = {}
-    for label, (k, n) in cs.INT4_SHAPES.items():
-        qk = quantize_kernel_int4(randn(k, n) * 0.02)
-        packed, scales = qk["qint4"], qk["scale4"]
-        for rows in INT4_ROWS:
-            x = randn(rows, k)
-            library, check = cs.int4_yardsticks(x, packed, scales)
-            name = f"int4 W4A16 {label} K={k} N={n} M={rows}"
-            int4_checks[name] = check
-            case(name, lambda: int4_matmul(x, packed, scales),
-                 lambda: int4_matmul_plain(x, packed, scales), library=library)
-        del qk, packed, scales, x, library
-    if hasattr(int4_mod, "_w4a16_launch"):
-        sweep["int4"] = _int4_sweep(int4_mod, randn, cs)
+        for label, (k, n) in cs.INT4_SHAPES.items():
+            qk = quantize_kernel_int4(randn(k, n) * 0.02)
+            packed, scales = qk["qint4"], qk["scale4"]
+            q8 = unpack_int4(packed)
+            for rows in INT4_ROWS:
+                x = randn(rows, k)
+                library, check = cs.int4_yardsticks(x, packed, scales)
+                name = f"int4 W4A16 {label} K={k} N={n} M={rows}"
+                if want(name):
+                    int4_checks[name] = check
+                case(name, lambda: int4_matmul(x, packed, scales),
+                     lambda: int4_matmul_plain(x, packed, scales), library=library)
+                xq = quantize_rows(x)[0].to(torch.int8)
+                context = {"cublas_bf16": library["cublas_bf16"],
+                           "int_mm": lambda: torch._int_mm(xq, q8)}
+                case(f"int4 W4A8 {label} K={k} N={n} M={rows}",
+                     lambda: int4_matmul(x, packed, scales, True),
+                     lambda: int4_matmul_plain(x, packed, scales, True), library=context)
+            del qk, packed, scales, q8, x, xq, library, context
+        if hasattr(int4_mod, "_w4a16_launch") and want("sweep int4"):
+            sweep["int4"] = _int4_sweep(int4_mod, randn, cs)
+        if hasattr(int4_mod, "_w4a8_launch") and want("sweep w4a8"):
+            sweep["w4a8"] = _w4a8_sweep(int4_mod, randn, cs)
     return {"root": root, "build_s": build_s, "cases": cases, "split_sweep": sweep,
             "int4pack_check": int4_checks}
+
+
+def device_breakdown(fn, calls: int = 20) -> dict:
+    """Device microseconds per call of each CUDA kernel that ``fn`` launches
+    (torch.profiler's CUDA activity over ``calls`` calls, after one warm
+    call); {} where the profiler records no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if us and evt.count >= calls:
+            out[evt.key[:60]] = us / calls
+    return out
 
 
 def graph_ms(fn, cs, calls: int = 10):
@@ -323,6 +381,51 @@ def _int4_sweep(int4_mod, randn, cs) -> dict:
             eager = cs.time_in_turns(fns, inner=cs.INNER)
             out[f"{label} M={rows}"] = {key: {"ms": eager[key], "graph_ms": graph_ms(fn, cs)}
                                         for key, fn in fns.items()}
+    return out
+
+
+def _w4a8_sweep(int4_mod, randn, cs) -> dict:
+    """Kernel 5 W4A8's decode regime (the ordered cluster split) at the four
+    decoder shapes, M = 64 and 192, over every column width and cluster size
+    that fits (``w4a8_candidates``), and its wgmma regime at M = 2,048 at
+    both column widths: device ms by CUDA graph and back-to-back eager ms,
+    and whether the output equals the plain version bit for bit; the plan's
+    choice is marked."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.quantize import quantize_kernel_int4
+    from dots_ocr_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.load()
+    num_sms = torch.cuda.get_device_properties(0).multi_processor_count
+    out = {}
+    for label, (k, n) in cs.INT4_SHAPES.items():
+        qk = quantize_kernel_int4(randn(k, n) * 0.02)
+        packed, scales = qk["qint4"], qk["scale4"]
+        for rows in (64, 192, 2048):
+            x = randn(rows, k)
+            y = torch.empty(rows, n, dtype=torch.bfloat16, device=x.device)
+            plain = int4_mod.int4_matmul_plain(x, packed, scales, True)
+            planned = int4_mod.int4_w4a8_plan(rows, k, n, num_sms)
+            fns, exact = {}, {}
+            tilings = (int4_mod.w4a8_candidates(rows, k, n) if rows <= 192
+                       else [(cols, 0) for cols in (64, 128)])
+            for cols, cluster in tilings:
+                def fn(cols=cols, cluster=cluster):
+                    err = int4_mod._w4a8_launch(lib, x, packed, scales, y, cols, cluster,
+                                                torch.cuda.current_stream().cuda_stream)
+                    kernel_lib.check(err, "w4a8 sweep")
+                    return y
+                mark = "*" if (cols, cluster) == (planned.cols, planned.cluster) else ""
+                key = (f"{cols} cols x cluster {cluster}" if cluster else f"wgmma {cols} cols") + mark
+                fns[key] = fn
+                exact[key] = bool(torch.equal(fn(), plain))
+            eager = cs.time_in_turns(fns, inner=cs.INNER)
+            out[f"{label} M={rows}"] = {key: {"ms": eager[key], "graph_ms": graph_ms(fn, cs),
+                                              "bit_identical": exact[key]}
+                                        for key, fn in fns.items()}
+            del fns
+        torch.cuda.empty_cache()
     return out
 
 
@@ -418,6 +521,9 @@ def main() -> int:
     parser.add_argument("--parent", help="root of the parent checkout (git archive)")
     parser.add_argument("--worker", help=argparse.SUPPRESS)
     parser.add_argument("--timeout", type=float, default=600.0)
+    parser.add_argument("--json", help="also write the last line's object to this file")
+    parser.add_argument("--only", default="",
+                        help="comma-separated prefixes of the case names to time")
     parser.add_argument("--order", default="parent,change,change,parent",
                         help="the workers' trees in turn (tuning: 'change')")
     args = parser.parse_args()
@@ -427,7 +533,8 @@ def main() -> int:
         print("kernel_ab: torch.cuda.is_available() is false; this run needs an NVIDIA GPU")
         return 2
     if args.worker:
-        print(json.dumps(worker(args.worker)), flush=True)
+        only = tuple(p for p in args.only.split(",") if p)
+        print(json.dumps(worker(args.worker, only)), flush=True)
         return 0
     order = args.order.split(",")
     if "parent" in order and (
@@ -441,7 +548,7 @@ def main() -> int:
     runs = []
     for label in order:
         proc = subprocess.run([sys.executable, os.path.abspath(__file__), "--worker",
-                               trees[label]], capture_output=True, text=True,
+                               trees[label], "--only", args.only], capture_output=True, text=True,
                               timeout=args.timeout, cwd=trees[label])
         if proc.returncode != 0:
             print(proc.stdout[-4000:], proc.stderr[-8000:], sep="\n")
@@ -466,10 +573,11 @@ def main() -> int:
                   f"{c[f'kernel_ms_inner{inner}']:.4f} ms ({inner} back to back){libs}; "
                   f"device (CUDA graph) {graphs}; "
                   f"max abs err {c['max_abs_err']:.3e}; {c['repeats_differing']} of "
-                  f"{c['repeats']} repeats differ (worst err {c['worst_abs_err']:.3e})")
+                  f"{c['repeats']} repeats differ (worst err {c['worst_abs_err']:.3e})"
+                  + "".join(f"\n      {k}: {v:.2f} us" for k, v in c.get("kernel_device_us", {}).items()))
     for res in runs:
         for mode, sweep in res["split_sweep"].items():
-            if mode == "int4":
+            if mode in ("int4", "w4a8"):
                 continue
             for nq, rows in sweep.items():
                 print(f"split sweep, {res['tree']} worker, {mode}, {nq}: " + ", ".join(
@@ -480,9 +588,18 @@ def main() -> int:
             print(f"int4 split sweep, {res['tree']} worker, {shape}: " + ", ".join(
                 f"{key} {r['ms']:.4f} / {r['graph_ms'] or float('nan'):.4f} ms"
                 for key, r in rows.items()))
+        for shape, rows in res["split_sweep"].get("w4a8", {}).items():
+            print(f"W4A8 cluster sweep, {res['tree']} worker, {shape} (eager / device ms): "
+                  + ", ".join(f"{key} {r['ms']:.4f} / {r['graph_ms'] or float('nan'):.4f}"
+                              + ("" if r["bit_identical"] else " NOT bit-identical")
+                              for key, r in rows.items()))
     for name, check in runs[-1].get("int4pack_check", {}).items():
         print(f"{name}: torch._weight_int4pack_mm vs cuBLAS on bf16-rounded scales: {check}")
     line = {"device": smi, "order": [r["tree"] for r in runs], "runs": runs}
+    if args.json:
+        os.makedirs(os.path.dirname(os.path.abspath(args.json)), exist_ok=True)
+        with open(args.json, "w") as f:
+            json.dump(line, f)
     print(json.dumps(line))
     return 0
 

@@ -17,7 +17,15 @@ import torch
 from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
 from dots_ocr_tpu_torch.models.layers import linear, matmul_f32
 from dots_ocr_tpu_torch.models.quantize import quantize_kernel_act, quantize_kernel_int4
-from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul, int4_matmul_plain, int4_regime
+from dots_ocr_tpu_torch.ops import kernel_lib
+from dots_ocr_tpu_torch.ops.int4_matmul import (
+    _w4a8_launch,
+    int4_matmul,
+    int4_matmul_plain,
+    int4_regime,
+    int4_w4a8_plan,
+    w4a8_candidates,
+)
 from dots_ocr_tpu_torch.ops.flash_attention import (
     BLOCK_K,
     TILE_MASKED,
@@ -341,15 +349,17 @@ def test_paged_split_scratch_matches_plain_partials_on_card(cuda, page_size, nq)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("kernel", ["flash", "paged_bf16", "paged_int8", "window", "v1_bf16",
-                                    "v1_int8", "int4_split", "int4_wgmma"])
+                                    "v1_int8", "int4_split", "int4_wgmma", "w4a8_split",
+                                    "w4a8_wgmma"])
 def test_redesigned_kernels_repeat_bit_for_bit_on_card(cuda, kernel):
     """100 calls on the same inputs give the same output bit for bit: a
     causal padded prefill (4 rows of 2,048 positions, 12 heads over 2) for
     kernel 1, a 16-row split-K verify step for kernel 2 in its bf16 and
     int8 modes, 9 windows of 256 tokens (a padded edge window and a fully
     padded one) for kernel 4, a 16-row split decode step for kernel 3 in
-    both modes (its merge), and kernel 5 W4A16's down projection at 64 rows
-    (split-K and its reduce) and 2,048 rows (wgmma)."""
+    both modes (its merge), and kernel 5's down projection at 64 rows
+    (W4A16: split-K and its reduce; W4A8: the ordered cluster split) and
+    2,048 rows (wgmma, both modes)."""
     gen = torch.Generator(device=cuda).manual_seed(3)
     if kernel.startswith("v1"):
         rng = np.random.RandomState(3)
@@ -358,12 +368,12 @@ def test_redesigned_kernels_repeat_bit_for_bit_on_card(cuda, kernel):
 
         def call():
             return paged_attention_stacked(*args)
-    elif kernel.startswith("int4"):
-        rows = 64 if kernel == "int4_split" else 2048
+    elif kernel.startswith(("int4", "w4a8")):
+        rows = 64 if kernel.endswith("split") else 2048
         x, packed, scales = (t.to(cuda) for t in int4_inputs(rows, 8960, 1536, 3))
 
         def call():
-            return int4_matmul(x, packed, scales)
+            return int4_matmul(x, packed, scales, kernel.startswith("w4a8"))
     elif kernel == "flash":
         lens = torch.tensor([2048, 1531, 800, 77], device=cuda)
         seg = torch.where(torch.arange(2048, device=cuda)[None] < lens[:, None], 0, -1)
@@ -784,6 +794,78 @@ def test_int4_w4a16_decoder_shapes_on_card(cuda, k, n, rows):
     out = int4_matmul(x, packed, scales)
     int4_close(out, int4_matmul_plain(x, packed, scales), False)
     assert out.shape == (rows, n)
+
+
+W4A8_COUNTERS = ("w4a8_launches", "w4a8_split_launches", "w4a8_wgmma_launches")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [1, 64, 65, 192, 193, 2048, 4096])
+@pytest.mark.parametrize("k,n", [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)],
+                         ids=["wq_wo", "wk_wv", "gate_up", "down"])
+def test_int4_w4a8_decoder_shapes_on_card(cuda, k, n, rows):
+    """W4A8 at the decoder's four linear shapes, in both regimes (the
+    ordered cluster split up to 192 rows with its plan's tiling, wgmma
+    above), bit-identical to the plain version; the regime's own counter
+    moves with the mode's."""
+    x, packed, scales = (t.to(cuda) for t in int4_inputs(rows, k, n, k + n + rows + 1))
+    regime = int4_w4a8_plan(rows, k, n, 132).regime
+    assert regime == ("split" if rows <= 192 else "wgmma")
+    before = [getattr(int4_matmul, name) for name in W4A8_COUNTERS]
+    out = int4_matmul(x, packed, scales, True)
+    ref = int4_matmul_plain(x, packed, scales, True)
+    torch.cuda.synchronize()
+    moved = [getattr(int4_matmul, name) - b for name, b in zip(W4A8_COUNTERS, before)]
+    assert moved == [1, 1, 0] if regime == "split" else moved == [1, 0, 1]
+    assert out.shape == (rows, n)
+    int4_close(out, ref, True)
+
+
+@pytest.mark.cuda
+def test_int4_w4a8_long_contraction_on_card(cuda):
+    """A contraction whose terms fit no cluster's shared memory (in =
+    16,384) runs the wgmma kernel at 64 rows, bit-identical."""
+    x, packed, scales = (t.to(cuda) for t in int4_inputs(64, 16384, 256, 11))
+    assert int4_w4a8_plan(64, 16384, 256, 132).regime == "wgmma"
+    before = int4_matmul.w4a8_wgmma_launches
+    out = int4_matmul(x, packed, scales, True)
+    int4_close(out, int4_matmul_plain(x, packed, scales, True), True)
+    assert int4_matmul.w4a8_wgmma_launches == before + 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 300])
+@pytest.mark.parametrize("k,n", [(8960, 1536), (1536, 8960)], ids=["down", "gate_up"])
+def test_int4_w4a8_zero_row_and_outlier_on_card(cuda, k, n, rows):
+    """An all-zero row (row scale 1, exact zeros out) and a row with one
+    large outlier (its other entries quantize to small codes) in either
+    regime: bit-identical to the plain version."""
+    x, packed, scales = (t.to(cuda) for t in int4_inputs(rows, k, n, 7))
+    x[3] = 0
+    x[rows - 2, k // 3] = 3000.0
+    out = int4_matmul(x, packed, scales, True)
+    int4_close(out, int4_matmul_plain(x, packed, scales, True), True)
+    assert (out[3] == 0).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [64, 192, 300])
+@pytest.mark.parametrize("k,n", [(1536, 1536), (1536, 256), (8960, 1536)],
+                         ids=["wq_wo", "wk_wv", "down"])
+def test_int4_w4a8_every_cluster_tiling_on_card(cuda, k, n, rows):
+    """Every column width and cluster size the decode regime takes at these
+    shapes (not only the plan's), and both column widths of the wgmma
+    regime (300 rows), give the plain version bit for bit."""
+    x, packed, scales = (t.to(cuda) for t in int4_inputs(rows, k, n, rows + 5))
+    ref = int4_matmul_plain(x, packed, scales, True)
+    lib = kernel_lib.load()
+    stream = torch.cuda.current_stream().cuda_stream
+    tilings = w4a8_candidates(rows, k, n) if rows <= 192 else [(64, 0), (128, 0)]
+    for cols, cluster in tilings:
+        out = torch.empty(rows, n, dtype=torch.bfloat16, device=cuda)
+        kernel_lib.check(_w4a8_launch(lib, x, packed, scales, out, cols, cluster, stream),
+                         f"w4a8 {cols} x {cluster}")
+        assert torch.equal(out, ref), (cols, cluster)
 
 
 @pytest.mark.cuda

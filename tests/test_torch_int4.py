@@ -165,6 +165,54 @@ def test_int4_plain_matches_pallas_interpret(rows, act_quant):
     assert (tint4.int4_matmul.launches, tint4.int4_matmul.w4a8_launches) == before
 
 
+def _w4a8_ordered_split(x, packed, scales, cluster):
+    """W4A8's decode regime emulated in torch at ``cluster`` ranks: each
+    rank's group sums over its packed-row blocks (both groups of a block)
+    as exact int64 products, each scaled once in float32; then the float32
+    chain over every rank's terms in the Pallas order (every low group,
+    then every high group), the row scale last, bf16."""
+    xs, a_scale = tint4.quantize_rows(x)
+    xi, q = xs.to(torch.int64), tint4.unpack_int4(packed).to(torch.int64)
+    blocks = x.shape[1] // 2 // tint4.GROUP
+    terms = {}
+    for start, end in tint4.w4a8_ranges(x.shape[1], cluster):
+        for kb in range(start, end):
+            for g in (kb, blocks + kb):
+                rows = slice(g * tint4.GROUP, (g + 1) * tint4.GROUP)
+                terms[g] = (xi[:, rows] @ q[rows]).to(torch.float32) * scales[g]
+    assert sorted(terms) == list(range(2 * blocks))  # every group once
+    acc = torch.zeros(x.shape[0], packed.shape[1], dtype=torch.float32)
+    for g in range(2 * blocks):
+        acc = acc + terms[g]
+    return (acc * a_scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("rows,in_dim,out_dim", [(3, 512, 256), (17, 1280, 384),
+                                                 (64, 768, 128)])
+def test_w4a8_ordered_split_is_the_plain_version(rows, in_dim, out_dim):
+    """The ordered split at every cluster size the kernel takes at these
+    shapes (the plan's among them) is ``int4_matmul_plain(..., act_quant=True)``
+    bit for bit, with an all-zero row; and within PALLAS_TOL of the JAX
+    package's Pallas kernel in interpret mode (whose jitted row scale can
+    differ by one ulp: ROADMAP queue C item 6)."""
+    rng = np.random.RandomState(rows + in_dim)
+    w = _weights(in_dim, out_dim, rows)
+    x = rng.randn(rows, in_dim).astype(np.float32)
+    x[1] = 0.0
+    jq = jquant.quantize_kernel_int4(jnp.asarray(w))
+    xt, packed, scales = _t(x).to(torch.bfloat16), _t(jq["qint4"]), _t(jq["scale4"])
+    plain = tint4.int4_matmul_plain(xt, packed, scales, act_quant=True)
+    plan = tint4.int4_w4a8_plan(rows, in_dim, out_dim, 132)
+    clusters = sorted({c for _, c in tint4.w4a8_candidates(rows, in_dim, out_dim)})
+    assert plan.regime == "split" and plan.cluster in clusters
+    for cluster in clusters:
+        assert torch.equal(_w4a8_ordered_split(xt, packed, scales, cluster), plain), cluster
+    assert (plain[1] == 0).all()
+    ref = _np(jint4.int4_matmul(jnp.asarray(x, jnp.bfloat16), jq["qint4"], jq["scale4"],
+                                interpret=True, act_quant=True))
+    np.testing.assert_allclose(_np(plain), ref, **PALLAS_TOL)
+
+
 def test_int4_plain_and_reference_agree():
     """The Pallas-order plain version and the XLA oracle compute the same
     function: in W4A16 the float32 products are exact, so only the

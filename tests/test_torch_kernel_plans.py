@@ -7,7 +7,9 @@ function it computes; kernel 2's split of the token axis
 version and the JAX package's reference; the int8 mode's plain version
 with the kernel's split and warps (``paged_int8_split_partials``) against
 its unsplit self; kernel 3's split plan (``paged_v1_split_plan``); kernel 5's
-W4A16 regime rule and split plan (``int4_regime``, ``int4_split_plan``).
+W4A16 regime rule and split plan (``int4_regime``, ``int4_split_plan``)
+and its W4A8 plan (``int4_w4a8_plan``: the ordered cluster split's ranges,
+cluster sizes, grid and shared memory).
 Float32, numpy-seeded inputs.
 """
 
@@ -41,12 +43,21 @@ from dots_ocr_tpu_torch.ops.paged_attention import (
     paged_split_plan,
 )
 from dots_ocr_tpu_torch.ops.int4_matmul import (
+    GROUP,
     SPLIT_ROWS,
     SPLIT_TILE_COLS,
     SPLIT_TILE_ROWS,
     SPLIT_UNIT,
+    W4A8_MAX_CLUSTER,
+    W4A8_SMEM_LIMIT,
+    W4A8_TILE_ROWS,
     int4_regime,
     int4_split_plan,
+    int4_w4a8_plan,
+    W4A8_PREFILL_ROWS,
+    w4a8_candidates,
+    w4a8_ranges,
+    w4a8_smem,
 )
 from dots_ocr_tpu_torch.ops.paged_attention import V1_STEP, paged_v1_split_plan
 from test_torch_cuda import int8_pools, paged_inputs
@@ -296,3 +307,74 @@ def test_int4_split_plan_covers_every_unit_once(in_dim, out_dim, rows):
     assert (covered == 1).all() and (n_split - 1) * per_split < units
     tiles = -(-rows // SPLIT_TILE_ROWS) * (out_dim // SPLIT_TILE_COLS)
     assert tiles * n_split >= min(2 * 132, tiles * units) * 0.75
+
+
+DECODER_SHAPES = [(1536, 1536), (1536, 256), (1536, 8960), (8960, 1536)]
+
+
+def w4a8_grid(rows, out_dim, plan):
+    """The grid dots_int4_matmul_w4a8 launches for ``plan``: (cluster ranks,
+    column tiles, row tiles) with clusters of (cluster, 1, 1) in the split
+    regime; (column tiles, row tiles, 1) for wgmma."""
+    if plan.regime == "wgmma":
+        return (out_dim // plan.cols, -(-rows // W4A8_PREFILL_ROWS), 1)
+    return (plan.cluster, out_dim // plan.cols, -(-rows // W4A8_TILE_ROWS))
+
+
+def test_w4a8_regime_boundary():
+    """W4A8 runs the ordered cluster split up to 192 rows (a 64-slot k = 2
+    verify step) and the s8 wgmma kernel above, as W4A16 switches."""
+    for in_dim, out_dim in DECODER_SHAPES:
+        regimes = [int4_w4a8_plan(m, in_dim, out_dim, 132).regime
+                   for m in (1, 64, 191, 192, 193, 2048, 4096)]
+        assert regimes == ["split"] * 4 + ["wgmma"] * 3
+        assert regimes == [int4_regime(m) for m in (1, 64, 191, 192, 193, 2048, 4096)]
+
+
+@pytest.mark.parametrize("rows", [1, 64, 65, 192])
+@pytest.mark.parametrize("in_dim,out_dim", DECODER_SHAPES + [(8960, 8960), (2560, 384)])
+def test_w4a8_plan_ranges_cluster_and_smem(in_dim, out_dim, rows):
+    """The plan's cluster: at most 8 ranks, dividing the grid's cluster
+    dimension; every group (low group kb and high group blocks + kb of
+    packed-row block kb) in exactly one rank, the ranges contiguous and in
+    rank order, none empty; the column width divides N; shared memory (ring
+    + B tiles + terms) under 227 KB, for the plan and every candidate."""
+    plan = int4_w4a8_plan(rows, in_dim, out_dim, 132)
+    assert plan.regime == "split"
+    assert 1 <= plan.cluster <= W4A8_MAX_CLUSTER and out_dim % plan.cols == 0
+    grid = w4a8_grid(rows, out_dim, plan)
+    assert grid == (plan.cluster, out_dim // plan.cols, -(-rows // W4A8_TILE_ROWS))
+    assert grid[0] % plan.cluster == 0
+    blocks = in_dim // 2 // GROUP
+    ranges = w4a8_ranges(in_dim, plan.cluster)
+    assert ranges[0][0] == 0 and ranges[-1][1] == blocks
+    assert all(a < b for a, b in ranges)
+    assert all(ranges[r][1] == ranges[r + 1][0] for r in range(len(ranges) - 1))
+    owner = np.zeros(2 * blocks, np.int64)
+    for start, end in ranges:
+        owner[start:end] += 1
+        owner[blocks + start:blocks + end] += 1
+    assert (owner == 1).all()
+    assert w4a8_smem(plan.cols, plan.cluster, in_dim) <= W4A8_SMEM_LIMIT
+    for cols, cluster in w4a8_candidates(rows, in_dim, out_dim):
+        assert w4a8_smem(cols, cluster, in_dim) <= W4A8_SMEM_LIMIT
+        assert out_dim % cols == 0 and cluster <= min(W4A8_MAX_CLUSTER, blocks)
+
+
+def test_w4a8_plan_at_the_decoder_shapes():
+    """At M = 64 on 132 SMs the decode regime fills the card where the old
+    one-block-a-tile kernel did not: down reaches >= 96 CTAs (24 before),
+    wk/wv >= 32 (4 before); the wgmma regime's grid is 128 x 128 tiles
+    where those fill the card, 128 x 64 where they would not."""
+    def ctas(in_dim, out_dim):
+        return int(np.prod(w4a8_grid(64, out_dim, int4_w4a8_plan(64, in_dim, out_dim, 132))))
+    assert ctas(8960, 1536) >= 96 and ctas(1536, 256) >= 32
+    plan = int4_w4a8_plan(4096, 1536, 8960, 132)
+    assert plan.cluster == 0 and w4a8_grid(4096, 8960, plan) == (70, 32, 1)
+    # wk/wv (N = 256) takes 64-column wgmma tiles: 128-column ones would
+    # leave most SMs idle at 2,048 rows
+    assert int4_w4a8_plan(2048, 1536, 256, 132).cols == 64
+    # a contraction whose terms fit no cluster's shared memory takes wgmma
+    assert not w4a8_candidates(64, 32768, 1536)
+    assert int4_w4a8_plan(64, 32768, 1536, 132).regime == "wgmma"
+    assert w4a8_grid(2048, 256, int4_w4a8_plan(2048, 1536, 256, 132)) == (4, 16, 1)
