@@ -81,7 +81,25 @@ Phases, each fatal on failure (exit code != 0, no result line):
    preempt (``preemptions`` >= 1 in /metrics), answer every request HTTP
    200 with the greedy text phase 4's full pool gave for the same
    requests at the same ``max_tokens`` (its second wave), and serve one
-   more request afterwards. Kernel 2's int8 mode must launch here too.
+   more request afterwards. Kernel 2's int8 mode must launch here too;
+13. pipelined decode A/B at full width: deploy/shipping.env's geometry with
+   speculation off, two engines on one set of weights in this process, (a)
+   synchronous chunks of STEPS_PER_SYNC and (b) the defaults (deep chunks,
+   lookahead-1), in turns a, b, b, a, each serving the three requests
+   greedy for 256 tokens: identical token ids, (b) pipelined with fewer
+   input uploads than chunks, (a) not pipelined; wall, decode tok/s, steps,
+   uploads and the host's wait in fetches per chunk printed. Then
+   deploy/shipping.env as written (k = 2) with the defaults over HTTP, the
+   same requests for 256 tokens: every request HTTP 200, chunks pipelined;
+14. on that server, the logit options over HTTP: logprobs (one per token,
+   finite, <= 0, and no verify chunk while the request decodes alone, where
+   a plain request's does run), a logit_bias ban of the unbiased first
+   token and a +100 boost, presence/frequency penalties (HTTP 200, no verify
+   step), and ``seed`` (HTTP 500 naming its ROADMAP item).
+
+With the engine's defaults every serving phase pipelines its event-free
+decode chunks where the budgets allow (phase 11 must show pipelined
+chunks: its 128-token sampled wave gives them).
 
 The line before the last is one JSON object with the per-kernel numbers;
 the last line is ``{"ok": true, "device": {...}}``.
@@ -99,6 +117,7 @@ import subprocess
 import sys
 import threading
 import time
+import urllib.error
 import urllib.request
 from concurrent.futures import ThreadPoolExecutor
 
@@ -204,6 +223,9 @@ SHIPPING_WAVES = ((0.0, 32), (1.0, 128))
 # later of the two finds the pool dry, and the youngest request, the page
 # with its image, is preempted.
 DRY_TOKENS, DRY_SLACK_PAGES = 128, 1
+# Phase 13's requests decode this many tokens each, so that deep chunks of
+# 64 and the lookahead engage; its turns of (a) and (b).
+PIPELINE_TOKENS, PIPELINE_TURNS = 256, ("a", "b", "b", "a")
 SHIPPED_WAVES = ((0.0, 32), (0.0, DRY_TOKENS))
 ADMIT_FREE_FRACTION = 0.05  # SchedulerConfig.admit_free_page_fraction
 # The bound: NVIDIA H100 SXM data sheet (dense, 700 W): HBM 3.35 TB/s,
@@ -908,7 +930,8 @@ def read_counts() -> dict:
 
 
 def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 32),),
-                replies=None, one_more: bool = False, page_last: bool = False):
+                replies=None, one_more: bool = False, page_last: bool = False,
+                before_serve=None, probe=None):
     """Build the engine through the server's entry point with ``flags``
     (after ``base_flags``, by default the shipping geometry of phases 4-10),
     serve it, and drive three concurrent requests per wave, one wave after
@@ -920,15 +943,16 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
     usage)}; with ``one_more`` a further text request is served after the
     waves and must come back HTTP 200; with ``page_last`` a wave's first
     request (the page) is posted once /metrics shows the other two
-    prefilled. Returns (engine, the launch counts of the run, /metrics as a
-    dict, the page image)."""
+    prefilled. ``before_serve(engine)`` runs before the server starts (the
+    engine to itself, on this thread); ``probe(post, read_metrics, state)``
+    after the waves, with its result as ``state``: ``post(body)`` returns
+    (HTTP status, the decoded JSON reply) for any status. Returns (engine,
+    the launch counts of the run, /metrics as a dict, the page image)."""
     import torch
     from aiohttp import web
     from PIL import Image
 
     from dots_ocr_tpu_torch.serve.openai_server import OpenAIServer
-    from dots_ocr_tpu_torch.utils.image_io import pil_to_base64
-    from dots_ocr_tpu_torch.utils.prompts import dict_promptmode_to_prompt as prompts
     from dots_ocr_tpu_torch.serve import server as torch_server
 
     if base_flags is None:
@@ -950,6 +974,7 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
         f"prefill chunk {engine.sched.prefill_chunk_tokens}, vision window "
         f"{engine.config.vision.window_size} (full layers {engine.config.vision.full_attn_layers})")
 
+    state = before_serve(engine) if before_serve is not None else None
     port = _free_port()
     loop = asyncio.new_event_loop()
     runner = web.AppRunner(OpenAIServer(engine, model_name="flagship-random").build_app())
@@ -973,18 +998,7 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
             raise AssertionError(f"/health -> {status} {body}")
         log(f"  [{label}] /health -> {status} {body}")
         page = Image.open(os.path.join(REPO, "demo/assets/sample_page.png"))
-        receipt = Image.open(os.path.join(REPO, "demo/assets/sample_receipt.png"))
-
-        def chat(img, text):
-            content = [{"type": "text", "text": text}]
-            if img is not None:
-                content = [{"type": "image_url", "image_url": {"url": pil_to_base64(img)}},
-                           {"type": "text", "text": "<|img|><|imgpad|><|endofimg|>" + text}]
-            return {"model": "flagship-random", "messages": [{"role": "user", "content": content}]}
-
-        requests = [("page/prompt_layout_all_en", chat(page, prompts["prompt_layout_all_en"])),
-                    ("receipt/prompt_ocr", chat(receipt, prompts["prompt_ocr"])),
-                    ("text", chat(None, "Summarize the layout rules of a scanned invoice."))]
+        requests = chat_requests()
 
         def post(item):
             name, body = item
@@ -1026,6 +1040,15 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
                         os.environ[key] = value
             if replies is not None:
                 replies.append(answers)
+        if probe is not None:
+            def post_any(body):
+                try:
+                    status, text = _http(f"{base}/v1/chat/completions", body)
+                except urllib.error.HTTPError as err:
+                    status, text = err.code, err.read().decode()
+                return status, json.loads(text)
+
+            probe(post_any, lambda: read_metrics()[1], state)
         if one_more:
             _serve_wave(post, [("one more text request",
                                 {**requests[2][1], "temperature": 0.0, "max_tokens": 8})],
@@ -1035,8 +1058,9 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
         if status != 200 or metrics.get("prefills", 0) < 3:
             raise AssertionError(f"/metrics shows fewer than 3 prefills: {metrics}")
         shown = ("prefills", "prefill_chunks", "steps", "spec_chunks", "spec_emitted",
-                 "spec_slot_iters", "spec_auto_disabled", "preemptions", "t_admit_s",
-                 "t_prefill_s", "t_decode_s")
+                 "spec_slot_iters", "spec_auto_disabled", "preemptions", "pipelined_chunks",
+                 "chunk_input_rebuilds", "t_admit_s", "t_prefill_s", "t_decode_s",
+                 "t_fetch_wait_s")
         log(f"  [{label}] /metrics: " + ", ".join(f"{k} {metrics.get(k)}" for k in shown))
         log(f"  [{label}] kernel launches during the served run: {launches}")
         for name in required:
@@ -1047,6 +1071,29 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
         loop.call_soon_threadsafe(loop.stop)
         thread.join(60)
     return engine, launches, metrics, page
+
+
+def chat_requests():
+    """The three requests of the serving phases as (name, chat body): the
+    demo page with prompt_layout_all_en, the receipt with prompt_ocr, and a
+    text prompt."""
+    from PIL import Image
+
+    from dots_ocr_tpu_torch.utils.image_io import pil_to_base64
+    from dots_ocr_tpu_torch.utils.prompts import dict_promptmode_to_prompt as prompts
+
+    def chat(img, text):
+        content = [{"type": "text", "text": text}]
+        if img is not None:
+            content = [{"type": "image_url", "image_url": {"url": pil_to_base64(img)}},
+                       {"type": "text", "text": "<|img|><|imgpad|><|endofimg|>" + text}]
+        return {"model": "flagship-random", "messages": [{"role": "user", "content": content}]}
+
+    page = Image.open(os.path.join(REPO, "demo/assets/sample_page.png"))
+    receipt = Image.open(os.path.join(REPO, "demo/assets/sample_receipt.png"))
+    return [("page/prompt_layout_all_en", chat(page, prompts["prompt_layout_all_en"])),
+            ("receipt/prompt_ocr", chat(receipt, prompts["prompt_ocr"])),
+            ("text", chat(None, "Summarize the layout rules of a scanned invoice."))]
 
 
 def _serve_wave(post, batch, label: str, temperature: float, others_admitted=None) -> dict:
@@ -1422,6 +1469,175 @@ def dry_pool_phase(dev, roomy: dict, label: str = "dry pool"):
     return launches, metrics
 
 
+def pipeline_ab_phase(dev, env_flags) -> dict:
+    """Phase 13: the pipelined decode A/B at full width. One flagship engine
+    of ``env_flags`` with speculation off; in turns PIPELINE_TURNS, a fresh
+    engine on its weights serves the three requests, greedy, PIPELINE_TOKENS
+    new tokens each, in this process: (a) synchronous chunks of
+    steps_per_sync (the decode loop before the port's pipeline), (b) the
+    defaults (deep chunks of max_steps_per_sync, lookahead-1). Every run
+    must give the same token ids; (b) must pipeline and upload its chunk
+    inputs on fewer chunks than it runs, (a) must not pipeline. Returns the
+    runs' numbers by turn."""
+    import dataclasses
+
+    import torch
+
+    from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine
+    from dots_ocr_tpu_torch.serve import server as torch_server
+    from dots_ocr_tpu_torch.serve.openai_server import parse_chat_messages
+
+    args = torch_server.build_parser().parse_args([
+        "--random-flagship", "--platform", str(dev), *env_flags, "--speculate-k", "0"])
+    t0 = time.perf_counter()
+    base = torch_server.build_engine(args)
+    torch.cuda.synchronize()
+    prepared = []
+    for name, body in chat_requests():
+        prompt, images, system = parse_chat_messages(body["messages"])
+        prepared.append((name, base.prepare(prompt, images, system_prompt=system)))
+    scheds = {"a": dataclasses.replace(base.sched, pipeline_decode=False,
+                                       max_steps_per_sync=base.sched.steps_per_sync),
+              "b": base.sched}
+    log(f"  flagship engine built in {time.perf_counter() - t0:.1f} s ({args.quantize} weights, "
+        f"{args.kv_cache_dtype} KV, speculate_k 0); (a) pipeline_decode False, "
+        f"max_steps_per_sync {scheds['a'].max_steps_per_sync}; (b) pipeline_decode "
+        f"{scheds['b'].pipeline_decode}, max_steps_per_sync {scheds['b'].max_steps_per_sync}; "
+        f"steps_per_sync {base.sched.steps_per_sync}; turns {PIPELINE_TURNS}")
+
+    def serve(sched, max_new):
+        eng = ContinuousBatchingEngine(base.params, base.config, dev, sched=sched)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        ids = [eng.submit("", max_new_tokens=max_new, temperature=0.0, prepared=prep)
+               for _, prep in prepared]
+        eng.run()
+        torch.cuda.synchronize()
+        return eng, [eng.finished_request(i) for i in ids], time.perf_counter() - t
+
+    serve(scheds["b"], 16)  # warm-up: first calls of every kernel and cuBLAS shape
+    runs, tokens = [], None
+    for turn, label in enumerate(PIPELINE_TURNS):
+        reset_counts()
+        eng, reqs, wall = serve(scheds[label], PIPELINE_TOKENS)
+        launches, m = read_counts(), dict(eng.metrics)
+        if tokens is None:
+            tokens = [r.output_ids for r in reqs]
+        same = [r.output_ids for r in reqs] == tokens
+        rates = {name: (len(r.output_ids) - 1) / (r.timing()["decode_ms"] / 1e3)
+                 for (name, _), r in zip(prepared, reqs)}
+        run = dict(label=label, wall_s=wall, decode_tok_s=rates, t_decode_s=m["t_decode_s"],
+                   steps=m["steps"], chunk_input_rebuilds=m["chunk_input_rebuilds"],
+                   pipelined_chunks=m["pipelined_chunks"],
+                   fetch_wait_ms_per_chunk=1e3 * m["t_fetch_wait_s"] / max(1, m["steps"]),
+                   completion_tokens=[len(r.output_ids) for r in reqs],
+                   kernel2_launches=launches["paged_attention_multiquery"],
+                   flash_launches=launches["flash_attention"])
+        log(f"  [13 turn {turn + 1}: ({label})] wall {wall:.2f} s; decode tok/s after the first "
+            + ", ".join(f"{name} {rate:.1f}" for name, rate in rates.items())
+            + f"; t_decode_s {m['t_decode_s']:.2f}; steps {m['steps']}; chunk_input_rebuilds "
+            f"{m['chunk_input_rebuilds']}; pipelined_chunks {m['pipelined_chunks']}; fetch wait "
+            f"{run['fetch_wait_ms_per_chunk']:.2f} ms a chunk; completion tokens "
+            f"{run['completion_tokens']} (finish {[r.finished_reason for r in reqs]}); kernel 2 "
+            f"bf16 {run['kernel2_launches']}, flash {run['flash_launches']} launches; token ids "
+            f"equal to turn 1's: {same}")
+        if not same:
+            raise AssertionError(f"phase 13: turn {turn + 1} ({label}) emitted other token ids")
+        if label == "a" and m["pipelined_chunks"] != 0:
+            raise AssertionError(f"phase 13: (a) pipelined {m['pipelined_chunks']} chunks")
+        if label == "b" and not (m["pipelined_chunks"] > 0
+                                 and m["chunk_input_rebuilds"] < m["steps"]):
+            raise AssertionError(f"phase 13: (b) pipelined {m['pipelined_chunks']} chunks, "
+                                 f"{m['chunk_input_rebuilds']} rebuilds in {m['steps']} steps")
+        if run["kernel2_launches"] < 1 or run["flash_launches"] < 1:
+            raise AssertionError(f"phase 13: turn {turn + 1} launched no kernel 2 or flash")
+        runs.append(run)
+        del eng
+        torch.cuda.empty_cache()
+    for label in ("a", "b"):
+        mine = [r for r in runs if r["label"] == label]
+        log(f"  [13] ({label}) over its turns: wall "
+            + " / ".join(f"{r['wall_s']:.2f}" for r in mine) + " s; fetch wait "
+            + " / ".join(f"{r['fetch_wait_ms_per_chunk']:.2f}" for r in mine) + " ms a chunk")
+    return {"turns": runs}
+
+
+def first_text_token(engine):
+    """Phase 14's reference, before its server starts: the text request's
+    first greedy token and its logprob, from the engine itself."""
+    from dots_ocr_tpu_torch.serve.openai_server import parse_chat_messages
+
+    prompt, images, system = parse_chat_messages(chat_requests()[2][1]["messages"])
+    rid = engine.submit(prompt, images, max_new_tokens=1, temperature=0.0, logprobs=True,
+                        system_prompt=system)
+    engine.run()
+    req = engine.finished_request(rid)
+    engine.take_finished(rid)
+    return req.output_ids[0], req.output_logprobs[0]
+
+
+def logit_options_probe(post, metrics, first) -> None:
+    """Phase 14, on the server of deploy/shipping.env as written after phase
+    13's pipelined wave (which must have pipelined): logprobs, logit_bias,
+    penalties and seed over HTTP, each request alone on the engine."""
+    log("[14/14] the logit options over HTTP on the shipping.env server")
+    text = chat_requests()[2][1]
+
+    def ask(max_tokens, **options):
+        status, data = post({**text, "temperature": 0.0, "max_tokens": max_tokens, **options})
+        if status != 200:
+            raise AssertionError(f"phase 14: {options} -> HTTP {status} {data}")
+        return data
+
+    before = metrics()
+    if before.get("pipelined_chunks", 0) < 1:
+        raise AssertionError(f"phase 13: the k = 2 wave pipelined no chunk ({before})")
+    ask(32)  # control: a plain greedy request speculates
+    plain = metrics()
+    if plain["spec_chunks"] <= before["spec_chunks"]:
+        raise AssertionError("phase 14: the plain control request ran no verify chunk")
+    data = ask(32, logprobs=True)
+    content = data["choices"][0]["logprobs"]["content"]
+    lps = [entry["logprob"] for entry in content]
+    after_lp = metrics()
+    log(f"  logprobs: {len(lps)} for {data['usage']['completion_tokens']} tokens, max "
+        f"{max(lps):.4f}, min {min(lps):.4f}; the first {lps[0]:.6f} (the engine's own before "
+        f"the server started: {first[1]:.6f}); spec_chunks {plain['spec_chunks']:.0f} -> "
+        f"{after_lp['spec_chunks']:.0f} (the plain control: {before['spec_chunks']:.0f} -> "
+        f"{plain['spec_chunks']:.0f})")
+    if (len(lps) != data["usage"]["completion_tokens"]
+            or not all(lp <= 0.0 and lp == lp and abs(lp) != float("inf") for lp in lps)
+            or abs(lps[0] - first[1]) > 1e-3 or after_lp["spec_chunks"] != plain["spec_chunks"]):
+        raise AssertionError("phase 14: logprobs")
+    # The banned token's biased logprob is at most its unbiased margin - 100,
+    # so a first logprob above -50 is another token's.
+    banned = ask(4, logprobs=True, logit_bias={str(first[0]): -100})
+    lp_banned = banned["choices"][0]["logprobs"]["content"][0]["logprob"]
+    log(f"  logit_bias {{{first[0]}: -100}} (the unbiased first token): the first token's "
+        f"logprob {lp_banned:.4f} (unbiased {lps[0]:.4f})")
+    if not lp_banned > -50.0:
+        raise AssertionError("phase 14: the banned token came first")
+    boosted = ask(6, logit_bias={str(ord("A")): 100})
+    log(f"  logit_bias {{{ord('A')}: +100}}: {boosted['choices'][0]['message']['content']!r}, "
+        f"finish {boosted['choices'][0]['finish_reason']}")
+    if boosted["choices"][0]["message"]["content"] != "A" * 6:
+        raise AssertionError("phase 14: the boosted token was not every token")
+    before_pen, verify_before = metrics(), read_counts()["paged_attention_multiquery (nq > 1)"]
+    penalized = ask(32, frequency_penalty=2.0, presence_penalty=1.0)
+    after_pen = metrics()
+    verify_after = read_counts()["paged_attention_multiquery (nq > 1)"]
+    log(f"  frequency_penalty 2.0, presence_penalty 1.0: {penalized['usage']['completion_tokens']} "
+        f"tokens; spec_chunks {before_pen['spec_chunks']:.0f} -> {after_pen['spec_chunks']:.0f}, "
+        f"verify launches {verify_before} -> {verify_after}")
+    if after_pen["spec_chunks"] != before_pen["spec_chunks"] or verify_after != verify_before:
+        raise AssertionError("phase 14: a penalized request ran verify steps")
+    status, data = post({**text, "temperature": 0.0, "max_tokens": 4, "seed": 1})
+    message = data.get("error", {}).get("message", "")
+    log(f"  seed: HTTP {status}, {message!r}")
+    if status != 500 or "seeded position-keyed sampling" not in message:
+        raise AssertionError(f"phase 14: seed -> HTTP {status} {data}")
+
+
 def shipping_env() -> dict:
     """deploy/shipping.env's KEY=VALUE lines (comments and blanks skipped)."""
     env = {}
@@ -1451,7 +1667,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    log("[1/12] device")
+    log("[1/14] device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1460,7 +1676,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {smi}")
 
-    log("[2/12] build the CUDA kernels")
+    log("[2/14] build the CUDA kernels")
     from dots_ocr_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
@@ -1470,12 +1686,12 @@ def main() -> int:
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3/12] kernels vs plain versions on {smi}")
+    log(f"[3/14] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
     tiny_call = tiny_call_phase(dev)
     w8a8_vision = w8a8_vision_phase(dev)
 
-    log(f"[4/12] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
+    log(f"[4/14] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
         f"{PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     shipped_replies = []
     engine, shipped, metrics, page = serve_phase(
@@ -1488,12 +1704,12 @@ def main() -> int:
         raise AssertionError(f"shipped path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[5/12] consistency, shipped path: kernel path vs plain path, page request")
+    log("[5/14] consistency, shipped path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[6/12] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
+    log(f"[6/14] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
         f"chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, full_quant, metrics, page = serve_phase(
         dev, FULL_QUANT_FLAGS, "int4", waves=FULL_QUANT_WAVES,
@@ -1508,24 +1724,24 @@ def main() -> int:
         raise AssertionError(f"int4 path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[7/12] consistency, fully quantized path: kernel path vs plain path, page request")
+    log("[7/14] consistency, fully quantized path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev, w8a8_vision=True)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[8/12] end to end, bf16 path (bf16 weights and KV, no speculation, one "
+    log(f"[8/14] end to end, bf16 path (bf16 weights and KV, no speculation, one "
         f"{PREFILL_LIMIT}-token prefill), full depth, on {smi}")
     engine, bf16_path, _, page = serve_phase(
         dev, BF16_FLAGS, "bf16", required=("flash_attention", "paged_attention_multiquery"))
     log("  consistency, bf16 path: kernel path vs plain path, page request")
     consistency_phase(engine, page, dev)
 
-    log(f"[9/12] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
+    log(f"[9/14] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
     decode_ms, decode_launches = decode_cost_phase(engine, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[10/12] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
+    log(f"[10/14] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
         f"speculation, chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, windowed, metrics, page = serve_phase(
         dev, WINDOWED_FLAGS, "windowed",
@@ -1541,7 +1757,7 @@ def main() -> int:
     env = shipping_env()
     env_flags = [item for key, flag in SHIPPING_KEYS.items() for item in (flag, env[key])]
     settings = ", ".join(f"{key}={env[key]}" for key in SHIPPING_KEYS)
-    log(f"[11/12] end to end, deploy/shipping.env as written ({settings}): flagship, random "
+    log(f"[11/14] end to end, deploy/shipping.env as written ({settings}): flagship, random "
         f"weights, waves (temperature, max_tokens) {SHIPPING_WAVES}, OpenAIServer on {smi}")
     engine, shipping, metrics, page = serve_phase(
         dev, [], "shipping.env", base_flags=env_flags, waves=SHIPPING_WAVES,
@@ -1552,18 +1768,32 @@ def main() -> int:
     log(f"  [shipping.env] kernel 2 bf16: {decode_calls} launches at nq = 1 (decode), "
         f"{shipping['paged_attention_multiquery (nq > 1)']} at nq = 3 (verify)")
     if (decode_calls < 1 or metrics.get("prefill_chunks", 0) < 2
-            or metrics.get("spec_chunks", 0) < 1):
+            or metrics.get("spec_chunks", 0) < 1 or metrics.get("pipelined_chunks", 0) < 1):
         raise AssertionError(f"shipping.env path: {decode_calls} nq = 1 launches (need >= 1), "
                              f"prefill_chunks {metrics.get('prefill_chunks')} (need >= 2), "
-                             f"spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
+                             f"spec_chunks {metrics.get('spec_chunks')} (need >= 1), "
+                             f"pipelined_chunks {metrics.get('pipelined_chunks')} (need >= 1)")
     log("  consistency, shipping.env path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[12/12] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
+    log(f"[12/14] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
         f"weights, OpenAIServer on {smi}")
     dry_launches, dry_metrics = dry_pool_phase(dev, shipped_replies[1])
+
+    log(f"[13/14] pipelined decode A/B at full width: deploy/shipping.env's geometry with "
+        f"--speculate-k 0, {PIPELINE_TOKENS} tokens a request, on {smi}")
+    pipeline_ab = pipeline_ab_phase(dev, env_flags)
+    log(f"  [13] deploy/shipping.env as written (k = 2) with the defaults, {PIPELINE_TOKENS} "
+        f"tokens a request, over HTTP; then phase 14 on that server")
+    engine, pipelined_k2, _, _ = serve_phase(
+        dev, [], "shipping.env, pipelined", base_flags=env_flags,
+        waves=((0.0, PIPELINE_TOKENS),), before_serve=first_text_token, probe=logit_options_probe,
+        required=("flash_attention", "paged_attention_multiquery",
+                  "paged_attention_multiquery (nq > 1)"))
+    del engine
+    torch.cuda.empty_cache()
 
     sources = {
         "flash_attention": ("dots_ocr_tpu_torch/csrc/flash_attention.cu",
@@ -1599,7 +1829,9 @@ def main() -> int:
         for name, cases in kernels.items()
     ], "launches_by_path": {"shipped": shipped, "int4": full_quant, "bf16": bf16_path,
                             "decode_steps": decode_launches, "windowed": windowed,
-                            "shipping.env": shipping, "dry_pool": dry_launches},
+                            "shipping.env": shipping, "dry_pool": dry_launches,
+                            "shipping.env, pipelined": pipelined_k2},
+        "pipeline_ab": pipeline_ab,
         "dry_pool_preemptions": dry_metrics["preemptions"],
         "decode_step_ms": decode_ms, "w8a8_vision_linear_ms": w8a8_vision,
         "tiny_call_ms": tiny_call}

@@ -9,6 +9,13 @@ from the same seed, so only greedy streams match the JAX package token for
 token; seeded, position-keyed sampling is not ported yet. The speculative
 verify's acceptance and corrective draws (:func:`spec_accept`) use the same
 pool and generator.
+
+The generator is stateful: every step draws for all rows, also for rows
+whose tokens the host discards. A pipelined engine dispatches a chunk
+before it has read whether the chunk before finished a row, and that
+extra chunk draws too, so unseeded sampled streams (temperature > 0) may
+differ from a synchronous engine's. Greedy streams draw nothing and do
+not.
 """
 
 from __future__ import annotations

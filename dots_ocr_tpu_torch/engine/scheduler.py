@@ -14,24 +14,32 @@ A single-threaded host loop drives plain functions ("programs"):
     lockstep group at the smallest offset, interleaved with decode;
   * ``decode_program``: ``num_steps`` decode iterations for every slot
     ([S] tokens, [S, max_pages] page tables of static width) through the
-    paged decode kernel, with one host sync per chunk;
+    paged decode kernel, with one packed fetch per chunk;
   * ``spec_decode_program`` (``speculate_k`` > 0): per iteration a bigram
     draft over each slot's generated history, one verify forward over the
     k + 1 tokens, and greedy / exact delta-proposal acceptance; an
     adaptive gate turns speculation off for the current load when it emits
     fewer than ``spec_min_tokens_per_iter`` tokens per slot-iteration.
 
-KV pools are bf16 or int8 (``kv_cache_dtype``); weights may be int8
-(``models/quantize.py``). Admission is page-aware (free-page watermark).
-Host code carries stop strings, stop ids, streaming and the repetition
-guard.
+Decode chunk inputs stay on the device between chunks: the programs return
+the next tokens, positions and budgets as a device carry, and the host
+rebuilds the inputs only on events (admission, finish, preemption, page
+growth, a change of decode mode). Event-free decode deepens its chunks to
+``max_steps_per_sync`` and pipelines them (lookahead-1): chunk N+1 is
+dispatched off the carry before chunk N's packed result is read, and that
+result travels to the host through a pinned buffer guarded by an event of
+its own, so reading it never waits for chunk N+1.
 
-Not ported yet; ``submit`` raises ``ValueError`` naming the ROADMAP item:
-logprobs, presence/frequency penalties, ``logit_bias`` and ``seed``. Also
-not ported: pipelined (lookahead-1) decode and the deep-chunk depth
-adaptation. A pool that runs dry mid-decode preempts the youngest request
+Requests may ask for logprobs (the chosen token's log-probability),
+presence/frequency penalties (vLLM semantics, over a [S, V] counts carry)
+and ``logit_bias``; ``seed`` is not ported yet (``submit`` raises naming
+the ROADMAP item). KV pools are bf16 or int8 (``kv_cache_dtype``); weights
+may be int8 (``models/quantize.py``). Admission is page-aware (free-page
+watermark); a pool that runs dry mid-decode preempts the youngest request
 (recompute preemption: it re-queues with its generated tokens appended to
 its prompt) and every request still finishes with the same greedy tokens.
+Host code carries stop strings, stop ids, streaming and the repetition
+guard.
 """
 
 from __future__ import annotations
@@ -79,19 +87,68 @@ from dots_ocr_tpu_torch.models.vlm import (
 
 logger = logging.getLogger(__name__)
 
-# The ROADMAP.md items that will bring the features not ported yet.
-NOT_PORTED = {
-    "logprobs": "logprobs, penalties and logit_bias",
-    "presence_penalty": "logprobs, penalties and logit_bias",
-    "frequency_penalty": "logprobs, penalties and logit_bias",
-    "logit_bias": "logprobs, penalties and logit_bias",
-    "seed": "seeded position-keyed sampling",
-}
+SEED_NOT_PORTED = ("seed is not supported by the PyTorch port yet "
+                   "(ROADMAP.md: seeded position-keyed sampling)")
 
 
-def _not_ported(feature: str) -> str:
-    return (f"{feature} is not supported by the PyTorch port yet "
-            f"(ROADMAP.md: {NOT_PORTED[feature]})")
+def add_logit_bias(logits: torch.Tensor, bias_ids: torch.Tensor,
+                   bias_vals: torch.Tensor) -> torch.Tensor:
+    """OpenAI ``logit_bias``, in place: each row's (token id, bias) pairs
+    are added along the vocab (last) axis of logits [S, ..., V]; bias_ids /
+    bias_vals [S, K]. An id equal to the vocab size is padding and adds
+    nothing (it lands on the last id as +0.0)."""
+    v = logits.shape[-1]
+    vals = torch.where(bias_ids < v, bias_vals, 0.0)
+    shape = (bias_ids.shape[0],) + (1,) * (logits.dim() - 2) + (bias_ids.shape[1],)
+    out_shape = logits.shape[:-1] + (bias_ids.shape[1],)
+    return logits.scatter_add_(-1, bias_ids.clamp_max(v - 1).view(shape).expand(out_shape),
+                               vals.view(shape).expand(out_shape))
+
+
+def f32_bits(x: torch.Tensor) -> torch.Tensor:
+    """float32 values as their int32 bit patterns in int64, so that they
+    travel in a program's one packed int64 fetch."""
+    return x.to(torch.float32).view(torch.int32).to(torch.int64)
+
+
+def bits_f32(x: np.ndarray) -> np.ndarray:
+    """Inverse of :func:`f32_bits` on the host."""
+    return np.ascontiguousarray(x, np.int64).astype(np.int32).view(np.float32)
+
+
+def token_logprob(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """log p(token) under logits [B, V] (float32) for tokens [B]."""
+    return logits.gather(1, tokens[:, None])[:, 0] - torch.logsumexp(logits, dim=-1)
+
+
+def _pack_first_with_logprob(first: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """[B] first tokens -> [B, 2] int64 (token, logprob bits): the prefill's
+    fetch stays one array."""
+    return torch.stack([first, f32_bits(token_logprob(logits, first))], dim=1)
+
+
+class HostFetch:
+    """A device tensor's copy on its way to the host.
+
+    The copy is enqueued at once into a host buffer of its own (pinned on
+    the card, with an event recorded right after the copy) and
+    :meth:`numpy` waits for that event only. ``.cpu()`` would instead wait
+    for everything queued on the stream by then, such as the next chunk a
+    pipelined engine has already dispatched. On the CPU the same code
+    copies into a pageable buffer and records no event."""
+
+    def __init__(self, tensor: torch.Tensor):
+        on_card = tensor.is_cuda
+        self.host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=on_card)
+        self.host.copy_(tensor, non_blocking=on_card)
+        self.event = torch.cuda.Event() if on_card else None
+        if self.event is not None:
+            self.event.record()
+
+    def numpy(self) -> np.ndarray:
+        if self.event is not None:
+            self.event.synchronize()
+        return self.host.numpy()
 
 
 def prefill_program(
@@ -105,6 +162,8 @@ def prefill_program(
     top_p: torch.Tensor,
     generator: torch.Generator,
     any_sampled: bool,
+    bias_ids: Optional[torch.Tensor] = None,
+    bias_vals: Optional[torch.Tensor] = None,
     patches: Optional[torch.Tensor] = None,
     pos2d: Optional[torch.Tensor] = None,
     segment_ids: Optional[torch.Tensor] = None,
@@ -112,9 +171,10 @@ def prefill_program(
     scatter_pos: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Prefill one batch into the paged cache (in place) and sample each
-    row's first token. input_ids [B, T]; seq_lens [B]; slot_mapping
-    [B*T] (-1 = padding). 2D-RoPE tables are computed on the device from
-    ``pos2d`` [T_vis, 2]. Returns first tokens [B] on the device."""
+    row's first token (``logit_bias`` applied). input_ids [B, T]; seq_lens
+    [B]; slot_mapping [B*T] (-1 = padding). 2D-RoPE tables are computed on
+    the device from ``pos2d`` [T_vis, 2]. Returns [B, 2] int64 on the
+    device: each first token and its logprob bits (:func:`f32_bits`)."""
     b, t = input_ids.shape
     rope_cos = rope_sin = None
     if pos2d is not None:
@@ -129,7 +189,10 @@ def prefill_program(
         last_logit_only=True,
     )
     write_prefill_kv(paged, k, v, slot_mapping)
-    return sample_logits(logits, temperature, top_p, generator, any_sampled)
+    if bias_ids is not None:
+        add_logit_bias(logits, bias_ids, bias_vals)
+    first = sample_logits(logits, temperature, top_p, generator, any_sampled)
+    return _pack_first_with_logprob(first, logits)
 
 
 def decode_program(
@@ -138,33 +201,54 @@ def decode_program(
     paged: PagedKV,
     tokens: torch.Tensor,
     positions: torch.Tensor,
+    budgets: torch.Tensor,
     page_tables: torch.Tensor,
     active: torch.Tensor,
-    budgets: torch.Tensor,
     temperature: torch.Tensor,
     top_p: torch.Tensor,
     generator: torch.Generator,
     any_sampled: bool,
     page_size: int,
     num_steps: int,
-) -> torch.Tensor:
+    with_logprobs: bool = False,
+    presence: Optional[torch.Tensor] = None,
+    frequency: Optional[torch.Tensor] = None,
+    counts: Optional[torch.Tensor] = None,
+    bias_ids: Optional[torch.Tensor] = None,
+    bias_vals: Optional[torch.Tensor] = None,
+):
     """``num_steps`` decode iterations for every slot, all on the device.
 
     tokens/positions [S] int64: each slot's current token and its cache
-    write position; page_tables [S, max_pages] int32 must cover
-    positions + num_steps; active [S] bool; budgets [S] int64 tokens each
-    row may still emit. A row stops at EOS or at its budget; stopped and
+    write position; budgets [S] int64 tokens each row may still emit;
+    page_tables [S, max_pages] int32 must cover positions + num_steps;
+    active [S] bool. A row stops at EOS or at its budget; stopped and
     inactive rows write the null page with length 0 (the kernel returns
-    zeros for them). Returns packed [S, num_steps + 1] int64: the sampled
-    tokens (pad after a row stopped) and, last, each row's emitted count.
+    zeros for them).
+
+    Options, each applied before sampling in the JAX program's order:
+    ``bias_ids``/``bias_vals`` [S, K] (:func:`add_logit_bias`); ``counts``
+    [S, V] int32 with ``presence``/``frequency`` [S] (presence and
+    frequency penalties over the generated tokens, vLLM semantics; the
+    counts are updated in place, one scatter a step); ``with_logprobs``
+    packs each emitted token's log-probability under those logits.
+
+    Returns (packed [S, num_steps (+ num_steps) + 1] int64: the sampled
+    tokens (pad after a row stopped), with logprobs their bits, and, last,
+    each row's emitted count; the carry (next tokens, next positions, next
+    budgets: 0 for a row that emitted EOS), on the device, for the next
+    chunk).
     """
-    eos = config.special.eos_token_id
+    eos, pad = config.special.eos_token_id, config.special.pad_token_id
     s = tokens.shape[0]
-    rows = torch.arange(s, device=tokens.device)
-    tokens_out = torch.full((s, num_steps), config.special.pad_token_id,
-                            dtype=torch.int64, device=tokens.device)
-    num_decoded = torch.zeros(s, dtype=torch.int64, device=tokens.device)
-    done = ~active
+    dev = tokens.device
+    rows = torch.arange(s, device=dev)
+    tokens_out = torch.full((s, num_steps), pad, dtype=torch.int64, device=dev)
+    lp_out = (torch.zeros((s, num_steps), dtype=torch.float32, device=dev)
+              if with_logprobs else None)
+    num_decoded = torch.zeros(s, dtype=torch.int64, device=dev)
+    hit_eos = torch.zeros(s, dtype=torch.bool, device=dev)
+    done = ~active | (budgets <= 0)
     current, pos = tokens, positions
     for i in range(num_steps):
         live = ~done
@@ -179,13 +263,26 @@ def decode_program(
             k_scales=paged.k_scale, v_scales=paged.v_scale,
         )
         logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
+        if bias_ids is not None:
+            add_logit_bias(logits, bias_ids, bias_vals)
+        if counts is not None:
+            logits = (logits - presence[:, None] * (counts > 0)
+                      - frequency[:, None] * counts.to(torch.float32))
         nxt = sample_logits(logits, temperature, top_p, generator, any_sampled)
-        tokens_out[:, i] = torch.where(live, nxt, tokens_out[:, i])
+        tokens_out[:, i] = torch.where(live, nxt, pad)
+        if lp_out is not None:
+            lp_out[:, i] = torch.where(live, token_logprob(logits, nxt), 0.0)
+        if counts is not None:
+            counts.scatter_add_(1, nxt[:, None], live[:, None].to(counts.dtype))
         num_decoded += live.to(torch.int64)
         pos = pos + live.to(torch.int64)
         current = torch.where(live, nxt, current)
-        done = done | (live & ((nxt == eos) | (num_decoded >= budgets)))
-    return torch.cat([tokens_out, num_decoded[:, None]], dim=1)
+        eos_now = live & (nxt == eos)
+        hit_eos = hit_eos | eos_now
+        done = done | eos_now | (live & (num_decoded >= budgets))
+    cols = [tokens_out] + ([f32_bits(lp_out)] if lp_out is not None else [])
+    packed = torch.cat(cols + [num_decoded[:, None]], dim=1)
+    return packed, (current, pos, torch.where(hit_eos, 0, budgets - num_decoded))
 
 
 def encode_program(params: dict, config: DotsOCRConfig, patches: torch.Tensor,
@@ -211,15 +308,18 @@ def prefill_extend_program(
     page_size: int,
     kv_hi: int,
     q_offset: int,
+    bias_ids: Optional[torch.Tensor] = None,
+    bias_vals: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One lockstep chunk of a chunked prefill for a batch of requests.
 
     embeds_chunk [B, C, D] (slices of each request's spliced embeddings;
     rows past a prompt are padding); prompt_len [B]; page_table
     [B, kv_hi / page_size]; slots [B, C] write slots (padding -> the null
-    page). Samples a candidate first token from each row's last valid
-    position in the chunk; the host keeps it on a row's final chunk.
-    Returns first tokens [B] on the device."""
+    page). Samples a candidate first token (``logit_bias`` applied) from
+    each row's last valid position in the chunk; the host keeps it on a
+    row's final chunk. Returns [B, 2] int64 on the device, as
+    :func:`prefill_program`."""
     b, c, _ = embeds_chunk.shape
     positions = q_offset + torch.arange(c, device=embeds_chunk.device)
     hidden = decoder_prefill_extend_batched(
@@ -230,7 +330,10 @@ def prefill_extend_program(
     last_row = (prompt_len.long() - 1 - q_offset).clamp(0, c - 1)
     hidden = hidden[torch.arange(b, device=hidden.device), last_row]
     logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
-    return sample_logits(logits, temperature, top_p, generator, any_sampled)
+    if bias_ids is not None:
+        add_logit_bias(logits, bias_ids, bias_vals)
+    first = sample_logits(logits, temperature, top_p, generator, any_sampled)
+    return _pack_first_with_logprob(first, logits)
 
 
 def spec_decode_program(
@@ -240,10 +343,10 @@ def spec_decode_program(
     tokens_buf: torch.Tensor,
     tokens: torch.Tensor,
     positions: torch.Tensor,
+    budgets: torch.Tensor,
     gen_start: torch.Tensor,
     page_tables: torch.Tensor,
     active: torch.Tensor,
-    budgets: torch.Tensor,
     temperature: torch.Tensor,
     top_p: torch.Tensor,
     generator: torch.Generator,
@@ -252,24 +355,29 @@ def spec_decode_program(
     page_size: int,
     num_steps: int,
     spec_k: int,
-) -> torch.Tensor:
+    bias_ids: Optional[torch.Tensor] = None,
+    bias_vals: Optional[torch.Tensor] = None,
+):
     """``num_steps`` speculative iterations for every slot, on the device.
 
     Per iteration and live slot: (1) draft: the most recent position of
     the slot's generated history whose bigram matches (previous, current)
     proposes the ``spec_k`` tokens that followed it (``current`` repeated
     when nothing matches); (2) verify: one decoder forward over the
-    ``spec_k + 1`` tokens through the multi-query paged kernel; (3)
-    accept: :func:`sampling.spec_accept`. Emits 1 to ``spec_k + 1`` tokens
-    per live slot and iteration; a row stops at EOS or its budget.
+    ``spec_k + 1`` tokens through the multi-query paged kernel, with the
+    same ``logit_bias`` at every verified column (the bias is
+    position-independent, so acceptance stays exact); (3) accept:
+    :func:`sampling.spec_accept`. Emits 1 to ``spec_k + 1`` tokens per
+    live slot and iteration; a row stops at EOS or its budget.
 
     tokens_buf [S, L + 1] int64 generated history by logical position (L =
     the page table's token capacity; the last column is a sink for
-    dropped writes), updated in place; gen_start [S]
-    first generated position (the prompt length); other arguments as in
-    :func:`decode_program`, with page tables covering positions +
-    num_steps * (spec_k + 1). Returns packed [S, num_steps * (spec_k + 1)
-    + 1] int64: emitted tokens, then each row's count.
+    dropped writes), kept on the device and updated in place; gen_start
+    [S] first generated position (the prompt length); other arguments as
+    in :func:`decode_program`, with page tables covering positions +
+    num_steps * (spec_k + 1). Returns (packed [S, num_steps * (spec_k + 1)
+    + 1] int64: emitted tokens, then each row's count; the carry, as
+    :func:`decode_program`'s).
     """
     eos, pad = config.special.eos_token_id, config.special.pad_token_id
     s, length_buf = tokens_buf.shape[0], tokens_buf.shape[1] - 1
@@ -281,7 +389,8 @@ def spec_decode_program(
     tpos = torch.arange(length_buf, device=dev)
     out = torch.full((s, num_steps * nq + 1), pad, dtype=torch.int64, device=dev)
     n_out = torch.zeros(s, dtype=torch.int64, device=dev)
-    done = ~active
+    hit_eos = torch.zeros(s, dtype=torch.bool, device=dev)
+    done = ~active | (budgets <= 0)
     current, pos, buf = tokens, positions, tokens_buf
     for _ in range(num_steps):
         live = ~done
@@ -311,6 +420,8 @@ def spec_decode_program(
             k_scales=paged.k_scale, v_scales=paged.v_scale,
         )
         logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
+        if bias_ids is not None:
+            add_logit_bias(logits, bias_ids, bias_vals)
         a, corrective = spec_accept(logits, x_all, temperature, top_p, generator,
                                     any_sampled, nucleus)
 
@@ -328,9 +439,11 @@ def spec_decode_program(
         last = y[rows, (m - 1).clamp(0, nq - 1)]
         current = torch.where(live & (m > 0), last, current)
         pos = pos + m
-        done = done | (live & ((eos_idx < nq) | (n_out >= budgets)))
+        eos_now = live & (eos_idx < nq)
+        hit_eos = hit_eos | eos_now
+        done = done | eos_now | (live & (n_out >= budgets))
     out[:, -1] = n_out
-    return out
+    return out, (current, pos, torch.where(hit_eos, 0, budgets - n_out))
 
 
 WAITING, PREFILLING, RUNNING, FINISHED = "waiting", "prefilling", "running", "finished"
@@ -346,10 +459,27 @@ class SchedulerConfig:
     vision_bucket_step: int = 512
     # Admission watermark: keep this fraction of pages free for decode growth.
     admit_free_page_fraction: float = 0.05
+    # OpenAI logit_bias: fixed per-request (token id, bias) slots; requests
+    # with more entries are rejected at submit.
+    logit_bias_slots: int = 32
     # Decode iterations per host sync.
     steps_per_sync: int = 8
     # Requests prefilled per dispatch.
     max_prefill_batch: int = 4
+    # Adaptive chunk deepening: when every live request still has at least
+    # this many tokens of budget left and none needs per-chunk host checks
+    # (stream callbacks, stop strings or stop ids), nothing waits for
+    # admission and nothing prefills, decode chunks run this many
+    # iterations (divided by k + 1 while speculating) instead of
+    # steps_per_sync. Set equal to steps_per_sync to disable.
+    max_steps_per_sync: int = 64
+    # Pipelined decode (lookahead-1): during event-free decode (as above,
+    # and no logprobs, penalties or logit_bias live) chunk N+1 is
+    # dispatched off the device-resident carry before chunk N's result is
+    # read, so the fetch and the host's bookkeeping overlap the device's
+    # work. Rows that end inside chunk N idle through chunk N+1 (their
+    # pages are freed once it lands); any scheduling event drains first.
+    pipeline_decode: bool = True
     # Decode-degeneration guard: stop a sequence whose tail is a periodic
     # token loop (period <= max_period repeating >= min_repeats times).
     # 0 disables.
@@ -361,7 +491,8 @@ class SchedulerConfig:
     # 0 = monolithic prefill only.
     prefill_chunk_tokens: int = 0
     # n-gram speculative decoding: > 0 verifies this many drafted tokens per
-    # decode iteration (spec_decode_program). 0 = off.
+    # decode iteration (spec_decode_program). 0 = off. Chunks with a live
+    # logprobs or penalties request decode plainly.
     speculate_k: int = 0
     # Adaptive cut-off: speculation turns off for the current load after 3
     # consecutive chunks whose EWMA of emitted tokens per slot-iteration is
@@ -393,6 +524,17 @@ class ScheduledRequest:
     finished_at: Optional[float] = None
     stop: List[str] = dataclasses.field(default_factory=list)
     stop_token_ids: frozenset = frozenset()
+    # OpenAI logprobs: each generated token's log-probability, aligned with
+    # prior_output + output_ids.
+    logprobs: bool = False
+    output_logprobs: List[float] = dataclasses.field(default_factory=list)
+    # OpenAI presence/frequency penalties (vLLM semantics: counts over the
+    # generated tokens, subtracted from the logits before sampling).
+    presence_penalty: float = 0.0
+    frequency_penalty: float = 0.0
+    # OpenAI logit_bias {token id: bias}, applied at every sampling step
+    # (the first token included); None = unused.
+    logit_bias: Optional[Dict[int, float]] = None
     # Called from the engine thread with (text_delta, finish_reason|None);
     # finish_reason is non-None exactly once, on the final call.
     stream_cb: Optional[Any] = None
@@ -498,9 +640,28 @@ class ContinuousBatchingEngine:
         self._lengths = np.zeros(s, np.int64)  # tokens in cache per slot
         self._temps = np.zeros(s, np.float32)
         self._top_ps = np.ones(s, np.float32)
+        self._pres = np.zeros(s, np.float32)
+        self._freq = np.zeros(s, np.float32)
+        vocab, kb = config.decoder.vocab_size, self.sched.logit_bias_slots
+        self._bias_ids = np.full((s, kb), vocab, np.int64)  # vocab = padding
+        self._bias_vals = np.zeros((s, kb), np.float32)
         self._waiting: Deque[ScheduledRequest] = deque()
         self._finished: Dict[int, ScheduledRequest] = {}
+        # Finished ids that step() has returned: a finish that lands outside
+        # step() (cancel()'s drain, a rejection at submit) is returned by
+        # the next step().
+        self._reported: set = set()
         self._next_id = 0
+        # Device-resident decode chunk inputs, valid while no event
+        # (admission, finish, preemption, page growth, decode-mode change)
+        # happened since the last chunk; None = rebuild from host state.
+        self._dev: Optional[dict] = None
+        # The pipelined chunk dispatched but not yet applied: {"fetch",
+        # "active", "chunk", "use_lp", "use_spec", "tokens" (the most it can
+        # emit)}; and the requests whose pages it may still write, freed
+        # when it lands.
+        self._inflight: Optional[dict] = None
+        self._deferred_free: List[int] = []
         # Last-N finished-request latency splits, read by /metrics.
         self.recent_timings: Deque[Dict[str, float]] = deque(maxlen=512)
         # Adaptive speculation: EWMA of emitted tokens per verify
@@ -518,10 +679,13 @@ class ContinuousBatchingEngine:
             "spec_slot_iters": 0,  # acceptance = emitted / (iters * (k + 1))
             "spec_auto_disabled": 0,
             "preemptions": 0,
+            "pipelined_chunks": 0,      # decode chunks dispatched ahead of a fetch
+            "chunk_input_rebuilds": 0,  # decode chunks whose inputs were uploaded
             "t_submit_s": 0.0,   # tokenize + image preprocessing
             "t_admit_s": 0.0,    # admission incl. monolithic prefill / chunk embeds
             "t_prefill_s": 0.0,  # chunked-prefill chunks
-            "t_decode_s": 0.0,   # decode chunks incl. the packed fetch
+            "t_decode_s": 0.0,   # decode chunks: dispatch, fetch, bookkeeping
+            "t_fetch_wait_s": 0.0,  # host blocked on decode chunks' packed fetches
         }
 
     # -- submission ----------------------------------------------------
@@ -548,12 +712,16 @@ class ContinuousBatchingEngine:
     ) -> int:
         """Queue a request; returns its id. ``prepared`` is a
         :meth:`prepare` result built off the engine thread."""
-        for name, value in (("seed", seed is not None), ("logprobs", logprobs),
-                            ("presence_penalty", presence_penalty),
-                            ("frequency_penalty", frequency_penalty),
-                            ("logit_bias", logit_bias)):
-            if value:
-                raise ValueError(_not_ported(name))
+        if seed is not None:
+            raise ValueError(SEED_NOT_PORTED)
+        if logit_bias:
+            if len(logit_bias) > self.sched.logit_bias_slots:
+                raise ValueError(f"logit_bias supports at most "
+                                 f"{self.sched.logit_bias_slots} entries")
+            vocab = self.config.decoder.vocab_size
+            # Out-of-vocabulary ids are inert, as in the JAX engine.
+            logit_bias = {int(k): float(v) for k, v in logit_bias.items()
+                          if 0 <= int(k) < vocab}
         if prepared is None:
             t_sub = time.perf_counter()
             prepared = self.prepare(prompt, images, system_prompt=system_prompt,
@@ -569,6 +737,10 @@ class ContinuousBatchingEngine:
             top_p=top_p,
             stop=stop,
             stop_token_ids=frozenset(int(t) for t in (stop_token_ids or [])),
+            logprobs=bool(logprobs),
+            presence_penalty=float(presence_penalty),
+            frequency_penalty=float(frequency_penalty),
+            logit_bias=logit_bias or None,
             stream_cb=stream_cb,
             detok=(IncrementalDetokenizer(self.tokenizer)
                    if (stop or stream_cb is not None) else None),
@@ -667,17 +839,69 @@ class ContinuousBatchingEngine:
     # -- helpers ---------------------------------------------------------
 
     def _put(self, x: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+        """Upload a host array. The tensor never aliases host state (on the
+        CPU ``torch.from_numpy(...).to(cpu)`` would), and on the card the
+        copy goes through pinned staging without blocking the host, so an
+        upload made while a pipelined chunk runs does not wait for it."""
+        staged = torch.from_numpy(np.ascontiguousarray(x))
+        staged = staged.pin_memory() if self.device.type == "cuda" else staged.clone()
+        return staged.to(self.device, non_blocking=True)
+
+    def _bias_rows(self, reqs: Sequence[ScheduledRequest]):
+        """[len(reqs), K] (ids, vals) host arrays of the requests' logit_bias
+        (ids = vocab pad unused entries)."""
+        ids = np.full((len(reqs), self.sched.logit_bias_slots),
+                      self.config.decoder.vocab_size, np.int64)
+        vals = np.zeros(ids.shape, np.float32)
+        for j, req in enumerate(reqs):
+            for jj, (tid, bias) in enumerate(sorted((req.logit_bias or {}).items())):
+                ids[j, jj], vals[j, jj] = tid, bias
+        return ids, vals
+
+    def _batch_bias(self, reqs: Sequence[ScheduledRequest]) -> dict:
+        """A prefill batch's bias arguments, or none when no request biases."""
+        if not any(r.logit_bias for r in reqs):
+            return {}
+        ids, vals = self._bias_rows(reqs)
+        return dict(bias_ids=self._put(ids), bias_vals=self._put(vals))
+
+    def _set_slot(self, slot: int, req: ScheduledRequest) -> None:
+        """A request's sampling options into its slot's host rows."""
+        self._temps[slot] = req.temperature
+        self._top_ps[slot] = req.top_p
+        self._pres[slot] = req.presence_penalty
+        self._freq[slot] = req.frequency_penalty
+        ids, vals = self._bias_rows([req])
+        self._bias_ids[slot], self._bias_vals[slot] = ids[0], vals[0]
 
     def _free_slots(self) -> List[int]:
         return [i for i, r in enumerate(self._slot_req) if r is None]
 
     def has_work(self) -> bool:
-        return bool(self._waiting) or any(r is not None for r in self._slot_req)
+        return (bool(self._waiting) or self._inflight is not None
+                or any(r is not None for r in self._slot_req))
 
     def _bucket(self, n: int) -> int:
         step = self.sched.prompt_bucket_step
         return max(step, -(-n // step) * step)
+
+    def _set_first_token(self, slot: int, req: ScheduledRequest, first: np.ndarray) -> None:
+        """Promote a prefilled request to RUNNING with its first token (a
+        row of a prefill program's packed [B, 2] result)."""
+        token = int(first[0])
+        req.state = RUNNING
+        req.slot = slot
+        req.output_ids = [token]
+        if req.logprobs:
+            req.output_logprobs.append(float(bits_f32(first[1:2])[0]))
+        req.first_token_at = req.first_token_at or time.monotonic()
+        self._slot_req[slot] = req
+        self._tokens[slot] = token
+        self._lengths[slot] = len(req.prompt_ids)
+        self.metrics["prefills"] += 1
+        self._dev = None  # the decode set grows; rebuild the chunk inputs
+        self._update_text(slot)  # may finish on a stop string
+        self._maybe_finish(slot)
 
     # -- admission -------------------------------------------------------
 
@@ -736,6 +960,8 @@ class ContinuousBatchingEngine:
             )
             embeds = splice_vision_embeddings(embeds, vision_tokens, self._put(sb), self._put(sp))
             self.metrics["chunk_embeds"] = self.metrics.get("chunk_embeds", 0) + 1
+        # The decode set is unchanged until a request's last chunk, so the
+        # device-resident decode inputs stay valid.
         for slot, (j, req) in zip(self._free_slots(), enumerate(reqs)):
             req.embeds = embeds[j]
             req.state = PREFILLING
@@ -743,8 +969,7 @@ class ContinuousBatchingEngine:
             req.prefill_pos = 0
             self._slot_req[slot] = req
             self._lengths[slot] = 0
-            self._temps[slot] = req.temperature
-            self._top_ps[slot] = req.top_p
+            self._set_slot(slot, req)
 
     def _run_prefill_chunk(self) -> None:
         """One decoder chunk for the lockstep group of PREFILLING requests
@@ -778,6 +1003,7 @@ class ContinuousBatchingEngine:
             self._put(plens), self._put(tables), self._put(slots), self._put(temps),
             self._put(np.array([r.top_p for _, r in group], np.float32)),
             self.generator, bool(np.any(temps > 0)), page_size=ps, kv_hi=kv_hi, q_offset=start,
+            **self._batch_bias([r for _, r in group]),
         )
         self.metrics["prefill_chunks"] += 1
         first_host = None
@@ -787,16 +1013,8 @@ class ContinuousBatchingEngine:
                 continue
             if first_host is None:
                 first_host = first.cpu().numpy()  # one fetch per chunk
-            token = int(first_host[j])
             req.embeds = None
-            req.state = RUNNING
-            req.output_ids = [token]
-            req.first_token_at = req.first_token_at or time.monotonic()
-            self._tokens[slot] = token
-            self._lengths[slot] = len(req.prompt_ids)
-            self.metrics["prefills"] += 1
-            self._update_text(slot)  # may finish on a stop string
-            self._maybe_finish(slot)
+            self._set_first_token(slot, req, first_host[j])
 
     def _admit_batch(self, reqs: List[ScheduledRequest]) -> None:
         """Prefill a batch in one dispatch and promote it to RUNNING."""
@@ -836,24 +1054,11 @@ class ContinuousBatchingEngine:
             self.params, self.config, self.paged, self._put(input_ids),
             self._put(seq_lens), self._put(slot_mapping.reshape(-1)),
             self._put(temps), self._put(np.array([r.top_p for r in reqs], np.float32)),
-            self.generator, bool(np.any(temps > 0)), **vision,
+            self.generator, bool(np.any(temps > 0)), **self._batch_bias(reqs), **vision,
         ).cpu().numpy()
-
         for j, req in enumerate(reqs):
-            slot = slots[j]
-            token = int(first[j])
-            req.state = RUNNING
-            req.slot = slot
-            req.output_ids = [token]
-            req.first_token_at = req.first_token_at or time.monotonic()
-            self._slot_req[slot] = req
-            self._tokens[slot] = token
-            self._lengths[slot] = len(req.prompt_ids)
-            self._temps[slot] = req.temperature
-            self._top_ps[slot] = req.top_p
-            self.metrics["prefills"] += 1
-            self._update_text(slot)  # may finish on a stop string
-            self._maybe_finish(slot)
+            self._set_slot(slots[j], req)
+            self._set_first_token(slots[j], req, first[j])
 
     # -- finishing -------------------------------------------------------
 
@@ -892,14 +1097,22 @@ class ContinuousBatchingEngine:
             req.final_text = req.text
         if req.detok is not None:
             self._emit_stream(req, final=True)
-        self.allocator.free(req.req_id)
+        if self._inflight is not None:
+            # The in-flight chunk may still write this request's pages;
+            # they go back to the pool when it lands (_drain_inflight).
+            self._deferred_free.append(req.req_id)
+        else:
+            self.allocator.free(req.req_id)
         self._finished[req.req_id] = req
         self._slot_req[slot] = None
         self._lengths[slot] = 0
+        self._dev = None  # the decode set changed
 
     def cancel(self, req_id: int) -> bool:
         """Abort a waiting or running request; it finishes 'cancelled'.
-        Returns False if the id is unknown or already done."""
+        Returns False if the id is unknown or already done. A running
+        request first lands the in-flight chunk, which may finish it (then
+        False) or other requests: the next :meth:`step` returns those."""
         for req in list(self._waiting):
             if req.req_id == req_id:
                 self._waiting.remove(req)
@@ -908,9 +1121,15 @@ class ContinuousBatchingEngine:
                 self._finished[req_id] = req
                 self._emit_stream(req, final=True)
                 return True
-        for slot, req in enumerate(self._slot_req):
+        for req in self._slot_req:
             if req is not None and req.req_id == req_id:
-                self._finish(slot, "cancelled")
+                if self._inflight is not None:
+                    # Land the chunk now, so the pages are freed now rather
+                    # than at a step a gone client may never drive.
+                    self._drain_inflight()
+                    if req.state == FINISHED:
+                        return False
+                self._finish(req.slot, "cancelled")
                 return True
         return False
 
@@ -918,7 +1137,8 @@ class ContinuousBatchingEngine:
         """Recompute preemption: the youngest request in a slot goes back to
         the head of the waiting queue with prompt := prompt + generated so
         far; its pages are freed. A PREFILLING victim restarts its prefill
-        (chunk progress and device embeddings dropped)."""
+        (chunk progress and device embeddings dropped). Never called with a
+        chunk in flight (its pages could still be written)."""
         candidates = [r for r in self._slot_req if r is not None]
         if not candidates:
             raise OutOfPages("no pages free and nothing to preempt")
@@ -938,29 +1158,7 @@ class ContinuousBatchingEngine:
         victim.preempted += 1
         self.metrics["preemptions"] += 1
         self._waiting.appendleft(victim)
-
-    # -- the step --------------------------------------------------------
-
-    def step(self) -> List[ScheduledRequest]:
-        """Admit, at most one chunked-prefill chunk, then one decode chunk
-        (speculative while enabled). Returns newly finished requests."""
-        before = set(self._finished)
-        t0 = time.perf_counter()
-        self._try_admit()
-        t1 = time.perf_counter()
-        self.metrics["t_admit_s"] += t1 - t0
-        self._run_prefill_chunk()
-        t2 = time.perf_counter()
-        self.metrics["t_prefill_s"] += t2 - t1
-        active = [i for i, r in enumerate(self._slot_req)
-                  if r is not None and r.state == RUNNING]
-        if active:
-            self._decode_chunk(active)
-            self.metrics["t_decode_s"] += time.perf_counter() - t2
-        if not self._spec_enabled and not self.has_work():
-            # Drained: give the next load a fresh speculation probe.
-            self._spec_enabled, self._spec_ewma, self._spec_low_streak = True, None, 0
-        return [self._finished[rid] for rid in set(self._finished) - before]
+        self._dev = None  # the decode set and tables changed
 
     def _update_spec_gate(self, emitted: int, chunk: int, n_active: int) -> None:
         """EWMA of emitted tokens per verify slot-iteration; 3 consecutive
@@ -982,54 +1180,268 @@ class ContinuousBatchingEngine:
             logger.info("speculation auto-disabled: %.2f tokens/slot-iter below the %.2f "
                         "break-even (re-probes when the engine drains)", self._spec_ewma, floor)
 
+    # -- the step --------------------------------------------------------
+
+    def _apply_chunk_results(self, flight: dict) -> None:
+        """Read one decode chunk's packed result and fold it into host state
+        (token append, EOS / stop / budget finishes, the spec gate). Shared
+        by the synchronous path and the pipelined drain."""
+        t0 = time.perf_counter()
+        packed = flight["fetch"].numpy()  # the chunk's one fetch
+        self.metrics["t_fetch_wait_s"] += time.perf_counter() - t0
+        active, chunk = flight["active"], flight["chunk"]
+        tokens_out, num_decoded = packed[:, :-1], packed[:, -1]
+        lps = None
+        if flight["use_lp"]:
+            w = (packed.shape[1] - 1) // 2
+            tokens_out, lps = packed[:, :w], bits_f32(packed[:, w:2 * w])
+        if flight["use_spec"]:
+            self.metrics["spec_emitted"] += int(num_decoded.sum())
+            # The gate reads rows still live at apply time only: rows that
+            # finished while this chunk was in flight emitted discards.
+            live_rows = [i for i in active if self._slot_req[i] is not None]
+            if live_rows:
+                self._update_spec_gate(int(num_decoded[live_rows].sum()), chunk, len(live_rows))
+        self.metrics["steps"] += 1
+        eos = self.config.special.eos_token_id
+        for i in active:
+            req = self._slot_req[i]
+            if req is None:  # finished while this chunk was in flight
+                continue
+            n = int(num_decoded[i])
+            self._lengths[i] += n
+            for t_idx, token in enumerate(tokens_out[i, :n].tolist()):
+                req.output_ids.append(token)
+                if req.logprobs and lps is not None:
+                    req.output_logprobs.append(float(lps[i, t_idx]))
+                self.metrics["generated_tokens"] += 1
+                if (token == eos or token in req.stop_token_ids
+                        or len(req.output_ids) >= req.max_new_tokens):
+                    break
+            self._tokens[i] = req.output_ids[-1]
+            self._update_text(i)  # may finish on a stop string
+            self._maybe_finish(i)
+
+    def _drain_inflight(self) -> None:
+        """Land the pipelined chunk, if any, and return the pages of the
+        requests that finished meanwhile. Runs before any admission,
+        preemption or rebuild of the chunk inputs from host state."""
+        flight, self._inflight = self._inflight, None
+        if flight is not None:
+            self._apply_chunk_results(flight)
+        for rid in self._deferred_free:
+            self.allocator.free(rid)
+        self._deferred_free.clear()
+
+    def step(self) -> List[ScheduledRequest]:
+        """Admit, at most one chunked-prefill chunk, then one decode chunk
+        (speculative while enabled, pipelined while event-free). Returns
+        the finished requests no earlier step returned."""
+        t0 = time.perf_counter()
+        if self._inflight is not None and self._waiting:
+            # Admission reuses freed slots and pages that the in-flight
+            # chunk may still write: land it first.
+            self._drain_inflight()
+        self._try_admit()
+        t1 = time.perf_counter()
+        self.metrics["t_admit_s"] += t1 - t0
+        self._run_prefill_chunk()
+        t2 = time.perf_counter()
+        self.metrics["t_prefill_s"] += t2 - t1
+        active = [i for i, r in enumerate(self._slot_req)
+                  if r is not None and r.state == RUNNING]
+        if active:
+            self._decode_chunk(active)
+            self.metrics["t_decode_s"] += time.perf_counter() - t2
+        elif self._inflight is not None:
+            # Every row of the in-flight chunk finished when the chunk
+            # before it landed: land it too, which returns their pages.
+            self._drain_inflight()
+        if not self._spec_enabled and not self.has_work():
+            # Drained: give the next load a fresh speculation probe.
+            self._spec_enabled, self._spec_ewma, self._spec_low_streak = True, None, 0
+        out = [r for rid, r in self._finished.items() if rid not in self._reported]
+        self._reported.update(r.req_id for r in out)
+        return out
+
     def _decode_chunk(self, active: List[int]) -> None:
+        """Choose the chunk's mode and depth, reserve its pages, and
+        dispatch it off the device-resident inputs (rebuilt on events
+        only); pipelined, it lands at the next step, else now."""
         s, chunk = self.sched.max_slots, self.sched.steps_per_sync
-        spec_k = self.sched.speculate_k if self._spec_enabled else 0
-        per_iter = spec_k + 1
         cap = self.sched.max_pages_per_seq * self.sched.page_size
+        live = [self._slot_req[i] for i in active]
+        spec_k = self.sched.speculate_k
+        # A logprobs request needs one logprob per token and a penalized one
+        # changes token j + 1's logits with token j: neither fits the
+        # verify's variable emission, so they decode plainly. The bias is
+        # position-independent and composes with the verify.
+        use_lp = any(r.logprobs for r in live)
+        use_pen = any(r.presence_penalty != 0.0 or r.frequency_penalty != 0.0 for r in live)
+        use_bias = any(bool(r.logit_bias) for r in live)
+        use_spec = spec_k > 0 and self._spec_enabled and not use_lp and not use_pen
+        per_iter = spec_k + 1 if use_spec else 1
+        # Deep chunks count iterations; a verify iteration emits up to
+        # per_iter tokens, so the depth scales down by it.
+        deep = max(chunk, self.sched.max_steps_per_sync // per_iter)
+        # Budgets are in tokens; with a chunk in flight the device is up to
+        # `ahead` tokens past the host's view.
+        remaining = min(r.max_new_tokens - len(r.output_ids) for r in live)
+        ahead = self._inflight["tokens"] if self._inflight is not None else 0
+        prefilling = any(r is not None and r.state == PREFILLING for r in self._slot_req)
+        # Streams, stop strings and stop ids need the host after every chunk
+        # (the device loop stops at EOS and the budget only).
+        event_free = (not self._waiting and not prefilling
+                      and not any(r.stream_cb is not None or r.stop or r.stop_token_ids
+                                  for r in live))
+        if deep > chunk and event_free and remaining - ahead >= deep * per_iter:
+            chunk = deep
+        # Logprobs, penalties and bias keep per-chunk host state (the
+        # unpacking, the counts, the bias rows): those chunks stay
+        # synchronous, as in the JAX engine.
+        pipeline_now = (self.sched.pipeline_decode and event_free
+                        and not (use_lp or use_pen or use_bias)
+                        and remaining - ahead >= chunk * per_iter)
+        mode = (use_spec, use_pen, use_bias)
+        mode_flip = self._dev is not None and self._dev["mode"] != mode
+        if self._inflight is not None and (not pipeline_now or self._dev is None or mode_flip):
+            # The pipeline breaks (an event, a mode change, or inputs to
+            # rebuild): land the in-flight chunk and go on from true state.
+            self._drain_inflight()
+            ahead = 0
+            active = [i for i in active if self._slot_req[i] is not None]
+        if mode_flip:
+            self._dev = None
+
         # Pass 1: reserve the chunk's pages per slot. The target is clamped
         # to the per-sequence capacity (submit clamps the token budget), so
-        # OutOfPages here always means pool pressure: preempt the youngest
-        # request and retry. Preemption may clear any slot, also one that
-        # already reserved, so the live set is re-read for pass 2.
+        # OutOfPages here always means pool pressure. With a chunk in flight
+        # the pool is drained and retried first (the chunk's pages must not
+        # be freed under it); then the youngest request is preempted.
+        # Preemption may clear any slot, so the live set is re-read after.
+        free_before = self.allocator.free_pages
         for i in active:
             req = self._slot_req[i]
             if req is None:  # preempted by an earlier iteration
                 continue
-            target = min(int(self._lengths[i]) + chunk * per_iter, cap)
+            target = min(int(self._lengths[i]) + ahead + chunk * per_iter, cap)
             while True:
                 try:
                     self.allocator.extend(req.req_id, target)
                     break
                 except OutOfPages:
+                    if self._inflight is not None:
+                        self._drain_inflight()
+                        ahead = 0
+                        pipeline_now = False
+                        # Rows reserved earlier in this pass looked `ahead`
+                        # past a position that is now true: trim them back.
+                        for j in active:
+                            if j == i:
+                                break
+                            rj = self._slot_req[j]
+                            if rj is not None:
+                                self.allocator.trim(
+                                    rj.req_id, min(int(self._lengths[j]) + chunk * per_iter, cap))
+                        self._dev = None  # tables may have shrunk
+                        if self._slot_req[i] is None:
+                            break  # this row finished in the drain
+                        target = min(int(self._lengths[i]) + chunk * per_iter, cap)
+                        continue
                     self._preempt_youngest()
                     if self._slot_req[i] is None:
                         break  # this row preempted itself
         active = [i for i in active if self._slot_req[i] is not None]
+        if self.allocator.free_pages != free_before:
+            if self._inflight is not None and self._dev is not None:
+                # Pages grew mid-pipeline: only the tables changed. The
+                # tokens / positions / budgets carry lives on the device
+                # and must not be rebuilt from the lagging host state.
+                self._dev["tables"] = self._put(self._tables(active))
+            else:
+                self._dev = None
         if not active:
             return
-        # Pass 2: device inputs from host state.
-        tables = np.zeros((s, self.sched.max_pages_per_seq), np.int32)
+
+        if self._dev is None:
+            self._dev = self._chunk_inputs(active, mode)
+            self.metrics["chunk_input_rebuilds"] += 1
+        dev = self._dev
+        common = dict(page_tables=dev["tables"], active=dev["active"],
+                      temperature=dev["temps"], top_p=dev["top_ps"],
+                      generator=self.generator, any_sampled=dev["any_sampled"],
+                      page_size=self.sched.page_size, num_steps=chunk,
+                      bias_ids=dev.get("bias_ids"), bias_vals=dev.get("bias_vals"))
+        if use_spec:
+            packed, carry = spec_decode_program(
+                self.params, self.config, self.paged, dev["buf"], dev["tokens"],
+                dev["positions"], dev["budgets"], dev["gen_start"], nucleus=dev["nucleus"],
+                spec_k=spec_k, **common,
+            )
+            self.metrics["spec_chunks"] += 1
+            self.metrics["spec_slot_iters"] += chunk * len(active)
+        else:
+            packed, carry = decode_program(
+                self.params, self.config, self.paged, dev["tokens"], dev["positions"],
+                dev["budgets"], with_logprobs=use_lp, presence=dev.get("pres"),
+                frequency=dev.get("freq"), counts=dev.get("counts"), **common,
+            )
+        # Chain the carry before the host's bookkeeping: an event there
+        # only resets self._dev.
+        dev["tokens"], dev["positions"], dev["budgets"] = carry
+        flight = dict(fetch=HostFetch(packed), active=list(active), chunk=chunk,
+                      use_lp=use_lp, use_spec=use_spec, tokens=chunk * per_iter)
+        if pipeline_now:
+            # Lookahead-1: this chunk runs while the previous one lands.
+            prev, self._inflight = self._inflight, flight
+            self.metrics["pipelined_chunks"] += 1
+            if prev is not None:
+                self._apply_chunk_results(prev)
+        else:
+            self._apply_chunk_results(flight)
+
+    def _tables(self, active: List[int]) -> np.ndarray:
+        """[S, max_pages_per_seq] page tables of the active slots (others
+        and padding -> the null page)."""
+        tables = np.zeros((self.sched.max_slots, self.sched.max_pages_per_seq), np.int32)
+        for i in active:
+            tables[i] = self.allocator.padded_table(self._slot_req[i].req_id)
+        return tables
+
+    def _chunk_inputs(self, active: List[int], mode) -> dict:
+        """The decode chunk's device inputs, built from host state."""
+        use_spec, use_pen, use_bias = mode
+        s = self.sched.max_slots
         positions = np.zeros(s, np.int64)
         budgets = np.zeros(s, np.int64)
         active_mask = np.zeros(s, bool)
         for i in active:
             req = self._slot_req[i]
-            tables[i] = self.allocator.padded_table(req.req_id)
             positions[i] = self._lengths[i]
             budgets[i] = req.max_new_tokens - len(req.output_ids)
             active_mask[i] = True
-        any_sampled = bool(np.any(self._temps[active] > 0))
-        common = dict(page_tables=self._put(tables), active=self._put(active_mask),
-                      budgets=self._put(budgets), temperature=self._put(self._temps),
-                      top_p=self._put(self._top_ps), generator=self.generator,
-                      any_sampled=any_sampled, page_size=self.sched.page_size,
-                      num_steps=chunk)
-        if spec_k:
-            # Generated history by logical position (the draft source),
-            # plus the sink column; rebuilt from host state every chunk.
-            # After a preemption gen_start is the grown prompt's length and
-            # the history holds only the tokens generated since.
+        dev = dict(tokens=self._put(self._tokens), positions=self._put(positions),
+                   budgets=self._put(budgets), tables=self._put(self._tables(active)),
+                   active=self._put(active_mask), temps=self._put(self._temps),
+                   top_ps=self._put(self._top_ps), mode=mode,
+                   any_sampled=bool(np.any(self._temps[active] > 0)),
+                   nucleus=bool(np.any(self._top_ps[active] < 1.0)))
+        if use_bias:
+            dev["bias_ids"], dev["bias_vals"] = self._put(self._bias_ids), self._put(self._bias_vals)
+        if use_pen:
+            # Counts over the generated tokens since the last (re)admission,
+            # as the JAX engine builds them.
+            counts = np.zeros((s, self.config.decoder.vocab_size), np.int32)
+            for i in active:
+                np.add.at(counts[i], np.asarray(self._slot_req[i].output_ids, np.int64), 1)
+            dev["counts"] = self._put(counts)
+            dev["pres"], dev["freq"] = self._put(self._pres), self._put(self._freq)
+        if use_spec:
+            # Generated history by logical position (the draft source), plus
+            # the sink column. After a preemption gen_start is the grown
+            # prompt's length and the history holds only the tokens
+            # generated since.
+            cap = self.sched.max_pages_per_seq * self.sched.page_size
             buf = np.zeros((s, cap + 1), np.int64)
             gen_start = np.zeros(s, np.int64)
             for i in active:
@@ -1038,36 +1450,8 @@ class ContinuousBatchingEngine:
                 gen_start[i] = plen
                 end = min(plen + len(req.output_ids), cap)
                 buf[i, plen:end] = req.output_ids[: end - plen]
-            packed = spec_decode_program(
-                self.params, self.config, self.paged, self._put(buf), self._put(self._tokens),
-                self._put(positions), self._put(gen_start),
-                nucleus=bool(np.any(self._top_ps[active] < 1.0)), spec_k=spec_k, **common,
-            ).cpu().numpy()  # the chunk's one host sync
-            self.metrics["spec_chunks"] += 1
-            self.metrics["spec_slot_iters"] += chunk * len(active)
-            emitted = int(packed[active, -1].sum())
-            self.metrics["spec_emitted"] += emitted
-            self._update_spec_gate(emitted, chunk, len(active))
-        else:
-            packed = decode_program(
-                self.params, self.config, self.paged, self._put(self._tokens),
-                self._put(positions), **common,
-            ).cpu().numpy()  # the chunk's one host sync
-        self.metrics["steps"] += 1
-        eos = self.config.special.eos_token_id
-        for i in active:
-            req = self._slot_req[i]
-            n = int(packed[i, -1])
-            self._lengths[i] += n
-            for token in packed[i, :n].tolist():
-                req.output_ids.append(token)
-                self.metrics["generated_tokens"] += 1
-                if (token == eos or token in req.stop_token_ids
-                        or len(req.output_ids) >= req.max_new_tokens):
-                    break
-            self._tokens[i] = req.output_ids[-1]
-            self._update_text(i)  # may finish on a stop string
-            self._maybe_finish(i)
+            dev["buf"], dev["gen_start"] = self._put(buf), self._put(gen_start)
+        return dev
 
     def run(self, max_steps: int = 10_000_000) -> None:
         steps = 0
@@ -1095,7 +1479,7 @@ class ContinuousBatchingEngine:
         stop: Optional[Sequence[str]] = None,
     ) -> List[str]:
         if seed is not None:
-            raise ValueError(_not_ported("seed"))
+            raise ValueError(SEED_NOT_PORTED)
         n = len(prompts)
         images_per_prompt = images_per_prompt or [[] for _ in range(n)]
         temps = np.broadcast_to(np.asarray(temperature, np.float32), (n,))
@@ -1121,6 +1505,7 @@ class ContinuousBatchingEngine:
             return None
         text = self.request_text(req_id)
         del self._finished[req_id]
+        self._reported.discard(req_id)
         return text
 
     def request_text(self, req_id: int) -> str:

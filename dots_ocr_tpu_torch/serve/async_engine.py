@@ -185,10 +185,14 @@ class EngineWorker:
             for rid, pending in list(self._futures.items()):
                 if pending is sub:
                     self.engine.cancel(rid)
-                    req = self.engine.finished_request(rid)
-                    if req is not None:
-                        self._resolve(req)
                     break
+            # cancel() lands the engine's in-flight decode chunk, which can
+            # finish other requests too: resolve every finished one (the
+            # engine may have no work left, so no step() would return them).
+            for rid in list(self._futures):
+                req = self.engine.finished_request(rid)
+                if req is not None:
+                    self._resolve(req)
 
     def _loop(self) -> None:
         while not self._stop.is_set():

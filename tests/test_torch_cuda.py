@@ -898,3 +898,57 @@ def test_w8a8_linear_on_card(cuda, rows):
     assert out.dtype == torch.bfloat16
     ulp = 2.0 ** (torch.floor(torch.log2(ref.abs() + 1e-30)) - 7)
     assert bool(((out.float().cpu() - ref).abs() <= ulp).all())
+
+
+@pytest.mark.cuda
+def test_pipelined_engine_matches_synchronous_on_card(cuda):
+    """A small engine on the card (the tiny decoder at head_dim 128 in bf16,
+    so that prefill runs kernel 1 and decode kernel 2; text prompts, so no
+    vision layer) gives the same greedy tokens with the lookahead pipeline
+    and deep chunks on (the defaults) as synchronous and shallow, and its
+    pipelined chunks are fetched through pinned host buffers, each guarded
+    by an event of its own."""
+    import dataclasses
+
+    from dots_ocr_tpu_torch.engine.scheduler import (
+        ContinuousBatchingEngine,
+        HostFetch,
+        SchedulerConfig,
+    )
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.ops.paged_attention import paged_attention_multiquery_bf16
+
+    tiny = DotsOCRConfig.tiny()
+    cfg = tiny.replace(decoder=dataclasses.replace(tiny.decoder, head_dim=128), dtype="bfloat16")
+    params = init_params(cfg, cuda, torch.Generator(device=cuda).manual_seed(0), scale=0.3)
+    sched = dict(num_pages=64, page_size=16, max_slots=4, max_pages_per_seq=8,
+                 prompt_bucket_step=32, steps_per_sync=2, max_steps_per_sync=8,
+                 repetition_min_repeats=0)
+    prompts = ["alpha beta", "gamma delta epsilon", "zeta"]
+    fetches = []
+    real_init = HostFetch.__init__
+
+    def spy(self, tensor):
+        real_init(self, tensor)
+        fetches.append((self.host.is_pinned(), self.event is not None))
+
+    outputs = {}
+    for pipeline in (False, True):
+        eng = ContinuousBatchingEngine(params, cfg, cuda, sched=SchedulerConfig(**{
+            **sched, "pipeline_decode": pipeline,
+            **({} if pipeline else {"max_steps_per_sync": 2})}))
+        HostFetch.__init__ = spy
+        paged_attention_multiquery_bf16.launches = 0
+        try:
+            ids = [eng.submit(p, temperature=0.0, max_new_tokens=40) for p in prompts]
+            eng.run()
+        finally:
+            HostFetch.__init__ = real_init
+        outputs[pipeline] = [eng.finished_request(i).output_ids for i in ids]
+        assert (eng.metrics["pipelined_chunks"] > 0) == pipeline
+        assert paged_attention_multiquery_bf16.launches > 0
+        assert eng.allocator.free_pages == sched["num_pages"] - 1
+    assert outputs[True] == outputs[False]
+    assert all(len(toks) == 40 for toks in outputs[True])
+    assert fetches and all(pinned and guarded for pinned, guarded in fetches)

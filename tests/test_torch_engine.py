@@ -3,7 +3,7 @@
 give identical greedy tokens; the port's copy of ``OpenAIServer`` serves
 its engine, long prompts through chunked prefill; the shipped serving
 flags (speculation, int8 weights, int8 KV) build engines that serve;
-unported features and flags fail loudly. The shipped options' token parity
+unported flags and ``seed`` fail loudly. The shipped options' token parity
 with the JAX engine is in ``test_torch_engine_parity.py``.
 """
 
@@ -88,11 +88,9 @@ def test_stop_strings_stream_and_cancel():
     assert not eng.has_work() and eng.allocator.free_pages == SCHED["num_pages"] - 1
 
 
-@pytest.mark.parametrize("kwargs", [{"seed": 3}, {"logprobs": True},
-                                    {"presence_penalty": 0.5}, {"frequency_penalty": 0.5},
-                                    {"logit_bias": {5: 1.0}}])
+@pytest.mark.parametrize("kwargs", [{"seed": 3}])
 def test_unported_features_raise(kwargs):
-    with pytest.raises(ValueError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="ROADMAP.md: seeded position-keyed sampling"):
         _engine().submit("hi", **kwargs)
 
 
@@ -239,12 +237,17 @@ def test_server_builds_windowed_engine_and_full_clears_it(monkeypatch):
 
 def test_spec_gate_turns_speculation_off_and_back_on():
     """Below the break-even for 3 chunks in a row, speculation stops for
-    the current load and re-probes once the engine drains."""
-    eng = _engine(speculate_k=2, spec_min_tokens_per_iter=10.0)
-    eng.generate_batch(["hello", "world"], temperature=0.0, max_new_tokens=40)
-    assert eng.metrics["spec_chunks"] == 3 and eng.metrics["spec_auto_disabled"] == 1
-    assert eng.metrics["steps"] > 3  # plain chunks after the gate closed
-    assert eng._spec_enabled  # drained: the next load probes again
+    the current load and re-probes once the engine drains. The gate reads
+    a chunk when it lands: synchronous, after the third verify chunk;
+    pipelined (the default), the fourth is already in flight then."""
+    for pipeline, verify_chunks in ((False, 3), (True, 4)):
+        eng = _engine(speculate_k=2, spec_min_tokens_per_iter=10.0, pipeline_decode=pipeline)
+        eng.generate_batch(["hello", "world"], temperature=0.0, max_new_tokens=60)
+        assert eng.metrics["spec_chunks"] == verify_chunks
+        assert eng.metrics["spec_auto_disabled"] == 1
+        assert eng.metrics["steps"] > verify_chunks  # plain chunks after the gate closed
+        assert (eng.metrics["pipelined_chunks"] > 0) == pipeline
+        assert eng._spec_enabled  # drained: the next load probes again
 
 
 def test_server_builds_cpu_engine_warms_up_and_refuses_missing_cuda():
