@@ -95,7 +95,29 @@ Phases, each fatal on failure (exit code != 0, no result line):
    finite, <= 0, and no verify chunk while the request decodes alone, where
    a plain request's does run), a logit_bias ban of the unbiased first
    token and a +100 boost, presence/frequency penalties (HTTP 200, no verify
-   step), and ``seed`` (HTTP 500 naming its ROADMAP item).
+   step), and ``seed`` (two requests with seed 1 at temperature 1 give the
+   same text, seed 2 another; the seeded draw kernel launches);
+15. the loader, the batch engine and the parser's local mode: random
+   flagship weights (full width and depth, from a seed) written as a
+   synthetic HF checkpoint (config.json + bf16 safetensors through
+   ``export_hf_state_dict``); ``DotsOCRParser(use_local=True, seed=...)``
+   loads it with ``InferenceEngine.from_pretrained`` on the card and parses
+   a 2-page PDF (written by this script) twice: byte-identical artifacts;
+   then the batched PDF path over a continuous engine on the same weights
+   (``engine=``), twice, byte-identical; flash and the draw kernel must
+   launch; load seconds and tok/s printed;
+16. the parser's server mode: the port's server with deploy/shipping.env's
+   flags and ``--weights`` (that checkpoint), the port's CLI
+   (``python -m dots_ocr_tpu_torch``) as subprocesses with ``--seed``: the
+   PDF and a PNG, each parsed twice serially (identical artifacts), then
+   the PDF with its pages co-batched (``--num_thread 2``: the share of
+   pages with the serial text is reported); flash, kernel 2 and the draw
+   kernel must launch; launches and per-page latency printed.
+
+The seeded draw kernel (``csrc/threefry_sample.cu``) is held in phase 3 to
+its plain version bit for bit (tokens and Gumbel noise, 20 repeats) at
+[64, 151,936] with a shared key and with per-row keys, with mixed
+temperatures and -inf entries, and at the [64, 256] nucleus pool.
 
 With the engine's defaults every serving phase pipelines its event-free
 decode chunks where the budgets allow (phase 11 must show pipelined
@@ -115,6 +137,7 @@ import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.error
@@ -229,9 +252,10 @@ PIPELINE_TOKENS, PIPELINE_TURNS = 256, ("a", "b", "b", "a")
 SHIPPED_WAVES = ((0.0, 32), (0.0, DRY_TOKENS))
 ADMIT_FREE_FRACTION = 0.05  # SchedulerConfig.admit_free_page_fraction
 # The bound: NVIDIA H100 SXM data sheet (dense, 700 W): HBM 3.35 TB/s,
-# 989 TFLOP/s bf16, 1,979 TOP/s int8.
+# 989 TFLOP/s bf16, 1,979 TOP/s int8, 67 TFLOP/s float32 outside the tensor
+# cores (the scalar rate the seeded draw is held to).
 HBM_BYTES_PER_S = 3.35e12
-PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12}
+PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
 REPS = 10
 # Calls per timed sample: a kernel's time is taken over back-to-back calls,
 # so that what is timed is the device's work rather than one call's host
@@ -901,9 +925,11 @@ def _counters():
         paged_attention_multiquery_int8,
         paged_attention_stacked,
     )
+    from dots_ocr_tpu_torch.ops.sampling import gumbel_argmax
     from dots_ocr_tpu_torch.ops.window_attention import window_attention
 
-    return {"flash_attention": (flash_attention, "launches"),
+    return {"gumbel_argmax": (gumbel_argmax, "launches"),
+            "flash_attention": (flash_attention, "launches"),
             "flash_attention (q_offset > 0)": (flash_attention, "offset_launches"),
             "paged_attention_multiquery": (paged_attention_multiquery_bf16, "launches"),
             "paged_attention_multiquery (nq > 1)": (paged_attention_multiquery_bf16,
@@ -1328,14 +1354,14 @@ def consistency_phase(engine, page, dev) -> None:
     paths = {}
     with torch.no_grad():
         for impl in ("kernel", "reference"):
-            logits, k, v = vlm_prefill(
+            logits, cache = vlm_prefill(
                 params, cfg, put(ids), put(np.arange(t)[None]), put(np.array([t])),
                 patches=put(packed.patches), rope_cos=cos, rope_sin=sin,
                 segment_ids=put(packed.segment_ids), attn_impl=impl, last_logit_only=True,
                 **scatter)
             paged = PagedKV.create(cfg.decoder, alloc.num_pages, PAGE_SIZE,
                                    cfg.torch_dtype, dev)
-            write_prefill_kv(paged, k, v, put(alloc.slot_mapping(0, 0, t)))
+            write_prefill_kv(paged, cache.k, cache.v, put(alloc.slot_mapping(0, 0, t)))
             paths[impl] = {"logits": [logits], "paged": paged}
         token = paths["kernel"]["logits"][0].argmax(-1)
         for step in range(steps):
@@ -1580,7 +1606,7 @@ def logit_options_probe(post, metrics, first) -> None:
     """Phase 14, on the server of deploy/shipping.env as written after phase
     13's pipelined wave (which must have pipelined): logprobs, logit_bias,
     penalties and seed over HTTP, each request alone on the engine."""
-    log("[14/14] the logit options over HTTP on the shipping.env server")
+    log("[14/16] the logit options over HTTP on the shipping.env server")
     text = chat_requests()[2][1]
 
     def ask(max_tokens, **options):
@@ -1631,11 +1657,366 @@ def logit_options_probe(post, metrics, first) -> None:
         f"verify launches {verify_before} -> {verify_after}")
     if after_pen["spec_chunks"] != before_pen["spec_chunks"] or verify_after != verify_before:
         raise AssertionError("phase 14: a penalized request ran verify steps")
-    status, data = post({**text, "temperature": 0.0, "max_tokens": 4, "seed": 1})
-    message = data.get("error", {}).get("message", "")
-    log(f"  seed: HTTP {status}, {message!r}")
-    if status != 500 or "seeded position-keyed sampling" not in message:
-        raise AssertionError(f"phase 14: seed -> HTTP {status} {data}")
+    # Sampled tokens of random weights are mostly ids the byte tokenizer
+    # decodes to nothing: the streams are compared by their logprobs.
+    def stream(seed):
+        data = ask(16, temperature=1.0, seed=seed, logprobs=True)
+        return [entry["logprob"] for entry in data["choices"][0]["logprobs"]["content"]]
+
+    launches = read_counts()["gumbel_argmax"]
+    seeded, other = [stream(1), stream(1)], stream(2)
+    draws = read_counts()["gumbel_argmax"] - launches
+    log(f"  seed 1 twice at temperature 1, logprobs {seeded[0][:4]} / {seeded[1][:4]}; seed 2: "
+        f"{other[:4]}; {draws} launches of the draw kernel")
+    if seeded[0] != seeded[1] or seeded[0] == other or draws < 1:
+        raise AssertionError("phase 14: seeded sampling over HTTP")
+
+
+# The seeded draw kernel's cases: the full vocabulary and the nucleus pool
+# at 64 rows (a 64-slot decode step). Per column the kernel does the 20
+# threefry rounds (add, rotate, xor), 5 key injections of 2-3 adds, the
+# counter and output xor, the uniform (shift, or, subtract, add, max), two
+# logf, the temperature's division, the add and the compare: counted as 90
+# scalar operations, at the card's float32 rate outside the tensor cores
+# (its integer operations issue at half that rate, so this bound is low).
+DRAW_OPS_PER_COLUMN = 90
+DRAW_REPEATS = 20
+
+
+def draw_cases(dev) -> dict:
+    """The fused seeded draw (csrc/threefry_sample.cu) against its plain
+    version: tokens and Gumbel noise bit for bit, DRAW_REPEATS repeated
+    calls bit-identical, then both timed in turns. No single PyTorch call
+    draws threefry Gumbel-max: no library time."""
+    import numpy as np
+    import torch
+
+    from dots_ocr_tpu_torch.engine.sampling import prng_key, split
+    from dots_ocr_tpu_torch.ops.sampling import gumbel_argmax, gumbel_argmax_reference, gumbel_noise
+
+    rng = np.random.RandomState(7)
+    vocab = 151936
+    temps = torch.from_numpy(rng.uniform(0.05, 1.5, MAX_SLOTS).astype(np.float32)).to(dev)
+    temps[::5] = 0.1  # the parser's default temperature
+    logits = torch.from_numpy((rng.randn(MAX_SLOTS, vocab) * 3).astype(np.float32)).to(dev)
+    masked = logits.clone()
+    masked[:, rng.rand(vocab) < 0.3] = float("-inf")
+    masked[3] = float("-inf")  # a row of only -inf: token 0
+    pool = torch.from_numpy(np.sort(rng.randn(MAX_SLOTS, 256).astype(np.float32) * 3,
+                                    axis=1)[:, ::-1].copy()).to(dev)
+    keep = torch.arange(256, device=dev)[None] < torch.from_numpy(
+        rng.randint(1, 257, MAX_SLOTS)).to(dev)[:, None]
+    pool = pool.masked_fill(~keep, float("-inf"))
+    shared, per_row = prng_key(11).to(dev), split(prng_key(12), MAX_SLOTS).to(dev)
+    cases = [
+        (f"draw [64, {vocab}] shared key, temperatures fused", logits, shared, temps),
+        (f"draw [64, {vocab}] per-row keys, temperatures fused", logits, per_row, temps),
+        (f"draw [64, {vocab}] per-row keys, mixed temperatures, 30% -inf, one -inf row",
+         masked, per_row, temps),
+        ("draw [64, 256] nucleus pool, per-row keys, -inf past each kept prefix",
+         pool, per_row, None),
+    ]
+    out = []
+    for name, x, keys, t in cases:
+        b, v = x.shape
+        noise = torch.empty_like(x)
+        got = gumbel_argmax(x, keys, t, noise_out=noise)
+        want = gumbel_argmax_reference(x, keys, t)
+        want_noise = gumbel_noise(keys, b, v)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            raise AssertionError(f"{name}: {bad} of {b} tokens differ from the plain version")
+        if not torch.equal(noise.view(torch.int32), want_noise.view(torch.int32)):
+            raise AssertionError(f"{name}: the Gumbel noise differs from the plain version")
+        if name.endswith("one -inf row") and int(got[3]) != 0:
+            raise AssertionError(f"{name}: the all -inf row drew {int(got[3])}, not 0")
+        same = sum(bool(torch.equal(gumbel_argmax(x, keys, t), got)) for _ in range(DRAW_REPEATS))
+        if same != DRAW_REPEATS:
+            raise AssertionError(f"{name}: {DRAW_REPEATS - same} repeated calls differ")
+        del noise, want_noise
+        times = time_in_turns({"ms": lambda: gumbel_argmax(x, keys, t),
+                               "plain_ms": lambda: gumbel_argmax_reference(x, keys, t)})
+        nbytes = x.numel() * 4 + b * 8 + (b * 4 if t is not None else 0) + keys.numel() * 4
+        work = bound(float(x.numel()) * DRAW_OPS_PER_COLUMN, nbytes, kind="fp32")
+        res = {"case": name, "max_abs_err": 0.0, "library_ms": None, **times, **work}
+        log(f"  {name}: tokens and noise bit-equal, {same} of {DRAW_REPEATS} repeats "
+            f"bit-identical; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, bound "
+            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+        out.append(res)
+    del logits, masked, pool
+    torch.cuda.empty_cache()
+    return {"gumbel_argmax": out}
+
+
+# Phases 15 and 16: the parser. Its seed (page i samples with SEED + i),
+# its page cap, and the PDF's page size in points (at the parser's 200 dpi:
+# 1,000 x 667 pixels, ~850 vision tokens a page).
+PARSE_SEED, PARSE_TOKENS, PARSE_MEDIA = 1234, 64, (360, 240)
+
+
+def _pdf_bytes(pages) -> bytes:
+    """A hand-built PDF (tests/test_ingest.py's writer, one content stream
+    a page): Helvetica text and a filled rectangle, PARSE_MEDIA points."""
+    import io
+    import zlib
+
+    n = len(pages)
+    objs = [b"<< /Type /Catalog /Pages 2 0 R >>",
+            b"<< /Type /Pages /Kids [" + b" ".join(f"{3 + 2 * i} 0 R".encode() for i in range(n))
+            + b"] /Count " + str(n).encode() + b" >>"]
+    font = 3 + 2 * n
+    for i, content in enumerate(pages):
+        stream = zlib.compress(content)
+        objs.append(b"<< /Type /Page /Parent 2 0 R /MediaBox [0 0 "
+                    + f"{PARSE_MEDIA[0]} {PARSE_MEDIA[1]}".encode()
+                    + b"] /Resources << /Font << /F1 " + str(font).encode()
+                    + b" 0 R >> >> /Contents " + str(4 + 2 * i).encode() + b" 0 R >>")
+        objs.append(b"<< /Length " + str(len(stream)).encode()
+                    + b" /Filter /FlateDecode >>\nstream\n" + stream + b"\nendstream")
+    objs.append(b"<< /Type /Font /Subtype /Type1 /BaseFont /Helvetica >>")
+    out = io.BytesIO()
+    out.write(b"%PDF-1.4\n")
+    offsets = []
+    for i, body in enumerate(objs, start=1):
+        offsets.append(out.tell())
+        out.write(f"{i} 0 obj\n".encode() + body + b"\nendobj\n")
+    xref_pos = out.tell()
+    out.write(f"xref\n0 {len(objs) + 1}\n".encode())
+    out.write(b"0000000000 65535 f \n")
+    for off in offsets:
+        out.write(f"{off:010d} 00000 n \n".encode())
+    out.write(f"trailer\n<< /Size {len(objs) + 1} /Root 1 0 R >>\nstartxref\n{xref_pos}\n"
+              f"%%EOF".encode())
+    return out.getvalue()
+
+
+def _write_inputs(workdir: str):
+    """The parser's inputs: a 2-page PDF and the repo's sample page PNG."""
+    pages = [
+        b"0.9 0.1 0.1 rg 20 180 100 40 re f\nBT /F1 24 Tf 0 0 0 rg 30 120 Td (Page one) Tj ET\n"
+        b"BT /F1 12 Tf 30 90 Td [(kerned) -200 (body text)] TJ ET\n",
+        b"0.1 0.1 0.9 rg 200 20 120 60 re f\nBT /F1 20 Tf 0 0 0 rg 30 150 Td (Second page) Tj ET\n"
+        b"BT /F1 10 Tf 30 120 Td (A table: 1 2 3) Tj ET\n",
+    ]
+    pdf = os.path.join(workdir, "doc.pdf")
+    with open(pdf, "wb") as f:
+        f.write(_pdf_bytes(pages))
+    return pdf, os.path.join(REPO, "demo/assets/sample_page.png")
+
+
+def _artifacts(out_dir: str) -> dict:
+    """{relative path: bytes} of a parse's artifacts (.jpg as pixels), then
+    the directory is removed: repeated parses write to the same path, which
+    the .jsonl manifest records."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    snap = {}
+    for root, _, files in os.walk(out_dir):
+        for name in sorted(files):
+            path = os.path.join(root, name)
+            rel = os.path.relpath(path, out_dir)
+            if name.endswith(".jpg"):
+                snap[rel] = np.asarray(Image.open(path)).tobytes()
+            else:
+                with open(path, "rb") as f:
+                    snap[rel] = f.read()
+    shutil.rmtree(out_dir)
+    return snap
+
+
+def _page_texts(snap: dict) -> dict:
+    """{page artifact stem: its .md text} of a parse (one .md a page)."""
+    return {k[:-3]: v for k, v in snap.items() if k.endswith(".md") and not k.endswith("_nohf.md")}
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+
+
+def local_parse_phase(dev, workdir: str) -> tuple:
+    """Phase 15: random flagship weights (full width and depth, from a seed)
+    written as a synthetic HF checkpoint (config.json + bf16 safetensors,
+    through export_hf_state_dict); the parser's local mode loads it
+    (InferenceEngine.from_pretrained on the card, via DOTS_OCR_WEIGHTS) and
+    parses the 2-page PDF with a seed, twice: byte-identical artifacts.
+    Then the batched PDF path over a continuous engine on the same weights
+    (engine=), twice. Returns (checkpoint dir, launches, numbers)."""
+    import torch
+
+    from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.models.loader import save_checkpoint
+    from dots_ocr_tpu_torch.parser import DotsOCRParser
+
+    ckpt = os.path.join(workdir, "ckpt")
+    config = DotsOCRConfig.flagship()
+    t0 = time.perf_counter()
+    params = init_params(config, dev, torch.Generator(device=dev).manual_seed(0))
+    save_checkpoint(ckpt, params, config, dtype=torch.bfloat16)
+    del params
+    _sync(dev)
+    size = sum(os.path.getsize(os.path.join(ckpt, f)) for f in os.listdir(ckpt))
+    write_s = time.perf_counter() - t0
+    log(f"  synthetic checkpoint: {size / 1e9:.2f} GB (config.json + bf16 safetensors) "
+        f"written in {write_s:.1f} s")
+    pdf, _ = _write_inputs(workdir)
+    os.environ["DOTS_OCR_WEIGHTS"] = ckpt
+    reset_counts()
+    t0 = time.perf_counter()
+    parser = DotsOCRParser(use_local=True, seed=PARSE_SEED, device=str(dev),
+                           max_completion_tokens=PARSE_TOKENS, output_dir=workdir)
+    _sync(dev)
+    load_s = time.perf_counter() - t0
+    engine = parser._engine
+    log(f"  InferenceEngine.from_pretrained on the card: {load_s:.1f} s, attn_impl "
+        f"{engine.attn_impl}, {engine.config.decoder.num_layers} decoder / "
+        f"{engine.config.vision.num_layers} vision layers")
+    snaps, stats = [], []
+    for run in range(2):
+        out = os.path.join(workdir, "local")
+        t0 = time.perf_counter()
+        results = parser.parse_file(pdf, output_dir=out)
+        wall = time.perf_counter() - t0
+        stats.append((wall, engine.last_stats))
+        snaps.append(_artifacts(out))
+        log(f"  local parse {run}: {len(results)} pages in {wall:.2f} s; last page "
+            f"{engine.last_stats.prompt_tokens} prompt / {engine.last_stats.vision_tokens} "
+            f"vision / {engine.last_stats.completion_tokens} completion tokens, "
+            f"{engine.last_stats.completion_tokens / engine.last_stats.decode_seconds:.1f} tok/s "
+            f"(prefill included)")
+    if snaps[0] != snaps[1] or len(_page_texts(snaps[0])) != 2:
+        raise AssertionError("phase 15: the two seeded local parses differ "
+                             f"({sorted(snaps[0])} / {sorted(snaps[1])})")
+    counts = read_counts()
+    log(f"  byte-identical artifacts ({len(snaps[0])} files); launches: flash "
+        f"{counts['flash_attention']}, draw {counts['gumbel_argmax']}")
+    for name in ("flash_attention", "gumbel_argmax"):
+        if counts[name] < 1:
+            raise AssertionError(f"phase 15: {name} was not launched by the local parse")
+    batch_counts = counts
+    cont = ContinuousBatchingEngine(
+        engine.params, engine.config, dev, tokenizer=engine.tokenizer,
+        sched=SchedulerConfig(num_pages=512, page_size=PAGE_SIZE, max_slots=8,
+                              max_pages_per_seq=MAX_SEQ_TOKENS // PAGE_SIZE,
+                              prefill_chunk_tokens=PREFILL_CHUNK))
+    reset_counts()
+    batched = []
+    for run in range(2):
+        out = os.path.join(workdir, "batched")
+        t0 = time.perf_counter()
+        DotsOCRParser(engine=cont, seed=PARSE_SEED, max_completion_tokens=PARSE_TOKENS,
+                      output_dir=workdir).parse_file(pdf, output_dir=out)
+        batched.append(_artifacts(out))
+        log(f"  batched PDF path (continuous engine, engine=) {run}: "
+            f"{time.perf_counter() - t0:.2f} s")
+    counts = read_counts()
+    if batched[0] != batched[1] or counts["gumbel_argmax"] < 1 or counts["flash_attention"] < 1:
+        raise AssertionError(f"phase 15: batched PDF parses differ or launched no kernel "
+                             f"({counts})")
+    log(f"  batched PDF path: byte-identical artifacts; launches: flash "
+        f"{counts['flash_attention']}, kernel 2 {counts['paged_attention_multiquery']}, draw "
+        f"{counts['gumbel_argmax']}")
+    del parser, engine, cont
+    _sync(dev)
+    return ckpt, batch_counts, {"checkpoint_gb": size / 1e9, "write_s": write_s,
+                                "load_s": load_s, "parse_s": [w for w, _ in stats],
+                                "tok_s": stats[-1][1].completion_tokens
+                                / stats[-1][1].decode_seconds}
+
+
+def server_parse_phase(dev, ckpt: str, workdir: str, env_flags) -> tuple:
+    """Phase 16: the port's server with deploy/shipping.env's flags and
+    --weights (the phase 15 checkpoint), in this process; the port's CLI
+    (python -m dots_ocr_tpu_torch) as subprocesses with --seed: the PDF and
+    the PNG parsed serially twice each (identical artifacts), then the PDF
+    with its pages co-batched (--num_thread 2; the share of pages whose text
+    equals the serial parse is reported, not asserted). Returns (launches,
+    numbers)."""
+    import torch
+    from aiohttp import web
+
+    from dots_ocr_tpu_torch.serve import server as torch_server
+    from dots_ocr_tpu_torch.serve.openai_server import OpenAIServer
+
+    args = torch_server.build_parser().parse_args([*env_flags, "--weights", ckpt,
+                                                   "--platform", str(dev)])
+    t0 = time.perf_counter()
+    engine = torch_server.build_engine(args)
+    _sync(dev)
+    log(f"  server engine from --weights in {time.perf_counter() - t0:.1f} s ({args.quantize} "
+        f"weights, {args.kv_cache_dtype} KV, speculate_k {engine.sched.speculate_k})")
+    pdf, png = _write_inputs(workdir)
+    port = _free_port()
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(OpenAIServer(engine, model_name="flagship-ckpt").build_app())
+    ready = threading.Event()
+
+    def serve():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(runner.setup())
+        loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", port).start())
+        ready.set()
+        loop.run_forever()
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    if not ready.wait(120):
+        raise RuntimeError("server did not start")
+
+    def cli(path, tag, threads=1):
+        out = os.path.join(workdir, "served")
+        engine.recent_timings.clear()
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "dots_ocr_tpu_torch", path, "--ip", "127.0.0.1",
+             "--port", str(port), "--seed", str(PARSE_SEED), "--output", out,
+             "--max_completion_tokens", str(PARSE_TOKENS), "--num_thread", str(threads)],
+            cwd=REPO, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+        if proc.returncode != 0:
+            raise AssertionError(f"phase 16: the CLI on {path} exited {proc.returncode}:\n"
+                                 f"{proc.stdout[-2000:]}\n{proc.stderr[-3000:]}")
+        pages = [t["total_ms"] for t in engine.recent_timings]
+        log(f"  CLI {tag}: {wall:.2f} s wall; per page (server, submit to finish) "
+            + ", ".join(f"{ms:.0f} ms" for ms in pages))
+        return _artifacts(out), pages
+
+    try:
+        reset_counts()
+        pdf_a, lat_a = cli(pdf, "cli_pdf_a")
+        pdf_b, _ = cli(pdf, "cli_pdf_b")
+        png_a, lat_png = cli(png, "cli_png_a")
+        png_b, _ = cli(png, "cli_png_b")
+        counts = read_counts()
+        cobatched, _ = cli(pdf, "cli_pdf_cobatched", threads=2)
+    finally:
+        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(timeout=120)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(timeout=60)
+    if pdf_a != pdf_b or png_a != png_b or len(_page_texts(pdf_a)) != 2:
+        raise AssertionError("phase 16: two serial seeded CLI parses gave different artifacts")
+    serial, cob = _page_texts(pdf_a), _page_texts(cobatched)
+    share = sum(serial[k] == cob.get(k) for k in serial) / len(serial)
+    log(f"  serial parses byte-identical (PDF: {len(pdf_a)} files, PNG: {len(png_a)}); "
+        f"co-batched (--num_thread 2): {share:.2f} of pages with the serial text; launches "
+        f"(serial runs): flash {counts['flash_attention']}, kernel 2 "
+        f"{counts['paged_attention_multiquery']} ({counts['paged_attention_multiquery (nq > 1)']} "
+        f"at nq = 3), draw {counts['gumbel_argmax']}")
+    for name in ("flash_attention", "paged_attention_multiquery", "gumbel_argmax"):
+        if counts[name] < 1:
+            raise AssertionError(f"phase 16: {name} was not launched by the served parses")
+    del engine
+    _sync(dev)
+    return counts, {"page_ms": lat_a, "png_ms": lat_png, "cobatched_same_text_share": share}
 
 
 def shipping_env() -> dict:
@@ -1667,7 +2048,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    log("[1/14] device")
+    log("[1/16] device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -1676,7 +2057,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {smi}")
 
-    log("[2/14] build the CUDA kernels")
+    log("[2/16] build the CUDA kernels")
     from dots_ocr_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
@@ -1686,12 +2067,13 @@ def main() -> int:
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3/14] kernels vs plain versions on {smi}")
+    log(f"[3/16] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
+    kernels.update(draw_cases(dev))
     tiny_call = tiny_call_phase(dev)
     w8a8_vision = w8a8_vision_phase(dev)
 
-    log(f"[4/14] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
+    log(f"[4/16] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
         f"{PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     shipped_replies = []
     engine, shipped, metrics, page = serve_phase(
@@ -1704,12 +2086,12 @@ def main() -> int:
         raise AssertionError(f"shipped path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[5/14] consistency, shipped path: kernel path vs plain path, page request")
+    log("[5/16] consistency, shipped path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[6/14] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
+    log(f"[6/16] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
         f"chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, full_quant, metrics, page = serve_phase(
         dev, FULL_QUANT_FLAGS, "int4", waves=FULL_QUANT_WAVES,
@@ -1724,24 +2106,24 @@ def main() -> int:
         raise AssertionError(f"int4 path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[7/14] consistency, fully quantized path: kernel path vs plain path, page request")
+    log("[7/16] consistency, fully quantized path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev, w8a8_vision=True)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[8/14] end to end, bf16 path (bf16 weights and KV, no speculation, one "
+    log(f"[8/16] end to end, bf16 path (bf16 weights and KV, no speculation, one "
         f"{PREFILL_LIMIT}-token prefill), full depth, on {smi}")
     engine, bf16_path, _, page = serve_phase(
         dev, BF16_FLAGS, "bf16", required=("flash_attention", "paged_attention_multiquery"))
     log("  consistency, bf16 path: kernel path vs plain path, page request")
     consistency_phase(engine, page, dev)
 
-    log(f"[9/14] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
+    log(f"[9/16] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
     decode_ms, decode_launches = decode_cost_phase(engine, dev)
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[10/14] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
+    log(f"[10/16] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
         f"speculation, chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, windowed, metrics, page = serve_phase(
         dev, WINDOWED_FLAGS, "windowed",
@@ -1757,7 +2139,7 @@ def main() -> int:
     env = shipping_env()
     env_flags = [item for key, flag in SHIPPING_KEYS.items() for item in (flag, env[key])]
     settings = ", ".join(f"{key}={env[key]}" for key in SHIPPING_KEYS)
-    log(f"[11/14] end to end, deploy/shipping.env as written ({settings}): flagship, random "
+    log(f"[11/16] end to end, deploy/shipping.env as written ({settings}): flagship, random "
         f"weights, waves (temperature, max_tokens) {SHIPPING_WAVES}, OpenAIServer on {smi}")
     engine, shipping, metrics, page = serve_phase(
         dev, [], "shipping.env", base_flags=env_flags, waves=SHIPPING_WAVES,
@@ -1778,11 +2160,11 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
-    log(f"[12/14] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
+    log(f"[12/16] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
         f"weights, OpenAIServer on {smi}")
     dry_launches, dry_metrics = dry_pool_phase(dev, shipped_replies[1])
 
-    log(f"[13/14] pipelined decode A/B at full width: deploy/shipping.env's geometry with "
+    log(f"[13/16] pipelined decode A/B at full width: deploy/shipping.env's geometry with "
         f"--speculate-k 0, {PIPELINE_TOKENS} tokens a request, on {smi}")
     pipeline_ab = pipeline_ab_phase(dev, env_flags)
     log(f"  [13] deploy/shipping.env as written (k = 2) with the defaults, {PIPELINE_TOKENS} "
@@ -1795,7 +2177,18 @@ def main() -> int:
     del engine
     torch.cuda.empty_cache()
 
+    with tempfile.TemporaryDirectory(prefix="dots_parse_") as workdir:
+        log(f"[15/16] the loader, the batch engine and the parser's local mode: a synthetic "
+            f"flagship checkpoint, a seeded 2-page PDF parse on {smi}")
+        ckpt, local_launches, local_numbers = local_parse_phase(dev, workdir)
+        log(f"[16/16] the parser's server mode: deploy/shipping.env's flags + --weights, the "
+            f"CLI with --seed on a PDF and a PNG, on {smi}")
+        served_launches, served_numbers = server_parse_phase(dev, ckpt, workdir, env_flags)
+
     sources = {
+        "gumbel_argmax": ("dots_ocr_tpu_torch/csrc/threefry_sample.cu",
+                          "none: fused by XLA into the sampling program "
+                          "(dots_ocr_tpu/engine/sampling.py:47 _categorical)", served_launches),
         "flash_attention": ("dots_ocr_tpu_torch/csrc/flash_attention.cu",
                             "dots_ocr_tpu/ops/flash_attention.py:330", shipped),
         "paged_attention_multiquery": ("dots_ocr_tpu_torch/csrc/paged_attention.cu",
@@ -1830,7 +2223,9 @@ def main() -> int:
     ], "launches_by_path": {"shipped": shipped, "int4": full_quant, "bf16": bf16_path,
                             "decode_steps": decode_launches, "windowed": windowed,
                             "shipping.env": shipping, "dry_pool": dry_launches,
-                            "shipping.env, pipelined": pipelined_k2},
+                            "shipping.env, pipelined": pipelined_k2,
+                            "local parse": local_launches, "served parse": served_launches},
+        "local_parse": local_numbers, "served_parse": served_numbers,
         "pipeline_ab": pipeline_ab,
         "dry_pool_preemptions": dry_metrics["preemptions"],
         "decode_step_ms": decode_ms, "w8a8_vision_linear_ms": w8a8_vision,

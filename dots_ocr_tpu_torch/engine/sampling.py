@@ -1,63 +1,97 @@
-"""Token sampling: greedy / temperature / top-p (port of
-``dots_ocr_tpu.engine.sampling``).
+"""Token sampling: greedy / temperature / top-p with seeded, position-keyed
+draws (port of ``dots_ocr_tpu.engine.sampling``).
 
-Temperature rows draw by Gumbel-max over the full vocabulary, with the
-noise from a ``torch.Generator``. Top-p rows build the nucleus over an exact
-``torch.topk`` pool of NUCLEUS_TOP_K candidates, normalized by the true
-full-vocab logsumexp. The generator gives other numbers than JAX's keys
-from the same seed, so only greedy streams match the JAX package token for
-token; seeded, position-keyed sampling is not ported yet. The speculative
-verify's acceptance and corrective draws (:func:`spec_accept`) use the same
-pool and generator.
+Every draw is ``jax.random``'s, bit for bit (``jax_threefry_partitionable=
+True``): keys are uint32 pairs (held in int64 tensors), ``prng_key``,
+``split`` and ``fold_in`` run threefry2x32 as JAX does, and categorical
+draws are Gumbel-max over the same bits (``ops/sampling.py``: the fused
+draw kernel on the card, its plain version on the CPU). So a seeded
+request samples the same tokens as in the JAX package, and the engine's
+position-keyed chains (:func:`fold_positions`) make the draw for position
+q ``fold_in(request_key, q)`` whatever is co-batched, chunked, speculated
+or preempted. The one difference left is XLA:CPU's ``log``, which can
+differ from torch's by an ulp: Gumbel noise agrees to ~1e-6, and a token
+can flip only at a near-tie of that size.
 
-The generator is stateful: every step draws for all rows, also for rows
-whose tokens the host discards. A pipelined engine dispatches a chunk
-before it has read whether the chunk before finished a row, and that
-extra chunk draws too, so unseeded sampled streams (temperature > 0) may
-differ from a synchronous engine's. Greedy streams draw nothing and do
-not.
+Top-p rows build the nucleus over an exact ``torch.topk`` pool of
+NUCLEUS_TOP_K candidates, normalized by the true full-vocab logsumexp (the
+JAX package's ``approx_max_k`` is exact top-k on the CPU). The speculative
+verify's acceptance uniforms and corrective draws (:func:`spec_accept`)
+use the same keys as the JAX verify.
 """
 
 from __future__ import annotations
 
+from typing import Optional, Union
+
 import torch
+
+from dots_ocr_tpu_torch.ops.sampling import (
+    MASK32,
+    bits_to_gumbel,
+    bits_to_uniform,
+    gumbel_argmax,
+    random_bits,
+    threefry2x32,
+)
 
 NUCLEUS_TOP_K = 256
 
 
-def _gumbel_argmax(logits: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32)
-    gumbel = -torch.log(-torch.log(u.clamp(1e-20, 1.0 - 1e-7)))
-    return torch.argmax(logits + gumbel, dim=-1)
+def prng_key(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Tensor:
+    """``jax.random.PRNGKey(seed)`` with 64-bit types off: the seed wraps
+    to 32 bits (2^32 + 5 -> 5, -1 -> 0xFFFFFFFF) and the key is
+    (0, seed mod 2^32). Returns [2] int64."""
+    return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64, device=device)
 
 
-def sample_logits(
-    logits: torch.Tensor,
-    temperature: torch.Tensor,
-    top_p: torch.Tensor,
-    generator: torch.Generator,
-    any_sampled: bool,
-) -> torch.Tensor:
-    """Next tokens [B] int64 from logits [B, V] float32.
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """``jax.random.split(key, num)`` -> [num, 2]: subkey i is threefry of
+    the counter (0, i) (the partitionable split, equal to fold_in(key, i))."""
+    idx = torch.arange(num, dtype=torch.int64, device=key.device)
+    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(idx), idx)
+    return torch.stack([y0, y1], dim=-1)
 
-    temperature/top_p: [B]; temperature <= 0 is greedy. ``any_sampled`` is
-    the host's knowledge of whether any row samples: an all-greedy batch
-    (the OCR/layout default) draws no noise and needs no host sync.
-    """
-    logits = logits.to(torch.float32)
-    greedy = torch.argmax(logits, dim=-1)
-    if not any_sampled:
-        return greedy
-    safe_t = torch.where(temperature > 0, temperature, torch.ones_like(temperature))
-    scaled = logits / safe_t[:, None]
-    # Keep tokens while the mass before them is < top_p (the first always).
-    top_vals, top_idx, keep = nucleus_pool(scaled, top_p)
-    pick = _gumbel_argmax(top_vals.masked_fill(~keep, float("-inf")), generator)
-    token_k = torch.gather(top_idx, 1, pick[:, None])[:, 0]
-    token_full = _gumbel_argmax(scaled, generator)
-    sampled = torch.where(top_p < 1.0, token_k, token_full)
-    return torch.where(temperature > 0, sampled, greedy)
+
+def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
+    """``jax.random.fold_in`` on keys [..., 2] with data (an int, or an
+    integer tensor broadcasting against keys[..., 0]) taken mod 2^32."""
+    data = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & MASK32
+    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data), data)
+    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
+
+
+def uniform(keys: torch.Tensor, n: int, minval: float = 0.0) -> torch.Tensor:
+    """``jax.random.uniform(key, (n,), minval=minval)`` per key: keys
+    [..., 2] -> [..., n] float32."""
+    return bits_to_uniform(random_bits(keys, n), minval)
+
+
+def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
+    """``jax.random.gumbel(key, (n,))`` per key: [..., 2] -> [..., n]."""
+    return bits_to_gumbel(random_bits(keys, n))
+
+
+def categorical(keys: torch.Tensor, logits: torch.Tensor,
+                temperature: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Gumbel-max draw over the last axis of logits [B, V]: ``keys`` is ONE
+    key [2] shared by all rows (``jax.random.categorical(key, logits)``) or
+    per-row keys [B, 2] (its ``vmap``). ``temperature`` [B] divides each
+    row first (fused into the draw). Returns [B] int64."""
+    return gumbel_argmax(logits.contiguous(), keys, temperature)
+
+
+def fold_positions(slot_keys: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Per-row sampling keys: each slot's key [S, 2] folded with the
+    absolute position [S] of the token being emitted. The draw for position
+    q is ``fold_in(slot_key, q)`` whatever else runs, so a request's
+    sampled stream is reproducible under continuous batching."""
+    return fold_in(slot_keys, positions)
+
+
+def _subkeys(rng: torch.Tensor, tag: int) -> torch.Tensor:
+    """A tagged child key; one key [2] or rows [B, 2]."""
+    return fold_in(rng, tag)
 
 
 def nucleus_pool(scaled: torch.Tensor, top_p: torch.Tensor):
@@ -73,12 +107,60 @@ def nucleus_pool(scaled: torch.Tensor, top_p: torch.Tensor):
     return top_vals, top_idx, keep
 
 
+def _rows(x, b: int, device) -> torch.Tensor:
+    x = torch.as_tensor(x, dtype=torch.float32, device=device)
+    return x.expand(b) if x.dim() == 0 else x
+
+
+def sample_logits(
+    rng: torch.Tensor,
+    logits: torch.Tensor,
+    temperature,
+    top_p,
+    nucleus: bool = True,
+    any_sampled: Optional[bool] = None,
+) -> torch.Tensor:
+    """Next tokens [B] int64 from logits [B, V]; temperature / top_p [B]
+    (or scalars); temperature <= 0 is greedy.
+
+    ``rng`` is ONE key [2] (the batch engine's shared draw) or per-row keys
+    [B, 2] (:func:`fold_positions`: the serving engine's per-request
+    chains). ``nucleus`` is the JAX package's static flag: with it, top_p <
+    1 rows draw from the pool under ``fold_in(rng, 0)`` and the others from
+    the full vocabulary under ``fold_in(rng, 1)``; without it, every row
+    draws from the full vocabulary under ``rng`` itself. ``any_sampled`` is
+    the host's knowledge of whether any row samples (None: read it from
+    ``temperature``): an all-greedy batch draws nothing.
+    """
+    logits = logits.to(torch.float32)
+    b = logits.shape[0]
+    temperature = _rows(temperature, b, logits.device)
+    top_p = _rows(top_p, b, logits.device)
+    greedy = torch.argmax(logits, dim=-1)
+    if any_sampled is None:
+        any_sampled = bool((temperature > 0).any())
+    if not any_sampled:
+        return greedy
+    safe_t = torch.where(temperature > 0, temperature, torch.ones_like(temperature))
+    if nucleus:
+        scaled = logits / safe_t[:, None]
+        # Keep tokens while the mass before them is < top_p (the first always).
+        top_vals, top_idx, keep = nucleus_pool(scaled, top_p)
+        pick = categorical(_subkeys(rng, 0), top_vals.masked_fill(~keep, float("-inf")))
+        token_k = torch.gather(top_idx, 1, pick[:, None])[:, 0]
+        token_full = categorical(_subkeys(rng, 1), scaled)
+        sampled = torch.where(top_p < 1.0, token_k, token_full)
+    else:
+        sampled = categorical(rng, logits, safe_t)
+    return torch.where(temperature > 0, sampled, greedy)
+
+
 def spec_accept(
     logits: torch.Tensor,
     x_all: torch.Tensor,
     temperature: torch.Tensor,
     top_p: torch.Tensor,
-    generator: torch.Generator,
+    it_keys: torch.Tensor,
     any_sampled: bool,
     nucleus: bool,
 ):
@@ -86,13 +168,15 @@ def spec_accept(
     ``dots_ocr_tpu.engine.scheduler.spec_decode_program``).
 
     logits [S, nq, V] float32 at the verified positions; x_all [S, nq] the
-    current token then the nq - 1 drafts. Greedy rows accept the leading
-    drafts that argmax reproduces. Sampled rows use exact delta-proposal
-    rejection: draft d at column j is accepted with probability p_j(d)
-    (the nucleus-truncated, renormalized p_j for rows with top_p < 1 when
-    ``nucleus``), and on a rejection the corrective token is drawn from p_j
-    with d masked, so the emitted stream has the plain sampler's
-    distribution. Draws come from ``generator``.
+    current token then the nq - 1 drafts; it_keys [S, 2] the rows' keys
+    folded at this iteration's first emitted position. Greedy rows accept
+    the leading drafts that argmax reproduces. Sampled rows use exact
+    delta-proposal rejection: draft d at column j is accepted with
+    probability p_j(d) (the nucleus-truncated, renormalized p_j for rows
+    with top_p < 1 when ``nucleus``), against uniforms under
+    ``fold_in(it_key, 0)``; on a rejection the corrective token is drawn
+    from p_j with d masked, under ``fold_in(it_key, 1)``, so the emitted
+    stream has the plain sampler's distribution.
 
     Returns (a [S] accepted drafts, corrective [S] token at column a).
     """
@@ -100,12 +184,13 @@ def spec_accept(
     rows = torch.arange(s, device=logits.device)
     drafts = x_all[:, 1:]
     greedy = temperature <= 0
+    r_cor = it_keys  # an all-greedy verify draws nothing
     acc = logits[:, : nq - 1].argmax(dim=-1) == drafts
     kept_vals = top_idx = None
     if any_sampled:
+        r_acc, r_cor = fold_in(it_keys, 0), fold_in(it_keys, 1)
         scaled = logits / temperature.clamp_min(1e-6)[:, None, None]
-        log_u = torch.log(torch.rand((s, nq - 1), generator=generator, device=logits.device)
-                          .clamp_min(1e-20))
+        log_u = torch.log(uniform(r_acc, nq - 1, minval=1e-20))
         logp = torch.log_softmax(scaled[:, : nq - 1], dim=-1)
         acc_sampled = log_u < logp.gather(2, drafts[..., None])[..., 0]
         if nucleus:
@@ -124,11 +209,12 @@ def spec_accept(
     d_a = x_all[rows, (a + 1).clamp_max(nq - 1)]
     la = logits[rows, a]
     la[rows, d_a] += torch.where(rejected, -1e30, 0.0)
-    corrective = sample_logits(la, temperature, torch.ones_like(top_p), generator, any_sampled)
+    corrective = sample_logits(r_cor, la, temperature, torch.ones_like(top_p),
+                               nucleus=False, any_sampled=any_sampled)
     if kept_vals is not None:
         kv_a, ti_a = kept_vals[rows, a], top_idx[rows, a]
-        kv_a = kv_a.masked_fill((ti_a == d_a[:, None]) & rejected[:, None], float("-inf"))
-        pick = _gumbel_argmax(kv_a, generator)
+        kv_a = kv_a + torch.where((ti_a == d_a[:, None]) & rejected[:, None], -1e30, 0.0)
+        pick = categorical(r_cor, kv_a)
         corr_nuc = ti_a.gather(1, pick[:, None])[:, 0]
         corrective = torch.where((top_p < 1.0) & ~greedy, corr_nuc, corrective)
     return a, corrective

@@ -30,10 +30,15 @@ dispatched off the carry before chunk N's packed result is read, and that
 result travels to the host through a pinned buffer guarded by an event of
 its own, so reading it never waits for chunk N+1.
 
-Requests may ask for logprobs (the chosen token's log-probability),
-presence/frequency penalties (vLLM semantics, over a [S, V] counts carry)
-and ``logit_bias``; ``seed`` is not ported yet (``submit`` raises naming
-the ROADMAP item). KV pools are bf16 or int8 (``kv_cache_dtype``); weights
+Sampling is seeded and position-keyed, as in the JAX engine: each request
+carries a key, ``PRNGKey(seed)`` for a seeded request and else a split of
+the engine's chain (started at ``PRNGKey(0)``), and the draw for the token
+at position q folds q into it (``sampling.fold_positions``), so a request's
+sampled stream does not depend on what it is co-batched with, on chunk
+boundaries, on speculation or on a preemption's replay. Requests may also
+ask for logprobs (the chosen token's log-probability), presence/frequency
+penalties (vLLM semantics, over a [S, V] counts carry) and
+``logit_bias``. KV pools are bf16 or int8 (``kv_cache_dtype``); weights
 may be int8 (``models/quantize.py``). Admission is page-aware (free-page
 watermark); a pool that runs dry mid-decode preempts the youngest request
 (recompute preemption: it re-queues with its generated tokens appended to
@@ -67,7 +72,13 @@ from dots_ocr_tpu_torch.engine.kv_cache import (
     write_prefill_kv,
 )
 from dots_ocr_tpu_torch.engine.request import prepare_request
-from dots_ocr_tpu_torch.engine.sampling import sample_logits, spec_accept
+from dots_ocr_tpu_torch.engine.sampling import (
+    fold_positions,
+    prng_key,
+    sample_logits,
+    spec_accept,
+    split,
+)
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.decoder import (
     decoder_decode_step_paged,
@@ -87,10 +98,6 @@ from dots_ocr_tpu_torch.models.vlm import (
 
 logger = logging.getLogger(__name__)
 
-SEED_NOT_PORTED = ("seed is not supported by the PyTorch port yet "
-                   "(ROADMAP.md: seeded position-keyed sampling)")
-
-
 def add_logit_bias(logits: torch.Tensor, bias_ids: torch.Tensor,
                    bias_vals: torch.Tensor) -> torch.Tensor:
     """OpenAI ``logit_bias``, in place: each row's (token id, bias) pairs
@@ -103,6 +110,13 @@ def add_logit_bias(logits: torch.Tensor, bias_ids: torch.Tensor,
     out_shape = logits.shape[:-1] + (bias_ids.shape[1],)
     return logits.scatter_add_(-1, bias_ids.clamp_max(v - 1).view(shape).expand(out_shape),
                                vals.view(shape).expand(out_shape))
+
+
+def step_keys(keys: torch.Tensor, positions: torch.Tensor, any_sampled: bool) -> torch.Tensor:
+    """The rows' draw keys for tokens emitted at ``positions``
+    (``fold_positions``); an all-greedy step draws nothing, so on the card
+    it skips the key derivation's eager int64 ops."""
+    return fold_positions(keys, positions) if any_sampled else keys
 
 
 def f32_bits(x: torch.Tensor) -> torch.Tensor:
@@ -160,7 +174,7 @@ def prefill_program(
     slot_mapping: torch.Tensor,
     temperature: torch.Tensor,
     top_p: torch.Tensor,
-    generator: torch.Generator,
+    sample_keys: torch.Tensor,
     any_sampled: bool,
     bias_ids: Optional[torch.Tensor] = None,
     bias_vals: Optional[torch.Tensor] = None,
@@ -173,8 +187,10 @@ def prefill_program(
     """Prefill one batch into the paged cache (in place) and sample each
     row's first token (``logit_bias`` applied). input_ids [B, T]; seq_lens
     [B]; slot_mapping [B*T] (-1 = padding). 2D-RoPE tables are computed on
-    the device from ``pos2d`` [T_vis, 2]. Returns [B, 2] int64 on the
-    device: each first token and its logprob bits (:func:`f32_bits`)."""
+    the device from ``pos2d`` [T_vis, 2]; sample_keys [B, 2] the requests'
+    keys, folded at the first token's position (seq_lens). Returns [B, 2]
+    int64 on the device: each first token and its logprob bits
+    (:func:`f32_bits`)."""
     b, t = input_ids.shape
     rope_cos = rope_sin = None
     if pos2d is not None:
@@ -182,16 +198,18 @@ def prefill_program(
             pos2d, config.vision.head_dim, config.vision.rope_theta
         )
     positions = torch.arange(t, device=input_ids.device).expand(b, t)
-    logits, k, v = vlm_prefill(
+    logits, cache = vlm_prefill(
         params, config, input_ids, positions, seq_lens, patches=patches,
         rope_cos=rope_cos, rope_sin=rope_sin, segment_ids=segment_ids,
         scatter_batch=scatter_batch, scatter_pos=scatter_pos,
         last_logit_only=True,
     )
-    write_prefill_kv(paged, k, v, slot_mapping)
+    write_prefill_kv(paged, cache.k, cache.v, slot_mapping)
     if bias_ids is not None:
         add_logit_bias(logits, bias_ids, bias_vals)
-    first = sample_logits(logits, temperature, top_p, generator, any_sampled)
+    # Prefill always runs the nucleus sampler, as the JAX engine does.
+    first = sample_logits(step_keys(sample_keys, seq_lens, any_sampled), logits, temperature,
+                          top_p, nucleus=True, any_sampled=any_sampled)
     return _pack_first_with_logprob(first, logits)
 
 
@@ -206,8 +224,9 @@ def decode_program(
     active: torch.Tensor,
     temperature: torch.Tensor,
     top_p: torch.Tensor,
-    generator: torch.Generator,
+    slot_keys: torch.Tensor,
     any_sampled: bool,
+    nucleus: bool,
     page_size: int,
     num_steps: int,
     with_logprobs: bool = False,
@@ -224,7 +243,9 @@ def decode_program(
     page_tables [S, max_pages] int32 must cover positions + num_steps;
     active [S] bool. A row stops at EOS or at its budget; stopped and
     inactive rows write the null page with length 0 (the kernel returns
-    zeros for them).
+    zeros for them). slot_keys [S, 2]: the token sampled at position q
+    draws under ``fold_in(slot_key, q)``; ``nucleus`` is the sampler's
+    static flag (:func:`sampling.sample_logits`).
 
     Options, each applied before sampling in the JAX program's order:
     ``bias_ids``/``bias_vals`` [S, K] (:func:`add_logit_bias`); ``counts``
@@ -268,7 +289,8 @@ def decode_program(
         if counts is not None:
             logits = (logits - presence[:, None] * (counts > 0)
                       - frequency[:, None] * counts.to(torch.float32))
-        nxt = sample_logits(logits, temperature, top_p, generator, any_sampled)
+        nxt = sample_logits(step_keys(slot_keys, pos + 1, any_sampled), logits, temperature,
+                            top_p, nucleus=nucleus, any_sampled=any_sampled)
         tokens_out[:, i] = torch.where(live, nxt, pad)
         if lp_out is not None:
             lp_out[:, i] = torch.where(live, token_logprob(logits, nxt), 0.0)
@@ -303,7 +325,7 @@ def prefill_extend_program(
     slots: torch.Tensor,
     temperature: torch.Tensor,
     top_p: torch.Tensor,
-    generator: torch.Generator,
+    sample_keys: torch.Tensor,
     any_sampled: bool,
     page_size: int,
     kv_hi: int,
@@ -332,7 +354,8 @@ def prefill_extend_program(
     logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
     if bias_ids is not None:
         add_logit_bias(logits, bias_ids, bias_vals)
-    first = sample_logits(logits, temperature, top_p, generator, any_sampled)
+    first = sample_logits(step_keys(sample_keys, prompt_len, any_sampled), logits, temperature,
+                          top_p, nucleus=True, any_sampled=any_sampled)
     return _pack_first_with_logprob(first, logits)
 
 
@@ -349,7 +372,7 @@ def spec_decode_program(
     active: torch.Tensor,
     temperature: torch.Tensor,
     top_p: torch.Tensor,
-    generator: torch.Generator,
+    slot_keys: torch.Tensor,
     any_sampled: bool,
     nucleus: bool,
     page_size: int,
@@ -422,8 +445,10 @@ def spec_decode_program(
         logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
         if bias_ids is not None:
             add_logit_bias(logits, bias_ids, bias_vals)
-        a, corrective = spec_accept(logits, x_all, temperature, top_p, generator,
-                                    any_sampled, nucleus)
+        # Keys folded at this iteration's first emitted position (pos + 1).
+        a, corrective = spec_accept(logits, x_all, temperature, top_p,
+                                    step_keys(slot_keys, pos + 1, any_sampled), any_sampled,
+                                    nucleus)
 
         y = torch.cat([x_all[:, 1:], torch.full_like(x_all[:, :1], pad)], dim=1)
         y[rows, a] = corrective
@@ -524,6 +549,10 @@ class ScheduledRequest:
     finished_at: Optional[float] = None
     stop: List[str] = dataclasses.field(default_factory=list)
     stop_token_ids: frozenset = frozenset()
+    # Sampling key ([2] int64 uint32 words): PRNGKey(seed) for a seeded
+    # request, else a split of the engine's chain. Fixed at submit, so a
+    # preempted request replays its sampled stream.
+    sample_key: Any = None
     # OpenAI logprobs: each generated token's log-probability, aligned with
     # prior_output + output_ids.
     logprobs: bool = False
@@ -619,9 +648,9 @@ class ContinuousBatchingEngine:
                 self.sched.page_size,
             )
         self.default_max_new_tokens = default_max_new_tokens
-        # Sampled rows draw from one engine-wide generator; per-request
-        # seeded streams are not ported yet (submit rejects ``seed``).
-        self.generator = torch.Generator(device=self.device).manual_seed(0)
+        # The chain that keys unseeded requests (host-side, as the JAX
+        # engine's self._rng).
+        self._rng = prng_key(0)
         if self.sched.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype {self.sched.kv_cache_dtype!r} not in (bf16, int8)")
         self.paged = PagedKV.create(
@@ -645,6 +674,8 @@ class ContinuousBatchingEngine:
         vocab, kb = config.decoder.vocab_size, self.sched.logit_bias_slots
         self._bias_ids = np.full((s, kb), vocab, np.int64)  # vocab = padding
         self._bias_vals = np.zeros((s, kb), np.float32)
+        # Per-slot sampling keys (each request's sample_key).
+        self._slot_keys = np.zeros((s, 2), np.int64)
         self._waiting: Deque[ScheduledRequest] = deque()
         self._finished: Dict[int, ScheduledRequest] = {}
         # Finished ids that step() has returned: a finish that lands outside
@@ -712,8 +743,7 @@ class ContinuousBatchingEngine:
     ) -> int:
         """Queue a request; returns its id. ``prepared`` is a
         :meth:`prepare` result built off the engine thread."""
-        if seed is not None:
-            raise ValueError(SEED_NOT_PORTED)
+        sample_key = (prng_key(int(seed)) if seed is not None else self._next_rng()).numpy()
         if logit_bias:
             if len(logit_bias) > self.sched.logit_bias_slots:
                 raise ValueError(f"logit_bias supports at most "
@@ -737,6 +767,7 @@ class ContinuousBatchingEngine:
             top_p=top_p,
             stop=stop,
             stop_token_ids=frozenset(int(t) for t in (stop_token_ids or [])),
+            sample_key=sample_key,
             logprobs=bool(logprobs),
             presence_penalty=float(presence_penalty),
             frequency_penalty=float(frequency_penalty),
@@ -838,6 +869,11 @@ class ContinuousBatchingEngine:
 
     # -- helpers ---------------------------------------------------------
 
+    def _next_rng(self) -> torch.Tensor:
+        """A fresh key split off the engine's chain."""
+        self._rng, out = split(self._rng)
+        return out
+
     def _put(self, x: np.ndarray) -> torch.Tensor:
         """Upload a host array. The tensor never aliases host state (on the
         CPU ``torch.from_numpy(...).to(cpu)`` would), and on the card the
@@ -871,6 +907,7 @@ class ContinuousBatchingEngine:
         self._top_ps[slot] = req.top_p
         self._pres[slot] = req.presence_penalty
         self._freq[slot] = req.frequency_penalty
+        self._slot_keys[slot] = req.sample_key
         ids, vals = self._bias_rows([req])
         self._bias_ids[slot], self._bias_vals[slot] = ids[0], vals[0]
 
@@ -1002,7 +1039,8 @@ class ContinuousBatchingEngine:
             torch.stack([r.embeds[start:start + ct] for _, r in group]),
             self._put(plens), self._put(tables), self._put(slots), self._put(temps),
             self._put(np.array([r.top_p for _, r in group], np.float32)),
-            self.generator, bool(np.any(temps > 0)), page_size=ps, kv_hi=kv_hi, q_offset=start,
+            self._put(np.stack([r.sample_key for _, r in group])),
+            bool(np.any(temps > 0)), page_size=ps, kv_hi=kv_hi, q_offset=start,
             **self._batch_bias([r for _, r in group]),
         )
         self.metrics["prefill_chunks"] += 1
@@ -1054,7 +1092,8 @@ class ContinuousBatchingEngine:
             self.params, self.config, self.paged, self._put(input_ids),
             self._put(seq_lens), self._put(slot_mapping.reshape(-1)),
             self._put(temps), self._put(np.array([r.top_p for r in reqs], np.float32)),
-            self.generator, bool(np.any(temps > 0)), **self._batch_bias(reqs), **vision,
+            self._put(np.stack([r.sample_key for r in reqs])), bool(np.any(temps > 0)),
+            **self._batch_bias(reqs), **vision,
         ).cpu().numpy()
         for j, req in enumerate(reqs):
             self._set_slot(slots[j], req)
@@ -1368,15 +1407,14 @@ class ContinuousBatchingEngine:
             self.metrics["chunk_input_rebuilds"] += 1
         dev = self._dev
         common = dict(page_tables=dev["tables"], active=dev["active"],
-                      temperature=dev["temps"], top_p=dev["top_ps"],
-                      generator=self.generator, any_sampled=dev["any_sampled"],
+                      temperature=dev["temps"], top_p=dev["top_ps"], slot_keys=dev["keys"],
+                      any_sampled=dev["any_sampled"], nucleus=dev["nucleus"],
                       page_size=self.sched.page_size, num_steps=chunk,
                       bias_ids=dev.get("bias_ids"), bias_vals=dev.get("bias_vals"))
         if use_spec:
             packed, carry = spec_decode_program(
                 self.params, self.config, self.paged, dev["buf"], dev["tokens"],
-                dev["positions"], dev["budgets"], dev["gen_start"], nucleus=dev["nucleus"],
-                spec_k=spec_k, **common,
+                dev["positions"], dev["budgets"], dev["gen_start"], spec_k=spec_k, **common,
             )
             self.metrics["spec_chunks"] += 1
             self.metrics["spec_slot_iters"] += chunk * len(active)
@@ -1423,7 +1461,7 @@ class ContinuousBatchingEngine:
         dev = dict(tokens=self._put(self._tokens), positions=self._put(positions),
                    budgets=self._put(budgets), tables=self._put(self._tables(active)),
                    active=self._put(active_mask), temps=self._put(self._temps),
-                   top_ps=self._put(self._top_ps), mode=mode,
+                   top_ps=self._put(self._top_ps), keys=self._put(self._slot_keys), mode=mode,
                    any_sampled=bool(np.any(self._temps[active] > 0)),
                    nucleus=bool(np.any(self._top_ps[active] < 1.0)))
         if use_bias:
@@ -1478,21 +1516,39 @@ class ContinuousBatchingEngine:
         seed=None,
         stop: Optional[Sequence[str]] = None,
     ) -> List[str]:
-        if seed is not None:
-            raise ValueError(SEED_NOT_PORTED)
+        """Serve a batch synchronously. ``seed``: an int reseeds the engine's
+        chain once; a sequence reseeds it before each request's submit, so
+        request i samples exactly as ``generate_one(..., seed=seed[i])``
+        (the parser's batched PDF path passes seed + page_no)."""
+        seeds: Optional[List[Optional[int]]] = None
+        if seed is not None and not isinstance(seed, (int, np.integer)):
+            seeds = [None if s is None else int(s) for s in seed]
+            if len(seeds) != len(prompts):
+                raise ValueError(f"seed sequence length {len(seeds)} != {len(prompts)} prompts")
+        elif seed is not None:
+            self._rng = prng_key(int(seed))
         n = len(prompts)
         images_per_prompt = images_per_prompt or [[] for _ in range(n)]
         temps = np.broadcast_to(np.asarray(temperature, np.float32), (n,))
         tps = np.broadcast_to(np.asarray(top_p, np.float32), (n,))
-        ids = [
-            self.submit(prompts[i], images=images_per_prompt[i],
-                        max_new_tokens=max_new_tokens, temperature=float(temps[i]),
-                        top_p=float(tps[i]), system_prompt=system_prompt,
-                        min_pixels=min_pixels, max_pixels=max_pixels, stop=stop)
-            for i in range(n)
-        ]
+        group = max(1, self.sched.max_prefill_batch)
+        ids = []
+        for i in range(n):
+            if seeds is not None and seeds[i] is not None:
+                self._rng = prng_key(seeds[i])
+            ids.append(self.submit(prompts[i], images=images_per_prompt[i],
+                                   max_new_tokens=max_new_tokens, temperature=float(temps[i]),
+                                   top_p=float(tps[i]), system_prompt=system_prompt,
+                                   min_pixels=min_pixels, max_pixels=max_pixels, stop=stop))
+            if i + 1 == group and n > group:
+                # The first admission group is complete: start its device
+                # work while the rest are preprocessed (as the JAX engine).
+                self.step()
         self.run()
         return [self.request_text(rid) for rid in ids]
+
+    def generate_one(self, prompt: str, images: Sequence = (), **kwargs) -> str:
+        return self.generate_batch([prompt], [list(images)], **kwargs)[0]
 
     def finished_request(self, req_id: int):
         """The finished ScheduledRequest for req_id, or None."""

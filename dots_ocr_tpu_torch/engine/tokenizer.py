@@ -204,3 +204,13 @@ def load_tokenizer(model_path: Optional[str]) -> TokenizerLike:
         if os.path.exists(tok_file):
             return HFTokenizer(tok_file)
     return ByteTokenizer()
+
+
+def load_checkpoint_tokenizer(model_path: str) -> Optional[TokenizerLike]:
+    """The checkpoint directory's own tokenizer (tokenizer.json), or None
+    when it has none: the engine then builds its byte tokenizer on the
+    model config's special ids (as for random weights). A synthetic
+    checkpoint written by ``models.loader.save_checkpoint`` has none."""
+    if os.path.exists(os.path.join(model_path, "tokenizer.json")):
+        return load_tokenizer(model_path)
+    return None

@@ -1,17 +1,18 @@
-"""Qwen2.5-style causal decoder with GQA over the paged KV cache (port of
-``dots_ocr_tpu.models.decoder``): monolithic prefill, the chunked prefill
-extend, the paged decode step and the speculative verify step, over bf16
-or int8 pools.
+"""Qwen2.5-style causal decoder with GQA (port of
+``dots_ocr_tpu.models.decoder``): monolithic prefill, the dense-cache
+decode step of the batch engine (``KVCache``), and over the paged KV cache
+the chunked prefill extend, the paged decode step and the speculative
+verify step, over bf16 or int8 pools.
 
 PyTorch runs eagerly, so the JAX ``lax.scan`` over stacked layers is a
-Python loop indexing the layer axis of the parameter tree. The paged steps
-update the per-layer pools (and, in int8 mode, the flat scale vectors) in
-place, where the JAX package returns new tuples.
+Python loop indexing the layer axis of the parameter tree. The decode
+steps update the dense cache, the per-layer pools (and, in int8 mode, the
+flat scale vectors) in place, where the JAX package returns new arrays.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -28,6 +29,21 @@ from dots_ocr_tpu_torch.models.layers import (
 )
 from dots_ocr_tpu_torch.models.rope import apply_rope, rope_table
 from dots_ocr_tpu_torch.ops import flash_attention, paged_attention
+from dots_ocr_tpu_torch.ops.attention import decode_attention_reference
+
+
+class KVCache(NamedTuple):
+    """Contiguous per-layer KV cache: k/v [num_layers, B, max_len, KV, D]."""
+
+    k: torch.Tensor
+    v: torch.Tensor
+
+    @staticmethod
+    def create(cfg: DecoderConfig, batch: int, max_len: int, dtype=torch.bfloat16,
+               device="cpu") -> "KVCache":
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads, cfg.head_dim)
+        return KVCache(torch.zeros(shape, dtype=dtype, device=device),
+                       torch.zeros(shape, dtype=dtype, device=device))
 
 
 def _project_qkv(x: torch.Tensor, attn_p: dict, cfg: DecoderConfig):
@@ -39,6 +55,63 @@ def _project_qkv(x: torch.Tensor, attn_p: dict, cfg: DecoderConfig):
     return q, k, v
 
 
+def scatter_kv_rows(pool: torch.Tensor, slots: torch.Tensor,
+                    updates: torch.Tensor) -> torch.Tensor:
+    """Write per-token K/V rows into a [KV, N, D] pool leaf, in place, and
+    return it. slots [T] flat slot ids; updates [T, KV, D]."""
+    return pool.index_copy_(1, slots.long(), updates.transpose(0, 1).to(pool.dtype))
+
+
+def decoder_layer_prefill(
+    x: torch.Tensor,
+    block_params: dict,
+    cfg: DecoderConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    segment_ids: torch.Tensor,
+    attn_impl: str = "kernel",
+) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
+    """One layer over x [B, T, D]: causal attention with padding as segment
+    -1 (``attn_impl`` names a ``flash_attention.IMPLEMENTATIONS`` entry).
+    Returns (x, (k, v)) for cache capture."""
+    b, t = x.shape[:2]
+    h = rms_norm(x, block_params["input_norm"], cfg.rms_norm_eps)
+    q, k, v = _project_qkv(h, block_params["attn"], cfg)
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    out = flash_attention.IMPLEMENTATIONS[attn_impl](q, k, v, segment_ids, segment_ids,
+                                                     causal=True)
+    return _mlp_block(x, block_params, cfg, out.reshape(b, t, cfg.q_dim)), (k, v)
+
+
+def decoder_layer_decode(
+    x: torch.Tensor,
+    block_params: dict,
+    cfg: DecoderConfig,
+    cos: torch.Tensor,
+    sin: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    write_pos: torch.Tensor,
+    seq_lens: torch.Tensor,
+) -> torch.Tensor:
+    """One layer, one new token per sequence, over a dense cache.
+
+    x [B, D]; k_cache / v_cache [B, S, KV, hd], written IN PLACE at
+    write_pos [B]; seq_lens [B] valid length AFTER this write. Attention is
+    the dense ``decode_attention_reference`` (XLA in the JAX package, no
+    Pallas kernel). Returns x."""
+    h = rms_norm(x, block_params["input_norm"], cfg.rms_norm_eps)
+    q, k, v = _project_qkv(h, block_params["attn"], cfg)  # q [B, H, hd], k/v [B, KV, hd]
+    q = apply_rope(q, cos, sin)
+    k = apply_rope(k, cos, sin)
+    rows = torch.arange(x.shape[0], device=x.device)
+    k_cache[rows, write_pos] = k.to(k_cache.dtype)
+    v_cache[rows, write_pos] = v.to(v_cache.dtype)
+    out = decode_attention_reference(q, k_cache, v_cache, seq_lens)
+    return _mlp_block(x, block_params, cfg, out.reshape(x.shape[0], cfg.q_dim))
+
+
 def decoder_prefill(
     params: dict,
     cfg: DecoderConfig,
@@ -46,12 +119,12 @@ def decoder_prefill(
     positions: torch.Tensor,
     seq_lens: torch.Tensor,
     attn_impl: str = "kernel",
-) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+) -> Tuple[torch.Tensor, KVCache]:
     """Full-sequence forward. inputs_embeds [B, T, D]; positions [B, T];
     seq_lens [B]. Attention is causal flash attention with padding as
-    segment -1. Returns (hidden [B, T, D], k [L, B, T, KV, hd], v)."""
-    attend = flash_attention.IMPLEMENTATIONS[attn_impl]
-    b, t, _ = inputs_embeds.shape
+    segment -1. Returns (hidden [B, T, D], KVCache with k/v
+    [L, B, T, KV, hd])."""
+    t = inputs_embeds.shape[1]
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     segment_ids = torch.where(
         torch.arange(t, device=seq_lens.device)[None, :] < seq_lens[:, None], 0, -1
@@ -60,17 +133,34 @@ def decoder_prefill(
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for i in range(cfg.num_layers):
-        bp = layer_params(params["blocks"], i)
-        h = rms_norm(x, bp["input_norm"], cfg.rms_norm_eps)
-        q, k, v = _project_qkv(h, bp["attn"], cfg)
-        q = apply_rope(q, cos, sin)
-        k = apply_rope(k, cos, sin)
-        out = attend(q, k, v, segment_ids, segment_ids, causal=True)
-        x = _mlp_block(x, bp, cfg, out.reshape(b, t, cfg.q_dim))
+        x, (k, v) = decoder_layer_prefill(x, layer_params(params["blocks"], i), cfg, cos, sin,
+                                          segment_ids, attn_impl)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
-    return x, torch.stack(ks), torch.stack(vs)
+    return x, KVCache(torch.stack(ks), torch.stack(vs))
+
+
+def decoder_decode_step(
+    params: dict,
+    cfg: DecoderConfig,
+    inputs_embeds: torch.Tensor,
+    positions: torch.Tensor,
+    cache: KVCache,
+    seq_lens: torch.Tensor,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step over the dense cache for a batch of sequences.
+
+    inputs_embeds [B, D] the latest token's embedding; positions [B] its
+    absolute position (= the cache write slot); seq_lens [B] valid length
+    after this token. The cache is updated in place. Returns (hidden
+    [B, D], cache)."""
+    cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
+    x = inputs_embeds
+    for i in range(cfg.num_layers):
+        x = decoder_layer_decode(x, layer_params(params["blocks"], i), cfg, cos, sin,
+                                 cache.k[i], cache.v[i], positions, seq_lens)
+    return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache
 
 
 def _mlp_block(x: torch.Tensor, bp: dict, cfg: DecoderConfig, out: torch.Tensor) -> torch.Tensor:

@@ -16,6 +16,8 @@ import torch
 
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.decoder import (
+    KVCache,
+    decoder_decode_step,
     decoder_prefill,
     embed_tokens,
     logits_from_hidden,
@@ -106,16 +108,34 @@ def vlm_prefill(
     vision arguments as from ``preprocess.pack_images`` and
     :func:`build_scatter_indices` (absent for text-only prompts).
 
-    Returns (logits, k, v): logits [B, T, V] float32, or [B, V] with
-    ``last_logit_only``; k/v [L, B, T, KV, hd] for the paged cache."""
+    Returns (logits, cache): logits [B, T, V] float32, or [B, V] with
+    ``last_logit_only``; a KVCache with k/v [L, B, T, KV, hd]."""
     x = vlm_embed(
         params, config, input_ids, patches=patches, rope_cos=rope_cos,
         rope_sin=rope_sin, segment_ids=segment_ids, scatter_batch=scatter_batch,
         scatter_pos=scatter_pos, attn_impl=attn_impl,
     )
-    hidden, k, v = decoder_prefill(
+    hidden, cache = decoder_prefill(
         params["decoder"], config.decoder, x, positions, seq_lens, attn_impl
     )
     if last_logit_only:
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), seq_lens.long() - 1]
-    return logits_from_hidden(params["decoder"], config.decoder, hidden), k, v
+    return logits_from_hidden(params["decoder"], config.decoder, hidden), cache
+
+
+def vlm_decode_step(
+    params: dict,
+    config: DotsOCRConfig,
+    token_ids: torch.Tensor,
+    positions: torch.Tensor,
+    cache: KVCache,
+    seq_lens: torch.Tensor,
+) -> Tuple[torch.Tensor, KVCache]:
+    """One decode step over the dense cache (updated in place).
+    token_ids / positions / seq_lens [B]. Returns (logits [B, V] float32,
+    cache)."""
+    x = embed_tokens(params["decoder"], token_ids)
+    hidden, cache = decoder_decode_step(
+        params["decoder"], config.decoder, x, positions, cache, seq_lens
+    )
+    return logits_from_hidden(params["decoder"], config.decoder, hidden), cache

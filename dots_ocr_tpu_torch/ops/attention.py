@@ -66,3 +66,17 @@ def mha_reference(
         v.to(torch.float32),
     )
     return out.reshape(batch, q_len, num_heads, head_dim).to(q.dtype)
+
+
+def decode_attention_reference(
+    q: torch.Tensor,
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    seq_lens: torch.Tensor,
+    scale: Optional[float] = None,
+) -> torch.Tensor:
+    """Single-token decode attention over a contiguous KV cache: q [B, H, D]
+    (one new token per sequence); k_cache / v_cache [B, MAX_S, KV, D];
+    seq_lens [B] valid entries (the token written this step included)."""
+    mask = make_length_mask(seq_lens, k_cache.shape[1])  # [B, S]
+    return mha_reference(q[:, None], k_cache, v_cache, mask=mask[:, None, :], scale=scale)[:, 0]

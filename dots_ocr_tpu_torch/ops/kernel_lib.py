@@ -60,6 +60,9 @@ _SIGNATURES = {
     # q, k_all, v_all, k_scales_all, v_scales_all, lengths, page_indices,
     # part_o, part_ml, out, then as the bf16 mode
     "dots_paged_attention_v1_int8": [_P] * 10 + [_I] * 10 + [_F, _P],
+    # logits, temps (or null), keys, noise_out (or null), part_val, part_idx
+    # (scratch), out, B, V, per_row, nblk, stream
+    "dots_threefry_gumbel_argmax": [_P] * 7 + [_I] * 4 + [_P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

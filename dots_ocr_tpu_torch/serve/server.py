@@ -1,12 +1,14 @@
 """OpenAI-compatible server on the PyTorch engine.
 
 ``main`` takes the JAX server's flags, builds the port's
-``ContinuousBatchingEngine`` on a torch device (CUDA by default), and runs
-the port's copy of the JAX package's ``OpenAIServer``
-(``serve/openai_server.py``). The shipped serving path is ported: chunked
-prefill, ``--speculate-k``, ``--quantize int8`` (weight-only decoder,
-embedding included), ``--kv-cache-dtype int8``, and every quantized
-configuration the JAX server offers on one device: ``--quantize int4``
+``ContinuousBatchingEngine`` (or, with ``--engine batch``, the batch
+``InferenceEngine``) on a torch device (CUDA by default), over random
+weights or a checkpoint directory (``--weights``), and runs the port's copy
+of the JAX package's ``OpenAIServer`` (``serve/openai_server.py``). The
+shipped serving path is ported: chunked prefill, ``--speculate-k``,
+``--quantize int8`` (weight-only decoder, embedding included),
+``--kv-cache-dtype int8``, and every quantized configuration the JAX
+server offers on one device: ``--quantize int4``
 (decoder block linears through the int4 kernel, embedding and lm_head
 int8) and ``--vision-quantize int8`` (W8A8 vision block linears). So is
 the windowed encoder (``--vision-attn windowed --vision-window-patches
@@ -30,9 +32,12 @@ import numpy as np
 import torch
 from PIL import Image
 
+from dots_ocr_tpu_torch.engine.engine import InferenceEngine
 from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
+from dots_ocr_tpu_torch.engine.tokenizer import load_checkpoint_tokenizer
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.init import init_params
+from dots_ocr_tpu_torch.models.loader import load_checkpoint
 from dots_ocr_tpu_torch.models.quantize import (
     param_bytes,
     quantize_decoder_params,
@@ -86,29 +91,30 @@ def build_parser() -> argparse.ArgumentParser:
 
 def _refuse_unported(args) -> None:
     refusals = [
-        (args.engine == "batch", "--engine batch", "the batch engine"),
         (args.tensor_parallel_size > 1, "--tensor-parallel-size > 1", "TP"),
         (args.warmup == "background", "--warmup background", "CUDA graphs and warmup"),
         (args.compile_cache is not None, "--compile-cache", "CUDA graphs and warmup"),
-        (args.weights is not None, "--weights", "the loader"),
     ]
     for hit, flag, item in refusals:
         if hit:
             raise SystemExit(f"{flag} is not ported to PyTorch yet (ROADMAP.md: {item})")
 
 
-def build_engine(args) -> ContinuousBatchingEngine:
+def build_engine(args):
     _refuse_unported(args)
     device = torch.device(args.platform)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--platform cuda: no CUDA device is available")
+    tokenizer = params = None
     if args.random_tiny:
         config = DotsOCRConfig.tiny()
     elif args.random_flagship:
         config = DotsOCRConfig.flagship()
+    elif args.weights:
+        config, params = load_checkpoint(args.weights, device=device)
+        tokenizer = load_checkpoint_tokenizer(args.weights)
     else:
-        raise SystemExit("pass --random-flagship or --random-tiny "
-                         "(--weights needs the loader, not ported yet)")
+        raise SystemExit("--weights is required (or use --random-flagship / --random-tiny)")
     if args.vision_attn != "config":
         if args.vision_attn == "full":
             vision = dataclasses.replace(config.vision, window_size=0, full_attn_layers=())
@@ -119,7 +125,8 @@ def build_engine(args) -> ContinuousBatchingEngine:
         config = config.replace(vision=vision)
         logger.info("vision attention override: %s (window_size=%d patches, full layers=%s)",
                     args.vision_attn, vision.window_size, vision.full_attn_layers)
-    params = init_params(config, device, torch.Generator(device=device).manual_seed(0))
+    if params is None:
+        params = init_params(config, device, torch.Generator(device=device).manual_seed(0))
     if args.quantize in ("int8", "int4"):
         before = param_bytes(params)
         params = (quantize_decoder_params_int4 if args.quantize == "int4"
@@ -130,8 +137,10 @@ def build_engine(args) -> ContinuousBatchingEngine:
         params = quantize_vision_params(params)
         logger.info("vision tower quantized W8A8 (block linears int8 x int8; "
                     "patch embed / merger stay %s)", config.dtype)
+    if args.engine == "batch":
+        return InferenceEngine(params, config, tokenizer=tokenizer, device=device)
     return ContinuousBatchingEngine(
-        params, config, device,
+        params, config, device, tokenizer=tokenizer,
         sched=SchedulerConfig(
             num_pages=args.num_pages,
             page_size=args.page_size,
@@ -146,9 +155,9 @@ def build_engine(args) -> ContinuousBatchingEngine:
     )
 
 
-def warm_up(engine: ContinuousBatchingEngine) -> None:
+def warm_up(engine) -> None:
     """``--warmup full``: build the kernels and run one vision and one text
-    request end to end before the server binds."""
+    request end to end before the server binds (either engine)."""
     dummy = Image.fromarray(np.zeros((560, 420, 3), np.uint8))
     engine.generate_batch(["warmup", "warmup"], [[dummy], []],
                           temperature=0.0, max_new_tokens=8)

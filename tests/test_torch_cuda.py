@@ -952,3 +952,53 @@ def test_pipelined_engine_matches_synchronous_on_card(cuda):
     assert outputs[True] == outputs[False]
     assert all(len(toks) == 40 for toks in outputs[True])
     assert fetches and all(pinned and guarded for pinned, guarded in fetches)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,vocab", [(64, 151936), (64, 256), (3, 8193), (1, 5)])
+@pytest.mark.parametrize("per_row", [False, True])
+def test_gumbel_argmax_kernel_bit_equal_to_plain(cuda, rows, vocab, per_row):
+    """The fused seeded draw (csrc/threefry_sample.cu) against its plain
+    version on the card: the same tokens and the same Gumbel noise bit for
+    bit (shared key over the flat index, or a key per row), with mixed
+    temperatures, -inf entries, an all -inf row and a tied row; 10
+    repeats bit-equal."""
+    from dots_ocr_tpu_torch.engine.sampling import prng_key, split
+    from dots_ocr_tpu_torch.ops.sampling import gumbel_argmax, gumbel_noise
+
+    rng = np.random.RandomState(rows + vocab)
+    logits = torch.from_numpy((rng.randn(rows, vocab) * 4).astype(np.float32)).to(cuda)
+    logits[:, ::7] = float("-inf")
+    if rows > 2:
+        logits[1] = float("-inf")  # all -inf: token 0
+        logits[2] = 0.0            # all tied: the draw decides
+    temps = torch.from_numpy(rng.uniform(0.05, 1.5, rows).astype(np.float32)).to(cuda)
+    keys = (split(prng_key(rows), rows) if per_row else prng_key(vocab)).to(cuda)
+    noise = torch.empty((rows, vocab), dtype=torch.float32, device=cuda)
+    before = gumbel_argmax.launches
+    got = gumbel_argmax(logits, keys, temps, noise_out=noise)
+    assert gumbel_argmax.launches == before + 1
+    want_noise = gumbel_noise(keys, rows, vocab)
+    want = torch.argmax(want_noise + logits / temps[:, None], dim=-1)
+    torch.cuda.synchronize()
+    assert torch.equal(noise.view(torch.int32), want_noise.view(torch.int32))
+    assert torch.equal(got, want)
+    if rows > 2:
+        assert int(got[1]) == 0
+    for _ in range(10):
+        assert torch.equal(gumbel_argmax(logits, keys, temps), got)
+    assert torch.equal(gumbel_argmax(logits / temps[:, None], keys), got)
+
+
+@pytest.mark.cuda
+def test_gumbel_argmax_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    from dots_ocr_tpu_torch.engine.sampling import prng_key
+    from dots_ocr_tpu_torch.ops.sampling import gumbel_argmax
+
+    logits = torch.zeros((4, 100), device=cuda)
+    with pytest.raises(ValueError):
+        gumbel_argmax(logits.half(), prng_key(0).to(cuda))
+    with pytest.raises(ValueError):
+        gumbel_argmax(logits, prng_key(0))  # keys on the CPU
+    with pytest.raises(ValueError):
+        gumbel_argmax(logits, torch.zeros((3, 2), dtype=torch.int64, device=cuda))

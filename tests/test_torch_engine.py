@@ -3,7 +3,7 @@
 give identical greedy tokens; the port's copy of ``OpenAIServer`` serves
 its engine, long prompts through chunked prefill; the shipped serving
 flags (speculation, int8 weights, int8 KV) build engines that serve;
-unported flags and ``seed`` fail loudly. The shipped options' token parity
+unported flags fail loudly, and ``seed`` is served. The shipped options' token parity
 with the JAX engine is in ``test_torch_engine_parity.py``.
 """
 
@@ -90,8 +90,14 @@ def test_stop_strings_stream_and_cancel():
 
 @pytest.mark.parametrize("kwargs", [{"seed": 3}])
 def test_unported_features_raise(kwargs):
-    with pytest.raises(ValueError, match="ROADMAP.md: seeded position-keyed sampling"):
-        _engine().submit("hi", **kwargs)
+    """``seed`` was the last request option the port refused: a seeded
+    request now keeps PRNGKey(seed) as its key, and a seed that is not an
+    integer raises."""
+    eng = _engine()
+    eng.submit("hi", **kwargs)
+    assert eng._waiting[-1].sample_key.tolist() == [0, kwargs["seed"]]
+    with pytest.raises(ValueError):
+        eng.submit("hi", seed="not a number")
 
 
 def test_long_prompt_served_through_chunked_prefill():
@@ -149,10 +155,9 @@ def test_server_round_trip_on_port_engine():
             assert all(c >= 1 for c in await asyncio.gather(*[one(i) for i in range(4)]))
             resp = await client.post("/v1/chat/completions", json={
                 "messages": [{"role": "user", "content": "x"}], "seed": 1})
-            assert resp.status == 500
-            assert "ROADMAP" in (await resp.json())["error"]["message"]
+            assert resp.status == 200
             metrics = await (await client.get("/metrics")).text()
-            assert "dots_ocr_engine_prefills 4" in metrics
+            assert "dots_ocr_engine_prefills 5" in metrics
         finally:
             await client.close()
 
@@ -161,9 +166,11 @@ def test_server_round_trip_on_port_engine():
 
 
 @pytest.mark.parametrize("flags", [
-    ["--engine", "batch"], ["--quantize", "int4", "--tensor-parallel-size", "2"],
+    ["--engine", "batch", "--tensor-parallel-size", "2"],
+    ["--quantize", "int4", "--tensor-parallel-size", "2"],
     ["--tensor-parallel-size", "2"], ["--warmup", "background"],
-    ["--tensor-parallel-size", "4", "--vision-attn", "windowed"], ["--weights", "ckpt"],
+    ["--tensor-parallel-size", "4", "--vision-attn", "windowed"],
+    ["--weights", "ckpt", "--warmup", "background"],
     ["--compile-cache", "c"],
 ])
 def test_server_refuses_unported_flags(flags):

@@ -29,6 +29,13 @@ def test_no_module_imports_jax():
     )
     assert "dots_ocr_tpu_torch.engine.scheduler" in modules
     assert "dots_ocr_tpu_torch.serve.server" in modules
+    # the parser's path: its copies and the modules ported with it
+    assert {"dots_ocr_tpu_torch.parser", "dots_ocr_tpu_torch.cli", "dots_ocr_tpu_torch.__main__",
+            "dots_ocr_tpu_torch.client.inference", "dots_ocr_tpu_torch.ingest.minipdf",
+            "dots_ocr_tpu_torch.ingest.jbig2", "dots_ocr_tpu_torch.utils.boxes",
+            "dots_ocr_tpu_torch.utils.repair", "dots_ocr_tpu_torch.models.loader",
+            "dots_ocr_tpu_torch.engine.engine", "dots_ocr_tpu_torch.engine.generate",
+            "dots_ocr_tpu_torch.ops.sampling"} <= set(modules)
     code = (
         "import importlib, sys\n"
         f"for name in {modules!r}:\n"

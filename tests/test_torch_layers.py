@@ -19,7 +19,7 @@ from dots_ocr_tpu.models import layers as jlayers
 from dots_ocr_tpu.models import preprocess as jpre
 from dots_ocr_tpu.models import rope as jrope
 from dots_ocr_tpu.ops import attention as jattn
-from dots_ocr_tpu_torch.engine.sampling import sample_logits
+from dots_ocr_tpu_torch.engine.sampling import prng_key, sample_logits
 from dots_ocr_tpu_torch.models import config as tcfg
 from dots_ocr_tpu_torch.models import layers as tlayers
 from dots_ocr_tpu_torch.models import preprocess as tpre
@@ -137,18 +137,18 @@ def test_mha_reference_and_masks_match_jax():
 def test_sampling_greedy_and_top_p():
     rng = np.random.RandomState(4)
     logits = torch.from_numpy(rng.randn(4, 300).astype(np.float32))
-    gen = torch.Generator().manual_seed(0)
-    greedy = sample_logits(logits, torch.zeros(4), torch.ones(4), gen, any_sampled=False)
+    key = prng_key(0)
+    greedy = sample_logits(key, logits, torch.zeros(4), torch.ones(4), any_sampled=False)
     assert torch.equal(greedy, logits.argmax(-1))
     # top_p tiny keeps only the most probable token, whatever the noise;
     # greedy rows stay greedy inside a sampled batch.
     temps = torch.tensor([1.0, 0.7, 0.0, 1.0])
     top_p = torch.tensor([1e-6, 1e-6, 0.5, 1.0])
-    out = sample_logits(logits, temps, top_p, gen, any_sampled=True)
+    out = sample_logits(key, logits, temps, top_p, any_sampled=True)
     assert torch.equal(out[:3], logits.argmax(-1)[:3])
     assert 0 <= int(out[3]) < 300
     # full-vocab rows follow the softmax distribution (Gumbel-max)
     peaked = torch.tensor([[0.0, np.log(3.0), -50.0]]).repeat(4000, 1)
-    draws = sample_logits(peaked, torch.ones(4000), torch.ones(4000), gen, any_sampled=True)
+    draws = sample_logits(key, peaked, torch.ones(4000), torch.ones(4000), any_sampled=True)
     frac = (draws == 1).float().mean().item()
     assert abs(frac - 0.75) < 0.03

@@ -15,8 +15,7 @@ subprocess as in ``test_torch_engine_parity.py``): the cases of
   boosted one; the bias composes with k = 2 speculation exactly;
   oversized biases are rejected and out-of-vocabulary ids are inert.
 - speculation stays off while a logprobs or penalized request is live.
-- the port's server carries the options over HTTP; ``seed`` still answers
-  HTTP 500 naming its ROADMAP item.
+- the port's server carries the options over HTTP, ``seed`` included.
 """
 
 import asyncio
@@ -152,8 +151,8 @@ def dense_logits(params, prompt_ids, tokens) -> np.ndarray:
     cfg = DotsOCRConfig.tiny().decoder
     ids = torch.tensor([prompt_ids + tokens])
     t = ids.shape[1]
-    hidden, _, _ = decoder_prefill(params["decoder"], cfg, embed_tokens(params["decoder"], ids),
-                                   torch.arange(t)[None], torch.tensor([t]))
+    hidden, _ = decoder_prefill(params["decoder"], cfg, embed_tokens(params["decoder"], ids),
+                                torch.arange(t)[None], torch.tensor([t]))
     logits = logits_from_hidden(params["decoder"], cfg, hidden)[0].double().numpy()
     return logits[len(prompt_ids) - 1:len(prompt_ids) - 1 + len(tokens)]
 
@@ -234,8 +233,8 @@ def test_submit_validates_logit_bias(make_engine):
         eng.submit("too many", logit_bias={i: 1.0 for i in range(33)})
     rid = eng.submit("inert", logit_bias={10**7: -100.0, -5: 50.0})
     assert eng._waiting[-1].req_id == rid and eng._waiting[-1].logit_bias is None
-    with pytest.raises(ValueError, match="seeded position-keyed sampling"):
-        eng.submit("seeded", seed=1)
+    eng.submit("seeded", seed=1)  # seeds are served: the request keeps PRNGKey(1)
+    assert eng._waiting[-1].sample_key.tolist() == [0, 1]
 
 
 def test_http_logit_options_on_the_port_server(make_engine):
@@ -269,7 +268,7 @@ def test_http_logit_options_on_the_port_server(make_engine):
             assert (await post(logit_bias={"x": 1.0}))[0] == 400
             assert (await post(logit_bias={str(i): 1 for i in range(40)}))[0] == 400
             status, data = await post(seed=1)
-            assert status == 500 and "seeded position-keyed sampling" in data["error"]["message"]
+            assert status == 200 and data["usage"]["completion_tokens"] == 6
         finally:
             await client.close()
 

@@ -114,7 +114,7 @@ def test_vlm_prefill_and_paged_decode_match_jax(weights):
         scatter_pos=jnp.asarray(spos), attn_impl="xla",
     )
     c, s = vision_rope_device(_t(packed.pos2d), cfg.vision.head_dim, cfg.vision.rope_theta)
-    logits, k, v = vlm_prefill(
+    logits, (k, v) = vlm_prefill(
         tparams, cfg, _t(ids), _t(positions), _t(lens), patches=_t(packed.patches),
         rope_cos=c, rope_sin=s, segment_ids=_t(packed.segment_ids),
         scatter_batch=_t(sb), scatter_pos=_t(spos),

@@ -278,8 +278,10 @@ def test_worker_does_not_spin_after_a_failed_step(make_engine, monkeypatch):
         failed = worker.submit(_submission("doomed"))
         with pytest.raises(RuntimeError, match="injected"):
             failed.result(timeout=60)
+        # The worker's recovery frees the slot (has_work() turns false) and
+        # then takes the finished entry: wait for both.
         deadline = time.monotonic() + 10
-        while eng.has_work() and time.monotonic() < deadline:
+        while (eng.has_work() or eng._finished) and time.monotonic() < deadline:
             time.sleep(0.01)
         assert not eng.has_work() and not eng._finished
         assert eng.allocator.free_pages == SCHED["num_pages"] - 1
