@@ -68,8 +68,10 @@ Phases, each fatal on failure (exit code != 0, no result line):
    consistency check of phase 5 on that path;
 11. end to end, ``deploy/shipping.env`` as written: its PAGE_SIZE, KV_DTYPE,
    QUANTIZE, SPECULATE_K, PREFILL_CHUNK, NUM_PAGES, MAX_SLOTS,
-   MAX_SEQ_TOKENS, STEPS_PER_SYNC and VISION_ATTN, nothing overridden
-   (today int8 weights, bf16 KV, k = 2), served as phase 4, then the same
+   MAX_SEQ_TOKENS, STEPS_PER_SYNC, VISION_ATTN, WARMUP and COMPILE_CACHE,
+   nothing overridden (today int8 weights, bf16 KV, k = 2, ``--warmup
+   full``, so no graph may be captured while it serves), served as phase 4,
+   then the same
    three requests again sampled at temperature 1 for 128 tokens, so that
    the engine's speculation gate turns speculation off and plain decode
    steps run too (SHIPPING_WAVES); flash (with q_offset > 0) and
@@ -112,7 +114,27 @@ Phases, each fatal on failure (exit code != 0, no result line):
    PDF and a PNG, each parsed twice serially (identical artifacts), then
    the PDF with its pages co-batched (``--num_thread 2``: the share of
    pages with the serial text is reported); flash, kernel 2 and the draw
-   kernel must launch; launches and per-page latency printed.
+   kernel must launch; launches and per-page latency printed;
+17. CUDA graphs and the warmup flags, on deploy/shipping.env's engine: (a)
+   ``--warmup full`` (seconds, graphs captured, the graph pool's bytes),
+   then the three requests greedy for GRAPH_TOKENS tokens and sampled at
+   temperature 1 with GRAPH_SEED, through that engine and through the same
+   engine run eagerly (``cuda_graphs=False``, the same warm requests
+   first): identical token ids, every chunk a replay, nothing captured
+   after the warmup; (b) phase 9's 64-slot x 2,048-context step as one
+   decode chunk of CHUNK_DEPTH iterations, replayed and eager, in turns: ms
+   a step, the host's dispatch ms and the device's busy share
+   (torch.profiler); (c) ``--warmup background``: /health answers while warm
+   thunks are pending, a request sent then comes back HTTP 200, and
+   ``dots_ocr_engine_warm_pending`` reaches 0; (d) ``--compile-cache``: a
+   fresh process builds into an empty cache directory, a second one loads
+   from it with no nvcc on its PATH, and phase 11's server left the library
+   in shipping.env's COMPILE_CACHE.
+
+On the card every decode and verify chunk of every serving phase is a CUDA
+graph replay (``engine/graphs.py``): each phase requires as many replays as
+decode chunks, and the launch counts it reads include the replays (a
+graph's launches are counted at capture and added at every replay).
 
 The seeded draw kernel (``csrc/threefry_sample.cu``) is held in phase 3 to
 its plain version bit for bit (tokens and Gumbel noise, 20 repeats) at
@@ -225,7 +247,8 @@ SHIPPING_KEYS = {"PAGE_SIZE": "--page-size", "KV_DTYPE": "--kv-cache-dtype",
                  "QUANTIZE": "--quantize", "SPECULATE_K": "--speculate-k",
                  "PREFILL_CHUNK": "--prefill-chunk-tokens", "NUM_PAGES": "--num-pages",
                  "MAX_SLOTS": "--max-slots", "MAX_SEQ_TOKENS": "--max-seq-tokens",
-                 "STEPS_PER_SYNC": "--steps-per-sync", "VISION_ATTN": "--vision-attn"}
+                 "STEPS_PER_SYNC": "--steps-per-sync", "VISION_ATTN": "--vision-attn",
+                 "WARMUP": "--warmup", "COMPILE_CACHE": "--compile-cache"}
 # Phase 11's waves of the three requests, (temperature, max_tokens): the
 # greedy wave of phases 4-10, then the same requests sampled for long
 # enough that the engine's speculation gate (spec_min_tokens_per_iter,
@@ -249,6 +272,11 @@ DRY_TOKENS, DRY_SLACK_PAGES = 128, 1
 # Phase 13's requests decode this many tokens each, so that deep chunks of
 # 64 and the lookahead engage; its turns of (a) and (b).
 PIPELINE_TOKENS, PIPELINE_TURNS = 256, ("a", "b", "b", "a")
+# Phase 17: the graphed engine against the eager one, the three requests
+# greedy for GRAPH_TOKENS tokens and sampled at temperature 1 with
+# GRAPH_SEED; and phase 9's 64-slot step timed as one decode chunk of
+# CHUNK_DEPTH iterations (shipping.env's STEPS_PER_SYNC).
+GRAPH_TOKENS, GRAPH_SEED, CHUNK_DEPTH = 64, 1234, 16
 SHIPPED_WAVES = ((0.0, 32), (0.0, DRY_TOKENS))
 ADMIT_FREE_FRACTION = 0.05  # SchedulerConfig.admit_free_page_fraction
 # The bound: NVIDIA H100 SXM data sheet (dense, 700 W): HBM 3.35 TB/s,
@@ -263,7 +291,12 @@ REPS = 10
 INNER = 5
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str = "") -> None:
+    if msg.startswith("[") and "/17]" in msg[:8]:  # a phase's heading
+        msg += f" (at {time.perf_counter() - T_START:.1f} s)"
     print(msg, flush=True)
 
 
@@ -975,10 +1008,8 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
     (HTTP status, the decoded JSON reply) for any status. Returns (engine,
     the launch counts of the run, /metrics as a dict, the page image)."""
     import torch
-    from aiohttp import web
     from PIL import Image
 
-    from dots_ocr_tpu_torch.serve.openai_server import OpenAIServer
     from dots_ocr_tpu_torch.serve import server as torch_server
 
     if base_flags is None:
@@ -1000,25 +1031,12 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
         f"prefill chunk {engine.sched.prefill_chunk_tokens}, vision window "
         f"{engine.config.vision.window_size} (full layers {engine.config.vision.full_attn_layers})")
 
+    if args.warmup:
+        warm = torch_server.start_warmup(engine, args)
+        log(f"  [{label}] --warmup {args.warmup}: {warm}")
     state = before_serve(engine) if before_serve is not None else None
-    port = _free_port()
-    loop = asyncio.new_event_loop()
-    runner = web.AppRunner(OpenAIServer(engine, model_name="flagship-random").build_app())
-    ready = threading.Event()
-
-    def serve():
-        asyncio.set_event_loop(loop)
-        loop.run_until_complete(runner.setup())
-        loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", port).start())
-        ready.set()
-        loop.run_forever()
-
-    thread = threading.Thread(target=serve, daemon=True)
-    thread.start()
-    if not ready.wait(120):
-        raise RuntimeError("server did not start")
-    base = f"http://127.0.0.1:{port}"
-    try:
+    graphs_before = graph_counts(engine)
+    with running_server(engine) as base:
         status, body = _http(f"{base}/health")
         if status != 200:
             raise AssertionError(f"/health -> {status} {body}")
@@ -1033,13 +1051,7 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
             return name, status, json.loads(text), time.perf_counter() - t
 
         def read_metrics():
-            status, text = _http(f"{base}/metrics")
-            values = {}
-            for line in text.splitlines():
-                if line.startswith("dots_ocr_engine_") and len(line.split()) == 2:
-                    key, value = line.split()
-                    values[key[len("dots_ocr_engine_"):]] = float(value)
-            return status, values
+            return engine_metrics(base)
 
         reset_counts()
         for wave, (temperature, max_tokens, *wave_env) in enumerate(waves):
@@ -1085,18 +1097,45 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
             raise AssertionError(f"/metrics shows fewer than 3 prefills: {metrics}")
         shown = ("prefills", "prefill_chunks", "steps", "spec_chunks", "spec_emitted",
                  "spec_slot_iters", "spec_auto_disabled", "preemptions", "pipelined_chunks",
-                 "chunk_input_rebuilds", "t_admit_s", "t_prefill_s", "t_decode_s",
-                 "t_fetch_wait_s")
+                 "chunk_input_rebuilds", "graph_captures", "graph_replays", "t_admit_s",
+                 "t_prefill_s", "t_decode_s", "t_fetch_wait_s")
         log(f"  [{label}] /metrics: " + ", ".join(f"{k} {metrics.get(k)}" for k in shown))
         log(f"  [{label}] kernel launches during the served run: {launches}")
+        delta = require_replays(engine, graphs_before, label)
+        if args.warmup == "full" and probe is None and delta["graph_captures"]:
+            raise AssertionError(f"{label}: {delta['graph_captures']} graphs captured while "
+                                 "serving after --warmup full")
         for name in required:
             if launches[name] < 1:
                 raise AssertionError(f"{name} was not launched on the {label} path")
-    finally:
-        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(120)
-        loop.call_soon_threadsafe(loop.stop)
-        thread.join(60)
     return engine, launches, metrics, page
+
+
+def graph_counts(engine) -> dict:
+    return {key: engine.metrics[key] for key in ("steps", "graph_captures", "graph_replays")}
+
+
+def require_replays(engine, before: dict, label: str) -> dict:
+    """Every decode and verify chunk the engine ran since ``before``
+    (:func:`graph_counts`) was a CUDA graph replay. Returns the deltas."""
+    after = graph_counts(engine)
+    delta = {key: after[key] - before[key] for key in after}
+    log(f"  [{label}] decode chunks {delta['steps']}, graph replays {delta['graph_replays']}, "
+        f"graphs captured {delta['graph_captures']} ({after['graph_captures']} in the engine)")
+    if delta["steps"] < 1 or delta["graph_replays"] != delta["steps"]:
+        raise AssertionError(f"{label}: {delta['graph_replays']} graph replays for "
+                             f"{delta['steps']} decode chunks")
+    return delta
+
+
+def release() -> None:
+    """Free a dropped engine's device memory, its graphs' pool included."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def chat_requests():
@@ -1496,13 +1535,15 @@ def dry_pool_phase(dev, roomy: dict, label: str = "dry pool"):
 
 
 def pipeline_ab_phase(dev, env_flags) -> dict:
-    """Phase 13: the pipelined decode A/B at full width. One flagship engine
-    of ``env_flags`` with speculation off; in turns PIPELINE_TURNS, a fresh
-    engine on its weights serves the three requests, greedy, PIPELINE_TOKENS
-    new tokens each, in this process: (a) synchronous chunks of
-    steps_per_sync (the decode loop before the port's pipeline), (b) the
-    defaults (deep chunks of max_steps_per_sync, lookahead-1). Every run
-    must give the same token ids; (b) must pipeline and upload its chunk
+    """Phase 13: the pipelined decode A/B at full width. Two flagship
+    engines of ``env_flags`` with speculation off on one set of weights,
+    each warmed first (``warmup_decode``, then one short wave): (a)
+    synchronous chunks of steps_per_sync (the decode loop before the port's
+    pipeline), (b) the defaults (deep chunks of max_steps_per_sync,
+    lookahead-1). In turns PIPELINE_TURNS, the engine of the turn serves
+    the three requests, greedy, PIPELINE_TOKENS new tokens each, in this
+    process. Every run must give the same token ids, from graph replays
+    captured before the turns; (b) must pipeline and upload its chunk
     inputs on fewer chunks than it runs, (a) must not pipeline. Returns the
     runs' numbers by turn."""
     import dataclasses
@@ -1531,22 +1572,34 @@ def pipeline_ab_phase(dev, env_flags) -> dict:
         f"{scheds['b'].pipeline_decode}, max_steps_per_sync {scheds['b'].max_steps_per_sync}; "
         f"steps_per_sync {base.sched.steps_per_sync}; turns {PIPELINE_TURNS}")
 
-    def serve(sched, max_new):
-        eng = ContinuousBatchingEngine(base.params, base.config, dev, sched=sched)
+    engines = {"a": ContinuousBatchingEngine(base.params, base.config, dev, sched=scheds["a"]),
+               "b": base}
+
+    def serve(eng, max_new):
         torch.cuda.synchronize()
         t = time.perf_counter()
         ids = [eng.submit("", max_new_tokens=max_new, temperature=0.0, prepared=prep)
                for _, prep in prepared]
         eng.run()
         torch.cuda.synchronize()
-        return eng, [eng.finished_request(i) for i in ids], time.perf_counter() - t
+        return [eng.finished_request(i) for i in ids], time.perf_counter() - t
 
-    serve(scheds["b"], 16)  # warm-up: first calls of every kernel and cuBLAS shape
+    for label, eng in engines.items():
+        # Out of the timed turns: every decode graph the turns dispatch, and
+        # the first calls of every kernel and cuBLAS shape.
+        t = time.perf_counter()
+        eng.warmup_decode(nucleus_variants=(False,))
+        serve(eng, 16)
+        log(f"  ({label}) warmed in {time.perf_counter() - t:.1f} s: "
+            f"{eng.metrics['graph_captures']} graphs")
     runs, tokens = [], None
     for turn, label in enumerate(PIPELINE_TURNS):
+        eng = engines[label]
+        before = dict(eng.metrics)
         reset_counts()
-        eng, reqs, wall = serve(scheds[label], PIPELINE_TOKENS)
-        launches, m = read_counts(), dict(eng.metrics)
+        reqs, wall = serve(eng, PIPELINE_TOKENS)
+        launches = read_counts()
+        m = {key: eng.metrics[key] - before[key] for key in before}
         if tokens is None:
             tokens = [r.output_ids for r in reqs]
         same = [r.output_ids for r in reqs] == tokens
@@ -1577,9 +1630,11 @@ def pipeline_ab_phase(dev, env_flags) -> dict:
                                  f"{m['chunk_input_rebuilds']} rebuilds in {m['steps']} steps")
         if run["kernel2_launches"] < 1 or run["flash_launches"] < 1:
             raise AssertionError(f"phase 13: turn {turn + 1} launched no kernel 2 or flash")
+        if require_replays(eng, before, f"13 turn {turn + 1}")["graph_captures"]:
+            raise AssertionError(f"phase 13: turn {turn + 1} captured a graph after the warmup")
         runs.append(run)
-        del eng
-        torch.cuda.empty_cache()
+    del engines, eng, base
+    release()
     for label in ("a", "b"):
         mine = [r for r in runs if r["label"] == label]
         log(f"  [13] ({label}) over its turns: wall "
@@ -1606,7 +1661,7 @@ def logit_options_probe(post, metrics, first) -> None:
     """Phase 14, on the server of deploy/shipping.env as written after phase
     13's pipelined wave (which must have pipelined): logprobs, logit_bias,
     penalties and seed over HTTP, each request alone on the engine."""
-    log("[14/16] the logit options over HTTP on the shipping.env server")
+    log("[14/17] the logit options over HTTP on the shipping.env server")
     text = chat_requests()[2][1]
 
     def ask(max_tokens, **options):
@@ -1925,6 +1980,8 @@ def local_parse_phase(dev, workdir: str) -> tuple:
     log(f"  batched PDF path: byte-identical artifacts; launches: flash "
         f"{counts['flash_attention']}, kernel 2 {counts['paged_attention_multiquery']}, draw "
         f"{counts['gumbel_argmax']}")
+    require_replays(cont, dict.fromkeys(("steps", "graph_captures", "graph_replays"), 0),
+                    "batched PDF path")
     del parser, engine, cont
     _sync(dev)
     return ckpt, batch_counts, {"checkpoint_gb": size / 1e9, "write_s": write_s,
@@ -1941,11 +1998,7 @@ def server_parse_phase(dev, ckpt: str, workdir: str, env_flags) -> tuple:
     with its pages co-batched (--num_thread 2; the share of pages whose text
     equals the serial parse is reported, not asserted). Returns (launches,
     numbers)."""
-    import torch
-    from aiohttp import web
-
     from dots_ocr_tpu_torch.serve import server as torch_server
-    from dots_ocr_tpu_torch.serve.openai_server import OpenAIServer
 
     args = torch_server.build_parser().parse_args([*env_flags, "--weights", ckpt,
                                                    "--platform", str(dev)])
@@ -1955,22 +2008,6 @@ def server_parse_phase(dev, ckpt: str, workdir: str, env_flags) -> tuple:
     log(f"  server engine from --weights in {time.perf_counter() - t0:.1f} s ({args.quantize} "
         f"weights, {args.kv_cache_dtype} KV, speculate_k {engine.sched.speculate_k})")
     pdf, png = _write_inputs(workdir)
-    port = _free_port()
-    loop = asyncio.new_event_loop()
-    runner = web.AppRunner(OpenAIServer(engine, model_name="flagship-ckpt").build_app())
-    ready = threading.Event()
-
-    def serve():
-        asyncio.set_event_loop(loop)
-        loop.run_until_complete(runner.setup())
-        loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", port).start())
-        ready.set()
-        loop.run_forever()
-
-    thread = threading.Thread(target=serve, daemon=True)
-    thread.start()
-    if not ready.wait(120):
-        raise RuntimeError("server did not start")
 
     def cli(path, tag, threads=1):
         out = os.path.join(workdir, "served")
@@ -1978,7 +2015,7 @@ def server_parse_phase(dev, ckpt: str, workdir: str, env_flags) -> tuple:
         t0 = time.perf_counter()
         proc = subprocess.run(
             [sys.executable, "-m", "dots_ocr_tpu_torch", path, "--ip", "127.0.0.1",
-             "--port", str(port), "--seed", str(PARSE_SEED), "--output", out,
+             "--port", port, "--seed", str(PARSE_SEED), "--output", out,
              "--max_completion_tokens", str(PARSE_TOKENS), "--num_thread", str(threads)],
             cwd=REPO, capture_output=True, text=True, timeout=600)
         wall = time.perf_counter() - t0
@@ -1990,18 +2027,17 @@ def server_parse_phase(dev, ckpt: str, workdir: str, env_flags) -> tuple:
             + ", ".join(f"{ms:.0f} ms" for ms in pages))
         return _artifacts(out), pages
 
-    try:
+    with running_server(engine, "flagship-ckpt") as base:
+        port = base.rsplit(":", 1)[1]
         reset_counts()
+        graphs_before = graph_counts(engine)
         pdf_a, lat_a = cli(pdf, "cli_pdf_a")
         pdf_b, _ = cli(pdf, "cli_pdf_b")
         png_a, lat_png = cli(png, "cli_png_a")
         png_b, _ = cli(png, "cli_png_b")
         counts = read_counts()
         cobatched, _ = cli(pdf, "cli_pdf_cobatched", threads=2)
-    finally:
-        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(timeout=120)
-        loop.call_soon_threadsafe(loop.stop)
-        thread.join(timeout=60)
+        require_replays(engine, graphs_before, "served parse")
     if pdf_a != pdf_b or png_a != png_b or len(_page_texts(pdf_a)) != 2:
         raise AssertionError("phase 16: two serial seeded CLI parses gave different artifacts")
     serial, cob = _page_texts(pdf_a), _page_texts(cobatched)
@@ -2017,6 +2053,306 @@ def server_parse_phase(dev, ckpt: str, workdir: str, env_flags) -> tuple:
     del engine
     _sync(dev)
     return counts, {"page_ms": lat_a, "png_ms": lat_png, "cobatched_same_text_share": share}
+
+
+@contextlib.contextmanager
+def running_server(engine, model_name: str = "flagship-random"):
+    """The port's OpenAIServer over ``engine`` on 127.0.0.1 in a thread of
+    this process; yields its base URL."""
+    from aiohttp import web
+
+    from dots_ocr_tpu_torch.serve.openai_server import OpenAIServer
+
+    port = _free_port()
+    loop = asyncio.new_event_loop()
+    runner = web.AppRunner(OpenAIServer(engine, model_name=model_name).build_app())
+    ready = threading.Event()
+
+    def serve():
+        asyncio.set_event_loop(loop)
+        loop.run_until_complete(runner.setup())
+        loop.run_until_complete(web.TCPSite(runner, "127.0.0.1", port).start())
+        ready.set()
+        loop.run_forever()
+
+    thread = threading.Thread(target=serve, daemon=True)
+    thread.start()
+    if not ready.wait(120):
+        raise RuntimeError("server did not start")
+    try:
+        yield f"http://127.0.0.1:{port}"
+    finally:
+        asyncio.run_coroutine_threadsafe(runner.cleanup(), loop).result(120)
+        loop.call_soon_threadsafe(loop.stop)
+        thread.join(60)
+
+
+def engine_metrics(base: str) -> tuple:
+    """(HTTP status, {name: value}) of the server's dots_ocr_engine_* lines."""
+    status, text = _http(f"{base}/metrics")
+    return status, {line.split()[0][len("dots_ocr_engine_"):]: float(line.split()[1])
+                    for line in text.splitlines()
+                    if line.startswith("dots_ocr_engine_") and len(line.split()) == 2}
+
+
+def graph_tokens_phase(dev, env_flags) -> tuple:
+    """Phase 17, first part: deploy/shipping.env's engine (graphs on, the
+    default) warmed by ``--warmup full`` (seconds, graphs, pool bytes),
+    and the same engine with ``cuda_graphs=False`` on its weights: the
+    three requests greedy for GRAPH_TOKENS tokens, then sampled at
+    temperature 1 with GRAPH_SEED, through each. The token ids must be
+    identical; every decode and verify chunk of the graphed engine is a
+    replay of a graph the warmup captured. Returns (the graphed engine,
+    its numbers)."""
+    import dataclasses
+
+    import torch
+
+    from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine
+    from dots_ocr_tpu_torch.serve import server as torch_server
+    from dots_ocr_tpu_torch.serve.openai_server import parse_chat_messages
+
+    args = torch_server.build_parser().parse_args(
+        ["--random-flagship", "--platform", str(dev), *env_flags])
+    graphed = torch_server.build_engine(args)
+    warm = torch_server.warm_up(graphed)
+    log(f"  --warmup full: {warm['seconds']:.2f} s (one vision and one text request, then "
+        f"{warm['thunks']} warmup thunks); {warm['graphs']} graphs captured; graph pool "
+        f"{warm['pool_bytes']} bytes ({(warm['pool_bytes'] or 0) / 2**30:.2f} GiB)")
+    if warm["graphs"] < 1 or not warm["pool_bytes"]:
+        raise AssertionError(f"phase 17: --warmup full captured nothing ({warm})")
+    eager = ContinuousBatchingEngine(graphed.params, graphed.config, dev,
+                                     tokenizer=graphed.tokenizer,
+                                     sched=dataclasses.replace(graphed.sched, cuda_graphs=False))
+    # The same warm requests, so that both engines start from one scheduler
+    # state (the speculation gate's running average, the key chain).
+    torch_server.warm_requests(eager)
+    prepared = []
+    for name, body in chat_requests():
+        prompt, images, system = parse_chat_messages(body["messages"])
+        prepared.append((name, graphed.prepare(prompt, images, system_prompt=system)))
+    waves = (("greedy", dict(temperature=0.0)),
+             ("sampled", dict(temperature=1.0, seed=GRAPH_SEED)))
+    ids, walls = {}, {}
+    for label, eng in (("graphed", graphed), ("eager", eager)):
+        before = graph_counts(eng)
+        ids[label], walls[label] = [], []
+        for wave, options in waves:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rids = [eng.submit("", max_new_tokens=GRAPH_TOKENS, prepared=prep, **options)
+                    for _, prep in prepared]
+            eng.run()
+            torch.cuda.synchronize()
+            walls[label].append(time.perf_counter() - t0)
+            reqs = [eng.finished_request(r) for r in rids]
+            ids[label].append([r.output_ids for r in reqs])
+            log(f"  [{label}, {wave}] wall {walls[label][-1]:.2f} s; completion tokens "
+                f"{[len(r.output_ids) for r in reqs]} (finish "
+                f"{[r.finished_reason for r in reqs]}); engine so far: "
+                + ", ".join(f"{k} {eng.metrics[k]}" for k in (
+                    "steps", "spec_chunks", "spec_emitted", "spec_auto_disabled",
+                    "pipelined_chunks", "chunk_input_rebuilds")))
+        if label == "graphed":
+            delta = require_replays(eng, before, "17 graphed")
+            if delta["graph_captures"]:
+                raise AssertionError(f"phase 17: {delta['graph_captures']} graphs captured "
+                                     "after --warmup full")
+        elif eng.metrics["graph_replays"] or eng.metrics["graph_captures"]:
+            raise AssertionError("phase 17: the eager engine ran graphs")
+    for w, (wave, _) in enumerate(waves):
+        for (name, _), got, want in zip(prepared, ids["graphed"][w], ids["eager"][w]):
+            if got != want:
+                at = next((i for i, (a, b) in enumerate(zip(got, want)) if a != b),
+                          min(len(got), len(want)))
+                raise AssertionError(f"phase 17: {wave} {name}: graphed and eager token ids "
+                                     f"differ at token {at}: {got[at:at + 4]} vs "
+                                     f"{want[at:at + 4]}")
+    log(f"  token ids of the graphed and the eager engine identical in both waves "
+        f"({sum(len(t) for w in ids['graphed'] for t in w)} tokens)")
+    del eager
+    release()
+    return graphed, {"warmup_full": warm, "walls_s": walls}
+
+
+def chunk_speed_phase(engine, dev) -> dict:
+    """Phase 17, second part: phase 9's step (64 slots at 2,048 tokens of
+    context, the engine's weights over its own pool) as one decode chunk of
+    CHUNK_DEPTH iterations, greedy: replayed from the graph the warmup
+    captured and run eagerly, in turns. ms a step (CUDA events), the host's
+    ms to dispatch the chunk, and each run's device busy share (the sum of
+    its kernels' device time over the chunk's event time, torch.profiler;
+    None where the profiler shows no device time)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    s, ctx = MAX_SLOTS, 2048
+    pages_per_row = ctx // PAGE_SIZE + 1
+    dev_in = engine._mode_inputs((False, False, False))
+    state = {"tokens": (torch.arange(s, device=dev) * 7 + 100) % engine.config.decoder.vocab_size,
+             "positions": torch.full((s,), ctx, dtype=torch.int64, device=dev),
+             "budgets": torch.full((s,), 10**6, dtype=torch.int64, device=dev),
+             "tables": torch.zeros_like(dev_in.tables),
+             "active": torch.ones(s, dtype=torch.bool, device=dev),
+             "temps": torch.zeros(s, device=dev), "top_ps": torch.ones(s, device=dev),
+             "keys": torch.zeros((s, 2), dtype=torch.int64, device=dev)}
+    state["tables"][:, :pages_per_row] = (
+        1 + torch.arange(s * pages_per_row, device=dev, dtype=torch.int32)).reshape(s, -1)
+    dev_in.any_sampled = dev_in.nucleus = False
+    key = engine._chunk_key(dev_in, 0, CHUNK_DEPTH, False)
+    program = engine._chunk_program(dev_in, key)
+    captured = key in engine._graphs
+
+    def restore():
+        for name, value in state.items():
+            getattr(dev_in, name).copy_(value)
+
+    fns = {"graph": lambda: engine._graphs.run(key, program),
+           "eager": lambda: program(CHUNK_DEPTH, True)}
+    times = {name: [] for name in fns}
+    host = {name: [] for name in fns}
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def timed(fn):
+        restore()
+        torch.cuda.synchronize()
+        start.record()
+        t0 = time.perf_counter()
+        fn()
+        host_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end), host_ms
+
+    for fn in fns.values():
+        timed(fn)
+    for r in range(REPS):
+        for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
+            ms, host_ms = timed(fns[name])
+            times[name].append(ms)
+            host[name].append(host_ms)
+    busy = {}
+    for name, fn in fns.items():
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            ms, _ = timed(fn)
+        ops = [(e.key, e.count, (getattr(e, "self_device_time_total", 0) or 0) / 1e3)
+               for e in prof.key_averages()]
+        ops = sorted((op for op in ops if op[2] > 0), key=lambda op: -op[2])
+        device_ms = sum(op[2] for op in ops)
+        busy[name] = {"share": device_ms / ms if device_ms else None, "device_ms": device_ms,
+                      "chunk_ms": ms, "device_ops": sum(op[1] for op in ops),
+                      "top": [(key[:70], count, round(t, 3)) for key, count, t in ops[:10]]}
+    engine._dev = None
+    out = {name: {"ms_per_step": statistics.median(times[name]) / CHUNK_DEPTH,
+                  "chunk_ms": statistics.median(times[name]),
+                  "host_dispatch_ms": statistics.median(host[name]), "busy": busy[name]}
+           for name in fns}
+    log(f"  one decode chunk, {s} slots x {ctx} context, depth {CHUNK_DEPTH}, greedy "
+        f"(the warmup's graph: {captured}; median of {REPS}, in turns): "
+        + "; ".join(f"{name} {o['ms_per_step']:.3f} ms a step ({o['chunk_ms']:.2f} ms a chunk), "
+                    f"host dispatch {o['host_dispatch_ms']:.3f} ms, device busy share "
+                    f"{o['busy']['share']} ({o['busy']['device_ops']} device ops, "
+                    f"{o['busy']['device_ms']:.2f} of {o['busy']['chunk_ms']:.2f} ms)"
+                    for name, o in out.items()))
+    log("  the graphed chunk's device time by operation (name, count, ms): "
+        + "; ".join(f"{key} x{count} {t:.2f}" for key, count, t in busy["graph"]["top"]))
+    return out
+
+
+def background_warmup_phase(dev, env_flags) -> dict:
+    """Phase 17, third part: deploy/shipping.env's server with ``--warmup
+    background`` (its ``--warmup-pages`` default): /health answers while
+    warm thunks are pending, a request sent then comes back HTTP 200, and
+    ``dots_ocr_engine_warm_pending`` reaches 0."""
+    from dots_ocr_tpu_torch.serve import server as torch_server
+
+    args = torch_server.build_parser().parse_args(
+        ["--random-flagship", "--platform", str(dev), *env_flags, "--warmup", "background"])
+    engine = torch_server.build_engine(args)
+    torch_server.start_warmup(engine, args)
+    queued = engine.warm_pending
+    t0 = time.perf_counter()
+    with running_server(engine) as base:
+        status, body = _http(f"{base}/health")
+        health_s = time.perf_counter() - t0
+        pending_at_health = engine_metrics(base)[1]["warm_pending"]
+        text = dict(chat_requests()[2][1], temperature=0.0, max_tokens=16)
+        status_req, reply = _http(f"{base}/v1/chat/completions", text)
+        request_s = time.perf_counter() - t0
+        pending_after = engine_metrics(base)[1]["warm_pending"]
+        while True:
+            metrics = engine_metrics(base)[1]
+            if metrics["warm_pending"] == 0 or time.perf_counter() - t0 > 600:
+                break
+            time.sleep(0.25)
+        drained_s = time.perf_counter() - t0
+    out = dict(queued=queued, health_status=status, health_s=health_s,
+               pending_at_health=pending_at_health, request_status=status_req,
+               request_s=request_s, pending_after_request=pending_after,
+               drained_s=drained_s, warm_pending=metrics["warm_pending"],
+               graph_captures=metrics["graph_captures"],
+               graph_replays=metrics["graph_replays"], steps=metrics["steps"])
+    log(f"  --warmup background: {queued} thunks queued; /health {status} after "
+        f"{health_s:.2f} s with {pending_at_health:g} pending; a text request sent then: HTTP "
+        f"{status_req} after {request_s:.2f} s ({json.loads(reply)['usage']['completion_tokens']} "
+        f"tokens), {pending_after:g} pending; warm_pending {metrics['warm_pending']:g} after "
+        f"{drained_s:.2f} s; graphs captured {metrics['graph_captures']:g}")
+    if (status != 200 or pending_at_health < 1 or status_req != 200
+            or metrics["warm_pending"] != 0 or metrics["graph_captures"] < 1):
+        raise AssertionError(f"phase 17: background warmup {out}")
+    del engine
+    release()
+    return out
+
+
+def compile_cache_phase(env) -> dict:
+    """Phase 17, last part: ``--compile-cache``. A fresh process sets an
+    empty cache directory the way the flag does
+    (``server.apply_compile_cache``) and loads the kernels: nvcc builds
+    them. A second fresh process, with no nvcc on its PATH or under
+    CUDA_HOME, loads them from that directory. Also, phase 11's server
+    (deploy/shipping.env's COMPILE_CACHE) left the library in its cache."""
+    import shutil
+
+    from dots_ocr_tpu_torch.ops import kernel_lib
+
+    code = ("import json, sys, time\n"
+            "t0 = time.perf_counter()\n"
+            "from dots_ocr_tpu_torch.ops import kernel_lib\n"
+            "from dots_ocr_tpu_torch.serve.server import apply_compile_cache\n"
+            "t1 = time.perf_counter()\n"
+            "apply_compile_cache(sys.argv[1])\n"
+            "kernel_lib.load()\n"
+            "t2 = time.perf_counter()\n"
+            "print(json.dumps({'import_s': t1 - t0, 'load_s': t2 - t1, "
+            "'built': kernel_lib.built, 'lib': kernel_lib.lib_path}))\n")
+    cache = tempfile.mkdtemp(prefix="dots_kernel_cache_")
+    no_nvcc = dict(os.environ, CUDA_HOME=os.path.join(cache, "no-cuda"), PATH=os.pathsep.join(
+        d for d in os.environ.get("PATH", "").split(os.pathsep)
+        if d and not os.path.exists(os.path.join(d, "nvcc"))))
+    runs = {}
+    try:
+        for label, env_vars in (("cold", os.environ), ("cached, no nvcc", no_nvcc)):
+            proc = subprocess.run([sys.executable, "-c", code, cache], cwd=REPO, env=env_vars,
+                                  capture_output=True, text=True, timeout=900)
+            if proc.returncode != 0:
+                raise AssertionError(f"phase 17: the {label} process exited "
+                                     f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+            runs[label] = json.loads(proc.stdout.strip().splitlines()[-1])
+            log(f"  --compile-cache, {label} process: import {runs[label]['import_s']:.2f} s, "
+                f"kernels loaded in {runs[label]['load_s']:.2f} s (nvcc ran: "
+                f"{runs[label]['built']}) from {runs[label]['lib']}")
+    finally:
+        shutil.rmtree(cache, ignore_errors=True)
+    shipped = os.path.join(REPO, env["COMPILE_CACHE"], os.path.basename(kernel_lib.lib_path))
+    if (not runs["cold"]["built"] or runs["cached, no nvcc"]["built"]
+            or runs["cold"]["lib"] != runs["cached, no nvcc"]["lib"]
+            or not os.path.exists(shipped)):
+        raise AssertionError(f"phase 17: compile cache {runs}; {shipped} exists: "
+                             f"{os.path.exists(shipped)}")
+    log(f"  deploy/shipping.env's COMPILE_CACHE holds the library phase 11's server used: "
+        f"{shipped}")
+    return runs
 
 
 def shipping_env() -> dict:
@@ -2048,7 +2384,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    log("[1/16] device")
+    log("[1/17] device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2057,7 +2393,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {smi}")
 
-    log("[2/16] build the CUDA kernels")
+    log("[2/17] build the CUDA kernels")
     from dots_ocr_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
@@ -2067,13 +2403,13 @@ def main() -> int:
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3/16] kernels vs plain versions on {smi}")
+    log(f"[3/17] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
     kernels.update(draw_cases(dev))
     tiny_call = tiny_call_phase(dev)
     w8a8_vision = w8a8_vision_phase(dev)
 
-    log(f"[4/16] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
+    log(f"[4/17] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
         f"{PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     shipped_replies = []
     engine, shipped, metrics, page = serve_phase(
@@ -2086,12 +2422,12 @@ def main() -> int:
         raise AssertionError(f"shipped path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[5/16] consistency, shipped path: kernel path vs plain path, page request")
+    log("[5/17] consistency, shipped path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev)
     del engine
-    torch.cuda.empty_cache()
+    release()
 
-    log(f"[6/16] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
+    log(f"[6/17] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
         f"chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, full_quant, metrics, page = serve_phase(
         dev, FULL_QUANT_FLAGS, "int4", waves=FULL_QUANT_WAVES,
@@ -2106,24 +2442,24 @@ def main() -> int:
         raise AssertionError(f"int4 path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[7/16] consistency, fully quantized path: kernel path vs plain path, page request")
+    log("[7/17] consistency, fully quantized path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev, w8a8_vision=True)
     del engine
-    torch.cuda.empty_cache()
+    release()
 
-    log(f"[8/16] end to end, bf16 path (bf16 weights and KV, no speculation, one "
+    log(f"[8/17] end to end, bf16 path (bf16 weights and KV, no speculation, one "
         f"{PREFILL_LIMIT}-token prefill), full depth, on {smi}")
     engine, bf16_path, _, page = serve_phase(
         dev, BF16_FLAGS, "bf16", required=("flash_attention", "paged_attention_multiquery"))
     log("  consistency, bf16 path: kernel path vs plain path, page request")
     consistency_phase(engine, page, dev)
 
-    log(f"[9/16] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
+    log(f"[9/17] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
     decode_ms, decode_launches = decode_cost_phase(engine, dev)
     del engine
-    torch.cuda.empty_cache()
+    release()
 
-    log(f"[10/16] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
+    log(f"[10/17] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
         f"speculation, chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, windowed, metrics, page = serve_phase(
         dev, WINDOWED_FLAGS, "windowed",
@@ -2134,12 +2470,12 @@ def main() -> int:
     log("  consistency, windowed page-64 path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev)
     del engine
-    torch.cuda.empty_cache()
+    release()
 
     env = shipping_env()
     env_flags = [item for key, flag in SHIPPING_KEYS.items() for item in (flag, env[key])]
     settings = ", ".join(f"{key}={env[key]}" for key in SHIPPING_KEYS)
-    log(f"[11/16] end to end, deploy/shipping.env as written ({settings}): flagship, random "
+    log(f"[11/17] end to end, deploy/shipping.env as written ({settings}): flagship, random "
         f"weights, waves (temperature, max_tokens) {SHIPPING_WAVES}, OpenAIServer on {smi}")
     engine, shipping, metrics, page = serve_phase(
         dev, [], "shipping.env", base_flags=env_flags, waves=SHIPPING_WAVES,
@@ -2158,13 +2494,13 @@ def main() -> int:
     log("  consistency, shipping.env path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev)
     del engine
-    torch.cuda.empty_cache()
+    release()
 
-    log(f"[12/16] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
+    log(f"[12/17] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
         f"weights, OpenAIServer on {smi}")
     dry_launches, dry_metrics = dry_pool_phase(dev, shipped_replies[1])
 
-    log(f"[13/16] pipelined decode A/B at full width: deploy/shipping.env's geometry with "
+    log(f"[13/17] pipelined decode A/B at full width: deploy/shipping.env's geometry with "
         f"--speculate-k 0, {PIPELINE_TOKENS} tokens a request, on {smi}")
     pipeline_ab = pipeline_ab_phase(dev, env_flags)
     log(f"  [13] deploy/shipping.env as written (k = 2) with the defaults, {PIPELINE_TOKENS} "
@@ -2175,15 +2511,25 @@ def main() -> int:
         required=("flash_attention", "paged_attention_multiquery",
                   "paged_attention_multiquery (nq > 1)"))
     del engine
-    torch.cuda.empty_cache()
+    release()
 
     with tempfile.TemporaryDirectory(prefix="dots_parse_") as workdir:
-        log(f"[15/16] the loader, the batch engine and the parser's local mode: a synthetic "
+        log(f"[15/17] the loader, the batch engine and the parser's local mode: a synthetic "
             f"flagship checkpoint, a seeded 2-page PDF parse on {smi}")
         ckpt, local_launches, local_numbers = local_parse_phase(dev, workdir)
-        log(f"[16/16] the parser's server mode: deploy/shipping.env's flags + --weights, the "
+        log(f"[16/17] the parser's server mode: deploy/shipping.env's flags + --weights, the "
             f"CLI with --seed on a PDF and a PNG, on {smi}")
         served_launches, served_numbers = server_parse_phase(dev, ckpt, workdir, env_flags)
+
+    log(f"[17/17] CUDA graphs and the warmup flags: deploy/shipping.env's engine graphed "
+        f"against eager, --warmup full, phase 9's step as one chunk, --warmup background and "
+        f"--compile-cache, on {smi}")
+    engine, graph_numbers = graph_tokens_phase(dev, env_flags)
+    graph_numbers["chunk"] = chunk_speed_phase(engine, dev)
+    del engine
+    release()
+    graph_numbers["background"] = background_warmup_phase(dev, env_flags)
+    graph_numbers["compile_cache"] = compile_cache_phase(env)
 
     sources = {
         "gumbel_argmax": ("dots_ocr_tpu_torch/csrc/threefry_sample.cu",
@@ -2226,7 +2572,7 @@ def main() -> int:
                             "shipping.env, pipelined": pipelined_k2,
                             "local parse": local_launches, "served parse": served_launches},
         "local_parse": local_numbers, "served_parse": served_numbers,
-        "pipeline_ab": pipeline_ab,
+        "pipeline_ab": pipeline_ab, "graphs": graph_numbers,
         "dry_pool_preemptions": dry_metrics["preemptions"],
         "decode_step_ms": decode_ms, "w8a8_vision_linear_ms": w8a8_vision,
         "tiny_call_ms": tiny_call}

@@ -55,8 +55,12 @@ def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
 
 def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     """``jax.random.fold_in`` on keys [..., 2] with data (an int, or an
-    integer tensor broadcasting against keys[..., 0]) taken mod 2^32."""
-    data = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & MASK32
+    integer tensor broadcasting against keys[..., 0]) taken mod 2^32. An int
+    is filled on the keys' device: no host copy, so a CUDA graph can hold it."""
+    if isinstance(data, int):
+        data = torch.full((), data & MASK32, dtype=torch.int64, device=keys.device)
+    else:
+        data = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & MASK32
     y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data), data)
     return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
 

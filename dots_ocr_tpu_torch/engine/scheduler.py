@@ -28,7 +28,15 @@ growth, a change of decode mode). Event-free decode deepens its chunks to
 ``max_steps_per_sync`` and pipelines them (lookahead-1): chunk N+1 is
 dispatched off the carry before chunk N's packed result is read, and that
 result travels to the host through a pinned buffer guarded by an event of
-its own, so reading it never waits for chunk N+1.
+its own, so reading it never waits for chunk N+1. The inputs are fixed
+buffers, one set per chunk mode (:class:`ChunkInputs`), refilled in place
+on events; the programs write their carry back into them. On the card each
+chunk configuration is captured once as a CUDA graph over those buffers and
+replayed for every later chunk (``engine/graphs.py``), the counterpart of
+the JAX engine's one compiled program a chunk; the warmup
+(:meth:`ContinuousBatchingEngine.warmup_decode`, or queued and run on idle
+ticks) captures every configuration ``step()`` can dispatch ahead of
+traffic, as the JAX warmup compiles them.
 
 Sampling is seeded and position-keyed, as in the JAX engine: each request
 carries a key, ``PRNGKey(seed)`` for a seeded request and else a split of
@@ -50,13 +58,15 @@ guard.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import logging
 import time
 from collections import deque
-from typing import Any, Deque, Dict, List, Optional, Sequence
+from typing import Any, Callable, Deque, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
+from PIL import Image
 
 from dots_ocr_tpu_torch.engine.repetition import detect_repetition
 from dots_ocr_tpu_torch.engine.tokenizer import (
@@ -71,6 +81,7 @@ from dots_ocr_tpu_torch.engine.kv_cache import (
     PagedKV,
     write_prefill_kv,
 )
+from dots_ocr_tpu_torch.engine.graphs import ChunkKey, DecodeGraphs, chunk_key
 from dots_ocr_tpu_torch.engine.request import prepare_request
 from dots_ocr_tpu_torch.engine.sampling import (
     fold_positions,
@@ -88,6 +99,7 @@ from dots_ocr_tpu_torch.models.decoder import (
     logits_from_hidden,
 )
 from dots_ocr_tpu_torch.models.preprocess import merge_packed
+from dots_ocr_tpu_torch.models.quantize import has_int4_kernels
 from dots_ocr_tpu_torch.models.rope import vision_rope_device
 from dots_ocr_tpu_torch.models.vision import encode_images
 from dots_ocr_tpu_torch.models.vlm import (
@@ -95,6 +107,7 @@ from dots_ocr_tpu_torch.models.vlm import (
     splice_vision_embeddings,
     vlm_prefill,
 )
+from dots_ocr_tpu_torch.ops.int4_matmul import int4_act_quant
 
 logger = logging.getLogger(__name__)
 
@@ -163,6 +176,59 @@ class HostFetch:
         if self.event is not None:
             self.event.synchronize()
         return self.host.numpy()
+
+
+@dataclasses.dataclass
+class ChunkInputs:
+    """One chunk mode's device-resident decode inputs: fixed buffers that
+    events refill in place and that the programs' carry (next tokens,
+    positions and budgets) updates in place, so that a CUDA graph captured
+    over them stays valid. ``mode`` is (speculative, penalties, logit_bias):
+    the spec history (``buf``, ``gen_start``), the counts and penalty rows,
+    and the bias rows exist only in the modes that read them.
+    ``any_sampled`` and ``nucleus`` are the host's flags for the rows of
+    the last refill."""
+
+    mode: Tuple[bool, bool, bool]
+    tokens: torch.Tensor     # [S] int64
+    positions: torch.Tensor  # [S] int64
+    budgets: torch.Tensor    # [S] int64
+    tables: torch.Tensor     # [S, max_pages_per_seq] int32
+    active: torch.Tensor     # [S] bool
+    temps: torch.Tensor      # [S] float32
+    top_ps: torch.Tensor     # [S] float32
+    keys: torch.Tensor       # [S, 2] int64
+    buf: Optional[torch.Tensor] = None        # [S, L + 1] int64
+    gen_start: Optional[torch.Tensor] = None  # [S] int64
+    bias_ids: Optional[torch.Tensor] = None   # [S, K] int64
+    bias_vals: Optional[torch.Tensor] = None  # [S, K] float32
+    counts: Optional[torch.Tensor] = None     # [S, V] int32
+    pres: Optional[torch.Tensor] = None       # [S] float32
+    freq: Optional[torch.Tensor] = None       # [S] float32
+    any_sampled: bool = False
+    nucleus: bool = False
+
+    @classmethod
+    def allocate(cls, mode: Tuple[bool, bool, bool], slots: int, width: int, history: int,
+                 vocab: int, bias_slots: int, device: torch.device) -> "ChunkInputs":
+        use_spec, use_pen, use_bias = mode
+
+        def zeros(*shape, dtype=torch.int64):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        f32 = torch.float32
+        return cls(
+            mode=mode, tokens=zeros(slots), positions=zeros(slots), budgets=zeros(slots),
+            tables=zeros(slots, width, dtype=torch.int32), active=zeros(slots, dtype=torch.bool),
+            temps=zeros(slots, dtype=f32), top_ps=zeros(slots, dtype=f32), keys=zeros(slots, 2),
+            buf=zeros(slots, history + 1) if use_spec else None,
+            gen_start=zeros(slots) if use_spec else None,
+            bias_ids=zeros(slots, bias_slots) if use_bias else None,
+            bias_vals=zeros(slots, bias_slots, dtype=f32) if use_bias else None,
+            counts=zeros(slots, vocab, dtype=torch.int32) if use_pen else None,
+            pres=zeros(slots, dtype=f32) if use_pen else None,
+            freq=zeros(slots, dtype=f32) if use_pen else None,
+        )
 
 
 def prefill_program(
@@ -525,6 +591,11 @@ class SchedulerConfig:
     spec_min_tokens_per_iter: float = 1.5
     # "bf16" (the model dtype) or "int8" (int8 pools + float32 scales).
     kv_cache_dtype: str = "bf16"
+    # On CUDA, every decode and verify chunk runs as a CUDA graph, captured
+    # at its configuration's first dispatch (engine/graphs.py). False runs
+    # the same programs eagerly (the oracle of the graphed engine). Nothing
+    # is captured on the CPU.
+    cuda_graphs: bool = True
 
 
 @dataclasses.dataclass
@@ -683,10 +754,18 @@ class ContinuousBatchingEngine:
         # the next step().
         self._reported: set = set()
         self._next_id = 0
-        # Device-resident decode chunk inputs, valid while no event
-        # (admission, finish, preemption, page growth, decode-mode change)
-        # happened since the last chunk; None = rebuild from host state.
-        self._dev: Optional[dict] = None
+        # Device-resident decode chunk inputs: fixed buffers per chunk mode,
+        # and the set the next chunk reads, valid while no event (admission,
+        # finish, preemption, page growth, decode-mode change) happened
+        # since the last chunk; None = refill from host state.
+        self._inputs: Dict[Tuple[bool, bool, bool], ChunkInputs] = {}
+        self._dev: Optional[ChunkInputs] = None
+        # The decode chunks' CUDA graphs (None: the programs run eagerly).
+        self._graphs = (DecodeGraphs(self.device)
+                        if self.device.type == "cuda" and self.sched.cuda_graphs else None)
+        self._int4_weights = has_int4_kernels(params["decoder"])
+        # The queued warmup (queue_warmup), run one thunk per warm_tick.
+        self._warm_queue: List[Callable[[], None]] = []
         # The pipelined chunk dispatched but not yet applied: {"fetch",
         # "active", "chunk", "use_lp", "use_spec", "tokens" (the most it can
         # emit)}; and the requests whose pages it may still write, freed
@@ -712,6 +791,8 @@ class ContinuousBatchingEngine:
             "preemptions": 0,
             "pipelined_chunks": 0,      # decode chunks dispatched ahead of a fetch
             "chunk_input_rebuilds": 0,  # decode chunks whose inputs were uploaded
+            "graph_captures": 0,  # decode chunk configurations captured as CUDA graphs
+            "graph_replays": 0,   # decode chunks run as a replay (warmup included)
             "t_submit_s": 0.0,   # tokenize + image preprocessing
             "t_admit_s": 0.0,    # admission incl. monolithic prefill / chunk embeds
             "t_prefill_s": 0.0,  # chunked-prefill chunks
@@ -1342,7 +1423,7 @@ class ContinuousBatchingEngine:
                         and not (use_lp or use_pen or use_bias)
                         and remaining - ahead >= chunk * per_iter)
         mode = (use_spec, use_pen, use_bias)
-        mode_flip = self._dev is not None and self._dev["mode"] != mode
+        mode_flip = self._dev is not None and self._dev.mode != mode
         if self._inflight is not None and (not pipeline_now or self._dev is None or mode_flip):
             # The pipeline breaks (an event, a mode change, or inputs to
             # rebuild): land the in-flight chunk and go on from true state.
@@ -1396,7 +1477,7 @@ class ContinuousBatchingEngine:
                 # Pages grew mid-pipeline: only the tables changed. The
                 # tokens / positions / budgets carry lives on the device
                 # and must not be rebuilt from the lagging host state.
-                self._dev["tables"] = self._put(self._tables(active))
+                self._upload(self._dev.tables, self._tables(active))
             else:
                 self._dev = None
         if not active:
@@ -1406,27 +1487,11 @@ class ContinuousBatchingEngine:
             self._dev = self._chunk_inputs(active, mode)
             self.metrics["chunk_input_rebuilds"] += 1
         dev = self._dev
-        common = dict(page_tables=dev["tables"], active=dev["active"],
-                      temperature=dev["temps"], top_p=dev["top_ps"], slot_keys=dev["keys"],
-                      any_sampled=dev["any_sampled"], nucleus=dev["nucleus"],
-                      page_size=self.sched.page_size, num_steps=chunk,
-                      bias_ids=dev.get("bias_ids"), bias_vals=dev.get("bias_vals"))
+        packed = self._run_chunk(dev, self._chunk_key(dev, spec_k if use_spec else 0, chunk,
+                                                      use_lp))
         if use_spec:
-            packed, carry = spec_decode_program(
-                self.params, self.config, self.paged, dev["buf"], dev["tokens"],
-                dev["positions"], dev["budgets"], dev["gen_start"], spec_k=spec_k, **common,
-            )
             self.metrics["spec_chunks"] += 1
             self.metrics["spec_slot_iters"] += chunk * len(active)
-        else:
-            packed, carry = decode_program(
-                self.params, self.config, self.paged, dev["tokens"], dev["positions"],
-                dev["budgets"], with_logprobs=use_lp, presence=dev.get("pres"),
-                frequency=dev.get("freq"), counts=dev.get("counts"), **common,
-            )
-        # Chain the carry before the host's bookkeeping: an event there
-        # only resets self._dev.
-        dev["tokens"], dev["positions"], dev["budgets"] = carry
         flight = dict(fetch=HostFetch(packed), active=list(active), chunk=chunk,
                       use_lp=use_lp, use_spec=use_spec, tokens=chunk * per_iter)
         if pipeline_now:
@@ -1446,8 +1511,28 @@ class ContinuousBatchingEngine:
             tables[i] = self.allocator.padded_table(self._slot_req[i].req_id)
         return tables
 
-    def _chunk_inputs(self, active: List[int], mode) -> dict:
-        """The decode chunk's device inputs, built from host state."""
+    def _mode_inputs(self, mode: Tuple[bool, bool, bool]) -> ChunkInputs:
+        """``mode``'s fixed input buffers, allocated at its first use."""
+        dev = self._inputs.get(mode)
+        if dev is None:
+            sched = self.sched
+            dev = self._inputs[mode] = ChunkInputs.allocate(
+                mode, sched.max_slots, sched.max_pages_per_seq,
+                sched.max_pages_per_seq * sched.page_size, self.config.decoder.vocab_size,
+                sched.logit_bias_slots, self.device)
+        return dev
+
+    def _upload(self, dst: torch.Tensor, x: np.ndarray) -> None:
+        """Copy a host array into a fixed device buffer in place: through
+        pinned staging on the card, without blocking the host. Stream order
+        keeps the copy behind a chunk in flight that reads the buffer."""
+        staged = torch.from_numpy(np.ascontiguousarray(x))
+        if self.device.type == "cuda":
+            staged = staged.pin_memory()
+        dst.copy_(staged, non_blocking=True)
+
+    def _chunk_inputs(self, active: List[int], mode: Tuple[bool, bool, bool]) -> ChunkInputs:
+        """Refill ``mode``'s fixed buffers from host state."""
         use_spec, use_pen, use_bias = mode
         s = self.sched.max_slots
         positions = np.zeros(s, np.int64)
@@ -1458,22 +1543,19 @@ class ContinuousBatchingEngine:
             positions[i] = self._lengths[i]
             budgets[i] = req.max_new_tokens - len(req.output_ids)
             active_mask[i] = True
-        dev = dict(tokens=self._put(self._tokens), positions=self._put(positions),
-                   budgets=self._put(budgets), tables=self._put(self._tables(active)),
-                   active=self._put(active_mask), temps=self._put(self._temps),
-                   top_ps=self._put(self._top_ps), keys=self._put(self._slot_keys), mode=mode,
-                   any_sampled=bool(np.any(self._temps[active] > 0)),
-                   nucleus=bool(np.any(self._top_ps[active] < 1.0)))
+        dev = self._mode_inputs(mode)
+        host = [(dev.tokens, self._tokens), (dev.positions, positions), (dev.budgets, budgets),
+                (dev.tables, self._tables(active)), (dev.active, active_mask),
+                (dev.temps, self._temps), (dev.top_ps, self._top_ps), (dev.keys, self._slot_keys)]
         if use_bias:
-            dev["bias_ids"], dev["bias_vals"] = self._put(self._bias_ids), self._put(self._bias_vals)
+            host += [(dev.bias_ids, self._bias_ids), (dev.bias_vals, self._bias_vals)]
         if use_pen:
             # Counts over the generated tokens since the last (re)admission,
             # as the JAX engine builds them.
             counts = np.zeros((s, self.config.decoder.vocab_size), np.int32)
             for i in active:
                 np.add.at(counts[i], np.asarray(self._slot_req[i].output_ids, np.int64), 1)
-            dev["counts"] = self._put(counts)
-            dev["pres"], dev["freq"] = self._put(self._pres), self._put(self._freq)
+            host += [(dev.counts, counts), (dev.pres, self._pres), (dev.freq, self._freq)]
         if use_spec:
             # Generated history by logical position (the draft source), plus
             # the sink column. After a preemption gen_start is the grown
@@ -1488,8 +1570,146 @@ class ContinuousBatchingEngine:
                 gen_start[i] = plen
                 end = min(plen + len(req.output_ids), cap)
                 buf[i, plen:end] = req.output_ids[: end - plen]
-            dev["buf"], dev["gen_start"] = self._put(buf), self._put(gen_start)
+            host += [(dev.buf, buf), (dev.gen_start, gen_start)]
+        for dst, x in host:
+            self._upload(dst, x)
+        dev.any_sampled = bool(np.any(self._temps[active] > 0))
+        dev.nucleus = bool(np.any(self._top_ps[active] < 1.0))
         return dev
+
+    def _chunk_key(self, dev: ChunkInputs, spec_k: int, num_steps: int,
+                   with_logprobs: bool) -> ChunkKey:
+        _, use_pen, use_bias = dev.mode
+        return chunk_key(spec_k, num_steps, dev.any_sampled, dev.nucleus, with_logprobs,
+                         use_pen, use_bias, int4_act_quant(), self._int4_weights)
+
+    def _chunk_program(self, dev: ChunkInputs, key: ChunkKey) -> Callable[[int, bool], torch.Tensor]:
+        """The chunk of ``key`` over ``dev`` as ``run(num_steps, live)``,
+        which returns the packed result. Live, it reads ``dev.active`` and
+        writes the carry back into ``dev``; otherwise every row is inactive
+        (only the null page is written) and the carry is dropped."""
+
+        def run(num_steps: int, live: bool) -> torch.Tensor:
+            common = dict(page_tables=dev.tables,
+                          active=dev.active if live else torch.zeros_like(dev.active),
+                          temperature=dev.temps, top_p=dev.top_ps, slot_keys=dev.keys,
+                          any_sampled=key.any_sampled, nucleus=key.nucleus,
+                          page_size=self.sched.page_size, num_steps=num_steps,
+                          bias_ids=dev.bias_ids, bias_vals=dev.bias_vals)
+            if key.spec_k:
+                packed, carry = spec_decode_program(
+                    self.params, self.config, self.paged, dev.buf, dev.tokens, dev.positions,
+                    dev.budgets, dev.gen_start, spec_k=key.spec_k, **common)
+            else:
+                packed, carry = decode_program(
+                    self.params, self.config, self.paged, dev.tokens, dev.positions,
+                    dev.budgets, with_logprobs=key.with_logprobs, presence=dev.pres,
+                    frequency=dev.freq, counts=dev.counts, **common)
+            if live:
+                for buf, value in zip((dev.tokens, dev.positions, dev.budgets), carry):
+                    buf.copy_(value)
+            return packed
+
+        return run
+
+    def _run_chunk(self, dev: ChunkInputs, key: ChunkKey) -> torch.Tensor:
+        """One decode chunk over ``dev``: on the card a replay of its
+        graph, captured at the key's first dispatch; else the program. The
+        carry lands in ``dev``; returns the packed result, which must be
+        copied out before the next chunk is dispatched."""
+        program = self._chunk_program(dev, key)
+        if self._graphs is None:
+            return program(key.num_steps, True)
+        packed = self._graphs.run(key, program)
+        self.metrics["graph_captures"] = self._graphs.captures
+        self.metrics["graph_replays"] = self._graphs.replays
+        return packed
+
+    # -- warmup ----------------------------------------------------------
+
+    def warmup_plan(self, max_len: Optional[int] = None,
+                    nucleus_variants: Sequence[bool] = (False, True)) -> List[Callable[[], None]]:
+        """The warm thunks covering every decode chunk ``step()`` can
+        dispatch without request options (a logprobs, penalties or
+        logit_bias chunk is captured at its first dispatch), in the JAX
+        plan's order: non-nucleus variants before nucleus, speculative
+        before plain, shallow before deep. Each thunk runs its chunk over
+        an all-inactive batch, which touches no live KV page: on the card
+        it captures the greedy and the sampled graph, on the CPU it runs
+        the program once. The JAX engine buckets page-table widths on its
+        non-static routes, one program each up to ``max_len``'s; the
+        port's tables are always ``max_pages_per_seq`` wide, so its plan has
+        that one width whatever ``max_len`` is. Thunks run on the engine
+        thread while the engine is idle."""
+        sps, deep = self.sched.steps_per_sync, self.sched.max_steps_per_sync
+        plain = [(0, sps)] + ([(0, deep)] if deep > sps else [])
+        spec = []
+        k = self.sched.speculate_k
+        if k > 0:
+            # step() divides the deep depth by the tokens an iteration emits.
+            spec_deep = max(sps, deep // (k + 1))
+            spec = [(k, sps)] + ([(k, spec_deep)] if spec_deep != sps else [])
+        return [functools.partial(self._warm, spec_k, depth, bool(nucleus))
+                for nucleus in nucleus_variants for spec_k, depth in spec + plain]
+
+    def _warm(self, spec_k: int, depth: int, nucleus: bool) -> None:
+        """One thunk of :meth:`warmup_plan` (``spec_k`` 0: plain decode)."""
+        dev = self._mode_inputs((spec_k > 0, False, False))
+        for buf in (dev.tokens, dev.positions, dev.budgets, dev.tables, dev.active, dev.keys,
+                    dev.buf, dev.gen_start):
+            if buf is not None:
+                buf.zero_()
+        dev.temps.fill_(1.0)
+        dev.top_ps.fill_(0.5 if nucleus else 1.0)
+        self._dev = None  # the next chunk refills from host state
+        for any_sampled in (False, True) if self._graphs is not None else (True,):
+            dev.any_sampled, dev.nucleus = any_sampled, nucleus
+            self._run_chunk(dev, self._chunk_key(dev, spec_k, depth, False))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def warmup_decode(self, max_len: Optional[int] = None,
+                      nucleus_variants: Sequence[bool] = (False, True)) -> int:
+        """Run the whole :meth:`warmup_plan` now, on an idle engine (server
+        startup, before timing). Returns the number of thunks run."""
+        if self.has_work():
+            raise RuntimeError("warmup_decode must run on an idle engine")
+        plan = self.warmup_plan(max_len, nucleus_variants)
+        for thunk in plan:
+            thunk()
+        return len(plan)
+
+    def queue_warmup(self, max_len: Optional[int] = None,
+                     nucleus_variants: Sequence[bool] = (False, True),
+                     vision_sizes: Sequence[Tuple[int, int]] = ((560, 420),)) -> int:
+        """Queue the warmup for :meth:`warm_tick` (the server's engine
+        thread runs one thunk per idle tick), so that the server binds at
+        once. The first thunk submits warm requests, one blank page of each
+        (height, width) in ``vision_sizes`` and one text prompt, which go
+        through the normal step loop and build the kernels before any
+        capture; the :meth:`warmup_plan` thunks follow once the engine is
+        idle again. Returns the number of queued thunks."""
+
+        def warm_requests():
+            for h, w in vision_sizes:
+                blank = Image.fromarray(np.zeros((h, w, 3), np.uint8))
+                self.submit("warmup", images=[blank], temperature=0.0, max_new_tokens=8)
+            self.submit("warmup text", temperature=0.0, max_new_tokens=8)
+
+        self._warm_queue = [warm_requests] + self.warmup_plan(max_len, nucleus_variants)
+        return len(self._warm_queue)
+
+    @property
+    def warm_pending(self) -> int:
+        return len(self._warm_queue)
+
+    def warm_tick(self) -> bool:
+        """Run one queued warm thunk if the engine is idle (no live slot, no
+        waiting request, no chunk in flight). Returns whether one ran."""
+        if not self._warm_queue or self.has_work():
+            return False
+        self._warm_queue.pop(0)()
+        return True
 
     def run(self, max_steps: int = 10_000_000) -> None:
         steps = 0

@@ -100,6 +100,12 @@ def is_int4_kernel(obj) -> bool:
     return isinstance(obj, dict) and set(obj) == set(INT4_KEYS)
 
 
+def has_int4_kernels(params) -> bool:
+    """Whether any kernel of a parameter tree is int4."""
+    return is_int4_kernel(params) or (
+        isinstance(params, dict) and any(has_int4_kernels(v) for v in params.values()))
+
+
 def _quantize_blocks(blocks: dict, quantize: Callable[[torch.Tensor], dict]) -> dict:
     """The block linears of BLOCK_KERNELS through ``quantize``; already
     quantized ones and every other leaf are kept (shared, not copied)."""

@@ -11,6 +11,7 @@ package's host helpers (``dots_ocr_tpu.models.rope`` imports jax).
 
 from __future__ import annotations
 
+import functools
 from typing import Tuple
 
 import numpy as np
@@ -24,12 +25,19 @@ def rope_freqs(head_dim: int, theta: float) -> np.ndarray:
     )
 
 
+@functools.lru_cache(maxsize=None)
+def _inv_freq(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
+    """:func:`rope_freqs` on ``device``, uploaded once: a decode step that
+    is captured in a CUDA graph must not copy from the host."""
+    return torch.from_numpy(rope_freqs(head_dim, theta)).to(device)
+
+
 def rope_table(
     positions: torch.Tensor, head_dim: int, theta: float
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """(cos, sin) float32 tables of shape [..., head_dim] for integer
     positions [...]."""
-    inv_freq = torch.from_numpy(rope_freqs(head_dim, theta)).to(positions.device)
+    inv_freq = _inv_freq(head_dim, theta, positions.device)
     angles = positions.to(torch.float32)[..., None] * inv_freq
     angles = torch.cat([angles, angles], dim=-1)
     return torch.cos(angles), torch.sin(angles)

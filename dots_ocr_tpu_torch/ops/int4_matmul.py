@@ -403,11 +403,17 @@ IMPLEMENTATIONS = {"kernel": int4_matmul, "reference": int4_matmul_plain,
                    "xla": int4_matmul_xla}
 
 
+def int4_act_quant() -> bool:
+    """Whether ``DOTS_INT4_ACT=1`` selects W4A8, read now (the JAX package
+    reads it at each call)."""
+    return os.environ.get("DOTS_INT4_ACT", "0") == "1"
+
+
 def int4_linear(x: torch.Tensor, kernel: dict, impl: str = "kernel") -> torch.Tensor:
     """``layers.linear``'s entry for ``{"qint4", "scale4"}`` kernels: x
     [..., in] -> [..., out] in x's dtype. ``DOTS_INT4_ACT=1`` (read at each
-    call) selects W4A8, as in the JAX package."""
-    act_quant = os.environ.get("DOTS_INT4_ACT", "0") == "1"
+    call, :func:`int4_act_quant`) selects W4A8, as in the JAX package."""
+    act_quant = int4_act_quant()
     x2 = x.reshape(-1, x.shape[-1]).contiguous()
     out = IMPLEMENTATIONS[impl](x2, kernel["qint4"], kernel["scale4"], act_quant)
     return out.reshape(*x.shape[:-1], out.shape[-1])

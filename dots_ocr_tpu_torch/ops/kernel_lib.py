@@ -6,7 +6,9 @@ loaded through ``ctypes`` (no PyTorch headers: a build takes seconds
 instead of minutes). The library is cached under
 ``csrc/build/`` keyed by a hash of the sources, and built at first use,
 never at import: the CPU tests import every module on hosts without a CUDA
-toolkit.
+toolkit. :func:`set_build_dir` moves the cache (the server's
+``--compile-cache``): a process that finds the library there loads it
+without running ``nvcc``.
 
 Every entry point takes ``ctypes.c_void_p`` for pointers and the stream,
 launches on the given stream without synchronising, and returns
@@ -66,6 +68,8 @@ _SIGNATURES = {
 }
 
 _LIB: Optional[ctypes.CDLL] = None
+lib_path: Optional[str] = None  # the loaded library's file
+built = False  # whether this process ran nvcc
 build_log: str = ""  # nvcc's output (with -Xptxas -v: registers, spills)
 
 
@@ -80,18 +84,39 @@ def _nvcc() -> str:
     return found
 
 
-def _build() -> str:
-    global build_log
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+def _so_name() -> str:
+    """The library's file name: a hash of the sources and the flags."""
     digest = hashlib.sha256()
-    for path in sources + sorted(glob.glob(os.path.join(CSRC, "*.cuh"))):
+    for path in (sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+                 + sorted(glob.glob(os.path.join(CSRC, "*.cuh")))):
         with open(path, "rb") as f:
             digest.update(f.read())
     digest.update(" ".join(NVCC_FLAGS).encode())
-    so_path = os.path.join(BUILD_DIR, f"dots_kernels_{digest.hexdigest()[:16]}.so")
+    return f"dots_kernels_{digest.hexdigest()[:16]}.so"
+
+
+def set_build_dir(path: str) -> None:
+    """Build into and load from ``path`` from now on. A library this
+    process has loaded already is copied there, so that the next process
+    finds it."""
+    global BUILD_DIR
+    BUILD_DIR = os.path.abspath(path)
+    target = os.path.join(BUILD_DIR, _so_name())
+    if lib_path is not None and not os.path.exists(target):
+        os.makedirs(BUILD_DIR, exist_ok=True)
+        tmp = f"{target}.{os.getpid()}.tmp"
+        shutil.copyfile(lib_path, tmp)
+        os.replace(tmp, target)
+
+
+def _build() -> str:
+    global build_log, built
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    so_path = os.path.join(BUILD_DIR, _so_name())
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    built = True
     tmp = f"{so_path}.{os.getpid()}.tmp"
     objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
     procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", obj, src], text=True,
@@ -115,14 +140,15 @@ def _build() -> str:
 
 def load() -> ctypes.CDLL:
     """The kernel library, built on first call (cached per process)."""
-    global _LIB
+    global _LIB, lib_path
     if _LIB is None:
-        lib = ctypes.CDLL(_build())
+        path = _build()
+        lib = ctypes.CDLL(path)
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int
-        _LIB = lib
+        _LIB, lib_path = lib, path
     return _LIB
 
 

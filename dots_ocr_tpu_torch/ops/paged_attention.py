@@ -404,7 +404,8 @@ def paged_attention_int8_reference(
 
     This is NOT the JAX package's ``paged_attention_multiquery_reference``
     in int8 mode, which dequantizes K/V to bf16 and runs float attention
-    (ROADMAP queue C, item 2); it agrees with that within 3e-2.
+    (ROADMAP queue C, settled: "the int8 KV kernel against its oracle");
+    it agrees with that within 3e-2.
     """
     batch, nq, num_heads, head_dim = q.shape
     if chunk is not None:

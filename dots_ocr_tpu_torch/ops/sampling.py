@@ -75,8 +75,8 @@ def bits_to_uniform(bits: torch.Tensor, minval: float = 0.0) -> torch.Tensor:
     top 23 bits as a mantissa in [1, 2), minus 1, scaled and shifted in
     float32, and clamped below at minval."""
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32) - 1.0
-    lo = torch.tensor(minval, dtype=torch.float32, device=bits.device)
-    span = torch.tensor(1.0, dtype=torch.float32, device=bits.device) - lo
+    lo = torch.full((), minval, dtype=torch.float32, device=bits.device)
+    span = torch.full((), 1.0, dtype=torch.float32, device=bits.device) - lo
     return torch.maximum(lo, mant * span + lo)
 
 

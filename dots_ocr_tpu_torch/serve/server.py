@@ -14,11 +14,21 @@ int8) and ``--vision-quantize int8`` (W8A8 vision block linears). So is
 the windowed encoder (``--vision-attn windowed --vision-window-patches
 --vision-full-layers``: window kernel on the windowed layers) and int8 KV
 at a page size that is not a multiple of 128 (the v1 paged kernel on
-every decode step, as the JAX package runs it). Flag values whose path is
-not ported yet exit with the ROADMAP.md item that will bring them.
+every decode step, as the JAX package runs it). So is the warmup: on the
+card every decode and verify chunk is a CUDA graph replay, and
+``--warmup full`` captures every graph ``step()`` can dispatch before the
+server binds (after one vision and one text request, which build the
+kernels), while ``--warmup background`` binds at once and warms on idle
+engine ticks, starting with one warm request of each ``--warmup-pages``
+size. ``--compile-cache DIR`` is where the CUDA kernels are built and
+found (a relative path is taken from the repository root): a second
+process with the same directory loads them without running ``nvcc``.
+Only ``--tensor-parallel-size`` > 1 is not ported yet; it exits with the
+ROADMAP.md item that will bring it.
 
     python -m dots_ocr_tpu_torch.serve.server --random-flagship --port 8000 \
-        --quantize int4 --vision-quantize int8 --kv-cache-dtype int8 --speculate-k 2
+        --quantize int4 --vision-quantize int8 --kv-cache-dtype int8 --speculate-k 2 \
+        --warmup background --compile-cache .cache/xla
 """
 
 from __future__ import annotations
@@ -27,6 +37,8 @@ import argparse
 import dataclasses
 import logging
 import os
+import time
+from typing import Optional
 
 import numpy as np
 import torch
@@ -44,9 +56,12 @@ from dots_ocr_tpu_torch.models.quantize import (
     quantize_decoder_params_int4,
     quantize_vision_params,
 )
+from dots_ocr_tpu_torch.ops import kernel_lib
 from dots_ocr_tpu_torch.serve.openai_server import OpenAIServer
 
 logger = logging.getLogger(__name__)
+
+REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -75,9 +90,14 @@ def build_parser() -> argparse.ArgumentParser:
                    help="chunked prefill: longer prompts run in chunks of this "
                    "many tokens between decode chunks; 0 = monolithic only")
     p.add_argument("--warmup", nargs="?", const="full", default=None,
-                   choices=("full", "background"))
-    p.add_argument("--warmup-pages", type=str, default="560x420,1540x2044")
-    p.add_argument("--compile-cache", type=str, default=None)
+                   choices=("full", "background"),
+                   help="full: warm requests, then capture every decode graph before "
+                   "binding; background: bind at once and warm on idle engine ticks")
+    p.add_argument("--warmup-pages", type=str, default="560x420,1540x2044",
+                   help="HxW page sizes of --warmup background's warm requests")
+    p.add_argument("--compile-cache", type=str, default=None,
+                   help="directory the CUDA kernels are built in and loaded from "
+                   "(relative: from the repository root)")
     p.add_argument("--kv-cache-dtype", choices=["bf16", "int8"], default="bf16")
     p.add_argument("--quantize", choices=["none", "int8", "int4"], default="none")
     p.add_argument("--vision-quantize", choices=["none", "int8"], default="none")
@@ -90,18 +110,24 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def _refuse_unported(args) -> None:
-    refusals = [
-        (args.tensor_parallel_size > 1, "--tensor-parallel-size > 1", "TP"),
-        (args.warmup == "background", "--warmup background", "CUDA graphs and warmup"),
-        (args.compile_cache is not None, "--compile-cache", "CUDA graphs and warmup"),
-    ]
-    for hit, flag, item in refusals:
-        if hit:
-            raise SystemExit(f"{flag} is not ported to PyTorch yet (ROADMAP.md: {item})")
+    if args.tensor_parallel_size > 1:
+        raise SystemExit("--tensor-parallel-size > 1 is not ported to PyTorch yet "
+                         "(ROADMAP.md: TP)")
+
+
+def apply_compile_cache(path: str) -> str:
+    """``--compile-cache``: build and load the CUDA kernels in ``path``
+    (relative to the repository root, as the TPU launcher resolves it).
+    Returns the absolute directory."""
+    path = path if os.path.isabs(path) else os.path.join(REPO, path)
+    kernel_lib.set_build_dir(path)
+    return kernel_lib.BUILD_DIR
 
 
 def build_engine(args):
     _refuse_unported(args)
+    if args.compile_cache:
+        logger.info("kernel cache: %s", apply_compile_cache(args.compile_cache))
     device = torch.device(args.platform)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--platform cuda: no CUDA device is available")
@@ -155,13 +181,54 @@ def build_engine(args):
     )
 
 
-def warm_up(engine) -> None:
-    """``--warmup full``: build the kernels and run one vision and one text
-    request end to end before the server binds (either engine)."""
+def warm_requests(engine) -> None:
+    """``--warmup full``'s requests: a blank 560 x 420 page and a text
+    prompt, greedy, 8 tokens each."""
     dummy = Image.fromarray(np.zeros((560, 420, 3), np.uint8))
     engine.generate_batch(["warmup", "warmup"], [[dummy], []],
                           temperature=0.0, max_new_tokens=8)
-    logger.info("warmup complete")
+
+
+def warm_up(engine) -> dict:
+    """``--warmup full``, as the JAX server: one vision and one text request
+    end to end (they build the kernels), then, on the continuous engine,
+    every decode program ``step()`` can dispatch (``warmup_decode``: on the
+    card each is captured as a CUDA graph). Returns the seconds it took, the
+    thunks run, the graphs captured and the bytes of the graph pool (None
+    off the card)."""
+    t0 = time.perf_counter()
+    warm_requests(engine)
+    thunks = engine.warmup_decode() if hasattr(engine, "warmup_decode") else 0
+    graphs = getattr(engine, "_graphs", None)
+    out = dict(seconds=time.perf_counter() - t0, thunks=thunks,
+               graphs=0 if graphs is None else len(graphs),
+               pool_bytes=None if graphs is None else graphs.pool_bytes())
+    logger.info("warmup complete: %s", out)
+    return out
+
+
+def parse_pages(spec: str):
+    """``--warmup-pages`` "HxW,HxW" -> ((H, W), ...)."""
+    sizes = []
+    for part in (spec or "").split(","):
+        part = part.strip().lower()
+        if "x" in part:
+            h, w = part.split("x", 1)
+            sizes.append((int(h), int(w)))
+    return tuple(sizes) or ((560, 420),)
+
+
+def start_warmup(engine, args) -> Optional[dict]:
+    """``--warmup``: ``full`` warms now and returns :func:`warm_up`'s
+    numbers; ``background`` queues the warmup for the engine thread's idle
+    ticks (continuous engine only, as in the JAX server)."""
+    if args.warmup == "full":
+        return warm_up(engine)
+    if args.warmup == "background" and hasattr(engine, "queue_warmup"):
+        n = engine.queue_warmup(vision_sizes=parse_pages(args.warmup_pages))
+        logger.info("background warmup: %d thunks queued; serving now, warming on idle "
+                    "engine ticks", n)
+    return None
 
 
 def main(argv=None):
@@ -170,8 +237,7 @@ def main(argv=None):
                             format="%(asctime)s %(levelname)s %(name)s: %(message)s")
     args = build_parser().parse_args(argv)
     engine = build_engine(args)
-    if args.warmup == "full":
-        warm_up(engine)
+    start_warmup(engine, args)
     OpenAIServer(engine, model_name=args.model_name, max_batch=args.max_batch).run(
         host=args.host, port=args.port
     )

@@ -1002,3 +1002,203 @@ def test_gumbel_argmax_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         gumbel_argmax(logits, prng_key(0))  # keys on the CPU
     with pytest.raises(ValueError):
         gumbel_argmax(logits, torch.zeros((3, 2), dtype=torch.int64, device=cuda))
+
+
+# -- CUDA graphs of the decode chunks (engine/graphs.py) ----------------------
+
+# A bf16 decoder at the kernels' head_dim (128), int4-aligned, over pages of
+# 128: every decode and verify step goes through kernel 2 (and kernel 5 with
+# int4 weights) on text-only requests.
+GRAPH_SCHED = dict(num_pages=64, page_size=128, max_slots=4, max_pages_per_seq=4,
+                   steps_per_sync=4, max_steps_per_sync=16, prompt_bucket_step=32,
+                   repetition_min_repeats=0, pipeline_decode=False)
+GRAPH_PROMPTS = ["alpha beta", "gamma delta epsilon", "zeta"]
+# name: (scheduler overrides, request options)
+GRAPH_MODES = {
+    "decode": ({}, dict(temperature=0.0)),
+    "decode_sampled_nucleus": ({}, dict(temperature=1.0, top_p=0.9, seed=3)),
+    "spec": (dict(speculate_k=2, spec_min_tokens_per_iter=0.0), dict(temperature=0.0)),
+    "spec_sampled": (dict(speculate_k=2, spec_min_tokens_per_iter=0.0),
+                     dict(temperature=1.0, seed=5)),
+    "options": ({}, dict(temperature=1.0, seed=7, logprobs=True, presence_penalty=0.5,
+                         frequency_penalty=0.25, logit_bias={5: 2.0, 9: -3.0})),
+    "int8_kv": (dict(kv_cache_dtype="int8", speculate_k=2, spec_min_tokens_per_iter=0.0),
+                dict(temperature=0.0)),
+}
+
+
+def _graph_params(cuda, kind: str):
+    """(config, params) of the card decoder, random from a seed; ``kind``
+    "bf16", "int8" or "int4" weights."""
+    import dataclasses
+
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.models.quantize import (
+        quantize_decoder_params,
+        quantize_decoder_params_int4,
+    )
+
+    tiny = DotsOCRConfig.tiny()
+    cfg = tiny.replace(decoder=dataclasses.replace(
+        tiny.decoder, hidden_size=256, num_heads=4, num_kv_heads=2, head_dim=128,
+        intermediate_size=512), dtype="bfloat16")
+    params = init_params(cfg, cuda, torch.Generator(device=cuda).manual_seed(0))
+    if kind == "int8":
+        params = quantize_decoder_params(params)
+    elif kind == "int4":
+        params = quantize_decoder_params_int4(params)
+    return cfg, params
+
+
+def _graph_engine(cfg, params, cuda, graphs=True, **overrides):
+    from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
+
+    sched = SchedulerConfig(**{**GRAPH_SCHED, **overrides}, cuda_graphs=graphs)
+    return ContinuousBatchingEngine(params, cfg, cuda, sched=sched, default_max_new_tokens=24)
+
+
+def _live_chunk(eng, options, depth: int = 3):
+    """Submit the prompts with ``options``, step once (admission, prefill,
+    one chunk) and refill the chunk inputs from the live rows. Returns
+    (inputs, the key of a chunk of ``depth``, a depth step() never uses)."""
+    for prompt in GRAPH_PROMPTS:
+        eng.submit(prompt, max_new_tokens=24, **options)
+    eng.step()
+    active = [i for i, r in enumerate(eng._slot_req) if r is not None and r.state == "running"]
+    use_pen = bool(options.get("presence_penalty") or options.get("frequency_penalty"))
+    use_spec = eng.sched.speculate_k > 0 and not options.get("logprobs") and not use_pen
+    dev = eng._chunk_inputs(active, (use_spec, use_pen, bool(options.get("logit_bias"))))
+    assert active and bool(dev.active.any())
+    return dev, eng._chunk_key(dev, eng.sched.speculate_k if use_spec else 0, depth,
+                               bool(options.get("logprobs")))
+
+
+def _chunk_state(dev):
+    return {f: getattr(dev, f).clone() for f in ("tokens", "positions", "budgets", "tables",
+                                                 "active", "temps", "top_ps", "keys", "buf",
+                                                 "gen_start", "bias_ids", "bias_vals",
+                                                 "counts", "pres", "freq")
+            if getattr(dev, f) is not None}
+
+
+def _restore(dev, state):
+    for f, value in state.items():
+        getattr(dev, f).copy_(value)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", sorted(GRAPH_MODES))
+def test_decode_chunk_graph_matches_eager_on_card(cuda, mode):
+    """One chunk of each mode: replayed from its graph 20 times on the same
+    inputs (restored before each replay), the packed result and the carry
+    equal the eager program's bit for bit, and every replay adds to the
+    wrappers' launch counters what the eager chunk launched."""
+    from dots_ocr_tpu_torch.engine.graphs import launch_counts
+
+    overrides, options = GRAPH_MODES[mode]
+    cfg, params = _graph_params(cuda, "bf16")
+    eng = _graph_engine(cfg, params, cuda, **overrides)
+    dev, key = _live_chunk(eng, options)
+    assert key.spec_k == (2 if "speculate_k" in overrides else 0)
+    assert key.any_sampled == (options["temperature"] > 0)
+    state = _chunk_state(dev)
+    program = eng._chunk_program(dev, key)
+
+    before = launch_counts()
+    want = program(key.num_steps, True).clone()
+    want_carry = [t.clone() for t in (dev.tokens, dev.positions, dev.budgets)]
+    after = launch_counts()
+    eager = {c: after[c] - before[c] for c in before if after[c] != before[c]}
+    assert eager, "the eager chunk launched no kernel"
+
+    assert key not in eng._graphs
+    captures = eng._graphs.captures
+    for i in range(20):
+        _restore(dev, state)
+        before = launch_counts()
+        packed = eng._graphs.run(key, program)
+        torch.cuda.synchronize()
+        after = launch_counts()
+        assert torch.equal(packed, want), (mode, i)
+        for got, ref in zip((dev.tokens, dev.positions, dev.budgets), want_carry):
+            assert torch.equal(got, ref), (mode, i)
+        if i > 0:  # the first call also ran the capture's priming step
+            assert {c: after[c] - before[c] for c in before if after[c] != before[c]} == eager
+    assert eng._graphs.captures == captures + 1
+
+
+@pytest.mark.cuda
+def test_int4_activation_mode_selects_its_own_graph_on_card(cuda, monkeypatch):
+    """DOTS_INT4_ACT is read at dispatch and is part of the key: a chunk
+    dispatched with it set captures another graph, whose replays launch the
+    W4A8 kernel; the W4A16 graph replays W4A16."""
+    from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul
+
+    cfg, params = _graph_params(cuda, "int4")
+    eng = _graph_engine(cfg, params, cuda)
+    monkeypatch.setenv("DOTS_INT4_ACT", "0")
+    dev, key16 = _live_chunk(eng, dict(temperature=0.0))
+    monkeypatch.setenv("DOTS_INT4_ACT", "1")
+    key8 = eng._chunk_key(dev, 0, key16.num_steps, False)
+    assert key8 != key16 and key8._replace(int4_act=False) == key16
+    for key, act, counter, other in ((key8, "1", "w4a8_launches", "launches"),
+                                     (key16, "0", "launches", "w4a8_launches")):
+        # captured at dispatch, with the mode the key was read under
+        monkeypatch.setenv("DOTS_INT4_ACT", act)
+        eng._graphs.run(key, eng._chunk_program(dev, key))
+        monkeypatch.setenv("DOTS_INT4_ACT", "0" if act == "1" else "1")  # a replay never reads it
+        before = {c: getattr(int4_matmul, c) for c in ("launches", "w4a8_launches")}
+        eng._graphs.run(key, eng._chunk_program(dev, key))
+        torch.cuda.synchronize()
+        assert getattr(int4_matmul, counter) > before[counter]
+        assert getattr(int4_matmul, other) == before[other]
+    assert key16 in eng._graphs and key8 in eng._graphs
+    # int8 weights: the mode cannot change the program, so the key drops it
+    cfg, params = _graph_params(cuda, "int8")
+    plain = _graph_engine(cfg, params, cuda)
+    assert plain._chunk_key(dev, 0, 4, False).int4_act is False
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["int8", "int4"])
+def test_graphed_engine_serves_the_eager_engines_tokens_on_card(cuda, kind):
+    """Two engines on one set of weights, graphs on and off, serve the same
+    waves (greedy with k = 2, then seeded sampled; then a plain decode wave
+    with logprobs and penalties): identical token ids, every decode and
+    verify chunk of the graphed engine a replay, none captured by the
+    eager one. After ``warmup_decode`` a fresh graphed engine captures
+    nothing more for the no-option waves."""
+    cfg, params = _graph_params(cuda, kind)
+    waves = [dict(temperature=0.0), dict(temperature=1.0, seed=11),
+             dict(temperature=1.0, top_p=0.8, seed=12)]
+
+    def serve(eng, options_list, **extra):
+        ids = []
+        for options in options_list:
+            rids = [eng.submit(p, max_new_tokens=24, **options, **extra) for p in GRAPH_PROMPTS]
+            eng.run()
+            ids.append([eng.finished_request(r).output_ids for r in rids])
+        return ids
+
+    engines = {}
+    for graphs in (True, False):
+        eng = _graph_engine(cfg, params, cuda, graphs=graphs, speculate_k=2,
+                            spec_min_tokens_per_iter=0.0, pipeline_decode=True)
+        engines[graphs] = (eng, serve(eng, waves), serve(eng, waves[1:2], logprobs=True,
+                                                          presence_penalty=0.5))
+    (g, g_spec, g_opts), (e, e_spec, e_opts) = engines[True], engines[False]
+    assert g_spec == e_spec and g_opts == e_opts
+    assert g.metrics["graph_replays"] == g.metrics["steps"] > 0
+    assert g.metrics["graph_captures"] >= 2 and g.metrics["spec_chunks"] > 0
+    assert e.metrics["graph_replays"] == e.metrics["graph_captures"] == 0
+
+    warm = _graph_engine(cfg, params, cuda, speculate_k=2, spec_min_tokens_per_iter=0.0,
+                         pipeline_decode=True)
+    assert warm.warmup_decode() == len(warm.warmup_plan()) == 8
+    captured = warm.metrics["graph_captures"]
+    assert captured == len(warm._graphs) == 12  # 4 greedy graphs, 8 sampled
+    assert warm._graphs.pool_bytes() > 0
+    assert serve(warm, waves) == g_spec
+    assert warm.metrics["graph_captures"] == captured
+    assert warm.allocator.free_pages == GRAPH_SCHED["num_pages"] - 1

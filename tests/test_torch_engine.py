@@ -168,12 +168,15 @@ def test_server_round_trip_on_port_engine():
 @pytest.mark.parametrize("flags", [
     ["--engine", "batch", "--tensor-parallel-size", "2"],
     ["--quantize", "int4", "--tensor-parallel-size", "2"],
-    ["--tensor-parallel-size", "2"], ["--warmup", "background"],
+    ["--tensor-parallel-size", "2"], ["--tensor-parallel-size", "2", "--warmup", "background"],
     ["--tensor-parallel-size", "4", "--vision-attn", "windowed"],
-    ["--weights", "ckpt", "--warmup", "background"],
-    ["--compile-cache", "c"],
+    ["--weights", "ckpt", "--tensor-parallel-size", "8", "--warmup", "background"],
+    ["--tensor-parallel-size", "2", "--compile-cache", "c"],
 ])
 def test_server_refuses_unported_flags(flags):
+    """TP is the one path not ported: it is refused whatever else is asked
+    for, the ported warmup and compile-cache flags included (before the
+    cache directory is touched)."""
     args = torch_server.build_parser().parse_args(["--random-tiny", "--platform", "cpu"] + flags)
     with pytest.raises(SystemExit, match="ROADMAP"):
         torch_server.build_engine(args)
@@ -258,11 +261,16 @@ def test_spec_gate_turns_speculation_off_and_back_on():
 
 
 def test_server_builds_cpu_engine_warms_up_and_refuses_missing_cuda():
-    args = torch_server.build_parser().parse_args(["--random-tiny", "--platform", "cpu"])
+    # a geometry that holds the 560 x 420 warm page and keeps the CPU
+    # warmup's decode programs small
+    args = torch_server.build_parser().parse_args(
+        ["--random-tiny", "--platform", "cpu", "--num-pages", "128", "--page-size", "8",
+         "--max-slots", "4", "--max-seq-tokens", "512", "--steps-per-sync", "4"])
     eng = torch_server.build_engine(args)
     assert eng.device.type == "cpu"
-    torch_server.warm_up(eng)
+    warm = torch_server.warm_up(eng)
     assert eng.metrics["prefills"] == 2 and not eng.has_work()
+    assert warm["thunks"] == 4 and warm["graphs"] == 0 and warm["pool_bytes"] is None
     if not torch.cuda.is_available():
         with pytest.raises(SystemExit, match="CUDA"):
             torch_server.build_engine(torch_server.build_parser().parse_args(["--random-tiny"]))

@@ -194,7 +194,8 @@ def test_int8_paged_plain_matches_pallas_and_xla_reference(nq, page_size):
     ``pages_per_block * page_size``) against the Pallas kernel in interpret
     mode: the same integer products and roundings, 1e-5. Against the JAX
     XLA reference, which dequantizes to bf16 instead (ROADMAP queue C,
-    item 2): 3e-2, the tolerance of the JAX package's own test. The port's
+    settled: "the int8 KV kernel against its oracle"): 3e-2, the tolerance
+    of the JAX package's own test. The port's
     twin of that reference matches it within 1e-3: on one row of the
     page-16 input the JAX reference differs from a float64 evaluation of
     its own formula by 3.1e-4, where the twin differs by 6e-8."""
