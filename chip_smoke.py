@@ -24,7 +24,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    paged kernel (kernel 3) in both modes over 64 slots x 2,048 tokens at
    page 64 and 128 (kernel 2's bf16 mode timed beside it at page 128), in
    bf16 at D 64, and in int8 at phase 10's served shape (3 live rows among
-   64 slots, a table of 640 pages of 64); max abs
+   64 slots, a table of 640 pages of 64); the W8A16 matmul (the int8
+   weight-only linear and the tied int8 lm_head) at the flagship's five
+   shapes x 1, 64, 192 and 2,048 rows, beside cuBLAS bf16 on the weight
+   converted once, 20 repeats bit-identical, device times as CUDA graphs;
+   the seeded draw with its keys folded in the kernel and the threefry
+   entry, bit for bit; max abs
    error against the stated tolerance (kernels 1-4 also against a bound
    scaled to the output, which a control must fail),
    median CUDA-event times per call over back-to-back calls, the least
@@ -34,10 +39,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
 4. end to end, the shipped path: the flagship model (full width and depth,
    random bf16 weights from a seed, quantized to int8) with int8 KV, k = 2
    speculation and 2,048-token chunked prefill at the shipping geometry,
-   served by the port's ``OpenAIServer`` on 127.0.0.1; /health, three
-   concurrent chat completions (a page, a receipt, a text prompt),
-   /metrics (prefill chunks and verify chunks counted); the flash kernel
-   (with q_offset > 0) and the int8 paged kernel must launch in that run;
+   served by the port's ``OpenAIServer`` on 127.0.0.1 (its repetition guard
+   off: DRY_TOKENS); /health, three concurrent chat completions (a page, a
+   receipt, a text prompt), /metrics (prefill chunks and verify chunks
+   counted); the flash kernel (with q_offset > 0), the int8 paged kernel
+   and the W8A16 kernel in both regimes must launch in that run;
 5. consistency of that path: the page request's chunked-prefill logits and
    four int8-KV decode steps through the kernels vs their plain versions;
 6. end to end, the fully quantized path: as phase 4 with int4 decoder
@@ -56,7 +62,7 @@ Phases, each fatal on failure (exit code != 0, no result line):
    4,096-token prefill), as phase 4; the flash and bf16 paged kernels must
    launch; then the same consistency check in bf16;
 9. the cost of quantized weights in decode: one decode step for 64 slots
-   with the bf16 weights, their int8 quantization (dequantized per call)
+   with the bf16 weights, their int8 quantization (the W8A16 kernel)
    and their int4 quantization in both modes (W4A8's decode regime at a
    64-slot step), and the bf16 step with ``attn_impl="v1"``
    (kernel 3's bf16 mode on a path through the model);
@@ -74,18 +80,20 @@ Phases, each fatal on failure (exit code != 0, no result line):
    then the same
    three requests again sampled at temperature 1 for 128 tokens, so that
    the engine's speculation gate turns speculation off and plain decode
-   steps run too (SHIPPING_WAVES); flash (with q_offset > 0) and
-   kernel 2's bf16 mode at nq = 1 (decode) and nq = 3 (verify) must
-   launch; then the consistency check of phase 5 on that configuration;
+   steps run too (SHIPPING_WAVES); flash (with q_offset > 0),
+   kernel 2's bf16 mode at nq = 1 (decode) and nq = 3 (verify), the W8A16
+   kernel in both regimes, the draw and the threefry entry must launch; then the consistency check of phase 5 on that configuration;
 12. a pool that runs dry: phase 4's flags with ``--num-pages`` cut to what
    the three prompts and the admission watermark take, so that the
-   requests cannot all grow to their ``max_tokens``; the engine must
+   requests cannot all grow to their ``max_tokens`` (the repetition guard
+   off, as in phase 4); the engine must
    preempt (``preemptions`` >= 1 in /metrics), answer every request HTTP
    200 with the greedy text phase 4's full pool gave for the same
    requests at the same ``max_tokens`` (its second wave), and serve one
    more request afterwards. Kernel 2's int8 mode must launch here too;
 13. pipelined decode A/B at full width: deploy/shipping.env's geometry with
-   speculation off, two engines on one set of weights in this process, (a)
+   speculation off and the repetition guard off, two engines on one set of
+   weights in this process, (a)
    synchronous chunks of STEPS_PER_SYNC and (b) the defaults (deep chunks,
    lookahead-1), in turns a, b, b, a, each serving the three requests
    greedy for 256 tokens: identical token ids, (b) pipelined with fewer
@@ -124,7 +132,9 @@ Phases, each fatal on failure (exit code != 0, no result line):
    after the warmup; (b) phase 9's 64-slot x 2,048-context step as one
    decode chunk of CHUNK_DEPTH iterations, replayed and eager, in turns: ms
    a step, the host's dispatch ms and the device's busy share
-   (torch.profiler); (c) ``--warmup background``: /health answers while warm
+   (torch.profiler), the W8A16 kernels' launches and ms a chunk and the
+   ``direct_copy_kernel`` launches left, and the same chunk sampled (one
+   draw launch a step); (c) ``--warmup background``: /health answers while warm
    thunks are pending, a request sent then comes back HTTP 200, and
    ``dots_ocr_engine_warm_pending`` reaches 0; (d) ``--compile-cache``: a
    fresh process builds into an empty cache directory, a second one loads
@@ -138,8 +148,12 @@ graph's launches are counted at capture and added at every replay).
 
 The seeded draw kernel (``csrc/threefry_sample.cu``) is held in phase 3 to
 its plain version bit for bit (tokens and Gumbel noise, 20 repeats) at
-[64, 151,936] with a shared key and with per-row keys, with mixed
-temperatures and -inf entries, and at the [64, 256] nucleus pool.
+[64, 151,936] with the rows' keys folded in the kernel from slot keys and
+positions (with and without a tag), with a shared key and with per-row
+keys, with mixed temperatures and -inf entries, and at the [64, 256]
+nucleus pool; its bound counts the instructions of its main loop in the
+built library's SASS. The W8A16 kernel must launch on phases 4, 9, 11, 13
+and 17.
 
 With the engine's defaults every serving phase pipelines its event-free
 decode chunks where the budgets allow (phase 11 must show pipelined
@@ -222,6 +236,17 @@ INT4_TOL = {False: (1e-4, 2.0**-7), True: (0.0, 0.0)}
 INT4_SHAPES = {"wq/wo": (1536, 1536), "wk/wv": (1536, 256), "gate/up": (1536, 8960),
                "down": (8960, 1536)}
 INT4_ROWS = (64, 192, PREFILL_CHUNK, 4096)
+# The W8A16 kernel's cases: the flagship's int8 linears (K, N) and its tied
+# int8 lm_head (the unembed, q [N, K]), at the rows of a decode step of one
+# slot and of 64, a k = 2 verify and the shipped prefill chunk (the lm_head
+# takes a prefill's last rows only, never a chunk's). Kernel and plain
+# version add the same exact float32 products in another order: a bf16
+# output within one bf16 ulp of the plain value (2^-7 |plain|) plus 1e-4 for
+# the order near zero; the float32 logits within 1e-5 |plain| + 1e-4.
+W8A16_SHAPES = {"wq/wo": (1536, 1536), "wk/wv": (1536, 256), "gate/up": (1536, 8960),
+                "down": (8960, 1536), "lm_head": (1536, 151936)}
+W8A16_ROWS = (1, MAX_SLOTS, 3 * MAX_SLOTS, PREFILL_CHUNK)
+W8A16_TOL = {False: (1e-4, 2.0**-7), True: (1e-4, 1e-5)}
 # The vision block linears (K, N) at the packed 2-image batch.
 VISION_T, VISION_SHAPES = 6656, {"wq/wk/wv/wo": (1536, 1536), "gate/up": (1536, 4224),
                                  "down": (4224, 1536)}
@@ -258,17 +283,20 @@ SHIPPING_KEYS = {"PAGE_SIZE": "--page-size", "KV_DTYPE": "--kv-cache-dtype",
 # slot-iteration on the card), so a greedy wave runs verify steps only.
 SHIPPING_WAVES = ((0.0, 32), (1.0, 128))
 # Phases 4 and 12: the greedy wave, then the same requests for DRY_TOKENS
-# tokens. Phase 12's pool (25 pages) holds the prompts (17 + 4 + 1 pages),
-# the watermark (1) and DRY_SLACK_PAGES more. The receipt and the text are
-# sent first and the page request once both are admitted: it still fits if
-# one of them has grown by a page (the text does, 14 tokens on), and then
-# at most one page is free. The page request wants an 18th page at its
-# first decode chunk (its 2,169 tokens end 7 short of a page; a chunk
-# reserves 48 ahead) and the receipt (407 tokens) its fifth at its fourth
-# chunk, which 128 tokens at no more than 48 a chunk always reach: the
-# later of the two finds the pool dry, and the youngest request, the page
-# with its image, is preempted.
-DRY_TOKENS, DRY_SLACK_PAGES = 128, 1
+# tokens, with the engine's repetition guard off (it may stop a looping
+# random-weight stream early, from 128 tokens on, and free its pages).
+# Phase 12's pool (26 pages) holds the null page, the prompts (17 + 4 + 1
+# pages), the watermark (1) and DRY_SLACK_PAGES more. The receipt and the
+# text are sent first and the page request once both are admitted; it
+# still fits if each of them has taken its next page meanwhile (a chunk
+# reserves 48 tokens ahead: the text at 14 tokens, the receipt at 57).
+# With all three admitted 3 pages are free, and each request needs 3 more
+# pages before it can finish its DRY_TOKENS (the page its 18th at its first
+# decode chunk). The first to finish would need all 3 free pages for
+# itself while the page request takes one at once: so the pool runs dry
+# before any request finishes, and the youngest is preempted, whatever the
+# streams' speculation accepts and whenever the requests land.
+DRY_TOKENS, DRY_SLACK_PAGES = 384, 2
 # Phase 13's requests decode this many tokens each, so that deep chunks of
 # 64 and the lookahead engage; its turns of (a) and (b).
 PIPELINE_TOKENS, PIPELINE_TURNS = 256, ("a", "b", "b", "a")
@@ -325,6 +353,28 @@ def time_in_turns(fns: dict, inner: int = INNER) -> dict:
         for name in (list(fns) if r % 2 == 0 else list(fns)[::-1]):
             times[name].append(cuda_ms(fns[name], inner) / inner)
     return {name: statistics.median(ts) for name, ts in times.items()}
+
+
+def graph_ms(fn, calls: int = 10) -> float:
+    """Device ms per call of ``fn``: ``calls`` calls captured in one CUDA
+    graph, the replay timed with CUDA events (median of REPS), so that the
+    wrapper's host time before each launch is not in it."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = statistics.median(cuda_ms(graph.replay) / calls for _ in range(REPS))
+    del graph
+    return ms
 
 
 def bound(flops: float, nbytes: float, kind: str = "bf16") -> dict:
@@ -914,6 +964,90 @@ def int4_cases(randn, gen, dev) -> dict:
     return results
 
 
+def w8a16_cases(dev) -> dict:
+    """The W8A16 kernel (csrc/int8_matmul.cu) against its plain version (the
+    per-call bf16 copy of the weight, then cuBLAS: the int8 path before this
+    kernel) at W8A16_SHAPES x W8A16_ROWS: weights from quantize_kernel of
+    N(0, 0.02) bf16 (the lm_head: quantize_embedding of N(0, 1)), wq/wo and
+    wk/wv with a bf16 bias as the model's q/k/v projections carry,
+    activations N(0, 1). The library time is one cuBLAS bf16 call on the
+    weight converted once beforehand (``matmul_f32``: what bf16 weights
+    cost, without the scale, bias and cast); REPEAT_CALLS more
+    calls must repeat the output bit for bit; ``graph_ms`` holds the
+    device time per call of the kernel, the plain version and the library
+    (CUDA graphs of 10 calls)."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.quantize import quantize_embedding, quantize_kernel
+    from dots_ocr_tpu_torch.ops.int8_matmul import (
+        int8_linear_reference,
+        int8_unembed_reference,
+        matmul_f32,
+        w8a16_matmul,
+        w8a16_plan,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(12)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = []
+    for label, (k, n) in W8A16_SHAPES.items():
+        unembed = label == "lm_head"
+        if unembed:
+            qk = quantize_embedding(torch.randn(n, k, generator=gen, device=dev).to(torch.bfloat16))
+        else:
+            qk = quantize_kernel((torch.randn(k, n, generator=gen, device=dev) * 0.02)
+                                 .to(torch.bfloat16))
+        q, scale = qk["qint8"], qk["scale"]
+        bias = (torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
+                if label in ("wq/wo", "wk/wv") else None)
+        w_bf16 = q.to(torch.bfloat16)  # the library's weight, converted once
+        w_lib = w_bf16.t() if unembed else w_bf16
+        atol, rtol = W8A16_TOL[unembed]
+        for rows in W8A16_ROWS:
+            if unembed and rows > 3 * MAX_SLOTS:
+                continue
+            x = torch.randn(rows, k, generator=gen, device=dev).to(torch.bfloat16)
+            plan = w8a16_plan(rows, k, n, num_sms, unembed)
+
+            def kernel_fn():
+                return w8a16_matmul(x, q, scale, bias, transposed=unembed)
+
+            def plain_fn():
+                return (int8_unembed_reference(x, q, scale) if unembed
+                        else int8_linear_reference(x, q, scale, bias))
+
+            def library_fn():
+                return matmul_f32(x, w_lib)
+
+            first = kernel_fn()
+            same = sum(bool(torch.equal(kernel_fn(), first)) for _ in range(REPEAT_CALLS))
+            del first
+            if same != REPEAT_CALLS:
+                raise AssertionError(f"w8a16 {label} M={rows}: {REPEAT_CALLS - same} repeated "
+                                     f"calls differ")
+            # x and q read once, the scale (and bias) once, the output written once
+            nbytes = (q.numel() + 2 * rows * k + 4 * n + (2 * n if bias is not None else 0)
+                      + (4 if unembed else 2) * rows * n)
+            name = (f"w8a16 {label} {'[N, K] unembed' if unembed else '[K, N] linear'} K={k} "
+                    f"N={n} M={rows}, {plan.regime}"
+                    + (f" {plan.rows_tile} rows" if plan.rows_tile else "")
+                    + f" x {plan.cluster} ranks")
+            res = compare(name, kernel_fn, plain_fn, atol, rtol,
+                          work=bound(2.0 * rows * k * n, nbytes), library_fn=library_fn)
+            res["graph_ms"] = {key: graph_ms(fn) for key, fn in
+                               (("ms", kernel_fn), ("plain_ms", plain_fn),
+                                ("library_ms", library_fn))}
+            res.update(repeats=REPEAT_CALLS, repeats_bit_identical=same, rows=rows,
+                       plan=list(plan))
+            log(f"  {name}: {same} of {REPEAT_CALLS} repeats bit-identical; as CUDA graphs "
+                + ", ".join(f"{key} {ms:.4f}" for key, ms in res["graph_ms"].items()) + " ms")
+            out.append(res)
+            del x
+        del q, scale, w_bf16, w_lib, qk, bias
+        torch.cuda.empty_cache()
+    return {"w8a16_matmul": out}
+
+
 def w8a8_vision_phase(dev) -> dict:
     """For context: the W8A8 vision linear (per-row int8 activations,
     torch._int_mm, scales) against the bf16 linear at the vision shapes."""
@@ -953,15 +1087,20 @@ def _http(url: str, body=None, timeout: float = 600.0):
 def _counters():
     from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
     from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul
+    from dots_ocr_tpu_torch.ops.int8_matmul import w8a16_matmul
     from dots_ocr_tpu_torch.ops.paged_attention import (
         paged_attention_multiquery_bf16,
         paged_attention_multiquery_int8,
         paged_attention_stacked,
     )
-    from dots_ocr_tpu_torch.ops.sampling import gumbel_argmax
+    from dots_ocr_tpu_torch.ops.sampling import gumbel_argmax, threefry_grid
     from dots_ocr_tpu_torch.ops.window_attention import window_attention
 
     return {"gumbel_argmax": (gumbel_argmax, "launches"),
+            "threefry2x32": (threefry_grid, "launches"),
+            "w8a16_matmul": (w8a16_matmul, "launches"),
+            "w8a16_matmul (split)": (w8a16_matmul, "split_launches"),
+            "w8a16_matmul (wgmma)": (w8a16_matmul, "wgmma_launches"),
             "flash_attention": (flash_attention, "launches"),
             "flash_attention (q_offset > 0)": (flash_attention, "offset_launches"),
             "paged_attention_multiquery": (paged_attention_multiquery_bf16, "launches"),
@@ -1044,15 +1183,20 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
         page = Image.open(os.path.join(REPO, "demo/assets/sample_page.png"))
         requests = chat_requests()
 
+        finishes = []  # the finish reasons of every reply in the run
+
         def post(item):
             name, body = item
             t = time.perf_counter()
             status, text = _http(f"{base}/v1/chat/completions", body)
-            return name, status, json.loads(text), time.perf_counter() - t
+            data = json.loads(text)
+            finishes.extend(c.get("finish_reason") for c in data.get("choices", ()))
+            return name, status, data, time.perf_counter() - t
 
         def read_metrics():
             return engine_metrics(base)
 
+        stops_before = read_metrics()[1].get("repetition_stops", 0)
         reset_counts()
         for wave, (temperature, max_tokens, *wave_env) in enumerate(waves):
             env = wave_env[0] if wave_env else {}
@@ -1084,7 +1228,9 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
                     status, text = _http(f"{base}/v1/chat/completions", body)
                 except urllib.error.HTTPError as err:
                     status, text = err.code, err.read().decode()
-                return status, json.loads(text)
+                data = json.loads(text)
+                finishes.extend(c.get("finish_reason") for c in data.get("choices", ()))
+                return status, data
 
             probe(post_any, lambda: read_metrics()[1], state)
         if one_more:
@@ -1101,6 +1247,13 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
                  "t_prefill_s", "t_decode_s", "t_fetch_wait_s")
         log(f"  [{label}] /metrics: " + ", ".join(f"{k} {metrics.get(k)}" for k in shown))
         log(f"  [{label}] kernel launches during the served run: {launches}")
+        stops = metrics.get("repetition_stops", 0) - stops_before
+        log(f"  [{label}] repetition guard {'on' if engine.sched.repetition_min_repeats else 'off'}"
+            f": {stops:g} stop(s), {finishes.count('repetition')} of {len(finishes)} replies "
+            f"finished \"repetition\"")
+        if stops != finishes.count("repetition"):
+            raise AssertionError(f"{label}: {stops:g} repetition stops in /metrics for "
+                                 f"{finishes.count('repetition')} replies that finished on one")
         delta = require_replays(engine, graphs_before, label)
         if args.warmup == "full" and probe is None and delta["graph_captures"]:
             raise AssertionError(f"{label}: {delta['graph_captures']} graphs captured while "
@@ -1419,8 +1572,8 @@ def consistency_phase(engine, page, dev) -> None:
 
 def decode_cost_phase(engine, dev):
     """One decode step for 64 slots at 2,048-token contexts: the engine's
-    bf16 weights and their int8 quantization (``linear`` dequantizes it to
-    a bf16 copy on every call) over a bf16 pool, the shipped pair (int8
+    bf16 weights and their int8 quantization (the W8A16 kernel) over a
+    bf16 pool, the shipped pair (int8
     weights over an int8 pool), int4 weights over an int8 pool in both of
     the kernel's modes (``DOTS_INT4_ACT``), and the bf16 step with
     ``attn_impl="v1"`` (kernel 3's bf16 mode on every layer, the JAX
@@ -1482,10 +1635,24 @@ def decode_cost_phase(engine, dev):
         + ", ".join(f"{name} {ms:.3f} ms" for name, ms in res.items()))
     log(f"  kernel launches during the timed steps: {launches}")
     for name in ("int4_matmul", "int4_matmul_w4a8", "paged_attention_multiquery_int8",
-                 "paged_attention_v1"):
+                 "paged_attention_v1", "w8a16_matmul"):
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched in the decode steps")
     return res, launches
+
+
+def guard_off(engine) -> None:
+    """The engine's repetition guard off, where a phase compares token
+    streams whose chunks land at different steps: phase 12 (a dry pool, so
+    preemptions move the chunk boundaries) against phase 4's DRY_TOKENS
+    wave, hence phase 4 too, and phase 13's two arms. The guard reads a
+    request's tail when a chunk lands, so it would stop the same looping
+    random-weight stream at different tokens. Phases 11 and 13's HTTP wave
+    serve with it on, and :func:`serve_phase` holds its stops to the
+    replies that finished on it."""
+    import dataclasses
+
+    engine.sched = dataclasses.replace(engine.sched, repetition_min_repeats=0)
 
 
 def dry_pool_pages(prompt_tokens, page_size: int) -> int:
@@ -1515,7 +1682,8 @@ def dry_pool_phase(dev, roomy: dict, label: str = "dry pool"):
     engine, launches, metrics, _ = serve_phase(
         dev, [*SHIPPED_FLAGS, "--num-pages", str(pages)], label,
         required=("flash_attention", "paged_attention_multiquery_int8"),
-        waves=((0.0, DRY_TOKENS),), replies=replies, one_more=True, page_last=True)
+        waves=((0.0, DRY_TOKENS),), replies=replies, one_more=True, page_last=True,
+        before_serve=guard_off)
     if metrics.get("preemptions", 0) < 1:
         raise AssertionError(f"{label}: no preemption on a pool of {pages} pages ({metrics})")
     for name, (text, usage) in replies[0].items():
@@ -1563,11 +1731,16 @@ def pipeline_ab_phase(dev, env_flags) -> dict:
     for name, body in chat_requests():
         prompt, images, system = parse_chat_messages(body["messages"])
         prepared.append((name, base.prepare(prompt, images, system_prompt=system)))
+    # The repetition guard off in both arms: it reads a request's tail when a
+    # chunk lands, so (a)'s 16-step chunks and (b)'s deep ones stop a looping
+    # random-weight stream at different tokens; without it both run every
+    # request to PIPELINE_TOKENS and must emit the same ids.
+    guard_off(base)
     scheds = {"a": dataclasses.replace(base.sched, pipeline_decode=False,
                                        max_steps_per_sync=base.sched.steps_per_sync),
               "b": base.sched}
     log(f"  flagship engine built in {time.perf_counter() - t0:.1f} s ({args.quantize} weights, "
-        f"{args.kv_cache_dtype} KV, speculate_k 0); (a) pipeline_decode False, "
+        f"{args.kv_cache_dtype} KV, speculate_k 0, repetition guard off); (a) pipeline_decode False, "
         f"max_steps_per_sync {scheds['a'].max_steps_per_sync}; (b) pipeline_decode "
         f"{scheds['b'].pipeline_decode}, max_steps_per_sync {scheds['b'].max_steps_per_sync}; "
         f"steps_per_sync {base.sched.steps_per_sync}; turns {PIPELINE_TURNS}")
@@ -1611,15 +1784,16 @@ def pipeline_ab_phase(dev, env_flags) -> dict:
                    fetch_wait_ms_per_chunk=1e3 * m["t_fetch_wait_s"] / max(1, m["steps"]),
                    completion_tokens=[len(r.output_ids) for r in reqs],
                    kernel2_launches=launches["paged_attention_multiquery"],
-                   flash_launches=launches["flash_attention"])
+                   flash_launches=launches["flash_attention"],
+                   w8a16_launches=launches["w8a16_matmul"])
         log(f"  [13 turn {turn + 1}: ({label})] wall {wall:.2f} s; decode tok/s after the first "
             + ", ".join(f"{name} {rate:.1f}" for name, rate in rates.items())
             + f"; t_decode_s {m['t_decode_s']:.2f}; steps {m['steps']}; chunk_input_rebuilds "
             f"{m['chunk_input_rebuilds']}; pipelined_chunks {m['pipelined_chunks']}; fetch wait "
             f"{run['fetch_wait_ms_per_chunk']:.2f} ms a chunk; completion tokens "
             f"{run['completion_tokens']} (finish {[r.finished_reason for r in reqs]}); kernel 2 "
-            f"bf16 {run['kernel2_launches']}, flash {run['flash_launches']} launches; token ids "
-            f"equal to turn 1's: {same}")
+            f"bf16 {run['kernel2_launches']}, flash {run['flash_launches']}, W8A16 "
+            f"{run['w8a16_launches']} launches; token ids equal to turn 1's: {same}")
         if not same:
             raise AssertionError(f"phase 13: turn {turn + 1} ({label}) emitted other token ids")
         if label == "a" and m["pipelined_chunks"] != 0:
@@ -1628,8 +1802,9 @@ def pipeline_ab_phase(dev, env_flags) -> dict:
                                  and m["chunk_input_rebuilds"] < m["steps"]):
             raise AssertionError(f"phase 13: (b) pipelined {m['pipelined_chunks']} chunks, "
                                  f"{m['chunk_input_rebuilds']} rebuilds in {m['steps']} steps")
-        if run["kernel2_launches"] < 1 or run["flash_launches"] < 1:
-            raise AssertionError(f"phase 13: turn {turn + 1} launched no kernel 2 or flash")
+        if min(run["kernel2_launches"], run["flash_launches"], run["w8a16_launches"]) < 1:
+            raise AssertionError(f"phase 13: turn {turn + 1} launched no kernel 2, flash or "
+                                 "W8A16")
         if require_replays(eng, before, f"13 turn {turn + 1}")["graph_captures"]:
             raise AssertionError(f"phase 13: turn {turn + 1} captured a graph after the warmup")
         runs.append(run)
@@ -1728,27 +1903,147 @@ def logit_options_probe(post, metrics, first) -> None:
 
 
 # The seeded draw kernel's cases: the full vocabulary and the nucleus pool
-# at 64 rows (a 64-slot decode step). Per column the kernel does the 20
-# threefry rounds (add, rotate, xor), 5 key injections of 2-3 adds, the
-# counter and output xor, the uniform (shift, or, subtract, add, max), two
-# logf, the temperature's division, the add and the compare: counted as 90
-# scalar operations, at the card's float32 rate outside the tensor cores
-# (its integer operations issue at half that rate, so this bound is low).
-DRAW_OPS_PER_COLUMN = 90
+# at 64 rows (a 64-slot decode step), with the rows' keys given or folded
+# in the kernel from the slot keys and positions (the scheduler's calls).
+# Both bounds count the operations the function needs, reckoned from its
+# definition (not from the kernel's instructions, which add addressing and
+# loop control), at one operation a lane a clock: the instruction rate
+# behind the float32 67 TFLOP/s of the data sheet, an FMA counted once
+# (33.5 T/s). threefry2x32: 73 an element (20 rounds of add, rotate and
+# xor, 5 key injections of two adds, the counter's add, the output's xor).
+# A draw's column: its threefry, the uniform from the bits (shift, or,
+# subtract, multiply-add, max: 5), two accurate logf (25 each: 4 for a
+# subnormal argument, 5 for the exponent split and its float, 2 for the
+# reduced argument and its square, 9 polynomial multiply-adds and one for
+# the exponent times ln 2, 4 for the special cases), the add and the
+# argmax's compare and two selects (4), and with temperatures an IEEE
+# division (7: the reciprocal, five multiply-adds, the range check); a
+# row's key folds cost one threefry each.
+INSTRUCTIONS_PER_S = PEAK_OPS_PER_S["fp32"] / 2
+THREEFRY_OPS_PER_ELEMENT = 73
+DRAW_OPS_PER_COLUMN = THREEFRY_OPS_PER_ELEMENT + 5 + 2 * 25 + 4
+DRAW_DIVIDE_OPS = 7
 DRAW_REPEATS = 20
+
+
+def sass_loop_instructions(function: str):
+    """({opcode: count}, total) of the column loop of ``function`` (a
+    substring of its name) in the built kernel library's SASS: of its loops,
+    the one with the most FFMA (logf's polynomial), or None where cuobjdump
+    is missing or no loop has one. A diagnostic beside the bound."""
+    import collections
+    import re
+    import shutil
+
+    from dots_ocr_tpu_torch.ops import kernel_lib
+
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "cuobjdump")
+    tool = tool if os.path.exists(tool) else shutil.which("cuobjdump")
+    if tool is None or kernel_lib.lib_path is None:
+        return None
+    sass = subprocess.run([tool, "-sass", kernel_lib.lib_path], capture_output=True, text=True,
+                          timeout=120).stdout
+    body = next((f for f in re.split(r"\n\s*Function : ", sass)
+                 if function in f.split("\n", 1)[0]), None)
+    if body is None:
+        return None
+    ins = [(int(m.group(1), 16), m.group(2).strip()) for m in
+           (re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(.*?);", ln) for ln in body.splitlines()) if m]
+    loops = []
+    for addr, text in ins:
+        target = re.search(r"BRA\s+(0x[0-9a-f]+)", text)
+        if target and int(target.group(1), 16) <= addr:
+            loop = [t for a, t in ins if int(target.group(1), 16) <= a <= addr]
+            loops.append(collections.Counter(
+                re.sub(r"^@!?U?P\w+\s+", "", t).split()[0].split(".")[0] for t in loop))
+    loop = max(loops, key=lambda ops: ops["FFMA"], default=None)
+    if loop is None or loop["FFMA"] == 0:
+        return None
+    return dict(loop.most_common()), sum(loop.values())
+
+
+def threefry_cases(dev) -> dict:
+    """The threefry entry (csrc/threefry_sample.cu) at the main path's
+    calls, bit for bit against its plain version (``threefry_grid_reference``
+    on the same card), DRAW_REPEATS repeats bit-identical, timed in turns
+    and as CUDA graphs: the verify's step keys (64 slot keys folded with
+    their positions), its acceptance uniforms (64 keys x 2, minval 1e-20)
+    and a split of one key into 64. No PyTorch call computes threefry: no
+    library time."""
+    import torch
+
+    from dots_ocr_tpu_torch.engine.sampling import prng_key
+    from dots_ocr_tpu_torch.ops.sampling import (
+        UNIFORM,
+        fold_in,
+        split,
+        threefry_grid_reference,
+        uniform,
+    )
+
+    key = prng_key(2**32 + 5).to(dev)
+    keys = threefry_grid_reference(key[0], key[1], 0, 0, MAX_SLOTS)
+    pos = torch.arange(MAX_SLOTS, device=dev) * 7919 + 40000
+    cases = [
+        (f"threefry fold_in [{MAX_SLOTS}, 2] keys x positions (the verify's step keys)",
+         lambda: fold_in(keys, pos),
+         lambda: threefry_grid_reference(keys[:, 0], keys[:, 1], 0, pos), MAX_SLOTS, 16 + 8 + 16),
+        (f"threefry uniform [{MAX_SLOTS}, 2] minval 1e-20 (the verify's acceptance)",
+         lambda: uniform(keys, 2, 1e-20),
+         lambda: threefry_grid_reference(keys[:, 0:1], keys[:, 1:2], 0, 0, 2, UNIFORM, 1e-20),
+         2 * MAX_SLOTS, 16 + 2 * 4),
+        (f"threefry split of one key into {MAX_SLOTS}", lambda: split(key, MAX_SLOTS),
+         lambda: threefry_grid_reference(key[0], key[1], 0, 0, MAX_SLOTS), MAX_SLOTS, 16),
+    ]
+    out = []
+    for name, kernel_fn, plain_fn, elements, row_bytes in cases:
+        got, want = kernel_fn(), plain_fn()
+        torch.cuda.synchronize()
+        as_int = (lambda t: t.view(torch.int32)) if got.dtype == torch.float32 else (lambda t: t)
+        if got.shape != want.shape or not torch.equal(as_int(got), as_int(want)):
+            raise AssertionError(f"{name}: differs from the plain version")
+        same = sum(bool(torch.equal(as_int(kernel_fn()), as_int(got)))
+                   for _ in range(DRAW_REPEATS))
+        if same != DRAW_REPEATS:
+            raise AssertionError(f"{name}: {DRAW_REPEATS - same} repeated calls differ")
+        times = time_in_turns({"ms": kernel_fn, "plain_ms": plain_fn})
+        ops, nbytes = elements * THREEFRY_OPS_PER_ELEMENT, MAX_SLOTS * row_bytes
+        work = {"bound_ms": max(ops / INSTRUCTIONS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+                "bound_by": "operations" if ops / INSTRUCTIONS_PER_S >= nbytes / HBM_BYTES_PER_S
+                else "bytes", "flops": float(ops), "bytes": float(nbytes), "peak": "instruction rate"}
+        res = {"case": name, "max_abs_err": 0.0, "library_ms": None, **times, **work,
+               "graph_ms": {"ms": graph_ms(kernel_fn), "plain_ms": graph_ms(plain_fn)}}
+        log(f"  {name}: bit-equal, {same} of {DRAW_REPEATS} repeats bit-identical; kernel "
+            f"{res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms; as CUDA graphs kernel "
+            f"{res['graph_ms']['ms']:.4f}, plain {res['graph_ms']['plain_ms']:.4f} ms; bound "
+            f"{res['bound_ms']:.6f} ms")
+        out.append(res)
+    return {"threefry2x32": out}
 
 
 def draw_cases(dev) -> dict:
     """The fused seeded draw (csrc/threefry_sample.cu) against its plain
     version: tokens and Gumbel noise bit for bit, DRAW_REPEATS repeated
-    calls bit-identical, then both timed in turns. No single PyTorch call
-    draws threefry Gumbel-max: no library time."""
+    calls bit-identical, then both timed in turns, and the kernel as a CUDA
+    graph (its device time). No single PyTorch call draws threefry
+    Gumbel-max: no library time. The first case is the main path's: slot
+    keys and positions folded in the kernel, temperatures fused."""
     import numpy as np
     import torch
 
     from dots_ocr_tpu_torch.engine.sampling import prng_key, split
-    from dots_ocr_tpu_torch.ops.sampling import gumbel_argmax, gumbel_argmax_reference, gumbel_noise
+    from dots_ocr_tpu_torch.ops.sampling import (
+        fold_keys_reference,
+        gumbel_argmax,
+        gumbel_argmax_reference,
+        gumbel_noise,
+    )
 
+    sass = sass_loop_instructions("gumbel_argmax_kernel")
+    log(f"  the draw's bound: {DRAW_OPS_PER_COLUMN} operations a column "
+        f"(+{DRAW_DIVIDE_OPS} with temperatures), {THREEFRY_OPS_PER_ELEMENT} a key fold, at "
+        f"{INSTRUCTIONS_PER_S / 1e12:.1f} T/s; the kernel's column loop (2 columns an "
+        f"iteration): " + (f"{sass[1]} SASS instructions {sass[0]}" if sass else "not read"))
     rng = np.random.RandomState(7)
     vocab = 151936
     temps = torch.from_numpy(rng.uniform(0.05, 1.5, MAX_SLOTS).astype(np.float32)).to(dev)
@@ -1763,21 +2058,25 @@ def draw_cases(dev) -> dict:
         rng.randint(1, 257, MAX_SLOTS)).to(dev)[:, None]
     pool = pool.masked_fill(~keep, float("-inf"))
     shared, per_row = prng_key(11).to(dev), split(prng_key(12), MAX_SLOTS).to(dev)
+    pos = torch.from_numpy(rng.randint(0, 40960, MAX_SLOTS).astype(np.int64)).to(dev)
     cases = [
-        (f"draw [64, {vocab}] shared key, temperatures fused", logits, shared, temps),
-        (f"draw [64, {vocab}] per-row keys, temperatures fused", logits, per_row, temps),
+        (f"draw [64, {vocab}] slot keys + positions folded in the kernel, temperatures fused",
+         logits, per_row, temps, {"positions": pos}),
+        (f"draw [64, {vocab}] slot keys + positions + tag 1 folded in the kernel (nucleus "
+         f"sampler, full vocabulary)", logits, per_row, None, {"positions": pos, "tag": 1}),
+        ("draw [64, 256] nucleus pool, slot keys + positions + tag 0 folded in the kernel, -inf "
+         "past each kept prefix", pool, per_row, None, {"positions": pos, "tag": 0}),
+        (f"draw [64, {vocab}] shared key, temperatures fused", logits, shared, temps, {}),
         (f"draw [64, {vocab}] per-row keys, mixed temperatures, 30% -inf, one -inf row",
-         masked, per_row, temps),
-        ("draw [64, 256] nucleus pool, per-row keys, -inf past each kept prefix",
-         pool, per_row, None),
+         masked, per_row, temps, {}),
     ]
     out = []
-    for name, x, keys, t in cases:
+    for name, x, keys, t, fold in cases:
         b, v = x.shape
         noise = torch.empty_like(x)
-        got = gumbel_argmax(x, keys, t, noise_out=noise)
-        want = gumbel_argmax_reference(x, keys, t)
-        want_noise = gumbel_noise(keys, b, v)
+        got = gumbel_argmax(x, keys, t, noise_out=noise, **fold)
+        want = gumbel_argmax_reference(x, keys, t, **fold)
+        want_noise = gumbel_noise(fold_keys_reference(keys, **fold), b, v)
         torch.cuda.synchronize()
         if not torch.equal(got, want):
             bad = int((got != want).sum())
@@ -1786,18 +2085,28 @@ def draw_cases(dev) -> dict:
             raise AssertionError(f"{name}: the Gumbel noise differs from the plain version")
         if name.endswith("one -inf row") and int(got[3]) != 0:
             raise AssertionError(f"{name}: the all -inf row drew {int(got[3])}, not 0")
-        same = sum(bool(torch.equal(gumbel_argmax(x, keys, t), got)) for _ in range(DRAW_REPEATS))
+        same = sum(bool(torch.equal(gumbel_argmax(x, keys, t, **fold), got))
+                   for _ in range(DRAW_REPEATS))
         if same != DRAW_REPEATS:
             raise AssertionError(f"{name}: {DRAW_REPEATS - same} repeated calls differ")
         del noise, want_noise
-        times = time_in_turns({"ms": lambda: gumbel_argmax(x, keys, t),
-                               "plain_ms": lambda: gumbel_argmax_reference(x, keys, t)})
-        nbytes = x.numel() * 4 + b * 8 + (b * 4 if t is not None else 0) + keys.numel() * 4
-        work = bound(float(x.numel()) * DRAW_OPS_PER_COLUMN, nbytes, kind="fp32")
-        res = {"case": name, "max_abs_err": 0.0, "library_ms": None, **times, **work}
+        times = time_in_turns({"ms": lambda: gumbel_argmax(x, keys, t, **fold),
+                               "plain_ms": lambda: gumbel_argmax_reference(x, keys, t, **fold)})
+        device_ms = graph_ms(lambda: gumbel_argmax(x, keys, t, **fold))
+        nbytes = (x.numel() * 4 + b * 8 + (b * 4 if t is not None else 0) + keys.numel() * 8
+                  + (b * 8 if "positions" in fold else 0))
+        per_column = DRAW_OPS_PER_COLUMN + (DRAW_DIVIDE_OPS if t is not None else 0)
+        folds = ("positions" in fold) + ("tag" in fold)
+        ops = x.numel() * per_column + b * folds * THREEFRY_OPS_PER_ELEMENT
+        work = {"bound_ms": max(ops / INSTRUCTIONS_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3,
+                "bound_by": "operations" if ops / INSTRUCTIONS_PER_S >= nbytes / HBM_BYTES_PER_S
+                else "bytes", "flops": float(ops), "bytes": float(nbytes), "peak": "instruction rate",
+                "operations_per_column": per_column}
+        res = {"case": name, "max_abs_err": 0.0, "library_ms": None, **times, **work,
+               "graph_ms": {"ms": device_ms}, "sass_loop": sass[0] if sass else None}
         log(f"  {name}: tokens and noise bit-equal, {same} of {DRAW_REPEATS} repeats "
-            f"bit-identical; kernel {res['ms']:.4f} ms, plain {res['plain_ms']:.3f} ms, bound "
-            f"{res['bound_ms']:.4f} ms ({res['bound_by']})")
+            f"bit-identical; kernel {res['ms']:.4f} ms ({device_ms:.4f} ms as a CUDA graph), "
+            f"plain {res['plain_ms']:.3f} ms, bound {res['bound_ms']:.4f} ms ({res['bound_by']})")
         out.append(res)
     del logits, masked, pool
     torch.cuda.empty_cache()
@@ -2133,10 +2442,11 @@ def graph_tokens_phase(dev, env_flags) -> tuple:
         prepared.append((name, graphed.prepare(prompt, images, system_prompt=system)))
     waves = (("greedy", dict(temperature=0.0)),
              ("sampled", dict(temperature=1.0, seed=GRAPH_SEED)))
-    ids, walls = {}, {}
+    ids, walls, launches = {}, {}, {}
     for label, eng in (("graphed", graphed), ("eager", eager)):
         before = graph_counts(eng)
         ids[label], walls[label] = [], []
+        reset_counts()
         for wave, options in waves:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -2153,6 +2463,15 @@ def graph_tokens_phase(dev, env_flags) -> tuple:
                 + ", ".join(f"{k} {eng.metrics[k]}" for k in (
                     "steps", "spec_chunks", "spec_emitted", "spec_auto_disabled",
                     "pipelined_chunks", "chunk_input_rebuilds")))
+        launches[label] = read_counts()
+        log(f"  [{label}] W8A16 launches {launches[label]['w8a16_matmul']} (split "
+            f"{launches[label]['w8a16_matmul (split)']}, wgmma "
+            f"{launches[label]['w8a16_matmul (wgmma)']}), draws {launches[label]['gumbel_argmax']}, "
+            f"threefry {launches[label]['threefry2x32']}")
+        if min(launches[label]["w8a16_matmul"], launches[label]["w8a16_matmul (split)"],
+               launches[label]["gumbel_argmax"]) < 1:
+            raise AssertionError(f"phase 17: the {label} engine launched no W8A16 decode kernel "
+                                 "or no draw")
         if label == "graphed":
             delta = require_replays(eng, before, "17 graphed")
             if delta["graph_captures"]:
@@ -2172,7 +2491,7 @@ def graph_tokens_phase(dev, env_flags) -> tuple:
         f"({sum(len(t) for w in ids['graphed'] for t in w)} tokens)")
     del eager
     release()
-    return graphed, {"warmup_full": warm, "walls_s": walls}
+    return graphed, {"warmup_full": warm, "walls_s": walls, "launches": launches}
 
 
 def chunk_speed_phase(engine, dev) -> dict:
@@ -2239,9 +2558,44 @@ def chunk_speed_phase(engine, dev) -> dict:
                for e in prof.key_averages()]
         ops = sorted((op for op in ops if op[2] > 0), key=lambda op: -op[2])
         device_ms = sum(op[2] for op in ops)
+
+        def share(word):
+            mine = [op for op in ops if word in op[0]]
+            return {"launches": sum(op[1] for op in mine), "ms": sum(op[2] for op in mine)}
+
         busy[name] = {"share": device_ms / ms if device_ms else None, "device_ms": device_ms,
                       "chunk_ms": ms, "device_ops": sum(op[1] for op in ops),
+                      "w8a16": share("w8a16"), "direct_copy_kernel": share("direct_copy_kernel"),
+                      "draw": share("gumbel_argmax"), "threefry": share("threefry_grid"),
                       "top": [(key[:70], count, round(t, 3)) for key, count, t in ops[:10]]}
+    # The same chunk sampled (temperature 1 on every row, no nucleus: the
+    # graph the warmup captured for sampled chunks), profiled once: the
+    # device operations of a sampled step, the draw and its keys included.
+    state["temps"] = torch.ones(s, device=dev)
+    state["keys"] = (torch.arange(2 * s, device=dev, dtype=torch.int64) * 7919).reshape(s, 2)
+    dev_in.any_sampled, dev_in.nucleus = True, False
+    skey = engine._chunk_key(dev_in, 0, CHUNK_DEPTH, False)
+    sprogram = engine._chunk_program(dev_in, skey)
+    timed(lambda: engine._graphs.run(skey, sprogram))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        ms, _ = timed(lambda: engine._graphs.run(skey, sprogram))
+    sops = [(e.key, e.count, (getattr(e, "self_device_time_total", 0) or 0) / 1e3)
+            for e in prof.key_averages()]
+    sops = [op for op in sops if op[2] > 0]
+    sampled = {"chunk_ms": ms, "device_ops": sum(op[1] for op in sops),
+               "device_ms": sum(op[2] for op in sops),
+               "draw": {"launches": sum(op[1] for op in sops if "gumbel_argmax" in op[0]),
+                        "ms": sum(op[2] for op in sops if "gumbel_argmax" in op[0])},
+               "threefry": sum(op[1] for op in sops if "threefry_grid" in op[0])}
+    log(f"  the same chunk sampled (temperature 1, no nucleus; graph captured by the warmup: "
+        f"{skey in engine._graphs}): {sampled['chunk_ms'] / CHUNK_DEPTH:.3f} ms a step, "
+        f"{sampled['device_ops'] / CHUNK_DEPTH:.1f} device operations a step against "
+        f"{busy['graph']['device_ops'] / CHUNK_DEPTH:.1f} greedy; draw launches "
+        f"{sampled['draw']['launches']} ({sampled['draw']['ms'] / CHUNK_DEPTH:.4f} ms a step), "
+        f"threefry launches {sampled['threefry']}")
+    if sampled["draw"]["launches"] != CHUNK_DEPTH:
+        raise AssertionError(f"phase 17: {sampled['draw']['launches']} draw launches in a "
+                             f"sampled chunk of {CHUNK_DEPTH} steps (one a step)")
     engine._dev = None
     out = {name: {"ms_per_step": statistics.median(times[name]) / CHUNK_DEPTH,
                   "chunk_ms": statistics.median(times[name]),
@@ -2254,8 +2608,17 @@ def chunk_speed_phase(engine, dev) -> dict:
                     f"{o['busy']['share']} ({o['busy']['device_ops']} device ops, "
                     f"{o['busy']['device_ms']:.2f} of {o['busy']['chunk_ms']:.2f} ms)"
                     for name, o in out.items()))
+    out["sampled"] = sampled
     log("  the graphed chunk's device time by operation (name, count, ms): "
         + "; ".join(f"{key} x{count} {t:.2f}" for key, count, t in busy["graph"]["top"]))
+    graphed = busy["graph"]
+    log(f"  the graphed chunk ({CHUNK_DEPTH} steps): W8A16 kernels x{graphed['w8a16']['launches']} "
+        f"{graphed['w8a16']['ms']:.2f} ms ({graphed['w8a16']['ms'] / CHUNK_DEPTH:.3f} ms a step); "
+        f"direct_copy_kernel x{graphed['direct_copy_kernel']['launches']} "
+        f"{graphed['direct_copy_kernel']['ms']:.2f} ms; draw x{graphed['draw']['launches']}, "
+        f"threefry x{graphed['threefry']['launches']}")
+    if graphed["w8a16"]["launches"] < 1:
+        raise AssertionError("phase 17: the profiled chunk ran no W8A16 kernel")
     return out
 
 
@@ -2405,7 +2768,9 @@ def main() -> int:
 
     log(f"[3/17] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
+    kernels.update(w8a16_cases(dev))
     kernels.update(draw_cases(dev))
+    kernels.update(threefry_cases(dev))
     tiny_call = tiny_call_phase(dev)
     w8a8_vision = w8a8_vision_phase(dev)
 
@@ -2414,8 +2779,10 @@ def main() -> int:
     shipped_replies = []
     engine, shipped, metrics, page = serve_phase(
         dev, SHIPPED_FLAGS, "shipped", waves=SHIPPED_WAVES, replies=shipped_replies,
+        before_serve=guard_off,
         required=("flash_attention", "flash_attention (q_offset > 0)",
-                  "paged_attention_multiquery_int8"))
+                  "paged_attention_multiquery_int8", "w8a16_matmul", "w8a16_matmul (split)",
+                  "w8a16_matmul (wgmma)"))
     if metrics.get("preemptions", 0) != 0:
         raise AssertionError(f"shipped path: the full pool preempted ({metrics})")
     if metrics.get("prefill_chunks", 0) < 2 or metrics.get("spec_chunks", 0) < 1:
@@ -2480,11 +2847,16 @@ def main() -> int:
     engine, shipping, metrics, page = serve_phase(
         dev, [], "shipping.env", base_flags=env_flags, waves=SHIPPING_WAVES,
         required=("flash_attention", "flash_attention (q_offset > 0)",
-                  "paged_attention_multiquery", "paged_attention_multiquery (nq > 1)"))
+                  "paged_attention_multiquery", "paged_attention_multiquery (nq > 1)",
+                  "w8a16_matmul", "w8a16_matmul (split)", "w8a16_matmul (wgmma)",
+                  "gumbel_argmax", "threefry2x32"))
     decode_calls = (shipping["paged_attention_multiquery"]
                     - shipping["paged_attention_multiquery (nq > 1)"])
     log(f"  [shipping.env] kernel 2 bf16: {decode_calls} launches at nq = 1 (decode), "
-        f"{shipping['paged_attention_multiquery (nq > 1)']} at nq = 3 (verify)")
+        f"{shipping['paged_attention_multiquery (nq > 1)']} at nq = 3 (verify); W8A16 "
+        f"{shipping['w8a16_matmul']} ({shipping['w8a16_matmul (split)']} split, "
+        f"{shipping['w8a16_matmul (wgmma)']} wgmma); draw {shipping['gumbel_argmax']}, "
+        f"threefry {shipping['threefry2x32']}")
     if (decode_calls < 1 or metrics.get("prefill_chunks", 0) < 2
             or metrics.get("spec_chunks", 0) < 1 or metrics.get("pipelined_chunks", 0) < 1):
         raise AssertionError(f"shipping.env path: {decode_calls} nq = 1 launches (need >= 1), "
@@ -2509,7 +2881,7 @@ def main() -> int:
         dev, [], "shipping.env, pipelined", base_flags=env_flags,
         waves=((0.0, PIPELINE_TOKENS),), before_serve=first_text_token, probe=logit_options_probe,
         required=("flash_attention", "paged_attention_multiquery",
-                  "paged_attention_multiquery (nq > 1)"))
+                  "paged_attention_multiquery (nq > 1)", "w8a16_matmul"))
     del engine
     release()
 
@@ -2534,7 +2906,14 @@ def main() -> int:
     sources = {
         "gumbel_argmax": ("dots_ocr_tpu_torch/csrc/threefry_sample.cu",
                           "none: fused by XLA into the sampling program "
-                          "(dots_ocr_tpu/engine/sampling.py:47 _categorical)", served_launches),
+                          "(dots_ocr_tpu/engine/sampling.py:47 _categorical)", shipping),
+        "threefry2x32": ("dots_ocr_tpu_torch/csrc/threefry_sample.cu",
+                         "none: jax.random's threefry2x32, fused by XLA (fold_in / split / "
+                         "uniform of dots_ocr_tpu/engine/sampling.py)", shipping),
+        "w8a16_matmul": ("dots_ocr_tpu_torch/csrc/int8_matmul.cu",
+                         "none: XLA fuses the int8 convert into the dot "
+                         "(dots_ocr_tpu/models/layers.py:62-67 linear, :101-108 unembed)",
+                         shipping),
         "flash_attention": ("dots_ocr_tpu_torch/csrc/flash_attention.cu",
                             "dots_ocr_tpu/ops/flash_attention.py:330", shipped),
         "paged_attention_multiquery": ("dots_ocr_tpu_torch/csrc/paged_attention.cu",
@@ -2557,8 +2936,12 @@ def main() -> int:
     }
     # The case whose numbers head each kernel's entry: the main path's shape
     # (kernel 3's bf16 mode runs at page 128 in phase 9, its int8 mode at
-    # phase 10's served shape), else the first.
-    main_case = {"paged_attention_v1": 1, "paged_attention_v1_int8": 2}
+    # phase 10's served shape; W8A16 at gate/up of a 64-slot decode step, the
+    # largest linear of a step), else the first.
+    main_case = {"paged_attention_v1": 1, "paged_attention_v1_int8": 2,
+                 "w8a16_matmul": next(i for i, c in enumerate(kernels["w8a16_matmul"])
+                                      if c["case"].startswith("w8a16 gate/up")
+                                      and f"M={MAX_SLOTS}," in c["case"])}
     keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     line = {"kernels": [
         {"name": name, "route": "cuda", "source": sources[name][0],

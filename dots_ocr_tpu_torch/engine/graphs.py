@@ -45,12 +45,13 @@ import torch
 
 from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
 from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul
+from dots_ocr_tpu_torch.ops.int8_matmul import w8a16_matmul
 from dots_ocr_tpu_torch.ops.paged_attention import (
     paged_attention_multiquery_bf16,
     paged_attention_multiquery_int8,
     paged_attention_stacked,
 )
-from dots_ocr_tpu_torch.ops.sampling import gumbel_argmax
+from dots_ocr_tpu_torch.ops.sampling import gumbel_argmax, threefry_grid
 from dots_ocr_tpu_torch.ops.window_attention import window_attention
 
 # Background warmup captures on the engine thread while the HTTP threads
@@ -60,7 +61,8 @@ CAPTURE_MODE = "thread_local"
 # Every kernel wrapper; each counts its launches in attributes ending in
 # "launches".
 WRAPPERS = (flash_attention, paged_attention_multiquery_bf16, paged_attention_multiquery_int8,
-            paged_attention_stacked, window_attention, int4_matmul, gumbel_argmax)
+            paged_attention_stacked, window_attention, int4_matmul, w8a16_matmul, gumbel_argmax,
+            threefry_grid)
 
 Counter = Tuple[Callable, str]
 

@@ -4,8 +4,10 @@ draws (port of ``dots_ocr_tpu.engine.sampling``).
 Every draw is ``jax.random``'s, bit for bit (``jax_threefry_partitionable=
 True``): keys are uint32 pairs (held in int64 tensors), ``prng_key``,
 ``split`` and ``fold_in`` run threefry2x32 as JAX does, and categorical
-draws are Gumbel-max over the same bits (``ops/sampling.py``: the fused
-draw kernel on the card, its plain version on the CPU). So a seeded
+draws are Gumbel-max over the same bits (``ops/sampling.py``: on the card
+``split``, ``fold_in`` and ``uniform`` are one launch of the threefry kernel
+each, and a draw is one launch of the draw kernel, its rows' key folds
+included; their plain versions on the CPU). So a seeded
 request samples the same tokens as in the JAX package, and the engine's
 position-keyed chains (:func:`fold_positions`) make the draw for position
 q ``fold_in(request_key, q)`` whatever is co-batched, chunked, speculated
@@ -29,10 +31,11 @@ import torch
 from dots_ocr_tpu_torch.ops.sampling import (
     MASK32,
     bits_to_gumbel,
-    bits_to_uniform,
+    fold_in,
     gumbel_argmax,
     random_bits,
-    threefry2x32,
+    split,
+    uniform,
 )
 
 NUCLEUS_TOP_K = 256
@@ -43,32 +46,6 @@ def prng_key(seed: int, device: Union[str, torch.device] = "cpu") -> torch.Tenso
     to 32 bits (2^32 + 5 -> 5, -1 -> 0xFFFFFFFF) and the key is
     (0, seed mod 2^32). Returns [2] int64."""
     return torch.tensor([0, int(seed) & MASK32], dtype=torch.int64, device=device)
-
-
-def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
-    """``jax.random.split(key, num)`` -> [num, 2]: subkey i is threefry of
-    the counter (0, i) (the partitionable split, equal to fold_in(key, i))."""
-    idx = torch.arange(num, dtype=torch.int64, device=key.device)
-    y0, y1 = threefry2x32(key[0], key[1], torch.zeros_like(idx), idx)
-    return torch.stack([y0, y1], dim=-1)
-
-
-def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
-    """``jax.random.fold_in`` on keys [..., 2] with data (an int, or an
-    integer tensor broadcasting against keys[..., 0]) taken mod 2^32. An int
-    is filled on the keys' device: no host copy, so a CUDA graph can hold it."""
-    if isinstance(data, int):
-        data = torch.full((), data & MASK32, dtype=torch.int64, device=keys.device)
-    else:
-        data = torch.as_tensor(data, dtype=torch.int64, device=keys.device) & MASK32
-    y0, y1 = threefry2x32(keys[..., 0], keys[..., 1], torch.zeros_like(data), data)
-    return torch.stack(torch.broadcast_tensors(y0, y1), dim=-1)
-
-
-def uniform(keys: torch.Tensor, n: int, minval: float = 0.0) -> torch.Tensor:
-    """``jax.random.uniform(key, (n,), minval=minval)`` per key: keys
-    [..., 2] -> [..., n] float32."""
-    return bits_to_uniform(random_bits(keys, n), minval)
 
 
 def gumbel(keys: torch.Tensor, n: int) -> torch.Tensor:
@@ -91,11 +68,6 @@ def fold_positions(slot_keys: torch.Tensor, positions: torch.Tensor) -> torch.Te
     q is ``fold_in(slot_key, q)`` whatever else runs, so a request's
     sampled stream is reproducible under continuous batching."""
     return fold_in(slot_keys, positions)
-
-
-def _subkeys(rng: torch.Tensor, tag: int) -> torch.Tensor:
-    """A tagged child key; one key [2] or rows [B, 2]."""
-    return fold_in(rng, tag)
 
 
 def nucleus_pool(scaled: torch.Tensor, top_p: torch.Tensor):
@@ -123,17 +95,20 @@ def sample_logits(
     top_p,
     nucleus: bool = True,
     any_sampled: Optional[bool] = None,
+    positions: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """Next tokens [B] int64 from logits [B, V]; temperature / top_p [B]
     (or scalars); temperature <= 0 is greedy.
 
     ``rng`` is ONE key [2] (the batch engine's shared draw) or per-row keys
-    [B, 2] (:func:`fold_positions`: the serving engine's per-request
-    chains). ``nucleus`` is the JAX package's static flag: with it, top_p <
-    1 rows draw from the pool under ``fold_in(rng, 0)`` and the others from
-    the full vocabulary under ``fold_in(rng, 1)``; without it, every row
-    draws from the full vocabulary under ``rng`` itself. ``any_sampled`` is
-    the host's knowledge of whether any row samples (None: read it from
+    [B, 2]. With ``positions`` [B] the rows draw under
+    ``fold_positions(rng, positions)`` (the serving engine's per-request
+    chains), folded inside the draw kernel on the card. ``nucleus`` is the
+    JAX package's static flag: with it, top_p < 1 rows draw from the pool
+    under ``fold_in(key, 0)`` and the others from the full vocabulary under
+    ``fold_in(key, 1)``; without it, every row draws from the full
+    vocabulary under the key itself. ``any_sampled`` is the host's
+    knowledge of whether any row samples (None: read it from
     ``temperature``): an all-greedy batch draws nothing.
     """
     logits = logits.to(torch.float32)
@@ -150,12 +125,13 @@ def sample_logits(
         scaled = logits / safe_t[:, None]
         # Keep tokens while the mass before them is < top_p (the first always).
         top_vals, top_idx, keep = nucleus_pool(scaled, top_p)
-        pick = categorical(_subkeys(rng, 0), top_vals.masked_fill(~keep, float("-inf")))
+        pick = gumbel_argmax(top_vals.masked_fill(~keep, float("-inf")), rng,
+                             positions=positions, tag=0)
         token_k = torch.gather(top_idx, 1, pick[:, None])[:, 0]
-        token_full = categorical(_subkeys(rng, 1), scaled)
+        token_full = gumbel_argmax(scaled.contiguous(), rng, positions=positions, tag=1)
         sampled = torch.where(top_p < 1.0, token_k, token_full)
     else:
-        sampled = categorical(rng, logits, safe_t)
+        sampled = gumbel_argmax(logits.contiguous(), rng, safe_t, positions=positions)
     return torch.where(temperature > 0, sampled, greedy)
 
 

@@ -127,8 +127,9 @@ def add_logit_bias(logits: torch.Tensor, bias_ids: torch.Tensor,
 
 def step_keys(keys: torch.Tensor, positions: torch.Tensor, any_sampled: bool) -> torch.Tensor:
     """The rows' draw keys for tokens emitted at ``positions``
-    (``fold_positions``); an all-greedy step draws nothing, so on the card
-    it skips the key derivation's eager int64 ops."""
+    (``fold_positions``: one launch of the threefry kernel on the card), for
+    the verify, which folds them further; an all-greedy step draws nothing
+    and skips it. The plain draws pass ``positions`` to the draw instead."""
     return fold_positions(keys, positions) if any_sampled else keys
 
 
@@ -274,8 +275,8 @@ def prefill_program(
     if bias_ids is not None:
         add_logit_bias(logits, bias_ids, bias_vals)
     # Prefill always runs the nucleus sampler, as the JAX engine does.
-    first = sample_logits(step_keys(sample_keys, seq_lens, any_sampled), logits, temperature,
-                          top_p, nucleus=True, any_sampled=any_sampled)
+    first = sample_logits(sample_keys, logits, temperature, top_p, nucleus=True,
+                          any_sampled=any_sampled, positions=seq_lens)
     return _pack_first_with_logprob(first, logits)
 
 
@@ -355,8 +356,8 @@ def decode_program(
         if counts is not None:
             logits = (logits - presence[:, None] * (counts > 0)
                       - frequency[:, None] * counts.to(torch.float32))
-        nxt = sample_logits(step_keys(slot_keys, pos + 1, any_sampled), logits, temperature,
-                            top_p, nucleus=nucleus, any_sampled=any_sampled)
+        nxt = sample_logits(slot_keys, logits, temperature, top_p, nucleus=nucleus,
+                            any_sampled=any_sampled, positions=pos + 1)
         tokens_out[:, i] = torch.where(live, nxt, pad)
         if lp_out is not None:
             lp_out[:, i] = torch.where(live, token_logprob(logits, nxt), 0.0)
@@ -420,8 +421,8 @@ def prefill_extend_program(
     logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
     if bias_ids is not None:
         add_logit_bias(logits, bias_ids, bias_vals)
-    first = sample_logits(step_keys(sample_keys, prompt_len, any_sampled), logits, temperature,
-                          top_p, nucleus=True, any_sampled=any_sampled)
+    first = sample_logits(sample_keys, logits, temperature, top_p, nucleus=True,
+                          any_sampled=any_sampled, positions=prompt_len)
     return _pack_first_with_logprob(first, logits)
 
 

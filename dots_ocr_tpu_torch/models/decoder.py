@@ -30,6 +30,7 @@ from dots_ocr_tpu_torch.models.layers import (
 from dots_ocr_tpu_torch.models.rope import apply_rope, rope_table
 from dots_ocr_tpu_torch.ops import flash_attention, paged_attention
 from dots_ocr_tpu_torch.ops.attention import decode_attention_reference
+from dots_ocr_tpu_torch.ops.int8_matmul import w8a16_matmul
 
 
 class KVCache(NamedTuple):
@@ -341,7 +342,7 @@ def logits_from_hidden(params: dict, cfg: DecoderConfig, hidden: torch.Tensor) -
         return unembed(hidden, params["embed"])
     head = params["lm_head"]
     if isinstance(head, dict):
-        return matmul_f32(hidden, head["qint8"].to(hidden.dtype)) * head["scale"]
+        return w8a16_matmul(hidden, head["qint8"], head["scale"], out_f32=True)
     return matmul_f32(hidden, head)
 
 

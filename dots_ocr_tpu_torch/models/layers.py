@@ -18,23 +18,9 @@ import torch
 import torch.nn.functional as F
 
 from dots_ocr_tpu_torch.ops.int4_matmul import int4_linear
+from dots_ocr_tpu_torch.ops.int8_matmul import matmul_f32, w8a16_matmul
 
 Kernel = Union[torch.Tensor, dict]
-
-
-def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """x [..., K] @ w [K, N] as the float32 sum of the product.
-
-    On CUDA a bf16 or fp16 product goes to cuBLAS with a float32 output
-    (``torch.mm(..., out_dtype=torch.float32)``): no operand is upcast. On
-    the CPU the operands are upcast (that build has no ``mm.dtype``
-    kernel); a bf16 x bf16 product is exact in float32, so only the
-    summation order differs.
-    """
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return out.reshape(*x.shape[:-1], w.shape[-1])
-    return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -59,10 +45,11 @@ def int8_matmul(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
 def linear(x: torch.Tensor, kernel: Kernel, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
     """x @ kernel (+ bias) with kernel [in, out], cast to x.dtype.
 
-    An int8 kernel is converted to x.dtype and its per-output-channel scale
-    multiplies the float32 sum (it commutes with the contraction). The
-    convert writes a copy of the weight in x.dtype on every call, where
-    XLA fuses it into the dot's operand read.
+    An int8 kernel goes through ``ops.int8_matmul.w8a16_matmul``: the
+    weight as x.dtype (exact), its per-output-channel scale on the float32
+    sum (it commutes with the contraction), then the bias and the cast; on
+    the card in one kernel that reads the int8 weight, where XLA fuses the
+    convert into the dot's operand read.
 
     An int4 kernel goes through ``ops.int4_matmul.int4_linear``, which
     returns x.dtype: the sum is rounded to x.dtype before the bias, as in
@@ -70,6 +57,8 @@ def linear(x: torch.Tensor, kernel: Kernel, bias: Optional[torch.Tensor] = None)
     max(amax / 127, 1e-8)``, codes clipped to +-127), takes the exact int32
     product, and scales it as ``acc * a_scale * s``.
     """
+    if isinstance(kernel, dict) and "qint8" in kernel:
+        return w8a16_matmul(x, kernel["qint8"], kernel["scale"], bias)
     if isinstance(kernel, dict) and "qint4" in kernel:
         out = int4_linear(x, kernel).to(torch.float32)
     elif isinstance(kernel, dict) and "qint8_act" in kernel:
@@ -78,8 +67,6 @@ def linear(x: torch.Tensor, kernel: Kernel, bias: Optional[torch.Tensor] = None)
         a_scale = (amax / amax.new_full((), 127.0)).clamp_min(1e-8)  # true division
         xq = torch.round(xf / a_scale).clamp(-127, 127).to(torch.int8)
         out = int8_matmul(xq, kernel["qint8_act"]).to(torch.float32) * a_scale * kernel["scale"]
-    elif isinstance(kernel, dict):
-        out = matmul_f32(x, kernel["qint8"].to(x.dtype)) * kernel["scale"]
     else:
         out = matmul_f32(x, kernel)
     if bias is not None:
@@ -108,9 +95,10 @@ def embed(input_ids: torch.Tensor, embedding: Kernel) -> torch.Tensor:
 
 def unembed(x: torch.Tensor, embedding: Kernel) -> torch.Tensor:
     """Tied-embedding logits x @ embedding.T as float32. An int8 table's
-    per-vocab-row scale multiplies the logits' vocab axis."""
+    per-vocab-row scale multiplies the logits' vocab axis (the W8A16 kernel
+    on the card)."""
     if isinstance(embedding, dict):
-        return matmul_f32(x, embedding["qint8"].to(x.dtype).t()) * embedding["scale"]
+        return w8a16_matmul(x, embedding["qint8"], embedding["scale"], transposed=True)
     return matmul_f32(x, embedding.t())
 
 

@@ -62,9 +62,15 @@ _SIGNATURES = {
     # q, k_all, v_all, k_scales_all, v_scales_all, lengths, page_indices,
     # part_o, part_ml, out, then as the bf16 mode
     "dots_paged_attention_v1_int8": [_P] * 10 + [_I] * 10 + [_F, _P],
-    # logits, temps (or null), keys, noise_out (or null), part_val, part_idx
-    # (scratch), out, B, V, per_row, nblk, stream
-    "dots_threefry_gumbel_argmax": [_P] * 7 + [_I] * 4 + [_P],
+    # x, q, scale, bias (or null), out, M, K, N, nk, out_f32, bias_bf16,
+    # rows_tile (0: the wgmma kernel), cluster, stream
+    "dots_w8a16_matmul": [_P] * 5 + [_I] * 8 + [_P],
+    # logits, temps (or null), keys, key_step, positions (or null), tag,
+    # flat, noise_out (or null), out, B, V, cluster, stream
+    "dots_threefry_gumbel_argmax": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P],
+    # operands (16 int64 on the host), out, rows, cols, iota, mode, minval,
+    # stream
+    "dots_threefry2x32": [_P, _P] + [_I] * 4 + [_F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

@@ -39,9 +39,25 @@ kernel 3's over V1_SWEEP counts through ``_paged_v1_launch``, kernel 5
 W4A16's split counts through ``_w4a16_launch`` and kernel 5 W4A8's decode
 regime over cluster sizes and column widths through ``_w4a8_launch``.
 
+It also times the int8 weight-only ``layers.linear`` and the int8
+``unembed`` at chip_smoke.py's W8A16 shapes and rows (the W8A16 kernel in a
+tree that has it, the per-call bf16 copy and cuBLAS before it), beside
+cuBLAS bf16 on the weight converted once; a 64-slot step's seeded draw over
+the full vocabulary with its key folds (one launch in a tree whose draw
+folds its keys, torch folds and a two-pass draw before); phase 9's
+decode step (64 slots x 2,048, int8 weights, bf16 KV) graphed and eager;
+and one 2,048-token prefill chunk through the flagship decoder with int8
+and with bf16 weights, eager.
+A tree with them also sweeps the W8A16 split regime's row tiles and
+cluster sizes and the draw's cluster sizes.
+
+A tree with them also takes parts out of its W8A16 kernel ("ablation
+w8a16": no convert, no mma, no wgmma) to show what holds it back.
+
 ``--only`` takes comma-separated prefixes of case names (and "sweep int4",
-"sweep w4a8", "sweep paged") and times only those: a tuning run's way to
-spend less card time.
+"sweep w4a8", "sweep paged", "sweep w8a16", "sweep draw", "ablation w8a16",
+"decode step", "prefill chunk") and
+times only those: a tuning run's way to spend less card time.
 
 Prints a summary and, as its last line, one JSON object with every
 worker's numbers.
@@ -141,7 +157,7 @@ def worker(root: str, only: tuple = ()) -> dict:
             res.update({f"{key}_ms_inner{inner}": ms
                         for key, ms in cs.time_in_turns(fns, inner=inner).items()})
         res.update({f"{key}_graph_ms": graph_ms(fn, cs) for key, fn in fns.items()})
-        res["kernel_device_us"] = device_breakdown(kernel_fn)
+        res["kernel_device_us"], res["kernel_launches_per_call"] = device_breakdown(kernel_fn)
         cases[name] = res
         torch.cuda.empty_cache()
 
@@ -294,14 +310,315 @@ def worker(root: str, only: tuple = ()) -> dict:
             sweep["int4"] = _int4_sweep(int4_mod, randn, cs)
         if hasattr(int4_mod, "_w4a8_launch") and want("sweep w4a8"):
             sweep["w4a8"] = _w4a8_sweep(int4_mod, randn, cs)
+    if want("w8a16") or want("sweep w8a16") or want("ablation w8a16"):
+        # The int8 weight-only linear and the tied int8 unembed through the
+        # model's entry points (layers.linear / unembed: the W8A16 kernel in a
+        # tree that has it, the per-call bf16 copy and cuBLAS before it), at
+        # chip_smoke.py's W8A16_SHAPES and rows; the plain version is the copy
+        # path written out; cuBLAS bf16 on the weight converted once beside.
+        from dots_ocr_tpu_torch.models import layers
+        from dots_ocr_tpu_torch.models.quantize import quantize_embedding, quantize_kernel
+
+        for label, (k, n) in cs.W8A16_SHAPES.items():
+            unembed = label == "lm_head"
+            if unembed:
+                qk = quantize_embedding(randn(n, k))
+            else:
+                qk = quantize_kernel(randn(k, n) * 0.02)
+            bias = randn(n) if label in ("wq/wo", "wk/wv") else None
+            w_lib = qk["qint8"].to(torch.bfloat16)
+            w_lib = w_lib.t() if unembed else w_lib
+            for rows in cs.W8A16_ROWS:
+                if unembed and rows > 3 * cs.MAX_SLOTS:
+                    continue
+                x = randn(rows, k)
+                if unembed:
+                    fn = lambda: layers.unembed(x, qk)  # noqa: E731
+                    plain = lambda: layers.matmul_f32(x, w_lib) * qk["scale"]  # noqa: E731
+                else:
+                    fn = lambda: layers.linear(x, qk, bias)  # noqa: E731
+
+                    def plain():
+                        y = layers.matmul_f32(x, qk["qint8"].to(x.dtype)) * qk["scale"]
+                        return (y if bias is None else y + bias.float()).to(x.dtype)
+                case(f"w8a16 {label} K={k} N={n} M={rows}", fn, plain,
+                     library={"cublas_bf16": lambda: layers.matmul_f32(x, w_lib)})
+            del qk, w_lib, x
+        try:  # a tree before the W8A16 kernel has no such module
+            from dots_ocr_tpu_torch.ops import int8_matmul as w8_mod
+        except ImportError:
+            w8_mod = None
+        if w8_mod is not None and want("sweep w8a16"):
+            sweep["w8a16"] = _w8a16_sweep(w8_mod, randn, cs)
+        if w8_mod is not None and want("ablation w8a16"):
+            sweep["w8a16_ablation"] = _w8a16_ablation(root, w8_mod, randn, cs)
+
+    if want("draw") or want("sweep draw"):
+        # A 64-slot step's draw over the full vocabulary, keys and all: the
+        # slot keys folded with the positions, then the Gumbel-max draw with
+        # the temperatures fused (in a tree whose draw folds its own keys,
+        # one launch; before, the folds as torch ops and a two-pass draw).
+        import inspect
+
+        from dots_ocr_tpu_torch.engine import sampling as eng_sampling
+        from dots_ocr_tpu_torch.ops import sampling as ops_sampling
+
+        rng = np.random.RandomState(7)
+        logits = torch.from_numpy((rng.randn(cs.MAX_SLOTS, 151936) * 3).astype(np.float32)).to(dev)
+        temps = torch.from_numpy(rng.uniform(0.05, 1.5, cs.MAX_SLOTS).astype(np.float32)).to(dev)
+        slot_keys = eng_sampling.split(eng_sampling.prng_key(12), cs.MAX_SLOTS).to(dev)
+        pos = torch.from_numpy(rng.randint(0, 40960, cs.MAX_SLOTS).astype(np.int64)).to(dev)
+        draw = ops_sampling.gumbel_argmax
+        if "positions" in inspect.signature(draw).parameters:
+            step = lambda: draw(logits, slot_keys, temps, positions=pos)  # noqa: E731
+        else:
+            step = lambda: draw(logits, eng_sampling.fold_positions(slot_keys, pos),  # noqa: E731
+                                temps)
+        case("draw [64, 151936] slot keys + positions, temperatures fused", step,
+             lambda: ops_sampling.gumbel_argmax_reference(
+                 logits, eng_sampling.fold_positions(slot_keys.cpu(), pos.cpu()).to(dev), temps))
+        if hasattr(ops_sampling, "draw_plan") and want("sweep draw"):
+            sweep["draw"] = _draw_sweep(ops_sampling, logits, temps, slot_keys, pos, cs)
+        del logits
+
+    if want("decode step"):
+        sweep["decode_step"] = _decode_step(dev, cs)
+    if want("prefill chunk"):
+        sweep["prefill_chunk"] = _prefill_chunk(dev, cs)
     return {"root": root, "build_s": build_s, "cases": cases, "split_sweep": sweep,
             "int4pack_check": int4_checks}
+
+
+def _decode_step(dev, cs) -> dict:
+    """chip_smoke.py phase 9's step at shipping.env's weights: 64 slots at
+    2,048 tokens of context, the flagship decoder with int8 weights over a
+    bf16 pool (page 128), greedy logits, as one CUDA graph (device ms a
+    step, median of REPS replays) and eager (ms a call, back to back)."""
+    import torch
+
+    from dots_ocr_tpu_torch.engine.kv_cache import PagedKV
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.decoder import (
+        decoder_decode_step_paged,
+        embed_tokens,
+        logits_from_hidden,
+    )
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.models.quantize import quantize_decoder_params
+
+    cfg = DotsOCRConfig.flagship()
+    params = init_params(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    dec = quantize_decoder_params(params["decoder"])
+    del params
+    s, ctx, page = cs.MAX_SLOTS, 2048, cs.PAGE_SIZE
+    per_row = ctx // page + 1
+    pool = PagedKV.create(cfg.decoder, s * per_row + 1, page, cfg.torch_dtype, dev)
+    table = (1 + torch.arange(s * per_row, device=dev, dtype=torch.int32)).reshape(s, per_row)
+    pos = torch.full((s,), ctx, dtype=torch.int64, device=dev)
+    slots = table[:, ctx // page].long() * page + ctx % page
+    lens = (pos + 1).to(torch.int32)
+    tokens = (torch.arange(s, device=dev) * 7 + 100) % cfg.decoder.vocab_size
+
+    def step():
+        with torch.no_grad():
+            h = decoder_decode_step_paged(dec, cfg.decoder, embed_tokens(dec, tokens), pos,
+                                          pool.k, pool.v, table, lens, slots, page)
+            return logits_from_hidden(dec, cfg.decoder, h)
+
+    out = {"graph_ms": graph_ms(step, cs, calls=1),
+           "eager_ms": cs.time_in_turns({"step": step}, inner=1)["step"]}
+    del dec, pool
+    torch.cuda.empty_cache()
+    return out
+
+
+def _prefill_chunk(dev, cs) -> dict:
+    """One shipped prefill chunk (chip_smoke.py's PREFILL_CHUNK tokens of one
+    request) through the flagship decoder, the last token's logits
+    included, with int8 weights (the W8A16 kernel in a tree that has it,
+    the per-call bf16 copy and cuBLAS before it) and with bf16 weights
+    (cuBLAS), in turns: ms a chunk, eager as the engine runs it (median of
+    REPS single calls)."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.decoder import decoder_prefill, logits_from_hidden
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.models.quantize import quantize_decoder_params
+
+    cfg = DotsOCRConfig.flagship()
+    params = init_params(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    decs = {"int8": quantize_decoder_params(params["decoder"]), "bf16": params["decoder"]}
+    t = cs.PREFILL_CHUNK
+    gen = torch.Generator(device=dev).manual_seed(1)
+    embeds = torch.randn(1, t, cfg.decoder.hidden_size, generator=gen, device=dev).to(
+        cfg.torch_dtype)
+    positions = torch.arange(t, device=dev)[None]
+    lens = torch.tensor([t], device=dev)
+
+    def chunk(dec):
+        with torch.no_grad():
+            hidden, _ = decoder_prefill(dec, cfg.decoder, embeds, positions, lens)
+            return logits_from_hidden(dec, cfg.decoder, hidden[:, -1])
+
+    out = cs.time_in_turns({name: lambda dec=dec: chunk(dec) for name, dec in decs.items()},
+                           inner=1)
+    del params, decs
+    torch.cuda.empty_cache()
+    return out
+
+
+def _w8a16_sweep(w8_mod, randn, cs) -> dict:
+    """The W8A16 kernel at chip_smoke.py's shapes and the rows of a decode
+    step of one slot and of 64, a k = 2 verify (the split regime, over row
+    tiles and cluster sizes) and a prefill chunk (the wgmma regime, over
+    cluster sizes), through the C entry: device ms (CUDA graphs) and which
+    one the plan takes."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.quantize import quantize_embedding, quantize_kernel
+    from dots_ocr_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.load()
+    dev = torch.device("cuda")
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    out = {}
+    for label, (k, n) in cs.W8A16_SHAPES.items():
+        nk = label == "lm_head"
+        qk = quantize_embedding(randn(n, k)) if nk else quantize_kernel(randn(k, n) * 0.02)
+        q, scale = qk["qint8"], qk["scale"]
+        for rows in (1, cs.MAX_SLOTS, 3 * cs.MAX_SLOTS, cs.PREFILL_CHUNK):
+            if nk and rows > 3 * cs.MAX_SLOTS:
+                continue
+            x = randn(rows, k)
+            y = torch.empty(rows, n, dtype=torch.float32 if nk else torch.bfloat16, device=dev)
+            plan = w8_mod.w8a16_plan(rows, k, n, num_sms, nk)
+            res = {}
+            wgmma = plan.regime == "wgmma"
+            for tile in (0,) if wgmma else w8_mod.ROW_TILES:
+                for cluster in sorted({1, 2, 3, 4, 6, plan.cluster, w8_mod.MAX_CLUSTER}):
+                    unit = w8_mod.K_MULTIPLE if wgmma else w8_mod.SPLIT_UNIT[nk]
+                    if cluster > k // unit or (tile and tile < 64 and rows > 2 * 64):
+                        continue
+
+                    def call(tile=tile, cluster=cluster):
+                        kernel_lib.check(lib.dots_w8a16_matmul(
+                            x.data_ptr(), q.data_ptr(), scale.data_ptr(), 0, y.data_ptr(), rows,
+                            k, n, int(nk), int(nk), 0, tile, cluster,
+                            torch.cuda.current_stream().cuda_stream), "w8a16 sweep")
+                    res[f"{tile}x{cluster}"] = {
+                        "graph_ms": graph_ms(call, cs),
+                        "planned": (tile, cluster) == (plan.rows_tile, plan.cluster)}
+            out[f"{label} M={rows}"] = res
+    return out
+
+
+def _w8a16_ablation(root: str, w8_mod, randn, cs) -> dict:
+    """What holds the W8A16 kernel back: this tree's ``csrc/int8_matmul.cu``
+    built again (in a temporary directory) with a part taken out, timed at
+    its planned launch beside the kernel itself and cuBLAS bf16: "no
+    convert" (the bytes passed to the tensor cores unconverted), "no mma"
+    (each mma.sync replaced by one add that keeps its operands live), "no
+    mma, operands dropped" (mma.sync removed: the compiler drops what only
+    fed it, leaving the loads and the epilogue) and "no wgmma" (the prefill
+    regime's products removed). Device ms as CUDA graphs; the outputs of
+    the variants are wrong by design and are not checked."""
+    import ctypes
+    import tempfile
+
+    import torch
+
+    from dots_ocr_tpu_torch.models.quantize import quantize_embedding, quantize_kernel
+    from dots_ocr_tpu_torch.ops import kernel_lib
+
+    src = open(os.path.join(root, "dots_ocr_tpu_torch", "csrc", "int8_matmul.cu")).read()
+    convert = "  const uint32_t u = w ^ 0x80808080u;  // b + 128 in each byte"
+    mma = src[src.index('  asm volatile(\n      "mma.sync'):src.index('"r"(b0), "r"(b1));') + 19]
+    wgmma = '"wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "'
+    variants = {
+        "no convert": src.replace(convert, "  return make_uint2(w, w ^ 1u);\n" + convert),
+        "no mma": src.replace(mma, "  d[0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1)"
+                                   " & 0x3fffffffu);"),
+        "no mma, operands dropped": src.replace(mma, ""),
+        "no wgmma": src.replace(wgmma, '"// "').replace(
+            '"}, %32, %33, p, 1, 1, 0, 0;\\n}\\n"', '"\\n}\\n"'),
+    }
+    libs = {"kernel": kernel_lib.load()}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = {}
+        for name, text in variants.items():
+            if text == src:
+                raise RuntimeError(f"the {name} variant changed nothing")
+            path = os.path.join(tmp, name.replace(" ", "_").replace(",", "") + ".cu")
+            with open(path, "w") as f:
+                f.write(text)
+            procs[name] = (path[:-3] + ".so", subprocess.Popen(
+                [kernel_lib._nvcc(), *kernel_lib.NVCC_FLAGS, "-shared", "-o", path[:-3] + ".so",
+                 path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for name, (so, proc) in procs.items():
+            log = proc.communicate(timeout=600)[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"the {name} variant failed to build:\n{log[-2000:]}")
+            lib = ctypes.CDLL(so)
+            lib.dots_w8a16_matmul.argtypes = kernel_lib._SIGNATURES["dots_w8a16_matmul"]
+            libs[name] = lib
+        dev = torch.device("cuda")
+        num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        out = {}
+        for label, (k, n) in cs.W8A16_SHAPES.items():
+            nk = label == "lm_head"
+            qk = quantize_embedding(randn(n, k)) if nk else quantize_kernel(randn(k, n) * 0.02)
+            q, scale = qk["qint8"], qk["scale"]
+            w_lib = q.to(torch.bfloat16)
+            w_lib = w_lib.t() if nk else w_lib
+            for rows in (1, cs.MAX_SLOTS, cs.PREFILL_CHUNK):
+                if nk and rows > cs.MAX_SLOTS:
+                    continue
+                x = randn(rows, k)
+                y = torch.empty(rows, n, dtype=torch.float32 if nk else torch.bfloat16, device=dev)
+                plan = w8_mod.w8a16_plan(rows, k, n, num_sms, nk)
+                res = {}
+                for name, lib in libs.items():
+                    def call(lib=lib):
+                        kernel_lib.check(lib.dots_w8a16_matmul(
+                            x.data_ptr(), q.data_ptr(), scale.data_ptr(), 0, y.data_ptr(), rows,
+                            k, n, int(nk), int(nk), 0, plan.rows_tile, plan.cluster,
+                            torch.cuda.current_stream().cuda_stream), f"w8a16 {name}")
+                    res[name] = graph_ms(call, cs)
+                res["cublas_bf16"] = graph_ms(lambda: x @ w_lib, cs)
+                out[f"{label} M={rows} ({plan.regime})"] = res
+    return out
+
+
+def _draw_sweep(ops_sampling, logits, temps, keys, pos, cs) -> dict:
+    """The draw kernel at [64, 151,936] (slot keys and positions folded in
+    the kernel, temperatures fused) over cluster sizes, through the C
+    entry: device ms (CUDA graphs) and which one the plan takes."""
+    import torch
+
+    from dots_ocr_tpu_torch.ops import kernel_lib
+
+    lib = kernel_lib.load()
+    b, v = logits.shape
+    out = torch.empty(b, dtype=torch.int64, device=logits.device)
+    planned = ops_sampling.draw_plan(b, v, torch.cuda.get_device_properties(
+        logits.device).multi_processor_count)
+    res = {}
+    for cluster in range(1, ops_sampling.DRAW_MAX_CLUSTER + 1):
+        def call(cluster=cluster):
+            kernel_lib.check(lib.dots_threefry_gumbel_argmax(
+                logits.data_ptr(), temps.data_ptr(), keys.data_ptr(), 2, pos.data_ptr(), -1, 0,
+                0, out.data_ptr(), b, v, cluster, torch.cuda.current_stream().cuda_stream),
+                "draw sweep")
+        res[str(cluster)] = {"graph_ms": graph_ms(call, cs), "planned": cluster == planned}
+    return res
 
 
 def device_breakdown(fn, calls: int = 20) -> dict:
     """Device microseconds per call of each CUDA kernel that ``fn`` launches
     (torch.profiler's CUDA activity over ``calls`` calls, after one warm
-    call); {} where the profiler records no device time."""
+    call; {} where the profiler records no device time), and the device
+    operations a call."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -311,35 +628,23 @@ def device_breakdown(fn, calls: int = 20) -> dict:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    out = {}
+    out, ops = {}, 0
     for evt in prof.key_averages():
         us = getattr(evt, "device_time_total", None) or getattr(evt, "cuda_time_total", 0)
+        if us:
+            ops += evt.count
         if us and evt.count >= calls:
             out[evt.key[:60]] = us / calls
-    return out
+    return out, ops / calls
 
 
 def graph_ms(fn, cs, calls: int = 10):
-    """Device ms per call of ``fn``: CALLS calls captured in a CUDA graph,
-    the replay timed with CUDA events (median of REPS), so the wrapper's
-    host time is not in it; None where the calls cannot be captured."""
-    import statistics
-
+    """chip_smoke.py's ``graph_ms`` (device ms per call of ``fn`` in a CUDA
+    graph), or None where the calls cannot be captured."""
     import torch
 
     try:
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn()
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, capture_error_mode="relaxed"):
-            for _ in range(calls):
-                fn()
-        graph.replay()
-        torch.cuda.synchronize()
-        return statistics.median(cs.cuda_ms(graph.replay) / calls for _ in range(cs.REPS))
+        return cs.graph_ms(fn, calls)
     except RuntimeError:
         torch.cuda.synchronize()
         return None
@@ -573,11 +878,13 @@ def main() -> int:
                   f"{c[f'kernel_ms_inner{inner}']:.4f} ms ({inner} back to back){libs}; "
                   f"device (CUDA graph) {graphs}; "
                   f"max abs err {c['max_abs_err']:.3e}; {c['repeats_differing']} of "
-                  f"{c['repeats']} repeats differ (worst err {c['worst_abs_err']:.3e})"
+                  f"{c['repeats']} repeats differ (worst err {c['worst_abs_err']:.3e}); "
+                  f"{c.get('kernel_launches_per_call', float('nan')):g} device operations a call"
                   + "".join(f"\n      {k}: {v:.2f} us" for k, v in c.get("kernel_device_us", {}).items()))
     for res in runs:
         for mode, sweep in res["split_sweep"].items():
-            if mode in ("int4", "w4a8"):
+            if mode in ("int4", "w4a8", "w8a16", "w8a16_ablation", "draw", "decode_step",
+                        "prefill_chunk"):
                 continue
             for nq, rows in sweep.items():
                 print(f"split sweep, {res['tree']} worker, {mode}, {nq}: " + ", ".join(
@@ -593,6 +900,30 @@ def main() -> int:
                   + ", ".join(f"{key} {r['ms']:.4f} / {r['graph_ms'] or float('nan'):.4f}"
                               + ("" if r["bit_identical"] else " NOT bit-identical")
                               for key, r in rows.items()))
+    for res in runs:
+        sw = res["split_sweep"]
+        for shape, rows in sw.get("w8a16", {}).items():
+            print(f"W8A16 sweep (row tile x cluster ranks, * planned), {res['tree']} worker, "
+                  f"{shape}: " + ", ".join(
+                      f"{key}{'*' if r['planned'] else ''} {r['graph_ms'] or float('nan'):.4f}"
+                      for key, r in sorted(rows.items(), key=lambda kv: kv[1]["graph_ms"] or 1e9)))
+        if "draw" in sw:
+            print(f"draw sweep (cluster ranks, * planned), {res['tree']} worker: " + ", ".join(
+                f"{key}{'*' if r['planned'] else ''} {r['graph_ms'] or float('nan'):.4f}"
+                for key, r in sw["draw"].items()))
+        for shape, row in sw.get("w8a16_ablation", {}).items():
+            print(f"W8A16 ablation (device ms), {res['tree']} worker, {shape}: " + ", ".join(
+                f"{key} {ms if ms is None else round(ms, 4)}" for key, ms in row.items()))
+        if "prefill_chunk" in sw:
+            chunk = sw["prefill_chunk"]
+            print(f"prefill chunk, {_chip_smoke().PREFILL_CHUNK} tokens through the flagship "
+                  f"decoder, {res['tree']} worker: int8 weights {chunk['int8']:.3f} ms, bf16 "
+                  f"weights {chunk['bf16']:.3f} ms")
+        if "decode_step" in sw:
+            step = sw["decode_step"]
+            print(f"decode step, 64 slots x 2048, int8 weights, bf16 KV, {res['tree']} worker: "
+                  f"graphed {step['graph_ms'] or float('nan'):.3f} ms, eager "
+                  f"{step['eager_ms']:.3f} ms")
     for name, check in runs[-1].get("int4pack_check", {}).items():
         print(f"{name}: torch._weight_int4pack_mm vs cuBLAS on bf16-rounded scales: {check}")
     line = {"device": smi, "order": [r["tree"] for r in runs], "runs": runs}

@@ -16,7 +16,12 @@ import torch
 
 from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
 from dots_ocr_tpu_torch.models.layers import linear, matmul_f32
-from dots_ocr_tpu_torch.models.quantize import quantize_kernel_act, quantize_kernel_int4
+from dots_ocr_tpu_torch.models.quantize import (
+    quantize_embedding,
+    quantize_kernel,
+    quantize_kernel_act,
+    quantize_kernel_int4,
+)
 from dots_ocr_tpu_torch.ops import kernel_lib
 from dots_ocr_tpu_torch.ops.int4_matmul import (
     _w4a8_launch,
@@ -56,6 +61,12 @@ from dots_ocr_tpu_torch.ops.paged_attention import (
     paged_split_partials,
     paged_split_plan,
     paged_v1_split_plan,
+)
+from dots_ocr_tpu_torch.ops.int8_matmul import (
+    int8_linear_reference,
+    int8_unembed_reference,
+    w8a16_matmul,
+    w8a16_plan,
 )
 from dots_ocr_tpu_torch.ops.window_attention import window_attention, window_attention_reference
 
@@ -1002,6 +1013,208 @@ def test_gumbel_argmax_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         gumbel_argmax(logits, prng_key(0))  # keys on the CPU
     with pytest.raises(ValueError):
         gumbel_argmax(logits, torch.zeros((3, 2), dtype=torch.int64, device=cuda))
+
+
+# -- The W8A16 matmul (csrc/int8_matmul.cu) and the threefry entry ----------
+
+# The flagship's int8 linears (K, N, bias) and its tied lm_head ([N, K]).
+W8A16_SHAPES = {"wq": (1536, 1536, True), "wk": (1536, 256, True), "gate": (1536, 8960, False),
+                "down": (8960, 1536, False), "lm_head": (1536, 151936, False)}
+
+
+def w8a16_inputs(label, rows, seed, bias_dtype=torch.float32):
+    """x N(0, 1) bf16 [rows, K]; int8 weights from quantize_kernel of
+    N(0, 0.02) [K, N] (the lm_head: quantize_embedding of N(0, 1) [N, K]);
+    a bias N(0, 1) for wq / wk. Returns (x, q, scale, bias, transposed)."""
+    k, n, biased = W8A16_SHAPES[label]
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
+    if label == "lm_head":
+        qe = quantize_embedding(torch.randn(n, k, generator=g, device="cuda").to(torch.bfloat16))
+        return x, qe["qint8"], qe["scale"], None, True
+    qk = quantize_kernel((torch.randn(k, n, generator=g, device="cuda") * 0.02).to(torch.bfloat16))
+    bias = torch.randn(n, generator=g, device="cuda").to(bias_dtype) if biased else None
+    return x, qk["qint8"], qk["scale"], bias, False
+
+
+def w8a16_plain(x, q, scale, bias, transposed):
+    return (int8_unembed_reference(x, q, scale) if transposed
+            else int8_linear_reference(x, q, scale, bias))
+
+
+def w8a16_close(out, ref, transposed):
+    """Kernel and plain version add the same exact float32 products in
+    another order: a bf16 output within one bf16 ulp of the plain value
+    (2^-7 |ref|) plus 1e-4 for the order near zero; the float32 logits
+    within 1e-5 |ref| + 1e-4."""
+    assert torch.isfinite(out.float()).all()
+    assert out.dtype == (torch.float32 if transposed else torch.bfloat16)
+    err = (out.float() - ref.float()).abs()
+    rel = 1e-5 if transposed else 2.0**-7
+    assert bool((err <= rel * ref.float().abs() + 1e-4).all()), float(err.max())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,rows", [(label, rows) for label in sorted(W8A16_SHAPES)
+                                        for rows in (1, 64, 192, 2048)
+                                        if label != "lm_head" or rows < 2048])
+def test_w8a16_kernel_matches_plain_on_card(cuda, label, rows):
+    """The W8A16 kernel at the flagship's five shapes and the rows of a
+    decode step, a k = 2 verify and a prefill chunk (the lm_head without
+    the chunk: the prefill takes the last row's logits), in its regime, one
+    launch a call."""
+    x, q, scale, bias, transposed = w8a16_inputs(label, rows, rows)
+    regime = w8a16_plan(rows, x.shape[1], q.shape[0] if transposed else q.shape[1],
+                        torch.cuda.get_device_properties(cuda).multi_processor_count,
+                        transposed).regime
+    before = (w8a16_matmul.launches, getattr(w8a16_matmul, f"{regime}_launches"))
+    out = w8a16_matmul(x, q, scale, bias, transposed=transposed)
+    assert (w8a16_matmul.launches, getattr(w8a16_matmul, f"{regime}_launches")) == (
+        before[0] + 1, before[1] + 1)
+    w8a16_close(out, w8a16_plain(x, q, scale, bias, transposed), transposed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows", [3, 17, 33, 193, 300])
+@pytest.mark.parametrize("bias_dtype", [torch.float32, torch.bfloat16])
+def test_w8a16_ragged_rows_and_bias_types_on_card(cuda, rows, bias_dtype):
+    """Row counts between the tiles (3, 17, 33: the 16-, 32- and 64-row
+    tiles; 193, 300: the wgmma kernel's ragged last tile), with a float32 and
+    a bf16 bias, through ``layers.linear`` as the model calls it on a layer's
+    view of a stacked leaf."""
+    x, q, scale, bias, _ = w8a16_inputs("wk", rows, 7 * rows, bias_dtype)
+    stacked = {"qint8": torch.stack([q, q.flip(0)]), "scale": torch.stack([scale, scale * 2])}
+    layer = {"qint8": stacked["qint8"][1], "scale": stacked["scale"][1]}
+    out = linear(x, layer, bias)
+    w8a16_close(out, int8_linear_reference(x, layer["qint8"], layer["scale"], bias), False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,rows", [("gate", 64), ("wk", 1), ("down", 192), ("wq", 2048),
+                                        ("lm_head", 64)])
+def test_w8a16_kernel_repeats_bit_for_bit_and_captures_on_card(cuda, label, rows):
+    """100 repeated calls equal the first bit for bit (the cluster ranks
+    add in rank order; no atomics), and the call captured in a CUDA graph
+    replays to the same output."""
+    x, q, scale, bias, transposed = w8a16_inputs(label, rows, 11)
+    first = w8a16_matmul(x, q, scale, bias, transposed=transposed)
+    for _ in range(100):
+        assert torch.equal(w8a16_matmul(x, q, scale, bias, transposed=transposed), first)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        w8a16_matmul(x, q, scale, bias, transposed=transposed)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = w8a16_matmul(x, q, scale, bias, transposed=transposed)
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(captured, first)
+
+
+@pytest.mark.cuda
+def test_w8a16_wrapper_refuses_what_the_kernel_does_not_take(cuda):
+    x, q, scale, bias, _ = w8a16_inputs("wk", 4, 3)
+    with pytest.raises(ValueError, match="bfloat16"):
+        w8a16_matmul(x.float(), q, scale)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        w8a16_matmul(x[:, :100].contiguous(), q[:100].contiguous(), scale)
+    with pytest.raises(ValueError, match="multiple of 128"):
+        w8a16_matmul(x, q[:, :200].contiguous(), scale[:200].contiguous())
+    with pytest.raises(ValueError, match="contiguous"):
+        w8a16_matmul(x, q.t().contiguous().t(), scale)
+    with pytest.raises(ValueError, match="CUDA"):
+        w8a16_matmul(x, q.cpu(), scale)
+    with pytest.raises(ValueError):
+        w8a16_matmul(x, q, scale, bias.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,vocab", [(64, 151936), (64, 256), (3, 8193), (1, 5)])
+@pytest.mark.parametrize("tag", [None, 0, 1])
+def test_gumbel_argmax_folds_its_keys_bit_equal_to_plain(cuda, rows, vocab, tag):
+    """The draw with its rows' keys folded in its prologue (slot keys,
+    positions, a tag) equals the plain version on keys folded in plain
+    torch, tokens and noise bit for bit; 100 repeats bit-equal; one launch
+    a draw."""
+    from dots_ocr_tpu_torch.engine.sampling import prng_key, split
+    from dots_ocr_tpu_torch.ops.sampling import (
+        fold_keys_reference,
+        gumbel_argmax,
+        gumbel_argmax_reference,
+        gumbel_noise,
+        threefry_grid,
+    )
+
+    rng = np.random.RandomState(rows + vocab + (tag or 0))
+    logits = torch.from_numpy((rng.randn(rows, vocab) * 4).astype(np.float32)).to(cuda)
+    logits[:, ::5] = float("-inf")
+    if rows > 1:
+        logits[rows - 1] = float("-inf")  # all -inf: token 0
+    temps = torch.from_numpy(rng.uniform(0.05, 1.5, rows).astype(np.float32)).to(cuda)
+    keys = split(prng_key(rows), rows).to(cuda)
+    pos = torch.from_numpy(rng.randint(0, 2**31, rows).astype(np.int64)).to(cuda)
+    noise = torch.empty((rows, vocab), dtype=torch.float32, device=cuda)
+    before = (gumbel_argmax.launches, threefry_grid.launches)
+    got = gumbel_argmax(logits, keys, temps, noise_out=noise, positions=pos, tag=tag)
+    assert (gumbel_argmax.launches, threefry_grid.launches) == (before[0] + 1, before[1])
+    want = gumbel_argmax_reference(logits, keys, temps, positions=pos, tag=tag)
+    want_noise = gumbel_noise(fold_keys_reference(keys, pos, tag), rows, vocab)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(noise.view(torch.int32), want_noise.view(torch.int32))
+    if rows > 1:
+        assert int(got[rows - 1]) == 0
+    for _ in range(100):
+        assert torch.equal(gumbel_argmax(logits, keys, temps, positions=pos, tag=tag), got)
+
+
+@pytest.mark.cuda
+def test_threefry_entry_bit_equal_to_plain_on_card(cuda):
+    """fold_in (by a tensor and by an int), split, random_bits (one key over
+    the flat index, per-row keys) and uniform are each one launch of the
+    threefry entry, bit-equal to its plain version on the same card."""
+    from dots_ocr_tpu_torch.engine.sampling import prng_key
+    from dots_ocr_tpu_torch.ops.sampling import (
+        BITS,
+        UNIFORM,
+        fold_in,
+        random_bits,
+        split,
+        threefry2x32_reference,
+        threefry_grid,
+        threefry_grid_reference,
+        uniform,
+    )
+
+    key = prng_key(2**32 + 5).to(cuda)
+    keys = threefry_grid_reference(key[0], key[1], 0, 0, 64)
+    pos = torch.arange(64, device=cuda) * 7919 + 2**31
+    cases = [
+        (lambda: fold_in(keys, pos), lambda: threefry_grid_reference(keys[:, 0], keys[:, 1], 0, pos)),
+        (lambda: fold_in(keys, 1), lambda: threefry_grid_reference(keys[:, 0], keys[:, 1], 0, 1)),
+        (lambda: fold_in(key, pos), lambda: threefry_grid_reference(key[0], key[1], 0, pos)),
+        (lambda: split(key, 9), lambda: threefry_grid_reference(key[0], key[1], 0, 0, 9)),
+        (lambda: random_bits(key, 6 * 37),
+         lambda: threefry_grid_reference(key[0:1], key[1:2], 0, 0, 6 * 37, BITS)),
+        (lambda: random_bits(keys, 29),
+         lambda: threefry_grid_reference(keys[:, 0:1], keys[:, 1:2], 0, 0, 29, BITS)),
+        (lambda: uniform(keys, 2, 1e-20),
+         lambda: threefry_grid_reference(keys[:, 0:1], keys[:, 1:2], 0, 0, 2, UNIFORM, 1e-20)),
+        (lambda: threefry_grid(keys[:, 0], keys[:, 1], pos, pos + 3),
+         lambda: torch.stack(threefry2x32_reference(keys[:, 0], keys[:, 1], pos, pos + 3), -1)),
+    ]
+    for kernel_fn, plain_fn in cases:
+        before = threefry_grid.launches
+        got = kernel_fn()
+        assert threefry_grid.launches == before + 1
+        want = plain_fn()
+        assert got.shape == want.shape and got.dtype == want.dtype
+        if got.dtype == torch.float32:
+            got, want = got.view(torch.int32), want.view(torch.int32)
+        assert torch.equal(got, want)
 
 
 # -- CUDA graphs of the decode chunks (engine/graphs.py) ----------------------

@@ -160,3 +160,91 @@ def test_spec_accept_greedy_rows_and_shapes():
     assert a.tolist() == [2, 1, 2]
     assert corr.tolist() == [int(logits[0, 2].argmax()), int(logits[1, 1].argmax()),
                              int(logits[2, 2].argmax())]
+
+
+@pytest.mark.parametrize("tag", [None, 0, 1])
+@pytest.mark.parametrize("with_temps", [False, True])
+def test_prologue_folded_draw_equals_jax(with_temps, tag):
+    """The draw that folds its rows' keys itself (slot keys, positions, a
+    tag: ``fold_in(fold_in(key, position), tag)``, the draw kernel's
+    prologue on the card) gives ``jax.random.categorical``'s tokens under
+    the keys folded by JAX, with and without temperatures, over rows with
+    -inf entries and a row of only -inf (token 0)."""
+    rng = np.random.RandomState(11 + with_temps + 3 * (tag or 0))
+    b, v = 6, 700
+    slot_keys = jax.random.split(_key(21), b)
+    pos = np.array([0, 7, 2048, 123456, 2**31 - 1, 40], np.int64)
+    logits = _logits(rng, b, v)
+    logits[:, rng.rand(v) < 0.3] = -np.inf
+    logits[4] = -np.inf
+    temps = rng.uniform(0.1, 1.5, b).astype(np.float32)
+    jk = jax.vmap(jax.random.fold_in)(slot_keys, jnp.asarray(pos, jnp.uint32))
+    if tag is not None:
+        jk = jax.vmap(jax.random.fold_in, in_axes=(0, None))(jk, tag)
+    scaled = logits / temps[:, None] if with_temps else logits
+    want = np.asarray(jax.vmap(jax.random.categorical)(jk, jnp.asarray(scaled)))
+    got = ops_sampling.gumbel_argmax(
+        torch.from_numpy(logits), torch.from_numpy(_np(slot_keys)),
+        torch.from_numpy(temps) if with_temps else None,
+        positions=torch.from_numpy(pos), tag=tag).numpy()
+    assert (want == got).all(), (want, got)
+    assert got[4] == 0
+
+
+@pytest.mark.parametrize("nucleus", [False, True])
+def test_sample_logits_with_positions_equals_jax_on_folded_keys(nucleus):
+    """``sample_logits(slot_keys, ..., positions=pos)`` (the scheduler's
+    call: the folds go to the draw) gives the JAX sampler's tokens under
+    ``fold_positions(slot_keys, pos)``, nucleus on and off, greedy rows
+    included."""
+    rng = np.random.RandomState(31 + nucleus)
+    b, v = 8, 900
+    temps = np.array([0.0, 0.5, 1.0, 0.7, 1.3, 0.1, 0.9, 1.0], np.float32)
+    top_ps = np.array([1.0, 0.9, 1.0, 0.5, 0.95, 1.0, 0.3, 0.8], np.float32)
+    for seed in range(6):
+        logits = _logits(rng, b, v)
+        slot_keys = jax.random.split(_key(50 + seed), b)
+        pos = rng.randint(0, 40000, b).astype(np.int64)
+        jkeys = jsampling.fold_positions(slot_keys, jnp.asarray(pos, jnp.int32))
+        want = np.asarray(jsampling.sample_logits(
+            jkeys, jnp.asarray(logits), jnp.asarray(temps), jnp.asarray(top_ps), nucleus=nucleus))
+        got = tsampling.sample_logits(
+            torch.from_numpy(_np(slot_keys)), torch.from_numpy(logits), torch.from_numpy(temps),
+            torch.from_numpy(top_ps), nucleus=nucleus, positions=torch.from_numpy(pos)).numpy()
+        assert (want == got).all(), (seed, want, got)
+
+
+@pytest.mark.parametrize("seed", SEEDS)
+def test_threefry_entry_plain_equals_jax_words(seed):
+    """The threefry entry's plain version (``threefry_grid_reference``: the
+    two words, their xor, the uniform; keys and counters broadcast, the
+    counter along the last axis) equals ``jax.random``'s threefry2x32
+    words bit for bit."""
+    from jax._src import prng
+
+    jk = _key(seed)
+    keys = jax.random.split(jk, 5)
+    tkeys = torch.from_numpy(_np(keys))
+    rng = np.random.RandomState(seed & 0xFFFF)
+    hi = rng.randint(0, 2**32, 37, dtype=np.uint64).astype(np.uint32)
+    lo = rng.randint(0, 2**32, 37, dtype=np.uint64).astype(np.uint32)
+    for r in range(5):
+        words = np.asarray(prng.threefry_2x32(keys[r], jnp.concatenate([hi, lo]))).astype(np.int64)
+        got = ops_sampling.threefry_grid_reference(
+            tkeys[r, 0], tkeys[r, 1], torch.from_numpy(hi.astype(np.int64)),
+            torch.from_numpy(lo.astype(np.int64)))
+        assert got.shape == (37, 2)
+        assert (got[:, 0].numpy() == words[:37]).all() and (got[:, 1].numpy() == words[37:]).all()
+        y0, y1 = ops_sampling.threefry2x32_reference(tkeys[r, 0], tkeys[r, 1],
+                                                     torch.from_numpy(hi.astype(np.int64)),
+                                                     torch.from_numpy(lo.astype(np.int64)))
+        assert (y0.numpy() == words[:37]).all() and (y1.numpy() == words[37:]).all()
+    bits = ops_sampling.threefry_grid_reference(tkeys[:, 0:1], tkeys[:, 1:2], 0, 0, 33,
+                                                ops_sampling.BITS)
+    assert (bits.numpy() == _np(jax.vmap(lambda k: jax.random.bits(k, (33,)))(keys))).all()
+    uni = ops_sampling.threefry_grid_reference(tkeys[:, 0:1], tkeys[:, 1:2], 0, 0, 9,
+                                               ops_sampling.UNIFORM, 1e-20)
+    assert (uni.numpy() == np.asarray(
+        jax.vmap(lambda k: jax.random.uniform(k, (9,), minval=1e-20))(keys))).all()
+    split = ops_sampling.threefry_grid_reference(tkeys[2, 0], tkeys[2, 1], 0, 0, 4)
+    assert (split.numpy() == _np(jax.random.split(keys[2], 4))).all()
