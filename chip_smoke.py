@@ -26,8 +26,11 @@ Phases, each fatal on failure (exit code != 0, no result line):
    bf16 at D 64, and in int8 at phase 10's served shape (3 live rows among
    64 slots, a table of 640 pages of 64); the W8A16 matmul (the int8
    weight-only linear and the tied int8 lm_head) at the flagship's five
-   shapes x 1, 64, 192 and 2,048 rows, beside cuBLAS bf16 on the weight
-   converted once, 20 repeats bit-identical, device times as CUDA graphs;
+   shapes x 1, 7, 9, 64, 65, 192, 193 and 2,048 rows, each case's plan
+   printed, beside cuBLAS bf16 on the weight converted once and
+   ``torch._weight_int8pack_mm`` where the card's torch has a CUDA kernel
+   for it ("none" otherwise), 20 repeats bit-identical, device times as
+   CUDA graphs;
    the seeded draw with its keys folded in the kernel and the threefry
    entry, bit for bit; max abs
    error against the stated tolerance (kernels 1-4 also against a bound
@@ -130,10 +133,12 @@ Phases, each fatal on failure (exit code != 0, no result line):
    engine run eagerly (``cuda_graphs=False``, the same warm requests
    first): identical token ids, every chunk a replay, nothing captured
    after the warmup; (b) phase 9's 64-slot x 2,048-context step as one
-   decode chunk of CHUNK_DEPTH iterations, replayed and eager, in turns: ms
-   a step, the host's dispatch ms and the device's busy share
-   (torch.profiler), the W8A16 kernels' launches and ms a chunk and the
-   ``direct_copy_kernel`` launches left, and the same chunk sampled (one
+   decode chunk (nq = 1) and as one k = 2 verify chunk (nq = 3: 192 rows a
+   linear, deploy/shipping.env's step) of CHUNK_DEPTH iterations each,
+   replayed and eager, in turns: ms a step, the host's dispatch ms and the
+   device's busy share (torch.profiler), the W8A16 kernels' launches (every
+   int8 linear and the lm_head of every step) and ms a chunk and the
+   ``direct_copy_kernel`` launches left, and the decode chunk sampled (one
    draw launch a step); (c) ``--warmup background``: /health answers while warm
    thunks are pending, a request sent then comes back HTTP 200, and
    ``dots_ocr_engine_warm_pending`` reaches 0; (d) ``--compile-cache``: a
@@ -246,6 +251,9 @@ INT4_ROWS = (64, 192, PREFILL_CHUNK, 4096)
 W8A16_SHAPES = {"wq/wo": (1536, 1536), "wk/wv": (1536, 256), "gate/up": (1536, 8960),
                 "down": (8960, 1536), "lm_head": (1536, 151936)}
 W8A16_ROWS = (1, MAX_SLOTS, 3 * MAX_SLOTS, PREFILL_CHUNK)
+# Rows that are not a multiple of 8 on either side of the tiles (the
+# kernel's zero rows past M) and the first prefill row count.
+W8A16_RAGGED = (7, 9, MAX_SLOTS + 1, 3 * MAX_SLOTS + 1)
 W8A16_TOL = {False: (1e-4, 2.0**-7), True: (1e-4, 1e-5)}
 # The vision block linears (K, N) at the packed 2-image batch.
 VISION_T, VISION_SHAPES = 6656, {"wq/wk/wv/wo": (1536, 1536), "gate/up": (1536, 4224),
@@ -964,18 +972,41 @@ def int4_cases(randn, gen, dev) -> dict:
     return results
 
 
+def w8a16_int8pack(x, q, scale, unembed: bool):
+    """``torch._weight_int8pack_mm`` on the card for the same product (x .
+    q^T [N, K] times the per-column scale, cast), with its weight laid out
+    once beforehand, as (fn, None), or (None, "none: <why>") where this
+    torch has no CUDA kernel for it. Timed beside the kernel, never called
+    by the port."""
+    import torch
+
+    w = (q if unembed else q.t()).contiguous()
+    s = scale.to(x.dtype)
+    try:
+        got = torch._weight_int8pack_mm(x, w, s)
+        torch.cuda.synchronize()
+    except (RuntimeError, NotImplementedError) as exc:
+        return None, f"none: {str(exc).splitlines()[0][:120]}"
+    if got.shape != (x.shape[0], w.shape[0]):
+        return None, f"none: returned shape {tuple(got.shape)}"
+    return (lambda: torch._weight_int8pack_mm(x, w, s)), None
+
+
 def w8a16_cases(dev) -> dict:
-    """The W8A16 kernel (csrc/int8_matmul.cu) against its plain version (the
-    per-call bf16 copy of the weight, then cuBLAS: the int8 path before this
-    kernel) at W8A16_SHAPES x W8A16_ROWS: weights from quantize_kernel of
-    N(0, 0.02) bf16 (the lm_head: quantize_embedding of N(0, 1)), wq/wo and
-    wk/wv with a bf16 bias as the model's q/k/v projections carry,
-    activations N(0, 1). The library time is one cuBLAS bf16 call on the
-    weight converted once beforehand (``matmul_f32``: what bf16 weights
-    cost, without the scale, bias and cast); REPEAT_CALLS more
-    calls must repeat the output bit for bit; ``graph_ms`` holds the
-    device time per call of the kernel, the plain version and the library
-    (CUDA graphs of 10 calls)."""
+    """The W8A16 kernel (csrc/int8_matmul.cuh) against its plain version
+    (the per-call bf16 copy of the weight, then cuBLAS: the int8 path
+    before the kernel) at W8A16_SHAPES x (W8A16_ROWS + W8A16_RAGGED):
+    weights from quantize_kernel of N(0, 0.02) bf16 (the lm_head:
+    quantize_embedding of N(0, 1)), wq/wo and wk/wv with a bf16 bias as the
+    model's q/k/v projections carry, activations N(0, 1); each case's plan
+    printed. The library time is one cuBLAS bf16 call on the weight
+    converted once beforehand (``matmul_f32``: what bf16 weights cost,
+    without the scale, bias and cast); ``torch._weight_int8pack_mm`` (the
+    same int8 product and scale, its weight laid out once) is timed in the
+    same turns where this torch has a CUDA kernel for it, else recorded as
+    "none". REPEAT_CALLS more calls must repeat the output bit for bit;
+    ``graph_ms`` holds the device time per call of the kernel, the plain
+    version and the library (CUDA graphs of 10 calls)."""
     import torch
 
     from dots_ocr_tpu_torch.models.quantize import quantize_embedding, quantize_kernel
@@ -1003,7 +1034,7 @@ def w8a16_cases(dev) -> dict:
         w_bf16 = q.to(torch.bfloat16)  # the library's weight, converted once
         w_lib = w_bf16.t() if unembed else w_bf16
         atol, rtol = W8A16_TOL[unembed]
-        for rows in W8A16_ROWS:
+        for rows in sorted(W8A16_ROWS + W8A16_RAGGED):
             if unembed and rows > 3 * MAX_SLOTS:
                 continue
             x = torch.randn(rows, k, generator=gen, device=dev).to(torch.bfloat16)
@@ -1019,6 +1050,7 @@ def w8a16_cases(dev) -> dict:
             def library_fn():
                 return matmul_f32(x, w_lib)
 
+            int8pack, int8pack_none = w8a16_int8pack(x, q, scale, unembed)
             first = kernel_fn()
             same = sum(bool(torch.equal(kernel_fn(), first)) for _ in range(REPEAT_CALLS))
             del first
@@ -1029,20 +1061,31 @@ def w8a16_cases(dev) -> dict:
             nbytes = (q.numel() + 2 * rows * k + 4 * n + (2 * n if bias is not None else 0)
                       + (4 if unembed else 2) * rows * n)
             name = (f"w8a16 {label} {'[N, K] unembed' if unembed else '[K, N] linear'} K={k} "
-                    f"N={n} M={rows}, {plan.regime}"
-                    + (f" {plan.rows_tile} rows" if plan.rows_tile else "")
-                    + f" x {plan.cluster} ranks")
+                    f"N={n} M={rows}, {plan.regime} {plan.rows_tile} rows x {plan.cols_tile} "
+                    f"columns, {plan.consumers} warpgroup{'s' if plan.consumers > 1 else ''}"
+                    f"{' splitting K' if plan.split == 'contraction' else ''}, {plan.cluster} ranks")
+            log(f"  {name}: plan {plan}")
             res = compare(name, kernel_fn, plain_fn, atol, rtol,
-                          work=bound(2.0 * rows * k * n, nbytes), library_fn=library_fn)
+                          work=bound(2.0 * rows * k * n, nbytes), library_fn=library_fn,
+                          extra={"int8pack_ms": int8pack} if int8pack else None)
             res["graph_ms"] = {key: graph_ms(fn) for key, fn in
                                (("ms", kernel_fn), ("plain_ms", plain_fn),
                                 ("library_ms", library_fn))}
+            if int8pack:
+                try:  # a library call that cannot be captured is timed back to back only
+                    res["graph_ms"]["int8pack_ms"] = graph_ms(int8pack)
+                except RuntimeError as exc:
+                    torch.cuda.synchronize()
+                    res["graph_ms"]["int8pack_ms"] = f"not captured: {str(exc)[:80]}"
+            else:
+                res["int8pack_ms"] = res["graph_ms"]["int8pack_ms"] = int8pack_none
             res.update(repeats=REPEAT_CALLS, repeats_bit_identical=same, rows=rows,
-                       plan=list(plan))
+                       plan=plan._asdict())
             log(f"  {name}: {same} of {REPEAT_CALLS} repeats bit-identical; as CUDA graphs "
-                + ", ".join(f"{key} {ms:.4f}" for key, ms in res["graph_ms"].items()) + " ms")
+                + ", ".join(f"{key} {ms:.4f}" if isinstance(ms, float) else f"{key} {ms}"
+                            for key, ms in res["graph_ms"].items()) + " ms")
             out.append(res)
-            del x
+            del x, int8pack
         del q, scale, w_bf16, w_lib, qk, bias
         torch.cuda.empty_cache()
     return {"w8a16_matmul": out}
@@ -1099,8 +1142,8 @@ def _counters():
     return {"gumbel_argmax": (gumbel_argmax, "launches"),
             "threefry2x32": (threefry_grid, "launches"),
             "w8a16_matmul": (w8a16_matmul, "launches"),
-            "w8a16_matmul (split)": (w8a16_matmul, "split_launches"),
-            "w8a16_matmul (wgmma)": (w8a16_matmul, "wgmma_launches"),
+            "w8a16_matmul (decode)": (w8a16_matmul, "decode_launches"),
+            "w8a16_matmul (prefill)": (w8a16_matmul, "prefill_launches"),
             "flash_attention": (flash_attention, "launches"),
             "flash_attention (q_offset > 0)": (flash_attention, "offset_launches"),
             "paged_attention_multiquery": (paged_attention_multiquery_bf16, "launches"),
@@ -2464,11 +2507,11 @@ def graph_tokens_phase(dev, env_flags) -> tuple:
                     "steps", "spec_chunks", "spec_emitted", "spec_auto_disabled",
                     "pipelined_chunks", "chunk_input_rebuilds")))
         launches[label] = read_counts()
-        log(f"  [{label}] W8A16 launches {launches[label]['w8a16_matmul']} (split "
-            f"{launches[label]['w8a16_matmul (split)']}, wgmma "
-            f"{launches[label]['w8a16_matmul (wgmma)']}), draws {launches[label]['gumbel_argmax']}, "
+        log(f"  [{label}] W8A16 launches {launches[label]['w8a16_matmul']} (decode "
+            f"{launches[label]['w8a16_matmul (decode)']}, prefill "
+            f"{launches[label]['w8a16_matmul (prefill)']}), draws {launches[label]['gumbel_argmax']}, "
             f"threefry {launches[label]['threefry2x32']}")
-        if min(launches[label]["w8a16_matmul"], launches[label]["w8a16_matmul (split)"],
+        if min(launches[label]["w8a16_matmul"], launches[label]["w8a16_matmul (decode)"],
                launches[label]["gumbel_argmax"]) < 1:
             raise AssertionError(f"phase 17: the {label} engine launched no W8A16 decode kernel "
                                  "or no draw")
@@ -2494,20 +2537,16 @@ def graph_tokens_phase(dev, env_flags) -> tuple:
     return graphed, {"warmup_full": warm, "walls_s": walls, "launches": launches}
 
 
-def chunk_speed_phase(engine, dev) -> dict:
-    """Phase 17, second part: phase 9's step (64 slots at 2,048 tokens of
-    context, the engine's weights over its own pool) as one decode chunk of
-    CHUNK_DEPTH iterations, greedy: replayed from the graph the warmup
-    captured and run eagerly, in turns. ms a step (CUDA events), the host's
-    ms to dispatch the chunk, and each run's device busy share (the sum of
-    its kernels' device time over the chunk's event time, torch.profiler;
-    None where the profiler shows no device time)."""
+def _chunk_state(engine, dev, spec_k: int):
+    """Phase 9's step as one chunk's inputs: 64 slots at 2,048 tokens of
+    context, greedy, page tables that cover the chunk's positions (a k = 2
+    verify advances a row by up to 3 tokens an iteration), over the
+    engine's own pool. Returns (the mode's fixed buffers, their values)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     s, ctx = MAX_SLOTS, 2048
-    pages_per_row = ctx // PAGE_SIZE + 1
-    dev_in = engine._mode_inputs((False, False, False))
+    dev_in = engine._mode_inputs((spec_k > 0, False, False))
+    pages_per_row = -(-(ctx + CHUNK_DEPTH * (spec_k + 1) + 1) // PAGE_SIZE)
     state = {"tokens": (torch.arange(s, device=dev) * 7 + 100) % engine.config.decoder.vocab_size,
              "positions": torch.full((s,), ctx, dtype=torch.int64, device=dev),
              "budgets": torch.full((s,), 10**6, dtype=torch.int64, device=dev),
@@ -2517,10 +2556,25 @@ def chunk_speed_phase(engine, dev) -> dict:
              "keys": torch.zeros((s, 2), dtype=torch.int64, device=dev)}
     state["tables"][:, :pages_per_row] = (
         1 + torch.arange(s * pages_per_row, device=dev, dtype=torch.int32)).reshape(s, -1)
+    if spec_k:  # a zeroed history from the context on: drafts repeat the current token
+        state["buf"] = torch.zeros_like(dev_in.buf)
+        state["gen_start"] = torch.full((s,), ctx, dtype=torch.int64, device=dev)
     dev_in.any_sampled = dev_in.nucleus = False
-    key = engine._chunk_key(dev_in, 0, CHUNK_DEPTH, False)
+    return dev_in, state
+
+
+def _time_chunk(engine, dev, dev_in, state, key) -> dict:
+    """One chunk of ``key`` over ``dev_in`` (refilled from ``state`` before
+    every run), replayed from its graph and run eagerly, in turns: ms a
+    step (CUDA events), the host's ms to dispatch the chunk, and each run's
+    device busy share (the sum of its kernels' device time over the
+    chunk's event time, torch.profiler; None where the profiler shows no
+    device time) with the device time of the W8A16 kernels, the
+    direct_copy_kernel launches, the draw and the threefry entry."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
     program = engine._chunk_program(dev_in, key)
-    captured = key in engine._graphs
 
     def restore():
         for name, value in state.items():
@@ -2550,7 +2604,7 @@ def chunk_speed_phase(engine, dev) -> dict:
             ms, host_ms = timed(fns[name])
             times[name].append(ms)
             host[name].append(host_ms)
-    busy = {}
+    out = {}
     for name, fn in fns.items():
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             ms, _ = timed(fn)
@@ -2563,22 +2617,86 @@ def chunk_speed_phase(engine, dev) -> dict:
             mine = [op for op in ops if word in op[0]]
             return {"launches": sum(op[1] for op in mine), "ms": sum(op[2] for op in mine)}
 
-        busy[name] = {"share": device_ms / ms if device_ms else None, "device_ms": device_ms,
-                      "chunk_ms": ms, "device_ops": sum(op[1] for op in ops),
-                      "w8a16": share("w8a16"), "direct_copy_kernel": share("direct_copy_kernel"),
-                      "draw": share("gumbel_argmax"), "threefry": share("threefry_grid"),
-                      "top": [(key[:70], count, round(t, 3)) for key, count, t in ops[:10]]}
-    # The same chunk sampled (temperature 1 on every row, no nucleus: the
+        busy = {"share": device_ms / ms if device_ms else None, "device_ms": device_ms,
+                "chunk_ms": ms, "device_ops": sum(op[1] for op in ops),
+                "w8a16": share("w8a16"), "direct_copy_kernel": share("direct_copy_kernel"),
+                "draw": share("gumbel_argmax"), "threefry": share("threefry_grid"),
+                "top": [(k[:70], count, round(t, 3)) for k, count, t in ops[:10]]}
+        out[name] = {"ms_per_step": statistics.median(times[name]) / CHUNK_DEPTH,
+                     "chunk_ms": statistics.median(times[name]),
+                     "host_dispatch_ms": statistics.median(host[name]), "busy": busy}
+    return out
+
+
+def chunk_speed_phase(engine, dev) -> dict:
+    """Phase 17, second part: phase 9's step (64 slots at 2,048 tokens of
+    context, the engine's weights over its own pool) as one decode chunk of
+    CHUNK_DEPTH iterations, greedy, and the same slots as one k = 2 verify
+    chunk (deploy/shipping.env's step: 192 rows a linear), each replayed
+    from the graph the warmup captured and run eagerly, in turns
+    (:func:`_time_chunk`). Every int8 linear and the tied lm_head of every
+    step must go through the W8A16 kernel in the profiled graphed chunks."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg = engine.config.decoder
+    per_step = 7 * cfg.num_layers + 1  # the int8 linears of a step and the lm_head
+    out = {}
+    for label, spec_k in (("decode", 0), ("verify", 2)):
+        dev_in, state = _chunk_state(engine, dev, spec_k)
+        key = engine._chunk_key(dev_in, spec_k, CHUNK_DEPTH, False)
+        captured = key in engine._graphs
+        res = _time_chunk(engine, dev, dev_in, state, key)
+        log(f"  one {'decode (nq = 1)' if not spec_k else f'k = {spec_k} verify (nq = {spec_k + 1})'}"
+            f" chunk, {MAX_SLOTS} slots x 2048 context, depth {CHUNK_DEPTH}, greedy (the warmup's "
+            f"graph: {captured}; median of {REPS}, in turns): "
+            + "; ".join(f"{name} {o['ms_per_step']:.3f} ms a step ({o['chunk_ms']:.2f} ms a "
+                        f"chunk), host dispatch {o['host_dispatch_ms']:.3f} ms, device busy share "
+                        f"{o['busy']['share']} ({o['busy']['device_ops']} device ops, "
+                        f"{o['busy']['device_ms']:.2f} of {o['busy']['chunk_ms']:.2f} ms)"
+                        for name, o in res.items()))
+        graphed = res["graph"]["busy"]
+        log(f"  the graphed {label} chunk's device time by operation (name, count, ms): "
+            + "; ".join(f"{k} x{count} {t:.2f}" for k, count, t in graphed["top"]))
+        log(f"  the graphed {label} chunk ({CHUNK_DEPTH} steps): W8A16 kernels "
+            f"x{graphed['w8a16']['launches']} {graphed['w8a16']['ms']:.2f} ms "
+            f"({graphed['w8a16']['ms'] / CHUNK_DEPTH:.3f} ms a step, "
+            f"{graphed['w8a16']['ms'] / max(1, graphed['w8a16']['launches']) * 1e3:.2f} us a "
+            f"launch); direct_copy_kernel x{graphed['direct_copy_kernel']['launches']} "
+            f"{graphed['direct_copy_kernel']['ms']:.2f} ms; draw x{graphed['draw']['launches']}, "
+            f"threefry x{graphed['threefry']['launches']}")
+        if graphed["w8a16"]["launches"] != CHUNK_DEPTH * per_step:
+            raise AssertionError(f"phase 17: the profiled {label} chunk ran "
+                                 f"{graphed['w8a16']['launches']} W8A16 kernels, not "
+                                 f"{CHUNK_DEPTH} x {per_step} (every int8 linear and the "
+                                 f"lm_head of every step)")
+        out[label] = res
+    out.update(graph=out["decode"]["graph"], eager=out["decode"]["eager"])
+    # The decode chunk sampled (temperature 1 on every row, no nucleus: the
     # graph the warmup captured for sampled chunks), profiled once: the
     # device operations of a sampled step, the draw and its keys included.
+    s = MAX_SLOTS
+    dev_in, state = _chunk_state(engine, dev, 0)
     state["temps"] = torch.ones(s, device=dev)
     state["keys"] = (torch.arange(2 * s, device=dev, dtype=torch.int64) * 7919).reshape(s, 2)
     dev_in.any_sampled, dev_in.nucleus = True, False
     skey = engine._chunk_key(dev_in, 0, CHUNK_DEPTH, False)
     sprogram = engine._chunk_program(dev_in, skey)
-    timed(lambda: engine._graphs.run(skey, sprogram))
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+
+    def sampled_run():
+        for name, value in state.items():
+            getattr(dev_in, name).copy_(value)
+        torch.cuda.synchronize()
+        start.record()
+        engine._graphs.run(skey, sprogram)
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end)
+
+    sampled_run()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        ms, _ = timed(lambda: engine._graphs.run(skey, sprogram))
+        ms = sampled_run()
     sops = [(e.key, e.count, (getattr(e, "self_device_time_total", 0) or 0) / 1e3)
             for e in prof.key_averages()]
     sops = [op for op in sops if op[2] > 0]
@@ -2587,38 +2705,17 @@ def chunk_speed_phase(engine, dev) -> dict:
                "draw": {"launches": sum(op[1] for op in sops if "gumbel_argmax" in op[0]),
                         "ms": sum(op[2] for op in sops if "gumbel_argmax" in op[0])},
                "threefry": sum(op[1] for op in sops if "threefry_grid" in op[0])}
-    log(f"  the same chunk sampled (temperature 1, no nucleus; graph captured by the warmup: "
+    log(f"  the decode chunk sampled (temperature 1, no nucleus; graph captured by the warmup: "
         f"{skey in engine._graphs}): {sampled['chunk_ms'] / CHUNK_DEPTH:.3f} ms a step, "
         f"{sampled['device_ops'] / CHUNK_DEPTH:.1f} device operations a step against "
-        f"{busy['graph']['device_ops'] / CHUNK_DEPTH:.1f} greedy; draw launches "
+        f"{out['graph']['busy']['device_ops'] / CHUNK_DEPTH:.1f} greedy; draw launches "
         f"{sampled['draw']['launches']} ({sampled['draw']['ms'] / CHUNK_DEPTH:.4f} ms a step), "
         f"threefry launches {sampled['threefry']}")
     if sampled["draw"]["launches"] != CHUNK_DEPTH:
         raise AssertionError(f"phase 17: {sampled['draw']['launches']} draw launches in a "
                              f"sampled chunk of {CHUNK_DEPTH} steps (one a step)")
     engine._dev = None
-    out = {name: {"ms_per_step": statistics.median(times[name]) / CHUNK_DEPTH,
-                  "chunk_ms": statistics.median(times[name]),
-                  "host_dispatch_ms": statistics.median(host[name]), "busy": busy[name]}
-           for name in fns}
-    log(f"  one decode chunk, {s} slots x {ctx} context, depth {CHUNK_DEPTH}, greedy "
-        f"(the warmup's graph: {captured}; median of {REPS}, in turns): "
-        + "; ".join(f"{name} {o['ms_per_step']:.3f} ms a step ({o['chunk_ms']:.2f} ms a chunk), "
-                    f"host dispatch {o['host_dispatch_ms']:.3f} ms, device busy share "
-                    f"{o['busy']['share']} ({o['busy']['device_ops']} device ops, "
-                    f"{o['busy']['device_ms']:.2f} of {o['busy']['chunk_ms']:.2f} ms)"
-                    for name, o in out.items()))
     out["sampled"] = sampled
-    log("  the graphed chunk's device time by operation (name, count, ms): "
-        + "; ".join(f"{key} x{count} {t:.2f}" for key, count, t in busy["graph"]["top"]))
-    graphed = busy["graph"]
-    log(f"  the graphed chunk ({CHUNK_DEPTH} steps): W8A16 kernels x{graphed['w8a16']['launches']} "
-        f"{graphed['w8a16']['ms']:.2f} ms ({graphed['w8a16']['ms'] / CHUNK_DEPTH:.3f} ms a step); "
-        f"direct_copy_kernel x{graphed['direct_copy_kernel']['launches']} "
-        f"{graphed['direct_copy_kernel']['ms']:.2f} ms; draw x{graphed['draw']['launches']}, "
-        f"threefry x{graphed['threefry']['launches']}")
-    if graphed["w8a16"]["launches"] < 1:
-        raise AssertionError("phase 17: the profiled chunk ran no W8A16 kernel")
     return out
 
 
@@ -2781,8 +2878,8 @@ def main() -> int:
         dev, SHIPPED_FLAGS, "shipped", waves=SHIPPED_WAVES, replies=shipped_replies,
         before_serve=guard_off,
         required=("flash_attention", "flash_attention (q_offset > 0)",
-                  "paged_attention_multiquery_int8", "w8a16_matmul", "w8a16_matmul (split)",
-                  "w8a16_matmul (wgmma)"))
+                  "paged_attention_multiquery_int8", "w8a16_matmul", "w8a16_matmul (decode)",
+                  "w8a16_matmul (prefill)"))
     if metrics.get("preemptions", 0) != 0:
         raise AssertionError(f"shipped path: the full pool preempted ({metrics})")
     if metrics.get("prefill_chunks", 0) < 2 or metrics.get("spec_chunks", 0) < 1:
@@ -2848,14 +2945,14 @@ def main() -> int:
         dev, [], "shipping.env", base_flags=env_flags, waves=SHIPPING_WAVES,
         required=("flash_attention", "flash_attention (q_offset > 0)",
                   "paged_attention_multiquery", "paged_attention_multiquery (nq > 1)",
-                  "w8a16_matmul", "w8a16_matmul (split)", "w8a16_matmul (wgmma)",
+                  "w8a16_matmul", "w8a16_matmul (decode)", "w8a16_matmul (prefill)",
                   "gumbel_argmax", "threefry2x32"))
     decode_calls = (shipping["paged_attention_multiquery"]
                     - shipping["paged_attention_multiquery (nq > 1)"])
     log(f"  [shipping.env] kernel 2 bf16: {decode_calls} launches at nq = 1 (decode), "
         f"{shipping['paged_attention_multiquery (nq > 1)']} at nq = 3 (verify); W8A16 "
-        f"{shipping['w8a16_matmul']} ({shipping['w8a16_matmul (split)']} split, "
-        f"{shipping['w8a16_matmul (wgmma)']} wgmma); draw {shipping['gumbel_argmax']}, "
+        f"{shipping['w8a16_matmul']} ({shipping['w8a16_matmul (decode)']} decode, "
+        f"{shipping['w8a16_matmul (prefill)']} prefill); draw {shipping['gumbel_argmax']}, "
         f"threefry {shipping['threefry2x32']}")
     if (decode_calls < 1 or metrics.get("prefill_chunks", 0) < 2
             or metrics.get("spec_chunks", 0) < 1 or metrics.get("pipelined_chunks", 0) < 1):
@@ -2910,7 +3007,7 @@ def main() -> int:
         "threefry2x32": ("dots_ocr_tpu_torch/csrc/threefry_sample.cu",
                          "none: jax.random's threefry2x32, fused by XLA (fold_in / split / "
                          "uniform of dots_ocr_tpu/engine/sampling.py)", shipping),
-        "w8a16_matmul": ("dots_ocr_tpu_torch/csrc/int8_matmul.cu",
+        "w8a16_matmul": ("dots_ocr_tpu_torch/csrc/int8_matmul.cuh",
                          "none: XLA fuses the int8 convert into the dot "
                          "(dots_ocr_tpu/models/layers.py:62-67 linear, :101-108 unembed)",
                          shipping),

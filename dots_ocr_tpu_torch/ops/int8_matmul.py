@@ -1,6 +1,6 @@
 """W8A16 matmul: bf16 activations against int8 weight-only weights, the
-hand-written Hopper kernel (``csrc/int8_matmul.cu``) and its plain PyTorch
-version.
+hand-written Hopper kernel (``csrc/int8_matmul.cuh``, its C entry in
+``csrc/int8_matmul.cu``) and its plain PyTorch version.
 
 No Pallas kernel to port: the JAX package computes ``einsum(x,
 q.astype(bf16)) * s`` (``dots_ocr_tpu.models.layers.linear`` and
@@ -18,10 +18,12 @@ Two layouts of one function (the scale is float32, one per output column):
     contiguous), the float32 sum times ``scale[n]``, float32.
 
 int8 -> bf16 is exact, so kernel and plain version differ only in the
-order of the float32 sums. Two regimes, picked from the row count alone
-(:func:`w8a16_plan`): up to SPLIT_ROWS rows (decode and k = 2 verify steps)
-an mma.sync kernel whose contraction is split over the ranks of a thread
-block cluster, above it a wgmma kernel (prefill chunks).
+order of the float32 sums. The kernel computes the transposed product
+out^T = q^T x^T with wgmma: the converted weight is built in registers as
+the A operand and x's rows are wgmma's N. Two regimes, picked from the row
+count alone (:func:`w8a16_plan`): up to DECODE_ROWS rows (decode and k = 2
+verify steps) every row in one tile, so each weight byte is read once a
+call; above it (prefill chunks) tiles of PREFILL_ROWS_TILE rows.
 
 ``w8a16_matmul`` runs the plain version for tensors on the CPU; a CUDA
 tensor launches the kernel or raises.
@@ -36,22 +38,26 @@ import torch
 
 from dots_ocr_tpu_torch.ops import kernel_lib
 
-# Regime (a) up to SPLIT_ROWS rows: CTAs of a ROW_TILES-row x SPLIT_COLS
-# tile (the smallest tile that holds the rows, or a smaller one where the
-# shape has too few tiles for half the card), the contraction's units
-# (SPLIT_UNIT rows: [K, N] 64, [N, K] 128) split over clusters of up to
-# MAX_CLUSTER ranks, the fewest ranks that give CTAS_PER_SM CTAs an SM.
-# Regime (b): 128 x 128 wgmma tiles, the contraction's K_MULTIPLE-wide
-# blocks split over clusters of up to MAX_CLUSTER ranks where the tiles
-# give fewer than WGMMA_CTAS_PER_SM CTAs an SM (one CTA fits an SM).
-SPLIT_ROWS = 192
-ROW_TILES = (16, 32, 64)
-SPLIT_COLS = 128
-SPLIT_UNIT = {False: 64, True: 128}  # by ``transposed`` ([N, K])
-MAX_CLUSTER = 8
-CTAS_PER_SM = 2
-WGMMA_ROWS, WGMMA_CTAS_PER_SM = 128, 2
+# The decode regime up to DECODE_ROWS rows: one tile of the smallest of
+# ROW_TILES rows that holds them (wgmma's N; rows past M arrive as zeros).
+# The prefill regime: PREFILL_ROWS_TILE-row tiles. A CTA has one or two
+# consumer warpgroups, which share its tile by SPLITS: COLS columns each,
+# or the same COLS columns with the contraction split between them. Its
+# contraction's K_BLOCK-deep blocks are split over a cluster of up to
+# MAX_CLUSTER ranks.
+DECODE_ROWS = 192
+ROW_TILES = (8, 16, 32, 64, 96, 128, 192)
+PREFILL_ROWS_TILE = 128
+COLS = 128
+K_BLOCK = 64
 K_MULTIPLE = 128
+MAX_CLUSTER = 8
+SPLITS = ("columns", "contraction")  # the kernel's Split, in order
+# A contraction of LONG_BLOCKS blocks or more is split between a prefill
+# CTA's two warpgroups; its 256-column CTAs take at most
+# PREFILL_MAX_CLUSTER ranks.
+LONG_BLOCKS = 64
+PREFILL_MAX_CLUSTER = 4
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -88,47 +94,61 @@ def int8_unembed_reference(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor
 
 
 class W8A16Plan(NamedTuple):
-    """The kernel's launch: ``rows_tile`` rows a CTA of the split regime, or
-    0 for the wgmma regime, either with clusters of ``cluster`` ranks over
-    the contraction."""
+    """The kernel's launch: the regime ("decode": every row in one tile;
+    "prefill": PREFILL_ROWS_TILE-row tiles), ``rows_tile`` rows of x a CTA
+    (a multiple of 8), ``consumers`` warpgroups a CTA, which share the tile
+    by ``split`` (one of SPLITS: COLS columns each, or the contraction of
+    the same COLS columns), and the contraction over clusters of
+    ``cluster`` ranks."""
+    regime: str
     rows_tile: int
+    consumers: int
+    split: str
     cluster: int
 
     @property
-    def regime(self) -> str:
-        return "wgmma" if self.rows_tile == 0 else "split"
+    def cols_tile(self) -> int:
+        return COLS * self.consumers if self.split == "columns" else COLS
 
 
 def w8a16_plan(rows: int, in_dim: int, out_dim: int, num_sms: int,
                transposed: bool = False) -> W8A16Plan:
-    """The regime and launch from static shapes only: above SPLIT_ROWS rows
-    the wgmma kernel, its contraction split over the fewest cluster ranks
-    that give WGMMA_CTAS_PER_SM CTAs an SM (at most MAX_CLUSTER, at most one
-    a block). Up to it: the smallest row tile that holds the rows,
-    halved (down to the smallest) while the largest clusters would leave
-    half the SMs without a CTA; then the fewest cluster ranks (at most
-    MAX_CLUSTER, at most one a unit) that give CTAS_PER_SM CTAs an SM, and
-    of those ranks' longest share of the units, the fewest ranks that
-    need no more.
-    (kernel_ab.py's W8A16 sweep: a 64-row tile over 8 ranks beats 32 rows
-    for wq / wo and down at 64 rows, 96 CTAs against 192; wk / wv, with 2
-    column tiles, gains from 16-row tiles.)"""
-    if rows > SPLIT_ROWS:
-        blocks = in_dim // K_MULTIPLE
-        tiles = -(-rows // WGMMA_ROWS) * (out_dim // SPLIT_COLS)
-        return W8A16Plan(0, _balanced(
-            blocks, min(MAX_CLUSTER, blocks, -(-WGMMA_CTAS_PER_SM * num_sms // tiles))))
-    units = in_dim // SPLIT_UNIT[transposed]
-    most = min(MAX_CLUSTER, units)
+    """The regime and launch from static shapes only. Up to DECODE_ROWS
+    rows one tile of the smallest of ROW_TILES rows that holds them, and a
+    launch that depends on the weight's shape alone: one warpgroup a CTA,
+    the contraction over the most cluster ranks (at most MAX_CLUSTER, at
+    most one a block) whose CTAs fit one wave of one CTA an SM, at least
+    one, then the fewest ranks with no longer share of the blocks. So a
+    row's float32 sums are taken in one order at any decode row count: a
+    request's greedy tokens do not depend on whether a step decodes or
+    verifies, nor on the rows beside it. Above DECODE_ROWS,
+    PREFILL_ROWS_TILE-row tiles: two warpgroups splitting the contraction of
+    a [K, N] weight where it is long (LONG_BLOCKS blocks), over ranks of
+    LONG_BLOCKS blocks; else two of 128 columns a CTA (x shared by 256
+    columns) where N is a multiple of 256, over at most PREFILL_MAX_CLUSTER
+    ranks that fit one wave; else one warpgroup.
+    (kernel_ab.py's W8A16 sweep, one H100: the split wins at down, 140
+    blocks, in the prefill regime; more prefill ranks than the wave needs
+    lose to the reduction.)"""
+    blocks = in_dim // K_BLOCK
 
-    def tiles(tile):
-        return -(-rows // tile) * (out_dim // SPLIT_COLS)
+    def ranks(tiles, most=MAX_CLUSTER):
+        return _balanced(blocks, max(1, min(most, blocks, num_sms // tiles)))
 
-    tile = next((t for t in ROW_TILES if rows <= t), ROW_TILES[-1])
-    while tile > ROW_TILES[0] and 2 * tiles(tile) * most < num_sms:
-        tile //= 2
-    cluster = min(most, -(-CTAS_PER_SM * num_sms // tiles(tile)))
-    return W8A16Plan(tile, _balanced(units, cluster))
+    if rows <= DECODE_ROWS:
+        tile = next(t for t in ROW_TILES if t >= rows)
+        return W8A16Plan("decode", tile, 1, "columns", ranks(out_dim // COLS))
+    row_tiles = -(-rows // PREFILL_ROWS_TILE)
+    one = W8A16Plan("prefill", PREFILL_ROWS_TILE, 1, "columns", ranks(row_tiles * (out_dim // COLS)))
+    if transposed:
+        return one
+    if blocks >= LONG_BLOCKS:
+        return W8A16Plan("prefill", PREFILL_ROWS_TILE, 2, "contraction",
+                         _balanced(blocks, blocks // LONG_BLOCKS))
+    if out_dim % (2 * COLS):
+        return one
+    return W8A16Plan("prefill", PREFILL_ROWS_TILE, 2, "columns",
+                     ranks(row_tiles * (out_dim // (2 * COLS)), PREFILL_MAX_CLUSTER))
 
 
 def _balanced(units: int, ranks: int) -> int:
@@ -138,11 +158,19 @@ def _balanced(units: int, ranks: int) -> int:
     return -(-units // per_rank)
 
 
-def unit_ranges(in_dim: int, cluster: int, transposed: bool = False) -> list:
-    """The contraction units [start, end) of each rank of a cluster (the
-    kernel's ``u0`` and ``steps``): contiguous, balanced, in rank order."""
-    units = in_dim // SPLIT_UNIT[transposed]
-    return [(r * units // cluster, (r + 1) * units // cluster) for r in range(cluster)]
+def contraction_ranges(in_dim: int, cluster: int) -> list:
+    """The contraction rows [start, end) of each rank of a cluster, in rank
+    order (the kernel's ``kb0`` and ``nkb`` in K_BLOCK-deep blocks):
+    contiguous, balanced, covering [0, in_dim)."""
+    blocks = in_dim // K_BLOCK
+    return [(r * blocks // cluster * K_BLOCK, (r + 1) * blocks // cluster * K_BLOCK)
+            for r in range(cluster)]
+
+
+def launch_grid(plan: W8A16Plan, rows: int, out_dim: int) -> tuple:
+    """The kernel's grid (cluster ranks, column tiles, row tiles): the
+    column tiles cover [0, out_dim) exactly, the row tiles every row."""
+    return plan.cluster, out_dim // plan.cols_tile, -(-rows // plan.rows_tile)
 
 
 def _require(cond: bool, message: str) -> None:
@@ -159,7 +187,7 @@ def _check(x, q, scale, bias, transposed: bool) -> None:
     tensors = (x, q, scale) + (() if bias is None else (bias,))
     if (x.dtype == torch.bfloat16 and q.dtype == torch.int8 and scale.dtype == torch.float32
             and q.dim() == 2 and q.shape[1 if transposed else 0] == k
-            and tuple(scale.shape) == (n,) and k % K_MULTIPLE == 0 and n % SPLIT_COLS == 0
+            and tuple(scale.shape) == (n,) and k % K_MULTIPLE == 0 and n % COLS == 0
             and (bias is None or (tuple(bias.shape) == (n,)
                                   and bias.dtype in (torch.float32, torch.bfloat16)))
             and all(t.device == dev and t.is_contiguous() and t.data_ptr() % 16 == 0
@@ -175,7 +203,7 @@ def _check(x, q, scale, bias, transposed: bool) -> None:
     _require(all(t.is_contiguous() and t.data_ptr() % 16 == 0 for t in tensors),
              "inputs must be contiguous and 16-byte aligned")
     _require(k % K_MULTIPLE == 0, f"K {k} is not a multiple of {K_MULTIPLE}")
-    _require(n % SPLIT_COLS == 0, f"N {n} is not a multiple of {SPLIT_COLS}")
+    _require(n % COLS == 0, f"N {n} is not a multiple of {COLS}")
     _require(False, f"q {tuple(q.shape)} / scale {tuple(scale.shape)} / bias "
                     f"{None if bias is None else tuple(bias.shape)} vs x {tuple(x.shape)} "
                     f"({'[N, K]' if transposed else '[K, N]'} layout)")
@@ -190,7 +218,7 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     float32). On CUDA: bf16 x, K and N multiples of 128, every input
     contiguous on x's device (a layer's view of a stacked weight is taken
     as it is). Counts launches in ``w8a16_matmul.launches``, and by regime
-    in ``split_launches`` and ``wgmma_launches``."""
+    in ``decode_launches`` and ``prefill_launches``."""
     if x.device.type == "cpu":
         if transposed:
             return int8_unembed_reference(x, q, scale)
@@ -210,18 +238,25 @@ def w8a16_matmul(x: torch.Tensor, q: torch.Tensor, scale: torch.Tensor,
     out = torch.empty(rows, n, dtype=torch.float32 if f32 else x.dtype, device=x.device)
     if rows:
         plan = _plan(rows, k, n, index, transposed)
-        err = kernel_lib.load().dots_w8a16_matmul(
-            x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-            0 if bias is None else bias.data_ptr(), out.data_ptr(), rows, k, n, int(transposed),
-            int(f32), int(bias is not None and bias.dtype == torch.bfloat16), plan.rows_tile,
-            plan.cluster, torch._C._cuda_getCurrentRawStream(index))
-        kernel_lib.check(err, "w8a16_matmul")
+        _launch(x2, q, scale, bias, out, transposed, f32, plan, index)
         w8a16_matmul.launches += 1
-        if plan.regime == "split":
-            w8a16_matmul.split_launches += 1
+        if plan.regime == "decode":
+            w8a16_matmul.decode_launches += 1
         else:
-            w8a16_matmul.wgmma_launches += 1
+            w8a16_matmul.prefill_launches += 1
     return out.reshape(*lead, n)
+
+
+def _launch(x, q, scale, bias, out, transposed: bool, out_f32: bool, plan: W8A16Plan,
+            index: int) -> None:
+    """One launch of the kernel at ``plan`` (checked inputs: ``x`` [M, K],
+    ``out`` [M, N] allocated); raises if the launch is refused."""
+    err = kernel_lib.load().dots_w8a16_matmul(
+        x.data_ptr(), q.data_ptr(), scale.data_ptr(), 0 if bias is None else bias.data_ptr(),
+        out.data_ptr(), x.shape[0], x.shape[1], out.shape[1], int(transposed), int(out_f32),
+        int(bias is not None and bias.dtype == torch.bfloat16), plan.rows_tile, plan.consumers,
+        SPLITS.index(plan.split), plan.cluster, torch._C._cuda_getCurrentRawStream(index))
+    kernel_lib.check(err, "w8a16_matmul")
 
 
 @functools.lru_cache(maxsize=None)
@@ -231,5 +266,5 @@ def _plan(rows: int, in_dim: int, out_dim: int, index: int, transposed: bool) ->
 
 
 w8a16_matmul.launches = 0
-w8a16_matmul.split_launches = 0
-w8a16_matmul.wgmma_launches = 0
+w8a16_matmul.decode_launches = 0
+w8a16_matmul.prefill_launches = 0

@@ -63,8 +63,8 @@ _SIGNATURES = {
     # part_o, part_ml, out, then as the bf16 mode
     "dots_paged_attention_v1_int8": [_P] * 10 + [_I] * 10 + [_F, _P],
     # x, q, scale, bias (or null), out, M, K, N, nk, out_f32, bias_bf16,
-    # rows_tile (0: the wgmma kernel), cluster, stream
-    "dots_w8a16_matmul": [_P] * 5 + [_I] * 8 + [_P],
+    # rows_tile, consumers, split, cluster, stream
+    "dots_w8a16_matmul": [_P] * 5 + [_I] * 10 + [_P],
     # logits, temps (or null), keys, key_step, positions (or null), tag,
     # flat, noise_out (or null), out, B, V, cluster, stream
     "dots_threefry_gumbel_argmax": [_P, _P, _P, _I, _P, _I, _I, _P, _P, _I, _I, _I, _P],

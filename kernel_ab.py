@@ -45,14 +45,19 @@ tree that has it, the per-call bf16 copy and cuBLAS before it), beside
 cuBLAS bf16 on the weight converted once; a 64-slot step's seeded draw over
 the full vocabulary with its key folds (one launch in a tree whose draw
 folds its keys, torch folds and a two-pass draw before); phase 9's
-decode step (64 slots x 2,048, int8 weights, bf16 KV) graphed and eager;
-and one 2,048-token prefill chunk through the flagship decoder with int8
-and with bf16 weights, eager.
-A tree with them also sweeps the W8A16 split regime's row tiles and
-cluster sizes and the draw's cluster sizes.
+decode step (64 slots x 2,048, int8 weights, bf16 KV) graphed and eager,
+at nq = 1 and as a k = 2 verify (nq = 3: deploy/shipping.env's step); and
+one 2,048-token prefill chunk through the flagship decoder with int8 and
+with bf16 weights, eager.
+A tree with them also sweeps the W8A16 kernel's launch choices (the TMA
+kernel: consumer warpgroups and their split x cluster ranks; the earlier
+mma.sync kernel: row tiles x cluster ranks) and the draw's cluster sizes,
+each tree through its own entry and signature.
 
 A tree with them also takes parts out of its W8A16 kernel ("ablation
-w8a16": no convert, no mma, no wgmma) to show what holds it back.
+w8a16": no convert, no wgmma, and for the TMA kernel no TMA wait, i.e. no
+loads; for the earlier kernel no convert, no mma, no wgmma) to show what
+holds it back.
 
 ``--only`` takes comma-separated prefixes of case names (and "sweep int4",
 "sweep w4a8", "sweep paged", "sweep w8a16", "sweep draw", "ablation w8a16",
@@ -392,14 +397,17 @@ def worker(root: str, only: tuple = ()) -> dict:
 def _decode_step(dev, cs) -> dict:
     """chip_smoke.py phase 9's step at shipping.env's weights: 64 slots at
     2,048 tokens of context, the flagship decoder with int8 weights over a
-    bf16 pool (page 128), greedy logits, as one CUDA graph (device ms a
-    step, median of REPS replays) and eager (ms a call, back to back)."""
+    bf16 pool (page 128), greedy logits, at nq = 1 (a decode step: 64 rows a
+    linear) and as a k = 2 verify (nq = 3: 192 rows a linear, the step
+    deploy/shipping.env runs), each as one CUDA graph (device ms a step,
+    median of REPS replays) and eager (ms a call, back to back)."""
     import torch
 
     from dots_ocr_tpu_torch.engine.kv_cache import PagedKV
     from dots_ocr_tpu_torch.models.config import DotsOCRConfig
     from dots_ocr_tpu_torch.models.decoder import (
         decoder_decode_step_paged,
+        decoder_spec_step_paged,
         embed_tokens,
         logits_from_hidden,
     )
@@ -410,14 +418,17 @@ def _decode_step(dev, cs) -> dict:
     params = init_params(cfg, dev, torch.Generator(device=dev).manual_seed(0))
     dec = quantize_decoder_params(params["decoder"])
     del params
-    s, ctx, page = cs.MAX_SLOTS, 2048, cs.PAGE_SIZE
-    per_row = ctx // page + 1
+    s, ctx, page, nq = cs.MAX_SLOTS, 2048, cs.PAGE_SIZE, 3
+    per_row = (ctx + nq) // page + 1
     pool = PagedKV.create(cfg.decoder, s * per_row + 1, page, cfg.torch_dtype, dev)
     table = (1 + torch.arange(s * per_row, device=dev, dtype=torch.int32)).reshape(s, per_row)
     pos = torch.full((s,), ctx, dtype=torch.int64, device=dev)
     slots = table[:, ctx // page].long() * page + ctx % page
     lens = (pos + 1).to(torch.int32)
     tokens = (torch.arange(s, device=dev) * 7 + 100) % cfg.decoder.vocab_size
+    vpos = pos[:, None] + torch.arange(nq, device=dev)[None]
+    vslots = table.gather(1, vpos // page).long() * page + vpos % page
+    vtokens = (tokens[:, None] + torch.arange(nq, device=dev)[None] * 13) % cfg.decoder.vocab_size
 
     def step():
         with torch.no_grad():
@@ -425,8 +436,16 @@ def _decode_step(dev, cs) -> dict:
                                           pool.k, pool.v, table, lens, slots, page)
             return logits_from_hidden(dec, cfg.decoder, h)
 
-    out = {"graph_ms": graph_ms(step, cs, calls=1),
-           "eager_ms": cs.time_in_turns({"step": step}, inner=1)["step"]}
+    def verify():
+        with torch.no_grad():
+            h = decoder_spec_step_paged(dec, cfg.decoder, embed_tokens(dec, vtokens), vpos,
+                                        pool.k, pool.v, table, lens, vslots, page)
+            return logits_from_hidden(dec, cfg.decoder, h)
+
+    out = {}
+    for name, fn in (("", step), ("verify_", verify)):
+        out[f"{name}graph_ms"] = graph_ms(fn, cs, calls=1)
+        out[f"{name}eager_ms"] = cs.time_in_turns({"step": fn}, inner=1)["step"]
     del dec, pool
     torch.cuda.empty_cache()
     return out
@@ -468,25 +487,34 @@ def _prefill_chunk(dev, cs) -> dict:
     return out
 
 
+def _w8a16_inputs(label, k, n, randn):
+    """chip_smoke.py's W8A16 weights for one shape: (q, scale, [N, K] layout)."""
+    from dots_ocr_tpu_torch.models.quantize import quantize_embedding, quantize_kernel
+
+    nk = label == "lm_head"
+    qk = quantize_embedding(randn(n, k)) if nk else quantize_kernel(randn(k, n) * 0.02)
+    return qk["qint8"], qk["scale"], nk
+
+
 def _w8a16_sweep(w8_mod, randn, cs) -> dict:
     """The W8A16 kernel at chip_smoke.py's shapes and the rows of a decode
-    step of one slot and of 64, a k = 2 verify (the split regime, over row
-    tiles and cluster sizes) and a prefill chunk (the wgmma regime, over
-    cluster sizes), through the C entry: device ms (CUDA graphs) and which
-    one the plan takes."""
+    step of one slot and of 64, a k = 2 verify and a prefill chunk, over
+    its launch choices, through the tree's own entry: device ms (CUDA
+    graphs) and which one the plan takes. A tree whose plan names consumer
+    warpgroups (the TMA kernel) sweeps consumers (1, 2) x cluster ranks at
+    the plan's row tile; a tree with the earlier mma.sync kernel sweeps its
+    row tiles x cluster ranks (its split regime) or cluster ranks (its wgmma
+    regime)."""
     import torch
 
-    from dots_ocr_tpu_torch.models.quantize import quantize_embedding, quantize_kernel
     from dots_ocr_tpu_torch.ops import kernel_lib
 
-    lib = kernel_lib.load()
     dev = torch.device("cuda")
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    tma = "consumers" in w8_mod.W8A16Plan._fields
     out = {}
     for label, (k, n) in cs.W8A16_SHAPES.items():
-        nk = label == "lm_head"
-        qk = quantize_embedding(randn(n, k)) if nk else quantize_kernel(randn(k, n) * 0.02)
-        q, scale = qk["qint8"], qk["scale"]
+        q, scale, nk = _w8a16_inputs(label, k, n, randn)
         for rows in (1, cs.MAX_SLOTS, 3 * cs.MAX_SLOTS, cs.PREFILL_CHUNK):
             if nk and rows > 3 * cs.MAX_SLOTS:
                 continue
@@ -494,71 +522,122 @@ def _w8a16_sweep(w8_mod, randn, cs) -> dict:
             y = torch.empty(rows, n, dtype=torch.float32 if nk else torch.bfloat16, device=dev)
             plan = w8_mod.w8a16_plan(rows, k, n, num_sms, nk)
             res = {}
-            wgmma = plan.regime == "wgmma"
-            for tile in (0,) if wgmma else w8_mod.ROW_TILES:
-                for cluster in sorted({1, 2, 3, 4, 6, plan.cluster, w8_mod.MAX_CLUSTER}):
-                    unit = w8_mod.K_MULTIPLE if wgmma else w8_mod.SPLIT_UNIT[nk]
-                    if cluster > k // unit or (tile and tile < 64 and rows > 2 * 64):
-                        continue
+            if tma:
+                blocks = k // w8_mod.K_BLOCK
+                tile = plan.rows_tile
+                shapes = [(1, "columns")]  # (consumers, split) the library builds at this tile
+                if not nk and tile <= w8_mod.PREFILL_ROWS_TILE:  # the split's largest tile
+                    shapes.append((2, "contraction"))
+                if not nk and tile == 128 and n % (2 * w8_mod.COLS) == 0:
+                    shapes.append((2, "columns"))
+                for consumers, split in shapes:
+                    for cluster in sorted({1, 2, 4, 8, plan.cluster}):
+                        if cluster > blocks:
+                            continue
+                        variant = plan._replace(consumers=consumers, split=split, cluster=cluster)
 
-                    def call(tile=tile, cluster=cluster):
-                        kernel_lib.check(lib.dots_w8a16_matmul(
-                            x.data_ptr(), q.data_ptr(), scale.data_ptr(), 0, y.data_ptr(), rows,
-                            k, n, int(nk), int(nk), 0, tile, cluster,
-                            torch.cuda.current_stream().cuda_stream), "w8a16 sweep")
-                    res[f"{tile}x{cluster}"] = {
-                        "graph_ms": graph_ms(call, cs),
-                        "planned": (tile, cluster) == (plan.rows_tile, plan.cluster)}
+                        def call(variant=variant):
+                            w8_mod._launch(x, q, scale, None, y, nk, nk, variant, dev.index or 0)
+                        name = f"{consumers}wg {split} x{cluster}"
+                        res[name] = {"graph_ms": graph_ms(call, cs), "planned": variant == plan}
+            else:
+                lib = kernel_lib.load()
+                wgmma = plan.regime == "wgmma"
+                for tile in (0,) if wgmma else w8_mod.ROW_TILES:
+                    for cluster in sorted({1, 2, 3, 4, 6, plan.cluster, w8_mod.MAX_CLUSTER}):
+                        unit = w8_mod.K_MULTIPLE if wgmma else w8_mod.SPLIT_UNIT[nk]
+                        if cluster > k // unit or (tile and tile < 64 and rows > 2 * 64):
+                            continue
+
+                        def call(tile=tile, cluster=cluster):
+                            kernel_lib.check(lib.dots_w8a16_matmul(
+                                x.data_ptr(), q.data_ptr(), scale.data_ptr(), 0, y.data_ptr(),
+                                rows, k, n, int(nk), int(nk), 0, tile, cluster,
+                                torch.cuda.current_stream().cuda_stream), "w8a16 sweep")
+                        res[f"{tile}x{cluster}"] = {
+                            "graph_ms": graph_ms(call, cs),
+                            "planned": (tile, cluster) == (plan.rows_tile, plan.cluster)}
             out[f"{label} M={rows}"] = res
     return out
 
 
 def _w8a16_ablation(root: str, w8_mod, randn, cs) -> dict:
-    """What holds the W8A16 kernel back: this tree's ``csrc/int8_matmul.cu``
-    built again (in a temporary directory) with a part taken out, timed at
-    its planned launch beside the kernel itself and cuBLAS bf16: "no
-    convert" (the bytes passed to the tensor cores unconverted), "no mma"
-    (each mma.sync replaced by one add that keeps its operands live), "no
-    mma, operands dropped" (mma.sync removed: the compiler drops what only
-    fed it, leaving the loads and the epilogue) and "no wgmma" (the prefill
-    regime's products removed). Device ms as CUDA graphs; the outputs of
-    the variants are wrong by design and are not checked."""
+    """What holds the W8A16 kernel back: the tree's kernel built again (in a
+    temporary directory) with a part taken out, timed at its planned launch
+    beside the kernel itself and cuBLAS bf16 on a converted weight. The TMA
+    kernel (a tree whose plan names consumer warpgroups) is built with its
+    ablation switches: "no convert" (the weight bytes passed to the tensor
+    cores unconverted), "no wgmma" (the products removed, their operands
+    kept live) and "no TMA wait" (no loads: the producer arrives on each
+    stage's full barrier at once, so the consumers never wait for data).
+    The earlier mma.sync kernel is edited as its text allows: "no
+    convert", "no mma" (each mma.sync replaced by one add that keeps its
+    operands live), "no mma, operands dropped" and "no wgmma". Device ms as CUDA graphs; the
+    variants' outputs are wrong by design and are not checked."""
     import ctypes
     import tempfile
 
     import torch
 
-    from dots_ocr_tpu_torch.models.quantize import quantize_embedding, quantize_kernel
     from dots_ocr_tpu_torch.ops import kernel_lib
 
-    src = open(os.path.join(root, "dots_ocr_tpu_torch", "csrc", "int8_matmul.cu")).read()
-    convert = "  const uint32_t u = w ^ 0x80808080u;  // b + 128 in each byte"
-    mma = src[src.index('  asm volatile(\n      "mma.sync'):src.index('"r"(b0), "r"(b1));') + 19]
-    wgmma = '"wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "'
-    variants = {
-        "no convert": src.replace(convert, "  return make_uint2(w, w ^ 1u);\n" + convert),
-        "no mma": src.replace(mma, "  d[0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 ^ b1)"
-                                   " & 0x3fffffffu);"),
-        "no mma, operands dropped": src.replace(mma, ""),
-        "no wgmma": src.replace(wgmma, '"// "').replace(
-            '"}, %32, %33, p, 1, 1, 0, 0;\\n}\\n"', '"\\n}\\n"'),
-    }
-    libs = {"kernel": kernel_lib.load()}
-    with tempfile.TemporaryDirectory() as tmp:
-        procs = {}
-        for name, text in variants.items():
+    csrc = os.path.join(root, "dots_ocr_tpu_torch", "csrc")
+    tma = "consumers" in w8_mod.W8A16Plan._fields
+    if tma:
+        sources = sorted(os.path.join(csrc, f) for f in os.listdir(csrc)
+                         if f.startswith("int8_matmul") and f.endswith(".cu"))
+        variants = {"no convert": ["-DW8A16_ABLATE_NO_CONVERT"],
+                    "no wgmma": ["-DW8A16_ABLATE_NO_WGMMA"],
+                    "no TMA wait": ["-DW8A16_ABLATE_NO_TMA_WAIT"]}
+    else:
+        src = open(os.path.join(csrc, "int8_matmul.cu")).read()
+        convert = "  const uint32_t u = w ^ 0x80808080u;  // b + 128 in each byte"
+        mma = src[src.index('  asm volatile(\n      "mma.sync'):
+                  src.index('"r"(b0), "r"(b1));') + 19]
+        wgmma = '"wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "'
+        texts = {
+            "no convert": src.replace(convert, "  return make_uint2(w, w ^ 1u);\n" + convert),
+            "no mma": src.replace(mma, "  d[0] += __uint_as_float((a[0] ^ a[1] ^ a[2] ^ a[3] ^ b0 "
+                                       "^ b1) & 0x3fffffffu);"),
+            "no mma, operands dropped": src.replace(mma, ""),
+            "no wgmma": src.replace(wgmma, '"// "').replace(
+                '"}, %32, %33, p, 1, 1, 0, 0;\\n}\\n"', '"\\n}\\n"'),
+        }
+        for name, text in texts.items():
             if text == src:
                 raise RuntimeError(f"the {name} variant changed nothing")
-            path = os.path.join(tmp, name.replace(" ", "_").replace(",", "") + ".cu")
-            with open(path, "w") as f:
-                f.write(text)
-            procs[name] = (path[:-3] + ".so", subprocess.Popen(
-                [kernel_lib._nvcc(), *kernel_lib.NVCC_FLAGS, "-shared", "-o", path[:-3] + ".so",
-                 path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-        for name, (so, proc) in procs.items():
-            log = proc.communicate(timeout=600)[0]
+    libs = {"kernel": kernel_lib.load()}
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = []  # (variant, object or library, process)
+        for name in (variants if tma else texts):
+            stem = os.path.join(tmp, name.replace(" ", "_").replace(",", ""))
+            if tma:
+                for src_path in sources:
+                    obj = f"{stem}.{os.path.basename(src_path)}.o"
+                    procs.append((name, obj, subprocess.Popen(
+                        [kernel_lib._nvcc(), *kernel_lib.NVCC_FLAGS, *variants[name], "-c", "-o",
+                         obj, src_path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                        text=True)))
+            else:
+                with open(stem + ".cu", "w") as f:
+                    f.write(texts[name])
+                procs.append((name, stem + ".so", subprocess.Popen(
+                    [kernel_lib._nvcc(), *kernel_lib.NVCC_FLAGS, "-shared", "-o", stem + ".so",
+                     stem + ".cu"], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)))
+        built = {}
+        for name, path, proc in procs:
+            log = proc.communicate(timeout=900)[0]
             if proc.returncode != 0:
                 raise RuntimeError(f"the {name} variant failed to build:\n{log[-2000:]}")
+            built.setdefault(name, []).append(path)
+        for name, paths in built.items():
+            so = paths[0]
+            if tma:
+                so = os.path.join(tmp, name.replace(" ", "_") + ".so")
+                link = subprocess.run([kernel_lib._nvcc(), "-shared", "-o", so, *paths],
+                                      capture_output=True, text=True, timeout=600)
+                if link.returncode != 0:
+                    raise RuntimeError(f"the {name} variant failed to link:\n{link.stderr[-2000:]}")
             lib = ctypes.CDLL(so)
             lib.dots_w8a16_matmul.argtypes = kernel_lib._SIGNATURES["dots_w8a16_matmul"]
             libs[name] = lib
@@ -566,24 +645,30 @@ def _w8a16_ablation(root: str, w8_mod, randn, cs) -> dict:
         num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
         out = {}
         for label, (k, n) in cs.W8A16_SHAPES.items():
-            nk = label == "lm_head"
-            qk = quantize_embedding(randn(n, k)) if nk else quantize_kernel(randn(k, n) * 0.02)
-            q, scale = qk["qint8"], qk["scale"]
+            q, scale, nk = _w8a16_inputs(label, k, n, randn)
             w_lib = q.to(torch.bfloat16)
             w_lib = w_lib.t() if nk else w_lib
-            for rows in (1, cs.MAX_SLOTS, cs.PREFILL_CHUNK):
-                if nk and rows > cs.MAX_SLOTS:
+            for rows in (1, cs.MAX_SLOTS, 3 * cs.MAX_SLOTS, cs.PREFILL_CHUNK):
+                if nk and rows > 3 * cs.MAX_SLOTS:
                     continue
                 x = randn(rows, k)
                 y = torch.empty(rows, n, dtype=torch.float32 if nk else torch.bfloat16, device=dev)
                 plan = w8_mod.w8a16_plan(rows, k, n, num_sms, nk)
+                launch = ((plan.rows_tile, plan.consumers, w8_mod.SPLITS.index(plan.split),
+                           plan.cluster) if tma else tuple(plan))
                 res = {}
                 for name, lib in libs.items():
                     def call(lib=lib):
                         kernel_lib.check(lib.dots_w8a16_matmul(
                             x.data_ptr(), q.data_ptr(), scale.data_ptr(), 0, y.data_ptr(), rows,
-                            k, n, int(nk), int(nk), 0, plan.rows_tile, plan.cluster,
+                            k, n, int(nk), int(nk), 0, *launch,
                             torch.cuda.current_stream().cuda_stream), f"w8a16 {name}")
+                    try:  # a refused launch is recorded, not timed
+                        call()
+                        torch.cuda.synchronize()
+                    except RuntimeError as exc:
+                        res[name] = f"failed: {exc}"
+                        continue
                     res[name] = graph_ms(call, cs)
                 res["cublas_bf16"] = graph_ms(lambda: x @ w_lib, cs)
                 out[f"{label} M={rows} ({plan.regime})"] = res
@@ -903,7 +988,7 @@ def main() -> int:
     for res in runs:
         sw = res["split_sweep"]
         for shape, rows in sw.get("w8a16", {}).items():
-            print(f"W8A16 sweep (row tile x cluster ranks, * planned), {res['tree']} worker, "
+            print(f"W8A16 sweep (launch choices, * planned), {res['tree']} worker, "
                   f"{shape}: " + ", ".join(
                       f"{key}{'*' if r['planned'] else ''} {r['graph_ms'] or float('nan'):.4f}"
                       for key, r in sorted(rows.items(), key=lambda kv: kv[1]["graph_ms"] or 1e9)))
@@ -913,7 +998,7 @@ def main() -> int:
                 for key, r in sw["draw"].items()))
         for shape, row in sw.get("w8a16_ablation", {}).items():
             print(f"W8A16 ablation (device ms), {res['tree']} worker, {shape}: " + ", ".join(
-                f"{key} {ms if ms is None else round(ms, 4)}" for key, ms in row.items()))
+                f"{key} {round(ms, 4) if isinstance(ms, float) else ms}" for key, ms in row.items()))
         if "prefill_chunk" in sw:
             chunk = sw["prefill_chunk"]
             print(f"prefill chunk, {_chip_smoke().PREFILL_CHUNK} tokens through the flagship "
@@ -922,8 +1007,10 @@ def main() -> int:
         if "decode_step" in sw:
             step = sw["decode_step"]
             print(f"decode step, 64 slots x 2048, int8 weights, bf16 KV, {res['tree']} worker: "
-                  f"graphed {step['graph_ms'] or float('nan'):.3f} ms, eager "
-                  f"{step['eager_ms']:.3f} ms")
+                  f"nq = 1 graphed {step['graph_ms'] or float('nan'):.3f} ms, eager "
+                  f"{step['eager_ms']:.3f} ms; k = 2 verify (nq = 3) graphed "
+                  f"{step['verify_graph_ms'] or float('nan'):.3f} ms, eager "
+                  f"{step['verify_eager_ms']:.3f} ms")
     for name, check in runs[-1].get("int4pack_check", {}).items():
         print(f"{name}: torch._weight_int4pack_mm vs cuBLAS on bf16-rounded scales: {check}")
     line = {"device": smi, "order": [r["tree"] for r in runs], "runs": runs}

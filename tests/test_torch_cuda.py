@@ -1056,13 +1056,14 @@ def w8a16_close(out, ref, transposed):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("label,rows", [(label, rows) for label in sorted(W8A16_SHAPES)
-                                        for rows in (1, 64, 192, 2048)
-                                        if label != "lm_head" or rows < 2048])
+                                        for rows in (1, 7, 8, 9, 63, 64, 65, 191, 192, 193,
+                                                     2048)])
 def test_w8a16_kernel_matches_plain_on_card(cuda, label, rows):
-    """The W8A16 kernel at the flagship's five shapes and the rows of a
-    decode step, a k = 2 verify and a prefill chunk (the lm_head without
-    the chunk: the prefill takes the last row's logits), in its regime, one
-    launch a call."""
+    """The W8A16 kernel at the flagship's five shapes (both layouts) and
+    the rows of a decode step of one slot and of 64, a k = 2 verify and a
+    prefill chunk, and rows on either side of them and of a multiple of 8
+    (the zero rows past M are never stored), in its regime, one launch a
+    call."""
     x, q, scale, bias, transposed = w8a16_inputs(label, rows, rows)
     regime = w8a16_plan(rows, x.shape[1], q.shape[0] if transposed else q.shape[1],
                         torch.cuda.get_device_properties(cuda).multi_processor_count,
@@ -1091,11 +1092,13 @@ def test_w8a16_ragged_rows_and_bias_types_on_card(cuda, rows, bias_dtype):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("label,rows", [("gate", 64), ("wk", 1), ("down", 192), ("wq", 2048),
-                                        ("lm_head", 64)])
+                                        ("lm_head", 64), ("gate", 192), ("wk", 2048),
+                                        ("down", 65), ("lm_head", 193)])
 def test_w8a16_kernel_repeats_bit_for_bit_and_captures_on_card(cuda, label, rows):
     """100 repeated calls equal the first bit for bit (the cluster ranks
-    add in rank order; no atomics), and the call captured in a CUDA graph
-    replays to the same output."""
+    add in rank order and a CTA's warpgroups in warpgroup order; no
+    atomics), and the call captured in a CUDA graph replays to the same
+    output: every launch shape the plan takes on the main path."""
     x, q, scale, bias, transposed = w8a16_inputs(label, rows, 11)
     first = w8a16_matmul(x, q, scale, bias, transposed=transposed)
     for _ in range(100):
@@ -1115,6 +1118,55 @@ def test_w8a16_kernel_repeats_bit_for_bit_and_captures_on_card(cuda, label, rows
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("label,rows", [("gate", 64), ("gate", 192), ("down", 9), ("wq", 2048),
+                                        ("down", 129)])
+def test_w8a16_every_launch_shape_matches_plain_on_card(cuda, label, rows):
+    """The kernel at launches the plan does not pick, through the wrapper's
+    launch: one warpgroup a CTA; two that split the contraction (up to 128
+    rows) or take 128 columns each (at the prefill tile); each over 1, 2, 3
+    and 8 cluster ranks; each within the tolerance and repeated bit for
+    bit."""
+    from dots_ocr_tpu_torch.ops import int8_matmul as w8
+
+    x, q, scale, bias, transposed = w8a16_inputs(label, rows, 5)
+    n = q.shape[1]
+    plan = w8a16_plan(rows, x.shape[1], n,
+                      torch.cuda.get_device_properties(cuda).multi_processor_count, transposed)
+    ref = w8a16_plain(x, q, scale, bias, transposed)
+    shapes = [(1, "columns")]
+    if plan.rows_tile <= w8.PREFILL_ROWS_TILE:  # the contraction split's largest tile
+        shapes.append((2, "contraction"))
+    if plan.rows_tile == w8.PREFILL_ROWS_TILE and n % 256 == 0:
+        shapes.append((2, "columns"))
+    for consumers, split in shapes:
+        for cluster in (1, 2, 3, 8):
+            variant = plan._replace(consumers=consumers, split=split, cluster=cluster)
+            outs = []
+            for _ in range(2):
+                out = torch.empty(rows, n, dtype=torch.bfloat16, device=cuda)
+                w8._launch(x, q, scale, bias, out, False, False, variant, cuda.index or 0)
+                outs.append(out)
+            w8a16_close(outs[0], ref, False)
+            assert torch.equal(outs[0], outs[1]), variant
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", sorted(W8A16_SHAPES))
+def test_w8a16_decode_rows_are_batch_invariant_on_card(cuda, label):
+    """A row's output is the same bit for bit in a call of any decode row
+    count (1 .. 192: the decode regime's launch depends on the weight's
+    shape alone), so a request's greedy tokens do not depend on whether a
+    step decodes or verifies, nor on the rows beside it."""
+    x, q, scale, bias, transposed = w8a16_inputs(label, 192, 13)
+    full = w8a16_matmul(x, q, scale, bias, transposed=transposed)
+    for rows in (1, 7, 9, 64, 65, 129):
+        for start in (0, 192 - rows):
+            part = w8a16_matmul(x[start:start + rows].contiguous(), q, scale, bias,
+                                transposed=transposed)
+            assert torch.equal(part, full[start:start + rows]), (rows, start)
+
+
+@pytest.mark.cuda
 def test_w8a16_wrapper_refuses_what_the_kernel_does_not_take(cuda):
     x, q, scale, bias, _ = w8a16_inputs("wk", 4, 3)
     with pytest.raises(ValueError, match="bfloat16"):
@@ -1129,6 +1181,18 @@ def test_w8a16_wrapper_refuses_what_the_kernel_does_not_take(cuda):
         w8a16_matmul(x, q.cpu(), scale)
     with pytest.raises(ValueError):
         w8a16_matmul(x, q, scale, bias.double())
+    # a launch the library does not build (a row tile it does not
+    # instantiate, two 128-column warpgroups below the prefill tile) is
+    # refused by the launch, not run
+    from dots_ocr_tpu_torch.ops import int8_matmul as w8
+
+    plan = w8a16_plan(4, x.shape[1], q.shape[1],
+                      torch.cuda.get_device_properties(cuda).multi_processor_count)
+    out = torch.empty(4, q.shape[1], dtype=torch.bfloat16, device=cuda)
+    for bad in (plan._replace(rows_tile=24), plan._replace(consumers=2, split="columns"),
+                plan._replace(cluster=9)):
+        with pytest.raises(RuntimeError, match="w8a16_matmul"):
+            w8._launch(x, q, scale, bias, out, False, False, bad, cuda.index or 0)
 
 
 @pytest.mark.cuda

@@ -10,8 +10,10 @@ package (``csrc/int8_matmul.cu`` runs on the card: ``test_torch_cuda.py``).
   linear equal to the last bit (the products are exact in float32 on both
   sides), the float32 logits within 1e-5 (their summation order).
 - ``w8a16_plan`` at every flagship shape and the 192 / 193 boundary: the
-  regime by rows, the row tile that holds the rows, clusters whose ranks
-  cover the contraction's units exactly, and enough CTAs to fill the card.
+  regime by rows, the row tile (wgmma's N) that holds the rows rounded up
+  to 8, the consumer warpgroups a CTA, clusters whose ranks cover the
+  contraction exactly in rank order, a grid whose tiles cover N and every
+  row, and enough CTAs to fill the card.
 - On the CPU ``linear`` and ``unembed`` never reach the kernel.
 
 Inputs come from numpy seeds and reach both frameworks as the same arrays.
@@ -129,87 +131,146 @@ def test_untied_int8_head_plain_within_1e5_of_jax():
     np.testing.assert_allclose(_np(ours), _np(ref), rtol=0, atol=1e-5)
 
 
+def _ranks(blocks, tiles):
+    """The cluster the plan's rule gives: the most ranks (at most
+    MAX_CLUSTER, at most one a 64-deep block) whose CTAs fit one wave of
+    one CTA an SM, at least one; then the fewest ranks with no longer share
+    of the blocks."""
+    most = max(1, min(w8.MAX_CLUSTER, blocks, SMS // tiles))
+    per = -(-blocks // most)
+    return -(-blocks // per)
+
+
 @pytest.mark.parametrize("rows", [1, 3, 16, 17, 32, 33, 64, 192, 193, 2048])
 @pytest.mark.parametrize("shape", sorted(FLAGSHIP))
 def test_w8a16_plan_at_flagship_shapes(shape, rows):
-    """The regime by rows alone (split up to 192, wgmma from 193, its
-    contraction over the fewest ranks that fill the card twice, balanced); the
-    smallest row tile that holds the rows, or a smaller one only where the
-    largest clusters over that tile's grid would leave half the SMs without
-    a CTA;
-    cluster ranks whose contiguous unit ranges cover the contraction
-    exactly, each a nonempty range; and as many units on the longest rank as
-    with the fewest ranks that give every SM CTAS_PER_SM CTAs (or the most
-    the cluster takes: at most MAX_CLUSTER, at most one a unit), on as few
-    ranks as that allows."""
+    """The regime by rows alone (decode up to 192, prefill from 193); the
+    decode tile the smallest instantiated one that holds every row (a
+    multiple of 8 at least the rows rounded up to 8), the prefill tile 128
+    rows. Decode: one warpgroup a CTA over the cluster the weight's shape
+    gives (the most ranks whose CTAs fit one wave, at least one,
+    balanced), the same at every decode row count. Prefill: for a [K, N]
+    weight with a long contraction (64 blocks or more) two warpgroups
+    splitting it over ranks of 64 blocks; else two of 128 columns where N
+    is a multiple of 256 over at most 4 ranks that fit one wave; else one.
+    The ranks' contraction ranges cover K exactly and in rank order."""
     k, n = FLAGSHIP[shape]
     nk = shape == "lm_head"
-    assert k % w8.K_MULTIPLE == 0 and n % w8.SPLIT_COLS == 0
+    assert k % w8.K_MULTIPLE == 0 and n % w8.COLS == 0
     plan = w8.w8a16_plan(rows, k, n, SMS, nk)
-    if rows > w8.SPLIT_ROWS:
-        assert plan.regime == "wgmma" and plan.rows_tile == 0
-        blocks = k // w8.K_MULTIPLE
-        wgmma_tiles = -(-rows // w8.WGMMA_ROWS) * (n // w8.SPLIT_COLS)
-        fewest = max(1, min(w8.MAX_CLUSTER, blocks,
-                            -(-w8.WGMMA_CTAS_PER_SM * SMS // wgmma_tiles)))
-        assert 1 <= plan.cluster <= fewest
-        assert -(-blocks // plan.cluster) == -(-blocks // fewest)
-        return
-    assert plan.regime == "split" and plan.rows_tile in w8.ROW_TILES
-    units = k // w8.SPLIT_UNIT[nk]
-    most = min(w8.MAX_CLUSTER, units)
-
-    def tiles(tile):
-        return -(-rows // tile) * (n // w8.SPLIT_COLS)
-
-    holds = next((t for t in w8.ROW_TILES if rows <= t), w8.ROW_TILES[-1])
-    assert plan.rows_tile <= holds
-    for larger in (t for t in w8.ROW_TILES if plan.rows_tile < t <= holds):
-        assert 2 * tiles(larger) * most < SMS
-    ranges = w8.unit_ranges(k, plan.cluster, nk)
-    assert ranges[0][0] == 0 and ranges[-1][1] == units
+    assert plan.rows_tile % 8 == 0
+    blocks = k // w8.K_BLOCK
+    if rows > w8.DECODE_ROWS:
+        assert plan.regime == "prefill" and plan.rows_tile == w8.PREFILL_ROWS_TILE
+        row_tiles = -(-rows // 128)
+        if nk:
+            expect = (1, "columns", _ranks(blocks, row_tiles * (n // 128)))
+        elif blocks >= 64:
+            expect = (2, "contraction", -(-blocks // -(-blocks // (blocks // 64))))
+        elif n % 256 == 0:
+            most = max(1, min(4, blocks, SMS // (row_tiles * (n // 256))))
+            expect = (2, "columns", -(-blocks // -(-blocks // most)))
+        else:
+            expect = (1, "columns", _ranks(blocks, row_tiles * (n // 128)))
+    else:
+        assert plan.regime == "decode" and plan.rows_tile >= -(-rows // 8) * 8
+        assert plan.rows_tile == min(t for t in w8.ROW_TILES if t >= rows)
+        expect = (1, "columns", _ranks(blocks, n // 128))
+        assert w8.w8a16_plan(1, k, n, SMS, nk)[2:] == plan[2:]  # the same at any decode rows
+    assert (plan.consumers, plan.split, plan.cluster) == expect
+    assert plan.cols_tile == (128 * plan.consumers if plan.split == "columns" else 128)
+    ranges = w8.contraction_ranges(k, plan.cluster)
+    assert ranges[0][0] == 0 and ranges[-1][1] == k
     assert all(a < b for a, b in ranges)
     assert all(prev[1] == nxt[0] for prev, nxt in zip(ranges, ranges[1:]))
-    assert 1 <= plan.cluster <= most
-    # The fewest ranks that give CTAS_PER_SM CTAs an SM (or the most the
-    # cluster takes), then the fewest ranks with no longer share of units.
-    target = w8.CTAS_PER_SM * SMS
-    fewest = max(1, min(most, -(-target // tiles(plan.rows_tile))))
-    longest = -(-units // fewest)
-    assert max(b - a for a, b in ranges) == longest
-    assert plan.cluster == 1 or -(-units // (plan.cluster - 1)) > longest
+    assert 1 <= plan.cluster <= min(w8.MAX_CLUSTER, blocks)
 
 
 def test_w8a16_plan_spreads_over_the_card_at_every_flagship_decode_shape():
     """At a one-slot and a 64-slot decode step and a k = 2 verify every
-    linear's grid has a CTA for at least half the 132 SMs: wq / wo and down
-    at 64 rows take 96 CTAs of 64 rows (12 column tiles x 8 ranks), which
-    the card runs faster than twice as many CTAs of 32 rows (kernel_ab.py's
-    sweep), and wk / wv takes 16-row tiles and 8 ranks of 3 units up to 64
-    rows (64 CTAs at 64 rows: 4 row tiles x 2 column tiles x 8 ranks), the
-    most the design gives it."""
+    linear reads its weight once (one row tile), no grid spills into a
+    second wave of one CTA an SM, and every shape but wk / wv (2 column
+    tiles) puts at least 70 CTAs on the card: gate/up its 70 column tiles on
+    one rank; wq / wo and down their 12 over 8 ranks (96 CTAs); the lm_head
+    1,187 tiles on one rank; each the same at every decode row count."""
     for shape, (k, n) in FLAGSHIP.items():
         for rows in (1, 64, 192):
             plan = w8.w8a16_plan(rows, k, n, SMS, shape == "lm_head")
-            ctas = plan.cluster * -(-rows // plan.rows_tile) * (n // w8.SPLIT_COLS)
-            if shape == "wk_wv" and rows <= 64:  # the most CTAs the design gives it
-                assert plan == w8.W8A16Plan(16, w8.MAX_CLUSTER)
-            else:
-                assert 2 * ctas >= SMS, (shape, rows, plan)
-    assert w8.w8a16_plan(64, 1536, 1536, SMS) == w8.W8A16Plan(64, 8)
-    assert w8.w8a16_plan(64, 8960, 1536, SMS) == w8.W8A16Plan(64, 8)
-    assert w8.w8a16_plan(64, 1536, 256, SMS) == w8.W8A16Plan(16, 8)
-    assert w8.w8a16_plan(64, 1536, 151936, SMS, True) == w8.W8A16Plan(64, 1)
+            ranks, cols, row_tiles = w8.launch_grid(plan, rows, n)
+            assert row_tiles == 1 and plan.consumers == 1
+            assert ranks * cols <= SMS or ranks == 1, (shape, rows, plan)
+            if shape != "wk_wv":
+                assert ranks * cols >= 70, (shape, rows, plan)
+    assert w8.w8a16_plan(64, 1536, 8960, SMS) == w8.W8A16Plan("decode", 64, 1, "columns", 1)
+    assert w8.w8a16_plan(192, 1536, 8960, SMS) == w8.W8A16Plan("decode", 192, 1, "columns", 1)
+    assert w8.w8a16_plan(64, 1536, 1536, SMS) == w8.W8A16Plan("decode", 64, 1, "columns", 8)
+    assert w8.w8a16_plan(64, 8960, 1536, SMS) == w8.W8A16Plan("decode", 64, 1, "columns", 8)
+    assert w8.w8a16_plan(192, 8960, 1536, SMS) == w8.W8A16Plan("decode", 192, 1, "columns", 8)
+    assert w8.w8a16_plan(1, 1536, 151936, SMS, True) == w8.W8A16Plan("decode", 8, 1, "columns", 1)
+    assert w8.w8a16_plan(192, 1536, 151936, SMS, True) == w8.W8A16Plan("decode", 192, 1, "columns",
+                                                                        1)
 
 
 def test_w8a16_plan_splits_the_wgmma_regime_only_where_tiles_are_few():
-    """A 2,048-row prefill chunk: gate/up (70 x 16 tiles) takes one rank;
-    wq/wo and down (12 x 16 = 192 tiles, one CTA an SM) two; wk/wv (2 x 16)
-    six ranks of 2 of its 12 blocks; the lm_head's 1,187 column tiles one."""
-    plans = {shape: w8.w8a16_plan(2048, k, n, SMS, shape == "lm_head").cluster
+    """A 2,048-row prefill chunk (16 row tiles of 128): gate/up (35 x 16
+    tiles of 256 columns) and wq/wo (6 x 16) take one rank; wk/wv (1 x 16
+    tiles of 256 columns) four ranks of 6 of its 24 blocks; down (140
+    blocks) two warpgroups splitting the contraction over two ranks of 70;
+    the lm_head's 1,187 x 16 tiles of 128 columns one."""
+    plans = {shape: w8.w8a16_plan(2048, k, n, SMS, shape == "lm_head")
              for shape, (k, n) in FLAGSHIP.items()}
-    assert plans == {"wq_wo": 2, "wk_wv": 6, "gate_up": 1, "down": 2, "lm_head": 1}
-    assert w8.w8a16_plan(193, 8960, 1536, SMS) == w8.W8A16Plan(0, 8)
+    assert {shape: (p.consumers, p.split, p.cluster) for shape, p in plans.items()} == {
+        "wq_wo": (2, "columns", 1), "wk_wv": (2, "columns", 4), "gate_up": (2, "columns", 1),
+        "down": (2, "contraction", 2), "lm_head": (1, "columns", 1)}
+    assert all(p.regime == "prefill" and p.rows_tile == 128 for p in plans.values())
+    assert w8.w8a16_plan(193, 8960, 1536, SMS) == w8.W8A16Plan("prefill", 128, 2, "contraction", 2)
+
+
+@pytest.mark.parametrize("rows", [1, 7, 8, 9, 63, 64, 65, 191, 192, 193, 2048])
+def test_w8a16_rows_round_up_to_a_wgmma_width(rows):
+    """The rows of x a CTA (wgmma's N) are a multiple of 8 at least the rows
+    rounded up to 8 and at most 256 (wgmma's widest N): rows past M arrive
+    as zeros and are never stored; up to 192 rows one tile holds them all,
+    so the weight is read once."""
+    for shape, (k, n) in FLAGSHIP.items():
+        plan = w8.w8a16_plan(rows, k, n, SMS, shape == "lm_head")
+        assert plan.rows_tile % 8 == 0 and 8 <= plan.rows_tile <= 256
+        assert plan.rows_tile * w8.launch_grid(plan, rows, n)[2] >= -(-rows // 8) * 8
+        if rows <= w8.DECODE_ROWS:
+            assert plan.rows_tile >= -(-rows // 8) * 8 and w8.launch_grid(plan, rows, n)[2] == 1
+            assert plan.rows_tile < 2 * -(-rows // 8) * 8 or plan.rows_tile == 8
+
+
+@pytest.mark.parametrize("in_dim", [128, 192 * 8, 8960, 1536 + 128])
+@pytest.mark.parametrize("cluster", [1, 2, 3, 5, 8])
+def test_w8a16_contraction_ranges_cover_k_in_rank_order(in_dim, cluster):
+    """The ranks' contraction rows, as the kernel takes them (rank r: blocks
+    [r B / C, (r + 1) B / C) of B = K / 64): contiguous and ascending in rank
+    order, whole 64-deep blocks, each rank's share within one block of the
+    others', together exactly [0, K)."""
+    blocks = in_dim // w8.K_BLOCK
+    if cluster > blocks:
+        return
+    ranges = w8.contraction_ranges(in_dim, cluster)
+    assert len(ranges) == cluster
+    covered = [k for a, b in ranges for k in range(a, b)]
+    assert covered == list(range(in_dim))
+    assert all(a % w8.K_BLOCK == 0 and b % w8.K_BLOCK == 0 and b > a for a, b in ranges)
+    sizes = [b - a for a, b in ranges]
+    assert max(sizes) - min(sizes) <= w8.K_BLOCK
+
+
+@pytest.mark.parametrize("rows", [1, 64, 192, 2048])
+def test_w8a16_grid_covers_every_column_and_row(rows):
+    """The launch grid's column tiles cover N exactly (no ragged tile: N a
+    multiple of the CTA's 128 or 256 columns) and its row tiles every row;
+    each dimension fits the launch limits."""
+    for shape, (k, n) in FLAGSHIP.items():
+        plan = w8.w8a16_plan(rows, k, n, SMS, shape == "lm_head")
+        ranks, cols, row_tiles = w8.launch_grid(plan, rows, n)
+        assert cols * plan.cols_tile == n and n % plan.cols_tile == 0
+        assert (row_tiles - 1) * plan.rows_tile < rows <= row_tiles * plan.rows_tile
+        assert ranks == plan.cluster and max(cols, row_tiles) <= 65535
 
 
 def test_linear_and_unembed_on_cpu_never_reach_the_kernel(monkeypatch):
@@ -221,10 +282,10 @@ def test_linear_and_unembed_on_cpu_never_reach_the_kernel(monkeypatch):
     x = torch.from_numpy(rng.randn(5, 128).astype(np.float32)).to(torch.bfloat16)
     qk = tquant.quantize_kernel(torch.from_numpy(rng.randn(128, 256).astype(np.float32)))
     qe = tquant.quantize_embedding(torch.from_numpy(rng.randn(384, 128).astype(np.float32)))
-    counts = (w8.w8a16_matmul.launches, w8.w8a16_matmul.split_launches,
-              w8.w8a16_matmul.wgmma_launches)
+    counts = (w8.w8a16_matmul.launches, w8.w8a16_matmul.decode_launches,
+              w8.w8a16_matmul.prefill_launches)
     assert tlayers.linear(x, qk, torch.ones(256)).shape == (5, 256)
     assert tlayers.unembed(x, qe).shape == (5, 384)
     assert w8.w8a16_matmul(x, qk["qint8"], qk["scale"], out_f32=True).dtype == torch.float32
-    assert counts == (w8.w8a16_matmul.launches, w8.w8a16_matmul.split_launches,
-                      w8.w8a16_matmul.wgmma_launches)
+    assert counts == (w8.w8a16_matmul.launches, w8.w8a16_matmul.decode_launches,
+                      w8.w8a16_matmul.prefill_launches)
