@@ -144,7 +144,23 @@ Phases, each fatal on failure (exit code != 0, no result line):
    ``dots_ocr_engine_warm_pending`` reaches 0; (d) ``--compile-cache``: a
    fresh process builds into an empty cache directory, a second one loads
    from it with no nvcc on its PATH, and phase 11's server left the library
-   in shipping.env's COMPILE_CACHE.
+   in shipping.env's COMPILE_CACHE;
+18. training (no kernel: the JAX loss's dense-attention path under
+   autograd): (a) ``python -m dots_ocr_tpu_torch.train.cli`` on the
+   flagship at full width and depth, text-only synthetic batches of 2 x
+   2,048 tokens, --remat, 5 steps: every loss and grad_norm finite; ms a
+   step (steps 2-5), tokens/s and peak memory printed; (b) in this process,
+   10 ``train_step``s on one fixed batch with 256 image tokens a row (1,024
+   patches a row, 2,048 packed), remat, lr 1e-4: every vision and decoder
+   leaf gets a nonzero gradient, the loss falls by 1.0 or more, no kernel
+   launches; ms a step and peak memory printed; (c) in a subprocess with
+   deterministic algorithms on, the full width cut to 2 vision and 2
+   decoder layers, float32 with TF32 off, one 256-token row with 64 image
+   tokens: one ``train_step`` on the card against the port on the CPU
+   (loss and grad_norm within 1e-4 relative, the updated parameters as
+   ``TRAIN_OUTLIER_SHARE`` says), then ``save_checkpoint`` on the card,
+   ``restore_checkpoint`` and one more step, bit-equal to the step taken
+   without the round trip.
 
 On the card every decode and verify chunk of every serving phase is a CUDA
 graph replay (``engine/graphs.py``): each phase requires as many replays as
@@ -173,6 +189,7 @@ from __future__ import annotations
 import asyncio
 import contextlib
 import json
+import math
 import os
 import socket
 import statistics
@@ -331,7 +348,7 @@ T_START = time.perf_counter()
 
 
 def log(msg: str = "") -> None:
-    if msg.startswith("[") and "/17]" in msg[:8]:  # a phase's heading
+    if msg.startswith("[") and "/18]" in msg[:8]:  # a phase's heading
         msg += f" (at {time.perf_counter() - T_START:.1f} s)"
     print(msg, flush=True)
 
@@ -1879,7 +1896,7 @@ def logit_options_probe(post, metrics, first) -> None:
     """Phase 14, on the server of deploy/shipping.env as written after phase
     13's pipelined wave (which must have pipelined): logprobs, logit_bias,
     penalties and seed over HTTP, each request alone on the engine."""
-    log("[14/17] the logit options over HTTP on the shipping.env server")
+    log("[14/18] the logit options over HTTP on the shipping.env server")
     text = chat_requests()[2][1]
 
     def ask(max_tokens, **options):
@@ -2815,6 +2832,267 @@ def compile_cache_phase(env) -> dict:
     return runs
 
 
+# Phase 18: training. (a) the trainer's CLI at the flagship's full width and
+# depth, text-only synthetic batches (TRAIN_CLI_STEPS steps of
+# TRAIN_BATCH x TRAIN_SEQ tokens, --remat); (b) in this process,
+# TRAIN_STEPS steps on one fixed batch with TRAIN_VISION_TOKENS image tokens
+# a row at lr TRAIN_LR: the loss must fall by TRAIN_LOSS_DROP or more (a
+# random model memorizing 4,096 tokens: each Adam step moves an embedding
+# row by ~lr per element along its positions' hidden states, ~1 logit a
+# step); (c) consistency at full width, TRAIN_CONSISTENCY_LAYERS vision and
+# decoder layers, float32 with TF32 off: one train_step on the card against
+# the port on the CPU, then a checkpoint round trip on the card whose next
+# step must equal, bit for bit, the step taken without it (deterministic
+# algorithms on, in a subprocess that sets CUBLAS_WORKSPACE_CONFIG first).
+TRAIN_CLI_STEPS, TRAIN_BATCH, TRAIN_SEQ = 5, 2, 2048
+TRAIN_STEPS, TRAIN_VISION_TOKENS, TRAIN_LR, TRAIN_LOSS_DROP = 10, 256, 1e-4, 1.0
+TRAIN_CONSISTENCY_LAYERS, TRAIN_CONSISTENCY_SEQ, TRAIN_CONSISTENCY_VISION = 2, 256, 64
+# (c)'s tolerances, card float32 against CPU float32 (the same products
+# summed in other orders): loss and grad_norm 1e-4 relative. The updated
+# parameters: a first Adam step moves an element by lr * g / (|g| + 1e-8),
+# about +-lr, so an element whose gradient is rounding noise on either side
+# (the key biases, whose exact gradient is 0: the softmax cancels a shift
+# shared by all keys) may move by 2 lr apart; every element within
+# 2 lr + 1e-5 |p|, and outside the key biases all but TRAIN_OUTLIER_SHARE of
+# the elements within 1e-2 lr + 1e-5 |p|.
+TRAIN_REL_TOL, TRAIN_OUTLIER_SHARE = 1e-4, 1e-5
+TRAIN_STEP_LINE = ("step=(\\d+) loss=(\\S+) acc=(\\S+) grad_norm=(\\S+) ms_per_step=(\\S+) "
+                   "tokens_per_s=(\\S+)")
+
+
+def train_cli_phase(smi: str) -> dict:
+    """Phase 18 (a): ``python -m dots_ocr_tpu_torch.train.cli`` at the
+    flagship's full width and depth, text-only synthetic batches, remat."""
+    import re
+
+    argv = ["--synthetic", str(TRAIN_CLI_STEPS), "--size", "flagship", "--steps",
+            str(TRAIN_CLI_STEPS), "--batch-size", str(TRAIN_BATCH), "--seq-len", str(TRAIN_SEQ),
+            "--remat", "--device", "cuda", "--log-every", "1"]
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dots_ocr_tpu_torch.train.cli", *argv],
+                          cwd=REPO, capture_output=True, text=True, timeout=900)
+    wall = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 18: the trainer's CLI exited {proc.returncode}:\n"
+                             f"{proc.stderr[-3000:]}")
+    steps = [m.groups() for m in re.finditer(TRAIN_STEP_LINE, proc.stderr)]
+    peak = re.search(r"peak_memory_allocated=(\d+)", proc.stderr)
+    if [int(s[0]) for s in steps] != list(range(1, TRAIN_CLI_STEPS + 1)) or peak is None:
+        raise AssertionError(f"phase 18: the CLI logged steps {[s[0] for s in steps]}:\n"
+                             f"{proc.stderr[-3000:]}")
+    losses = [float(s[1]) for s in steps]
+    norms = [float(s[3]) for s in steps]
+    if not all(math.isfinite(x) for x in losses + norms):
+        raise AssertionError(f"phase 18: non-finite loss or grad_norm: {losses}, {norms}")
+    ms = [float(s[4]) for s in steps[1:]]
+    tps = [float(s[5]) for s in steps[1:]]
+    out = {"steps": TRAIN_CLI_STEPS, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ, "remat": True,
+           "loss": losses, "grad_norm": norms, "ms_per_step": ms,
+           "ms_per_step_median": statistics.median(ms), "tokens_per_s_median":
+           statistics.median(tps), "peak_memory_bytes": int(peak.group(1)), "wall_s": wall,
+           "device": smi}
+    log(f"  (a) train.cli --size flagship --batch-size {TRAIN_BATCH} --seq-len {TRAIN_SEQ} "
+        f"--remat: losses {['%.4f' % x for x in losses]}, grad_norm "
+        f"{['%.3f' % x for x in norms]}; steps 2-{TRAIN_CLI_STEPS}: "
+        f"{', '.join('%.1f' % x for x in ms)} ms a step (median {out['ms_per_step_median']:.1f}),"
+        f" {out['tokens_per_s_median']:.0f} tokens/s; peak memory "
+        f"{out['peak_memory_bytes'] / 2**30:.2f} GiB; {wall:.1f} s wall; {smi}")
+    return out
+
+
+def train_vision_phase(dev, smi: str) -> dict:
+    """Phase 18 (b): TRAIN_STEPS train_steps with vision at the flagship's
+    full width and depth (bf16, remat) on one fixed batch; every leaf's
+    gradient nonzero, the loss falling by TRAIN_LOSS_DROP, no kernel
+    launched (training runs the JAX loss's "xla" path)."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.train.train_step import (
+        init_train_state,
+        loss_fn,
+        make_dummy_batch,
+        make_optimizer,
+        train_step,
+        tree_from_items,
+        tree_items,
+    )
+
+    cfg = DotsOCRConfig.flagship()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = init_params(cfg, dev, torch.Generator(device=dev).manual_seed(0))
+    batch = make_dummy_batch(cfg, batch_size=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+                             vision_tokens=TRAIN_VISION_TOKENS, seed=0, device=dev)
+    patches = batch.patches.shape[0]
+    reset_counts()
+    items = tree_items(params)
+    leaves = [p.detach().requires_grad_(True) for _, p in items]
+    loss, _ = loss_fn(tree_from_items(zip((n for n, _ in items), leaves)), cfg, batch, True)
+    grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+    zero = [name for (name, _), g in zip(items, grads)
+            if g is None or not bool(g.abs().amax() > 0)]
+    del loss, grads, leaves
+    if zero:
+        raise AssertionError(f"phase 18: leaves without a gradient: {zero}")
+    optimizer = make_optimizer(learning_rate=TRAIN_LR)
+    state = init_train_state(params, optimizer)
+    losses, ms = [], []
+    for _ in range(TRAIN_STEPS):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        state, metrics = train_step(state, batch, cfg, optimizer, remat=True)
+        losses.append(float(metrics["loss"]))  # waits for the step
+        ms.append((time.perf_counter() - t0) * 1e3)
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated(dev)
+    launched = {k: v for k, v in counts.items() if v}
+    if launched:
+        raise AssertionError(f"phase 18: kernels launched on the training path: {launched}")
+    if not all(math.isfinite(x) for x in losses) or losses[-1] > losses[0] - TRAIN_LOSS_DROP:
+        raise AssertionError(f"phase 18: the loss on a fixed batch went {losses} (must fall by "
+                             f">= {TRAIN_LOSS_DROP})")
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    out = {"steps": TRAIN_STEPS, "batch": TRAIN_BATCH, "seq_len": TRAIN_SEQ,
+           "vision_tokens_per_row": TRAIN_VISION_TOKENS, "patches": patches, "lr": TRAIN_LR,
+           "loss": losses, "ms_per_step": ms, "ms_per_step_median": statistics.median(ms[1:]),
+           "tokens_per_s_median": tokens / statistics.median(ms[1:]) * 1e3,
+           "peak_memory_bytes": peak, "leaves_with_gradient": len(items), "device": smi}
+    log(f"  (b) {TRAIN_STEPS} train_steps, flagship bf16 with vision ({TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens, {TRAIN_VISION_TOKENS} image tokens a row, {patches} patches "
+        f"packed), remat, lr {TRAIN_LR:g}: loss {losses[0]:.4f} -> {losses[-1]:.4f}; all "
+        f"{len(items)} leaves with a nonzero gradient; steps 2-{TRAIN_STEPS} median "
+        f"{out['ms_per_step_median']:.1f} ms a step, {out['tokens_per_s_median']:.0f} tokens/s;"
+        f" peak memory {peak / 2**30:.2f} GiB; kernels launched: none; {smi}")
+    del state, params, batch
+    release()
+    return out
+
+
+def _copy_tree(tree: dict, device) -> dict:
+    return {k: _copy_tree(v, device) if isinstance(v, dict) else v.to(device, copy=True)
+            for k, v in tree.items()}
+
+
+def train_consistency(workdir: str, device: str = "cuda") -> dict:
+    """Phase 18 (c), run in a subprocess with deterministic algorithms on:
+    the full-width model cut to TRAIN_CONSISTENCY_LAYERS vision and decoder
+    layers, float32, TF32 off; one train_step on the card and on the CPU
+    from the same weights and batch; then save_checkpoint on the card,
+    restore_checkpoint, and one more step, which must equal bit for bit the
+    step taken from the state kept in memory. Returns the numbers."""
+    import dataclasses
+
+    import torch
+
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from dots_ocr_tpu_torch.train.train_step import (
+        AdamState,
+        TrainState,
+        init_train_state,
+        make_dummy_batch,
+        make_optimizer,
+        train_step,
+        tree_items,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    # Deterministic implementations wherever torch has one (an op without
+    # one warns; the bit-equality below is the check).
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    dev, cpu = torch.device(device), torch.device("cpu")
+    flagship = DotsOCRConfig.flagship()
+    cfg = flagship.replace(
+        vision=dataclasses.replace(flagship.vision, num_layers=TRAIN_CONSISTENCY_LAYERS),
+        decoder=dataclasses.replace(flagship.decoder, num_layers=TRAIN_CONSISTENCY_LAYERS),
+        dtype="float32")
+    host = init_params(cfg, cpu, torch.Generator(device=cpu).manual_seed(0))
+    optimizer = make_optimizer(learning_rate=TRAIN_LR)
+    batches = [make_dummy_batch(cfg, batch_size=1, seq_len=TRAIN_CONSISTENCY_SEQ,
+                                vision_tokens=TRAIN_CONSISTENCY_VISION, seed=seed, device=d)
+               for seed, d in ((0, cpu), (0, dev), (1, dev))]
+    t0 = time.perf_counter()
+    card, m_card = train_step(init_train_state(_copy_tree(host, dev), optimizer), batches[1],
+                              cfg, optimizer)
+    _sync(dev)
+    card_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref, m_ref = train_step(init_train_state(host, optimizer), batches[0], cfg, optimizer)
+    cpu_s = time.perf_counter() - t0
+    rel = {k: abs(float(m_card[k]) - float(m_ref[k])) / abs(float(m_ref[k]))
+           for k in ("loss", "grad_norm")}
+    worst, outliers, elements = 0.0, 0, 0
+    for (name, a), (_, b) in zip(tree_items(card.params), tree_items(ref.params)):
+        diff = (a.cpu() - b).abs()
+        slack = 1e-5 * b.abs()
+        worst = max(worst, float(((diff - slack) / TRAIN_LR).max()))
+        if not name.endswith("attn.bk"):
+            outliers += int((diff > 1e-2 * TRAIN_LR + slack).sum())
+            elements += diff.numel()
+    ok_cpu = (all(v <= TRAIN_REL_TOL for v in rel.values()) and worst <= 2.0
+              and outliers <= TRAIN_OUTLIER_SHARE * elements)
+
+    ckpt = os.path.join(workdir, "ckpt")
+    kept = TrainState(_copy_tree(card.params, dev),
+                      AdamState(card.opt_state.count.clone(), _copy_tree(card.opt_state.mu, dev),
+                                _copy_tree(card.opt_state.nu, dev)), card.step.clone())
+    t0 = time.perf_counter()
+    save_checkpoint(ckpt, card, cfg)
+    restored, cfg2 = restore_checkpoint(ckpt, dev)
+    ckpt_s = time.perf_counter() - t0
+    ahead, m_ahead = train_step(kept, batches[2], cfg, optimizer)
+    resumed, m_resumed = train_step(restored, batches[2], cfg, optimizer)
+
+    def leaves(state):
+        return [t for tree in (state.params, state.opt_state.mu, state.opt_state.nu)
+                for _, t in tree_items(tree)]
+
+    same = (cfg2 == cfg and int(resumed.step) == 2
+            and all(torch.equal(m_ahead[k], m_resumed[k]) for k in ("loss", "grad_norm"))
+            and all(torch.equal(a, b) for a, b in zip(leaves(ahead), leaves(resumed))))
+    return {"loss": [float(m_card["loss"]), float(m_ref["loss"])],
+            "grad_norm": [float(m_card["grad_norm"]), float(m_ref["grad_norm"])],
+            "rel_err": rel, "param_worst_over_lr": worst, "param_outliers": outliers,
+            "param_elements": elements, "cpu_ok": ok_cpu, "checkpoint_bit_equal": same,
+            "checkpoint_bytes": sum(os.path.getsize(os.path.join(r, f))
+                                    for r, _, fs in os.walk(ckpt) for f in fs),
+            "card_step_s": card_s, "cpu_step_s": cpu_s, "checkpoint_s": ckpt_s}
+
+
+def train_consistency_phase(smi: str) -> dict:
+    """Phase 18 (c): :func:`train_consistency` in a subprocess (cuBLAS's
+    deterministic workspace is set before it starts)."""
+    with tempfile.TemporaryDirectory(prefix="dots_train_") as workdir:
+        code = ("import json, sys; sys.path.insert(0, {repo!r}); import chip_smoke; "
+                "print(json.dumps(chip_smoke.train_consistency({workdir!r})))").format(
+                    repo=REPO, workdir=workdir)
+        env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+        proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                              capture_output=True, text=True, timeout=900)
+    if proc.returncode != 0:
+        raise AssertionError(f"phase 18 (c) exited {proc.returncode}:\n{proc.stderr[-3000:]}")
+    out = json.loads(proc.stdout.strip().splitlines()[-1])
+    out["device"] = smi
+    log(f"  (c) full width, {TRAIN_CONSISTENCY_LAYERS} + {TRAIN_CONSISTENCY_LAYERS} layers, "
+        f"float32, TF32 off, 1 x {TRAIN_CONSISTENCY_SEQ} tokens, {TRAIN_CONSISTENCY_VISION} "
+        f"image tokens: card vs CPU loss {out['loss'][0]:.6f} / {out['loss'][1]:.6f}, "
+        f"grad_norm {out['grad_norm'][0]:.6f} / {out['grad_norm'][1]:.6f} (rel "
+        f"{out['rel_err']['loss']:.2e} / {out['rel_err']['grad_norm']:.2e}, tol "
+        f"{TRAIN_REL_TOL:g}); updated params: worst {out['param_worst_over_lr']:.3f} lr past "
+        f"1e-5 |p| (tol 2), {out['param_outliers']} of {out['param_elements']} elements past "
+        f"1e-2 lr outside the key biases (tol {TRAIN_OUTLIER_SHARE:g} of them); step "
+        f"{out['card_step_s'] * 1e3:.0f} ms card, {out['cpu_step_s']:.1f} s CPU; checkpoint "
+        f"({out['checkpoint_bytes'] / 1e9:.2f} GB) saved and restored in "
+        f"{out['checkpoint_s']:.1f} s, next step bit-equal to the one without the round trip: "
+        f"{out['checkpoint_bit_equal']}; {smi}")
+    if not out["cpu_ok"] or not out["checkpoint_bit_equal"]:
+        raise AssertionError(f"phase 18 (c) failed: {out}")
+    return out
+
+
 def shipping_env() -> dict:
     """deploy/shipping.env's KEY=VALUE lines (comments and blanks skipped)."""
     env = {}
@@ -2844,7 +3122,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    log("[1/17] device")
+    log("[1/18] device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -2853,7 +3131,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {smi}")
 
-    log("[2/17] build the CUDA kernels")
+    log("[2/18] build the CUDA kernels")
     from dots_ocr_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
@@ -2863,7 +3141,7 @@ def main() -> int:
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3/17] kernels vs plain versions on {smi}")
+    log(f"[3/18] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
     kernels.update(w8a16_cases(dev))
     kernels.update(draw_cases(dev))
@@ -2871,7 +3149,7 @@ def main() -> int:
     tiny_call = tiny_call_phase(dev)
     w8a8_vision = w8a8_vision_phase(dev)
 
-    log(f"[4/17] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
+    log(f"[4/18] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
         f"{PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     shipped_replies = []
     engine, shipped, metrics, page = serve_phase(
@@ -2886,12 +3164,12 @@ def main() -> int:
         raise AssertionError(f"shipped path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[5/17] consistency, shipped path: kernel path vs plain path, page request")
+    log("[5/18] consistency, shipped path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev)
     del engine
     release()
 
-    log(f"[6/17] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
+    log(f"[6/18] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
         f"chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, full_quant, metrics, page = serve_phase(
         dev, FULL_QUANT_FLAGS, "int4", waves=FULL_QUANT_WAVES,
@@ -2906,24 +3184,24 @@ def main() -> int:
         raise AssertionError(f"int4 path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[7/17] consistency, fully quantized path: kernel path vs plain path, page request")
+    log("[7/18] consistency, fully quantized path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev, w8a8_vision=True)
     del engine
     release()
 
-    log(f"[8/17] end to end, bf16 path (bf16 weights and KV, no speculation, one "
+    log(f"[8/18] end to end, bf16 path (bf16 weights and KV, no speculation, one "
         f"{PREFILL_LIMIT}-token prefill), full depth, on {smi}")
     engine, bf16_path, _, page = serve_phase(
         dev, BF16_FLAGS, "bf16", required=("flash_attention", "paged_attention_multiquery"))
     log("  consistency, bf16 path: kernel path vs plain path, page request")
     consistency_phase(engine, page, dev)
 
-    log(f"[9/17] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
+    log(f"[9/18] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
     decode_ms, decode_launches = decode_cost_phase(engine, dev)
     del engine
     release()
 
-    log(f"[10/17] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
+    log(f"[10/18] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
         f"speculation, chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, windowed, metrics, page = serve_phase(
         dev, WINDOWED_FLAGS, "windowed",
@@ -2939,7 +3217,7 @@ def main() -> int:
     env = shipping_env()
     env_flags = [item for key, flag in SHIPPING_KEYS.items() for item in (flag, env[key])]
     settings = ", ".join(f"{key}={env[key]}" for key in SHIPPING_KEYS)
-    log(f"[11/17] end to end, deploy/shipping.env as written ({settings}): flagship, random "
+    log(f"[11/18] end to end, deploy/shipping.env as written ({settings}): flagship, random "
         f"weights, waves (temperature, max_tokens) {SHIPPING_WAVES}, OpenAIServer on {smi}")
     engine, shipping, metrics, page = serve_phase(
         dev, [], "shipping.env", base_flags=env_flags, waves=SHIPPING_WAVES,
@@ -2965,11 +3243,11 @@ def main() -> int:
     del engine
     release()
 
-    log(f"[12/17] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
+    log(f"[12/18] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
         f"weights, OpenAIServer on {smi}")
     dry_launches, dry_metrics = dry_pool_phase(dev, shipped_replies[1])
 
-    log(f"[13/17] pipelined decode A/B at full width: deploy/shipping.env's geometry with "
+    log(f"[13/18] pipelined decode A/B at full width: deploy/shipping.env's geometry with "
         f"--speculate-k 0, {PIPELINE_TOKENS} tokens a request, on {smi}")
     pipeline_ab = pipeline_ab_phase(dev, env_flags)
     log(f"  [13] deploy/shipping.env as written (k = 2) with the defaults, {PIPELINE_TOKENS} "
@@ -2983,14 +3261,14 @@ def main() -> int:
     release()
 
     with tempfile.TemporaryDirectory(prefix="dots_parse_") as workdir:
-        log(f"[15/17] the loader, the batch engine and the parser's local mode: a synthetic "
+        log(f"[15/18] the loader, the batch engine and the parser's local mode: a synthetic "
             f"flagship checkpoint, a seeded 2-page PDF parse on {smi}")
         ckpt, local_launches, local_numbers = local_parse_phase(dev, workdir)
-        log(f"[16/17] the parser's server mode: deploy/shipping.env's flags + --weights, the "
+        log(f"[16/18] the parser's server mode: deploy/shipping.env's flags + --weights, the "
             f"CLI with --seed on a PDF and a PNG, on {smi}")
         served_launches, served_numbers = server_parse_phase(dev, ckpt, workdir, env_flags)
 
-    log(f"[17/17] CUDA graphs and the warmup flags: deploy/shipping.env's engine graphed "
+    log(f"[17/18] CUDA graphs and the warmup flags: deploy/shipping.env's engine graphed "
         f"against eager, --warmup full, phase 9's step as one chunk, --warmup background and "
         f"--compile-cache, on {smi}")
     engine, graph_numbers = graph_tokens_phase(dev, env_flags)
@@ -2999,6 +3277,12 @@ def main() -> int:
     release()
     graph_numbers["background"] = background_warmup_phase(dev, env_flags)
     graph_numbers["compile_cache"] = compile_cache_phase(env)
+
+    log(f"[18/18] training: the trainer's CLI at the flagship's full width and depth, "
+        f"{TRAIN_STEPS} steps with vision in process, card vs CPU and a checkpoint round trip, "
+        f"on {smi}")
+    training = {"cli": train_cli_phase(smi), "vision": train_vision_phase(dev, smi),
+                "consistency": train_consistency_phase(smi)}
 
     sources = {
         "gumbel_argmax": ("dots_ocr_tpu_torch/csrc/threefry_sample.cu",
@@ -3053,7 +3337,7 @@ def main() -> int:
                             "local parse": local_launches, "served parse": served_launches},
         "local_parse": local_numbers, "served_parse": served_numbers,
         "pipeline_ab": pipeline_ab, "graphs": graph_numbers,
-        "dry_pool_preemptions": dry_metrics["preemptions"],
+        "dry_pool_preemptions": dry_metrics["preemptions"], "training": training,
         "decode_step_ms": decode_ms, "w8a8_vision_linear_ms": w8a8_vision,
         "tiny_call_ms": tiny_call}
     log(f"all phases passed in {time.perf_counter() - t_start:.1f} s")

@@ -15,6 +15,7 @@ from __future__ import annotations
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from dots_ocr_tpu_torch.engine.kv_cache import PagedKV, write_kv_rows
 from dots_ocr_tpu_torch.models.config import DecoderConfig
@@ -26,6 +27,7 @@ from dots_ocr_tpu_torch.models.layers import (
     rms_norm,
     swiglu,
     unembed,
+    unstack_layers,
 )
 from dots_ocr_tpu_torch.models.rope import apply_rope, rope_table
 from dots_ocr_tpu_torch.ops import flash_attention, paged_attention
@@ -120,11 +122,14 @@ def decoder_prefill(
     positions: torch.Tensor,
     seq_lens: torch.Tensor,
     attn_impl: str = "kernel",
+    remat: bool = False,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Full-sequence forward. inputs_embeds [B, T, D]; positions [B, T];
     seq_lens [B]. Attention is causal flash attention with padding as
-    segment -1. Returns (hidden [B, T, D], KVCache with k/v
-    [L, B, T, KV, hd])."""
+    segment -1. ``remat`` recomputes each layer in the backward pass
+    (``torch.utils.checkpoint``, as the JAX package wraps its layer in
+    ``jax.checkpoint``): activation memory traded for a second forward.
+    Returns (hidden [B, T, D], KVCache with k/v [L, B, T, KV, hd])."""
     t = inputs_embeds.shape[1]
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     segment_ids = torch.where(
@@ -133,9 +138,12 @@ def decoder_prefill(
     x = inputs_embeds
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
-    for i in range(cfg.num_layers):
-        x, (k, v) = decoder_layer_prefill(x, layer_params(params["blocks"], i), cfg, cos, sin,
-                                          segment_ids, attn_impl)
+    for block in unstack_layers(params["blocks"]):
+        args = (x, block, cfg, cos, sin, segment_ids, attn_impl)
+        if remat:
+            x, (k, v) = checkpoint(decoder_layer_prefill, *args, use_reentrant=False)
+        else:
+            x, (k, v) = decoder_layer_prefill(*args)
         ks.append(k)
         vs.append(v)
     x = rms_norm(x, params["final_norm"], cfg.rms_norm_eps)

@@ -103,6 +103,26 @@ def init_params(
     return _map_tree(make, param_shapes(config))
 
 
+def zeros_params(config: DotsOCRConfig, device: torch.device):
+    """Cheap deterministic params on ``device`` in the config dtype (shape
+    tests, the spec simulator's bigram model): norm weights 1, so a forward
+    pass stays finite, everything else 0."""
+    dtype = config.torch_dtype
+
+    def make(path, shape):
+        fill = torch.ones if "norm" in path[-1] else torch.zeros
+        return fill(shape, dtype=dtype, device=device)
+
+    return _map_tree(make, param_shapes(config))
+
+
+def count_params(params) -> int:
+    """Elements over every leaf of a parameter tree."""
+    if isinstance(params, dict):
+        return sum(count_params(v) for v in params.values())
+    return params.numel()
+
+
 def _quantized_leaf(node: dict, shape: Tuple[int, ...], path: Tuple[str, ...],
                     device: torch.device):
     """A quantized leaf of the JAX tree, its integers and float32 scales

@@ -108,3 +108,16 @@ def layer_params(blocks: dict, i: int) -> dict:
         k: layer_params(v, i) if isinstance(v, dict) else v[i]
         for k, v in blocks.items()
     }
+
+
+def unstack_layers(blocks: dict) -> list:
+    """Every layer of a stacked parameter tree, as views (``torch.unbind``).
+    Under autograd one unbind's backward stacks all the layers' gradients
+    into the stacked leaf at once, where indexing each layer
+    (:func:`layer_params`) would add a zero-padded full-size gradient a
+    layer."""
+    if not isinstance(blocks, dict):
+        return list(torch.unbind(blocks))
+    parts = {k: unstack_layers(v) for k, v in blocks.items()}
+    depth = len(next(iter(parts.values())))
+    return [{k: p[i] for k, p in parts.items()} for i in range(depth)]

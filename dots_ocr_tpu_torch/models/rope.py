@@ -5,8 +5,9 @@ Rotate-half layout (Qwen/Llama): the head dim splits into two halves,
 both halves. In 2D, the first half of the frequency bins encode the patch
 row and the second half the column.
 
-``token_order`` and ``vision_grid_positions`` are numpy copies of the JAX
-package's host helpers (``dots_ocr_tpu.models.rope`` imports jax).
+``token_order``, ``vision_grid_positions`` and ``vision_rope_table`` are
+numpy copies of the JAX package's host helpers (``dots_ocr_tpu.models.rope``
+imports jax).
 """
 
 from __future__ import annotations
@@ -125,6 +126,20 @@ def vision_grid_positions(
     rows[perm < 0] = 0
     cols[perm < 0] = 0
     return np.stack([rows, cols], axis=-1)
+
+
+def vision_rope_table(
+    positions_2d: np.ndarray, head_dim: int, theta: float
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Host (cos, sin) for 2D positions [T, 2], each [T, head_dim] float32:
+    the first half of the head_dim // 2 frequency bins encode the row, the
+    second half the column (rotate-half)."""
+    inv_freq = rope_freqs(head_dim // 2, theta)  # [head_dim // 4]
+    rows = positions_2d[:, 0].astype(np.float32)
+    cols = positions_2d[:, 1].astype(np.float32)
+    angles = np.concatenate([rows[:, None] * inv_freq, cols[:, None] * inv_freq], axis=-1)
+    angles = np.concatenate([angles, angles], axis=-1)  # [T, head_dim]
+    return np.cos(angles), np.sin(angles)
 
 
 def vision_rope_device(

@@ -22,7 +22,7 @@ import torch
 import torch.nn.functional as F
 
 from dots_ocr_tpu_torch.models.config import VisionConfig
-from dots_ocr_tpu_torch.models.layers import layer_params, linear, rms_norm, swiglu
+from dots_ocr_tpu_torch.models.layers import linear, rms_norm, swiglu, unstack_layers
 from dots_ocr_tpu_torch.models.rope import apply_rope
 from dots_ocr_tpu_torch.ops import flash_attention, window_attention
 
@@ -96,8 +96,8 @@ def vision_forward(
                params["patch_embed"].get("bias"))
     cos, sin = rope_cos.to(torch.float32), rope_sin.to(torch.float32)
     windows = cfg.window_size > 0 and x.shape[0] % cfg.window_size**2 == 0
-    for i in range(cfg.num_layers):
-        x = vision_block(x, layer_params(params["blocks"], i), cfg, cos, sin, segment_ids,
+    for i, block in enumerate(unstack_layers(params["blocks"])):
+        x = vision_block(x, block, cfg, cos, sin, segment_ids,
                          attn_impl, windowed=windows and i not in cfg.full_attn_layers)
     return rms_norm(x, params["post_norm"], cfg.rms_norm_eps)
 

@@ -103,10 +103,14 @@ def vlm_prefill(
     scatter_pos: Optional[torch.Tensor] = None,
     attn_impl: str = "kernel",
     last_logit_only: bool = False,
+    remat: bool = False,
 ):
     """Full multimodal prefill. input_ids/positions [B, T]; seq_lens [B];
     vision arguments as from ``preprocess.pack_images`` and
     :func:`build_scatter_indices` (absent for text-only prompts).
+
+    ``remat`` recomputes each decoder layer in the backward pass (the
+    vision encoder is not rematerialized, as in the JAX package).
 
     Returns (logits, cache): logits [B, T, V] float32, or [B, V] with
     ``last_logit_only``; a KVCache with k/v [L, B, T, KV, hd]."""
@@ -116,7 +120,7 @@ def vlm_prefill(
         scatter_pos=scatter_pos, attn_impl=attn_impl,
     )
     hidden, cache = decoder_prefill(
-        params["decoder"], config.decoder, x, positions, seq_lens, attn_impl
+        params["decoder"], config.decoder, x, positions, seq_lens, attn_impl, remat=remat
     )
     if last_logit_only:
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), seq_lens.long() - 1]

@@ -60,17 +60,43 @@ LONG_BLOCKS = 64
 PREFILL_MAX_CLUSTER = 4
 
 
+class _MatmulF32(torch.autograd.Function):
+    """cuBLAS's float32-output product with a backward: ``mm.dtype`` has no
+    derivative. The float32 cotangent is rounded to the operands' dtype and
+    each gradient is one cuBLAS product in that dtype (float32 sums): the
+    linears' cotangents come from a cast to that dtype and are exact there,
+    the unembed's are rounded once (mixed-precision training's usual
+    rule)."""
+
+    @staticmethod
+    def forward(ctx, x2: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+        ctx.save_for_backward(x2, w)
+        return torch.mm(x2, w, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad: torch.Tensor):
+        x2, w = ctx.saved_tensors
+        grad = grad.to(x2.dtype)
+        dx = torch.mm(grad, w.t()) if ctx.needs_input_grad[0] else None
+        dw = torch.mm(x2.t(), grad) if ctx.needs_input_grad[1] else None
+        return dx, dw
+
+
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """x [..., K] @ w [K, N] as the float32 sum of the product.
 
     On CUDA a bf16 or fp16 product goes to cuBLAS with a float32 output
-    (``torch.mm(..., out_dtype=torch.float32)``): no operand is upcast. On
-    the CPU the operands are upcast (that build has no ``mm.dtype``
-    kernel); a bf16 x bf16 product is exact in float32, so only the
-    summation order differs.
+    (``torch.mm(..., out_dtype=torch.float32)``): no operand is upcast;
+    under autograd through :class:`_MatmulF32`. On the CPU the operands
+    are upcast (that build has no ``mm.dtype`` kernel); a bf16 x bf16
+    product is exact in float32, so only the summation order differs.
     """
     if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16) and w.dtype == x.dtype:
-        out = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        x2 = x.reshape(-1, x.shape[-1])
+        if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+            out = _MatmulF32.apply(x2, w)
+        else:
+            out = torch.mm(x2, w, out_dtype=torch.float32)
         return out.reshape(*x.shape[:-1], w.shape[-1])
     return torch.matmul(x.to(torch.float32), w.to(torch.float32))
 

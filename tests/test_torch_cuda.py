@@ -1479,3 +1479,102 @@ def test_graphed_engine_serves_the_eager_engines_tokens_on_card(cuda, kind):
     assert serve(warm, waves) == g_spec
     assert warm.metrics["graph_captures"] == captured
     assert warm.allocator.free_pages == GRAPH_SCHED["num_pages"] - 1
+
+
+# ---------------------------------------------------------------------------
+# Training on the card (no kernel: the "xla" path under autograd)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.cuda
+def test_matmul_f32_backward_on_card(cuda):
+    """cuBLAS's float32-output product has no derivative of its own: its
+    backward rounds the float32 cotangent to bf16 and takes bf16 products
+    (float32 sums), within one bf16 ulp of the float32 reference."""
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, 256, generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
+    w = torch.randn(256, 128, generator=gen, device=cuda).to(torch.bfloat16).requires_grad_()
+    g = torch.randn(64, 128, generator=gen, device=cuda)
+    out = matmul_f32(x, w)
+    assert out.dtype == torch.float32
+    (out * g).sum().backward()
+    gb = g.to(torch.bfloat16).float()
+    for got, want in ((x.grad, gb @ w.float().t()), (w.grad, x.float().t() @ gb)):
+        assert got.dtype == torch.bfloat16
+        err = (got.float() - want).abs()
+        assert bool((err <= 2.0**-7 * want.abs() + 1e-3).all()), float(err.max())
+    with torch.no_grad():  # the serving path: no autograd node
+        assert matmul_f32(x, w).grad_fn is None
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu(cuda):
+    """One tiny float32 train_step (with vision) on the card and on the
+    CPU from the same weights and batch: loss and grad_norm within 1e-5
+    relative. A first Adam step moves an element by lr * g / (|g| + 1e-8),
+    about +-lr, so an element whose gradient is near rounding noise may
+    land up to 2 lr apart (the key biases, whose exact gradient is 0, all
+    of them): every element within 2 lr + 1e-5 |p|, and outside the key
+    biases at most 1e-3 of the elements past 1e-2 lr + 1e-5 |p| (the rule of
+    chip_smoke.py phase 18 (c), which found 2.8e-6 of them at full width)."""
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.train.train_step import (
+        init_train_state,
+        make_dummy_batch,
+        make_optimizer,
+        train_step,
+        tree_items,
+    )
+
+    cfg, cpu, lr = DotsOCRConfig.tiny(), torch.device("cpu"), 1e-3
+    opt = make_optimizer(learning_rate=lr)
+    out = {}
+    for dev in (cpu, cuda):
+        params = _to(init_params(cfg, cpu, torch.Generator(device=cpu).manual_seed(0)), dev)
+        batch = make_dummy_batch(cfg, batch_size=2, seq_len=16, vision_tokens=4, device=dev)
+        out[dev.type] = train_step(init_train_state(params, opt), batch, cfg, opt)
+    (ref, m_ref), (got, m_got) = out["cpu"], out["cuda"]
+    for key in ("loss", "grad_norm"):
+        assert abs(float(m_got[key]) - float(m_ref[key])) <= 1e-5 * abs(float(m_ref[key])), (
+            key, float(m_got[key]), float(m_ref[key]))
+    outliers, elements = 0, 0
+    for (name, a), (_, b) in zip(tree_items(got.params), tree_items(ref.params)):
+        diff, slack = (a.cpu() - b).abs(), 1e-5 * b.abs()
+        assert bool((diff <= 2 * lr + slack).all()), (name, float(diff.max()))
+        if not name.endswith("attn.bk"):
+            outliers += int((diff > 1e-2 * lr + slack).sum())
+            elements += diff.numel()
+    assert outliers <= 1e-3 * elements, (outliers, elements)
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device) for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+def test_bf16_train_steps_on_card(cuda):
+    """The bf16 path (cuBLAS float32-output products under autograd, remat)
+    trains: finite metrics, and the loss on a fixed batch falls."""
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.train.train_step import (
+        init_train_state,
+        make_dummy_batch,
+        make_optimizer,
+        train_step,
+    )
+
+    cfg = DotsOCRConfig.tiny().replace(dtype="bfloat16")
+    opt = make_optimizer(learning_rate=1e-2)
+    state = init_train_state(init_params(cfg, cuda, torch.Generator(device=cuda).manual_seed(0)),
+                             opt)
+    batch = make_dummy_batch(cfg, batch_size=2, seq_len=32, vision_tokens=4, device=cuda)
+    losses = []
+    for _ in range(5):
+        state, m = train_step(state, batch, cfg, opt, remat=True)
+        assert torch.isfinite(m["grad_norm"])
+        losses.append(float(m["loss"]))
+    assert state.params["decoder"]["embed"].dtype == torch.bfloat16
+    assert state.opt_state.mu["decoder"]["embed"].dtype == torch.bfloat16
+    assert losses[-1] < losses[0] - 0.5, losses
