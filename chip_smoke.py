@@ -160,11 +160,35 @@ Phases, each fatal on failure (exit code != 0, no result line):
    (loss and grad_norm within 1e-4 relative, the updated parameters as
    ``TRAIN_OUTLIER_SHARE`` says), then ``save_checkpoint`` on the card,
    ``restore_checkpoint`` and one more step, bit-equal to the step taken
-   without the round trip.
+   without the round trip;
+19. tensor-parallel serving, in spawned rank processes on this card (NCCL
+   refuses two ranks on one device, so they share it over gloo: the
+   all-reduces go through the host and the decode chunks run eagerly): (a)
+   TP = 2 at the flagship's full width and depth with deploy/shipping.env's
+   serve flags (no warmup), phase 11's two waves of the three requests
+   through rank 0's ``OpenAIServer`` while rank 1 follows; every rank must
+   launch kernel 1, kernel 2 at nq = 1 and 3, W8A16, the draw and the
+   all-reduce, with equal counters and launches on both ranks; the page
+   request's last 64 teacher-forced logits within LOGIT_TOL of TP = 1 on
+   the same seeded weights; each rank's parameter and pool bytes, phase 9's
+   step eager at TP = 2 and TP = 1, the all-reduces a step and one
+   all-reduce's ms printed; (b) TP = 4 at the flagship's width with 2 + 2
+   layers, int8 weights and KV, k = 2: each KV head on two ranks (a pool of
+   one head), gate/up padded from 2,240 to 2,304, logits within LOGIT_TOL;
+   (c) TP = 2 over NCCL with every decode chunk a CUDA graph replay, where
+   the host has 2 GPUs (else one line says it did not run, and why).
+   ``--tp-only`` runs phases 1-2, phase 3's shard cases and phase 19 alone
+   (a developer's shortcut; the full run takes no arguments).
 
-On the card every decode and verify chunk of every serving phase is a CUDA
-graph replay (``engine/graphs.py``): each phase requires as many replays as
-decode chunks, and the launch counts it reads include the replays (a
+Phase 3 also holds kernels 1, 2 and W8A16 at a rank's shapes
+(``tp_shard_cases``): kernel 1 at 6 and 3 heads (vision) and 6q / 3q over
+one KV head (a prefill chunk), kernel 2 over one KV head in both modes, and
+W8A16 at TP = 2's wq / wk-wv / gate-up / wo / down and TP = 4's padded
+gate/up and down, at 64, 192 and 2,048 rows.
+
+On the card every decode and verify chunk of every serving phase but 19 is
+a CUDA graph replay (``engine/graphs.py``): each phase requires as many
+replays as decode chunks, and the launch counts it reads include the replays (a
 graph's launches are counted at capture and added at every replay).
 
 The seeded draw kernel (``csrc/threefry_sample.cu``) is held in phase 3 to
@@ -348,7 +372,7 @@ T_START = time.perf_counter()
 
 
 def log(msg: str = "") -> None:
-    if msg.startswith("[") and "/18]" in msg[:8]:  # a phase's heading
+    if msg.startswith("[") and "/19]" in msg[:8]:  # a phase's heading
         msg += f" (at {time.perf_counter() - T_START:.1f} s)"
     print(msg, flush=True)
 
@@ -653,6 +677,123 @@ def kernel_phase(dev) -> dict:
     results.update(windows)
     results.update(paged_v1_cases(randn, dev))
     results.update(int4_cases(randn, gen, dev))
+    return results
+
+
+# Phase 3's shard shapes of tensor-parallel serving (phase 19): the W8A16
+# linears of a TP = 2 rank (wq N 768, wk/wv N 128, gate/up N 4,480, wo K 768,
+# down K 4,480) and TP = 4's padded gate/up and down (2,304), at a decode
+# step's, a verify step's and a prefill chunk's rows.
+TP_W8A16_SHAPES = {"wq tp2": (1536, 768), "wk/wv tp2": (1536, 128), "gate/up tp2": (1536, 4480),
+                   "wo tp2": (768, 1536), "down tp2": (4480, 1536),
+                   "gate/up tp4 padded": (1536, 2304), "down tp4 padded": (2304, 1536)}
+TP_W8A16_ROWS = (MAX_SLOTS, 3 * MAX_SLOTS, PREFILL_CHUNK)
+# The row-parallel ones give their float32 partial sums to the all-reduce
+# (models/layers.py::linear's reduce): float32 out, no bias.
+TP_ROW_PARALLEL = ("wo tp2", "down tp2", "down tp4 padded")
+
+
+def tp_shard_cases(dev) -> dict:
+    """Kernels 1 and 2 and W8A16 at the per-rank shapes of TP = 2 and 4,
+    against their plain versions with phase 3's bounds, controls and
+    repeats: kernel 1 over the packed vision batch at 6 and 3 heads and a
+    prefill chunk at 6q/1kv and 3q/1kv; kernel 2 over one KV head (bf16 at
+    6 query heads, int8 at 3: the KV modes of phase 19 (a) and (b)) at nq =
+    1 and 3; W8A16 at TP_W8A16_SHAPES x TP_W8A16_ROWS."""
+    import numpy as np
+    import torch
+
+    from dots_ocr_tpu_torch.engine.kv_cache import quantize_kv
+    from dots_ocr_tpu_torch.ops.flash_attention import flash_attention, flash_attention_reference
+    from dots_ocr_tpu_torch.ops.paged_attention import (
+        int8_tile_walkers,
+        paged_attention_int8_reference,
+        paged_attention_multiquery_bf16,
+        paged_attention_multiquery_int8,
+        paged_attention_multiquery_reference,
+        paged_int8_split_plan,
+    )
+
+    gen = torch.Generator(device=dev).manual_seed(19)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    results = {"flash_attention": [], "paged_attention_multiquery": [],
+               "paged_attention_multiquery_int8": []}
+    seg = np.full((1, 6656), -1, np.int32)
+    seg[0, :5040], seg[0, 5040:6420] = 0, 1
+    seg = torch.from_numpy(seg).to(dev)
+    block = ((seg[:, :, None] == seg[:, None, :]) & (seg[:, :, None] >= 0))[:, None]
+    for heads, world in ((6, 2), (3, 4)):
+        q, k, v = (randn(1, 6656, heads, 128) for _ in range(3))
+        results["flash_attention"].append(compare(
+            f"flash vision TP={world} shard T=6656 (5040+1380 packed) H={heads} D=128",
+            lambda: flash_attention(q, k, v, seg, seg),
+            lambda: flash_attention_reference(q, k, v, seg, seg),
+            work=_flash_work(q, k, seg, seg), library_fn=lambda: _sdpa(q, k, v, block),
+            control_fn=lambda: flash_attention_reference(q, k, fp8_round(v), seg, seg)))
+    del q, k, v, block
+    plen = torch.tensor([4096, 3100], device=dev)
+    pos = torch.arange(4096, device=dev)
+    q_seg = torch.where(pos[None, 2048:] < plen[:, None], 0, -1).to(torch.int32)
+    kv_seg = torch.where(pos[None, :] < plen[:, None], 0, -1).to(torch.int32)
+    chunk_mask = ((q_seg[:, :, None] == kv_seg[:, None, :]) & (q_seg[:, :, None] >= 0)
+                  & (pos[None, None, :] <= pos[None, 2048:, None]))[:, None]
+    for heads, world in ((6, 2), (3, 4)):
+        q, k, v = randn(2, 2048, heads, 128), randn(2, 4096, 1, 128), randn(2, 4096, 1, 128)
+        results["flash_attention"].append(compare(
+            f"flash prefill chunk TP={world} shard B=2 C=2048 kv_hi=4096 q_offset=2048 "
+            f"{heads}q/1kv",
+            lambda: flash_attention(q, k, v, q_seg, kv_seg, causal=True, q_offset=2048),
+            lambda: flash_attention_reference(q, k, v, q_seg, kv_seg, causal=True,
+                                              q_offset=2048),
+            work=_flash_work(q, k, q_seg, kv_seg, causal=True, q_offset=2048),
+            library_fn=lambda: _sdpa(q, k, v, chunk_mask),
+            control_fn=lambda: flash_attention_reference(q, k, fp8_round(v), q_seg, kv_seg,
+                                                         causal=True, q_offset=2048)))
+    del q, k, v, chunk_mask
+    rng = np.random.RandomState(19)
+    lengths = rng.randint(1, 12001, MAX_SLOTS)
+    lengths[::8] = 0
+    kp, vp, lens_t, table_t = _paged_pool(randn, rng, lengths, PAGE_SIZE, 128,
+                                          MAX_SEQ_TOKENS // PAGE_SIZE, extra=2)
+    kp, vp = kp[:1].contiguous(), vp[:1].contiguous()
+    kq, ks = quantize_kv(kp)
+    vq, vs = quantize_kv(vp)
+    vq4 = (torch.round(vq.float() / 16) * 16).clamp(-127, 127).to(torch.int8)
+    num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    shape = f"64 slots page 128 width 320, lengths 0..12k ({int(lengths.sum())} live tokens)"
+    for nq in (1, 3):
+        qd = randn(MAX_SLOTS, nq, 6, 128)
+        results["paged_attention_multiquery"].append(compare(
+            f"paged decode TP=2 shard nq={nq} bf16 6q/1kv {shape}",
+            lambda: paged_attention_multiquery_bf16(qd, kp, vp, lens_t, table_t),
+            lambda: paged_attention_multiquery_reference(qd, kp, vp, lens_t, table_t),
+            work=_paged_work(qd, lens_t, 1, int8=False),
+            control_fn=lambda: paged_attention_multiquery_reference(qd, kp, fp8_round(vp),
+                                                                    lens_t, table_t)))
+        # int8 KV at TP = 4's shape (phase 19 (b)); TP = 2's 6q over one head
+        # runs the group of phase 3's 12q / 2kv int8 case on half its grid
+        for heads, world in ((3, 4),):
+            qh = qd[:, :, :heads].contiguous()
+            chunk, n_split = paged_int8_split_plan(MAX_SLOTS, 1, heads * nq, 128,
+                                                   MAX_SEQ_TOKENS, num_sms)
+            warps = int8_tile_walkers(heads * nq)
+            results["paged_attention_multiquery_int8"].append(compare(
+                f"paged decode TP={world} shard nq={nq} int8 {heads}q/1kv {shape}, "
+                f"{n_split} splits of {chunk}",
+                lambda: paged_attention_multiquery_int8(qh, kq, vq, ks, vs, lens_t, table_t),
+                lambda: paged_attention_int8_reference(qh, kq, vq, ks, vs, lens_t, table_t,
+                                                       chunk=chunk, warps=warps),
+                work=_paged_work(qh, lens_t, 1, int8=True),
+                control_fn=lambda: paged_attention_int8_reference(
+                    qh, kq, vq4, ks, vs, lens_t, table_t, chunk=chunk, warps=warps),
+                control="plain on V's codes rounded to 4 bits"))
+    del kp, vp, kq, vq, vq4, ks, vs
+    torch.cuda.empty_cache()
+    # torch._weight_int8pack_mm (context only) is timed at the full shapes
+    results.update(w8a16_cases(dev, TP_W8A16_SHAPES, TP_W8A16_ROWS, int8pack_yardstick=False))
     return results
 
 
@@ -1009,7 +1150,7 @@ def w8a16_int8pack(x, q, scale, unembed: bool):
     return (lambda: torch._weight_int8pack_mm(x, w, s)), None
 
 
-def w8a16_cases(dev) -> dict:
+def w8a16_cases(dev, shapes=None, rows_list=None, int8pack_yardstick: bool = True) -> dict:
     """The W8A16 kernel (csrc/int8_matmul.cuh) against its plain version
     (the per-call bf16 copy of the weight, then cuBLAS: the int8 path
     before the kernel) at W8A16_SHAPES x (W8A16_ROWS + W8A16_RAGGED):
@@ -1038,7 +1179,9 @@ def w8a16_cases(dev) -> dict:
     gen = torch.Generator(device=dev).manual_seed(12)
     num_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     out = []
-    for label, (k, n) in W8A16_SHAPES.items():
+    shapes = W8A16_SHAPES if shapes is None else shapes
+    rows_list = sorted(W8A16_ROWS + W8A16_RAGGED) if rows_list is None else rows_list
+    for label, (k, n) in shapes.items():
         unembed = label == "lm_head"
         if unembed:
             qk = quantize_embedding(torch.randn(n, k, generator=gen, device=dev).to(torch.bfloat16))
@@ -1047,27 +1190,29 @@ def w8a16_cases(dev) -> dict:
                                  .to(torch.bfloat16))
         q, scale = qk["qint8"], qk["scale"]
         bias = (torch.randn(n, generator=gen, device=dev).to(torch.bfloat16)
-                if label in ("wq/wo", "wk/wv") else None)
+                if label.split()[0] in ("wq/wo", "wk/wv", "wq") else None)
         w_bf16 = q.to(torch.bfloat16)  # the library's weight, converted once
         w_lib = w_bf16.t() if unembed else w_bf16
-        atol, rtol = W8A16_TOL[unembed]
-        for rows in sorted(W8A16_ROWS + W8A16_RAGGED):
+        out_f32 = label in TP_ROW_PARALLEL
+        atol, rtol = W8A16_TOL[unembed or out_f32]
+        for rows in rows_list:
             if unembed and rows > 3 * MAX_SLOTS:
                 continue
             x = torch.randn(rows, k, generator=gen, device=dev).to(torch.bfloat16)
             plan = w8a16_plan(rows, k, n, num_sms, unembed)
 
             def kernel_fn():
-                return w8a16_matmul(x, q, scale, bias, transposed=unembed)
+                return w8a16_matmul(x, q, scale, bias, transposed=unembed, out_f32=out_f32)
 
             def plain_fn():
                 return (int8_unembed_reference(x, q, scale) if unembed
-                        else int8_linear_reference(x, q, scale, bias))
+                        else int8_linear_reference(x, q, scale, bias, out_f32))
 
             def library_fn():
                 return matmul_f32(x, w_lib)
 
-            int8pack, int8pack_none = w8a16_int8pack(x, q, scale, unembed)
+            int8pack, int8pack_none = (w8a16_int8pack(x, q, scale, unembed) if int8pack_yardstick
+                                       else (None, "not timed at this shape"))
             first = kernel_fn()
             same = sum(bool(torch.equal(kernel_fn(), first)) for _ in range(REPEAT_CALLS))
             del first
@@ -1076,7 +1221,7 @@ def w8a16_cases(dev) -> dict:
                                      f"calls differ")
             # x and q read once, the scale (and bias) once, the output written once
             nbytes = (q.numel() + 2 * rows * k + 4 * n + (2 * n if bias is not None else 0)
-                      + (4 if unembed else 2) * rows * n)
+                      + (4 if unembed or out_f32 else 2) * rows * n)
             name = (f"w8a16 {label} {'[N, K] unembed' if unembed else '[K, N] linear'} K={k} "
                     f"N={n} M={rows}, {plan.regime} {plan.rows_tile} rows x {plan.cols_tile} "
                     f"columns, {plan.consumers} warpgroup{'s' if plan.consumers > 1 else ''}"
@@ -1896,7 +2041,7 @@ def logit_options_probe(post, metrics, first) -> None:
     """Phase 14, on the server of deploy/shipping.env as written after phase
     13's pipelined wave (which must have pipelined): logprobs, logit_bias,
     penalties and seed over HTTP, each request alone on the engine."""
-    log("[14/18] the logit options over HTTP on the shipping.env server")
+    log("[14/19] the logit options over HTTP on the shipping.env server")
     text = chat_requests()[2][1]
 
     def ask(max_tokens, **options):
@@ -3093,6 +3238,388 @@ def train_consistency_phase(smi: str) -> dict:
     return out
 
 
+# Phase 19: tensor-parallel serving. NCCL refuses two ranks on one device,
+# so on one card the ranks share it over gloo (collectives staged through
+# the host, decode chunks eager); NCCL with CUDA graphs runs where there is
+# a GPU a rank. TP_TAIL: the teacher-forced positions held to TP = 1; the
+# step timing: phase 9's 64-slot x 2,048-token decode step, eager, TP_STEPS
+# times after a warm step; TP_REDUCES all-reduces of a row-parallel
+# linear's [64, 1,536] float32 product timed alone.
+TP_TAIL = 64
+TP_STEPS = 10
+TP_REDUCES = 50
+TP4_LAYERS = 2
+
+
+def _tp_counts() -> dict:
+    from dots_ocr_tpu_torch.ops.tp import tp_all_reduce
+
+    return {**read_counts(), "tp_all_reduce": tp_all_reduce.launches}
+
+
+def _tp_reset() -> None:
+    from dots_ocr_tpu_torch.ops.tp import tp_all_reduce
+
+    reset_counts()
+    tp_all_reduce.launches = 0
+
+
+def _tp_engine(task: dict, dev, tp):
+    """The rank's engine (``tp`` None: TP = 1): through the server's
+    ``build_engine`` with ``task["flags"]``, or, with ``task["layers"]``,
+    the flagship cut to that many vision and decoder layers, built as
+    ``build_engine`` builds it (seeded random weights, int8 decoder)."""
+    import dataclasses
+
+    import torch
+
+    from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
+    from dots_ocr_tpu_torch.models.config import DotsOCRConfig
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.models.quantize import quantize_decoder_params
+    from dots_ocr_tpu_torch.parallel.sharding import shard_params
+    from dots_ocr_tpu_torch.serve import server as torch_server
+
+    world = 1 if tp is None else tp.world
+    if not task.get("layers"):
+        args = torch_server.build_parser().parse_args([
+            "--random-flagship", "--platform", dev.type, *task["flags"],
+            "--tensor-parallel-size", str(world), "--tp-backend", task["backend"]])
+        return torch_server.build_engine(args, tp)
+    cfg = getattr(DotsOCRConfig, task.get("config", "flagship"))()
+    n = task["layers"]
+    cfg = cfg.replace(vision=dataclasses.replace(cfg.vision, num_layers=n),
+                      decoder=dataclasses.replace(cfg.decoder, num_layers=n))
+    params = quantize_decoder_params(
+        init_params(cfg, dev, torch.Generator(device=dev).manual_seed(0)))
+    if tp is not None:
+        params, tp.plan = shard_params(params, cfg, tp.rank, tp.world)
+    sched = SchedulerConfig(num_pages=NUM_PAGES, page_size=PAGE_SIZE, max_slots=MAX_SLOTS,
+                            max_pages_per_seq=MAX_SEQ_TOKENS // PAGE_SIZE,
+                            steps_per_sync=16, prefill_chunk_tokens=PREFILL_CHUNK,
+                            speculate_k=2, kv_cache_dtype="int8")
+    return ContinuousBatchingEngine(params, cfg, dev, sched=sched, tp=tp)
+
+
+def _tp_teacher_forced(engine, dev, tp) -> "object":
+    """The last TP_TAIL positions' logits (float32, on the host) of one
+    monolithic forward over the page request's prompt (vision spliced)."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.decoder import decoder_prefill, logits_from_hidden
+    from dots_ocr_tpu_torch.models.rope import vision_rope_device
+    from dots_ocr_tpu_torch.models.vlm import vlm_embed
+    from PIL import Image
+
+    page = Image.open(os.path.join(REPO, "demo/assets/sample_page.png"))
+    packed, ids, put, scatter = _page_inputs(engine, page, dev)
+    cfg = engine.model_config
+    with torch.no_grad():
+        cos, sin = vision_rope_device(put(packed.pos2d), cfg.vision.head_dim,
+                                      cfg.vision.rope_theta)
+        x = vlm_embed(engine.params, cfg, put(ids), patches=put(packed.patches), rope_cos=cos,
+                      rope_sin=sin, segment_ids=put(packed.segment_ids), tp=tp, **scatter)
+        t = ids.shape[1]
+        pos = torch.arange(t, device=dev)[None]
+        hidden, _ = decoder_prefill(engine.params["decoder"], cfg.decoder, x, pos,
+                                    torch.tensor([t], device=dev), tp=tp)
+        logits = logits_from_hidden(engine.params["decoder"], cfg.decoder, hidden[0, -TP_TAIL:])
+    return logits.float().cpu()
+
+
+def _tp_step_ms(engine, dev, tp) -> dict:
+    """Phase 9's decode step (64 slots x 2,048 tokens of context) on the
+    engine's pool and weights (the rank's shard), eager: ms a step (median
+    of TP_STEPS), the all-reduces a step, and one all-reduce of the step's
+    [64, 1,536] bf16 timed alone (ms, median of TP_REDUCES host-timed calls:
+    under gloo a call returns when the sum is back on the card)."""
+    import torch
+
+    from dots_ocr_tpu_torch.models.decoder import (
+        decoder_decode_step_paged,
+        embed_tokens,
+        logits_from_hidden,
+    )
+    from dots_ocr_tpu_torch.ops.tp import tp_all_reduce
+
+    cfg, ctx = engine.model_config, 2048
+    pages_per_row = ctx // PAGE_SIZE + 1
+    table = (1 + torch.arange(MAX_SLOTS * pages_per_row, device=dev, dtype=torch.int32)
+             ).reshape(MAX_SLOTS, pages_per_row)
+    pos = torch.full((MAX_SLOTS,), ctx, dtype=torch.int64, device=dev)
+    slots = table[:, ctx // PAGE_SIZE].long() * PAGE_SIZE + ctx % PAGE_SIZE
+    lens = (pos + 1).to(torch.int32)
+    tokens = (torch.arange(MAX_SLOTS, device=dev) * 7 + 100) % cfg.decoder.vocab_size
+    p, paged = engine.params["decoder"], engine.paged
+
+    def step():
+        with torch.no_grad():
+            h = decoder_decode_step_paged(p, cfg.decoder, embed_tokens(p, tokens), pos, paged.k,
+                                          paged.v, table, lens, slots, PAGE_SIZE,
+                                          k_scales=paged.k_scale, v_scales=paged.v_scale, tp=tp)
+            return logits_from_hidden(p, cfg.decoder, h)
+
+    step()
+    torch.cuda.synchronize()
+    before = tp_all_reduce.launches
+    times = [cuda_ms(step) for _ in range(TP_STEPS)]
+    out = {"step_ms": statistics.median(times),
+           "reduces_a_step": (tp_all_reduce.launches - before) / TP_STEPS}
+    if tp is not None:
+        # a row-parallel linear's float32 product at a decode step's rows
+        x = torch.randn(MAX_SLOTS, cfg.decoder.hidden_size, device=dev)
+        tp_all_reduce(x, tp)
+        torch.cuda.synchronize()
+        ms = []
+        for _ in range(TP_REDUCES):
+            t0 = time.perf_counter()
+            tp_all_reduce(x, tp)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        out["all_reduce_ms"] = statistics.median(ms)
+    return out
+
+
+def _pool_bytes(engine) -> int:
+    tensors = engine.paged.k + engine.paged.v + (
+        (engine.paged.k_scale + engine.paged.v_scale) if engine.paged.quantized else [])
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def tp_rank_main(rank: int, world: int, workdir: str, task: dict) -> None:
+    """One rank of phase 19 (a spawned process): join the group, build the
+    rank's engine, serve (rank 0 over HTTP: task["waves"] of the three
+    requests; the others through ``follow``), then the teacher-forced
+    logits and the timed step in lockstep. Writes its numbers to
+    ``workdir/rank{rank}.json`` (rank 0's logits to ``logits.pt``), or the
+    traceback."""
+    import traceback
+
+    sys.path.insert(0, REPO)
+    out = {"rank": rank}
+    try:
+        import torch
+
+        from dots_ocr_tpu_torch.models.quantize import param_bytes
+        from dots_ocr_tpu_torch.parallel.distributed import destroy, initialize_distributed
+        from dots_ocr_tpu_torch.serve.async_engine import follow
+
+        dev = torch.device(task.get("device", "cuda"), rank if task["backend"] == "nccl" else 0)
+        tp = initialize_distributed(task["backend"], rank, world, f"file://{workdir}/store",
+                                    device=dev, timeout_s=600)
+        t0 = time.perf_counter()
+        engine = _tp_engine(task, dev, tp)
+        guard_off(engine)
+        torch.cuda.synchronize()
+        out.update(build_s=time.perf_counter() - t0, param_bytes=param_bytes(engine.params),
+                   pool_bytes=_pool_bytes(engine), kv_width=engine.paged.k[0].shape[0],
+                   kv_replication=engine._kv_rep, decoder_pad=tp.plan.decoder_pad,
+                   shard=dict(heads=engine.model_config.decoder.num_heads,
+                              kv_heads=engine.model_config.decoder.num_kv_heads,
+                              intermediate=engine.model_config.decoder.intermediate_size,
+                              vision_heads=engine.model_config.vision.num_heads),
+                   cuda_graphs=engine.sched.cuda_graphs,
+                   row_parallel=sorted(tp.plan.row_parallel))
+        _tp_reset()
+        t0 = time.perf_counter()
+        if rank == 0:
+            with running_server(engine) as base:
+                replies = []
+                for temperature, max_tokens in task["waves"]:
+                    batch = [(name, {**body, "temperature": temperature,
+                                     "max_tokens": max_tokens})
+                             for name, body in chat_requests()]
+
+                    def post(item):
+                        name, body = item
+                        t = time.perf_counter()
+                        status, text = _http(f"{base}/v1/chat/completions", body)
+                        return name, status, json.loads(text), time.perf_counter() - t
+
+                    answers = _serve_wave(post, batch, f"TP={world} rank 0", temperature)
+                    replies.append({name: text for name, (text, _) in answers.items()})
+                out["replies"] = replies
+                out["metrics"] = engine_metrics(base)[1]
+        else:
+            follow(engine)
+        torch.cuda.synchronize()
+        out.update(serve_s=time.perf_counter() - t0, launches=_tp_counts(),
+                   engine_metrics={k: v for k, v in engine.metrics.items()
+                                   if not k.startswith("t_")})
+        logits = _tp_teacher_forced(engine, dev, tp)
+        if rank == 0:
+            torch.save(logits, os.path.join(workdir, "logits.pt"))
+        out["step"] = _tp_step_ms(engine, dev, tp)
+        destroy(tp)
+    except BaseException:  # noqa: BLE001 - the parent reports it
+        out["error"] = traceback.format_exc()
+    with open(os.path.join(workdir, f"rank{rank}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def _tp_reference(task: dict, dev) -> tuple:
+    """TP = 1 on the same seeded weights: the teacher-forced logits and the
+    eager step."""
+    from dots_ocr_tpu_torch.models.quantize import param_bytes
+
+    engine = _tp_engine({**task, "backend": "gloo"}, dev, None)
+    logits = _tp_teacher_forced(engine, dev, None)
+    out = {"param_bytes": param_bytes(engine.params), "pool_bytes": _pool_bytes(engine),
+           "step": _tp_step_ms(engine, dev, None)}
+    del engine
+    release()
+    return logits, out
+
+
+def _tp_run(world: int, task: dict, label: str, timeout_s: float = 900.0) -> list:
+    """Spawn the ``world`` ranks of ``task`` and return their numbers."""
+    import multiprocessing
+
+    with tempfile.TemporaryDirectory(prefix="dots_tp_") as workdir:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=tp_rank_main, args=(rank, world, workdir, task))
+                 for rank in range(world)]
+        for proc in procs:
+            proc.start()
+        deadline = time.perf_counter() + timeout_s
+        for proc in procs:
+            proc.join(max(1.0, deadline - time.perf_counter()))
+        for proc in procs:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(30)
+        log(f"  [{label}] rank exit codes: {[proc.exitcode for proc in procs]}")
+        ranks = []
+        for rank in range(world):
+            path = os.path.join(workdir, f"rank{rank}.json")
+            if not os.path.exists(path):
+                raise AssertionError(f"{label}: rank {rank} wrote nothing "
+                                     f"(exit code {procs[rank].exitcode})")
+            with open(path) as f:
+                res = json.load(f)
+            if "error" in res:
+                raise AssertionError(f"{label}: rank {rank} failed:\n{res['error']}")
+            ranks.append(res)
+        import torch
+
+        ranks[0]["logits"] = torch.load(os.path.join(workdir, "logits.pt"))
+    return ranks
+
+
+def _tp_check(label: str, ranks: list, ref_logits, ref: dict, required, smi: str) -> dict:
+    """Every rank launched ``required``, the counters agree, the logits
+    are within LOGIT_TOL of TP = 1; logs each rank's bytes and step."""
+    logits = ranks[0].pop("logits")
+    diff, std = (logits - ref_logits).abs(), float(ref_logits.std())
+    ratio = float(diff.max()) / std
+    same = bool((logits.argmax(-1) == ref_logits.argmax(-1)).all())
+    log(f"  [{label}] teacher-forced logits (page request, last {TP_TAIL} positions) vs TP = 1: "
+        f"max|diff| / std = {ratio:.4f} (tol {LOGIT_TOL}), mean "
+        f"{float(diff.mean()) / std:.4f}, same argmax: {same}")
+    if not ratio <= LOGIT_TOL:
+        raise AssertionError(f"{label}: logits differ from TP = 1 by {ratio} std")
+    for res in ranks:
+        r = res["rank"]
+        log(f"  [{label}] rank {r}: shard {res['shard']}, KV pool width {res['kv_width']} "
+            f"(replication {res['kv_replication']}), gate/up pad {res['decoder_pad']}, "
+            f"parameters {res['param_bytes'] / 1e9:.3f} GB (TP = 1: "
+            f"{ref['param_bytes'] / 1e9:.3f}), pool {res['pool_bytes'] / 1e9:.3f} GB (TP = 1: "
+            f"{ref['pool_bytes'] / 1e9:.3f}), CUDA graphs {res['cuda_graphs']}; built in "
+            f"{res['build_s']:.1f} s, served in {res['serve_s']:.1f} s")
+        log(f"  [{label}] rank {r} launches while serving: {res['launches']}")
+        missing = [name for name in required if res["launches"].get(name, 0) < 1]
+        if missing:
+            raise AssertionError(f"{label}: rank {r} launched no {missing}")
+        step = res["step"]
+        log(f"  [{label}] rank {r}: phase 9's step eager {step['step_ms']:.3f} ms (TP = 1 eager: "
+            f"{ref['step']['step_ms']:.3f} ms), {step['reduces_a_step']:g} all-reduces a step, "
+            f"one all-reduce of [64, 1536] float32 {step['all_reduce_ms']:.3f} ms on {smi}")
+    counters = [res["engine_metrics"] for res in ranks]
+    if any(c != counters[0] for c in counters):
+        raise AssertionError(f"{label}: the ranks' engine counters differ: {counters}")
+    launches = [res["launches"] for res in ranks]
+    if any(c != launches[0] for c in launches):
+        raise AssertionError(f"{label}: the ranks' launch counts differ: {launches}")
+    log(f"  [{label}] engine counters, equal on every rank: {counters[0]}")
+    return {"ranks": ranks, "reference": ref, "logit_ratio": ratio, "same_argmax": same}
+
+
+def tp_phase(dev, env_flags, smi: str) -> dict:
+    """Phase 19: (a) TP = 2 over gloo on this card, the flagship at full
+    width and depth with deploy/shipping.env's serve flags (no warmup:
+    under gloo nothing is captured), phase 11's waves; (b) TP = 4 over
+    gloo, the flagship's width at TP4_LAYERS + TP4_LAYERS layers, int8
+    weights and KV, k = 2: each KV head on two ranks, gate/up padded to
+    2,304; (c) NCCL with CUDA graphs at TP = 2 where the host has 2 GPUs."""
+    import torch
+
+    release()  # the ranks share this card with this process
+    flags = [f for i, f in enumerate(env_flags)
+             if f not in ("--warmup", "--compile-cache")
+             and env_flags[i - 1] not in ("--warmup", "--compile-cache")]
+    numbers = {}
+    tp2 = {"backend": "gloo", "flags": flags, "waves": SHIPPING_WAVES}
+    ref2 = _tp_reference(tp2, dev)
+    log(f"  [TP=2] TP = 1 reference: parameters {ref2[1]['param_bytes'] / 1e9:.3f} GB, pool "
+        f"{ref2[1]['pool_bytes'] / 1e9:.3f} GB, phase 9's step eager "
+        f"{ref2[1]['step']['step_ms']:.3f} ms")
+    ranks = _tp_run(2, tp2, "TP=2")
+    numbers["tp2"] = _tp_check("TP=2", ranks, *ref2, (
+        "flash_attention", "flash_attention (q_offset > 0)", "paged_attention_multiquery",
+        "paged_attention_multiquery (nq > 1)", "w8a16_matmul", "gumbel_argmax",
+        "tp_all_reduce"), smi)
+    launches = ranks[0]["launches"]
+    decode = launches["paged_attention_multiquery"] - launches["paged_attention_multiquery (nq > 1)"]
+    if decode < 1:
+        raise AssertionError("TP=2: kernel 2 never ran at nq = 1")
+    metrics = ranks[0]["metrics"]
+    if metrics.get("prefill_chunks", 0) < 2 or metrics.get("spec_chunks", 0) < 1:
+        raise AssertionError(f"TP=2: prefill_chunks / spec_chunks too few: {metrics}")
+
+    tp4 = {"backend": "gloo", "layers": TP4_LAYERS, "waves": ((0.0, 32),)}
+    ref_logits, ref = _tp_reference(tp4, dev)
+    ranks = _tp_run(4, tp4, "TP=4")
+    numbers["tp4"] = _tp_check("TP=4", ranks, ref_logits, ref, (
+        "flash_attention", "paged_attention_multiquery_int8",
+        "paged_attention_multiquery_int8 (nq > 1)", "w8a16_matmul", "tp_all_reduce"), smi)
+    if any(r["kv_replication"] != 2 or r["kv_width"] != 1 or r["decoder_pad"] != 64
+           for r in ranks):
+        raise AssertionError("TP=4: KV replication 2, pool width 1 and the gate/up pad of 64 "
+                             f"expected: {[(r['kv_replication'], r['kv_width'], r['decoder_pad']) for r in ranks]}")
+    return _tp_nccl(dev, flags, ref2, smi, numbers)
+
+
+def _tp_nccl(dev, flags, ref2, smi: str, numbers: dict) -> dict:
+    """Phase 19 (c): TP = 2 over NCCL, a GPU a rank, decode chunks as CUDA
+    graphs (every chunk a replay), held to the TP = 1 reference ``ref2``."""
+    import torch
+
+    if torch.cuda.device_count() >= 2:
+        nccl = {"backend": "nccl", "flags": flags, "waves": ((0.0, 32),)}
+        ranks = _tp_run(2, nccl, "TP=2 nccl")
+        numbers["nccl"] = _tp_check("TP=2 nccl", ranks, *ref2, (
+            "flash_attention", "paged_attention_multiquery", "w8a16_matmul", "tp_all_reduce"),
+            smi)
+        for res in ranks:
+            m = res["engine_metrics"]
+            if not res["cuda_graphs"] or m["graph_replays"] < m["steps"] or m["steps"] < 1:
+                raise AssertionError(f"TP=2 nccl: every chunk a graph replay expected ({m})")
+        log(f"  [TP=2 nccl] every decode chunk a CUDA graph replay: "
+            f"{ranks[0]['engine_metrics']['graph_replays']} replays, "
+            f"{ranks[0]['engine_metrics']['graph_captures']} captures")
+    else:
+        numbers["nccl"] = (f"not run: {torch.cuda.device_count()} CUDA device(s); NCCL refuses "
+                           "two ranks on one device, so TP with CUDA graphs needs 2 GPUs")
+        log(f"  [TP=2 nccl] {numbers['nccl']}")
+    return numbers
+
+
+def shipping_flags() -> list:
+    """deploy/shipping.env's serve settings as server flags."""
+    env = shipping_env()
+    return [item for key, flag in SHIPPING_KEYS.items() for item in (flag, env[key])]
+
+
 def shipping_env() -> dict:
     """deploy/shipping.env's KEY=VALUE lines (comments and blanks skipped)."""
     env = {}
@@ -3122,7 +3649,7 @@ def main() -> int:
     dev = torch.device("cuda")
     t_start = time.perf_counter()
 
-    log("[1/18] device")
+    log("[1/19] device")
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -3131,7 +3658,7 @@ def main() -> int:
     log(f"  torch {torch.__version__} (CUDA {torch.version.cuda}), "
         f"{torch.cuda.device_count()} device(s): {kind}; nvidia-smi: {smi}")
 
-    log("[2/18] build the CUDA kernels")
+    log("[2/19] build the CUDA kernels")
     from dots_ocr_tpu_torch.ops import kernel_lib
 
     t0 = time.perf_counter()
@@ -3141,15 +3668,31 @@ def main() -> int:
         if "Function properties for" in line or "registers" in line or "spill" in line:
             log(f"  {line.strip()}")
 
-    log(f"[3/18] kernels vs plain versions on {smi}")
+    if "--tp-only" in sys.argv[1:]:
+        # A developer's shortcut (the full run takes no arguments): phase 19 alone.
+        log(f"[3/19] the shard shapes' kernel cases alone (--tp-only) on {smi}")
+        tp_shard_cases(dev)
+        log(f"[19/19] tensor-parallel serving alone (--tp-only) on {smi}")
+        tp = tp_phase(dev, shipping_flags(), smi)
+        for numbers in tp.values():
+            for res in numbers["ranks"] if isinstance(numbers, dict) else ():
+                res.pop("replies", None)
+        log(f"phase 19 passed in {time.perf_counter() - t_start:.1f} s")
+        log(smi)
+        log(json.dumps({"tensor_parallel": tp}))
+        return 0
+
+    log(f"[3/19] kernels vs plain versions on {smi}")
     kernels = kernel_phase(dev)
     kernels.update(w8a16_cases(dev))
     kernels.update(draw_cases(dev))
     kernels.update(threefry_cases(dev))
+    for name, cases in tp_shard_cases(dev).items():
+        kernels[name].extend(cases)
     tiny_call = tiny_call_phase(dev)
     w8a8_vision = w8a8_vision_phase(dev)
 
-    log(f"[4/18] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
+    log(f"[4/19] end to end, shipped path (int8 weights, int8 KV, k=2, chunk "
         f"{PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     shipped_replies = []
     engine, shipped, metrics, page = serve_phase(
@@ -3164,12 +3707,12 @@ def main() -> int:
         raise AssertionError(f"shipped path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[5/18] consistency, shipped path: kernel path vs plain path, page request")
+    log("[5/19] consistency, shipped path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev)
     del engine
     release()
 
-    log(f"[6/18] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
+    log(f"[6/19] end to end, fully quantized path (int4 weights, W8A8 vision, int8 KV, k=2, "
         f"chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, full_quant, metrics, page = serve_phase(
         dev, FULL_QUANT_FLAGS, "int4", waves=FULL_QUANT_WAVES,
@@ -3184,24 +3727,24 @@ def main() -> int:
         raise AssertionError(f"int4 path: prefill_chunks {metrics.get('prefill_chunks')} "
                              f"(need >= 2), spec_chunks {metrics.get('spec_chunks')} (need >= 1)")
 
-    log("[7/18] consistency, fully quantized path: kernel path vs plain path, page request")
+    log("[7/19] consistency, fully quantized path: kernel path vs plain path, page request")
     consistency_chunked_phase(engine, page, dev, w8a8_vision=True)
     del engine
     release()
 
-    log(f"[8/18] end to end, bf16 path (bf16 weights and KV, no speculation, one "
+    log(f"[8/19] end to end, bf16 path (bf16 weights and KV, no speculation, one "
         f"{PREFILL_LIMIT}-token prefill), full depth, on {smi}")
     engine, bf16_path, _, page = serve_phase(
         dev, BF16_FLAGS, "bf16", required=("flash_attention", "paged_attention_multiquery"))
     log("  consistency, bf16 path: kernel path vs plain path, page request")
     consistency_phase(engine, page, dev)
 
-    log(f"[9/18] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
+    log(f"[9/19] quantized weights and kernel 3 in decode: one 64-slot step on {smi}")
     decode_ms, decode_launches = decode_cost_phase(engine, dev)
     del engine
     release()
 
-    log(f"[10/18] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
+    log(f"[10/19] end to end, windowed vision and int8 KV at page 64 (int8 weights, no "
         f"speculation, chunk {PREFILL_CHUNK}): flagship, random weights, OpenAIServer on {smi}")
     engine, windowed, metrics, page = serve_phase(
         dev, WINDOWED_FLAGS, "windowed",
@@ -3215,9 +3758,9 @@ def main() -> int:
     release()
 
     env = shipping_env()
-    env_flags = [item for key, flag in SHIPPING_KEYS.items() for item in (flag, env[key])]
+    env_flags = shipping_flags()
     settings = ", ".join(f"{key}={env[key]}" for key in SHIPPING_KEYS)
-    log(f"[11/18] end to end, deploy/shipping.env as written ({settings}): flagship, random "
+    log(f"[11/19] end to end, deploy/shipping.env as written ({settings}): flagship, random "
         f"weights, waves (temperature, max_tokens) {SHIPPING_WAVES}, OpenAIServer on {smi}")
     engine, shipping, metrics, page = serve_phase(
         dev, [], "shipping.env", base_flags=env_flags, waves=SHIPPING_WAVES,
@@ -3243,11 +3786,11 @@ def main() -> int:
     del engine
     release()
 
-    log(f"[12/18] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
+    log(f"[12/19] a pool that runs dry (phase 4's flags, --num-pages cut): flagship, random "
         f"weights, OpenAIServer on {smi}")
     dry_launches, dry_metrics = dry_pool_phase(dev, shipped_replies[1])
 
-    log(f"[13/18] pipelined decode A/B at full width: deploy/shipping.env's geometry with "
+    log(f"[13/19] pipelined decode A/B at full width: deploy/shipping.env's geometry with "
         f"--speculate-k 0, {PIPELINE_TOKENS} tokens a request, on {smi}")
     pipeline_ab = pipeline_ab_phase(dev, env_flags)
     log(f"  [13] deploy/shipping.env as written (k = 2) with the defaults, {PIPELINE_TOKENS} "
@@ -3261,14 +3804,14 @@ def main() -> int:
     release()
 
     with tempfile.TemporaryDirectory(prefix="dots_parse_") as workdir:
-        log(f"[15/18] the loader, the batch engine and the parser's local mode: a synthetic "
+        log(f"[15/19] the loader, the batch engine and the parser's local mode: a synthetic "
             f"flagship checkpoint, a seeded 2-page PDF parse on {smi}")
         ckpt, local_launches, local_numbers = local_parse_phase(dev, workdir)
-        log(f"[16/18] the parser's server mode: deploy/shipping.env's flags + --weights, the "
+        log(f"[16/19] the parser's server mode: deploy/shipping.env's flags + --weights, the "
             f"CLI with --seed on a PDF and a PNG, on {smi}")
         served_launches, served_numbers = server_parse_phase(dev, ckpt, workdir, env_flags)
 
-    log(f"[17/18] CUDA graphs and the warmup flags: deploy/shipping.env's engine graphed "
+    log(f"[17/19] CUDA graphs and the warmup flags: deploy/shipping.env's engine graphed "
         f"against eager, --warmup full, phase 9's step as one chunk, --warmup background and "
         f"--compile-cache, on {smi}")
     engine, graph_numbers = graph_tokens_phase(dev, env_flags)
@@ -3278,11 +3821,17 @@ def main() -> int:
     graph_numbers["background"] = background_warmup_phase(dev, env_flags)
     graph_numbers["compile_cache"] = compile_cache_phase(env)
 
-    log(f"[18/18] training: the trainer's CLI at the flagship's full width and depth, "
+    log(f"[18/19] training: the trainer's CLI at the flagship's full width and depth, "
         f"{TRAIN_STEPS} steps with vision in process, card vs CPU and a checkpoint round trip, "
         f"on {smi}")
     training = {"cli": train_cli_phase(smi), "vision": train_vision_phase(dev, smi),
                 "consistency": train_consistency_phase(smi)}
+
+    log(f"[19/19] tensor-parallel serving: TP = 2 over gloo on this card (the flagship, "
+        f"deploy/shipping.env's flags), TP = 4 with KV replication and padded gate/up "
+        f"({TP4_LAYERS} + {TP4_LAYERS} layers), NCCL with CUDA graphs where there are 2 GPUs, "
+        f"on {smi}")
+    tp = tp_phase(dev, env_flags, smi)
 
     sources = {
         "gumbel_argmax": ("dots_ocr_tpu_torch/csrc/threefry_sample.cu",
@@ -3334,7 +3883,10 @@ def main() -> int:
                             "decode_steps": decode_launches, "windowed": windowed,
                             "shipping.env": shipping, "dry_pool": dry_launches,
                             "shipping.env, pipelined": pipelined_k2,
-                            "local parse": local_launches, "served parse": served_launches},
+                            "local parse": local_launches, "served parse": served_launches,
+                            "tp2": tp["tp2"]["ranks"][0]["launches"],
+                            "tp4": tp["tp4"]["ranks"][0]["launches"]},
+        "tensor_parallel": tp,
         "local_parse": local_numbers, "served_parse": served_numbers,
         "pipeline_ab": pipeline_ab, "graphs": graph_numbers,
         "dry_pool_preemptions": dry_metrics["preemptions"], "training": training,

@@ -9,7 +9,9 @@
 # found; a second start loads them without nvcc). Any variable already set
 # in the environment overrides the file (e.g. `WARMUP=background
 # ./deploy/launch_server_cuda.sh`, `KV_DTYPE=int8` for the long-context
-# capacity envelope).
+# capacity envelope). TENSOR_PARALLEL_SIZE=N serves over N ranks, and
+# TP_BACKEND picks their collectives: nccl (default; one GPU a rank) or gloo
+# (every rank on the one GPU).
 set -euo pipefail
 
 HERE="$(cd "$(dirname "${BASH_SOURCE[0]}")" && pwd)"
@@ -37,6 +39,8 @@ EXTRA=()
 [[ -n "${VISION_ATTN:-}" ]] && EXTRA+=(--vision-attn "$VISION_ATTN")
 [[ -n "${VISION_WINDOW:-}" ]] && EXTRA+=(--vision-window-patches "$VISION_WINDOW")
 [[ -n "${VISION_FULL_LAYERS:-}" ]] && EXTRA+=(--vision-full-layers "$VISION_FULL_LAYERS")
+[[ -n "${TENSOR_PARALLEL_SIZE:-}" ]] && EXTRA+=(--tensor-parallel-size "$TENSOR_PARALLEL_SIZE")
+[[ -n "${TP_BACKEND:-}" ]] && EXTRA+=(--tp-backend "$TP_BACKEND")
 
 exec python -m dots_ocr_tpu_torch.serve.server \
   --platform cuda \

@@ -29,7 +29,12 @@ which a capture may do; it touches only the null page), then the capture of
 the whole chunk. A capture or a replay that fails raises: there is no eager
 fallback.
 
-The kernel wrappers count launches in Python ints (``<wrapper>.launches``
+Under tensor-parallel serving over NCCL a chunk's all-reduces
+(``ops/tp.py::tp_all_reduce``) are captured with it, each rank capturing
+and replaying the same chunks in lockstep; gloo's host-staged all-reduce
+cannot be captured, so an engine over gloo runs its chunks eagerly.
+
+The kernel wrappers (and the all-reduce) count launches in Python ints (``<wrapper>.launches``
 and its siblings), which move only while a graph is captured. The counter
 deltas of a capture are kept with its graph and added at every replay, and
 the capture's own increments are taken back (its kernels did not run).
@@ -52,6 +57,7 @@ from dots_ocr_tpu_torch.ops.paged_attention import (
     paged_attention_stacked,
 )
 from dots_ocr_tpu_torch.ops.sampling import gumbel_argmax, threefry_grid
+from dots_ocr_tpu_torch.ops.tp import tp_all_reduce
 from dots_ocr_tpu_torch.ops.window_attention import window_attention
 
 # Background warmup captures on the engine thread while the HTTP threads
@@ -62,7 +68,7 @@ CAPTURE_MODE = "thread_local"
 # "launches".
 WRAPPERS = (flash_attention, paged_attention_multiquery_bf16, paged_attention_multiquery_int8,
             paged_attention_stacked, window_attention, int4_matmul, w8a16_matmul, gumbel_argmax,
-            threefry_grid)
+            threefry_grid, tp_all_reduce)
 
 Counter = Tuple[Callable, str]
 

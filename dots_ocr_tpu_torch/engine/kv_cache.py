@@ -43,15 +43,27 @@ class PagedKV:
     @staticmethod
     def create(cfg: DecoderConfig, num_pages: int, page_size: int,
                dtype: torch.dtype, device: torch.device,
-               quantized: bool = False) -> "PagedKV":
-        shape = (cfg.num_kv_heads, num_pages * page_size, cfg.head_dim)
+               quantized: bool = False, kv_replication: int = 1,
+               world: int = 1) -> "PagedKV":
+        """Zeroed pools. Under tensor-parallel serving with the KV heads
+        split over ``world`` ranks, a rank's pools hold its
+        ``num_kv_heads * kv_replication / world`` heads: with more ranks
+        than KV heads each head is repeated on ``kv_replication``
+        contiguous ranks (Megatron GQA replication, as the JAX package pads
+        its pool), so a rank holds one."""
+        heads = cfg.num_kv_heads * kv_replication
+        if heads % world:
+            raise ValueError(f"{heads} KV heads (x{kv_replication} replicas) do not split "
+                             f"over {world} ranks")
+        heads //= world
+        shape = (heads, num_pages * page_size, cfg.head_dim)
 
         def zeros(shape, dtype):
             return [torch.zeros(shape, dtype=dtype, device=device)
                     for _ in range(cfg.num_layers)]
 
         if quantized:
-            flat = (cfg.num_kv_heads * num_pages * page_size,)
+            flat = (heads * num_pages * page_size,)
             return PagedKV(zeros(shape, torch.int8), zeros(shape, torch.int8),
                            zeros(flat, torch.float32), zeros(flat, torch.float32))
         return PagedKV(zeros(shape, dtype), zeros(shape, dtype))

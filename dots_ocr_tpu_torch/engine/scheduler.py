@@ -108,6 +108,8 @@ from dots_ocr_tpu_torch.models.vlm import (
     vlm_prefill,
 )
 from dots_ocr_tpu_torch.ops.int4_matmul import int4_act_quant
+from dots_ocr_tpu_torch.ops.paged_attention import choose_paged_kernel
+from dots_ocr_tpu_torch.parallel.sharding import ROW_PARALLEL_PARTS
 
 logger = logging.getLogger(__name__)
 
@@ -250,6 +252,7 @@ def prefill_program(
     segment_ids: Optional[torch.Tensor] = None,
     scatter_batch: Optional[torch.Tensor] = None,
     scatter_pos: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> torch.Tensor:
     """Prefill one batch into the paged cache (in place) and sample each
     row's first token (``logit_bias`` applied). input_ids [B, T]; seq_lens
@@ -269,7 +272,7 @@ def prefill_program(
         params, config, input_ids, positions, seq_lens, patches=patches,
         rope_cos=rope_cos, rope_sin=rope_sin, segment_ids=segment_ids,
         scatter_batch=scatter_batch, scatter_pos=scatter_pos,
-        last_logit_only=True,
+        last_logit_only=True, tp=tp,
     )
     write_prefill_kv(paged, cache.k, cache.v, slot_mapping)
     if bias_ids is not None:
@@ -302,6 +305,7 @@ def decode_program(
     counts: Optional[torch.Tensor] = None,
     bias_ids: Optional[torch.Tensor] = None,
     bias_vals: Optional[torch.Tensor] = None,
+    tp=None,
 ):
     """``num_steps`` decode iterations for every slot, all on the device.
 
@@ -348,7 +352,7 @@ def decode_program(
             params["decoder"], config.decoder,
             embed_tokens(params["decoder"], current), write_pos,
             paged.k, paged.v, page_tables, seq_lens, slots, page_size,
-            k_scales=paged.k_scale, v_scales=paged.v_scale,
+            k_scales=paged.k_scale, v_scales=paged.v_scale, tp=tp,
         )
         logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
         if bias_ids is not None:
@@ -375,11 +379,12 @@ def decode_program(
 
 
 def encode_program(params: dict, config: DotsOCRConfig, patches: torch.Tensor,
-                   pos2d: torch.Tensor, segment_ids: torch.Tensor) -> torch.Tensor:
+                   pos2d: torch.Tensor, segment_ids: torch.Tensor, tp=None) -> torch.Tensor:
     """Vision encoder for one request's packed images -> merged tokens
     [T_pad / merge^2, D_llm] (2D-RoPE tables made on the device)."""
     cos, sin = vision_rope_device(pos2d, config.vision.head_dim, config.vision.rope_theta)
-    return encode_images(params["vision"], config.vision, patches, cos, sin, segment_ids)
+    return encode_images(params["vision"], config.vision, patches, cos, sin, segment_ids,
+                         tp=tp)
 
 
 def prefill_extend_program(
@@ -399,6 +404,7 @@ def prefill_extend_program(
     q_offset: int,
     bias_ids: Optional[torch.Tensor] = None,
     bias_vals: Optional[torch.Tensor] = None,
+    tp=None,
 ) -> torch.Tensor:
     """One lockstep chunk of a chunked prefill for a batch of requests.
 
@@ -414,7 +420,7 @@ def prefill_extend_program(
     hidden = decoder_prefill_extend_batched(
         params["decoder"], config.decoder, embeds_chunk, positions, prompt_len,
         paged.k, paged.v, page_table, slots, page_size, kv_hi, q_offset,
-        k_scales=paged.k_scale, v_scales=paged.v_scale,
+        k_scales=paged.k_scale, v_scales=paged.v_scale, tp=tp,
     )
     last_row = (prompt_len.long() - 1 - q_offset).clamp(0, c - 1)
     hidden = hidden[torch.arange(b, device=hidden.device), last_row]
@@ -447,6 +453,7 @@ def spec_decode_program(
     spec_k: int,
     bias_ids: Optional[torch.Tensor] = None,
     bias_vals: Optional[torch.Tensor] = None,
+    tp=None,
 ):
     """``num_steps`` speculative iterations for every slot, on the device.
 
@@ -507,7 +514,7 @@ def spec_decode_program(
         hidden = decoder_spec_step_paged(
             params["decoder"], config.decoder, embed_tokens(params["decoder"], x_all),
             write_pos, paged.k, paged.v, page_tables, seq_lens, slots, page_size,
-            k_scales=paged.k_scale, v_scales=paged.v_scale,
+            k_scales=paged.k_scale, v_scales=paged.v_scale, tp=tp,
         )
         logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
         if bias_ids is not None:
@@ -690,7 +697,15 @@ def default_tokenizer(config: DotsOCRConfig) -> TokenizerLike:
 
 class ContinuousBatchingEngine:
     """Paged continuous-batching engine with the surface the JAX package's
-    ``OpenAIServer`` and ``EngineWorker`` use."""
+    ``OpenAIServer`` and ``EngineWorker`` use.
+
+    ``tp``: a ``parallel.distributed.TPGroup`` whose ``plan`` is this
+    rank's shard (``parallel.sharding.shard_params``), in place of the JAX
+    engine's ``mesh``. ``params`` is then the rank's shard and ``config``
+    the full model's config (tokenizer, special ids, vocab); the programs
+    run on the plan's shard config. Every rank of the group runs one engine
+    in lockstep (``serve/async_engine.py``): the host's decisions depend
+    only on the submissions, cancels and step calls, never on a clock."""
 
     def __init__(
         self,
@@ -700,12 +715,18 @@ class ContinuousBatchingEngine:
         tokenizer: Optional[TokenizerLike] = None,
         sched: Optional[SchedulerConfig] = None,
         default_max_new_tokens: int = 16384,
+        tp=None,
     ):
         self.params = params
         self.config = config
         self.device = torch.device(device)
         self.tokenizer = tokenizer or default_tokenizer(config)
         self.sched = sched or SchedulerConfig()
+        self.tp = tp
+        self.model_config = config if tp is None else tp.plan.config
+        self._kv_rep = 1 if tp is None else tp.plan.kv_replication
+        if tp is not None:
+            self._check_tp()
         if self.sched.prefill_chunk_tokens > 0:
             ps = self.sched.page_size
             rounded = -(-self.sched.prefill_chunk_tokens // ps) * ps
@@ -725,10 +746,12 @@ class ContinuousBatchingEngine:
         self._rng = prng_key(0)
         if self.sched.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype {self.sched.kv_cache_dtype!r} not in (bf16, int8)")
+        kv_split = tp is not None and "decoder.attn" in tp.plan.row_parallel
         self.paged = PagedKV.create(
             config.decoder, self.sched.num_pages, self.sched.page_size,
             dtype=config.torch_dtype, device=self.device,
             quantized=self.sched.kv_cache_dtype == "int8",
+            kv_replication=self._kv_rep, world=tp.world if kv_split else 1,
         )
         self.allocator = PageAllocator(
             num_pages=self.sched.num_pages,
@@ -800,6 +823,31 @@ class ContinuousBatchingEngine:
             "t_decode_s": 0.0,   # decode chunks: dispatch, fetch, bookkeeping
             "t_fetch_wait_s": 0.0,  # host blocked on decode chunks' packed fetches
         }
+
+    def _check_tp(self) -> None:
+        """The JAX engine's TP rules, on this rank: refuse what has no TP
+        route, and run eagerly where a collective cannot be captured."""
+        tp, d = self.tp, self.config.decoder
+        quantized = self.sched.kv_cache_dtype == "int8"
+        if self.device.type == "cuda" and choose_paged_kernel(
+                d.head_dim, self.sched.page_size, quantized, 1) != "multiquery":
+            raise ValueError(
+                f"tensor parallelism at head_dim {d.head_dim}, page_size "
+                f"{self.sched.page_size}, {self.sched.kv_cache_dtype} KV: decode would run "
+                "kernel 3 (v1), which has no TP route in the JAX package "
+                "(dots_ocr_tpu/models/decoder.py:351-353); use a page_size multiple of 128")
+        if self._kv_rep > 1:
+            logger.info("TP=%d exceeds %d KV heads: each KV head is repeated on %d ranks "
+                        "(a rank's pool holds one head)", tp.world, d.num_kv_heads,
+                        self._kv_rep)
+        whole = sorted(set(ROW_PARALLEL_PARTS) - tp.plan.row_parallel)
+        if whole:
+            logger.info("TP=%d: %s do not divide and stay whole on every rank", tp.world,
+                        ", ".join(whole))
+        if tp.backend == "gloo" and self.sched.cuda_graphs and self.device.type == "cuda":
+            # gloo stages CUDA tensors through the host: no graph captures it.
+            logger.info("TP over gloo: decode chunks run eagerly (no CUDA graphs)")
+            self.sched = dataclasses.replace(self.sched, cuda_graphs=False)
 
     # -- submission ----------------------------------------------------
 
@@ -1074,8 +1122,8 @@ class ContinuousBatchingEngine:
             )
             sb = np.where(sb == 0, j, len(reqs)).astype(np.int32)
             vision_tokens = encode_program(
-                self.params, self.config, self._put(packed.patches),
-                self._put(packed.pos2d), self._put(packed.segment_ids),
+                self.params, self.model_config, self._put(packed.patches),
+                self._put(packed.pos2d), self._put(packed.segment_ids), tp=self.tp,
             )
             embeds = splice_vision_embeddings(embeds, vision_tokens, self._put(sb), self._put(sp))
             self.metrics["chunk_embeds"] = self.metrics.get("chunk_embeds", 0) + 1
@@ -1117,13 +1165,13 @@ class ContinuousBatchingEngine:
             slots[j, :n_valid] = self.allocator.slot_mapping(req.req_id, start, n_valid)
         temps = np.array([r.temperature for _, r in group], np.float32)
         first = prefill_extend_program(
-            self.params, self.config, self.paged,
+            self.params, self.model_config, self.paged,
             torch.stack([r.embeds[start:start + ct] for _, r in group]),
             self._put(plens), self._put(tables), self._put(slots), self._put(temps),
             self._put(np.array([r.top_p for _, r in group], np.float32)),
             self._put(np.stack([r.sample_key for _, r in group])),
             bool(np.any(temps > 0)), page_size=ps, kv_hi=kv_hi, q_offset=start,
-            **self._batch_bias([r for _, r in group]),
+            **self._batch_bias([r for _, r in group]), tp=self.tp,
         )
         self.metrics["prefill_chunks"] += 1
         first_host = None
@@ -1171,11 +1219,11 @@ class ContinuousBatchingEngine:
             )
         temps = np.array([r.temperature for r in reqs], np.float32)
         first = prefill_program(
-            self.params, self.config, self.paged, self._put(input_ids),
+            self.params, self.model_config, self.paged, self._put(input_ids),
             self._put(seq_lens), self._put(slot_mapping.reshape(-1)),
             self._put(temps), self._put(np.array([r.top_p for r in reqs], np.float32)),
             self._put(np.stack([r.sample_key for r in reqs])), bool(np.any(temps > 0)),
-            **self._batch_bias(reqs), **vision,
+            **self._batch_bias(reqs), **vision, tp=self.tp,
         ).cpu().numpy()
         for j, req in enumerate(reqs):
             self._set_slot(slots[j], req)
@@ -1263,7 +1311,9 @@ class ContinuousBatchingEngine:
         candidates = [r for r in self._slot_req if r is not None]
         if not candidates:
             raise OutOfPages("no pages free and nothing to preempt")
-        victim = max(candidates, key=lambda r: r.submitted_at)
+        # The youngest is the last submitted: ids rise in submission order,
+        # the same on every rank of a TP group (clocks are not).
+        victim = max(candidates, key=lambda r: r.req_id)
         slot = victim.slot
         self.allocator.free(victim.req_id)
         self._slot_req[slot] = None
@@ -1596,14 +1646,14 @@ class ContinuousBatchingEngine:
                           temperature=dev.temps, top_p=dev.top_ps, slot_keys=dev.keys,
                           any_sampled=key.any_sampled, nucleus=key.nucleus,
                           page_size=self.sched.page_size, num_steps=num_steps,
-                          bias_ids=dev.bias_ids, bias_vals=dev.bias_vals)
+                          bias_ids=dev.bias_ids, bias_vals=dev.bias_vals, tp=self.tp)
             if key.spec_k:
                 packed, carry = spec_decode_program(
-                    self.params, self.config, self.paged, dev.buf, dev.tokens, dev.positions,
+                    self.params, self.model_config, self.paged, dev.buf, dev.tokens, dev.positions,
                     dev.budgets, dev.gen_start, spec_k=key.spec_k, **common)
             else:
                 packed, carry = decode_program(
-                    self.params, self.config, self.paged, dev.tokens, dev.positions,
+                    self.params, self.model_config, self.paged, dev.tokens, dev.positions,
                     dev.budgets, with_logprobs=key.with_logprobs, presence=dev.pres,
                     frequency=dev.freq, counts=dev.counts, **common)
             if live:

@@ -8,6 +8,12 @@ PyTorch runs eagerly, so the JAX ``lax.scan`` over stacked layers is a
 Python loop indexing the layer axis of the parameter tree. The decode
 steps update the dense cache, the per-layer pools (and, in int8 mode, the
 flat scale vectors) in place, where the JAX package returns new arrays.
+
+Tensor-parallel serving (``tp``, a ``parallel.distributed.TPGroup``): the
+config is the rank's shard config (its query, KV and intermediate counts),
+the pools hold the rank's KV heads (the JAX decoder reads them from the
+pool), the kernels run on those heads as they are, and wo and down are
+row-parallel, each followed by the one all-reduce of its partial sums.
 """
 
 from __future__ import annotations
@@ -33,6 +39,7 @@ from dots_ocr_tpu_torch.models.rope import apply_rope, rope_table
 from dots_ocr_tpu_torch.ops import flash_attention, paged_attention
 from dots_ocr_tpu_torch.ops.attention import decode_attention_reference
 from dots_ocr_tpu_torch.ops.int8_matmul import w8a16_matmul
+from dots_ocr_tpu_torch.ops.tp import row_reduce
 
 
 class KVCache(NamedTuple):
@@ -73,6 +80,7 @@ def decoder_layer_prefill(
     sin: torch.Tensor,
     segment_ids: torch.Tensor,
     attn_impl: str = "kernel",
+    tp=None,
 ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """One layer over x [B, T, D]: causal attention with padding as segment
     -1 (``attn_impl`` names a ``flash_attention.IMPLEMENTATIONS`` entry).
@@ -84,7 +92,7 @@ def decoder_layer_prefill(
     k = apply_rope(k, cos, sin)
     out = flash_attention.IMPLEMENTATIONS[attn_impl](q, k, v, segment_ids, segment_ids,
                                                      causal=True)
-    return _mlp_block(x, block_params, cfg, out.reshape(b, t, cfg.q_dim)), (k, v)
+    return _mlp_block(x, block_params, cfg, out.reshape(b, t, cfg.q_dim), tp), (k, v)
 
 
 def decoder_layer_decode(
@@ -123,6 +131,7 @@ def decoder_prefill(
     seq_lens: torch.Tensor,
     attn_impl: str = "kernel",
     remat: bool = False,
+    tp=None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Full-sequence forward. inputs_embeds [B, T, D]; positions [B, T];
     seq_lens [B]. Attention is causal flash attention with padding as
@@ -139,7 +148,7 @@ def decoder_prefill(
     ks: List[torch.Tensor] = []
     vs: List[torch.Tensor] = []
     for block in unstack_layers(params["blocks"]):
-        args = (x, block, cfg, cos, sin, segment_ids, attn_impl)
+        args = (x, block, cfg, cos, sin, segment_ids, attn_impl, tp)
         if remat:
             x, (k, v) = checkpoint(decoder_layer_prefill, *args, use_reentrant=False)
         else:
@@ -172,12 +181,14 @@ def decoder_decode_step(
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps), cache
 
 
-def _mlp_block(x: torch.Tensor, bp: dict, cfg: DecoderConfig, out: torch.Tensor) -> torch.Tensor:
-    """The residual after attention (``out`` [..., q_dim]) and the MLP."""
-    x = x + linear(out, bp["attn"]["wo"])
+def _mlp_block(x: torch.Tensor, bp: dict, cfg: DecoderConfig, out: torch.Tensor,
+               tp=None) -> torch.Tensor:
+    """The residual after attention (``out`` [..., q_dim]) and the MLP;
+    under TP wo and down are row-parallel (their all-reduces)."""
+    x = x + linear(out, bp["attn"]["wo"], reduce=row_reduce(tp, "decoder.attn"))
     h = rms_norm(x, bp["post_attn_norm"], cfg.rms_norm_eps)
     m = bp["mlp"]
-    return x + swiglu(h, m["gate"], m["up"], m["down"])
+    return x + swiglu(h, m["gate"], m["up"], m["down"], reduce=row_reduce(tp, "decoder.mlp"))
 
 
 def _paged_views(paged: PagedKV, layer: int, page_size: int):
@@ -204,6 +215,7 @@ def decoder_decode_step_paged(
     attn_impl: str = "kernel",
     k_scales: Optional[List[torch.Tensor]] = None,
     v_scales: Optional[List[torch.Tensor]] = None,
+    tp=None,
 ) -> torch.Tensor:
     """One decode step over the paged cache (continuous batching path).
 
@@ -220,7 +232,7 @@ def decoder_decode_step_paged(
     """
     return decoder_spec_step_paged(
         params, cfg, inputs_embeds[:, None], positions[:, None], k_pages, v_pages,
-        page_tables, seq_lens, slots[:, None], page_size, attn_impl, k_scales, v_scales,
+        page_tables, seq_lens, slots[:, None], page_size, attn_impl, k_scales, v_scales, tp,
     )[:, 0]
 
 
@@ -238,6 +250,7 @@ def decoder_spec_step_paged(
     attn_impl: str = "kernel",
     k_scales: Optional[List[torch.Tensor]] = None,
     v_scales: Optional[List[torch.Tensor]] = None,
+    tp=None,
 ) -> torch.Tensor:
     """One speculative-verify step: nq tokens per slot (the current token
     and nq - 1 drafts) in one pass.
@@ -267,7 +280,7 @@ def decoder_spec_step_paged(
                       v.reshape(s * nq, cfg.num_kv_heads, cfg.head_dim))
         kp, vp, scales = _paged_views(paged, i, page_size)
         out = attend(q, kp, vp, seq_lens, page_tables, **scales)
-        x = _mlp_block(x, bp, cfg, out.reshape(s, nq, cfg.q_dim))
+        x = _mlp_block(x, bp, cfg, out.reshape(s, nq, cfg.q_dim), tp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 
@@ -287,6 +300,7 @@ def decoder_prefill_extend_batched(
     attn_impl: str = "kernel",
     k_scales: Optional[List[torch.Tensor]] = None,
     v_scales: Optional[List[torch.Tensor]] = None,
+    tp=None,
 ) -> torch.Tensor:
     """One lockstep chunk of a chunked prefill for a batch of sequences,
     writing straight into the paged cache.
@@ -339,7 +353,7 @@ def decoder_prefill_extend_batched(
         kc = gather(paged.k[i], paged.k_scale[i] if paged.quantized else None)
         vc = gather(paged.v[i], paged.v_scale[i] if paged.quantized else None)
         out = attend(q, kc, vc, q_seg, kv_seg, causal=True, q_offset=q_offset)
-        x = _mlp_block(x, bp, cfg, out.reshape(b, c, cfg.q_dim))
+        x = _mlp_block(x, bp, cfg, out.reshape(b, c, cfg.q_dim), tp)
     return rms_norm(x, params["final_norm"], cfg.rms_norm_eps)
 
 

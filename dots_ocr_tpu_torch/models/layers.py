@@ -12,7 +12,7 @@ apply to that sum, and the cast to the activation dtype comes last.
 
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Callable, Optional, Union
 
 import torch
 import torch.nn.functional as F
@@ -21,6 +21,7 @@ from dots_ocr_tpu_torch.ops.int4_matmul import int4_linear
 from dots_ocr_tpu_torch.ops.int8_matmul import matmul_f32, w8a16_matmul
 
 Kernel = Union[torch.Tensor, dict]
+Reduce = Callable[..., torch.Tensor]
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -42,8 +43,17 @@ def int8_matmul(xq: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
     return torch._int_mm(x2, q)[:rows].reshape(*xq.shape[:-1], q.shape[-1])
 
 
-def linear(x: torch.Tensor, kernel: Kernel, bias: Optional[torch.Tensor] = None) -> torch.Tensor:
+def linear(x: torch.Tensor, kernel: Kernel, bias: Optional[torch.Tensor] = None,
+           reduce: Optional[Reduce] = None) -> torch.Tensor:
     """x @ kernel (+ bias) with kernel [in, out], cast to x.dtype.
+
+    ``reduce`` makes it a row-parallel linear of tensor-parallel serving:
+    ``kernel`` holds the rank's rows, the float32 product (int8 scale
+    included) is summed over the ranks in place by ``reduce``
+    (``ops/tp.py::tp_all_reduce``), and the bias and the cast follow the
+    sum, as GSPMD's psum of the JAX package's float32 einsum does. A W8A8
+    kernel takes each row's amax over every rank's slice (``reduce``'s
+    "max") and sums the exact int32 products before its scales.
 
     An int8 kernel goes through ``ops.int8_matmul.w8a16_matmul``: the
     weight as x.dtype (exact), its per-output-channel scale on the float32
@@ -57,30 +67,42 @@ def linear(x: torch.Tensor, kernel: Kernel, bias: Optional[torch.Tensor] = None)
     max(amax / 127, 1e-8)``, codes clipped to +-127), takes the exact int32
     product, and scales it as ``acc * a_scale * s``.
     """
+    summed = reduce is None
     if isinstance(kernel, dict) and "qint8" in kernel:
-        return w8a16_matmul(x, kernel["qint8"], kernel["scale"], bias)
-    if isinstance(kernel, dict) and "qint4" in kernel:
+        if summed:
+            return w8a16_matmul(x, kernel["qint8"], kernel["scale"], bias)
+        out = w8a16_matmul(x, kernel["qint8"], kernel["scale"], out_f32=True)
+    elif isinstance(kernel, dict) and "qint4" in kernel:
         out = int4_linear(x, kernel).to(torch.float32)
     elif isinstance(kernel, dict) and "qint8_act" in kernel:
         xf = x.to(torch.float32)
         amax = xf.abs().amax(dim=-1, keepdim=True)
+        if not summed:
+            amax = reduce(amax, op="max")
         a_scale = (amax / amax.new_full((), 127.0)).clamp_min(1e-8)  # true division
         xq = torch.round(xf / a_scale).clamp(-127, 127).to(torch.int8)
-        out = int8_matmul(xq, kernel["qint8_act"]).to(torch.float32) * a_scale * kernel["scale"]
+        acc = int8_matmul(xq, kernel["qint8_act"])
+        if not summed:
+            acc, summed = reduce(acc), True
+        out = acc.to(torch.float32) * a_scale * kernel["scale"]
     else:
         out = matmul_f32(x, kernel)
+    if not summed:
+        out = reduce(out)
     if bias is not None:
         out = out + bias.to(torch.float32)
     return out.to(x.dtype)
 
 
 def swiglu(x: torch.Tensor, gate_kernel: Kernel, up_kernel: Kernel,
-           down_kernel: Kernel) -> torch.Tensor:
-    """SwiGLU MLP: down(silu(gate(x)) * up(x))."""
+           down_kernel: Kernel, reduce: Optional[Reduce] = None) -> torch.Tensor:
+    """SwiGLU MLP: down(silu(gate(x)) * up(x)); ``reduce`` as in
+    :func:`linear` for a rank's column-parallel gate / up and row-parallel
+    down."""
     gate = linear(x, gate_kernel)
     up = linear(x, up_kernel)
     hidden = F.silu(gate.to(torch.float32)).to(x.dtype) * up
-    return linear(hidden, down_kernel)
+    return linear(hidden, down_kernel, reduce=reduce)
 
 
 def embed(input_ids: torch.Tensor, embedding: Kernel) -> torch.Tensor:

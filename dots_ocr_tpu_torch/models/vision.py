@@ -14,6 +14,12 @@ padded to W = window_size^2 tokens, and each layer not in
 to [T / W, W, H, D] and runs ``window_attention.IMPLEMENTATIONS``
 (the window kernel on the serving path). The JAX package picks the branch
 per layer with ``lax.cond``; here a Python ``if`` on the layer index does.
+
+Tensor-parallel serving (``tp``): the config is the rank's shard config,
+wo, down and the merger's fc2 are row-parallel, each followed by its
+all-reduce, and the windowed layers run the flash kernel with one batch
+row a window instead of the window kernel, as the JAX package does under a
+mesh (``dots_ocr_tpu/models/vision.py:105, :119``).
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ from dots_ocr_tpu_torch.models.config import VisionConfig
 from dots_ocr_tpu_torch.models.layers import linear, rms_norm, swiglu, unstack_layers
 from dots_ocr_tpu_torch.models.rope import apply_rope
 from dots_ocr_tpu_torch.ops import flash_attention, window_attention
+from dots_ocr_tpu_torch.ops.tp import row_reduce
 
 
 def vision_block(
@@ -36,6 +43,7 @@ def vision_block(
     segment_ids: torch.Tensor,
     attn_impl: str = "kernel",
     windowed: bool = False,
+    tp=None,
 ) -> torch.Tensor:
     """One post-norm block over packed tokens x [T, D]. ``attn_impl``
     "kernel" runs the flash (or, with ``windowed``, the window) wrapper,
@@ -53,17 +61,20 @@ def vision_block(
         if windowed:
             w = cfg.window_size**2
             segw = segment_ids.reshape(t // w, w)
-            out = window_attention.IMPLEMENTATIONS[attn_impl](
-                q.reshape(t // w, w, heads, head_dim), k.reshape(t // w, w, heads, head_dim),
-                v.reshape(t // w, w, heads, head_dim), segw)
+            qw, kw, vw = (a.reshape(t // w, w, heads, head_dim) for a in (q, k, v))
+            if tp is None:
+                out = window_attention.IMPLEMENTATIONS[attn_impl](qw, kw, vw, segw)
+            else:
+                out = flash_attention.IMPLEMENTATIONS[attn_impl](qw, kw, vw, segw, segw)
         else:
             seg = segment_ids[None]
             out = flash_attention.IMPLEMENTATIONS[attn_impl](q[None], k[None], v[None], seg, seg)[0]
-        return linear(out.reshape(t, heads * head_dim), attn_p["wo"])
+        return linear(out.reshape(t, heads * head_dim), attn_p["wo"],
+                      reduce=row_reduce(tp, "vision.attn"))
 
     def mlp(h: torch.Tensor) -> torch.Tensor:
         m = block_params["mlp"]
-        return swiglu(h, m["gate"], m["up"], m["down"])
+        return swiglu(h, m["gate"], m["up"], m["down"], reduce=row_reduce(tp, "vision.mlp"))
 
     if cfg.post_norm:
         x = rms_norm(x + attend(x), block_params["norm1"], cfg.rms_norm_eps)
@@ -80,6 +91,7 @@ def vision_forward(
     rope_sin: torch.Tensor,
     segment_ids: torch.Tensor,
     attn_impl: str = "kernel",
+    tp=None,
 ) -> torch.Tensor:
     """Encoder over packed patches [T, patch_dim] (uint8 are normalized
     here with the config's CLIP mean/std); returns pre-merge hidden [T, D].
@@ -98,20 +110,22 @@ def vision_forward(
     windows = cfg.window_size > 0 and x.shape[0] % cfg.window_size**2 == 0
     for i, block in enumerate(unstack_layers(params["blocks"])):
         x = vision_block(x, block, cfg, cos, sin, segment_ids,
-                         attn_impl, windowed=windows and i not in cfg.full_attn_layers)
+                         attn_impl, windowed=windows and i not in cfg.full_attn_layers, tp=tp)
     return rms_norm(x, params["post_norm"], cfg.rms_norm_eps)
 
 
-def merge_tokens(params: dict, cfg: VisionConfig, hidden: torch.Tensor) -> torch.Tensor:
+def merge_tokens(params: dict, cfg: VisionConfig, hidden: torch.Tensor,
+                 tp=None) -> torch.Tensor:
     """2x2 spatial merge + projector: [T, D] -> [T / 4, llm_hidden]. The
-    GELU is the tanh approximation, as ``jax.nn.gelu`` defaults to."""
+    GELU is the tanh approximation, as ``jax.nn.gelu`` defaults to. Under
+    TP fc1 is column-parallel and fc2 row-parallel (b2 after the sum)."""
     merge = cfg.spatial_merge_size**2
     t, d = hidden.shape
     m = params["merger"]
     h = rms_norm(hidden.reshape(t // merge, merge * d), m["norm"], cfg.rms_norm_eps)
     h = linear(h, m["fc1"], m.get("b1"))
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(hidden.dtype)
-    return linear(h, m["fc2"], m.get("b2"))
+    return linear(h, m["fc2"], m.get("b2"), reduce=row_reduce(tp, "vision.merger"))
 
 
 def encode_images(
@@ -122,8 +136,9 @@ def encode_images(
     rope_sin: torch.Tensor,
     segment_ids: torch.Tensor,
     attn_impl: str = "kernel",
+    tp=None,
 ) -> torch.Tensor:
     """Packed patches -> merged decoder-space tokens [T / merge^2, llm_hidden]."""
     hidden = vision_forward(params, cfg, patches, rope_cos, rope_sin, segment_ids,
-                            attn_impl)
-    return merge_tokens(params, cfg, hidden)
+                            attn_impl, tp=tp)
+    return merge_tokens(params, cfg, hidden, tp=tp)

@@ -5,6 +5,10 @@ The prompt carries ``<|img|><|imgpad|>*N<|endofimg|>`` per image, N the
 merged vision token count. The host computes, per merged vision row, the
 (batch, position) of the imgpad token it fills; padding rows get the
 out-of-bounds sentinel (B, T) and are dropped by the splice.
+
+``tp`` (a ``parallel.distributed.TPGroup``) takes the place of the JAX
+package's ``mesh``: the config is then the rank's shard config and the
+params its shard (``parallel/sharding.py``).
 """
 
 from __future__ import annotations
@@ -77,13 +81,14 @@ def vlm_embed(
     scatter_batch: Optional[torch.Tensor] = None,
     scatter_pos: Optional[torch.Tensor] = None,
     attn_impl: str = "kernel",
+    tp=None,
 ) -> torch.Tensor:
     """Token embeddings with the vision tokens spliced in: [B, T, D]."""
     x = embed_tokens(params["decoder"], input_ids)
     if patches is not None:
         vision_tokens = encode_images(
             params["vision"], config.vision, patches, rope_cos, rope_sin,
-            segment_ids, attn_impl=attn_impl,
+            segment_ids, attn_impl=attn_impl, tp=tp,
         )
         x = splice_vision_embeddings(x, vision_tokens, scatter_batch, scatter_pos)
     return x
@@ -104,6 +109,7 @@ def vlm_prefill(
     attn_impl: str = "kernel",
     last_logit_only: bool = False,
     remat: bool = False,
+    tp=None,
 ):
     """Full multimodal prefill. input_ids/positions [B, T]; seq_lens [B];
     vision arguments as from ``preprocess.pack_images`` and
@@ -117,10 +123,10 @@ def vlm_prefill(
     x = vlm_embed(
         params, config, input_ids, patches=patches, rope_cos=rope_cos,
         rope_sin=rope_sin, segment_ids=segment_ids, scatter_batch=scatter_batch,
-        scatter_pos=scatter_pos, attn_impl=attn_impl,
+        scatter_pos=scatter_pos, attn_impl=attn_impl, tp=tp,
     )
     hidden, cache = decoder_prefill(
-        params["decoder"], config.decoder, x, positions, seq_lens, attn_impl, remat=remat
+        params["decoder"], config.decoder, x, positions, seq_lens, attn_impl, remat=remat, tp=tp
     )
     if last_logit_only:
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), seq_lens.long() - 1]

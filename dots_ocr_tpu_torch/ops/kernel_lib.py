@@ -6,7 +6,7 @@ loaded through ``ctypes`` (no PyTorch headers: a build takes seconds
 instead of minutes). The library is cached under
 ``csrc/build/`` keyed by a hash of the sources, and built at first use,
 never at import: the CPU tests import every module on hosts without a CUDA
-toolkit. :func:`set_build_dir` moves the cache (the server's
+toolkit; concurrent processes build it once, under a file lock. :func:`set_build_dir` moves the cache (the server's
 ``--compile-cache``): a process that finds the library there loads it
 without running ``nvcc``.
 
@@ -18,6 +18,7 @@ launches on the given stream without synchronising, and returns
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -116,12 +117,27 @@ def set_build_dir(path: str) -> None:
 
 
 def _build() -> str:
-    global build_log, built
-    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
+    """The library's path, built first if it is not there. Processes that
+    build take ``BUILD_DIR/.lock`` in turn (the ranks of a TP server share one
+    directory), so a process that waited finds the library its
+    predecessor built and runs no ``nvcc``."""
     so_path = os.path.join(BUILD_DIR, _so_name())
     if os.path.exists(so_path):
         return so_path
     os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, ".lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            if os.path.exists(so_path):
+                return so_path
+            return _compile(so_path)
+        finally:
+            fcntl.flock(lock, fcntl.LOCK_UN)
+
+
+def _compile(so_path: str) -> str:
+    global build_log, built
+    sources = sorted(glob.glob(os.path.join(CSRC, "*.cu")))
     built = True
     tmp = f"{so_path}.{os.getpid()}.tmp"
     objects = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]

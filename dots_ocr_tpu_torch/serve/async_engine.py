@@ -6,16 +6,29 @@ thread soup and deliberately replaces it with one event loop + queues):
 HTTP handlers enqueue (request, future) pairs; the engine thread drains the
 queue, submits into the scheduler, steps it while work remains, and
 resolves futures as requests finish.
+
+Under tensor-parallel serving the engine thread is rank 0's, and the ranks
+run in lockstep (SPMD): each loop iteration gathers the tick's events
+(prepared submissions, cancels, a failed step's cancels, whether an idle
+tick may warm, shutdown) into a :class:`Tick`, broadcasts it over the TP
+group's CPU control group, and then applies it to its own engine exactly
+as every other rank applies it (:func:`follow`, their loop without HTTP).
+An idle tick is broadcast too (every 50 ms), so a follower never waits out
+the group's timeout. A lost group (a rank died or a collective timed out)
+fails the requests in flight and every later one.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import logging
 import queue
 import threading
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence
+
+from dots_ocr_tpu_torch.parallel.distributed import TPGroupLost, broadcast_object
 
 logger = logging.getLogger(__name__)
 
@@ -55,14 +68,57 @@ class Submission:
     cancelled: bool = False
 
 
-class EngineWorker:
-    """Engine thread around a ContinuousBatchingEngine."""
+# The engine.submit arguments a tick carries (the prepared request stands
+# in for the prompt's images; a stream callback for its presence only).
+_SUBMIT_FIELDS = ("prompt", "max_new_tokens", "temperature", "top_p", "system_prompt",
+                  "min_pixels", "max_pixels", "stop", "stop_token_ids", "seed", "logprobs",
+                  "presence_penalty", "frequency_penalty", "logit_bias", "prepared")
 
-    def __init__(self, engine, prep_workers: int = 1):
+
+@dataclass
+class Tick:
+    """One engine-loop iteration's events, in the order they apply:
+    ``failed`` (the requests a failed step cancelled), ``cancels``,
+    ``submits``, then, with nothing to step, a warm tick if ``warm``;
+    ``stop`` ends the loop. On the wire a submission is its
+    engine.submit arguments and whether it streams (:func:`_wire`)."""
+
+    submits: List[Submission] = field(default_factory=list)
+    cancels: List[int] = field(default_factory=list)
+    failed: List[int] = field(default_factory=list)
+    warm: bool = False
+    stop: bool = False
+
+
+def _no_stream(delta: str, finish: Optional[str]) -> None:
+    """A follower's stand-in for a stream callback: whether a request
+    streams changes the engine's decisions (it keeps chunks shallow)."""
+
+
+def _wire(sub: Submission) -> tuple:
+    fields = {name: getattr(sub, name) for name in _SUBMIT_FIELDS}
+    fields.update(stop=list(sub.stop), stop_token_ids=list(sub.stop_token_ids))
+    return fields, sub.stream_cb is not None
+
+
+def _unwire(item: tuple) -> Submission:
+    fields, streamed = item
+    return Submission(images=(), stream_cb=_no_stream if streamed else None, **fields)
+
+
+class EngineWorker:
+    """Engine thread around a ContinuousBatchingEngine (rank 0's, when the
+    engine has a TP group: ``engine.tp``)."""
+
+    def __init__(self, engine, prep_workers: int = 1, thread: bool = True):
         self.engine = engine
+        self._tp = getattr(engine, "tp", None)
+        # Why the TP group was lost; every request fails once it is set.
+        self.lost: Optional[str] = None
         self._queue: "queue.Queue[Submission]" = queue.Queue()
         self._cancels: "queue.Queue[Submission]" = queue.Queue()
         self._futures: Dict[int, Submission] = {}
+        self._failed: List[int] = []
         self._stop = threading.Event()
         # Tokenization + image preprocessing run off the ENGINE thread so a
         # ~140 ms/page patcher never stalls device stepping (decode p99
@@ -78,9 +134,13 @@ class EngineWorker:
             else None
         )
         self._thread = threading.Thread(target=self._loop, daemon=True)
-        self._thread.start()
+        if thread:
+            self._thread.start()
 
     def submit(self, submission: Submission) -> Future:
+        if self.lost is not None:
+            self._fail(submission, RuntimeError(f"tensor-parallel group lost: {self.lost}"))
+            return submission.future
         if self._prep_pool is not None and submission.prepared is None:
             self._prep_pool.submit(self._prep_and_enqueue, submission)
         else:
@@ -90,6 +150,9 @@ class EngineWorker:
     def _prep_and_enqueue(self, sub: Submission) -> None:
         if sub.cancelled:  # client gone while queued for preprocessing
             self._fail(sub, RuntimeError("cancelled"))
+            return
+        if self.lost is not None:
+            self._fail(sub, RuntimeError(f"tensor-parallel group lost: {self.lost}"))
             return
         try:
             sub.prepared = self.engine.prepare(
@@ -118,49 +181,127 @@ class EngineWorker:
 
     # ------------------------------------------------------------------
 
-    def _drain_queue(self, block: bool) -> None:
-        try:
-            sub = self._queue.get(timeout=0.05 if block else 0)
-        except queue.Empty:
-            return
+    def _gather(self, block: bool) -> Tick:
+        """This iteration's events: cancels of submitted requests, then the
+        queued submissions (prepared here if the pool did not), waiting up
+        to 50 ms for the first when ``block``."""
+        tick = Tick(failed=self._failed)
+        self._failed = []
         while True:
             try:
-                if sub.cancelled:
-                    self._fail(sub, RuntimeError("cancelled"))
-                    try:
-                        sub = self._queue.get_nowait()
-                    except queue.Empty:
-                        return
+                sub = self._cancels.get_nowait()
+            except queue.Empty:
+                break
+            tick.cancels += [rid for rid, pending in self._futures.items() if pending is sub]
+        subs = []
+        try:
+            subs.append(self._queue.get(timeout=0.05 if block else 0))
+            while True:
+                subs.append(self._queue.get_nowait())
+        except queue.Empty:
+            pass
+        for sub in subs:
+            if sub.cancelled:
+                self._fail(sub, RuntimeError("cancelled"))
+                continue
+            if sub.prepared is None and self._tp is not None:
+                try:
+                    sub.prepared = self.engine.prepare(
+                        sub.prompt, sub.images, system_prompt=sub.system_prompt,
+                        min_pixels=sub.min_pixels, max_pixels=sub.max_pixels)
+                except Exception as e:  # noqa: BLE001 - bad request (e.g. aspect)
+                    self._fail(sub, e)
                     continue
-                rid = self.engine.submit(
-                    sub.prompt,
-                    images=sub.images,
-                    max_new_tokens=sub.max_new_tokens,
-                    temperature=sub.temperature,
-                    top_p=sub.top_p,
-                    system_prompt=sub.system_prompt,
-                    min_pixels=sub.min_pixels,
-                    max_pixels=sub.max_pixels,
-                    stop=list(sub.stop),
-                    stop_token_ids=list(sub.stop_token_ids),
-                    seed=sub.seed,
-                    logprobs=sub.logprobs,
-                    presence_penalty=sub.presence_penalty,
-                    frequency_penalty=sub.frequency_penalty,
-                    logit_bias=sub.logit_bias,
-                    stream_cb=sub.stream_cb,
-                    prepared=sub.prepared,
-                )
-                self._futures[rid] = sub
-                # Requests rejected at submit time (e.g. prompt_too_long)
-                # never pass through step(); resolve them immediately.
-                rejected = self.engine.finished_request(rid)
-                if rejected is not None:
-                    self._resolve(rejected)
-            except Exception as e:  # noqa: BLE001 - bad request (e.g. aspect)
-                self._fail(sub, e)
+            tick.submits.append(sub)
+        tick.warm = self._queue.empty()
+        tick.stop = self._stop.is_set()
+        return tick
+
+    def _broadcast(self, tick: Tick) -> None:
+        """Send the tick to the other ranks (their copy carries no
+        Submission objects)."""
+        broadcast_object(dataclasses.replace(tick, submits=[_wire(s) for s in tick.submits]),
+                         self._tp)
+
+    def _apply(self, tick: Tick) -> None:
+        """Apply the tick to the engine, resolving futures as requests
+        finish (every follower applies the same tick: :func:`follow`)."""
+        for rid in tick.failed:
+            self._futures.pop(rid, None)
+            self.engine.cancel(rid)
+            self.engine.take_finished(rid)
+        for rid in tick.cancels:
+            self.engine.cancel(rid)
+        if tick.cancels:
+            # cancel() lands the engine's in-flight decode chunk, which can
+            # finish other requests too: resolve every finished one (the
+            # engine may have no work left, so no step() would return them).
+            for rid in list(self._futures):
+                req = self.engine.finished_request(rid)
+                if req is not None:
+                    self._resolve(req)
+        for sub in tick.submits:
             try:
-                sub = self._queue.get_nowait()
+                rid = self.engine.submit(
+                    images=sub.images, stream_cb=sub.stream_cb,
+                    **{name: getattr(sub, name) for name in _SUBMIT_FIELDS})
+            except Exception as e:  # noqa: BLE001 - bad request (e.g. logit_bias)
+                self._fail(sub, e)
+                continue
+            self._futures[rid] = sub
+            # Requests rejected at submit time (e.g. prompt_too_long)
+            # never pass through step(); resolve them immediately.
+            rejected = self.engine.finished_request(rid)
+            if rejected is not None:
+                self._resolve(rejected)
+        if not self.engine.has_work():
+            # Incremental warmup (server --warmup background): compile
+            # one queued decode program per idle tick — requests that
+            # arrive mid-compile wait at most one program instead of
+            # the whole multi-minute upfront warm.
+            if getattr(self.engine, "warm_pending", 0) and tick.warm:
+                try:
+                    self.engine.warm_tick()
+                except TPGroupLost:
+                    raise
+                except Exception:  # noqa: BLE001
+                    logger.exception("background warmup thunk failed")
+                    self.engine._warm_queue = []
+            return
+        try:
+            finished = self.engine.step()
+        except TPGroupLost:
+            raise
+        except Exception as e:  # noqa: BLE001
+            logger.exception("engine step failed")
+            failed = dict(self._futures)
+            self._futures.clear()
+            for rid, sub in failed.items():
+                self._fail(sub, e)
+                # Take the request out of the engine too (slot, pages,
+                # finished map), or has_work() stays true and every
+                # later step() raises again in a tight loop.
+                self.engine.cancel(rid)
+                self.engine.take_finished(rid)
+            # The other ranks take the same requests out at the next tick.
+            self._failed = list(failed)
+            return
+        for req in finished:
+            self._resolve(req)
+
+    def _lose(self, e: Exception) -> None:
+        """The TP group is gone: fail what is in flight and all that comes."""
+        self.lost = str(e) or type(e).__name__
+        logger.error("tensor-parallel group lost (%s): failing %d requests in flight",
+                     self.lost, len(self._futures))
+        failed = dict(self._futures)
+        self._futures.clear()
+        for sub in failed.values():
+            self._fail(sub, RuntimeError(f"tensor-parallel group lost: {self.lost}"))
+        while True:
+            try:
+                self._fail(self._queue.get_nowait(), RuntimeError(
+                    f"tensor-parallel group lost: {self.lost}"))
             except queue.Empty:
                 return
 
@@ -176,56 +317,18 @@ class EngineWorker:
             except Exception:  # noqa: BLE001
                 logger.exception("stream callback failed during error path")
 
-    def _drain_cancels(self) -> None:
-        while True:
-            try:
-                sub = self._cancels.get_nowait()
-            except queue.Empty:
-                return
-            for rid, pending in list(self._futures.items()):
-                if pending is sub:
-                    self.engine.cancel(rid)
-                    break
-            # cancel() lands the engine's in-flight decode chunk, which can
-            # finish other requests too: resolve every finished one (the
-            # engine may have no work left, so no step() would return them).
-            for rid in list(self._futures):
-                req = self.engine.finished_request(rid)
-                if req is not None:
-                    self._resolve(req)
-
     def _loop(self) -> None:
-        while not self._stop.is_set():
-            self._drain_cancels()
-            self._drain_queue(block=not self.engine.has_work())
-            if not self.engine.has_work():
-                # Incremental warmup (server --warmup background): compile
-                # one queued decode program per idle tick — requests that
-                # arrive mid-compile wait at most one program instead of
-                # the whole multi-minute upfront warm.
-                if getattr(self.engine, "warm_pending", 0) and self._queue.empty():
-                    try:
-                        self.engine.warm_tick()
-                    except Exception:  # noqa: BLE001
-                        logger.exception("background warmup thunk failed")
-                        self.engine._warm_queue = []
-                continue
+        while True:
+            tick = self._gather(block=not self.engine.has_work())
             try:
-                finished = self.engine.step()
-            except Exception as e:  # noqa: BLE001
-                logger.exception("engine step failed")
-                failed = dict(self._futures)
-                self._futures.clear()
-                for rid, sub in failed.items():
-                    self._fail(sub, e)
-                    # Take the request out of the engine too (slot, pages,
-                    # finished map), or has_work() stays true and every
-                    # later step() raises again in a tight loop.
-                    self.engine.cancel(rid)
-                    self.engine.take_finished(rid)
-                continue
-            for req in finished:
-                self._resolve(req)
+                if self._tp is not None:
+                    self._broadcast(tick)
+                if tick.stop:
+                    return
+                self._apply(tick)
+            except TPGroupLost as e:
+                self._lose(e)
+                return
 
     def _resolve(self, req) -> None:
         sub = self._futures.pop(req.req_id, None)
@@ -260,3 +363,15 @@ class EngineWorker:
                 "timing": req.timing() if hasattr(req, "timing") else {},
             }
         )
+
+
+def follow(engine) -> None:
+    """A follower rank's engine loop (no HTTP): apply rank 0's ticks to
+    ``engine`` (whose ``tp`` is this rank's group) until a tick stops it.
+    Raises ``TPGroupLost`` when the group fails."""
+    worker = EngineWorker(engine, prep_workers=0, thread=False)
+    while True:
+        tick = broadcast_object(None, engine.tp)
+        if tick.stop:
+            return
+        worker._apply(dataclasses.replace(tick, submits=[_unwire(s) for s in tick.submits]))

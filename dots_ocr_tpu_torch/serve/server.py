@@ -23,12 +23,23 @@ engine ticks, starting with one warm request of each ``--warmup-pages``
 size. ``--compile-cache DIR`` is where the CUDA kernels are built and
 found (a relative path is taken from the repository root): a second
 process with the same directory loads them without running ``nvcc``.
-Only ``--tensor-parallel-size`` > 1 is not ported yet; it exits with the
-ROADMAP.md item that will bring it.
+
+``--tensor-parallel-size N`` serves the model over N ranks, one process
+each (rank 0 is this process and the only HTTP front end; it spawns ranks
+1..N-1): each rank builds the same weights and keeps its Megatron shard
+(``parallel/sharding.py``), and the ranks step their engines in lockstep
+(``serve/async_engine.py``). ``--tp-backend nccl`` (the default) needs a
+GPU a rank and keeps the decode chunks as CUDA graphs with their
+all-reduces captured; ``--tp-backend gloo`` runs every rank on the one
+device given (CUDA tensors staged through the host, decode chunks eager),
+as on a one-GPU host or the CPU. ``--quantize int4`` and ``--engine batch``
+are refused with TP, as in the JAX server.
 
     python -m dots_ocr_tpu_torch.serve.server --random-flagship --port 8000 \
         --quantize int4 --vision-quantize int8 --kv-cache-dtype int8 --speculate-k 2 \
         --warmup background --compile-cache .cache/xla
+    python -m dots_ocr_tpu_torch.serve.server --random-flagship --port 8000 \
+        --quantize int8 --speculate-k 2 --tensor-parallel-size 2 --tp-backend gloo
 """
 
 from __future__ import annotations
@@ -36,9 +47,12 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import logging
+import multiprocessing
 import os
+import socket
+import sys
 import time
-from typing import Optional
+from typing import List, Optional
 
 import numpy as np
 import torch
@@ -57,6 +71,13 @@ from dots_ocr_tpu_torch.models.quantize import (
     quantize_vision_params,
 )
 from dots_ocr_tpu_torch.ops import kernel_lib
+from dots_ocr_tpu_torch.parallel.distributed import (
+    BACKENDS,
+    destroy,
+    initialize_distributed,
+)
+from dots_ocr_tpu_torch.parallel.sharding import shard_params
+from dots_ocr_tpu_torch.serve.async_engine import follow
 from dots_ocr_tpu_torch.serve.openai_server import OpenAIServer
 
 logger = logging.getLogger(__name__)
@@ -80,7 +101,13 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--model-name", type=str, default="model")
     p.add_argument("--max-batch", type=int, default=8)
     p.add_argument("--engine", choices=["continuous", "batch"], default="continuous")
-    p.add_argument("--tensor-parallel-size", type=int, default=1)
+    p.add_argument("--tensor-parallel-size", type=int, default=1,
+                   help="serve over this many ranks, one process each (rank 0 serves HTTP); "
+                   "continuous engine, int8 or bf16 weights")
+    p.add_argument("--tp-backend", choices=BACKENDS, default="nccl",
+                   help="nccl: one GPU a rank, decode chunks as CUDA graphs; gloo: every "
+                   "rank on the one --platform device, collectives through the host, "
+                   "decode chunks eager")
     p.add_argument("--num-pages", type=int, default=2048)
     p.add_argument("--page-size", type=int, default=128)
     p.add_argument("--max-slots", type=int, default=32)
@@ -109,10 +136,37 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse_unported(args) -> None:
-    if args.tensor_parallel_size > 1:
-        raise SystemExit("--tensor-parallel-size > 1 is not ported to PyTorch yet "
-                         "(ROADMAP.md: TP)")
+def check_tp_args(args) -> None:
+    """Refuse what tensor parallelism does not serve, before anything is
+    built: the JAX server's refusals, and nccl without a GPU a rank (the
+    backend is never swapped for gloo behind the caller's back)."""
+    world = args.tensor_parallel_size
+    if world < 1:
+        raise SystemExit(f"--tensor-parallel-size {world} must be >= 1")
+    if world == 1:
+        return
+    if args.engine != "continuous":
+        raise SystemExit("--tensor-parallel-size needs --engine continuous (as in the JAX "
+                         "server)")
+    if args.quantize == "int4":
+        # The nibble packing interleaves input-row halves, which a
+        # row-parallel shard would split incoherently.
+        raise SystemExit("--quantize int4 is single-chip only: it does not compose with "
+                         "--tensor-parallel-size > 1 (as in the JAX server)")
+    if args.tp_backend == "nccl":
+        gpus = torch.cuda.device_count() if args.platform == "cuda" else 0
+        if gpus < world:
+            raise SystemExit(
+                f"--tensor-parallel-size {world} --tp-backend nccl needs {world} CUDA devices "
+                f"(--platform {args.platform}: {gpus}); --tp-backend gloo runs every rank on "
+                "one device")
+
+
+def rank_device(args, rank: int) -> torch.device:
+    """A rank's device: its own GPU under nccl, the one device under gloo."""
+    if args.platform == "cuda" and args.tp_backend == "nccl" and args.tensor_parallel_size > 1:
+        return torch.device("cuda", rank)
+    return torch.device(args.platform)
 
 
 def apply_compile_cache(path: str) -> str:
@@ -124,11 +178,15 @@ def apply_compile_cache(path: str) -> str:
     return kernel_lib.BUILD_DIR
 
 
-def build_engine(args):
-    _refuse_unported(args)
+def build_engine(args, tp=None):
+    """The engine the flags ask for; with ``tp`` (a TP rank's group) the
+    rank's shard of the same weights."""
+    check_tp_args(args)
+    if args.tensor_parallel_size > 1 and tp is None:
+        raise SystemExit("--tensor-parallel-size > 1: the ranks are started by main()")
     if args.compile_cache:
         logger.info("kernel cache: %s", apply_compile_cache(args.compile_cache))
-    device = torch.device(args.platform)
+    device = tp.device if tp is not None else torch.device(args.platform)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("--platform cuda: no CUDA device is available")
     tokenizer = params = None
@@ -165,8 +223,15 @@ def build_engine(args):
                     "patch embed / merger stay %s)", config.dtype)
     if args.engine == "batch":
         return InferenceEngine(params, config, tokenizer=tokenizer, device=device)
+    if tp is not None:
+        before = param_bytes(params)
+        params, tp.plan = shard_params(params, config, tp.rank, tp.world)
+        logger.info("TP rank %d / %d: parameters %.3f GB of %.3f GB (%s row-parallel; "
+                    "KV replication %d)", tp.rank, tp.world, param_bytes(params) / 1e9,
+                    before / 1e9, ", ".join(sorted(tp.plan.row_parallel)) or "nothing",
+                    tp.plan.kv_replication)
     return ContinuousBatchingEngine(
-        params, config, device, tokenizer=tokenizer,
+        params, config, device, tokenizer=tokenizer, tp=tp,
         sched=SchedulerConfig(
             num_pages=args.num_pages,
             page_size=args.page_size,
@@ -231,11 +296,81 @@ def start_warmup(engine, args) -> Optional[dict]:
     return None
 
 
-def main(argv=None):
+def _free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _logging() -> None:
     if not logging.getLogger().handlers:
         logging.basicConfig(level=logging.INFO,
                             format="%(asctime)s %(levelname)s %(name)s: %(message)s")
+
+
+def join_group(args, rank: int, init_method: str):
+    if args.platform == "cpu":
+        # the ranks share the host's cores
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // args.tensor_parallel_size))
+    return initialize_distributed(args.tp_backend, rank, args.tensor_parallel_size,
+                                  init_method, device=rank_device(args, rank))
+
+
+def follower_main(argv: List[str], rank: int, init_method: str) -> None:
+    """Rank ``rank`` (> 0) of a TP server: the same engine on its shard,
+    the same warmup, then rank 0's ticks until it stops (no HTTP)."""
+    _logging()
     args = build_parser().parse_args(argv)
+    tp = join_group(args, rank, init_method)
+    try:
+        engine = build_engine(args, tp)
+        start_warmup(engine, args)
+        follow(engine)
+    finally:
+        destroy(tp)
+
+
+def serve_tp(args, argv: List[str]) -> None:
+    """Rank 0 of a TP server: build the kernels once, spawn ranks
+    1..N-1, join the group, then serve HTTP over the lockstep engines."""
+    world = args.tensor_parallel_size
+    if args.platform == "cuda":
+        if args.compile_cache:
+            apply_compile_cache(args.compile_cache)
+        kernel_lib.load()  # built once here, found by every rank
+    if args.tp_backend == "gloo" and args.platform == "cuda":
+        logger.info("TP over gloo: %d ranks share %s; all-reduces go through the host and "
+                    "decode chunks run eagerly (no CUDA graphs)", world, rank_device(args, 0))
+    init_method = f"tcp://127.0.0.1:{_free_port()}"
+    ctx = multiprocessing.get_context("spawn")
+    followers = [ctx.Process(target=follower_main, args=(argv, rank, init_method), daemon=True)
+                 for rank in range(1, world)]
+    for rank, proc in enumerate(followers, start=1):
+        proc.start()
+        logger.info("TP rank %d: pid %d", rank, proc.pid)
+    tp = join_group(args, 0, init_method)
+    try:
+        engine = build_engine(args, tp)
+        start_warmup(engine, args)
+        OpenAIServer(engine, model_name=args.model_name, max_batch=args.max_batch).run(
+            host=args.host, port=args.port
+        )
+    finally:
+        for proc in followers:
+            proc.join(timeout=10)
+            if proc.is_alive():
+                proc.terminate()
+        destroy(tp)
+
+
+def main(argv=None):
+    _logging()
+    argv = list(argv) if argv is not None else sys.argv[1:]
+    args = build_parser().parse_args(argv)
+    check_tp_args(args)
+    if args.tensor_parallel_size > 1:
+        serve_tp(args, argv)
+        return
     engine = build_engine(args)
     start_warmup(engine, args)
     OpenAIServer(engine, model_name=args.model_name, max_batch=args.max_batch).run(

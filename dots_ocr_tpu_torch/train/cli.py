@@ -4,7 +4,7 @@
 JSONL samples -> chat-templated, image-packed batches -> ``train_step``,
 with safetensors checkpoints and optional per-layer remat. Runs on the card
 unless ``--device cpu`` is given. Tensor parallelism (``--model-parallel >
-1``, or a launch of several processes) is not ported (ROADMAP.md: TP).
+1``, or a launch of several processes) is not ported (ROADMAP.md: TP training).
 
 Data format (one JSON object per line):
   {"prompt": "<task prompt>", "response": "<target text>",
@@ -113,7 +113,7 @@ def refuse_unported(args) -> None:
     if args.model_parallel > 1 or world > 1:
         raise SystemExit(f"--model-parallel {args.model_parallel} / WORLD_SIZE {world}: "
                          "training over more than one device is not ported to PyTorch yet "
-                         "(ROADMAP.md: TP)")
+                         "(ROADMAP.md: TP training)")
 
 
 def main(argv=None):

@@ -1020,13 +1020,22 @@ def test_gumbel_argmax_wrapper_refuses_what_the_kernel_does_not_take(cuda):
 # The flagship's int8 linears (K, N, bias) and its tied lm_head ([N, K]).
 W8A16_SHAPES = {"wq": (1536, 1536, True), "wk": (1536, 256, True), "gate": (1536, 8960, False),
                 "down": (8960, 1536, False), "lm_head": (1536, 151936, False)}
+# A tensor-parallel rank's int8 linears (parallel/sharding.py): TP = 2's wq,
+# wk/wv (one KV head), gate/up, wo and down; TP = 4's gate/up and down,
+# padded from 2,240 to 2,304.
+TP_W8A16_SHAPES = {"wq_tp2": (1536, 768, True), "wk_tp2": (1536, 128, True),
+                   "gate_tp2": (1536, 4480, False), "wo_tp2": (768, 1536, False),
+                   "down_tp2": (4480, 1536, False), "gate_tp4_padded": (1536, 2304, False),
+                   "down_tp4_padded": (2304, 1536, False)}
+# The row-parallel ones give their float32 partial sums to the all-reduce.
+TP_ROW_PARALLEL = {"wo_tp2", "down_tp2", "down_tp4_padded"}
 
 
 def w8a16_inputs(label, rows, seed, bias_dtype=torch.float32):
     """x N(0, 1) bf16 [rows, K]; int8 weights from quantize_kernel of
     N(0, 0.02) [K, N] (the lm_head: quantize_embedding of N(0, 1) [N, K]);
     a bias N(0, 1) for wq / wk. Returns (x, q, scale, bias, transposed)."""
-    k, n, biased = W8A16_SHAPES[label]
+    k, n, biased = {**W8A16_SHAPES, **TP_W8A16_SHAPES}[label]
     g = torch.Generator(device="cuda").manual_seed(seed)
     x = torch.randn(rows, k, generator=g, device="cuda").to(torch.bfloat16)
     if label == "lm_head":
@@ -1578,3 +1587,110 @@ def test_bf16_train_steps_on_card(cuda):
     assert state.params["decoder"]["embed"].dtype == torch.bfloat16
     assert state.opt_state.mu["decoder"]["embed"].dtype == torch.bfloat16
     assert losses[-1] < losses[0] - 0.5, losses
+
+
+# -- tensor-parallel serving: the kernels at a rank's shard shapes ---------
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,rows", [(label, rows) for label in sorted(TP_W8A16_SHAPES)
+                                        for rows in (1, 64, 192, 2048)])
+def test_w8a16_tp_shard_shapes_match_plain_on_card(cuda, label, rows):
+    """The W8A16 kernel at a TP rank's linear shapes (N 768, 128, 4,480 and
+    the padded 2,304; K 768, 4,480 and 2,304, float32 out as the
+    row-parallel linears call it) and the rows of a decode step, a k = 2
+    verify and a prefill chunk; 20 calls bit for bit."""
+    x, q, scale, bias, transposed = w8a16_inputs(label, rows, rows + 19)
+    f32 = label in TP_ROW_PARALLEL
+    before = w8a16_matmul.launches
+    out = w8a16_matmul(x, q, scale, bias, out_f32=f32)
+    assert w8a16_matmul.launches == before + 1
+    w8a16_close(out, int8_linear_reference(x, q, scale, bias, out_f32=f32), f32)
+    assert all(torch.equal(w8a16_matmul(x, q, scale, bias, out_f32=f32), out)
+               for _ in range(20))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("h,kv,causal", [(6, 6, False), (3, 3, False), (6, 1, True),
+                                         (3, 1, True)])
+def test_flash_kernel_tp_shard_heads_match_plain_on_card(cuda, h, kv, causal):
+    """Kernel 1 at a rank's heads: the vision tower's 6 (TP = 2) and 3
+    (TP = 4) over packed images, and the decoder's 6q/1kv and 3q/1kv over a
+    causal chunk at an offset."""
+    gen = torch.Generator(device=cuda).manual_seed(h * 10 + kv)
+    b, tq, s = (1, 1000, 1000) if not causal else (2, 512, 1024)
+    q = torch.randn(b, tq, h, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    k = torch.randn(b, s, kv, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    v = torch.randn(b, s, kv, 128, generator=gen, device=cuda).to(torch.bfloat16)
+    if causal:
+        q_seg = torch.zeros(b, tq, dtype=torch.int32, device=cuda)
+        kv_seg = torch.zeros(b, s, dtype=torch.int32, device=cuda)
+        kwargs = dict(causal=True, q_offset=s - tq)
+    else:
+        q_seg = kv_seg = torch.from_numpy(packed_segments(b, s, [[700, 250]])).to(cuda)
+        kwargs = {}
+    out = flash_attention(q, k, v, q_seg, kv_seg, **kwargs)
+    ref = flash_attention_reference(q, k, v, q_seg, kv_seg, **kwargs)
+    torch.cuda.synchronize()
+    _bf16_close(out, ref)
+    _attention_close(out, ref)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8", [False, True])
+@pytest.mark.parametrize("h", [6, 3])
+@pytest.mark.parametrize("nq", [1, 3])
+def test_paged_kernel_one_kv_head_matches_plain_on_card(cuda, nq, h, int8):
+    """Kernel 2 over a rank's pool of one KV head (6 query heads at TP = 2,
+    3 at TP = 4), bf16 and int8, at nq = 1 and a k = 2 verify."""
+    rng = np.random.RandomState(nq * 10 + h)
+    q, kp, vp, lens, table = paged_inputs(rng, INT8_LENGTHS, nq, 1, h, 128, 128, 17)
+    qd = torch.from_numpy(q).to(cuda, torch.bfloat16)
+    lens_t, table_t = torch.from_numpy(lens).to(cuda), torch.from_numpy(table).to(cuda)
+    if int8:
+        kq, vq, ks, vs = (x.to(cuda) for x in int8_pools(kp, vp))
+        chunk, _ = paged_int8_split_plan(
+            len(INT8_LENGTHS), 1, h * nq, 128, table.shape[1] * 128,
+            torch.cuda.get_device_properties(cuda).multi_processor_count)
+        out = paged_attention_multiquery_int8(qd, kq, vq, ks, vs, lens_t, table_t)
+        ref = paged_attention_int8_reference(qd, kq, vq, ks, vs, lens_t, table_t, chunk=chunk,
+                                             warps=int8_tile_walkers(h * nq))
+    else:
+        kb, vb = (torch.from_numpy(x).to(cuda, torch.bfloat16) for x in (kp, vp))
+        out = paged_attention_multiquery_bf16(qd, kb, vb, lens_t, table_t)
+        ref = paged_attention_multiquery_reference(qd, kb, vb, lens_t, table_t)
+    torch.cuda.synchronize()
+    _bf16_close(out, ref)
+    _attention_close(out, ref)
+    assert (out[1] == 0).all()  # length 0: exact zeros
+
+
+@pytest.mark.cuda
+def test_tp2_nccl_graphs_match_eager_on_two_cards(cuda, tmp_path):
+    """TP = 2 over NCCL, one GPU a rank: the decode chunks are CUDA graphs
+    with their all-reduces captured (every chunk a replay), and the graphed
+    engine's greedy tokens equal the eager engine's on the same shard."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs: NCCL refuses two ranks on one device")
+    import multiprocessing
+    import pickle
+
+    import tp_ranks
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=tp_ranks.run_nccl_rank, args=(rank, 2, str(tmp_path)))
+             for rank in range(2)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    results = []
+    for rank in range(2):
+        with open(tmp_path / f"nccl{rank}.pkl", "rb") as f:
+            res = pickle.load(f)
+        assert "error" not in res, res["error"]
+        results.append(res)
+    for res in results:
+        assert res["graphed"] == res["eager"] == results[0]["graphed"]
+        assert res["metrics"]["graph_replays"] >= res["metrics"]["steps"] >= 1
+        assert res["reduces"] > 0
