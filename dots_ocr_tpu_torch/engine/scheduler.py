@@ -825,17 +825,19 @@ class ContinuousBatchingEngine:
         }
 
     def _check_tp(self) -> None:
-        """The JAX engine's TP rules, on this rank: refuse what has no TP
-        route, and run eagerly where a collective cannot be captured."""
+        """The JAX engine's TP rules, on this rank: log the decode route and
+        the replication, and run eagerly where a collective cannot be
+        captured. A rank's paged attention takes ``choose_paged_kernel``'s
+        route on its own heads (kernel 3 at nq = 1 and the plain reference
+        at nq > 1 where kernel 2 does not fit), as the JAX package's
+        shard_map runs ``paged_attention_multiquery`` on each shard."""
         tp, d = self.tp, self.config.decoder
-        quantized = self.sched.kv_cache_dtype == "int8"
-        if self.device.type == "cuda" and choose_paged_kernel(
-                d.head_dim, self.sched.page_size, quantized, 1) != "multiquery":
-            raise ValueError(
-                f"tensor parallelism at head_dim {d.head_dim}, page_size "
-                f"{self.sched.page_size}, {self.sched.kv_cache_dtype} KV: decode would run "
-                "kernel 3 (v1), which has no TP route in the JAX package "
-                "(dots_ocr_tpu/models/decoder.py:351-353); use a page_size multiple of 128")
+        route = choose_paged_kernel(d.head_dim, self.sched.page_size,
+                                    self.sched.kv_cache_dtype == "int8", 1)
+        if route != "multiquery":
+            logger.info("TP=%d at head_dim %d, page_size %d, %s KV: each rank decodes its heads "
+                        "through kernel 3 (v1), and verifies through the plain reference",
+                        tp.world, d.head_dim, self.sched.page_size, self.sched.kv_cache_dtype)
         if self._kv_rep > 1:
             logger.info("TP=%d exceeds %d KV heads: each KV head is repeated on %d ranks "
                         "(a rank's pool holds one head)", tp.world, d.num_kv_heads,

@@ -14,6 +14,10 @@ config is the rank's shard config (its query, KV and intermediate counts),
 the pools hold the rank's KV heads (the JAX decoder reads them from the
 pool), the kernels run on those heads as they are, and wo and down are
 row-parallel, each followed by the one all-reduce of its partial sums.
+Under training the prefill's layer also passes the normed inputs of q / k /
+v and of gate / up through f (``ops/tp.py::copy_to_model``); with remat
+``torch.utils.checkpoint`` runs the layer again in the backward, its
+collectives with it, in the same order on every rank.
 """
 
 from __future__ import annotations
@@ -39,7 +43,7 @@ from dots_ocr_tpu_torch.models.rope import apply_rope, rope_table
 from dots_ocr_tpu_torch.ops import flash_attention, paged_attention
 from dots_ocr_tpu_torch.ops.attention import decode_attention_reference
 from dots_ocr_tpu_torch.ops.int8_matmul import w8a16_matmul
-from dots_ocr_tpu_torch.ops.tp import row_reduce
+from dots_ocr_tpu_torch.ops.tp import copy_to_model, row_reduce
 
 
 class KVCache(NamedTuple):
@@ -86,7 +90,8 @@ def decoder_layer_prefill(
     -1 (``attn_impl`` names a ``flash_attention.IMPLEMENTATIONS`` entry).
     Returns (x, (k, v)) for cache capture."""
     b, t = x.shape[:2]
-    h = rms_norm(x, block_params["input_norm"], cfg.rms_norm_eps)
+    h = copy_to_model(rms_norm(x, block_params["input_norm"], cfg.rms_norm_eps), tp,
+                      "decoder.attn")
     q, k, v = _project_qkv(h, block_params["attn"], cfg)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
@@ -186,7 +191,7 @@ def _mlp_block(x: torch.Tensor, bp: dict, cfg: DecoderConfig, out: torch.Tensor,
     """The residual after attention (``out`` [..., q_dim]) and the MLP;
     under TP wo and down are row-parallel (their all-reduces)."""
     x = x + linear(out, bp["attn"]["wo"], reduce=row_reduce(tp, "decoder.attn"))
-    h = rms_norm(x, bp["post_attn_norm"], cfg.rms_norm_eps)
+    h = copy_to_model(rms_norm(x, bp["post_attn_norm"], cfg.rms_norm_eps), tp, "decoder.mlp")
     m = bp["mlp"]
     return x + swiglu(h, m["gate"], m["up"], m["down"], reduce=row_reduce(tp, "decoder.mlp"))
 

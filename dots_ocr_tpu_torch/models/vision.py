@@ -19,7 +19,9 @@ Tensor-parallel serving (``tp``): the config is the rank's shard config,
 wo, down and the merger's fc2 are row-parallel, each followed by its
 all-reduce, and the windowed layers run the flash kernel with one batch
 row a window instead of the window kernel, as the JAX package does under a
-mesh (``dots_ocr_tpu/models/vision.py:105, :119``).
+mesh (``dots_ocr_tpu/models/vision.py:105, :119``). Under training the
+inputs of q / k / v, of gate / up and of the merger's fc1 pass through f
+(``ops/tp.py::copy_to_model``) where the part is split.
 """
 
 from __future__ import annotations
@@ -31,7 +33,7 @@ from dots_ocr_tpu_torch.models.config import VisionConfig
 from dots_ocr_tpu_torch.models.layers import linear, rms_norm, swiglu, unstack_layers
 from dots_ocr_tpu_torch.models.rope import apply_rope
 from dots_ocr_tpu_torch.ops import flash_attention, window_attention
-from dots_ocr_tpu_torch.ops.tp import row_reduce
+from dots_ocr_tpu_torch.ops.tp import copy_to_model, row_reduce
 
 
 def vision_block(
@@ -53,6 +55,7 @@ def vision_block(
     heads, head_dim = cfg.num_heads, cfg.head_dim
 
     def attend(h: torch.Tensor) -> torch.Tensor:
+        h = copy_to_model(h, tp, "vision.attn")
         q = linear(h, attn_p["wq"], attn_p.get("bq")).reshape(t, heads, head_dim)
         k = linear(h, attn_p["wk"], attn_p.get("bk")).reshape(t, heads, head_dim)
         v = linear(h, attn_p["wv"], attn_p.get("bv")).reshape(t, heads, head_dim)
@@ -74,6 +77,7 @@ def vision_block(
 
     def mlp(h: torch.Tensor) -> torch.Tensor:
         m = block_params["mlp"]
+        h = copy_to_model(h, tp, "vision.mlp")
         return swiglu(h, m["gate"], m["up"], m["down"], reduce=row_reduce(tp, "vision.mlp"))
 
     if cfg.post_norm:
@@ -123,7 +127,7 @@ def merge_tokens(params: dict, cfg: VisionConfig, hidden: torch.Tensor,
     t, d = hidden.shape
     m = params["merger"]
     h = rms_norm(hidden.reshape(t // merge, merge * d), m["norm"], cfg.rms_norm_eps)
-    h = linear(h, m["fc1"], m.get("b1"))
+    h = linear(copy_to_model(h, tp, "vision.merger"), m["fc1"], m.get("b1"))
     h = F.gelu(h.to(torch.float32), approximate="tanh").to(hidden.dtype)
     return linear(h, m["fc2"], m.get("b2"), reduce=row_reduce(tp, "vision.merger"))
 

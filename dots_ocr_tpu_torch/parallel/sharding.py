@@ -1,4 +1,5 @@
-"""Megatron-style parameter shards for tensor-parallel serving (port of
+"""Megatron-style parameter shards for tensor-parallel serving and
+training, and the batch split of data parallelism (port of
 ``dots_ocr_tpu.parallel.sharding``).
 
 The JAX package places one parameter tree on a ``("data", "model")`` mesh
@@ -43,13 +44,20 @@ the next multiple: the W8A16 kernel takes N % 128 == 0 only
 adds exact zeros: its gate and up outputs are 0, silu(0) * 0 = 0, and zero
 rows of down add nothing (the longer contraction may only sum in another
 order).
+
+Training adds :func:`unshard_params` (the exact inverse of
+:func:`shard_params`, for whole-tensor checkpoints), :func:`leaf_roles`
+(which leaves are split, whole, or split by KV head over replicas: the
+global norm counts each element once), :func:`shard_batch` (``batch_specs``:
+a data rank's contiguous block of rows) and :func:`kv_cache_spec`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
@@ -260,3 +268,103 @@ def shard_params(params: dict, config: DotsOCRConfig, rank: int,
                      row_parallel=frozenset(k for k, on in parts.items() if on),
                      kv_replication=rep, decoder_pad=decoder_pad, vision_pad=vision_pad)
     return tree, plan
+
+
+def _kv_leaf(path: Tuple[str, ...]) -> bool:
+    return path[0] == "decoder" and bool({"wk", "wv", "bk", "bv"} & set(path))
+
+
+def _walk_specs(params: dict, config: DotsOCRConfig, world: int):
+    """(path, leaf, split axis or None) of every leaf of ``params``."""
+    specs = _expand_quant_specs(params, param_partition_specs(config, world))
+
+    def walk(path, p, sp):
+        if isinstance(p, dict):
+            for k in p:
+                yield from walk(path + (k,), p[k], sp[k])
+        else:
+            yield path, p, sp
+
+    return walk((), params, specs)
+
+
+def unshard_params(shards: List[dict], plan: ShardPlan, config: DotsOCRConfig) -> dict:
+    """The whole tree from the model ranks' shards (``shards[r]`` is rank
+    r's :func:`shard_params` tree, ``plan`` any rank's plan): split leaves
+    concatenated, one piece a KV head under replication, the int8 pads
+    dropped; a whole leaf is rank 0's. ``unshard_params(shards, plan,
+    config)`` of the shards of ``x`` equals ``x`` bit for bit."""
+    tree: Dict[str, Any] = {}
+    for path, leaf, axis in _walk_specs(shards[0], config, plan.world):
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        if axis is None:
+            node[path[-1]] = leaf
+            continue
+        pieces = [_leaf(s, path) for s in shards]
+        if plan.kv_replication > 1 and _kv_leaf(path):
+            pieces = pieces[::plan.kv_replication]
+        pad = plan.decoder_pad if path[0] == "decoder" else plan.vision_pad
+        if "mlp" in path and pad:
+            pieces = [p.narrow(axis, 0, p.shape[axis] - pad) for p in pieces]
+        node[path[-1]] = torch.cat(pieces, dim=axis)
+    return tree
+
+
+def _leaf(tree: dict, path: Tuple[str, ...]):
+    for key in path:
+        tree = tree[key]
+    return tree
+
+
+def leaf_roles(params: dict, config: DotsOCRConfig, world: int) -> Dict[str, str]:
+    """Each leaf's dotted name -> "split" (a shard a rank), "whole" (every
+    rank holds all of it) or "kv_replica" (split by KV head, each head on
+    ``kv_replication`` ranks)."""
+    rep = kv_replication(config, world) if _sharded_parts(config, world)["decoder.attn"] else 1
+    roles = {}
+    for path, _, axis in _walk_specs(params, config, world):
+        name = ".".join(path)
+        if axis is None:
+            roles[name] = "whole"
+        else:
+            roles[name] = "kv_replica" if rep > 1 and _kv_leaf(path) else "split"
+    return roles
+
+
+def data_rows(batch_size: int, data: int, data_rank: int) -> Tuple[int, int]:
+    """[start, end) of data rank ``data_rank``'s contiguous block of rows,
+    as ``P("data")`` splits them; ``np.array_split``'s blocks where the
+    batch does not divide."""
+    bounds = np.cumsum([0] + [len(b) for b in np.array_split(np.arange(batch_size), data)])
+    return int(bounds[data_rank]), int(bounds[data_rank + 1])
+
+
+def shard_batch(batch, data: int, data_rank: int):
+    """A data rank's rows of a ``TrainBatch`` (``batch_specs``'s split):
+    the token arrays cut to :func:`data_rows`; the packed vision inputs
+    stay whole (every data rank encodes every image, as the JAX CLI and
+    ``dryrun_multichip`` place only the token arrays), and each merged
+    vision row is sent to its local row, or to the sentinel (local B, T)
+    where its row is another rank's."""
+    if data == 1:
+        return batch
+    b, t = batch.input_ids.shape
+    start, end = data_rows(b, data, data_rank)
+    rows = {k: getattr(batch, k)[start:end]
+            for k in ("input_ids", "positions", "seq_lens", "target_ids", "loss_mask")}
+    if batch.scatter_batch is not None:
+        sb = batch.scatter_batch
+        mine = (sb >= start) & (sb < end)
+        rows["scatter_batch"] = torch.where(mine, sb - start, end - start).to(sb.dtype)
+        rows["scatter_pos"] = torch.where(mine, batch.scatter_pos, t).to(batch.scatter_pos.dtype)
+    return batch._replace(**rows)
+
+
+def kv_cache_spec(config: DotsOCRConfig, data: int, model: int) -> Tuple[bool, int]:
+    """``kv_cache_spec``'s dense cache [L, B, S, KV, hd] on a rank: (whether
+    its batch rows are split over the data ranks, the KV heads it holds:
+    split over the model ranks where they divide, else all of them)."""
+    kv = config.decoder.num_kv_heads
+    return data > 1, kv // model if _axis(model, kv) else kv

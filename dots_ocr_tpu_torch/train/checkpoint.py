@@ -7,6 +7,14 @@ one safetensors file, ``state_{step}/state.safetensors``, written and read by
 the port's own ``models/loader.py`` routines, with the params under their
 dotted tree names, the moments under ``mu.*`` / ``nu.*`` and the scalars
 ``count`` and ``step``. Tensors keep their dtype.
+
+Under tensor and data parallelism the checkpoint holds whole tensors, as
+orbax writes a global array (``dots_ocr_tpu/train/checkpoint.py:48``): the
+model ranks of data rank 0 send their shards of params, mu and nu to rank 0
+over the CPU gloo group (gloo has no gather of CUDA tensors), rank 0 joins
+them (``parallel.sharding.unshard_params``) and writes the layout above.
+A checkpoint restores at any layout: ``restore_checkpoint``, then
+``train_step.shard_train_state``.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ import os
 from typing import Optional, Tuple
 
 import torch
+import torch.distributed as dist
 
 from dots_ocr_tpu_torch.models.config import (
     DecoderConfig,
@@ -25,6 +34,8 @@ from dots_ocr_tpu_torch.models.config import (
     VisionConfig,
 )
 from dots_ocr_tpu_torch.models.loader import read_safetensors, write_safetensors
+from dots_ocr_tpu_torch.parallel.distributed import TPGroupLost
+from dots_ocr_tpu_torch.parallel.sharding import leaf_roles, unshard_params
 from dots_ocr_tpu_torch.train.train_step import (
     AdamState,
     TrainState,
@@ -58,9 +69,47 @@ def _config_from_dict(d: dict) -> DotsOCRConfig:
     )
 
 
-def save_checkpoint(path: str, state: TrainState, config: DotsOCRConfig) -> None:
+def gather_train_state(state: TrainState, config: DotsOCRConfig, tp) -> Optional[TrainState]:
+    """The whole state on rank 0 (host tensors; None on every other rank)
+    from the ranks' shards: a split leaf gathered over data rank 0's model
+    group, a whole leaf rank 0's own. Every rank calls it together."""
+    roles = leaf_roles(state.params, config, tp.world)
+    root = tp.global_rank == 0
+    trees = []
+    for tree in (state.params, state.opt_state.mu, state.opt_state.nu):
+        shards = [[] for _ in range(tp.world)]
+        for name, t in tree_items(tree):
+            host = t.detach().to("cpu", copy=True)
+            pieces = [host] * tp.world
+            if roles[name] != "whole" and tp.world > 1 and tp.data_rank == 0:
+                pieces = [torch.empty_like(host) for _ in range(tp.world)] if root else None
+                try:
+                    dist.gather(host, pieces, dst=0, group=tp.model_control)
+                except RuntimeError as e:
+                    tp.lost = tp.lost or f"checkpoint gather failed: {e}"
+                    raise TPGroupLost(tp.lost) from e
+            if root:
+                for shard, piece in zip(shards, pieces):
+                    shard.append((name, piece))
+        if root:
+            trees.append(unshard_params([tree_from_items(s) for s in shards], tp.plan, config))
+    if not root:
+        return None
+    return TrainState(trees[0], AdamState(state.opt_state.count.cpu(), trees[1], trees[2]),
+                      state.step.cpu())
+
+
+def save_checkpoint(path: str, state: TrainState, config: DotsOCRConfig, tp=None) -> None:
     """Write a resumable checkpoint directory (the state's tensors are
-    copied to the host)."""
+    copied to the host). Under ``tp`` every rank calls it with its shard:
+    rank 0 writes the whole state (:func:`gather_train_state`), the others
+    wait for it."""
+    if tp is not None:
+        whole = gather_train_state(state, config, tp)
+        if whole is not None:
+            save_checkpoint(path, whole, config)
+        dist.barrier(group=tp.control)
+        return
     path = os.path.abspath(path)
     step = int(state.step)
     os.makedirs(os.path.join(path, f"state_{step}"), exist_ok=True)

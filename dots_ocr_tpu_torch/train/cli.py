@@ -1,10 +1,20 @@
 """Training driver: SFT-style fine-tuning over the full VLM (port of
-``dots_ocr_tpu.train.cli``), on one device.
+``dots_ocr_tpu.train.cli``), on one device or one process a rank.
 
 JSONL samples -> chat-templated, image-packed batches -> ``train_step``,
 with safetensors checkpoints and optional per-layer remat. Runs on the card
-unless ``--device cpu`` is given. Tensor parallelism (``--model-parallel >
-1``, or a launch of several processes) is not ported (ROADMAP.md: TP training).
+unless ``--device cpu`` is given.
+
+Several processes (``torchrun --nproc-per-node N``: ``RANK``,
+``WORLD_SIZE``, ``MASTER_ADDR`` / ``MASTER_PORT``) train over a (data,
+model) layout, as the JAX CLI's ``auto_mesh(model_parallel)``: model =
+``--model-parallel``, data = ``WORLD_SIZE / model``, ``--tp-backend
+nccl|gloo`` required (nccl: a GPU a rank, ``LOCAL_RANK``'s; gloo: every
+rank on ``--device``, so ranks may share one GPU). Every rank builds the
+same seeded init (or loads the same checkpoint), keeps its shard, draws the
+same batches and takes its data rank's rows; rank 0 alone logs steps (the
+global loss, tokens/s of the global batch) and writes whole-tensor
+checkpoints, which restore at any layout.
 
 Data format (one JSON object per line):
   {"prompt": "<task prompt>", "response": "<target text>",
@@ -16,6 +26,8 @@ data or a checkpoint. Every logged step gives its loss, accuracy, grad_norm
 
 Usage:
   python -m dots_ocr_tpu_torch.train.cli --synthetic 16 --size tiny --steps 10 --device cpu
+  torchrun --nproc-per-node 2 -m dots_ocr_tpu_torch.train.cli --model-parallel 2 \\
+      --tp-backend gloo --device cpu --size tiny --synthetic 1
   python -m dots_ocr_tpu_torch.train.cli --data sft.jsonl --weights ./weights/DotsOCR \\
       --batch-size 8 --seq-len 4096 --remat --ckpt ./ckpts
 """
@@ -107,13 +119,32 @@ def data_batches(path: str, batch_size: int) -> Iterator[List[dict]]:
         yield batch
 
 
-def refuse_unported(args) -> None:
-    """Tensor parallelism and multi-process data parallelism are not ported."""
+def check_layout(args) -> int:
+    """``auto_mesh``'s rule: WORLD_SIZE ranks must divide by
+    ``--model-parallel``; several need ``--tp-backend``. Returns the world
+    size, or exits with the reason."""
     world = int(os.environ.get("WORLD_SIZE", "1"))
-    if args.model_parallel > 1 or world > 1:
-        raise SystemExit(f"--model-parallel {args.model_parallel} / WORLD_SIZE {world}: "
-                         "training over more than one device is not ported to PyTorch yet "
-                         "(ROADMAP.md: TP training)")
+    if args.model_parallel < 1 or world % args.model_parallel:
+        raise SystemExit(f"--model-parallel {args.model_parallel} does not divide WORLD_SIZE "
+                         f"{world} (TP training lays the ranks out as data x model; launch "
+                         f"a multiple of {args.model_parallel} ranks, e.g. torchrun "
+                         f"--nproc-per-node {max(args.model_parallel, 1)})")
+    if world > 1 and args.tp_backend is None:
+        raise SystemExit(f"WORLD_SIZE {world}: TP training needs --tp-backend nccl|gloo")
+    if args.tp_backend == "nccl" and world > 1 and (
+            args.device != "cuda" or torch.cuda.device_count() < min(
+                world, int(os.environ.get("LOCAL_WORLD_SIZE", world)))):
+        raise SystemExit("--tp-backend nccl needs a CUDA device a rank (--tp-backend gloo lets "
+                         "ranks share one device)")
+    return world
+
+
+def rank_device(args) -> torch.device:
+    """A rank's device: its own GPU under nccl (``LOCAL_RANK``), else
+    ``--device``."""
+    if args.tp_backend == "nccl" and int(os.environ.get("WORLD_SIZE", "1")) > 1:
+        return torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    return torch.device(args.device)
 
 
 def main(argv=None):
@@ -134,27 +165,43 @@ def main(argv=None):
     ap.add_argument("--ckpt-every", type=int, default=100)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
+    ap.add_argument("--tp-backend", choices=["nccl", "gloo"], default=None,
+                    help="the device collectives' backend, required with WORLD_SIZE > 1")
     args = ap.parse_args(argv)
-    refuse_unported(args)
+    world = check_layout(args)
 
+    from dots_ocr_tpu_torch.parallel.distributed import destroy, initialize_distributed
+    from dots_ocr_tpu_torch.utils.observability import setup_logging
+
+    setup_logging()
+    device = rank_device(args)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise SystemExit("--device cuda: no CUDA device is available (--device cpu to train "
+                         "on the CPU)")
+    if device.type == "cpu" and world > 1:
+        torch.set_num_threads(max(1, (os.cpu_count() or 1) // world))  # ranks share the cores
+    tp = initialize_distributed(args.tp_backend, world_size=world, device=device,
+                                model_parallel=args.model_parallel)
+    try:
+        _train(args, device, tp)
+    finally:
+        destroy(tp)
+
+
+def _train(args, device: torch.device, tp) -> None:
     from dots_ocr_tpu_torch.engine.scheduler import default_tokenizer
     from dots_ocr_tpu_torch.engine.tokenizer import load_checkpoint_tokenizer
     from dots_ocr_tpu_torch.models.config import DotsOCRConfig
     from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.parallel.sharding import shard_batch
     from dots_ocr_tpu_torch.train.checkpoint import save_checkpoint
     from dots_ocr_tpu_torch.train.train_step import (
         init_train_state,
         make_dummy_batch,
         make_optimizer,
+        shard_for_training,
         train_step,
     )
-    from dots_ocr_tpu_torch.utils.observability import setup_logging
-
-    setup_logging()
-    device = torch.device(args.device)
-    if device.type == "cuda" and not torch.cuda.is_available():
-        raise SystemExit("--device cuda: no CUDA device is available (--device cpu to train "
-                         "on the CPU)")
 
     if args.weights:
         from dots_ocr_tpu_torch.models.loader import load_checkpoint
@@ -170,11 +217,18 @@ def main(argv=None):
         params = init_params(config, device, torch.Generator(device=device).manual_seed(0))
         tokenizer = default_tokenizer(config)
 
+    if tp is not None:
+        params = shard_for_training(params, config, tp)  # the whole tensors are freed
     optimizer = make_optimizer(learning_rate=args.lr)
     state = init_train_state(params, optimizer)
-    logger.info("training on %s: %s, %d steps of %d x %d tokens%s", device, args.size
-                if not args.weights else args.weights, args.steps, args.batch_size,
-                args.seq_len, ", remat" if args.remat else "")
+    del params
+    rank0 = tp is None or tp.global_rank == 0
+    if rank0:
+        logger.info("training on %s: %s, %d steps of %d x %d tokens%s%s", device, args.size
+                    if not args.weights else args.weights, args.steps, args.batch_size,
+                    args.seq_len, ", remat" if args.remat else "",
+                    "" if tp is None else f", {tp.data} data x {tp.world} model ranks over "
+                    f"{tp.backend}")
 
     if not args.synthetic:
         if not args.data:
@@ -189,8 +243,11 @@ def main(argv=None):
                                      seq_len=args.seq_len, seed=step, device=device)
         else:
             batch = build_batch(next(source), tokenizer, config, args.seq_len, device=device)
-        state, metrics = train_step(state, batch, config, optimizer, remat=args.remat)
-        if step % args.log_every == 0 or step == args.steps:
+        if tp is not None:
+            batch = shard_batch(batch, tp.data, tp.data_rank)
+        state, metrics = train_step(state, batch, config, optimizer, remat=args.remat, tp=tp)
+        last = step == args.steps
+        if rank0 and (step % args.log_every == 0 or last):
             values = {k: float(v) for k, v in metrics.items()}  # waits for the step
             now = time.perf_counter()
             steps = step - last_logged
@@ -202,10 +259,11 @@ def main(argv=None):
                 steps * args.batch_size * args.seq_len / (now - t_log), now - t0,
             )
             t_log, last_logged = now, step
-        if args.ckpt and (step % args.ckpt_every == 0 or step == args.steps):
-            save_checkpoint(args.ckpt, state, config)
-            logger.info("checkpoint saved at step %d", step)
-    if device.type == "cuda":
+        if args.ckpt and (step % args.ckpt_every == 0 or last):
+            save_checkpoint(args.ckpt, state, config, tp=tp)
+            if rank0:
+                logger.info("checkpoint saved at step %d", step)
+    if device.type == "cuda" and rank0:
         logger.info("peak_memory_allocated=%d bytes", torch.cuda.max_memory_allocated(device))
 
 

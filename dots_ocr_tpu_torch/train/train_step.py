@@ -8,6 +8,18 @@ package. The optimizer reproduces optax's ``chain(clip_by_global_norm(c),
 adamw(lr, b1, b2, weight_decay=wd))`` in plain torch, one leaf at a time;
 JAX has no kernel for it either. Parameters and moments are updated in
 place, where the JAX step donates its state and returns new arrays.
+
+Over a (data, model) layout of ranks (``tp``, a
+``parallel.distributed.TPGroup``) each rank holds its shard of the state
+(:func:`shard_train_state`) and its data rank's rows of the batch
+(``parallel.sharding.shard_batch``), and the step computes what the JAX step
+computes under ``jax.set_mesh(make_mesh(data, model))``, the single-device
+step on the whole batch: the model's f / g collectives (``ops/tp.py``), the
+loss's numerator on the rank's rows over the denominator summed over the
+data group, the gradients summed (not averaged) over the data group and,
+for a KV head repeated on several ranks, over its replicas, and a global
+norm that counts every element once (:func:`sharded_global_norm`).
+Clipping and AdamW are elementwise, so they run on each shard unchanged.
 """
 
 from __future__ import annotations
@@ -22,6 +34,9 @@ from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.init import from_numpy_params
 from dots_ocr_tpu_torch.models.rope import vision_grid_positions, vision_rope_table
 from dots_ocr_tpu_torch.models.vlm import build_scatter_indices, vlm_prefill
+from dots_ocr_tpu_torch.ops.tp import train_all_reduce
+from dots_ocr_tpu_torch.parallel.distributed import join_replica_groups
+from dots_ocr_tpu_torch.parallel.sharding import leaf_roles, shard_params
 
 
 class TrainBatch(NamedTuple):
@@ -87,10 +102,30 @@ def _safe_increment(count: torch.Tensor) -> torch.Tensor:
     return torch.where(count < top, count + 1, count)
 
 
+def _squares(tensors) -> torch.Tensor:
+    return torch.stack([torch.sum(torch.square(t), dtype=torch.float32) for t in tensors]).sum()
+
+
 def global_norm(tensors) -> torch.Tensor:
     """sqrt of the sum over leaves of sum(t * t), in float32."""
-    return torch.stack([torch.sum(torch.square(t), dtype=torch.float32)
-                        for t in tensors]).sum().sqrt()
+    return _squares(tensors).sqrt()
+
+
+def sharded_global_norm(named_grads, roles: Dict[str, str], tp) -> torch.Tensor:
+    """optax's global norm of the whole gradient, from one rank's shards:
+    the squares of split leaves summed over the model group, those of a
+    KV-replicated leaf once a KV head (on the head's first replica), those
+    of a whole leaf once (every rank holds them equal). float32."""
+    rep = tp.plan.kv_replication
+    split = [g for name, g in named_grads if roles[name] == "split"
+             or (roles[name] == "kv_replica" and tp.rank % rep == 0)]
+    whole = [g for name, g in named_grads if roles[name] == "whole"]
+    total = _squares(split) if split else torch.zeros((), device=tp.device)
+    if tp.world > 1:
+        total = train_all_reduce(total, tp)
+    if whole:
+        total = total + _squares(whole)
+    return total.sqrt()
 
 
 @dataclass(frozen=True)
@@ -120,12 +155,14 @@ class AdamW:
         return AdamState(torch.zeros((), dtype=torch.int32, device=device),
                          _zeros_like(params), _zeros_like(params))
 
-    def update(self, params, grads: List[torch.Tensor],
-               state: AdamState) -> Tuple[AdamState, torch.Tensor]:
+    def update(self, params, grads: List[torch.Tensor], state: AdamState,
+               g_norm: Optional[torch.Tensor] = None) -> Tuple[AdamState, torch.Tensor]:
         """One step: ``params`` and the moments are updated in place, in
         the order of :func:`tree_items`. Returns (the new state, the global
-        norm of ``grads`` before clipping). No host sync."""
-        g_norm = global_norm(grads)
+        norm of ``grads`` before clipping: ``g_norm`` when given, the
+        norm of a sharded gradient). No host sync."""
+        if g_norm is None:
+            g_norm = global_norm(grads)
         keep = g_norm < self.grad_clip
         count = _safe_increment(state.count)
         bc1, bc2 = (1 - torch.full((), b, device=count.device).pow(count)
@@ -151,9 +188,38 @@ def make_optimizer(
     return AdamW(learning_rate, weight_decay, b1, b2, grad_clip)
 
 
+def _check_float(params) -> None:
+    for name, p in tree_items(params):
+        if not p.is_floating_point():
+            raise ValueError(f"training needs a float parameter tree: {name} is {p.dtype} "
+                             "(a quantized tree has no gradient, in the JAX package either)")
+
+
 def init_train_state(params, optimizer: AdamW) -> TrainState:
+    _check_float(params)
     state = optimizer.init(params)
     return TrainState(params, state, torch.zeros_like(state.count))
+
+
+def shard_for_training(params, config: DotsOCRConfig, tp):
+    """This rank's shard of a whole float tree
+    (``parallel.sharding.shard_params``), with ``tp.plan`` set and, under KV
+    replication, the replica groups joined: every rank calls it together.
+    The whole tree can be freed afterwards."""
+    _check_float(params)
+    shard, tp.plan = shard_params(params, config, tp.rank, tp.world)
+    if tp.replica_group is None:
+        join_replica_groups(tp, tp.plan.kv_replication)
+    return shard
+
+
+def shard_train_state(state: TrainState, config: DotsOCRConfig, tp) -> TrainState:
+    """This rank's shard of a whole state (a restored checkpoint): params as
+    :func:`shard_for_training`, mu and nu cut the same way."""
+    params = shard_for_training(state.params, config, tp)
+    mu, _ = shard_params(state.opt_state.mu, config, tp.rank, tp.world)
+    nu, _ = shard_params(state.opt_state.nu, config, tp.rank, tp.world)
+    return TrainState(params, AdamState(state.opt_state.count, mu, nu), state.step)
 
 
 def from_numpy_train_state(opt_state_numpy, config: DotsOCRConfig,
@@ -181,23 +247,38 @@ def from_numpy_train_state(opt_state_numpy, config: DotsOCRConfig,
 
 
 def loss_fn(
-    params, config: DotsOCRConfig, batch: TrainBatch, remat: bool = False
+    params, config: DotsOCRConfig, batch: TrainBatch, remat: bool = False, tp=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Masked next-token cross entropy (float32 logits); ``remat``
-    recomputes the decoder layers in the backward pass."""
+    recomputes the decoder layers in the backward pass.
+
+    Under ``tp`` the params are the rank's shard, the batch its data
+    rank's rows: the loss is the rank's part of the global masked mean
+    (its rows' sum over ``max(global mask sum, 1)``, detached, the JAX
+    step's denominator), so the data group's gradients sum to the global
+    one; the metrics are the global values."""
+    def data_sum(t: torch.Tensor) -> torch.Tensor:
+        if tp is None or tp.data == 1:
+            return t
+        return train_all_reduce(t.detach().clone(), tp, tp.data_group)
+
     logits, _ = vlm_prefill(
-        params, config, batch.input_ids, batch.positions, batch.seq_lens,
-        patches=batch.patches, rope_cos=batch.rope_cos, rope_sin=batch.rope_sin,
-        segment_ids=batch.segment_ids, scatter_batch=batch.scatter_batch,
-        scatter_pos=batch.scatter_pos, attn_impl="xla", remat=remat,
+        params, config if tp is None else tp.plan.config, batch.input_ids, batch.positions,
+        batch.seq_lens, patches=batch.patches, rope_cos=batch.rope_cos,
+        rope_sin=batch.rope_sin, segment_ids=batch.segment_ids,
+        scatter_batch=batch.scatter_batch, scatter_pos=batch.scatter_pos, attn_impl="xla",
+        remat=remat, tp=tp,
     )
     logprobs = torch.log_softmax(logits.to(torch.float32), dim=-1)
     target_logprobs = logprobs.gather(-1, batch.target_ids.long()[..., None])[..., 0]
     mask = batch.loss_mask.to(torch.float32)
-    denom = mask.sum().clamp_min(1.0)
-    loss = -(target_logprobs * mask).sum() / denom
-    accuracy = ((logits.argmax(dim=-1) == batch.target_ids) * mask).sum() / denom
-    return loss, {"loss": loss, "accuracy": accuracy, "tokens": denom}
+    denom = data_sum(mask.sum()).clamp_min(1.0)
+    total = -(target_logprobs * mask).sum()
+    loss = total / denom
+    correct = ((logits.argmax(dim=-1) == batch.target_ids) * mask).sum()
+    metrics = {"loss": data_sum(total) / denom, "accuracy": data_sum(correct) / denom,
+               "tokens": denom}
+    return loss, metrics
 
 
 def train_step(
@@ -206,21 +287,49 @@ def train_step(
     config: DotsOCRConfig,
     optimizer: AdamW,
     remat: bool = False,
+    tp=None,
 ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
     """One optimizer step; the state's tensors are updated in place (the
     JAX step donates them). Metrics are detached device scalars: loss,
-    accuracy, tokens and grad_norm (before clipping)."""
+    accuracy, tokens and grad_norm (before clipping).
+
+    ``tp``: the rank's group over a (data, model) layout; ``state`` is then
+    the rank's shard (:func:`shard_train_state`), ``batch`` its data rank's
+    rows (``parallel.sharding.shard_batch``) and ``config`` the whole
+    model's. Every rank issues the same collectives in the same order,
+    whatever its rows."""
     items = tree_items(state.params)
     leaves = [p.detach().requires_grad_(True) for _, p in items]
     params = tree_from_items(zip((name for name, _ in items), leaves))
-    loss, metrics = loss_fn(params, config, batch, remat)
+    loss, metrics = loss_fn(params, config, batch, remat, tp)
     grads = torch.autograd.grad(loss, leaves, allow_unused=True)
     grads = [torch.zeros_like(p) if g is None else g for p, g in zip(leaves, grads)]
     del loss, params, leaves
-    opt_state, g_norm = optimizer.update(state.params, grads, state.opt_state)
+    g_norm = None
+    if tp is not None:
+        grads, g_norm = _reduce_gradients([name for name, _ in items], grads, config, tp)
+    opt_state, g_norm = optimizer.update(state.params, grads, state.opt_state, g_norm)
     metrics = {k: v.detach() for k, v in metrics.items()}
     metrics["grad_norm"] = g_norm
     return TrainState(state.params, opt_state, state.step + 1), metrics
+
+
+def _reduce_gradients(names: List[str], grads: List[torch.Tensor], config: DotsOCRConfig,
+                      tp) -> Tuple[List[torch.Tensor], torch.Tensor]:
+    """A rank's gradients of its shard -> the global gradient's shard, and
+    the global norm: each leaf summed over the data group, a KV-replicated
+    leaf also over its replicas (each replica's query heads give a part),
+    in tree order on every rank."""
+    roles = leaf_roles(tree_from_items(zip(names, grads)), config, tp.world)
+    out = []
+    for name, g in zip(names, grads):
+        g = g.contiguous()
+        if tp.data > 1:
+            train_all_reduce(g, tp, tp.data_group)
+        if roles[name] == "kv_replica":
+            train_all_reduce(g, tp, tp.replica_group)
+        out.append(g)
+    return out, sharded_global_norm(list(zip(names, out)), roles, tp)
 
 
 def make_dummy_batch(

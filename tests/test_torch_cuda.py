@@ -1694,3 +1694,113 @@ def test_tp2_nccl_graphs_match_eager_on_two_cards(cuda, tmp_path):
         assert res["graphed"] == res["eager"] == results[0]["graphed"]
         assert res["metrics"]["graph_replays"] >= res["metrics"]["steps"] >= 1
         assert res["reduces"] > 0
+
+
+# -- tensor parallelism: kernel 3's route, and training ---------------------
+
+
+def _spawn_ranks(target, world, tmp_path, prefix, *args):
+    import multiprocessing
+    import pickle
+
+    ctx = multiprocessing.get_context("spawn")
+    procs = [ctx.Process(target=target, args=(rank, world, str(tmp_path), *args))
+             for rank in range(world)]
+    for p in procs:
+        p.start()
+    for p in procs:
+        p.join(timeout=600)
+    results = []
+    for rank in range(world):
+        path = tmp_path / f"{prefix}{rank}.pkl"
+        assert path.exists(), f"rank {rank} wrote nothing (exit {procs[rank].exitcode})"
+        with open(path, "rb") as f:
+            res = pickle.load(f)
+        assert "error" not in res, res["error"]
+        results.append(res)
+    return results
+
+
+@pytest.mark.cuda
+def test_tp2_decodes_through_kernel3_at_int8_page64_on_card(cuda, tmp_path):
+    """TP = 2 over gloo on one card where decode takes kernel 3's route
+    (int8 KV at page 64): each rank's pool holds one KV head, its decode
+    step launches kernel 3 on it and its verify step runs the plain
+    reference; the logits of a 40-token prompt's verify and decode steps
+    are within chip_smoke.py's phase 19 tolerance (0.5 std) of TP = 1, and
+    a served greedy request launches kernel 3 on both ranks."""
+    import tp_ranks
+    from dots_ocr_tpu_torch.models.init import init_params
+
+    full = init_params(tp_ranks.card_route_config(), cuda,
+                       torch.Generator(device=cuda).manual_seed(0), scale=0.3)
+    ref = tp_ranks.card_route_logits(full, None, cuda)
+    assert ref["kernel3"] == 2 and ref["kv_width"] == 2
+    ranks = _spawn_ranks(tp_ranks.run_card_route_rank, 2, tmp_path, "route")
+    std = float(ref["logits"].std())
+    for res in ranks:
+        assert res["kv_width"] == 1 and res["kernel3"] == 2
+        assert float(np.abs(res["logits"] - ref["logits"]).max()) <= 0.5 * std
+        assert res["served_kernel3"] > 0
+    assert ranks[0]["tokens"] == ranks[1]["tokens"]
+
+
+def _train_ranks_hold(ranks, cuda):
+    """The card's one-process step on the same weights and batch, and
+    ``test_train_step_on_card_matches_cpu``'s rule against rank 0's
+    gathered step."""
+    import train_ranks
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.train.train_step import (
+        init_train_state,
+        make_dummy_batch,
+        make_optimizer,
+        train_step,
+        tree_items,
+    )
+
+    cfg, lr = train_ranks.CFG, 1e-3
+    opt = make_optimizer(learning_rate=lr)
+    params = _to(init_params(cfg, torch.device("cpu"), torch.Generator().manual_seed(0)), cuda)
+    batch = make_dummy_batch(cfg, batch_size=2, seq_len=train_ranks.SEQ,
+                             vision_tokens=train_ranks.VISION_TOKENS, seed=0, device=cuda)
+    ref, m_ref = train_step(init_train_state(params, opt), batch, cfg, opt)
+    for res in ranks:
+        assert res["metrics"] == ranks[0]["metrics"]
+    got = ranks[0]
+    for key in ("loss", "grad_norm"):
+        assert abs(got["metrics"][key] - float(m_ref[key])) <= 1e-5 * abs(float(m_ref[key])), key
+    outliers, elements = 0, 0
+    for name, b in tree_items(ref.params):
+        a = torch.from_numpy(got["state"]["params"][name])
+        diff, slack = (a - b.cpu()).abs(), 1e-5 * b.cpu().abs()
+        assert bool((diff <= 2 * lr + slack).all()), (name, float(diff.max()))
+        if not name.endswith("attn.bk"):
+            outliers += int((diff > 1e-2 * lr + slack).sum())
+            elements += diff.numel()
+    assert outliers <= 1e-3 * elements, (outliers, elements)
+
+
+@pytest.mark.cuda
+def test_tp2_train_step_over_gloo_matches_one_process_on_card(cuda, tmp_path):
+    """TP = 2 training over gloo, both ranks on this card, the tiny config
+    in float32 (2 + 2 layers, vision in): the gathered step equals the
+    card's one-process step within test_train_step_on_card_matches_cpu's
+    tolerances."""
+    import train_ranks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = _spawn_ranks(train_ranks.run_card_train_rank, 2, tmp_path, "card", "gloo")
+    _train_ranks_hold(ranks, cuda)
+
+
+@pytest.mark.cuda
+def test_tp2_train_step_over_nccl_matches_one_process_on_two_cards(cuda, tmp_path):
+    """The same step over NCCL, a GPU a rank."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs 2 GPUs: NCCL refuses two ranks on one device")
+    import train_ranks
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    ranks = _spawn_ranks(train_ranks.run_card_train_rank, 2, tmp_path, "card", "nccl")
+    _train_ranks_hold(ranks, cuda)

@@ -414,20 +414,32 @@ def test_cli_trains_on_jsonl(tmp_path, png, caplog):
     assert all(math.isfinite(float(s[1])) for s in steps)
 
 
-@pytest.mark.parametrize("how", ["model_parallel", "world_size"])
+@pytest.mark.parametrize("how", ["model_parallel", "world_size", "backend"])
 def test_cli_refuses_tp(how, monkeypatch):
+    """What the CLI refuses of TP training, with the reason, before it
+    builds anything: ``--model-parallel`` that does not divide WORLD_SIZE
+    (2 in one process, as ``auto_mesh`` asserts; 2 of 3 ranks), and
+    several ranks without ``--tp-backend``. (tests/test_torch_train_tp.py
+    trains over 2 ranks.)"""
     argv = ["--synthetic", "1", "--size", "tiny", "--device", "cpu", "--steps", "1"]
     if how == "model_parallel":
         argv += ["--model-parallel", "2"]
+        reason = "--model-parallel 2 does not divide WORLD_SIZE 1"
+    elif how == "world_size":
+        argv += ["--model-parallel", "2", "--tp-backend", "gloo"]
+        monkeypatch.setenv("WORLD_SIZE", "3")
+        reason = "--model-parallel 2 does not divide WORLD_SIZE 3"
     else:
         monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(SystemExit, match="TP"):
+        reason = "needs --tp-backend"
+    with pytest.raises(SystemExit, match="TP training") as e:
         cli.main(argv)
+    assert reason in str(e.value)
     if how == "model_parallel":
         proc = subprocess.run([sys.executable, "-m", "dots_ocr_tpu_torch.train.cli", *argv],
                               env=dict(os.environ, PYTHONPATH=REPO), capture_output=True,
                               text=True, timeout=120, cwd=REPO)
-        assert proc.returncode != 0 and "TP" in proc.stderr
+        assert proc.returncode != 0 and reason in proc.stderr
 
 
 def test_cli_needs_data_or_synthetic():

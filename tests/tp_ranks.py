@@ -249,3 +249,87 @@ def run_nccl_rank(rank: int, world: int, workdir: str) -> None:
         out = {"error": traceback.format_exc()}
     with open(os.path.join(workdir, f"nccl{rank}.pkl"), "wb") as f:
         pickle.dump(out, f)
+
+
+def card_route_config() -> DotsOCRConfig:
+    """bf16, head_dim 128 (kernel 3 takes 64 or 128), 4 query heads over 2
+    KV heads: at TP = 2 a rank holds 2 query heads over one KV head."""
+    cfg = DotsOCRConfig.tiny().replace(dtype="bfloat16")
+    return cfg.replace(decoder=dataclasses.replace(
+        cfg.decoder, hidden_size=256, num_heads=4, num_kv_heads=2, head_dim=128,
+        intermediate_size=512))
+
+
+def card_route_logits(params, tp, dev) -> dict:
+    """A 40-token prompt into int8 pools at page 64 by one prefill-extend
+    chunk up to its last three tokens, a k = 2 verify step over those three
+    (nq = 3: the plain reference where kernel 2 does not fit) and a decode
+    step of the last one (nq = 1: kernel 3): the four rows' logits as
+    float32 numpy, and kernel 3's int8 launches in the decode step."""
+    from dots_ocr_tpu_torch.ops.paged_attention import paged_attention_stacked
+
+    cfg = card_route_config()
+    d = cfg.decoder if tp is None else tp.plan.config.decoder
+    page, t = 64, 40
+    n = t - 3
+    rng = np.random.RandomState(3)
+    x = torch.from_numpy(rng.randn(1, t, d.hidden_size).astype(np.float32)).to(dev, torch.bfloat16)
+    world = 1 if tp is None else tp.world
+    paged = tkv.PagedKV.create(cfg.decoder, 4, page, torch.bfloat16, dev, quantized=True,
+                               world=world)
+    scales = dict(k_scales=paged.k_scale, v_scales=paged.v_scale)
+    table = torch.tensor([[1, 2]], dtype=torch.int32, device=dev)
+    pos = torch.arange(t, device=dev)
+    slots = pos + page  # page 1, then page 2
+
+    def lens(v):
+        return torch.tensor([v], dtype=torch.int32, device=dev)
+
+    p = params["decoder"]
+    with torch.no_grad():
+        tdec.decoder_prefill_extend_batched(p, d, x[:, :n], pos[:n], lens(n), paged.k, paged.v,
+                                            table, slots[None, :n], page, page, 0, tp=tp,
+                                            **scales)
+        verify = tdec.decoder_spec_step_paged(p, d, x[:, n:], pos[None, n:], paged.k, paged.v,
+                                              table, lens(n + 1), slots[None, n:], page, tp=tp,
+                                              **scales)[0]
+        before = paged_attention_stacked.int8_launches
+        decode = tdec.decoder_decode_step_paged(p, d, x[:, -1], pos[-1:], paged.k, paged.v, table,
+                                                lens(t), slots[-1:], page, tp=tp, **scales)
+        launches = paged_attention_stacked.int8_launches - before
+        logits = tdec.logits_from_hidden(p, d, torch.cat([verify, decode]))
+    return {"logits": logits.float().cpu().numpy(), "kernel3": launches,
+            "kv_width": paged.k[0].shape[0]}
+
+
+def run_card_route_rank(rank: int, world: int, workdir: str) -> None:
+    """One rank of ``test_torch_cuda.py``'s TP = 2 int8-KV page-64 case:
+    gloo on cuda:0, the seeded bf16 model's shard, :func:`card_route_logits`
+    and a greedy request served by the engine at page 64; writes
+    ``route{rank}.pkl``."""
+    out = {}
+    try:
+        from dots_ocr_tpu_torch.models.init import init_params
+        from dots_ocr_tpu_torch.ops.paged_attention import paged_attention_stacked
+
+        dev = torch.device("cuda", 0)
+        tp = initialize_distributed("gloo", rank, world, f"file://{workdir}/store", device=dev,
+                                    timeout_s=300)
+        cfg = card_route_config()
+        full = init_params(cfg, dev, torch.Generator(device=dev).manual_seed(0), scale=0.3)
+        params, tp.plan = shard_params(full, cfg, rank, world)
+        out.update(card_route_logits(params, tp, dev))
+        sched = SchedulerConfig(num_pages=64, page_size=64, max_slots=2, max_pages_per_seq=8,
+                                steps_per_sync=4, kv_cache_dtype="int8")
+        eng = ContinuousBatchingEngine(params, cfg, dev, sched=sched, tp=tp)
+        before = paged_attention_stacked.int8_launches
+        rid = eng.submit("kernel 3 under tensor parallelism", max_new_tokens=12,
+                         temperature=0.0)
+        eng.run()
+        out["tokens"] = eng.finished_request(rid).output_ids
+        out["served_kernel3"] = paged_attention_stacked.int8_launches - before
+        destroy(tp)
+    except BaseException:  # noqa: BLE001 - the test reports it
+        out = {"error": traceback.format_exc()}
+    with open(os.path.join(workdir, f"route{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
