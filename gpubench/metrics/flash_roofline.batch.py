@@ -1,0 +1,2 @@
+"""flash_roofline.batch: kernel 1's share of its bound."""
+from gpubench.layers import flash_roofline as read  # noqa: F401

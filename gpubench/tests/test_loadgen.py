@@ -1,0 +1,79 @@
+"""The traffic generator: deterministic by seed, the same work for every
+seed (stratified draws), the closed loop's fixed first block."""
+
+import json
+import os
+from collections import Counter
+
+from gpubench.loadgen import Traffic
+from gpubench.run import ROOT, load_json
+
+MIXES = os.path.join(ROOT, "gpubench", "traffic")
+DIMS = load_json(os.path.join(ROOT, "gpubench", "configs", "dotsocr-w8a16.json"))["model"]
+
+
+def mix(name):
+    return load_json(os.path.join(MIXES, name + ".json"))
+
+
+def specs(m, seed, n, first=0):
+    t = Traffic(m, seed, DIMS)
+    return [t.request(i, first_of_caller=i < first) for i in range(n)]
+
+
+def test_same_seed_same_requests_and_pixels():
+    m = mix("snap-ocr")
+    a, b = Traffic(m, 2**31 + 5, DIMS), Traffic(m, 2**31 + 5, DIMS)
+    for i in range(20):
+        ra, rb = a.request(i), b.request(i)
+        assert ra == rb
+        assert (a.pixels(ra) == b.pixels(rb)).all()
+    assert a.gaps(50) == b.gaps(50)
+
+
+def test_other_seeds_reorder_the_same_sizes():
+    m = mix("pdf-batch")
+    n = 3 * m["strata"]
+    budgets = [Counter(r.max_new_tokens for r in specs(m, s, n)) for s in (1, 2)]
+    areas = [sorted(Traffic(m, s, DIMS)._log_uniform("megapixels", i) for i in range(n))
+             for s in (1, 2)]
+    order = [[r.patches for r in specs(m, s, n)] for s in (1, 2)]
+    assert budgets[0] == budgets[1] and areas[0] == areas[1]
+    assert order[0] != order[1]
+
+
+def test_open_loop_gaps_are_exponential_quantiles():
+    m = mix("snap-ocr")
+    g1, g2 = Traffic(m, 1, DIMS).gaps(m["strata"]), Traffic(m, 2, DIMS).gaps(m["strata"])
+    assert sorted(g1) == sorted(g2) and g1 != g2
+    mean = sum(g1) / len(g1)
+    assert abs(mean * m["rate_per_s"] - 1.0) < 0.02  # the mean gap is 1 / rate
+
+
+def test_closed_loop_first_block_is_the_same_for_every_seed():
+    m = mix("pdf-batch")
+    callers = m["callers"]
+    a, b = specs(m, 10, callers, first=callers), specs(m, 11, callers, first=callers)
+    assert [(r.patches, r.max_new_tokens) for r in a] == [(r.patches, r.max_new_tokens) for r in b]
+    # each first request stands somewhere uniformly inside its budget: on
+    # average at half of it
+    whole = sum(r.max_new_tokens for r in specs(m, 10, callers)) / callers
+    first = sum(r.max_new_tokens for r in a) / callers
+    assert 0.3 * whole < first < 0.7 * whole
+
+
+def test_pages_are_on_the_grid_and_in_range():
+    for name in ("pdf-batch", "snap-ocr"):
+        m = mix(name)
+        for r in specs(m, 3, 64):
+            assert r.height % 28 == 0 and r.width % 28 == 0
+            mp = r.height * r.width / 1e6
+            assert m["megapixels"]["low"] * 0.8 <= mp <= m["megapixels"]["high"] * 1.2
+            assert r.vision_tokens * 4 == r.patches
+        greedy = [r for r in specs(m, 3, 64) if r.greedy]
+        assert len(greedy) == 64 // m["greedy_every"]
+
+
+def test_mix_files_parse():
+    for f in os.listdir(MIXES):
+        assert json.load(open(os.path.join(MIXES, f)))["loop"] in ("open", "closed")
