@@ -1474,8 +1474,7 @@ def serve_phase(dev, flags, label: str, required, base_flags=None, waves=((0.0, 
             raise AssertionError(f"/metrics shows fewer than 3 prefills: {metrics}")
         shown = ("prefills", "prefill_chunks", "steps", "spec_chunks", "spec_emitted",
                  "spec_slot_iters", "spec_auto_disabled", "preemptions", "pipelined_chunks",
-                 "chunk_input_rebuilds", "graph_captures", "graph_replays", "t_admit_s",
-                 "t_prefill_s", "t_decode_s", "t_fetch_wait_s")
+                 "chunk_input_rebuilds", "graph_captures", "graph_replays", "kv_tokens_read")
         log(f"  [{label}] /metrics: " + ", ".join(f"{k} {metrics.get(k)}" for k in shown))
         log(f"  [{label}] kernel launches during the served run: {launches}")
         stops = metrics.get("repetition_stops", 0) - stops_before
@@ -2009,19 +2008,19 @@ def pipeline_ab_phase(dev, env_flags) -> dict:
         same = [r.output_ids for r in reqs] == tokens
         rates = {name: (len(r.output_ids) - 1) / (r.timing()["decode_ms"] / 1e3)
                  for (name, _), r in zip(prepared, reqs)}
-        run = dict(label=label, wall_s=wall, decode_tok_s=rates, t_decode_s=m["t_decode_s"],
+        run = dict(label=label, wall_s=wall, decode_tok_s=rates,
                    steps=m["steps"], chunk_input_rebuilds=m["chunk_input_rebuilds"],
                    pipelined_chunks=m["pipelined_chunks"],
-                   fetch_wait_ms_per_chunk=1e3 * m["t_fetch_wait_s"] / max(1, m["steps"]),
+                   kv_tokens_read=m["kv_tokens_read"],
                    completion_tokens=[len(r.output_ids) for r in reqs],
                    kernel2_launches=launches["paged_attention_multiquery"],
                    flash_launches=launches["flash_attention"],
                    w8a16_launches=launches["w8a16_matmul"])
         log(f"  [13 turn {turn + 1}: ({label})] wall {wall:.2f} s; decode tok/s after the first "
             + ", ".join(f"{name} {rate:.1f}" for name, rate in rates.items())
-            + f"; t_decode_s {m['t_decode_s']:.2f}; steps {m['steps']}; chunk_input_rebuilds "
-            f"{m['chunk_input_rebuilds']}; pipelined_chunks {m['pipelined_chunks']}; fetch wait "
-            f"{run['fetch_wait_ms_per_chunk']:.2f} ms a chunk; completion tokens "
+            + f"; steps {m['steps']}; chunk_input_rebuilds "
+            f"{m['chunk_input_rebuilds']}; pipelined_chunks {m['pipelined_chunks']}; kernel 2 "
+            f"read {run['kv_tokens_read']} context tokens a layer; completion tokens "
             f"{run['completion_tokens']} (finish {[r.finished_reason for r in reqs]}); kernel 2 "
             f"bf16 {run['kernel2_launches']}, flash {run['flash_launches']}, W8A16 "
             f"{run['w8a16_launches']} launches; token ids equal to turn 1's: {same}")
@@ -2044,8 +2043,7 @@ def pipeline_ab_phase(dev, env_flags) -> dict:
     for label in ("a", "b"):
         mine = [r for r in runs if r["label"] == label]
         log(f"  [13] ({label}) over its turns: wall "
-            + " / ".join(f"{r['wall_s']:.2f}" for r in mine) + " s; fetch wait "
-            + " / ".join(f"{r['fetch_wait_ms_per_chunk']:.2f}" for r in mine) + " ms a chunk")
+            + " / ".join(f"{r['wall_s']:.2f}" for r in mine) + " s")
     return {"turns": runs}
 
 
@@ -3683,8 +3681,7 @@ def tp_rank_main(rank: int, world: int, workdir: str, task: dict) -> None:
             follow(engine)
         torch.cuda.synchronize()
         out.update(serve_s=time.perf_counter() - t0, launches=_tp_counts(),
-                   engine_metrics={k: v for k, v in engine.metrics.items()
-                                   if not k.startswith("t_")})
+                   engine_metrics=dict(engine.metrics))
         logits = _tp_teacher_forced(engine, dev, tp)
         if rank == 0:
             torch.save(logits, os.path.join(workdir, "logits.pt"))

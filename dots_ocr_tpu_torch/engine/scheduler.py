@@ -53,6 +53,14 @@ watermark); a pool that runs dry mid-decode preempts the youngest request
 its prompt) and every request still finishes with the same greedy tokens.
 Host code carries stop strings, stop ids, streaming and the repetition
 guard.
+
+While a torch profiler runs, :meth:`ContinuousBatchingEngine.step` records
+its span tree (``utils/observability.py``): ``step`` > ``admit`` >
+(``prepare_batch``, ``encode``, ``prefill``, ``first_fetch``),
+``prefill_chunk``, ``decode`` > (``inputs``, ``dispatch``, ``fetch_wait``,
+``apply``), the launching ones with a CUDA event pair. Every decode and
+verify chunk also returns the context tokens the paged kernel read, which
+``metrics["kv_tokens_read"]`` adds up.
 """
 
 from __future__ import annotations
@@ -110,6 +118,7 @@ from dots_ocr_tpu_torch.models.vlm import (
 from dots_ocr_tpu_torch.ops.int4_matmul import int4_act_quant
 from dots_ocr_tpu_torch.ops.paged_attention import choose_paged_kernel
 from dots_ocr_tpu_torch.parallel.sharding import ROW_PARALLEL_PARTS
+from dots_ocr_tpu_torch.utils.observability import SPANS
 
 logger = logging.getLogger(__name__)
 
@@ -155,6 +164,13 @@ def _pack_first_with_logprob(first: torch.Tensor, logits: torch.Tensor) -> torch
     """[B] first tokens -> [B, 2] int64 (token, logprob bits): the prefill's
     fetch stays one array."""
     return torch.stack([first, f32_bits(token_logprob(logits, first))], dim=1)
+
+
+def image_work(segment_ids: np.ndarray) -> dict:
+    """A packed vision input's work for a span: the patches of each image
+    and the padded token count (host arrays only)."""
+    seg = np.asarray(segment_ids)
+    return {"patches": np.bincount(seg[seg >= 0]).tolist(), "t_vis": int(seg.shape[-1])}
 
 
 class HostFetch:
@@ -325,11 +341,13 @@ def decode_program(
     counts are updated in place, one scatter a step); ``with_logprobs``
     packs each emitted token's log-probability under those logits.
 
-    Returns (packed [S, num_steps (+ num_steps) + 1] int64: the sampled
-    tokens (pad after a row stopped), with logprobs their bits, and, last,
-    each row's emitted count; the carry (next tokens, next positions, next
-    budgets: 0 for a row that emitted EOS), on the device, for the next
-    chunk).
+    Returns (packed [S, num_steps (+ num_steps) + 2] int64: the sampled
+    tokens (pad after a row stopped), with logprobs their bits, each row's
+    emitted count, and, last, the context tokens the paged kernel read for
+    the row, its ``seq_lens`` added over the iterations (a row live for n
+    iterations from position L reads n (L + 1) + n (n - 1) / 2); the carry
+    (next tokens, next positions, next budgets: 0 for a row that emitted
+    EOS), on the device, for the next chunk).
     """
     eos, pad = config.special.eos_token_id, config.special.pad_token_id
     s = tokens.shape[0]
@@ -374,7 +392,8 @@ def decode_program(
         hit_eos = hit_eos | eos_now
         done = done | eos_now | (live & (num_decoded >= budgets))
     cols = [tokens_out] + ([f32_bits(lp_out)] if lp_out is not None else [])
-    packed = torch.cat(cols + [num_decoded[:, None]], dim=1)
+    kv_read = num_decoded * (positions + 1) + num_decoded * (num_decoded - 1) // 2
+    packed = torch.cat(cols + [num_decoded[:, None], kv_read[:, None]], dim=1)
     return packed, (current, pos, torch.where(hit_eos, 0, budgets - num_decoded))
 
 
@@ -473,8 +492,9 @@ def spec_decode_program(
     [S] first generated position (the prompt length); other arguments as
     in :func:`decode_program`, with page tables covering positions +
     num_steps * (spec_k + 1). Returns (packed [S, num_steps * (spec_k + 1)
-    + 1] int64: emitted tokens, then each row's count; the carry, as
-    :func:`decode_program`'s).
+    + 2] int64: emitted tokens, then each row's count, then the context
+    tokens the paged kernel read for the row (its ``seq_lens`` added over
+    the iterations); the carry, as :func:`decode_program`'s).
     """
     eos, pad = config.special.eos_token_id, config.special.pad_token_id
     s, length_buf = tokens_buf.shape[0], tokens_buf.shape[1] - 1
@@ -484,8 +504,9 @@ def spec_decode_program(
     rows = torch.arange(s, device=dev)
     offs = torch.arange(nq, device=dev)
     tpos = torch.arange(length_buf, device=dev)
-    out = torch.full((s, num_steps * nq + 1), pad, dtype=torch.int64, device=dev)
+    out = torch.full((s, num_steps * nq + 2), pad, dtype=torch.int64, device=dev)
     n_out = torch.zeros(s, dtype=torch.int64, device=dev)
+    kv_read = torch.zeros(s, dtype=torch.int64, device=dev)
     hit_eos = torch.zeros(s, dtype=torch.bool, device=dev)
     done = ~active | (budgets <= 0)
     current, pos, buf = tokens, positions, tokens_buf
@@ -511,6 +532,7 @@ def spec_decode_program(
         page = page_tables.gather(1, write_pos // page_size).to(torch.int64)
         slots = torch.where(writes, page * page_size + write_pos % page_size, 0)
         seq_lens = torch.where(live, pos + 1, 0).to(torch.int32)
+        kv_read += seq_lens
         hidden = decoder_spec_step_paged(
             params["decoder"], config.decoder, embed_tokens(params["decoder"], x_all),
             write_pos, paged.k, paged.v, page_tables, seq_lens, slots, page_size,
@@ -541,7 +563,8 @@ def spec_decode_program(
         eos_now = live & (eos_idx < nq)
         hit_eos = hit_eos | eos_now
         done = done | eos_now | (live & (n_out >= budgets))
-    out[:, -1] = n_out
+    out[:, -2] = n_out  # over the sink column of dropped writes
+    out[:, -1] = kv_read
     return out, (current, pos, torch.where(hit_eos, 0, budgets - n_out))
 
 
@@ -621,6 +644,15 @@ class ScheduledRequest:
     # the client-visible output is prior_output + output_ids.
     prior_output: List[int] = dataclasses.field(default_factory=list)
     preempted: int = 0
+    # time.monotonic() stamps: before this engine's submit, those of the
+    # EngineWorker that took the request (receipt, preprocessing start and
+    # end, the engine thread's take; None where nothing stamped them; a
+    # request the engine prepares itself gets its preprocessing stamped).
+    # Only timing() reads them: no decision depends on a clock.
+    received_at: Optional[float] = None
+    prep_started_at: Optional[float] = None
+    prep_ended_at: Optional[float] = None
+    taken_at: Optional[float] = None
     submitted_at: float = dataclasses.field(default_factory=time.monotonic)
     finished_reason: Optional[str] = None
     admitted_at: Optional[float] = None
@@ -659,17 +691,35 @@ class ScheduledRequest:
     prefill_pos: int = 0
 
     def timing(self) -> Dict[str, float]:
-        """Millisecond latency split (0.0 for markers never reached)."""
+        """Millisecond latency split (0.0 for markers never reached), from
+        receipt: ``prep_wait_ms`` (receipt to preprocessing), ``prep_ms``,
+        ``engine_wait_ms`` (preprocessed to this engine's submit),
+        ``queue_ms`` (submit to admission), ``prefill_ms`` (admission to
+        first token); they add up to ``ttft_ms``. ``total_ms`` counts from
+        receipt too. ``worker_queue_ms`` is the part of ``engine_wait_ms``
+        before the engine thread's take (the worker's queue, while the
+        engine thread steps); the rest is the engine thread's own work up to
+        the submit. It reads 0 where the take comes before preprocessing
+        (a tensor-parallel leader prepares what it takes; its queue wait is
+        in ``prep_wait_ms``)."""
         sub = self.submitted_at
+        p1 = self.prep_ended_at or sub
+        p0 = self.prep_started_at or p1
+        rcv = self.received_at or p0
+        take = self.taken_at or p1
         adm = self.admitted_at or sub
         ft = self.first_token_at
         fin = self.finished_at
         return {
+            "prep_wait_ms": max(0.0, (p0 - rcv) * 1e3),
+            "prep_ms": max(0.0, (p1 - p0) * 1e3),
+            "engine_wait_ms": max(0.0, (sub - p1) * 1e3),
+            "worker_queue_ms": max(0.0, (take - p1) * 1e3),
             "queue_ms": max(0.0, (adm - sub) * 1e3),
-            "ttft_ms": max(0.0, (ft - sub) * 1e3) if ft else 0.0,
+            "ttft_ms": max(0.0, (ft - rcv) * 1e3) if ft else 0.0,
             "prefill_ms": max(0.0, (ft - adm) * 1e3) if ft else 0.0,
             "decode_ms": max(0.0, (fin - ft) * 1e3) if ft and fin else 0.0,
-            "total_ms": max(0.0, (fin - sub) * 1e3) if fin else 0.0,
+            "total_ms": max(0.0, (fin - rcv) * 1e3) if fin else 0.0,
         }
 
 
@@ -792,8 +842,8 @@ class ContinuousBatchingEngine:
         self._warm_queue: List[Callable[[], None]] = []
         # The pipelined chunk dispatched but not yet applied: {"fetch",
         # "active", "chunk", "use_lp", "use_spec", "tokens" (the most it can
-        # emit)}; and the requests whose pages it may still write, freed
-        # when it lands.
+        # emit), "span" (its dispatch span's id, or None)}; and the requests
+        # whose pages it may still write, freed when it lands.
         self._inflight: Optional[dict] = None
         self._deferred_free: List[int] = []
         # Last-N finished-request latency splits, read by /metrics.
@@ -817,11 +867,9 @@ class ContinuousBatchingEngine:
             "chunk_input_rebuilds": 0,  # decode chunks whose inputs were uploaded
             "graph_captures": 0,  # decode chunk configurations captured as CUDA graphs
             "graph_replays": 0,   # decode chunks run as a replay (warmup included)
-            "t_submit_s": 0.0,   # tokenize + image preprocessing
-            "t_admit_s": 0.0,    # admission incl. monolithic prefill / chunk embeds
-            "t_prefill_s": 0.0,  # chunked-prefill chunks
-            "t_decode_s": 0.0,   # decode chunks: dispatch, fetch, bookkeeping
-            "t_fetch_wait_s": 0.0,  # host blocked on decode chunks' packed fetches
+            # context tokens the paged kernel read, one layer's launch a
+            # decode or verify iteration (the seq_lens the chunks hand it)
+            "kv_tokens_read": 0,
         }
 
     def _check_tp(self) -> None:
@@ -872,9 +920,14 @@ class ContinuousBatchingEngine:
         logit_bias: Optional[Dict[int, float]] = None,
         stream_cb=None,
         prepared=None,
+        received_at: Optional[float] = None,
+        prep_started_at: Optional[float] = None,
+        prep_ended_at: Optional[float] = None,
+        taken_at: Optional[float] = None,
     ) -> int:
         """Queue a request; returns its id. ``prepared`` is a
-        :meth:`prepare` result built off the engine thread."""
+        :meth:`prepare` result built off the engine thread; the ``*_at``
+        stamps are an EngineWorker's (:class:`ScheduledRequest`)."""
         sample_key = (prng_key(int(seed)) if seed is not None else self._next_rng()).numpy()
         if logit_bias:
             if len(logit_bias) > self.sched.logit_bias_slots:
@@ -885,10 +938,11 @@ class ContinuousBatchingEngine:
             logit_bias = {int(k): float(v) for k, v in logit_bias.items()
                           if 0 <= int(k) < vocab}
         if prepared is None:
-            t_sub = time.perf_counter()
-            prepared = self.prepare(prompt, images, system_prompt=system_prompt,
-                                    min_pixels=min_pixels, max_pixels=max_pixels)
-            self.metrics["t_submit_s"] += time.perf_counter() - t_sub
+            with SPANS("prepare"):
+                prep_started_at = time.monotonic()
+                prepared = self.prepare(prompt, images, system_prompt=system_prompt,
+                                        min_pixels=min_pixels, max_pixels=max_pixels)
+                prep_ended_at = time.monotonic()
         stop = [s for s in (stop or []) if s]
         req = ScheduledRequest(
             req_id=self._next_id,
@@ -907,6 +961,8 @@ class ContinuousBatchingEngine:
             stream_cb=stream_cb,
             detok=(IncrementalDetokenizer(self.tokenizer)
                    if (stop or stream_cb is not None) else None),
+            received_at=received_at, prep_started_at=prep_started_at,
+            prep_ended_at=prep_ended_at, taken_at=taken_at,
         )
         self._next_id += 1
         # A prompt that can never fit must fail fast, not block admission;
@@ -1096,7 +1152,10 @@ class ContinuousBatchingEngine:
                 batch.append(self._waiting.popleft())
             if not batch:
                 return
-            (self._admit_chunked if chunked else self._admit_batch)(batch)
+            with SPANS("admit") as span:
+                if span:
+                    span.note(reqs=[r.req_id for r in batch], chunked=chunked)
+                (self._admit_chunked if chunked else self._admit_batch)(batch)
 
     def _admit_chunked(self, reqs: List[ScheduledRequest]) -> None:
         """Park long requests in slots as PREFILLING: token embeddings for
@@ -1104,30 +1163,38 @@ class ContinuousBatchingEngine:
         bucket is a multiple of the chunk, so every chunk is an exact slice."""
         ct = self.sched.prefill_chunk_tokens
         t_bucket = max(-(-len(r.prompt_ids) // ct) * ct for r in reqs)
-        input_ids = np.full((len(reqs), t_bucket), self.config.special.pad_token_id, np.int64)
-        now = time.monotonic()
-        for j, req in enumerate(reqs):
-            input_ids[j, :len(req.prompt_ids)] = req.prompt_ids
-            self.allocator.allocate(req.req_id, len(req.prompt_ids) + 1)
-            req.admitted_at = req.admitted_at or now
-        embeds = embed_tokens(self.params["decoder"], self._put(input_ids))
+        with SPANS("prepare_batch") as span:
+            input_ids = np.full((len(reqs), t_bucket), self.config.special.pad_token_id,
+                                np.int64)
+            now = time.monotonic()
+            for j, req in enumerate(reqs):
+                input_ids[j, :len(req.prompt_ids)] = req.prompt_ids
+                self.allocator.allocate(req.req_id, len(req.prompt_ids) + 1)
+                req.admitted_at = req.admitted_at or now
+            ids = self._put(input_ids)
+            span.note(rows=len(reqs), t=t_bucket)
+        embeds = embed_tokens(self.params["decoder"], ids)
         merge = self.config.vision.spatial_merge_size**2
         for j, req in enumerate(reqs):
             packed = req.packed
             if packed is None:
                 continue
-            # Row-j scatter coordinates: built against the single row, then
-            # its batch index remapped (0 -> j, the sentinel 1 -> B).
-            sb, sp = build_scatter_indices(
-                input_ids[j:j + 1], self.config.special.imgpad_id,
-                packed.patches.shape[0] // merge, valid_rows=packed.merged_valid_rows(merge),
-            )
-            sb = np.where(sb == 0, j, len(reqs)).astype(np.int32)
-            vision_tokens = encode_program(
-                self.params, self.model_config, self._put(packed.patches),
-                self._put(packed.pos2d), self._put(packed.segment_ids), tp=self.tp,
-            )
-            embeds = splice_vision_embeddings(embeds, vision_tokens, self._put(sb), self._put(sp))
+            with SPANS("prepare_batch"):
+                # Row-j scatter coordinates: built against the single row,
+                # then its batch index remapped (0 -> j, the sentinel 1 -> B).
+                sb, sp = build_scatter_indices(
+                    input_ids[j:j + 1], self.config.special.imgpad_id,
+                    packed.patches.shape[0] // merge, valid_rows=packed.merged_valid_rows(merge),
+                )
+                sb = np.where(sb == 0, j, len(reqs)).astype(np.int32)
+                vision = [self._put(x) for x in (packed.patches, packed.pos2d,
+                                                  packed.segment_ids, sb, sp)]
+            with SPANS.whole("encode", self.device) as span:
+                vision_tokens = encode_program(self.params, self.model_config, *vision[:3],
+                                               tp=self.tp)
+                if span:
+                    span.note(reqs=[req.req_id], **image_work(packed.segment_ids))
+            embeds = splice_vision_embeddings(embeds, vision_tokens, *vision[3:])
             self.metrics["chunk_embeds"] = self.metrics.get("chunk_embeds", 0) + 1
         # The decode set is unchanged until a request's last chunk, so the
         # device-resident decode inputs stay valid.
@@ -1148,85 +1215,99 @@ class ContinuousBatchingEngine:
                       if r is not None and r.state == PREFILLING]
         if not prefilling:
             return
-        start = min(r.prefill_pos for _, r in prefilling)
-        group = [(i, r) for i, r in prefilling if r.prefill_pos == start]
-        group = group[: self.sched.max_prefill_batch]
-        ct, ps = self.sched.prefill_chunk_tokens, self.sched.page_size
-        kv_hi = start + ct  # both multiples of page_size
-        width = kv_hi // ps
-        n = len(group)
-        tables = np.zeros((n, width), np.int32)
-        slots = np.zeros((n, ct), np.int64)  # padding -> the null page's slot 0
-        plens = np.zeros(n, np.int64)
-        for j, (_, req) in enumerate(group):
-            plens[j] = len(req.prompt_ids)
-            full = self.allocator.padded_table(req.req_id)
-            m = min(width, len(full))
-            tables[j, :m] = full[:m]
-            n_valid = min(ct, len(req.prompt_ids) - start)
-            slots[j, :n_valid] = self.allocator.slot_mapping(req.req_id, start, n_valid)
-        temps = np.array([r.temperature for _, r in group], np.float32)
-        first = prefill_extend_program(
-            self.params, self.model_config, self.paged,
-            torch.stack([r.embeds[start:start + ct] for _, r in group]),
-            self._put(plens), self._put(tables), self._put(slots), self._put(temps),
-            self._put(np.array([r.top_p for _, r in group], np.float32)),
-            self._put(np.stack([r.sample_key for _, r in group])),
-            bool(np.any(temps > 0)), page_size=ps, kv_hi=kv_hi, q_offset=start,
-            **self._batch_bias([r for _, r in group]), tp=self.tp,
-        )
-        self.metrics["prefill_chunks"] += 1
-        first_host = None
-        for j, (slot, req) in enumerate(group):
-            req.prefill_pos += ct
-            if req.prefill_pos < len(req.prompt_ids):
-                continue
-            if first_host is None:
-                first_host = first.cpu().numpy()  # one fetch per chunk
-            req.embeds = None
-            self._set_first_token(slot, req, first_host[j])
+        with SPANS.whole("prefill_chunk", self.device) as span:
+            start = min(r.prefill_pos for _, r in prefilling)
+            group = [(i, r) for i, r in prefilling if r.prefill_pos == start]
+            group = group[: self.sched.max_prefill_batch]
+            ct, ps = self.sched.prefill_chunk_tokens, self.sched.page_size
+            kv_hi = start + ct  # both multiples of page_size
+            width = kv_hi // ps
+            n = len(group)
+            tables = np.zeros((n, width), np.int32)
+            slots = np.zeros((n, ct), np.int64)  # padding -> the null page's slot 0
+            plens = np.zeros(n, np.int64)
+            for j, (_, req) in enumerate(group):
+                plens[j] = len(req.prompt_ids)
+                full = self.allocator.padded_table(req.req_id)
+                m = min(width, len(full))
+                tables[j, :m] = full[:m]
+                n_valid = min(ct, len(req.prompt_ids) - start)
+                slots[j, :n_valid] = self.allocator.slot_mapping(req.req_id, start, n_valid)
+            temps = np.array([r.temperature for _, r in group], np.float32)
+            first = prefill_extend_program(
+                self.params, self.model_config, self.paged,
+                torch.stack([r.embeds[start:start + ct] for _, r in group]),
+                self._put(plens), self._put(tables), self._put(slots), self._put(temps),
+                self._put(np.array([r.top_p for _, r in group], np.float32)),
+                self._put(np.stack([r.sample_key for _, r in group])),
+                bool(np.any(temps > 0)), page_size=ps, kv_hi=kv_hi, q_offset=start,
+                **self._batch_bias([r for _, r in group]), tp=self.tp,
+            )
+            self.metrics["prefill_chunks"] += 1
+            first_host = None
+            for j, (slot, req) in enumerate(group):
+                req.prefill_pos += ct
+                if req.prefill_pos < len(req.prompt_ids):
+                    continue
+                if first_host is None:
+                    first_host = first.cpu().numpy()  # one fetch per chunk
+                req.embeds = None
+                self._set_first_token(slot, req, first_host[j])
+            if span:
+                span.note(reqs=[r.req_id for _, r in group], rows=n, t=ct, q_offset=start,
+                          kv_hi=kv_hi, prompt_lens=plens.tolist())
 
     def _admit_batch(self, reqs: List[ScheduledRequest]) -> None:
         """Prefill a batch in one dispatch and promote it to RUNNING."""
         n = len(reqs)
         slots = self._free_slots()[:n]
         t_bucket = self._bucket(max(len(r.prompt_ids) for r in reqs))
-        input_ids = np.full((n, t_bucket), self.config.special.pad_token_id, np.int64)
-        seq_lens = np.zeros(n, np.int64)
-        slot_mapping = np.full((n, t_bucket), -1, np.int64)
-        now = time.monotonic()
-        for j, req in enumerate(reqs):
-            req.admitted_at = req.admitted_at or now
-            plen = len(req.prompt_ids)
-            input_ids[j, :plen] = req.prompt_ids
-            seq_lens[j] = plen
-            self.allocator.allocate(req.req_id, plen + 1)
-            slot_mapping[j, :plen] = self.allocator.slot_mapping(req.req_id, 0, plen)
+        with SPANS("prepare_batch") as span:
+            input_ids = np.full((n, t_bucket), self.config.special.pad_token_id, np.int64)
+            seq_lens = np.zeros(n, np.int64)
+            slot_mapping = np.full((n, t_bucket), -1, np.int64)
+            now = time.monotonic()
+            for j, req in enumerate(reqs):
+                req.admitted_at = req.admitted_at or now
+                plen = len(req.prompt_ids)
+                input_ids[j, :plen] = req.prompt_ids
+                seq_lens[j] = plen
+                self.allocator.allocate(req.req_id, plen + 1)
+                slot_mapping[j, :plen] = self.allocator.slot_mapping(req.req_id, 0, plen)
 
-        vision = {}
-        packs = [r.packed for r in reqs if r.packed is not None]
-        if packs:
-            merged = merge_packed(packs, self.config.vision,
-                                  bucket_step=self.sched.vision_bucket_step)
-            merge = self.config.vision.spatial_merge_size**2
-            sb, sp = build_scatter_indices(
-                input_ids, self.config.special.imgpad_id,
-                merged.patches.shape[0] // merge,
-                valid_rows=merged.merged_valid_rows(merge),
-            )
-            vision = dict(
-                patches=self._put(merged.patches), pos2d=self._put(merged.pos2d),
-                segment_ids=self._put(merged.segment_ids),
-                scatter_batch=self._put(sb), scatter_pos=self._put(sp),
-            )
-        temps = np.array([r.temperature for r in reqs], np.float32)
-        first = prefill_program(
-            self.params, self.model_config, self.paged, self._put(input_ids),
-            self._put(seq_lens), self._put(slot_mapping.reshape(-1)),
-            self._put(temps), self._put(np.array([r.top_p for r in reqs], np.float32)),
-            self._put(np.stack([r.sample_key for r in reqs])), bool(np.any(temps > 0)),
-            **self._batch_bias(reqs), **vision, tp=self.tp,
-        ).cpu().numpy()
+            vision, seg = {}, None
+            packs = [r.packed for r in reqs if r.packed is not None]
+            if packs:
+                merged = merge_packed(packs, self.config.vision,
+                                      bucket_step=self.sched.vision_bucket_step)
+                merge = self.config.vision.spatial_merge_size**2
+                sb, sp = build_scatter_indices(
+                    input_ids, self.config.special.imgpad_id,
+                    merged.patches.shape[0] // merge,
+                    valid_rows=merged.merged_valid_rows(merge),
+                )
+                vision = dict(
+                    patches=self._put(merged.patches), pos2d=self._put(merged.pos2d),
+                    segment_ids=self._put(merged.segment_ids),
+                    scatter_batch=self._put(sb), scatter_pos=self._put(sp),
+                )
+                seg = merged.segment_ids
+            temps = np.array([r.temperature for r in reqs], np.float32)
+            args = [self._put(x) for x in (
+                input_ids, seq_lens, slot_mapping.reshape(-1), temps,
+                np.array([r.top_p for r in reqs], np.float32),
+                np.stack([r.sample_key for r in reqs]))]
+            bias = self._batch_bias(reqs)
+            span.note(rows=n, t=t_bucket)
+        with SPANS.whole("prefill", self.device) as span:
+            first = prefill_program(self.params, self.model_config, self.paged, *args,
+                                    bool(np.any(temps > 0)), **bias, **vision, tp=self.tp)
+            if span:
+                span.note(reqs=[r.req_id for r in reqs], rows=n, t=t_bucket,
+                          prompt_lens=seq_lens.tolist(),
+                          **(image_work(seg) if seg is not None else {}))
+        with SPANS("first_fetch"):
+            first = first.cpu().numpy()
         for j, req in enumerate(reqs):
             self._set_slot(slots[j], req)
             self._set_first_token(slots[j], req, first[j])
@@ -1359,41 +1440,49 @@ class ContinuousBatchingEngine:
         """Read one decode chunk's packed result and fold it into host state
         (token append, EOS / stop / budget finishes, the spec gate). Shared
         by the synchronous path and the pipelined drain."""
-        t0 = time.perf_counter()
-        packed = flight["fetch"].numpy()  # the chunk's one fetch
-        self.metrics["t_fetch_wait_s"] += time.perf_counter() - t0
-        active, chunk = flight["active"], flight["chunk"]
-        tokens_out, num_decoded = packed[:, :-1], packed[:, -1]
-        lps = None
-        if flight["use_lp"]:
-            w = (packed.shape[1] - 1) // 2
-            tokens_out, lps = packed[:, :w], bits_f32(packed[:, w:2 * w])
-        if flight["use_spec"]:
-            self.metrics["spec_emitted"] += int(num_decoded.sum())
-            # The gate reads rows still live at apply time only: rows that
-            # finished while this chunk was in flight emitted discards.
-            live_rows = [i for i in active if self._slot_req[i] is not None]
-            if live_rows:
-                self._update_spec_gate(int(num_decoded[live_rows].sum()), chunk, len(live_rows))
-        self.metrics["steps"] += 1
-        eos = self.config.special.eos_token_id
-        for i in active:
-            req = self._slot_req[i]
-            if req is None:  # finished while this chunk was in flight
-                continue
-            n = int(num_decoded[i])
-            self._lengths[i] += n
-            for t_idx, token in enumerate(tokens_out[i, :n].tolist()):
-                req.output_ids.append(token)
-                if req.logprobs and lps is not None:
-                    req.output_logprobs.append(float(lps[i, t_idx]))
-                self.metrics["generated_tokens"] += 1
-                if (token == eos or token in req.stop_token_ids
-                        or len(req.output_ids) >= req.max_new_tokens):
-                    break
-            self._tokens[i] = req.output_ids[-1]
-            self._update_text(i)  # may finish on a stop string
-            self._maybe_finish(i)
+        with SPANS("fetch_wait"):
+            packed = flight["fetch"].numpy()  # the chunk's one fetch
+        with SPANS("apply", cause=flight["span"]) as span:
+            active, chunk = flight["active"], flight["chunk"]
+            tokens_out, num_decoded, kv_read = packed[:, :-2], packed[:, -2], packed[:, -1]
+            lps = None
+            if flight["use_lp"]:
+                w = (packed.shape[1] - 2) // 2
+                tokens_out, lps = packed[:, :w], bits_f32(packed[:, w:2 * w])
+            # Rows that finished while the chunk was in flight read their
+            # context too: every row counts.
+            kv_tokens = int(kv_read.sum())
+            self.metrics["kv_tokens_read"] += kv_tokens
+            if span:
+                span.note(reqs=[self._slot_req[i].req_id for i in active
+                                if self._slot_req[i] is not None],
+                          kv_tokens=kv_tokens, iterations=chunk)
+            if flight["use_spec"]:
+                self.metrics["spec_emitted"] += int(num_decoded.sum())
+                # The gate reads rows still live at apply time only: rows that
+                # finished while this chunk was in flight emitted discards.
+                live_rows = [i for i in active if self._slot_req[i] is not None]
+                if live_rows:
+                    self._update_spec_gate(int(num_decoded[live_rows].sum()), chunk, len(live_rows))
+            self.metrics["steps"] += 1
+            eos = self.config.special.eos_token_id
+            for i in active:
+                req = self._slot_req[i]
+                if req is None:  # finished while this chunk was in flight
+                    continue
+                n = int(num_decoded[i])
+                self._lengths[i] += n
+                for t_idx, token in enumerate(tokens_out[i, :n].tolist()):
+                    req.output_ids.append(token)
+                    if req.logprobs and lps is not None:
+                        req.output_logprobs.append(float(lps[i, t_idx]))
+                    self.metrics["generated_tokens"] += 1
+                    if (token == eos or token in req.stop_token_ids
+                            or len(req.output_ids) >= req.max_new_tokens):
+                        break
+                self._tokens[i] = req.output_ids[-1]
+                self._update_text(i)  # may finish on a stop string
+                self._maybe_finish(i)
 
     def _drain_inflight(self) -> None:
         """Land the pipelined chunk, if any, and return the pages of the
@@ -1410,32 +1499,28 @@ class ContinuousBatchingEngine:
         """Admit, at most one chunked-prefill chunk, then one decode chunk
         (speculative while enabled, pipelined while event-free). Returns
         the finished requests no earlier step returned."""
-        t0 = time.perf_counter()
-        if self._inflight is not None and self._waiting:
-            # Admission reuses freed slots and pages that the in-flight
-            # chunk may still write: land it first.
-            self._drain_inflight()
-        self._try_admit()
-        t1 = time.perf_counter()
-        self.metrics["t_admit_s"] += t1 - t0
-        self._run_prefill_chunk()
-        t2 = time.perf_counter()
-        self.metrics["t_prefill_s"] += t2 - t1
-        active = [i for i, r in enumerate(self._slot_req)
-                  if r is not None and r.state == RUNNING]
-        if active:
-            self._decode_chunk(active)
-            self.metrics["t_decode_s"] += time.perf_counter() - t2
-        elif self._inflight is not None:
-            # Every row of the in-flight chunk finished when the chunk
-            # before it landed: land it too, which returns their pages.
-            self._drain_inflight()
-        if not self._spec_enabled and not self.has_work():
-            # Drained: give the next load a fresh speculation probe.
-            self._spec_enabled, self._spec_ewma, self._spec_low_streak = True, None, 0
-        out = [r for rid, r in self._finished.items() if rid not in self._reported]
-        self._reported.update(r.req_id for r in out)
-        return out
+        with SPANS("step"):
+            if self._inflight is not None and self._waiting:
+                # Admission reuses freed slots and pages that the in-flight
+                # chunk may still write: land it first.
+                self._drain_inflight()
+            self._try_admit()
+            self._run_prefill_chunk()
+            active = [i for i, r in enumerate(self._slot_req)
+                      if r is not None and r.state == RUNNING]
+            if active:
+                with SPANS("decode"):
+                    self._decode_chunk(active)
+            elif self._inflight is not None:
+                # Every row of the in-flight chunk finished when the chunk
+                # before it landed: land it too, which returns their pages.
+                self._drain_inflight()
+            if not self._spec_enabled and not self.has_work():
+                # Drained: give the next load a fresh speculation probe.
+                self._spec_enabled, self._spec_ewma, self._spec_low_streak = True, None, 0
+            out = [r for rid, r in self._finished.items() if rid not in self._reported]
+            self._reported.update(r.req_id for r in out)
+            return out
 
     def _decode_chunk(self, active: List[int]) -> None:
         """Choose the chunk's mode and depth, reserve its pages, and
@@ -1530,23 +1615,28 @@ class ContinuousBatchingEngine:
                 # Pages grew mid-pipeline: only the tables changed. The
                 # tokens / positions / budgets carry lives on the device
                 # and must not be rebuilt from the lagging host state.
-                self._upload(self._dev.tables, self._tables(active))
+                with SPANS("inputs"):
+                    self._upload(self._dev.tables, self._tables(active))
             else:
                 self._dev = None
         if not active:
             return
 
         if self._dev is None:
-            self._dev = self._chunk_inputs(active, mode)
+            with SPANS("inputs"):
+                self._dev = self._chunk_inputs(active, mode)
             self.metrics["chunk_input_rebuilds"] += 1
         dev = self._dev
-        packed = self._run_chunk(dev, self._chunk_key(dev, spec_k if use_spec else 0, chunk,
-                                                      use_lp))
+        with SPANS("dispatch", self.device) as span:
+            packed = self._run_chunk(dev, self._chunk_key(dev, spec_k if use_spec else 0, chunk,
+                                                          use_lp))
+            fetch = HostFetch(packed)
+            span.note(rows=len(active), iterations=chunk, spec_k=spec_k if use_spec else 0)
         if use_spec:
             self.metrics["spec_chunks"] += 1
             self.metrics["spec_slot_iters"] += chunk * len(active)
-        flight = dict(fetch=HostFetch(packed), active=list(active), chunk=chunk,
-                      use_lp=use_lp, use_spec=use_spec, tokens=chunk * per_iter)
+        flight = dict(fetch=fetch, active=list(active), chunk=chunk, use_lp=use_lp,
+                      use_spec=use_spec, tokens=chunk * per_iter, span=span.id if span else None)
         if pipeline_now:
             # Lookahead-1: this chunk runs while the previous one lands.
             prev, self._inflight = self._inflight, flight

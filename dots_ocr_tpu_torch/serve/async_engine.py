@@ -16,6 +16,15 @@ as every other rank applies it (:func:`follow`, their loop without HTTP).
 An idle tick is broadcast too (every 50 ms), so a follower never waits out
 the group's timeout. A lost group (a rank died or a collective timed out)
 fails the requests in flight and every later one.
+
+Each submission is stamped (``time.monotonic()``) at receipt, at the start
+and end of its preprocessing and at the engine thread's take; the stamps
+travel into ``engine.submit`` (and to the followers, where nothing reads
+them), so that a request's ``timing()`` counts from receipt. While a torch
+profiler runs, the engine thread records a ``tick`` span per iteration
+(``gather``, ``submit``, and the engine's ``step`` tree) and the
+preprocessing threads a ``prepare`` span per request
+(``utils/observability.py``).
 """
 
 from __future__ import annotations
@@ -24,11 +33,13 @@ import dataclasses
 import logging
 import queue
 import threading
+import time
 from concurrent.futures import Future, ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Sequence
 
 from dots_ocr_tpu_torch.parallel.distributed import TPGroupLost, broadcast_object
+from dots_ocr_tpu_torch.utils.observability import NO_SPAN, SPANS
 
 logger = logging.getLogger(__name__)
 
@@ -66,13 +77,20 @@ class Submission:
     # Set by cancel() — checked before the engine ever sees the submission
     # (a streaming client can disconnect while preprocessing is in flight).
     cancelled: bool = False
+    # time.monotonic() stamps: receipt (submit), preprocessing start and
+    # end, the engine thread's take (ScheduledRequest's fields of the names).
+    received_at: Optional[float] = None
+    prep_started_at: Optional[float] = None
+    prep_ended_at: Optional[float] = None
+    taken_at: Optional[float] = None
 
 
 # The engine.submit arguments a tick carries (the prepared request stands
 # in for the prompt's images; a stream callback for its presence only).
 _SUBMIT_FIELDS = ("prompt", "max_new_tokens", "temperature", "top_p", "system_prompt",
                   "min_pixels", "max_pixels", "stop", "stop_token_ids", "seed", "logprobs",
-                  "presence_penalty", "frequency_penalty", "logit_bias", "prepared")
+                  "presence_penalty", "frequency_penalty", "logit_bias", "prepared",
+                  "received_at", "prep_started_at", "prep_ended_at", "taken_at")
 
 
 @dataclass
@@ -133,11 +151,12 @@ class EngineWorker:
             if prep_workers > 0 and hasattr(engine, "prepare")
             else None
         )
-        self._thread = threading.Thread(target=self._loop, daemon=True)
+        self._thread = threading.Thread(target=self._loop, daemon=True, name="engine")
         if thread:
             self._thread.start()
 
     def submit(self, submission: Submission) -> Future:
+        submission.received_at = time.monotonic()
         if self.lost is not None:
             self._fail(submission, RuntimeError(f"tensor-parallel group lost: {self.lost}"))
             return submission.future
@@ -155,17 +174,22 @@ class EngineWorker:
             self._fail(sub, RuntimeError(f"tensor-parallel group lost: {self.lost}"))
             return
         try:
-            sub.prepared = self.engine.prepare(
-                sub.prompt,
-                sub.images,
-                system_prompt=sub.system_prompt,
-                min_pixels=sub.min_pixels,
-                max_pixels=sub.max_pixels,
-            )
+            self._prepare(sub)
         except Exception as e:  # noqa: BLE001 - bad request (e.g. aspect)
             self._fail(sub, e)
             return
         self._queue.put(sub)
+
+    def _prepare(self, sub: Submission) -> None:
+        """Tokenize and patch a submission, stamped and spanned."""
+        with SPANS("prepare") as span:
+            sub.prep_started_at = time.monotonic()
+            sub.prepared = self.engine.prepare(
+                sub.prompt, sub.images, system_prompt=sub.system_prompt,
+                min_pixels=sub.min_pixels, max_pixels=sub.max_pixels)
+            sub.prep_ended_at = time.monotonic()
+            if span and sub.prepared.packed is not None:
+                span.note(patches=[h * w for h, w in sub.prepared.packed.grids])
 
     def cancel(self, submission: Submission) -> None:
         """Abort a submission (e.g. the streaming client disconnected). The
@@ -200,15 +224,15 @@ class EngineWorker:
                 subs.append(self._queue.get_nowait())
         except queue.Empty:
             pass
+        taken = time.monotonic()
         for sub in subs:
+            sub.taken_at = taken
             if sub.cancelled:
                 self._fail(sub, RuntimeError("cancelled"))
                 continue
             if sub.prepared is None and self._tp is not None:
                 try:
-                    sub.prepared = self.engine.prepare(
-                        sub.prompt, sub.images, system_prompt=sub.system_prompt,
-                        min_pixels=sub.min_pixels, max_pixels=sub.max_pixels)
+                    self._prepare(sub)
                 except Exception as e:  # noqa: BLE001 - bad request (e.g. aspect)
                     self._fail(sub, e)
                     continue
@@ -240,20 +264,24 @@ class EngineWorker:
                 req = self.engine.finished_request(rid)
                 if req is not None:
                     self._resolve(req)
-        for sub in tick.submits:
-            try:
-                rid = self.engine.submit(
-                    images=sub.images, stream_cb=sub.stream_cb,
-                    **{name: getattr(sub, name) for name in _SUBMIT_FIELDS})
-            except Exception as e:  # noqa: BLE001 - bad request (e.g. logit_bias)
-                self._fail(sub, e)
-                continue
-            self._futures[rid] = sub
-            # Requests rejected at submit time (e.g. prompt_too_long)
-            # never pass through step(); resolve them immediately.
-            rejected = self.engine.finished_request(rid)
-            if rejected is not None:
-                self._resolve(rejected)
+        with SPANS("submit") if tick.submits else NO_SPAN as span:
+            submitted = []
+            for sub in tick.submits:
+                try:
+                    rid = self.engine.submit(
+                        images=sub.images, stream_cb=sub.stream_cb,
+                        **{name: getattr(sub, name) for name in _SUBMIT_FIELDS})
+                except Exception as e:  # noqa: BLE001 - bad request (e.g. logit_bias)
+                    self._fail(sub, e)
+                    continue
+                self._futures[rid] = sub
+                submitted.append(rid)
+                # Requests rejected at submit time (e.g. prompt_too_long)
+                # never pass through step(); resolve them immediately.
+                rejected = self.engine.finished_request(rid)
+                if rejected is not None:
+                    self._resolve(rejected)
+            span.note(reqs=submitted)
         if not self.engine.has_work():
             # Incremental warmup (server --warmup background): compile
             # one queued decode program per idle tick — requests that
@@ -319,16 +347,18 @@ class EngineWorker:
 
     def _loop(self) -> None:
         while True:
-            tick = self._gather(block=not self.engine.has_work())
-            try:
-                if self._tp is not None:
-                    self._broadcast(tick)
-                if tick.stop:
+            with SPANS.whole("tick"):
+                with SPANS("gather"):
+                    tick = self._gather(block=not self.engine.has_work())
+                try:
+                    if self._tp is not None:
+                        self._broadcast(tick)
+                    if tick.stop:
+                        return
+                    self._apply(tick)
+                except TPGroupLost as e:
+                    self._lose(e)
                     return
-                self._apply(tick)
-            except TPGroupLost as e:
-                self._lose(e)
-                return
 
     def _resolve(self, req) -> None:
         sub = self._futures.pop(req.req_id, None)

@@ -68,14 +68,15 @@ class ServerMetrics:
                 f"{getattr(engine, 'warm_pending', 0)}"
             )
             # Per-request latency percentiles over the last-N finished
-            # requests (queue/TTFT/prefill/decode split — SURVEY §5.5;
-            # proves the p50 page-parse claim continuously).
+            # requests (from receipt: preprocessing wait and work, the
+            # engine thread's wait and its worker-queue part, queue,
+            # prefill, TTFT, decode, total — ScheduledRequest.timing()).
             timings = list(getattr(engine, "recent_timings", ()))
             if timings:
                 import numpy as _np
 
-                for key in ("queue_ms", "ttft_ms", "prefill_ms",
-                            "decode_ms", "total_ms"):
+                for key in ("prep_wait_ms", "prep_ms", "engine_wait_ms", "worker_queue_ms",
+                            "queue_ms", "ttft_ms", "prefill_ms", "decode_ms", "total_ms"):
                     vals = _np.array([t[key] for t in timings])
                     for q, tag in ((50, "p50"), (95, "p95"), (99, "p99")):
                         lines.append(

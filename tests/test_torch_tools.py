@@ -199,20 +199,6 @@ def test_shipping_config_from_another_file(tmp_path):
 # ---------------------------------------------------------------------------
 
 
-def test_phase_timer():
-    timer = observability.PhaseTimer()
-    with timer.phase("prefill"):
-        pass
-    with timer.phase("decode"):
-        pass
-    with timer.phase("decode"):
-        pass
-    d = timer.as_dict()
-    assert set(d) == {"prefill", "decode"}
-    assert all(v >= 0 for v in d.values())
-    timer.log("req-1")
-
-
 def test_setup_logging_idempotent():
     observability.setup_logging()
     n = len(logging.getLogger().handlers)

@@ -139,11 +139,6 @@ def _engine(tp, inputs, spec):
                                     default_max_new_tokens=8, tp=tp)
 
 
-def _counters(metrics: dict) -> dict:
-    """The engine's counters: its host timings (``t_*``) differ by rank."""
-    return {k: v for k, v in metrics.items() if not k.startswith("t_")}
-
-
 def run_engine(tp, inputs, spec):
     """Each request through ``submit`` / ``run`` on every rank (SPMD):
     tokens, finish reasons and logprobs, the counters, the pool width."""
@@ -163,7 +158,7 @@ def run_engine(tp, inputs, spec):
         out.append((list(req.prior_output) + list(req.output_ids), req.finished_reason,
                     [round(x, 4) for x in req.output_logprobs]))
         eng.take_finished(rid)
-    return dict(requests=out, metrics=_counters(eng.metrics), kv_rep=eng._kv_rep,
+    return dict(requests=out, metrics=dict(eng.metrics), kv_rep=eng._kv_rep,
                 kv_width=eng.paged.k[0].shape[0], free_pages=eng.allocator.free_pages,
                 reduces=tp_all_reduce.launches, windowed=windowed)
 
@@ -185,7 +180,7 @@ def run_worker(tp, inputs, spec):
             worker.shutdown()
     else:
         follow(eng)
-    return dict(metrics=_counters(eng.metrics), free_pages=eng.allocator.free_pages,
+    return dict(metrics=dict(eng.metrics), free_pages=eng.allocator.free_pages,
                 has_work=eng.has_work(),
                 results=None if results is None else [
                     (r["completion_tokens"], r["finish_reason"], r["text"]) for r in results])
@@ -241,7 +236,7 @@ def run_nccl_rank(rank: int, world: int, workdir: str) -> None:
             eng.run()
             out[name] = [eng.finished_request(r).output_ids for r in rids]
             if graphs:
-                out["metrics"] = _counters(eng.metrics)
+                out["metrics"] = dict(eng.metrics)
                 out["reduces"] = tp_all_reduce.launches - before
             del eng
         destroy(tp)
