@@ -28,7 +28,15 @@ growth, a change of decode mode). Event-free decode deepens its chunks to
 ``max_steps_per_sync`` and pipelines them (lookahead-1): chunk N+1 is
 dispatched off the carry before chunk N's packed result is read, and that
 result travels to the host through a pinned buffer guarded by an event of
-its own, so reading it never waits for chunk N+1. The inputs are fixed
+its own, so reading it never waits for chunk N+1. A chunk whose result
+has not landed when ``step()`` returns stays in flight (held), and the
+next step lands it before anything reads its results; while it is on the
+device a waiting request is admitted beside it (a monolithic batch, in
+slots outside the chunk's rows), its prefill queued behind the chunk on
+the stream, and the chunk lands after. Driven by an EngineWorker
+(``ContinuousBatchingEngine.arrivals``), chunks are not deepened, and a
+step during which requests reached the worker leaves its decode chunk to
+the next step, which admits them first. The inputs are fixed
 buffers, one set per chunk mode (:class:`ChunkInputs`), refilled in place
 on events; the programs write their carry back into them. On the card each
 chunk configuration is captured once as a CUDA graph over those buffers and
@@ -191,9 +199,18 @@ class HostFetch:
         if self.event is not None:
             self.event.record()
 
-    def numpy(self) -> np.ndarray:
+    def landed(self) -> bool:
+        """Whether the copy has completed (always, on the CPU)."""
+        return self.event is None or self.event.query()
+
+    def wait(self) -> None:
+        """Block until the copy has completed (the interpreter lock is
+        released meanwhile)."""
         if self.event is not None:
             self.event.synchronize()
+
+    def numpy(self) -> np.ndarray:
+        self.wait()
         return self.host.numpy()
 
 
@@ -593,7 +610,9 @@ class SchedulerConfig:
     # (stream callbacks, stop strings or stop ids), nothing waits for
     # admission and nothing prefills, decode chunks run this many
     # iterations (divided by k + 1 while speculating) instead of
-    # steps_per_sync. Set equal to steps_per_sync to disable.
+    # steps_per_sync; never while an EngineWorker drives the engine
+    # (ContinuousBatchingEngine.arrivals). Set equal to steps_per_sync to
+    # disable.
     max_steps_per_sync: int = 64
     # Pipelined decode (lookahead-1): during event-free decode (as above,
     # and no logprobs, penalties or logit_bias live) chunk N+1 is
@@ -846,6 +865,16 @@ class ContinuousBatchingEngine:
         # whose pages it may still write, freed when it lands.
         self._inflight: Optional[dict] = None
         self._deferred_free: List[int] = []
+        # A dispatched chunk (a synchronous one, or the predecessor of the
+        # pipelined one) whose result had not landed when step() returned:
+        # the next step applies it before anything reads host state.
+        self._held: Optional[dict] = None
+        # Whether the last step left its decode chunk to this one, and the
+        # driver's probe for requests that reached it meanwhile (an
+        # EngineWorker's queue; never read under tensor parallelism, where
+        # every rank must take the same decisions).
+        self._decode_deferred = False
+        self.arrivals: Optional[Callable[[], bool]] = None
         # Last-N finished-request latency splits, read by /metrics.
         self.recent_timings: Deque[Dict[str, float]] = deque(maxlen=512)
         # Adaptive speculation: EWMA of emitted tokens per verify
@@ -856,6 +885,8 @@ class ContinuousBatchingEngine:
         self.metrics = {
             "steps": 0,
             "prefills": 0,
+            # monolithic batches admitted with a decode chunk still on the device
+            "admits_beside_chunk": 0,
             "prefill_chunks": 0,
             "generated_tokens": 0,
             "spec_chunks": 0,
@@ -1103,8 +1134,27 @@ class ContinuousBatchingEngine:
         return [i for i, r in enumerate(self._slot_req) if r is None]
 
     def has_work(self) -> bool:
-        return (bool(self._waiting) or self._inflight is not None
+        return (bool(self._waiting) or self._on_device()
                 or any(r is not None for r in self._slot_req))
+
+    def _on_device(self) -> bool:
+        """Whether a dispatched decode chunk has not been applied yet."""
+        return self._inflight is not None or self._held is not None
+
+    def _landed(self, flight: dict) -> bool:
+        """Whether a chunk's result is on the host. Under tensor parallelism
+        every rank must take the same decisions, and a landing is each
+        rank's own observation: a TP engine treats every chunk as landed
+        (today's schedule: applied at dispatch, admission after landing)."""
+        return self.tp is not None or flight["fetch"].landed()
+
+    def held_fetch(self) -> Optional[HostFetch]:
+        """The fetch of the held chunk while it has not landed, else None.
+        The next step lands that chunk first, so a caller with nothing else
+        to do may wait on it (:meth:`HostFetch.wait`) or on new requests,
+        whichever comes first, before stepping."""
+        flight = self._held
+        return flight["fetch"] if flight is not None and not self._landed(flight) else None
 
     def _bucket(self, n: int) -> int:
         step = self.sched.prompt_bucket_step
@@ -1134,15 +1184,31 @@ class ContinuousBatchingEngine:
         ct = self.sched.prefill_chunk_tokens
         return ct > 0 and len(req.prompt_ids) > ct
 
-    def _try_admit(self) -> None:
+    def _try_admit(self, beside: Optional[dict] = None) -> List[tuple]:
         """Admit waiting requests in order while slots and pages allow: a
         run of long (chunked) prompts together as PREFILLING, or a batch of
-        short ones through one monolithic prefill."""
+        short ones through one monolithic prefill.
+
+        ``beside``: the newest decode chunk, still on the device. Admission
+        then takes monolithic batches only, into slots outside the rows of
+        every chunk not yet applied, with pages from the free pool (pages
+        of rows that finished in flight stay deferred), and leaves the
+        first tokens unread: it returns the launched batches (requests,
+        slots, first-token fetch) for :meth:`_promote` once the chunks have
+        landed."""
         watermark = int(self.sched.num_pages * self.sched.admit_free_page_fraction)
-        while self._waiting and self._free_slots():
-            room = min(self.sched.max_prefill_batch, len(self._free_slots()))
-            budget = self.allocator.free_pages - watermark
+        busy = set()
+        if beside is not None:
+            for flight in (self._held, self._inflight):
+                busy.update(flight["active"] if flight is not None else ())
+        launched = []
+        while self._waiting:
+            free = [i for i in self._free_slots() if i not in busy]
             chunked = self._chunked(self._waiting[0])
+            if not free or (chunked and beside is not None):
+                break
+            room = min(self.sched.max_prefill_batch, len(free))
+            budget = self.allocator.free_pages - watermark
             batch: List[ScheduledRequest] = []
             while self._waiting and len(batch) < room and self._chunked(self._waiting[0]) == chunked:
                 need = self.allocator.pages_needed(len(self._waiting[0].prompt_ids) + 1)
@@ -1151,11 +1217,23 @@ class ContinuousBatchingEngine:
                 budget -= need
                 batch.append(self._waiting.popleft())
             if not batch:
-                return
+                break
             with SPANS("admit") as span:
                 if span:
-                    span.note(reqs=[r.req_id for r in batch], chunked=chunked)
-                (self._admit_chunked if chunked else self._admit_batch)(batch)
+                    span.note(reqs=[r.req_id for r in batch], chunked=chunked,
+                              **({} if beside is None else {"beside": beside["span"]}))
+                if chunked:
+                    self._admit_chunked(batch)
+                    continue
+                slots = free[:len(batch)]
+                first = self._admit_batch(batch, slots)
+                if beside is None:
+                    self._promote(batch, slots, first)
+                else:
+                    busy.update(slots)
+                    launched.append((batch, slots, first))
+                    self.metrics["admits_beside_chunk"] += 1
+        return launched
 
     def _admit_chunked(self, reqs: List[ScheduledRequest]) -> None:
         """Park long requests in slots as PREFILLING: token embeddings for
@@ -1257,10 +1335,10 @@ class ContinuousBatchingEngine:
                 span.note(reqs=[r.req_id for _, r in group], rows=n, t=ct, q_offset=start,
                           kv_hi=kv_hi, prompt_lens=plens.tolist())
 
-    def _admit_batch(self, reqs: List[ScheduledRequest]) -> None:
-        """Prefill a batch in one dispatch and promote it to RUNNING."""
+    def _admit_batch(self, reqs: List[ScheduledRequest], slots: List[int]) -> HostFetch:
+        """Launch a batch's prefill in one dispatch (on the stream, behind
+        whatever is queued there); returns its first tokens' fetch."""
         n = len(reqs)
-        slots = self._free_slots()[:n]
         t_bucket = self._bucket(max(len(r.prompt_ids) for r in reqs))
         with SPANS("prepare_batch") as span:
             input_ids = np.full((n, t_bucket), self.config.special.pad_token_id, np.int64)
@@ -1306,8 +1384,13 @@ class ContinuousBatchingEngine:
                 span.note(reqs=[r.req_id for r in reqs], rows=n, t=t_bucket,
                           prompt_lens=seq_lens.tolist(),
                           **(image_work(seg) if seg is not None else {}))
+        return HostFetch(first)
+
+    def _promote(self, reqs: List[ScheduledRequest], slots: List[int], first: HostFetch) -> None:
+        """Read a prefilled batch's first tokens and promote it to RUNNING
+        in ``slots``."""
         with SPANS("first_fetch"):
-            first = first.cpu().numpy()
+            first = first.numpy()
         for j, req in enumerate(reqs):
             self._set_slot(slots[j], req)
             self._set_first_token(slots[j], req, first[j])
@@ -1349,8 +1432,8 @@ class ContinuousBatchingEngine:
             req.final_text = req.text
         if req.detok is not None:
             self._emit_stream(req, final=True)
-        if self._inflight is not None:
-            # The in-flight chunk may still write this request's pages;
+        if self._on_device():
+            # A chunk on the device may still write this request's pages;
             # they go back to the pool when it lands (_drain_inflight).
             self._deferred_free.append(req.req_id)
         else:
@@ -1375,7 +1458,7 @@ class ContinuousBatchingEngine:
                 return True
         for req in self._slot_req:
             if req is not None and req.req_id == req_id:
-                if self._inflight is not None:
+                if self._on_device():
                     # Land the chunk now, so the pages are freed now rather
                     # than at a step a gone client may never drive.
                     self._drain_inflight()
@@ -1484,10 +1567,26 @@ class ContinuousBatchingEngine:
                 self._update_text(i)  # may finish on a stop string
                 self._maybe_finish(i)
 
+    def _land_held(self) -> None:
+        """Apply the held chunk, if any."""
+        flight, self._held = self._held, None
+        if flight is not None:
+            self._apply_chunk_results(flight)
+
+    def _hold(self, flight: dict) -> None:
+        """Apply a dispatched chunk at once if its result has landed (always
+        on the CPU), else hold it for the next step."""
+        if self._landed(flight):
+            self._apply_chunk_results(flight)
+        else:
+            self._held = flight
+
     def _drain_inflight(self) -> None:
-        """Land the pipelined chunk, if any, and return the pages of the
-        requests that finished meanwhile. Runs before any admission,
-        preemption or rebuild of the chunk inputs from host state."""
+        """Land the held and the pipelined chunk, if any, and return the
+        pages of the requests that finished meanwhile. Runs before any
+        admission (except beside a chunk), preemption or rebuild of the
+        chunk inputs from host state."""
+        self._land_held()
         flight, self._inflight = self._inflight, None
         if flight is not None:
             self._apply_chunk_results(flight)
@@ -1496,22 +1595,42 @@ class ContinuousBatchingEngine:
         self._deferred_free.clear()
 
     def step(self) -> List[ScheduledRequest]:
-        """Admit, at most one chunked-prefill chunk, then one decode chunk
-        (speculative while enabled, pipelined while event-free). Returns
-        the finished requests no earlier step returned."""
+        """Land the held chunk, admit, at most one chunked-prefill chunk,
+        then one decode chunk (speculative while enabled, pipelined while
+        event-free), held if its result has not landed. Returns the
+        finished requests no earlier step returned.
+
+        Where :attr:`arrivals` is set (an EngineWorker's probe: requests
+        may arrive while a chunk runs), decode chunks are not deepened, and
+        where it says that requests reached the caller while this step ran,
+        the decode chunk waits for the next step, which admits them first
+        (never two steps in a row)."""
         with SPANS("step"):
-            if self._inflight is not None and self._waiting:
-                # Admission reuses freed slots and pages that the in-flight
-                # chunk may still write: land it first.
+            if self._waiting and self._on_device():
+                # Admission reuses freed slots and pages that a chunk on the
+                # device may still write: what can go beside the newest
+                # chunk while it runs is launched first, then the chunks
+                # land, then the rest is admitted.
+                newest = self._inflight or self._held
+                launched = [] if self._landed(newest) else self._try_admit(beside=newest)
                 self._drain_inflight()
+                for batch in launched:
+                    self._promote(*batch)
+            else:
+                self._land_held()
             self._try_admit()
             self._run_prefill_chunk()
             active = [i for i, r in enumerate(self._slot_req)
                       if r is not None and r.state == RUNNING]
-            if active:
+            # None: no request can arrive while a chunk runs (the caller
+            # steps the engine with all it has)
+            pending = (self.arrivals() if self.arrivals is not None and self.tp is None
+                       else None)
+            self._decode_deferred = bool(pending) and not self._decode_deferred
+            if active and not self._decode_deferred:
                 with SPANS("decode"):
-                    self._decode_chunk(active)
-            elif self._inflight is not None:
+                    self._decode_chunk(active, pending)
+            elif not active and self._inflight is not None:
                 # Every row of the in-flight chunk finished when the chunk
                 # before it landed: land it too, which returns their pages.
                 self._drain_inflight()
@@ -1522,10 +1641,14 @@ class ContinuousBatchingEngine:
             self._reported.update(r.req_id for r in out)
             return out
 
-    def _decode_chunk(self, active: List[int]) -> None:
+    def _decode_chunk(self, active: List[int], pending: Optional[bool] = None) -> None:
         """Choose the chunk's mode and depth, reserve its pages, and
         dispatch it off the device-resident inputs (rebuilt on events
-        only); pipelined, it lands at the next step, else now."""
+        only); pipelined, it lands at the next step, else now.
+        ``pending``: whether requests wait at the caller (None where none
+        can arrive while the chunk runs). Where they can, the chunk is not
+        deepened: a request that arrives meanwhile waits for the rest of
+        the chunk."""
         s, chunk = self.sched.max_slots, self.sched.steps_per_sync
         cap = self.sched.max_pages_per_seq * self.sched.page_size
         live = [self._slot_req[i] for i in active]
@@ -1549,10 +1672,11 @@ class ContinuousBatchingEngine:
         prefilling = any(r is not None and r.state == PREFILLING for r in self._slot_req)
         # Streams, stop strings and stop ids need the host after every chunk
         # (the device loop stops at EOS and the budget only).
-        event_free = (not self._waiting and not prefilling
+        event_free = (not self._waiting and not pending and not prefilling
                       and not any(r.stream_cb is not None or r.stop or r.stop_token_ids
                                   for r in live))
-        if deep > chunk and event_free and remaining - ahead >= deep * per_iter:
+        if (deep > chunk and event_free and pending is None
+                and remaining - ahead >= deep * per_iter):
             chunk = deep
         # Logprobs, penalties and bias keep per-chunk host state (the
         # unpacking, the counts, the bias rows): those chunks stay
@@ -1642,9 +1766,9 @@ class ContinuousBatchingEngine:
             prev, self._inflight = self._inflight, flight
             self.metrics["pipelined_chunks"] += 1
             if prev is not None:
-                self._apply_chunk_results(prev)
+                self._hold(prev)
         else:
-            self._apply_chunk_results(flight)
+            self._hold(flight)
 
     def _tables(self, active: List[int]) -> np.ndarray:
         """[S, max_pages_per_seq] page tables of the active slots (others

@@ -17,6 +17,17 @@ An idle tick is broadcast too (every 50 ms), so a follower never waits out
 the group's timeout. A lost group (a rank died or a collective timed out)
 fails the requests in flight and every later one.
 
+While the engine holds a decode chunk whose result has not landed
+(``engine.held_fetch()``), the engine thread waits for whichever comes
+first, a submission or that landing: a waker thread waits on the chunk's
+fetch (its CUDA event, without the interpreter lock) and puts the fetch in
+the queue once it has landed. So a request that arrives while a chunk runs
+is taken at once and admitted beside the chunk, and finished requests
+resolve as soon as their chunk lands. Outside tensor parallelism the
+worker also hands the engine a probe of its queue (``engine.arrivals``):
+a step during which requests arrived leaves its decode chunk to the next
+step, which admits them first, and chunks are not deepened.
+
 Each submission is stamped (``time.monotonic()``) at receipt, at the start
 and end of its preprocessing and at the engine thread's take; the stamps
 travel into ``engine.submit`` (and to the followers, where nothing reads
@@ -133,7 +144,8 @@ class EngineWorker:
         self._tp = getattr(engine, "tp", None)
         # Why the TP group was lost; every request fails once it is set.
         self.lost: Optional[str] = None
-        self._queue: "queue.Queue[Submission]" = queue.Queue()
+        # Submissions, and the fetches the waker saw land.
+        self._queue: "queue.Queue" = queue.Queue()
         self._cancels: "queue.Queue[Submission]" = queue.Queue()
         self._futures: Dict[int, Submission] = {}
         self._failed: List[int] = []
@@ -152,8 +164,16 @@ class EngineWorker:
             else None
         )
         self._thread = threading.Thread(target=self._loop, daemon=True, name="engine")
+        # The waker: waits on each fetch handed to it in turn and puts it in
+        # the queue once it has landed; _watched is the last one handed over.
+        self._watch: "queue.SimpleQueue" = queue.SimpleQueue()
+        self._watched = None
+        self._waker = threading.Thread(target=self._wake_on_landing, daemon=True, name="waker")
         if thread:
+            if self._tp is None:
+                engine.arrivals = self._arrivals
             self._thread.start()
+            self._waker.start()
 
     def submit(self, submission: Submission) -> Future:
         submission.received_at = time.monotonic()
@@ -199,16 +219,47 @@ class EngineWorker:
 
     def shutdown(self):
         self._stop.set()
+        self._watch.put(None)
         if self._prep_pool is not None:
             self._prep_pool.shutdown(wait=False)
         self._thread.join(timeout=5)
 
     # ------------------------------------------------------------------
 
-    def _gather(self, block: bool) -> Tick:
-        """This iteration's events: cancels of submitted requests, then the
-        queued submissions (prepared here if the pool did not), waiting up
-        to 50 ms for the first when ``block``."""
+    def _wake_on_landing(self) -> None:
+        while True:
+            fetch = self._watch.get()
+            if fetch is None:
+                return
+            try:
+                fetch.wait()
+            except Exception:  # noqa: BLE001 - the engine's step raises it again
+                logger.exception("waiting on a decode chunk's fetch failed")
+            self._queue.put(fetch)
+
+    def _first(self, block: bool, held) -> Optional[object]:
+        """The tick's first queue item: with ``held`` (the engine's held
+        chunk's fetch) a submission or ``held`` itself once it has landed,
+        whichever comes first (earlier fetches are dropped); else a
+        submission within 50 ms when ``block``, or none."""
+        if held is None:
+            try:
+                return self._queue.get(timeout=0.05 if block else 0)
+            except queue.Empty:
+                return None
+        if held is not self._watched:
+            self._watched = held
+            self._watch.put(held)
+        while True:
+            item = self._queue.get()
+            if item is held or isinstance(item, Submission):
+                return item
+
+    def _gather(self, block: bool, held) -> Tick:
+        """This iteration's events, after waiting as :meth:`_first` says:
+        cancels of submitted requests, then the queued submissions
+        (prepared here if the pool did not)."""
+        items = [self._first(block, held)]
         tick = Tick(failed=self._failed)
         self._failed = []
         while True:
@@ -217,13 +268,12 @@ class EngineWorker:
             except queue.Empty:
                 break
             tick.cancels += [rid for rid, pending in self._futures.items() if pending is sub]
-        subs = []
         try:
-            subs.append(self._queue.get(timeout=0.05 if block else 0))
             while True:
-                subs.append(self._queue.get_nowait())
+                items.append(self._queue.get_nowait())
         except queue.Empty:
             pass
+        subs = [item for item in items if isinstance(item, Submission)]
         taken = time.monotonic()
         for sub in subs:
             sub.taken_at = taken
@@ -317,6 +367,11 @@ class EngineWorker:
         for req in finished:
             self._resolve(req)
 
+    def _arrivals(self) -> bool:
+        """Whether a submission waits in the queue."""
+        with self._queue.mutex:
+            return any(isinstance(item, Submission) for item in self._queue.queue)
+
     def _lose(self, e: Exception) -> None:
         """The TP group is gone: fail what is in flight and all that comes."""
         self.lost = str(e) or type(e).__name__
@@ -349,7 +404,8 @@ class EngineWorker:
         while True:
             with SPANS.whole("tick"):
                 with SPANS("gather"):
-                    tick = self._gather(block=not self.engine.has_work())
+                    tick = self._gather(block=not self.engine.has_work(),
+                                        held=self.engine.held_fetch())
                 try:
                     if self._tp is not None:
                         self._broadcast(tick)

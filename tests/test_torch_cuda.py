@@ -1490,6 +1490,77 @@ def test_graphed_engine_serves_the_eager_engines_tokens_on_card(cuda, kind):
     assert warm.allocator.free_pages == GRAPH_SCHED["num_pages"] - 1
 
 
+@pytest.mark.cuda
+def test_snapshots_admitted_beside_graphed_chunks_on_card(cuda):
+    """Greedy snapshots (image requests) submitted while graphed decode
+    chunks run: each arrives once a step has returned with its chunk held on
+    the device, and the next step admits it beside that chunk. The tokens
+    equal an engine's that lands every chunk before it admits (the same
+    arrivals at the same steps), beside admissions happen, and after
+    ``warmup_decode`` no graph is captured. The engine is stepped directly,
+    so that both engines see the same arrival schedule."""
+    import dataclasses
+
+    from PIL import Image
+
+    from dots_ocr_tpu_torch.engine import scheduler
+
+    cfg, params = _graph_params(cuda, "int8")
+    vision = dataclasses.replace(cfg.vision, hidden_size=256, num_heads=2, head_dim=128,
+                                 intermediate_size=512)
+    cfg = cfg.replace(vision=vision)
+    from dots_ocr_tpu_torch.models.init import init_params
+
+    params["vision"] = init_params(cfg, cuda, torch.Generator(device=cuda).manual_seed(1))[
+        "vision"]
+    rng = np.random.RandomState(0)
+    images = [Image.fromarray(rng.randint(0, 255, (28 * h, 28 * w, 3), np.uint8))
+              for h, w in ((2, 3), (3, 2), (2, 2), (4, 3), (3, 3), (2, 4))]
+    sched = dict(steps_per_sync=8, max_steps_per_sync=64, pipeline_decode=True,
+                 speculate_k=2, spec_min_tokens_per_iter=0.0)
+
+    def serve(eng, schedule=None):
+        """Two snapshots, then one more each time a step returns with its
+        chunk held (or at the recorded steps). Returns tokens and the steps."""
+        ids = [eng.submit("read this", images=[im], temperature=0.0, max_new_tokens=96)
+               for im in images[:2]]
+        at, n = [], 0
+        while eng.has_work():
+            eng.step()
+            n += 1
+            due = (eng.held_fetch() is not None if schedule is None
+                   else n in schedule)
+            if due and len(ids) < len(images):
+                at.append(n)
+                ids.append(eng.submit("read this", images=[images[len(ids)]],
+                                      temperature=0.0, max_new_tokens=96))
+        return [eng.finished_request(i).output_ids for i in ids], at
+
+    eng = _graph_engine(cfg, params, cuda, **sched)
+    eng.warmup_decode()
+    captured = eng.metrics["graph_captures"]
+    tokens, at = serve(eng)
+    assert len(at) == len(images) - 2, "no chunk was held after a step"
+    assert eng.metrics["admits_beside_chunk"] > 0
+    assert eng.metrics["graph_captures"] == captured
+    assert eng.metrics["graph_replays"] > 0
+    assert eng.allocator.free_pages == GRAPH_SCHED["num_pages"] - 1
+
+    class Landed(scheduler.HostFetch):
+        def landed(self):
+            return True
+
+    real = scheduler.HostFetch
+    scheduler.HostFetch = Landed
+    try:
+        ref = _graph_engine(cfg, params, cuda, **sched)
+        ref_tokens, ref_at = serve(ref, set(at))
+    finally:
+        scheduler.HostFetch = real
+    assert ref_at == at and ref.metrics["admits_beside_chunk"] == 0
+    assert tokens == ref_tokens
+
+
 # ---------------------------------------------------------------------------
 # Training on the card (no kernel: the "xla" path under autograd)
 # ---------------------------------------------------------------------------

@@ -15,8 +15,16 @@ is in flight (the drain-and-retry branch before preemption) all end
 leak-free. A ``cancel()`` with a chunk in flight lands it; a sibling that
 finishes there is returned by the next ``step()`` (the JAX engine's
 ``before`` snapshot loses it) and its ``EngineWorker`` future resolves.
+
+Admission beside a chunk on the device: on the CPU every chunk has landed
+at dispatch, so a stand-in fetch that reports "not landed" until it is
+read (``HeldFetch``) makes every step hold its chunk. A late request is
+then admitted beside it with the JAX engine's tokens, into a slot outside
+the chunk's rows, and the pool ends whole; a chunked late request and a
+tensor-parallel engine land first, on today's schedule.
 """
 
+import dataclasses
 import inspect
 import json
 import os
@@ -30,6 +38,7 @@ import torch
 
 from dots_ocr_tpu.models.config import DotsOCRConfig as JaxConfig
 from dots_ocr_tpu.models.init import init_params as jax_init
+from dots_ocr_tpu_torch.engine import scheduler
 from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.init import from_numpy_params
@@ -277,3 +286,205 @@ def test_worker_resolves_a_sibling_that_cancel_finished(make_engine):
     assert b["finish_reason"] == "length" and b["completion_tokens"] == CANCEL_BUDGETS["B"]
     assert a["finish_reason"] == "cancelled"
     assert not eng.has_work() and eng.allocator.free_pages == BASE["num_pages"] - 1
+
+
+
+class HeldFetch(scheduler.HostFetch):
+    """A fetch that has not landed until it is read: every chunk a step
+    dispatches is held, and a request that waits goes beside it."""
+
+    def __init__(self, tensor):
+        super().__init__(tensor)
+        self.read = False
+
+    def landed(self):
+        return self.read
+
+    def numpy(self):
+        self.read = True
+        return super().numpy()
+
+
+class LaggingFetch(HeldFetch):
+    """... that lands once the next fetch is made: a chunk finishes on the
+    device while the host dispatches the one after it, so a pipelined
+    chunk's predecessor is applied at once (rows that end there leave their
+    slots free while the pipelined chunk still decodes them)."""
+
+    newest = None
+
+    def __init__(self, tensor):
+        super().__init__(tensor)
+        LaggingFetch.newest = self
+
+    def landed(self):
+        return self.read or self is not LaggingFetch.newest
+
+
+def freed_in_flight(eng) -> bool:
+    """A slot of the chunk on the device is free: its row ended meanwhile."""
+    return eng._inflight is not None and any(
+        eng._slot_req[i] is None for i in eng._inflight["active"])
+
+
+LONG = "a late arrival whose prompt is long enough to prefill in chunks"
+FIRST3 = [PROMPTS[0], PROMPTS[2], PROMPTS[3]]  # monolithic under 32-token chunks
+# name: the scenario; a request arrives after `steps` steps (or once
+# `arrive` holds) while `fetch` holds the chunks. `beside`: admitted beside
+# a chunk; `tp`: a tensor-parallel engine; `eos`: the config's end id (65
+# ends the first prompt's greedy stream after 16 tokens, inside a pipelined
+# chunk).
+BESIDE = {
+    "late": dict(first=LATE["first"], budgets=[LATE["first_max"]] * 3),
+    "late_sync": dict(kw={"pipeline_decode": False}, budgets=[32] * 3),
+    "finished_in_flight": dict(budgets=[48] * 3, eos=65, fetch=LaggingFetch,
+                               arrive=freed_in_flight),
+    "k2": dict(kw=dict(speculate_k=2, spec_min_tokens_per_iter=0.0), budgets=[32] * 3),
+    "chunked_late": dict(kw={"prefill_chunk_tokens": 32}, first=FIRST3, budgets=[32] * 3,
+                         late=LONG, beside=False),
+    "tp": dict(budgets=[32] * 3, tp=True, beside=False),
+}
+COUNTERS = ("steps", "pipelined_chunks", "chunk_input_rebuilds", "prefills", "prefill_chunks",
+            "spec_chunks", "preemptions", "admits_beside_chunk")
+
+
+@pytest.fixture
+def make_tp_engine(params, tmp_path):
+    """Engines on a one-rank gloo TP group (this process)."""
+    import torch.distributed as dist
+
+    from dots_ocr_tpu_torch.parallel.distributed import TPGroup
+    from dots_ocr_tpu_torch.parallel.sharding import shard_params
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store", rank=0, world_size=1)
+    try:
+        tp = TPGroup(rank=0, world=1, backend="gloo", device=CPU, group=dist.group.WORLD,
+                     control=dist.group.WORLD)
+        shard, tp.plan = shard_params(params, DotsOCRConfig.tiny(), 0, 1)
+        yield lambda kw, cfg: ContinuousBatchingEngine(shard, cfg, CPU, tp=tp,
+                                                       sched=SchedulerConfig(**{**BASE, **kw}))
+    finally:
+        dist.destroy_process_group()
+
+
+def run_beside(make, case):
+    cfg = DotsOCRConfig.tiny()
+    if "eos" in case:
+        cfg = cfg.replace(special=dataclasses.replace(cfg.special, eos_token_id=case["eos"]))
+    eng = make(case.get("kw", {}), cfg)
+    reused, admit = [], eng._admit_batch
+
+    def spy(reqs, slots):
+        # slots taken while a chunk that decodes them is still on the device
+        for flight in (eng._held, eng._inflight):
+            if flight is not None and not flight["fetch"].landed():
+                reused.extend(set(slots) & set(flight["active"]))
+        return admit(reqs, slots)
+
+    eng._admit_batch = spy
+    budgets = case["budgets"]
+    ids = [eng.submit(p, temperature=0.0, max_new_tokens=n)
+           for p, n in zip(case.get("first", PROMPTS[:3]), budgets)]
+    returned, arrive = [], case.get("arrive")
+    for n in range(40):
+        if (arrive(eng) if arrive else n == LATE["steps_before"]):
+            break
+        returned += [r.req_id for r in eng.step()]
+    freed = freed_in_flight(eng)
+    held = eng.held_fetch() is not None
+    ids.append(eng.submit(case.get("late", LATE["late"]), temperature=0.0,
+                          max_new_tokens=LATE["late_max"]))
+    while eng.has_work():
+        returned += [r.req_id for r in eng.step()]
+    reqs = [eng.finished_request(i) for i in ids]
+    free = eng.allocator._free
+    return dict(tokens=[r.output_ids for r in reqs], reasons=[r.finished_reason for r in reqs],
+                returned=sorted(returned), reused=reused, held_at_arrival=held,
+                freed_at_arrival=freed, counters={k: eng.metrics[k] for k in COUNTERS},
+                drained=not eng._on_device() and not eng._deferred_free,
+                pool_whole=(len(free) == len(set(free)) == BASE["num_pages"] - 1
+                            and eng.allocator.free_pages == BASE["num_pages"] - 1))
+
+
+@pytest.mark.parametrize("name", sorted(BESIDE))
+def test_admission_beside_a_chunk_on_the_device(jax_side, params, make_tp_engine,
+                                                monkeypatch, name):
+    case = BESIDE[name]
+    beside = case.get("beside", True)
+    if case.get("tp"):
+        make = make_tp_engine
+    else:
+        def make(kw, cfg):
+            return ContinuousBatchingEngine(params, cfg, CPU,
+                                            sched=SchedulerConfig(**{**BASE, **kw}))
+    today = run_beside(make, case)
+    monkeypatch.setattr(scheduler, "HostFetch", case.get("fetch", HeldFetch))
+    ours = run_beside(make, case)
+    assert not today["held_at_arrival"] and today["counters"]["admits_beside_chunk"] == 0
+    # a TP engine treats every chunk as landed: it never holds one
+    assert ours["held_at_arrival"] == (not case.get("tp") and case.get("fetch") is None)
+    assert ours["counters"]["admits_beside_chunk"] == int(beside)
+    assert ours["tokens"] == today["tokens"] and ours["reasons"] == today["reasons"]
+    if "eos" not in case:
+        assert [len(t) for t in ours["tokens"]] == case["budgets"] + [LATE["late_max"]]
+    # no slot of a chunk's rows is reused before it lands, the pool ends whole
+    assert ours["reused"] == []
+    assert ours["freed_at_arrival"] == today["freed_at_arrival"] == ("arrive" in case)
+    assert ours["drained"] and ours["pool_whole"]
+    assert ours["returned"] == list(range(4))
+    # the same chunks, uploads and prefills as landing first
+    assert {k: v for k, v in ours["counters"].items() if k != "admits_beside_chunk"} == {
+        k: v for k, v in today["counters"].items() if k != "admits_beside_chunk"}
+    if name == "late":
+        theirs = jax_side["late"]
+        assert ours["tokens"] == theirs["tokens"] and ours["reasons"] == theirs["reasons"]
+        sync = run_beside(make, {**case, "kw": {"pipeline_decode": False}})
+        assert ours["tokens"] == sync["tokens"]
+
+
+@pytest.mark.parametrize("tp", [False, True])
+def test_the_decode_chunk_waits_a_step_for_requests_that_arrived(params, make_tp_engine, tp):
+    """With an ``arrivals`` probe set, decode chunks are not deepened; where
+    it reads true after a step, the next step leaves its decode chunk to the
+    step after it (which admits the arrivals first; never two steps in a
+    row). The tokens are unchanged. A TP engine never reads the probe."""
+    cfg = DotsOCRConfig.tiny()
+
+    def make():
+        if tp:
+            return make_tp_engine({}, cfg)
+        return ContinuousBatchingEngine(params, cfg, CPU, sched=SchedulerConfig(**BASE))
+
+    def serve(eng, probe):
+        depths, run_chunk = [], eng._run_chunk
+
+        def counted(dev, key):
+            depths.append(key.num_steps)
+            return run_chunk(dev, key)
+
+        eng._run_chunk = counted
+        ids = [eng.submit(p, temperature=0.0, max_new_tokens=24) for p in PROMPTS[:2]]
+        eng.step()
+        eng.arrivals = probe
+        seen = []
+        for _ in range(3):
+            eng.step()
+            seen.append(list(depths))
+        eng.arrivals = None
+        eng.run()
+        return [eng.finished_request(i).output_ids for i in ids], seen
+
+    base, _ = serve(make(), None)
+    tokens, seen = serve(make(), lambda: True)
+    quiet, quiet_seen = serve(make(), lambda: False)
+    assert tokens == base == quiet
+    deep, shallow = BASE["max_steps_per_sync"], BASE["steps_per_sync"]
+    if tp:
+        assert [len(d) for d in seen] == [2, 3, 4] and seen == quiet_seen
+    else:
+        # deferred, then a shallow chunk (requests wait), deferred again
+        assert [len(d) for d in seen] == [1, 2, 2]
+        assert seen[0] == [deep]  # the first chunk, before the probe was set
+        assert seen[1][1] == shallow
+        # with nothing pending the chunks go on, but no longer deepen
+        assert quiet_seen[-1] == [deep, shallow, shallow, shallow]

@@ -9,6 +9,7 @@ stands in here for the benchmark's CUDA one (the same flag gates both)."""
 import asyncio
 import json
 import os
+import threading
 import time
 
 import numpy as np
@@ -18,6 +19,7 @@ from aiohttp.test_utils import TestClient, TestServer
 from PIL import Image
 from torch.profiler import ProfilerActivity, profile
 
+from dots_ocr_tpu_torch.engine import scheduler
 from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
 from dots_ocr_tpu_torch.models.config import DotsOCRConfig
 from dots_ocr_tpu_torch.models.init import init_params
@@ -227,6 +229,7 @@ def test_metrics_page_shows_the_split_and_the_counter(params):
     counter = [int(line.split()[1]) for line in text.splitlines()
                if line.startswith("dots_ocr_engine_kv_tokens_read ")]
     assert counter and counter[0] == eng.metrics["kv_tokens_read"] > 0
+    assert "dots_ocr_engine_admits_beside_chunk" in names
     assert not [n for n in names if n.startswith("dots_ocr_engine_t_")]
 
 
@@ -275,3 +278,124 @@ def test_the_buffer_keeps_the_newest_spans():
                 pass
     assert [s.name for s in rec.spans()] == ["s2", "s3", "s4"]
     assert [s.name for s in rec.spans(since_ns=rec.spans()[-1].end_ns)] == ["s4"]
+
+
+def _gated_fetch(gate: threading.Event):
+    """A fetch class whose decode chunks (packed results wider than a first
+    token's two columns) land only once ``gate`` is set."""
+
+    class GatedFetch(scheduler.HostFetch):
+        def __init__(self, tensor):
+            super().__init__(tensor)
+            self.gated = tensor.shape[-1] > 2
+
+        def landed(self):
+            return not self.gated or gate.is_set()
+
+        def wait(self):
+            if self.gated:
+                gate.wait(60)
+
+    return GatedFetch
+
+
+def _until(cond, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while not cond():
+        assert time.monotonic() < deadline, "timed out"
+        time.sleep(0.005)
+
+
+def test_an_admission_beside_a_chunk_notes_its_dispatch(params, monkeypatch):
+    gate = threading.Event()
+    monkeypatch.setattr(scheduler, "HostFetch", _gated_fetch(gate))
+    eng = _engine(params, pipeline_decode=False)
+    drain = eng._drain_inflight
+
+    def land():
+        gate.set()  # the chunk lands once the step waits on it, after b's launch
+        drain()
+
+    eng._drain_inflight = land
+    a = eng.submit("first page", images=[IMAGE], max_new_tokens=9, temperature=0.0)
+    with _cpu_profile():
+        eng.step()  # admits a, dispatches its chunk and holds it
+        assert eng.held_fetch() is not None
+        b = eng.submit("second page", max_new_tokens=5, temperature=0.0)
+        eng.step()
+    eng.run()
+    spans = SPANS.spans()
+    (dispatch, *_) = [s for s in spans if s.name == "dispatch"]
+    admits = {s.reqs: s for s in spans if s.name == "admit"}
+    assert "beside" not in admits[(a,)].work
+    assert admits[(b,)].work["beside"] == dispatch.id
+    assert eng.metrics["admits_beside_chunk"] == 1
+    # b's first tokens are read after the chunk lands, outside its admit span
+    by_id = {s.id: s for s in spans}
+    fetches = [by_id[s.parent].name for s in spans if s.name == "first_fetch"]
+    assert fetches == ["admit", "step"]
+    assert [len(eng.finished_request(r).output_ids) for r in (a, b)] == [9, 5]
+
+
+def test_the_engine_thread_wakes_on_a_submission_and_on_a_landing(params, monkeypatch):
+    """With a decode chunk held on the device and the worker's queue empty,
+    the engine thread waits in its gather: a submission wakes it before the
+    chunk lands (and goes beside the chunk), and the landing alone wakes it
+    to resolve the request that finished there, with no 50 ms timeout."""
+    gate = threading.Event()
+    monkeypatch.setattr(scheduler, "HostFetch", _gated_fetch(gate))
+    eng = _engine(params, pipeline_decode=False)
+    steps, step = [], eng.step
+
+    def counted():
+        steps.append(time.monotonic())
+        return step()
+
+    eng.step = counted
+    worker = EngineWorker(eng, prep_workers=0)
+    woken, first = [], worker._first
+
+    def spy(block, held):
+        item = first(block, held)
+        if held is not None:
+            woken.append("landing" if item is held else type(item).__name__)
+        return item
+
+    worker._first = spy
+
+    def sub(prompt, n):
+        return Submission(prompt=prompt, images=[IMAGE], max_new_tokens=n, temperature=0.0,
+                          top_p=1.0, system_prompt=None)
+
+    a, b, c = sub("first page", 9), sub("second page", 5), sub("third page", 3)
+    try:
+        worker.submit(a)
+        _until(lambda: eng.held_fetch() is not None)
+        n = len(steps)
+        time.sleep(0.3)
+        assert len(steps) == n  # waiting, not polling: no step while the chunk runs
+        worker.submit(b)
+        _until(lambda: eng.metrics["admits_beside_chunk"] == 1)
+        assert not gate.is_set() and b.taken_at is not None and not a.future.done()
+        assert woken == ["Submission"]
+        gate.set()
+        replies = [a.future.result(timeout=60), b.future.result(timeout=60)]
+        # c finishes in the chunk after its prefill: only that chunk's landing wakes the thread
+        gate.clear()
+        worker.submit(c)
+        _until(lambda: eng.held_fetch() is not None)
+        n = len(steps)
+        time.sleep(0.3)
+        assert len(steps) == n and not c.future.done()
+        gate.set()
+        replies.append(c.future.result(timeout=60))
+    finally:
+        gate.set()
+        worker.shutdown()
+    assert woken[-1] == "landing" and len(steps) == n + 1
+    for reply, budget in zip(replies, (9, 5, 3)):
+        t = reply["timing"]
+        assert reply["completion_tokens"] == budget
+        parts = (t["prep_wait_ms"] + t["prep_ms"] + t["engine_wait_ms"] + t["queue_ms"]
+                 + t["prefill_ms"])
+        assert abs(parts - t["ttft_ms"]) < 1.0
