@@ -3,8 +3,9 @@ and the run's own accounting.
 
 Once the window has closed and the program is freed, two samples of the
 requests the program finished, each drawn from the seed with the longest
-always in it, go through ``reference.served_gaps``: the gaps by which the
-served tokens' logits lie below the reference's best. One sample is of
+always in it, go through ``served_gaps`` of the configuration's
+``arch/<arch>.py``: the gaps by which the served tokens' logits lie below
+the reference's best. One sample is of
 greedy requests (the decode path without the draw), the other of sampled
 ones (the draw and the sampled verify's acceptance). Each sample's mean gap
 and, where the cell names a limit for it, its widest must stay under the
@@ -26,9 +27,7 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from gpubench import reference
 from gpubench.loadgen import Traffic
-from gpubench.weights import make_weights
 
 
 def pick(requests, limits: dict, seed: int, greedy: bool = True) -> List:
@@ -65,7 +64,7 @@ def check(cell, record, totals: Dict[str, float], seed: int, device, dtype):
     facts about the check for the result's ``info``)."""
     from gpubench.run import weight_seed
 
-    limits, dims = cell.limits, cell.config["model"]
+    limits, dims, arch = cell.limits, cell.config["model"], cell.arch
     served = sum(r.n_out for r in record.requests)
     counted = int(totals.get("generated_tokens", 0)) + int(totals.get("prefills", 0))
     checked = {"token_count_gap": {"value": abs(served - counted), "limit": 0}}
@@ -80,7 +79,8 @@ def check(cell, record, totals: Dict[str, float], seed: int, device, dtype):
     prompt_gap = 0
     t = time.perf_counter()
     if any(samples.values()):
-        weights = make_weights(dims, weight_seed(seed), device, dtype, cell.config.get("weights"))
+        weights = arch.make_weights(dims, weight_seed(seed), device, dtype,
+                                    cell.config.get("weights"))
         traffic = Traffic(cell.mix, seed, dims)
         quantize = cell.config["serving"]["QUANTIZE"]
         for kind in kinds:
@@ -88,10 +88,10 @@ def check(cell, record, totals: Dict[str, float], seed: int, device, dtype):
                 continue
             got = []
             for r in samples[kind]:
-                ids = reference.prompt_ids(cell.mix["prompt"], r.spec.vision_tokens, dims)
+                ids = arch.prompt_ids(cell.mix["prompt"], r.spec.vision_tokens, dims)
                 prompt_gap = max(prompt_gap, abs(len(ids) - r.prompt_len))
-                got.append(reference.served_gaps(weights, dims, quantize, traffic.pixels(r.spec),
-                                                 cell.mix["prompt"], r.tokens))
+                got.append(arch.served_gaps(weights, dims, quantize, traffic.pixels(r.spec),
+                                            cell.mix["prompt"], r.tokens))
             gaps[kind] = torch.cat(got)
         del weights
     checked["prompt_len_gap"] = {"value": prompt_gap, "limit": 0}

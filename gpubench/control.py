@@ -2,7 +2,12 @@
 served with the program's own weight path one step below the
 configuration's (int8 weights -> the int4 path, bf16 -> the int8 path),
 its served tokens held to the same reference at the configuration's own
-precision. Each seed runs in its own process.
+precision. The configuration's ``control`` names the serving keys it
+replaces: each part one step below the configuration's precision, on the
+program's own path for it (bf16 decoder weights -> W8A16, int8 -> int4
+(W4A16), the bf16 vision tower -> W8A8; the decoder's step alone does not
+move the bf16 configuration's served tokens past what the bf16 encoder's
+own rounding moves them: PERF.md). Each seed runs in its own process.
 
     python3 -m gpubench.control --workload w8a16.pdf-batch --seeds 11,12,13 --seconds 20
 
@@ -19,14 +24,6 @@ import subprocess
 import sys
 
 from gpubench import run
-
-# Each part one step below the configuration's precision, on the program's
-# own path for it: bf16 decoder weights -> W8A16, int8 -> int4 (W4A16), the
-# bf16 vision tower -> W8A8. (The decoder's step alone does not move the
-# served tokens of the bf16 configuration past what the bf16 encoder's own
-# rounding moves them: PERF.md.)
-LOWER = {"dotsocr-w8a16": {"QUANTIZE": "int4", "VISION_QUANTIZE": "int8"},
-         "dotsocr-bf16": {"QUANTIZE": "int8", "VISION_QUANTIZE": "int8"}}
 
 
 def main(argv=None) -> int:
@@ -48,7 +45,7 @@ def main(argv=None) -> int:
         print("gpubench.control: no CUDA device", file=sys.stderr)
         return 2
     cell = run.Cell(args.workload)
-    lower = LOWER[cell.workload["config"]]
+    lower = cell.config["control"]
     out = run.run_cell(cell, seeds[0], args.seconds, False, "cuda", control=lower)
     out.pop("record")
     print(json.dumps({"workload": cell.name, "seed": seeds[0], "control": lower,

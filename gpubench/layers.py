@@ -45,6 +45,14 @@ def ttft_p95_ms(run) -> Optional[float]:
     return percentile(ttft_ms(run), 95)
 
 
+def ttft_p95_host_part_ms(run) -> Optional[float]:
+    """:func:`ttft_p95_ms` of the requests due in ``RunRecord.host_part()``
+    (in a traced run, before the trace starts: reading it holds the host)."""
+    a, b = run.host_part()
+    return percentile([ms for r, ms in zip(run.due_in_window(), ttft_ms(run))
+                       if a <= r.due < b], 95)
+
+
 # -- engine and scheduler ----------------------------------------------------------
 
 def queue_ms(run) -> Optional[float]:
@@ -95,7 +103,7 @@ def paged_attn_roofline(run) -> Optional[float]:
     n, device_s = run.trace.by_name(*PAGED)
     if n == 0:
         return None
-    per_iteration = run.context_sum(*run.trace_edges) * work.kv_bytes_per_token(
+    per_iteration = run.context_sum(*run.trace_edges) * run.arch.kv_bytes_per_token(
         run.dims, run.serving["KV_DTYPE"])
     return work.share(run.decode_iterations() * per_iteration / work.HBM_BYTES_PER_S, device_s)
 
@@ -110,7 +118,8 @@ def w8a16_roofline(run) -> Optional[float]:
         return None
     a, b = run.trace_edges
     rows = run.active_rows(a, b) * run.rows_per_iteration_query()
-    ops, nbytes = work.w8a16_decode_bound(rows, run.dims)
+    ops, nbytes = work.w8a16_decode_bound(rows, run.dims,
+                                          run.arch.decoder_linear_shapes(run.dims))
     bound = run.decode_iterations() * work.bound_s(ops, nbytes) + run.traced_span_bound("w8a16")
     return work.share(bound, device_s)
 

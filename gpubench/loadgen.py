@@ -27,6 +27,16 @@ same work whatever the seed. A mix's keys:
   warmup_requests  requests of the extreme sizes sent during set-up (open
                    loop: their shapes are then warm when the window opens)
   strata           quantiles per block (default 256)
+  requests         open loop: the most requests a run sends (default: as
+                   many as its window holds). With ``strata`` equal to it,
+                   and the block's gaps adding up to less than the window,
+                   every seed sends exactly one block: the same sizes,
+                   budgets and gaps, only their order drawn from the seed
+  order            "permute" (default: each seed draws its own order) or
+                   "rotate": every seed sends one fixed order (seed 0's),
+                   each block started at a point the seed draws, so that
+                   the same requests arrive together, with the same gaps
+                   between them, in every run
 """
 
 from __future__ import annotations
@@ -62,6 +72,9 @@ class Traffic:
         self.mix, self.seed, self.dims = mix, int(seed), dims
         self.strata = int(mix.get("strata", 256))
         self._perms: Dict[tuple, np.ndarray] = {}
+        self.rotate = mix.get("order", "permute") == "rotate"
+        self.offset = (int(np.random.default_rng([self.seed, 0x726F74]).integers(self.strata))
+                       if self.rotate else 0)
 
     # -- stratified draws ------------------------------------------------------
 
@@ -76,9 +89,16 @@ class Traffic:
     def _quantile(self, what: str, index: int, fixed: bool = False) -> float:
         """The index-th draw's quantile in (0, 1) of the ``what`` stream;
         ``fixed``: the same for every seed."""
-        seed = 0 if fixed else self.seed
+        seed = 0 if fixed or self.rotate else self.seed
+        if self.rotate and not fixed:
+            index = self._rotated(index)
         k = self._perm(what, index // self.strata, seed)[index % self.strata]
         return (k + 0.5) / self.strata
+
+    def _rotated(self, index: int) -> int:
+        """Where the index-th request stands in the fixed order of "rotate"."""
+        block, k = divmod(index, self.strata)
+        return block * self.strata + (k + self.offset) % self.strata
 
     def _log_uniform(self, what: str, index: int, fixed: bool = False) -> float:
         r = self.mix[what]
@@ -96,7 +116,8 @@ class Traffic:
         if first_of_caller:
             budget *= self._quantile("first_budget", index, fixed=True)
         every = int(self.mix.get("greedy_every", 0))
-        greedy = every > 0 and index % every == every - 1
+        place = self._rotated(index) if self.rotate else index
+        greedy = every > 0 and place % every == every - 1
         patches, merged = work.page_patches(h, w, self.dims)
         rs = np.random.default_rng([self.seed, index, 7]).integers(0, 2**31 - 1)
         return RequestSpec(
@@ -139,4 +160,5 @@ def max_requests(mix: dict, seconds: float) -> Optional[int]:
     """How many requests an open loop can send in ``seconds`` (with room)."""
     if mix["loop"] != "open":
         return None
-    return int(mix["rate_per_s"] * seconds * 3 + 64)
+    room = int(mix["rate_per_s"] * seconds * 3 + 64)
+    return min(room, int(mix["requests"])) if "requests" in mix else room

@@ -198,7 +198,7 @@ def paged_attn_roofline(run) -> Optional[float]:
             iterations += s.work["iterations"]
     if launches == 0 or iterations == 0:
         return None
-    per_layer = work.kv_bytes_per_token(run.dims, run.serving["KV_DTYPE"]) / (
+    per_layer = run.arch.kv_bytes_per_token(run.dims, run.serving["KV_DTYPE"]) / (
         run.dims["decoder"]["num_layers"])
     nbytes = tokens / iterations * launches * per_layer
     return work.share(nbytes / work.HBM_BYTES_PER_S, device_s)

@@ -10,6 +10,7 @@ from __future__ import annotations
 import dataclasses
 import math
 import statistics
+from types import ModuleType
 from typing import Dict, List, Optional
 
 from gpubench import work
@@ -53,6 +54,7 @@ class RunRecord:
     counters0: Dict[str, float]
     counters1: Dict[str, float]
     requests: List[Request]
+    arch: ModuleType                # the configuration's arch/<arch>.py (run.load_arch)
     trace: Optional[DeviceTrace] = None
     spans: Optional[List[Span]] = None
     trace_edges: Optional[tuple] = None  # (a, b) monotonic s of the traced part
@@ -133,10 +135,10 @@ class RunRecord:
         total = 0.0
         for r in self.requests:
             if r.admitted_at is not None and a <= r.admitted_at < b:
-                total += work.vision_flops(r.spec.patches, self.dims)
-                total += work.prompt_flops(r.prompt_len, self.dims)
+                total += self.arch.vision_flops(r.spec.patches, self.dims)
+                total += self.arch.prompt_flops(r.prompt_len, self.dims)
         n, ctx = self.decode_tokens(a, b)
-        return total + work.generated_flops(n, ctx, self.dims)
+        return total + self.arch.generated_flops(n, ctx, self.dims)
 
     # -- kernel bounds over the traced part --------------------------------------
 
@@ -169,7 +171,7 @@ class RunRecord:
 
     def _prefill_linears(self, rows: int, heads: int) -> float:
         d = self.dims
-        ops, nbytes = work.w8a16_prefill_bound(rows, d)
+        ops, nbytes = work.w8a16_prefill_bound(rows, d, self.arch.decoder_linear_shapes(d))
         c = d["decoder"]
         ops += 2.0 * heads * c["vocab_size"] * c["hidden_size"]
         nbytes += c["vocab_size"] * (c["hidden_size"] + 4)

@@ -1,39 +1,32 @@
-"""The plain reference of dots.ocr: plain PyTorch in float32, no kernels, no
-cache, no batching, written from the configuration's description and not
-from the program under test (it imports nothing of it).
+"""The plain reference's shared part: plain PyTorch in float32, no kernels,
+no cache, no batching, written from the configuration's description and not
+from the program under test (it imports nothing of it). Each
+``arch/<arch>.py`` builds its decoder, its prompt ids and ``served_gaps``
+on these.
 
-It works out again everything the program derives from the benchmark's
-inputs: the patches of a page (row-major 14 x 14 x 3 pixels, CLIP
-normalisation, each 2 x 2 merge group contiguous), the 2D rotary positions,
-the prompt's token ids (the Qwen2.5 chat layout over the byte tokenizer
-with the config's special ids), and, for an int8 configuration, the int8
-weights (symmetric per output channel, ``round(w / s)`` clipped to 127,
-``s = max(max|w| / 127, 1e-8)``; the tied embedding per vocabulary row).
+It works out again what the program derives from the benchmark's inputs
+for the vision tower: the patches of a page (row-major 14 x 14 x 3 pixels,
+CLIP normalisation, each 2 x 2 merge group contiguous), the 2D rotary
+positions, and, for an int8 configuration, the int8 weights (symmetric per
+slice, ``round(w / s)`` clipped to 127, ``s = max(max|w| / 127, 1e-8)``).
 
-The model, as the configuration states it:
-  * encoder: patch embed, 42 post-norm blocks (RMSNorm after each residual
-    add; q, k, v with bias, 2D RoPE over (row, col), image-wide softmax
-    attention at 1 / sqrt(128); SwiGLU MLP), a final RMSNorm, then the 2 x 2
-    merge: RMSNorm over the four tokens' concatenation, fc1 + b1, GELU
-    (tanh), fc2 + b2;
-  * splice: the k-th ``<|imgpad|>`` takes the k-th merged token;
-  * decoder: Qwen2.5 (pre-norm, q / k / v bias, RoPE at theta 1e6 on
-    positions 0.., GQA 12 / 2, SwiGLU), final RMSNorm, tied lm_head.
-
-``served_gaps`` runs it over a prompt and the tokens a program served, and
-returns how far below the reference's best logit each served token lies.
+The encoder, as the configuration states it: patch embed, 42 post-norm
+blocks (RMSNorm after each residual add; q, k, v with bias, 2D RoPE over
+(row, col), image-wide softmax attention at 1 / sqrt(128); SwiGLU MLP), a
+final RMSNorm, then the 2 x 2 merge: RMSNorm over the four tokens'
+concatenation, fc1 + b1, GELU (tanh), fc2 + b2. The k-th image pad of the
+prompt takes the k-th merged token.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-IMAGE_PLACEHOLDER = "<|img|><|imgpad|><|endofimg|>"
 BLOCK = 1024  # query rows per attention block
 
 
@@ -51,13 +44,6 @@ def exact_float32():
 
 # -- what the program derives from the inputs, worked out again ---------------
 
-def special_ids(dims: dict) -> Dict[str, int]:
-    s = dims["special"]
-    return {"<|endoftext|>": s["pad_token_id"], "<|im_start|>": s["im_start_id"],
-            "<|im_end|>": s["im_end_id"], "<|img|>": s["img_id"],
-            "<|imgpad|>": s["imgpad_id"], "<|endofimg|>": s["endofimg_id"]}
-
-
 def byte_tokens(text: str, specials: Dict[str, int]) -> List[int]:
     """UTF-8 bytes, with each special string as its own id."""
     out: List[int] = []
@@ -72,16 +58,6 @@ def byte_tokens(text: str, specials: Dict[str, int]) -> List[int]:
             out.extend(text[i].encode("utf-8"))
             i += 1
     return out
-
-
-def prompt_ids(prompt: str, vision_tokens: int, dims: dict) -> List[int]:
-    """The chat-formatted prompt of one page: the image placeholder first,
-    its pad expanded to ``vision_tokens`` ids, then the generation prompt."""
-    sp = special_ids(dims)
-    text = f"<|im_start|>user\n{IMAGE_PLACEHOLDER}{prompt}<|im_end|>\n<|im_start|>assistant\n"
-    before, after = text.split(IMAGE_PLACEHOLDER)
-    return (byte_tokens(before, sp) + [sp["<|img|>"]] + [sp["<|imgpad|>"]] * vision_tokens
-            + [sp["<|endofimg|>"]] + byte_tokens(after, sp))
 
 
 def page_patches(pixels: np.ndarray, dims: dict, device) -> tuple:
@@ -181,71 +157,3 @@ def encode_page(vision: dict, dims: dict, patches: torch.Tensor, pos: torch.Tens
     h = rms_norm(x.reshape(t // merge, -1), mg["norm"], eps)
     h = F.gelu(lin(h, mg["fc1"], mg["b1"]), approximate="tanh")
     return lin(h, mg["fc2"], mg["b2"])
-
-
-class Decoder:
-    """The decoder's float32 weights, one layer at a time, from the
-    benchmark's weights as the configuration serves them."""
-
-    def __init__(self, decoder: dict, dims: dict, quantize: str):
-        self.p, self.dims, self.int8 = decoder, dims, quantize == "int8"
-
-    def weight(self, w: torch.Tensor) -> torch.Tensor:
-        return quantize_int8(w, axis=-2) if self.int8 else w.float()
-
-    def embed_table(self) -> torch.Tensor:
-        e = self.p["embed"]
-        return quantize_int8(e, axis=1) if self.int8 else e.float()
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """Hidden states [T, D] -> final-normed hidden [T, D]."""
-        c = self.dims["decoder"]
-        hd, eps, t = c["head_dim"], c["rms_norm_eps"], x.shape[0]
-        angles = torch.arange(t, device=x.device, dtype=torch.float32)[:, None] * inv_freq(
-            hd, c["rope_theta"], x.device)
-        b = self.p["blocks"]
-        for i in range(c["num_layers"]):
-            a = {k: w[i] for k, w in b["attn"].items()}
-            h = rms_norm(x, b["input_norm"][i], eps)
-            q = rope_halves(lin(h, self.weight(a["wq"]), a["bq"]).reshape(t, -1, hd), angles)
-            k = rope_halves(lin(h, self.weight(a["wk"]), a["bk"]).reshape(t, -1, hd), angles)
-            val = lin(h, self.weight(a["wv"]), a["bv"]).reshape(t, -1, hd)
-            x = x + lin(attention(q, k, val, True).reshape(t, -1), self.weight(a["wo"]))
-            m = {k: w[i] for k, w in b["mlp"].items()}
-            h = rms_norm(x, b["post_attn_norm"][i], eps)
-            gate, up = lin(h, self.weight(m["gate"])), lin(h, self.weight(m["up"]))
-            x = x + lin(F.silu(gate) * up, self.weight(m["down"]))
-        return rms_norm(x, self.p["final_norm"], eps)
-
-
-def served_gaps(weights: dict, dims: dict, quantize: str, pixels: Optional[np.ndarray],
-                prompt: str, served: Sequence[int]) -> torch.Tensor:
-    """For each served token, the reference's best logit minus its logit for
-    that token, at the position the program produced it (the first served
-    token after the prompt, each later one after the tokens before it).
-    Returns a float32 [len(served)] tensor on the weights' device."""
-    device = weights["decoder"]["embed"].device
-    with torch.no_grad(), exact_float32():
-        merged = None
-        vision_tokens = 0
-        if pixels is not None:
-            patches, pos = page_patches(pixels, dims, device)
-            merged = encode_page(weights["vision"], dims, patches, pos)
-            vision_tokens = merged.shape[0]
-        ids = prompt_ids(prompt, vision_tokens, dims)
-        dec = Decoder(weights["decoder"], dims, quantize)
-        table = dec.embed_table()
-        seq = torch.tensor(ids + list(served[:-1]), device=device)
-        x = table[seq]
-        if merged is not None:
-            pad = dims["special"]["imgpad_id"]
-            x[seq == pad] = merged
-        del merged
-        hidden = dec.forward(x)[len(ids) - 1:]
-        served_t = torch.tensor(list(served), device=device)
-        gaps = []
-        for lo in range(0, hidden.shape[0], BLOCK):
-            logits = hidden[lo:lo + BLOCK] @ table.t()
-            chosen = logits.gather(1, served_t[lo:lo + BLOCK, None])[:, 0]
-            gaps.append(logits.amax(1) - chosen)
-        return torch.cat(gaps)

@@ -3,12 +3,13 @@
     python3 -m gpubench.run --workload <name> --seed <n> --seconds <s> --trace <0|1>
 
 Everything is found by name from ``BENCHMARK.json``: the cell's
-configuration (``configs/<config>.json``), its traffic mix
-(``traffic/<traffic>.json``, read by ``loadgen.py``), its limits
-(``cells/<workload>.json``) and each metric's reader
-(``metrics/<metric>.py``). The system under test is ``dots_ocr_tpu_torch``
-driven through ``serve/async_engine.py::EngineWorker.submit``, the entry
-the OpenAI server hands every request to. See README.md.
+configuration (``configs/<config>.json``), the architecture it names
+(``arch/<arch>.py``), its traffic mix (``traffic/<traffic>.json``, read by
+``loadgen.py``), its limits (``cells/<workload>.json``) and each metric's
+reader (``metrics/<metric>.py``). The system under test is
+``dots_ocr_tpu_torch`` driven through
+``serve/async_engine.py::EngineWorker.submit``, the entry the OpenAI server
+hands every request to. See README.md.
 """
 
 from __future__ import annotations
@@ -41,6 +42,11 @@ LATE_LIMIT_S = 60.0      # how long replies due in the window are waited for
 
 RUN_LIMIT_S = 330.0      # a run that has not ended this long after its window opened is dumped
 
+# What every ``arch/<arch>.py`` defines (README.md says what each returns).
+CONTRACT = ("program_config", "serve_params", "make_weights", "prompt_ids", "served_gaps",
+            "vision_flops", "prompt_flops", "generated_flops", "kv_bytes_per_token",
+            "decoder_linear_shapes")
+
 
 def stage(msg: str) -> None:
     """A timestamped progress line on standard error."""
@@ -66,9 +72,11 @@ def load_json(path: str) -> dict:
 class Cell:
     """One workload of BENCHMARK.json with the files it names."""
 
-    def __init__(self, workload: str, root: str = ROOT, here: Optional[str] = None):
+    def __init__(self, workload: str, root: str = ROOT, here: Optional[str] = None,
+                 arch_root: str = ROOT):
         """``root`` holds BENCHMARK.json and the files it names; ``here`` the
-        ``traffic/`` and ``cells/`` folders (``root/gpubench``)."""
+        ``traffic/`` and ``cells/`` folders (``root/gpubench``);
+        ``arch_root`` the ``gpubench/arch/`` folder."""
         self.root = root
         self.bench = load_json(os.path.join(root, "BENCHMARK.json"))
         cells = {w["name"]: w for w in self.bench["workloads"]}
@@ -81,6 +89,7 @@ class Cell:
         here = here or os.path.join(root, "gpubench")
         self.mix = load_json(os.path.join(here, "traffic", self.workload["traffic"] + ".json"))
         self.limits = load_json(os.path.join(here, "cells", workload + ".json"))
+        self.arch = load_arch(self.config["arch"], arch_root)
 
     @property
     def name(self) -> str:
@@ -101,45 +110,33 @@ def reader(name: str, root: str = ROOT) -> Callable:
     return module.read
 
 
+def load_arch(name: str, root: str = ROOT):
+    """``arch/<name>.py``: the functions of the contract (``CONTRACT``) for
+    one architecture, loaded by its path as ``reader`` loads a metric."""
+    path = os.path.join(root, "gpubench", "arch", name + ".py")
+    if not os.path.isfile(path):
+        raise SystemExit(f"gpubench: the configuration's arch {name!r} has no module: "
+                         f"{path} is missing")
+    spec = importlib.util.spec_from_file_location(f"gpubench_arch_{name}", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    missing = [f for f in CONTRACT if not callable(getattr(module, f, None))]
+    if missing:
+        raise SystemExit(f"gpubench: {path} lacks {', '.join(missing)}")
+    return module
+
+
 # -- the system under test -------------------------------------------------------------
 
-def program_config(dims: dict):
-    from dots_ocr_tpu_torch.models.config import (
-        DecoderConfig,
-        DotsOCRConfig,
-        SpecialTokens,
-        VisionConfig,
-    )
-
-    vision = {k: tuple(v) if isinstance(v, list) else v for k, v in dims["vision"].items()}
-    return DotsOCRConfig(vision=VisionConfig(**vision), decoder=DecoderConfig(**dims["decoder"]),
-                         special=SpecialTokens(**dims["special"]), dtype=dims["dtype"])
-
-
-def build_engine(config: dict, weights: dict, device, quantize: str, vision_quantize: str):
+def build_engine(cell: Cell, weights: dict, device, quantize: str, vision_quantize: str):
     """The program's engine over the benchmark's weights, with the serving
-    keys of the configuration file; ``quantize`` is its decoder's weight
-    precision and ``vision_quantize`` its vision tower's ("none" or the
-    program's W8A8 "int8")."""
+    keys of the cell's configuration; ``quantize`` is its decoder's weight
+    precision and ``vision_quantize`` its vision tower's, as the
+    architecture's ``serve_params`` takes them."""
     from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
-    from dots_ocr_tpu_torch.models.quantize import (
-        quantize_decoder_params,
-        quantize_decoder_params_int4,
-        quantize_vision_params,
-    )
 
-    s = config["serving"]
-    params = {"vision": weights["vision"], "decoder": weights["decoder"]}
-    if quantize == "int8":
-        params = quantize_decoder_params(params)
-    elif quantize == "int4":
-        params = quantize_decoder_params_int4(params)
-    elif quantize != "none":
-        raise ValueError(f"QUANTIZE {quantize!r}")
-    if vision_quantize == "int8":
-        params = quantize_vision_params(params)
-    elif vision_quantize != "none":
-        raise ValueError(f"VISION_QUANTIZE {vision_quantize!r}")
+    s, dims = cell.config["serving"], cell.config["model"]
+    params = cell.arch.serve_params(weights, dims, quantize, vision_quantize)
     sched = SchedulerConfig(
         num_pages=int(s["NUM_PAGES"]), page_size=int(s["PAGE_SIZE"]),
         max_slots=int(s["MAX_SLOTS"]), steps_per_sync=int(s["STEPS_PER_SYNC"]),
@@ -149,7 +146,13 @@ def build_engine(config: dict, weights: dict, device, quantize: str, vision_quan
         kv_cache_dtype=s["KV_DTYPE"],
         repetition_min_repeats=8 if s["REPETITION_GUARD"] else 0,
     )
-    return ContinuousBatchingEngine(params, program_config(config["model"]), device, sched=sched)
+    return ContinuousBatchingEngine(params, cell.arch.program_config(dims), device, sched=sched)
+
+
+def page_bytes(cell: Cell) -> int:
+    """Bytes of one KV page of the cell's pool."""
+    s = cell.config["serving"]
+    return int(s["PAGE_SIZE"]) * cell.arch.kv_bytes_per_token(cell.config["model"], s["KV_DTYPE"])
 
 
 def make_worker(engine, records: Dict[int, object]):
@@ -307,7 +310,6 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     from gpubench.loadgen import Traffic
     from gpubench.record import RunRecord
     from gpubench.trace import DeviceTrace, Spans
-    from gpubench.weights import make_weights
 
     device = torch.device(device)
     cfg, mix, dims = cell.config, cell.mix, cell.config["model"]
@@ -322,9 +324,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     stage("kernels loaded")
     spans = Spans(program_scheduler, device) if traced else None
     trace = DeviceTrace(device) if traced and on_card else None
-    weights = make_weights(dims, weight_seed(seed), device, dtype, cell.config.get("weights"))
+    weights = cell.arch.make_weights(dims, weight_seed(seed), device, dtype,
+                                     cell.config.get("weights"))
     run_keys = dict(serving, **(control or {}))
-    engine = build_engine(cfg, weights, device, run_keys["QUANTIZE"], run_keys["VISION_QUANTIZE"])
+    engine = build_engine(cell, weights, device, run_keys["QUANTIZE"], run_keys["VISION_QUANTIZE"])
     del weights
     engine.warmup_decode(nucleus_variants=(False,) if float(mix["top_p"]) >= 1.0
                          else (False, True))
@@ -393,7 +396,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
         load.halt()
         worker.shutdown()
     record = RunRecord(dims=dims, serving=serving, mix=mix, t0=t0, t1=t1, counters0=c0,
-                       counters1=c1, requests=load.requests + warm, trace=trace,
+                       counters1=c1, requests=load.requests + warm, arch=cell.arch, trace=trace,
                        spans=spans.records if spans is not None else None, trace_edges=edges)
     section = "per_layer" if traced else "end_to_end"
     metrics = {}
@@ -415,9 +418,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
     else:
         tails = {}
     from gpubench.layers import spec_tokens_per_iter
-    from gpubench.work import kv_bytes_per_token
 
-    page_bytes = int(serving["PAGE_SIZE"]) * kv_bytes_per_token(dims, serving["KV_DTYPE"])
+    page = page_bytes(cell)
     out = {
         "correct": False,
         "attempted": len(window_requests),
@@ -435,8 +437,8 @@ def run_cell(cell: Cell, seed: int, seconds: float, traced: bool, device,
                                "open_at_close": gate_open,
                                "tokens_per_iter": spec_tokens_per_iter(record)},
                  # KV memory: the reserved pool, and what the traffic held of it
-                 "kv_pool_bytes": int(serving["NUM_PAGES"]) * page_bytes,
-                 "kv_pages_peak": pool.peak, "kv_live_peak_bytes": pool.peak * page_bytes,
+                 "kv_pool_bytes": int(serving["NUM_PAGES"]) * page,
+                 "kv_pages_peak": pool.peak, "kv_live_peak_bytes": pool.peak * page,
                  "counters": {k: totals.get(k, 0) - 0 for k in (
                      "generated_tokens", "prefills", "prefill_chunks", "steps", "spec_emitted",
                      "spec_slot_iters", "spec_auto_disabled", "preemptions", "graph_captures",

@@ -7,7 +7,14 @@ import pytest
 
 from gpubench import run
 from gpubench.record import RunRecord
-from gpubench.tests.test_program_spans import DIMS, SERVING, _span, _trace, recorder  # noqa: F401
+from gpubench.tests.test_program_spans import (  # noqa: F401
+    ARCH,
+    DIMS,
+    SERVING,
+    _span,
+    _trace,
+    recorder,
+)
 
 read = run.reader("admit_overlap_share.snap")
 
@@ -15,7 +22,7 @@ read = run.reader("admit_overlap_share.snap")
 def _record(counters, spans_ok=True):
     trace = _trace([("k", 0, 10)], 1.0)
     return RunRecord(dims=DIMS, serving=SERVING, mix={}, t0=0.0, t1=10.0, counters0={},
-                     counters1=counters, requests=[], trace=trace,
+                     counters1=counters, requests=[], arch=ARCH, trace=trace,
                      trace_edges=(0.0, 1.0) if spans_ok else None)
 
 

@@ -31,4 +31,4 @@ def test_a_short_snapshot_run_prints_the_contract_line(card):
     assert set(out) >= {"correct", "attempted", "failed", "metrics", "device"}
     assert list(out)[-1] == "checked"
     assert out["device"]["platform"] == "gpu" and out["device"]["count"] == 1
-    assert set(out["metrics"]) == {"ttft_p95_ms", "setup_s"}
+    assert set(out["metrics"]) == {"tok_s", "setup_s"}

@@ -5,7 +5,7 @@ import json
 import os
 from collections import Counter
 
-from gpubench.loadgen import Traffic
+from gpubench.loadgen import Traffic, max_requests
 from gpubench.run import ROOT, load_json
 
 MIXES = os.path.join(ROOT, "gpubench", "traffic")
@@ -48,6 +48,29 @@ def test_open_loop_gaps_are_exponential_quantiles():
     assert sorted(g1) == sorted(g2) and g1 != g2
     mean = sum(g1) / len(g1)
     assert abs(mean * m["rate_per_s"] - 1.0) < 0.02  # the mean gap is 1 / rate
+
+
+def test_an_open_run_sends_one_block_whatever_the_seed():
+    # the window's requests: the same gaps, sizes and budgets for every
+    # seed, all due inside the window, in an order the seed draws
+    m = mix("snap-ocr")
+    seconds = load_json(os.path.join(ROOT, "BENCHMARK.json"))["run_seconds"]
+    n = max_requests(m, seconds)
+    assert n == m["requests"] == m["strata"]
+    gaps = [Traffic(m, s, DIMS).gaps(n) for s in (5, 2**31 + 7)]
+    assert sorted(gaps[0]) == sorted(gaps[1]) and gaps[0] != gaps[1]
+    assert sum(gaps[0]) < seconds
+    # "rotate": one fixed order, started where the seed says
+    start = gaps[1].index(gaps[0][0])
+    assert gaps[1][start:] + gaps[1][:start] == gaps[0]
+    reqs = [[Traffic(m, s, DIMS).request(i) for i in range(n)] for s in (5, 2**31 + 7)]
+    rolled = reqs[1][start:] + reqs[1][:start]
+    assert [(r.patches, r.max_new_tokens, r.greedy) for r in rolled] == \
+        [(r.patches, r.max_new_tokens, r.greedy) for r in reqs[0]]
+    for what in ("megapixels", "aspect", "max_new_tokens"):
+        drawn = [sorted(Traffic(m, s, DIMS)._log_uniform(what, i) for i in range(n))
+                 for s in (5, 2**31 + 7)]
+        assert drawn[0] == drawn[1]
 
 
 def test_closed_loop_first_block_is_the_same_for_every_seed():

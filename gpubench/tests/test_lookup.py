@@ -34,6 +34,8 @@ def test_each_cell_finds_its_files(workload):
     reported = {m["name"] for m in cell.metrics("end_to_end")}
     assert "setup_s" in reported and len(reported) >= 2
     assert cell.metrics("per_layer")
+    assert all(callable(getattr(cell.arch, f)) for f in run.CONTRACT)
+    assert set(cell.config["control"]) <= set(cell.config["serving"])
 
 
 @pytest.mark.parametrize("metric", BENCH["end_to_end"] + BENCH["per_layer"],
@@ -55,16 +57,50 @@ def test_each_metric_has_a_reader_and_a_valid_entry(metric):
         assert metric["source"] in ("host_clock", "device_trace")
 
 
-@pytest.mark.parametrize("config", BENCH["configs"], ids=lambda c: c["name"])
-def test_configs_keep_the_published_widths(config):
-    cfg = run.load_json(os.path.join(run.ROOT, config["file"]))
-    v, d = cfg["model"]["vision"], cfg["model"]["decoder"]
-    assert (v["hidden_size"], v["num_layers"], v["num_heads"], v["head_dim"],
-            v["intermediate_size"]) == (1536, 42, 12, 128, 4224)
-    assert (d["hidden_size"], d["num_layers"], d["num_heads"], d["num_kv_heads"], d["head_dim"],
-            d["intermediate_size"], d["vocab_size"]) == (1536, 28, 12, 2, 128, 8960, 151936)
-    assert config["reduced"] == []
-    assert run.program_config(cfg["model"]).decoder.vocab_size == 151936
+CONFIGS = sorted(os.listdir(os.path.join(run.ROOT, "gpubench", "configs")))
+
+
+def _differences(model: dict, published: dict, path=()):
+    """Dotted paths of ``published``'s numbers that ``model`` does not hold."""
+    for key, want in published.items():
+        got = model.get(key) if isinstance(model, dict) else None
+        if isinstance(want, dict):
+            yield from _differences(got, want, path + (key,))
+        elif got != want:
+            yield ".".join(path + (key,))
+
+
+def _exempt(path: str, reduced) -> bool:
+    """``reduced`` names the key, its dotted path or a group it lies in."""
+    parts = path.split(".")
+    return bool(set(reduced) & ({parts[-1]} | {".".join(parts[:i])
+                                               for i in range(1, len(parts) + 1)}))
+
+
+@pytest.mark.parametrize("name", [f[:-len(".json")] for f in CONFIGS])
+def test_configs_keep_the_published_widths(name):
+    """Each configuration file's ``model`` holds every width its source
+    publishes (its ``published``), except where BENCHMARK.json's ``reduced``
+    for it names the key; and its architecture builds the program's config."""
+    path = f"gpubench/configs/{name}.json"
+    cfg = run.load_json(os.path.join(run.ROOT, path))
+    entry = [c for c in BENCH["configs"] if c["file"] == path]
+    reduced = entry[0]["reduced"] if entry else []
+    assert cfg["name"] == name and cfg["published"]
+    assert [p for p in _differences(cfg["model"], cfg["published"])
+            if not _exempt(p, reduced)] == []
+    assert run.load_arch(cfg["arch"]).program_config(cfg["model"]) is not None
+
+
+def test_reduced_names_a_key_its_path_or_its_group():
+    published = {"decoder": {"num_layers": 61, "hidden_size": 64}, "vision": {"num_layers": 42}}
+    model = {"decoder": {"num_layers": 7, "hidden_size": 64}, "vision": {"num_layers": 42}}
+    assert list(_differences(model, published)) == ["decoder.num_layers"]
+    assert list(_differences({"decoder": {}}, published)) == [
+        "decoder.num_layers", "decoder.hidden_size", "vision.num_layers"]
+    assert all(_exempt("decoder.num_layers", r) for r in (
+        ["num_layers"], ["decoder.num_layers"], ["decoder"]))
+    assert not any(_exempt("decoder.num_layers", r) for r in ([], ["vision"], ["hidden_size"]))
 
 
 def test_names_and_limits_of_the_file():

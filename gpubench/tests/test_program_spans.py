@@ -25,11 +25,13 @@ from dots_ocr_tpu_torch.utils import observability
 
 TINY = json.load(open(os.path.join(DATA, "configs", "tiny.json")))
 DIMS, SERVING = TINY["model"], TINY["serving"]
+ARCH = run.load_arch(TINY["arch"])
 
 
 def _record(requests=(), trace=None, edges=None):
     return RunRecord(dims=DIMS, serving=SERVING, mix={}, t0=0.0, t1=10.0, counters0={},
-                     counters1={}, requests=list(requests), trace=trace, trace_edges=edges)
+                     counters1={}, requests=list(requests), arch=ARCH, trace=trace,
+                     trace_edges=edges)
 
 
 def _span(rec, name, a, b, parent=None, thread="engine", **work_):
@@ -133,7 +135,7 @@ def test_kernel_2_share_from_the_programs_count(recorder):
         _span(recorder, "apply", start + 2 * ms, start + 3 * ms, parent=d.id,
               kv_tokens=tokens, iterations=4)
     record = _record(trace=trace, edges=(0.0, 1.0))
-    per_token = work.kv_bytes_per_token(DIMS, SERVING["KV_DTYPE"]) / layers
+    per_token = ARCH.kv_bytes_per_token(DIMS, SERVING["KV_DTYPE"]) / layers
     want = 100.0 * (1200 / 8) * (8 * layers) * per_token / work.HBM_BYTES_PER_S / (
         8 * layers * 10e-6)
     assert program_spans.paged_attn_roofline(record) == pytest.approx(want)

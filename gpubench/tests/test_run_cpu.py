@@ -12,7 +12,7 @@ import sys
 import pytest
 
 from gpubench import run
-from gpubench.tests.helpers import DATA, tiny_run
+from gpubench.tests.helpers import DATA, tiny_cell, tiny_run
 
 NO_JAX = """
 import sys, json
@@ -53,8 +53,11 @@ def test_traced_runs_read_the_counters_and_stamps():
 
 
 def test_the_control_is_not_correct():
-    # the program's int8 weights and W8A8 vision, held to the float32 reference
-    out = tiny_run("tiny.snap-ocr", control={"QUANTIZE": "int8", "VISION_QUANTIZE": "int8"})
+    # the configuration's control: the program's int8 weights and W8A8 vision,
+    # held to the float32 reference
+    control = tiny_cell("tiny.snap-ocr").config["control"]
+    assert control == {"QUANTIZE": "int8", "VISION_QUANTIZE": "int8"}
+    out = tiny_run("tiny.snap-ocr", control=control)
     assert not out["correct"]
     assert out["checked"]["served_gap"]["value"] > out["checked"]["served_gap"]["limit"]
 

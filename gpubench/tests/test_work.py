@@ -5,9 +5,10 @@ import os
 import pytest
 
 from gpubench import work
-from gpubench.run import ROOT, load_json
+from gpubench.run import ROOT, load_arch, load_json
 
 DIMS = load_json(os.path.join(ROOT, "gpubench", "configs", "dotsocr-w8a16.json"))["model"]
+ARCH = load_arch("dotsocr")
 
 
 def test_kernel1_vision_case_is_168_gflop():
@@ -26,21 +27,23 @@ def test_causal_bound_counts_prefix_pairs():
 
 
 def test_kv_and_weight_bytes():
-    assert work.kv_bytes_per_token(DIMS) == 28672  # 2 KV heads x 128 x 2 B x K,V x 28 layers
-    assert work.int8_decoder_bytes(DIMS) == pytest.approx(1.545e9, rel=2e-3)  # PERF: ~1.55 GB
-    assert work.decoder_linear_params(DIMS) == 28 * (1536 * 1536 * 2 + 2 * 1536 * 256
+    assert ARCH.kv_bytes_per_token(DIMS) == 28672  # 2 KV heads x 128 x 2 B x K,V x 28 layers
+    linears = ARCH.decoder_linear_shapes(DIMS)
+    assert work.int8_decoder_bytes(DIMS, linears) == pytest.approx(1.545e9, rel=2e-3)  # ~1.55 GB
+    assert ARCH.decoder_linear_params(DIMS) == 28 * (1536 * 1536 * 2 + 2 * 1536 * 256
                                                      + 3 * 1536 * 8960)
+    assert ARCH.decoder_linear_params(DIMS) == 28 * sum(k * n for k, n in linears)
 
 
 def test_flops_by_hand():
     c = DIMS["decoder"]
-    n = work.decoder_linear_params(DIMS)
+    n = ARCH.decoder_linear_params(DIMS)
     head = 2 * c["vocab_size"] * c["hidden_size"]
-    assert work.generated_flops(2, 201, DIMS) == (2 * n + head) * 2 + 4 * 1536 * 28 * 201
-    assert work.prompt_flops(1, DIMS) == 2 * n + 4 * 1536 * 28 + head
-    embed, blocks, merger = work.vision_linear_params(DIMS)
+    assert ARCH.generated_flops(2, 201, DIMS) == (2 * n + head) * 2 + 4 * 1536 * 28 * 201
+    assert ARCH.prompt_flops(1, DIMS) == 2 * n + 4 * 1536 * 28 + head
+    embed, blocks, merger = ARCH.vision_linear_params(DIMS)
     assert embed == 588 * 1536 and merger == 6144 * 6144 + 6144 * 1536
-    assert work.vision_flops(4, DIMS) == 2 * (embed + blocks) * 4 + 2 * merger + 4 * 16 * 1536 * 42
+    assert ARCH.vision_flops(4, DIMS) == 2 * (embed + blocks) * 4 + 2 * merger + 4 * 16 * 1536 * 42
 
 
 def test_smart_resize_and_patches():
@@ -71,7 +74,7 @@ def test_context_sum_of_decoding_requests():
     # 11 tokens over [0, 10] after a 100-token prompt: context 101 + t
     r = Request(spec=spec, due=0.0, first_token_at=0.0, finished_at=10.0, prompt_len=100,
                 tokens=list(range(11)))
-    run = RunRecord(DIMS, {}, {}, 0.0, 10.0, {}, {}, [r, r])
+    run = RunRecord(DIMS, {}, {}, 0.0, 10.0, {}, {}, [r, r], ARCH)
     # averaged over [2, 4]: 2 x (101 + 3)
     assert run.context_sum(2.0, 4.0) == pytest.approx(2 * 104.0)
     assert run.context_sum(20.0, 30.0) == 0.0
@@ -104,7 +107,7 @@ def test_host_clock_metrics_read_the_window_before_the_trace():
         r.finished_at, r.prompt_len, r.tokens = due + queued + 1.0, 100, [1] * 10
         reqs.append(r)
     rec = RunRecord(dims=DIMS, serving={}, mix=mix, t0=0.0, t1=10.0, counters0={},
-                    counters1={}, requests=reqs)
+                    counters1={}, requests=reqs, arch=ARCH)
     assert layers.queue_ms(rec) == pytest.approx(300.0)
     whole = layers.mfu(rec)
     rec.trace_edges = (5.0, 7.0)

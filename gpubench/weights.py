@@ -1,4 +1,6 @@
-"""Seeded random weights of a configuration, made on the device.
+"""Seeded random weights of a configuration, made on the device: what every
+architecture shares (the vision tower's shapes, the draw); each
+``arch/<arch>.py`` adds its decoder's shapes and its ``make_weights``.
 
 The tree is the layout the program takes (nested dicts, transformer blocks
 stacked on a leading layer axis, linear kernels ``[in, out]``), with the
@@ -19,7 +21,7 @@ the logits, to give them a trained model's spread.
 from __future__ import annotations
 
 import math
-from typing import Dict, Optional
+from typing import Dict
 
 import torch
 
@@ -46,22 +48,6 @@ def vision_shapes(dims: dict) -> Dict:
     }
 
 
-def decoder_shapes(dims: dict) -> Dict:
-    c = dims["decoder"]
-    n, d, i = c["num_layers"], c["hidden_size"], c["intermediate_size"]
-    q, kv = c["num_heads"] * c["head_dim"], c["num_kv_heads"] * c["head_dim"]
-    return {
-        "embed": (c["vocab_size"], d),
-        "blocks": {
-            "input_norm": (n, d), "post_attn_norm": (n, d),
-            "attn": {"wq": (n, d, q), "wk": (n, d, kv), "wv": (n, d, kv), "wo": (n, q, d),
-                     "bq": (n, q), "bk": (n, kv), "bv": (n, kv)},
-            "mlp": {"gate": (n, d, i), "up": (n, d, i), "down": (n, i, d)},
-        },
-        "final_norm": (d,),
-    }
-
-
 def _leaves(tree, path=()):
     if isinstance(tree, dict):
         for k, v in tree.items():
@@ -70,8 +56,10 @@ def _leaves(tree, path=()):
         yield path, tree
 
 
-def _tower(shapes: Dict, generator: torch.Generator, dtype, device, std: float,
-           gains: Dict[str, float]) -> Dict:
+def tower(shapes: Dict, generator: torch.Generator, dtype, device, std: float,
+          gains: Dict[str, float]) -> Dict:
+    """One tower's leaves of ``shapes``, drawn in one ``randn`` call from
+    ``generator``; a norm named in ``gains`` is multiplied by its gain."""
     leaves = list(_leaves(shapes))
     total = sum(math.prod(s) for _, s in leaves)
     flat = torch.randn(total, generator=generator, device=device, dtype=dtype)
@@ -91,16 +79,3 @@ def _tower(shapes: Dict, generator: torch.Generator, dtype, device, std: float,
         node[path[-1]] = leaf
         off += n
     return out
-
-
-def make_weights(dims: dict, seed: int, device, dtype=torch.bfloat16,
-                 init: Optional[dict] = None) -> Dict:
-    """{"vision", "decoder"} of the configuration's shapes, from ``seed``;
-    ``init`` is the configuration's ``weights`` ({"std", "final_norm_gain"})."""
-    init = init or {}
-    std = float(init.get("std", SCALE))
-    gen = torch.Generator(device=device)
-    gen.manual_seed(seed & 0xFFFF_FFFF_FFFF_FFFF)
-    gain = {"final_norm": float(init.get("final_norm_gain", 1.0))}
-    return {"vision": _tower(vision_shapes(dims), gen, dtype, device, std, {}),
-            "decoder": _tower(decoder_shapes(dims), gen, dtype, device, std, gain)}

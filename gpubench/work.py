@@ -1,5 +1,7 @@
 """The yardstick's arithmetic: the card's peaks, the page-size rule, and the
-operations and bytes of the model and of its kernels, all from shapes.
+operations and bytes of the kernels, all from shapes. The model's own FLOPs,
+parameter counts and KV bytes depend on its architecture and are the
+configuration's ``arch`` module's (``arch/<arch>.py``).
 
 Nothing here reads the program. The peaks are NVIDIA's H100 SXM data sheet
 (dense, 700 W); a share of a peak is only meaningful beside the card's
@@ -13,7 +15,7 @@ published sizes.
 from __future__ import annotations
 
 import math
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, List, Optional, Tuple
 
 HBM_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = {"bf16": 989e12, "int8": 1979e12, "fp32": 67e12}
@@ -74,83 +76,6 @@ def bound_s(flops: float, nbytes: float, kind: str = "bf16") -> float:
     return max(flops / PEAK_OPS_PER_S[kind], nbytes / HBM_BYTES_PER_S)
 
 
-# -- parameter counts --------------------------------------------------------
-
-def vision_linear_params(dims: dict) -> Tuple[int, int, int]:
-    """(patch-embed, block linears over all layers, merger) weights."""
-    v = dims["vision"]
-    d, i, a = v["hidden_size"], v["intermediate_size"], v["num_heads"] * v["head_dim"]
-    patch_dim = v["in_channels"] * v["temporal_patch_size"] * v["patch_size"] ** 2
-    md = d * v["spatial_merge_size"] ** 2
-    blocks = v["num_layers"] * (3 * d * a + a * d + 3 * d * i)
-    merger = md * md + md * dims["decoder"]["hidden_size"]
-    return patch_dim * d, blocks, merger
-
-
-def decoder_linear_params(dims: dict) -> int:
-    """Weights of the decoder's block linears over all layers."""
-    c = dims["decoder"]
-    d, i = c["hidden_size"], c["intermediate_size"]
-    q, kv = c["num_heads"] * c["head_dim"], c["num_kv_heads"] * c["head_dim"]
-    return c["num_layers"] * (d * q + 2 * d * kv + q * d + 3 * d * i)
-
-
-def decoder_linear_shapes(dims: dict) -> Iterable[Tuple[int, int]]:
-    """(in, out) of one decoder layer's linears."""
-    c = dims["decoder"]
-    d, i = c["hidden_size"], c["intermediate_size"]
-    q, kv = c["num_heads"] * c["head_dim"], c["num_kv_heads"] * c["head_dim"]
-    return [(d, q), (d, kv), (d, kv), (q, d), (d, i), (d, i), (i, d)]
-
-
-def int8_decoder_bytes(dims: dict) -> float:
-    """Bytes one decode or verify iteration reads of an int8 decoder: every
-    block linear and the tied lm_head once, with their float32 scales."""
-    c = dims["decoder"]
-    per_layer = sum(k * n + 4 * n for k, n in decoder_linear_shapes(dims))
-    head = c["vocab_size"] * (c["hidden_size"] + 4)
-    return float(c["num_layers"] * per_layer + head)
-
-
-def kv_bytes_per_token(dims: dict, kv_dtype: str = "bf16") -> int:
-    """Bytes of K and V a decode step reads for one token of context over all
-    layers (bf16: 2 KV heads x 128 x 2 B x 2 x 28 = 28,672)."""
-    c = dims["decoder"]
-    per = c["num_kv_heads"] * (c["head_dim"] * (1 if kv_dtype == "int8" else 2)
-                               + (4 if kv_dtype == "int8" else 0))
-    return 2 * per * c["num_layers"]
-
-
-# -- model FLOPs -------------------------------------------------------------
-
-def vision_flops(patches: int, dims: dict) -> float:
-    """One page through the encoder, the merge and the projector: 2 x
-    weights x tokens, and image-wide attention 4 T^2 H d a layer."""
-    v = dims["vision"]
-    embed, blocks, merger = vision_linear_params(dims)
-    merged = patches // v["spatial_merge_size"] ** 2
-    attn = 4.0 * patches * patches * v["num_heads"] * v["head_dim"] * v["num_layers"]
-    return 2.0 * (embed + blocks) * patches + 2.0 * merger * merged + attn
-
-
-def prompt_flops(prompt_tokens: int, dims: dict) -> float:
-    """A prompt's prefill: every token's linears, causal attention over its
-    prefix, and one vocabulary projection for the first token."""
-    c = dims["decoder"]
-    n = decoder_linear_params(dims)
-    pairs = prompt_tokens * (prompt_tokens + 1) / 2.0
-    attn = 4.0 * pairs * c["num_heads"] * c["head_dim"] * c["num_layers"]
-    return 2.0 * n * prompt_tokens + attn + 2.0 * c["vocab_size"] * c["hidden_size"]
-
-
-def generated_flops(tokens: float, context_sum: float, dims: dict) -> float:
-    """``tokens`` generated tokens whose contexts add up to ``context_sum``."""
-    c = dims["decoder"]
-    per = 2.0 * decoder_linear_params(dims) + 2.0 * c["vocab_size"] * c["hidden_size"]
-    attn = 4.0 * c["num_heads"] * c["head_dim"] * c["num_layers"]
-    return per * tokens + attn * context_sum
-
-
 # -- kernel bounds -----------------------------------------------------------
 
 def flash_image_bound(image_patches: Iterable[int], padded: int, dims: dict) -> Tuple[float, float]:
@@ -180,24 +105,36 @@ def flash_causal_bound(rows: Iterable[Tuple[int, int]], q_offset: int, chunk: in
     return 4.0 * pairs * q_hd, nbytes
 
 
-def w8a16_prefill_bound(rows: int, dims: dict) -> Tuple[float, float]:
-    """The W8A16 linears of one decoder forward over ``rows`` tokens:
-    operations, and each int8 weight with its scales read once, the
-    activations in and out once."""
+def int8_decoder_bytes(dims: dict, linears: List[Tuple[int, int]]) -> float:
+    """Bytes one decode or verify iteration reads of an int8 decoder: every
+    block linear (``linears``: (in, out) of one layer's, from the
+    configuration's ``arch``) and the tied lm_head once, with their float32
+    scales."""
     c = dims["decoder"]
-    layers = c["num_layers"]
-    ops = 2.0 * rows * decoder_linear_params(dims)
-    nbytes = layers * sum(k * n + 4 * n + 2 * rows * (k + n)
-                          for k, n in decoder_linear_shapes(dims))
+    per_layer = sum(k * n + 4 * n for k, n in linears)
+    head = c["vocab_size"] * (c["hidden_size"] + 4)
+    return float(c["num_layers"] * per_layer + head)
+
+
+def w8a16_prefill_bound(rows: int, dims: dict,
+                        linears: List[Tuple[int, int]]) -> Tuple[float, float]:
+    """The W8A16 linears of one decoder forward over ``rows`` tokens
+    (``linears``: (in, out) of one layer's): operations, and each int8
+    weight with its scales read once, the activations in and out once."""
+    layers = dims["decoder"]["num_layers"]
+    ops = 2.0 * rows * (layers * sum(k * n for k, n in linears))
+    nbytes = layers * sum(k * n + 4 * n + 2 * rows * (k + n) for k, n in linears)
     return ops, float(nbytes)
 
 
-def w8a16_decode_bound(rows: float, dims: dict) -> Tuple[float, float]:
+def w8a16_decode_bound(rows: float, dims: dict,
+                       linears: List[Tuple[int, int]]) -> Tuple[float, float]:
     """One decode or verify iteration of ``rows`` query rows: the block
-    linears and the tied lm_head."""
+    linears (``linears``: (in, out) of one layer's) and the tied lm_head."""
     c = dims["decoder"]
-    ops = 2.0 * rows * (decoder_linear_params(dims) + c["vocab_size"] * c["hidden_size"])
-    return ops, int8_decoder_bytes(dims)
+    params = c["num_layers"] * sum(k * n for k, n in linears)
+    ops = 2.0 * rows * (params + c["vocab_size"] * c["hidden_size"])
+    return ops, int8_decoder_bytes(dims, linears)
 
 
 def interval_tokens(first_at: float, finished_at: float, n_out: int, prompt: int,
