@@ -51,6 +51,7 @@ import torch
 from dots_ocr_tpu_torch.ops.flash_attention import flash_attention
 from dots_ocr_tpu_torch.ops.int4_matmul import int4_matmul
 from dots_ocr_tpu_torch.ops.int8_matmul import w8a16_matmul
+from dots_ocr_tpu_torch.ops.mla_attention import mla_paged_decode
 from dots_ocr_tpu_torch.ops.paged_attention import (
     paged_attention_multiquery_bf16,
     paged_attention_multiquery_int8,
@@ -68,7 +69,7 @@ CAPTURE_MODE = "thread_local"
 # "launches".
 WRAPPERS = (flash_attention, paged_attention_multiquery_bf16, paged_attention_multiquery_int8,
             paged_attention_stacked, window_attention, int4_matmul, w8a16_matmul, gumbel_argmax,
-            threefry_grid, tp_all_reduce)
+            threefry_grid, tp_all_reduce, mla_paged_decode)
 
 Counter = Tuple[Callable, str]
 

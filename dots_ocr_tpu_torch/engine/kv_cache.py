@@ -13,6 +13,11 @@ scale vector [KV * num_pages * page_size] per layer and tensor, indexed
 ``head * N + slot``; each token row is quantized on its own
 (:func:`quantize_kv`). The paged kernel reads the vector as a
 [KV, num_pages, page_size] view.
+
+DeepSeek's decoder (MLA, ``DecoderConfig.deepseek``) keeps one latent pool
+a layer instead: [1, num_pages * page_size, kv_lora_rank + qk_rope_head_dim]
+(576 values a token) in ``k``, shared by every head, and ``v`` is None. The
+allocator and its pages are the same; bf16 only.
 """
 
 from __future__ import annotations
@@ -29,10 +34,11 @@ from dots_ocr_tpu_torch.models.config import DecoderConfig
 @dataclass
 class PagedKV:
     """Per-layer K and V pools, each [KV, num_pages * page_size, D], and in
-    int8 mode per-layer flat float32 scales [KV * num_pages * page_size]."""
+    int8 mode per-layer flat float32 scales [KV * num_pages * page_size];
+    for MLA per-layer latent pools in ``k`` and no ``v``."""
 
     k: List[torch.Tensor]
-    v: List[torch.Tensor]
+    v: Optional[List[torch.Tensor]]
     k_scale: Optional[List[torch.Tensor]] = None
     v_scale: Optional[List[torch.Tensor]] = None
 
@@ -50,7 +56,14 @@ class PagedKV:
         ``num_kv_heads * kv_replication / world`` heads: with more ranks
         than KV heads each head is repeated on ``kv_replication``
         contiguous ranks (Megatron GQA replication, as the JAX package pads
-        its pool), so a rank holds one."""
+        its pool), so a rank holds one. MLA: the latent pools."""
+        if cfg.deepseek is not None:
+            if quantized or world != 1:
+                raise ValueError("MLA's latent cache is bf16 on one device: int8 KV and "
+                                 "tensor parallelism are not supported with it")
+            shape = (1, num_pages * page_size, cfg.deepseek.latent_dim)
+            return PagedKV([torch.zeros(shape, dtype=dtype, device=device)
+                            for _ in range(cfg.num_layers)], None)
         heads = cfg.num_kv_heads * kv_replication
         if heads % world:
             raise ValueError(f"{heads} KV heads (x{kv_replication} replicas) do not split "
@@ -112,7 +125,8 @@ def _flat_rows(kv: int, n: int, slots: torch.Tensor) -> torch.Tensor:
 def write_kv_rows(paged: PagedKV, layer: int, slots: torch.Tensor,
                   k: torch.Tensor, v: torch.Tensor) -> None:
     """Write one layer's per-token K/V [T, KV, D] at flat slots [T], in
-    place; in int8 mode quantize each row and write its scale too."""
+    place; in int8 mode quantize each row and write its scale too. A latent
+    pool (no V) takes ``k`` alone."""
     if paged.quantized:
         kv, n = paged.k[layer].shape[:2]
         rows = _flat_rows(kv, n, slots)
@@ -121,19 +135,22 @@ def write_kv_rows(paged: PagedKV, layer: int, slots: torch.Tensor,
         paged.k_scale[layer].index_copy_(0, rows, k_s.t().reshape(-1))
         paged.v_scale[layer].index_copy_(0, rows, v_s.t().reshape(-1))
     scatter_kv_rows(paged.k[layer], slots, k)
-    scatter_kv_rows(paged.v[layer], slots, v)
+    if v is not None:
+        scatter_kv_rows(paged.v[layer], slots, v)
 
 
 def write_prefill_kv(paged: PagedKV, k_new: torch.Tensor, v_new: torch.Tensor,
                      slot_mapping: torch.Tensor) -> None:
     """Scatter prefill K/V into the pages in place (quantizing in int8
-    mode). k_new/v_new [L, B, T, KV, D]; slot_mapping [B*T] int32 physical
-    slots, -1 for padding tokens (written to the null page's slot 0)."""
+    mode). k_new/v_new [L, B, T, KV, D] (v_new None: latent rows in k_new);
+    slot_mapping [B*T] int32 physical slots, -1 for padding tokens (written
+    to the null page's slot 0)."""
     num_layers, batch, t, kv_heads, head_dim = k_new.shape
     slots = slot_mapping.clamp_min(0)
     for layer in range(num_layers):
         write_kv_rows(paged, layer, slots,
                       k_new[layer].reshape(batch * t, kv_heads, head_dim),
+                      None if v_new is None else
                       v_new[layer].reshape(batch * t, kv_heads, head_dim))
 
 

@@ -68,7 +68,12 @@ its span tree (``utils/observability.py``): ``step`` > ``admit`` >
 ``prefill_chunk``, ``decode`` > (``inputs``, ``dispatch``, ``fetch_wait``,
 ``apply``), the launching ones with a CUDA event pair. Every decode and
 verify chunk also returns the context tokens the paged kernel read, which
-``metrics["kv_tokens_read"]`` adds up.
+``metrics["kv_tokens_read"]`` adds up. A MoE decoder (DeepSeek's, dots.vlm1)
+also counts, on the device, the (token, expert) assignments that landed on
+the experts this device holds and each layer's busiest held expert: the
+decode chunks and the prefills return them beside their results, and
+``metrics["moe_routed_here"]`` / ``["moe_busiest_expert"]`` add them up
+(noted on the ``apply``, ``prefill`` and ``prefill_chunk`` spans).
 """
 
 from __future__ import annotations
@@ -168,10 +173,21 @@ def token_logprob(logits: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return logits.gather(1, tokens[:, None])[:, 0] - torch.logsumexp(logits, dim=-1)
 
 
-def _pack_first_with_logprob(first: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
-    """[B] first tokens -> [B, 2] int64 (token, logprob bits): the prefill's
-    fetch stays one array."""
-    return torch.stack([first, f32_bits(token_logprob(logits, first))], dim=1)
+def _pack_first_with_logprob(first: torch.Tensor, logits: torch.Tensor,
+                             moe: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """[B] first tokens -> [B, 2] int64 (token, logprob bits), then a MoE
+    decoder's [B, 2] expert counts: the prefill's fetch stays one array."""
+    packed = torch.stack([first, f32_bits(token_logprob(logits, first))], dim=1)
+    return packed if moe is None else torch.cat([packed, moe], dim=1)
+
+
+def moe_counters(config: DotsOCRConfig, rows: int, device) -> Optional[torch.Tensor]:
+    """[rows, 2] int64 zeros that a MoE decoder's layers add their expert
+    counts to (``models/moe.py::moe_block``: each row's assignments on the
+    held experts, and in row 0 the busiest held expert's), or None."""
+    if config.decoder.deepseek is None:
+        return None
+    return torch.zeros(rows, 2, dtype=torch.int64, device=device)
 
 
 def image_work(segment_ids: np.ndarray) -> dict:
@@ -192,6 +208,7 @@ class HostFetch:
     copies into a pageable buffer and records no event."""
 
     def __init__(self, tensor: torch.Tensor):
+        self.span = None  # the launching span, noted once the result has landed
         on_card = tensor.is_cuda
         self.host = torch.empty(tensor.shape, dtype=tensor.dtype, pin_memory=on_card)
         self.host.copy_(tensor, non_blocking=on_card)
@@ -293,8 +310,10 @@ def prefill_program(
     the device from ``pos2d`` [T_vis, 2]; sample_keys [B, 2] the requests'
     keys, folded at the first token's position (seq_lens). Returns [B, 2]
     int64 on the device: each first token and its logprob bits
-    (:func:`f32_bits`)."""
+    (:func:`f32_bits`); a MoE decoder's expert counts follow ([B, 4],
+    :func:`moe_counters`)."""
     b, t = input_ids.shape
+    moe = moe_counters(config, b, input_ids.device)
     rope_cos = rope_sin = None
     if pos2d is not None:
         rope_cos, rope_sin = vision_rope_device(
@@ -305,7 +324,7 @@ def prefill_program(
         params, config, input_ids, positions, seq_lens, patches=patches,
         rope_cos=rope_cos, rope_sin=rope_sin, segment_ids=segment_ids,
         scatter_batch=scatter_batch, scatter_pos=scatter_pos,
-        last_logit_only=True, tp=tp,
+        last_logit_only=True, tp=tp, moe_stats=moe,
     )
     write_prefill_kv(paged, cache.k, cache.v, slot_mapping)
     if bias_ids is not None:
@@ -313,7 +332,7 @@ def prefill_program(
     # Prefill always runs the nucleus sampler, as the JAX engine does.
     first = sample_logits(sample_keys, logits, temperature, top_p, nucleus=True,
                           any_sampled=any_sampled, positions=seq_lens)
-    return _pack_first_with_logprob(first, logits)
+    return _pack_first_with_logprob(first, logits, moe)
 
 
 def decode_program(
@@ -362,7 +381,9 @@ def decode_program(
     tokens (pad after a row stopped), with logprobs their bits, each row's
     emitted count, and, last, the context tokens the paged kernel read for
     the row, its ``seq_lens`` added over the iterations (a row live for n
-    iterations from position L reads n (L + 1) + n (n - 1) / 2); the carry
+    iterations from position L reads n (L + 1) + n (n - 1) / 2), and for a
+    MoE decoder its expert counts over the live iterations (two more
+    columns, :func:`moe_counters`); the carry
     (next tokens, next positions, next budgets: 0 for a row that emitted
     EOS), on the device, for the next chunk).
     """
@@ -375,6 +396,7 @@ def decode_program(
               if with_logprobs else None)
     num_decoded = torch.zeros(s, dtype=torch.int64, device=dev)
     hit_eos = torch.zeros(s, dtype=torch.bool, device=dev)
+    moe = moe_counters(config, s, dev)
     done = ~active | (budgets <= 0)
     current, pos = tokens, positions
     for i in range(num_steps):
@@ -387,7 +409,7 @@ def decode_program(
             params["decoder"], config.decoder,
             embed_tokens(params["decoder"], current), write_pos,
             paged.k, paged.v, page_tables, seq_lens, slots, page_size,
-            k_scales=paged.k_scale, v_scales=paged.v_scale, tp=tp,
+            k_scales=paged.k_scale, v_scales=paged.v_scale, tp=tp, moe_stats=moe,
         )
         logits = logits_from_hidden(params["decoder"], config.decoder, hidden)
         if bias_ids is not None:
@@ -410,7 +432,8 @@ def decode_program(
         done = done | eos_now | (live & (num_decoded >= budgets))
     cols = [tokens_out] + ([f32_bits(lp_out)] if lp_out is not None else [])
     kv_read = num_decoded * (positions + 1) + num_decoded * (num_decoded - 1) // 2
-    packed = torch.cat(cols + [num_decoded[:, None], kv_read[:, None]], dim=1)
+    packed = torch.cat(cols + [num_decoded[:, None], kv_read[:, None]]
+                       + ([moe] if moe is not None else []), dim=1)
     return packed, (current, pos, torch.where(hit_eos, 0, budgets - num_decoded))
 
 
@@ -449,14 +472,15 @@ def prefill_extend_program(
     [B, kv_hi / page_size]; slots [B, C] write slots (padding -> the null
     page). Samples a candidate first token (``logit_bias`` applied) from
     each row's last valid position in the chunk; the host keeps it on a
-    row's final chunk. Returns [B, 2] int64 on the device, as
-    :func:`prefill_program`."""
+    row's final chunk. Returns [B, 2] int64 on the device (a MoE decoder's
+    this chunk's expert counts after them), as :func:`prefill_program`."""
     b, c, _ = embeds_chunk.shape
+    moe = moe_counters(config, b, embeds_chunk.device)
     positions = q_offset + torch.arange(c, device=embeds_chunk.device)
     hidden = decoder_prefill_extend_batched(
         params["decoder"], config.decoder, embeds_chunk, positions, prompt_len,
         paged.k, paged.v, page_table, slots, page_size, kv_hi, q_offset,
-        k_scales=paged.k_scale, v_scales=paged.v_scale, tp=tp,
+        k_scales=paged.k_scale, v_scales=paged.v_scale, tp=tp, moe_stats=moe,
     )
     last_row = (prompt_len.long() - 1 - q_offset).clamp(0, c - 1)
     hidden = hidden[torch.arange(b, device=hidden.device), last_row]
@@ -465,7 +489,7 @@ def prefill_extend_program(
         add_logit_bias(logits, bias_ids, bias_vals)
     first = sample_logits(sample_keys, logits, temperature, top_p, nucleus=True,
                           any_sampled=any_sampled, positions=prompt_len)
-    return _pack_first_with_logprob(first, logits)
+    return _pack_first_with_logprob(first, logits, moe)
 
 
 def spec_decode_program(
@@ -815,6 +839,11 @@ class ContinuousBatchingEngine:
         self._rng = prng_key(0)
         if self.sched.kv_cache_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_cache_dtype {self.sched.kv_cache_dtype!r} not in (bf16, int8)")
+        # A MoE decoder (DeepSeek's) counts its experts' assignments.
+        self._moe = config.decoder.deepseek is not None
+        if self._moe and (tp is not None or self.sched.speculate_k > 0):
+            raise ValueError("DeepSeek's decoder serves on one device without speculation "
+                             "(speculate_k 0)")
         kv_split = tp is not None and "decoder.attn" in tp.plan.row_parallel
         self.paged = PagedKV.create(
             config.decoder, self.sched.num_pages, self.sched.page_size,
@@ -902,6 +931,10 @@ class ContinuousBatchingEngine:
             # decode or verify iteration (the seq_lens the chunks hand it)
             "kv_tokens_read": 0,
         }
+        if self._moe:
+            # (token, expert) assignments that landed on a held expert, and the
+            # busiest held expert's count summed over layer-iterations
+            self.metrics.update(moe_routed_here=0, moe_busiest_expert=0)
 
     def _check_tp(self) -> None:
         """The JAX engine's TP rules, on this rank: log the decode route and
@@ -1323,6 +1356,9 @@ class ContinuousBatchingEngine:
             )
             self.metrics["prefill_chunks"] += 1
             first_host = None
+            if self._moe:  # every chunk's expert counts
+                first_host = first.cpu().numpy()
+                self._count_moe(first_host[:, 2:], span)
             for j, (slot, req) in enumerate(group):
                 req.prefill_pos += ct
                 if req.prefill_pos < len(req.prompt_ids):
@@ -1384,13 +1420,27 @@ class ContinuousBatchingEngine:
                 span.note(reqs=[r.req_id for r in reqs], rows=n, t=t_bucket,
                           prompt_lens=seq_lens.tolist(),
                           **(image_work(seg) if seg is not None else {}))
-        return HostFetch(first)
+        fetch = HostFetch(first)
+        fetch.span = span
+        return fetch
+
+    def _count_moe(self, counts: np.ndarray, span) -> None:
+        """Add a result's MoE counts ([rows, 2]: each row's assignments on
+        the held experts, the busiest held expert's count in row 0) to the
+        metrics, and note them on the span that launched it."""
+        here, busiest = int(counts[:, 0].sum()), int(counts[:, 1].sum())
+        self.metrics["moe_routed_here"] += here
+        self.metrics["moe_busiest_expert"] += busiest
+        if span:
+            span.note(moe_routed_here=here, moe_busiest_expert=busiest)
 
     def _promote(self, reqs: List[ScheduledRequest], slots: List[int], first: HostFetch) -> None:
         """Read a prefilled batch's first tokens and promote it to RUNNING
         in ``slots``."""
         with SPANS("first_fetch"):
-            first = first.numpy()
+            span, first = first.span, first.numpy()
+        if self._moe:
+            self._count_moe(first[:, 2:], span)
         for j, req in enumerate(reqs):
             self._set_slot(slots[j], req)
             self._set_first_token(slots[j], req, first[j])
@@ -1527,6 +1577,9 @@ class ContinuousBatchingEngine:
             packed = flight["fetch"].numpy()  # the chunk's one fetch
         with SPANS("apply", cause=flight["span"]) as span:
             active, chunk = flight["active"], flight["chunk"]
+            if self._moe:
+                self._count_moe(packed[:, -2:], span)
+                packed = packed[:, :-2]
             tokens_out, num_decoded, kv_read = packed[:, :-2], packed[:, -2], packed[:, -1]
             lps = None
             if flight["use_lp"]:

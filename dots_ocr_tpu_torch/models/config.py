@@ -4,12 +4,20 @@
 Flagship defaults are the published dots.ocr shapes: a 42-block NaViT vision
 encoder (width 1536, 12 heads x 128, 2x2 merge) and a Qwen2.5-1.5B decoder
 (28 layers, width 1536, GQA 12q/2kv x 128, vocab 151,936, tied embeddings).
+
+``DeepseekDecoderConfig`` (a ``DecoderConfig`` whose ``deepseek`` is set;
+None for dots.ocr) makes the decoder DeepSeek-V3's, as dots.vlm1 runs it:
+latent attention (MLA) over a paged latent cache, leading dense layers, then
+mixture-of-experts layers of which this device holds ``experts_held``, and
+YaRN rope on the rope dims.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from dataclasses import dataclass
+from typing import Optional, Tuple
 
 import torch
 
@@ -50,6 +58,76 @@ class VisionConfig:
 
 
 @dataclass(frozen=True)
+class YarnRope:
+    """DeepSeek's YaRN scaling of the rope frequencies (``rope_scaling`` of
+    its config.json, ``type`` "yarn")."""
+
+    factor: float = 40.0
+    original_max_position_embeddings: int = 4096
+    beta_fast: float = 32.0
+    beta_slow: float = 1.0
+    mscale: float = 1.0
+    mscale_all_dim: float = 1.0
+
+
+def yarn_get_mscale(scale: float, mscale: float) -> float:
+    """DeepSeek's ``yarn_get_mscale``: 0.1 mscale ln(scale) + 1 above scale 1."""
+    return 1.0 if scale <= 1 else 0.1 * mscale * math.log(scale) + 1.0
+
+
+@dataclass(frozen=True)
+class DeepseekConfig:
+    """DeepSeek-V3's decoder block, the keys of its config.json.
+
+    Attention is MLA: ``q = q_b(RMSNorm(q_a(x)))`` split per head into
+    ``qk_nope_head_dim`` + ``qk_rope_head_dim``; ``kv_a(x)`` gives the
+    ``kv_lora_rank`` latent (RMS-normed) and one shared rope key; ``kv_b``
+    expands the latent into each head's nope key and ``v_head_dim`` value.
+    Layers from ``first_k_dense_replace`` on are MoE: a float32 sigmoid
+    router over ``n_routed_experts`` experts (``noaux_tc``: a correction
+    bias for the choice only, the best ``topk_group`` of ``n_group`` groups
+    by the sum of their top two, top ``num_experts_per_tok``), plus
+    ``n_shared_experts`` always-on experts. ``experts_held`` (first, count)
+    are the routed experts this device holds (expert parallelism): it
+    routes over all of them and computes its own experts' part."""
+
+    q_lora_rank: int = 1536
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+    first_k_dense_replace: int = 3
+    moe_intermediate_size: int = 2048
+    n_routed_experts: int = 256
+    experts_held: Tuple[int, int] = (0, 256)
+    num_experts_per_tok: int = 8
+    n_group: int = 8
+    topk_group: int = 4
+    routed_scaling_factor: float = 2.5
+    norm_topk_prob: bool = True
+    n_shared_experts: int = 1
+    rope_scaling: Optional[YarnRope] = None
+
+    @property
+    def qk_head_dim(self) -> int:
+        return self.qk_nope_head_dim + self.qk_rope_head_dim
+
+    @property
+    def latent_dim(self) -> int:
+        """Values a token holds in the latent cache: the latent and the rope key."""
+        return self.kv_lora_rank + self.qk_rope_head_dim
+
+    @property
+    def softmax_scale(self) -> float:
+        """qk_head_dim^-0.5, times YaRN's mscale(factor, mscale_all_dim)^2."""
+        scale = self.qk_head_dim ** -0.5
+        y = self.rope_scaling
+        if y is not None and y.mscale_all_dim:
+            scale *= yarn_get_mscale(y.factor, y.mscale_all_dim) ** 2
+        return scale
+
+
+@dataclass(frozen=True)
 class DecoderConfig:
     """Qwen2.5-style causal decoder with GQA."""
 
@@ -65,6 +143,9 @@ class DecoderConfig:
     qkv_bias: bool = True
     tie_word_embeddings: bool = True
     max_position_embeddings: int = 131072
+    # DeepSeek-V3's block keys (DeepseekDecoderConfig's field); a plain class
+    # attribute here, so that dots.ocr's config keeps its fields
+    deepseek = None
 
     @property
     def q_dim(self) -> int:
@@ -73,6 +154,14 @@ class DecoderConfig:
     @property
     def kv_dim(self) -> int:
         return self.num_kv_heads * self.head_dim
+
+
+@dataclass(frozen=True)
+class DeepseekDecoderConfig(DecoderConfig):
+    """The decoder with DeepSeek-V3's block (``deepseek``): ``num_heads`` its
+    attention heads, ``intermediate_size`` its dense layers' width."""
+
+    deepseek: DeepseekConfig = dataclasses.field(default_factory=DeepseekConfig)
 
 
 @dataclass(frozen=True)

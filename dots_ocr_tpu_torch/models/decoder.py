@@ -18,6 +18,13 @@ Under training the prefill's layer also passes the normed inputs of q / k /
 v and of gate / up through f (``ops/tp.py::copy_to_model``); with remat
 ``torch.utils.checkpoint`` runs the layer again in the backward, its
 collectives with it, in the same order on every rank.
+
+With ``cfg.deepseek`` set, the prefill, the chunked prefill extend and the
+paged decode step run DeepSeek-V3's MLA + MoE decoder (``models/mla.py``)
+over latent pools (each layer's ``k_pages`` entry; ``v_pages`` is None);
+``moe_stats`` collects its expert counts (``models/moe.py::moe_block``).
+The dense-cache decode, the speculative verify and tensor parallelism
+take dots.ocr's decoder only.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from dots_ocr_tpu_torch.engine.kv_cache import PagedKV, write_kv_rows
+from dots_ocr_tpu_torch.models import mla
 from dots_ocr_tpu_torch.models.config import DecoderConfig
 from dots_ocr_tpu_torch.models.layers import (
     embed,
@@ -137,13 +145,22 @@ def decoder_prefill(
     attn_impl: str = "kernel",
     remat: bool = False,
     tp=None,
+    moe_stats: Optional[torch.Tensor] = None,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Full-sequence forward. inputs_embeds [B, T, D]; positions [B, T];
     seq_lens [B]. Attention is causal flash attention with padding as
     segment -1. ``remat`` recomputes each layer in the backward pass
     (``torch.utils.checkpoint``, as the JAX package wraps its layer in
     ``jax.checkpoint``): activation memory traded for a second forward.
-    Returns (hidden [B, T, D], KVCache with k/v [L, B, T, KV, hd])."""
+    Returns (hidden [B, T, D], KVCache with k/v [L, B, T, KV, hd]; for
+    DeepSeek's decoder k holds the latent rows [L, B, T, 1, 576] and v is
+    None)."""
+    if cfg.deepseek is not None:
+        if remat or tp is not None:
+            raise NotImplementedError("DeepSeek's decoder: no training or tensor parallelism")
+        hidden, rows = mla.deepseek_prefill(params, cfg, inputs_embeds, positions, seq_lens,
+                                            moe_stats)
+        return hidden, KVCache(rows, None)
     t = inputs_embeds.shape[1]
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     segment_ids = torch.where(
@@ -178,6 +195,8 @@ def decoder_decode_step(
     absolute position (= the cache write slot); seq_lens [B] valid length
     after this token. The cache is updated in place. Returns (hidden
     [B, D], cache)."""
+    if cfg.deepseek is not None:
+        raise NotImplementedError("DeepSeek's decoder decodes over the paged latent cache")
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
     x = inputs_embeds
     for i in range(cfg.num_layers):
@@ -221,6 +240,7 @@ def decoder_decode_step_paged(
     k_scales: Optional[List[torch.Tensor]] = None,
     v_scales: Optional[List[torch.Tensor]] = None,
     tp=None,
+    moe_stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One decode step over the paged cache (continuous batching path).
 
@@ -235,6 +255,11 @@ def decoder_decode_step_paged(
     on every layer, the JAX decoder's ``paged_v1`` branch; the verify step
     refuses it. Returns hidden [S, D].
     """
+    if cfg.deepseek is not None:
+        if tp is not None or attn_impl != "kernel":
+            raise NotImplementedError("DeepSeek's decoder: the latent kernel, one device")
+        return mla.deepseek_decode_step_paged(params, cfg, inputs_embeds, positions, k_pages,
+                                              page_tables, seq_lens, slots, page_size, moe_stats)
     return decoder_spec_step_paged(
         params, cfg, inputs_embeds[:, None], positions[:, None], k_pages, v_pages,
         page_tables, seq_lens, slots[:, None], page_size, attn_impl, k_scales, v_scales, tp,
@@ -269,6 +294,8 @@ def decoder_spec_step_paged(
     length). bf16 and int8 pools go through the same kernel call. nq = 1 is
     the plain decode step. Returns hidden [S, nq, D].
     """
+    if cfg.deepseek is not None:
+        raise NotImplementedError("DeepSeek's decoder has no speculative verify")
     attend = paged_attention.IMPLEMENTATIONS[attn_impl]
     paged = PagedKV(k_pages, v_pages, k_scales, v_scales)
     cos, sin = rope_table(positions, cfg.head_dim, cfg.rope_theta)
@@ -306,6 +333,7 @@ def decoder_prefill_extend_batched(
     k_scales: Optional[List[torch.Tensor]] = None,
     v_scales: Optional[List[torch.Tensor]] = None,
     tp=None,
+    moe_stats: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """One lockstep chunk of a chunked prefill for a batch of sequences,
     writing straight into the paged cache.
@@ -323,6 +351,12 @@ def decoder_prefill_extend_batched(
     with ``q_offset``; keys past each row's prompt and padding queries are
     segment -1. Returns hidden [B, C, D] after the final norm.
     """
+    if cfg.deepseek is not None:
+        if tp is not None:
+            raise NotImplementedError("DeepSeek's decoder: one device")
+        return mla.deepseek_prefill_extend(params, cfg, inputs_embeds, positions, prompt_len,
+                                           k_pages, page_table, slots, page_size, q_offset,
+                                           moe_stats)
     attend = flash_attention.IMPLEMENTATIONS[attn_impl]
     paged = PagedKV(k_pages, v_pages, k_scales, v_scales)
     b, c, _ = inputs_embeds.shape

@@ -46,7 +46,38 @@ def vision_param_shapes(cfg: VisionConfig, llm_hidden: int) -> Shapes:
     }
 
 
+def deepseek_param_shapes(cfg: DecoderConfig) -> Shapes:
+    """DeepSeek's decoder tree (``models/mla.py``): MLA in every layer,
+    dense MLPs in the first ``first_k_dense_replace``, the held routed
+    experts and the shared experts in the rest."""
+    ds = cfg.deepseek
+    L, D, H = cfg.num_layers, cfg.hidden_size, cfg.num_heads
+    Ld, I = ds.first_k_dense_replace, cfg.intermediate_size
+    Lm, E, Ie = L - Ld, ds.n_routed_experts, ds.moe_intermediate_size
+    Eh, Is, R = ds.experts_held[1], ds.n_shared_experts * Ie, ds.kv_lora_rank
+    return {
+        "embed": (cfg.vocab_size, D),
+        "blocks": {
+            "input_norm": (L, D),
+            "post_attn_norm": (L, D),
+            "attn": {"q_a": (L, D, ds.q_lora_rank), "q_a_norm": (L, ds.q_lora_rank),
+                     "q_b": (L, ds.q_lora_rank, H * ds.qk_head_dim),
+                     "kv_a": (L, D, ds.latent_dim), "kv_a_norm": (L, R),
+                     "kv_b": (L, R, H * (ds.qk_nope_head_dim + ds.v_head_dim)),
+                     "wo": (L, H * ds.v_head_dim, D)},
+        },
+        "dense": {"gate": (Ld, D, I), "up": (Ld, D, I), "down": (Ld, I, D)},
+        "moe": {"router": (Lm, D, E), "correction": (Lm, E), "gate": (Lm, Eh, D, Ie),
+                "up": (Lm, Eh, D, Ie), "down": (Lm, Eh, Ie, D)},
+        "shared": {"gate": (Lm, D, Is), "up": (Lm, D, Is), "down": (Lm, Is, D)},
+        "final_norm": (D,),
+        "lm_head": (D, cfg.vocab_size),
+    }
+
+
 def decoder_param_shapes(cfg: DecoderConfig) -> Shapes:
+    if cfg.deepseek is not None:
+        return deepseek_param_shapes(cfg)
     L, D, I = cfg.num_layers, cfg.hidden_size, cfg.intermediate_size
     Q, KV = cfg.q_dim, cfg.kv_dim
     attn = {"wq": (L, D, Q), "wk": (L, D, KV), "wv": (L, D, KV), "wo": (L, Q, D)}

@@ -17,7 +17,12 @@ dispatches on; stacked ``[L, in, out]`` leaves quantize per layer:
     (``--quantize int4``). Kernels whose shape is not int4-aligned fall back
     to int8, kernel by kernel; the embedding and lm_head stay int8.
 
-Norms, biases, the patch embed and the merger stay as they are.
+Norms, biases, the patch embed and the merger stay as they are. In
+DeepSeek's decoder (``models/mla.py``) the MLA projections q_a, q_b and
+o_proj, the dense layers' and the shared experts' MLPs and the lm_head are
+quantized; kv_a (576 outputs, not a multiple of the W8A16 kernel's 128
+columns), kv_b (split into the absorbed decode's W_UK and W_UV), the router
+and the routed experts (grouped products) stay as they are.
 ``torch.round`` rounds half to even, as ``jnp.round`` does.
 """
 
@@ -33,6 +38,10 @@ BLOCK_KERNELS = (
     ("attn", "wq"), ("attn", "wk"), ("attn", "wv"), ("attn", "wo"),
     ("mlp", "gate"), ("mlp", "up"), ("mlp", "down"),
 )
+# DeepSeek's MLA query projections (its o_proj is "wo").
+MLA_KERNELS = (("attn", "q_a"), ("attn", "q_b"))
+# DeepSeek's stacked MLPs outside the blocks: the dense layers', the shared experts'.
+MLP_GROUPS = ("dense", "shared")
 QUANT_KEYS = ("qint8", "scale")
 ACT_QUANT_KEYS = ("qint8_act", "scale")
 INT4_KEYS = ("qint4", "scale4")
@@ -110,7 +119,7 @@ def _quantize_blocks(blocks: dict, quantize: Callable[[torch.Tensor], dict]) -> 
     """The block linears of BLOCK_KERNELS through ``quantize``; already
     quantized ones and every other leaf are kept (shared, not copied)."""
     blocks = dict(blocks)
-    for group, name in BLOCK_KERNELS:
+    for group, name in BLOCK_KERNELS + MLA_KERNELS:
         if name in blocks.get(group, {}) and not isinstance(blocks[group][name], dict):
             blocks[group] = {**blocks[group], name: quantize(blocks[group][name])}
     return blocks
@@ -120,6 +129,10 @@ def _quantize_decoder(params: dict, include_embed: bool, quantize) -> dict:
     if "decoder" in params:
         return {**params, "decoder": _quantize_decoder(params["decoder"], include_embed, quantize)}
     dec = {**params, "blocks": _quantize_blocks(params["blocks"], quantize)}
+    for group in MLP_GROUPS:
+        if group in dec:
+            dec[group] = {k: w if isinstance(w, dict) else quantize(w)
+                          for k, w in dec[group].items()}
     if include_embed and "embed" in dec and not is_quantized_kernel(dec["embed"]):
         dec["embed"] = quantize_embedding(dec["embed"])
         if "lm_head" in dec:

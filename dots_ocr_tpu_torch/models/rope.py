@@ -13,6 +13,7 @@ imports jax).
 from __future__ import annotations
 
 import functools
+import math
 from typing import Tuple
 
 import numpy as np
@@ -42,6 +43,61 @@ def rope_table(
     angles = positions.to(torch.float32)[..., None] * inv_freq
     angles = torch.cat([angles, angles], dim=-1)
     return torch.cos(angles), torch.sin(angles)
+
+
+def yarn_inv_freq(dim: int, theta: float, yarn) -> np.ndarray:
+    """DeepSeek's YaRN inverse frequencies ([dim // 2] float32,
+    ``DeepseekV3YarnRotaryEmbedding``): below the correction range the
+    original frequencies, above it those divided by ``factor``, a linear
+    ramp between; the range is where ``beta_fast`` .. ``beta_slow``
+    rotations fit ``original_max_position_embeddings``."""
+    base = theta ** (np.arange(0, dim, 2, dtype=np.float32) / dim)
+    extra, inter = 1.0 / base, 1.0 / (yarn.factor * base)
+
+    def correction_dim(rotations: float) -> float:
+        return (dim * math.log(yarn.original_max_position_embeddings
+                               / (rotations * 2 * math.pi))) / (2 * math.log(theta))
+
+    low = max(math.floor(correction_dim(yarn.beta_fast)), 0)
+    high = min(math.ceil(correction_dim(yarn.beta_slow)), dim - 1)
+    if low == high:
+        high += 0.001
+    ramp = np.clip((np.arange(dim // 2, dtype=np.float32) - low) / (high - low), 0, 1)
+    extra_mask = 1.0 - ramp
+    return (inter * (1 - extra_mask) + extra * extra_mask).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def _yarn_inv_freq(dim: int, theta: float, yarn, device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(yarn_inv_freq(dim, theta, yarn)).to(device)
+
+
+def yarn_rope_table(positions: torch.Tensor, dim: int, theta: float,
+                    yarn) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(cos, sin) float32 [..., dim] of DeepSeek's YaRN rope at integer
+    positions, both times mscale(factor, mscale) / mscale(factor,
+    mscale_all_dim) (1 where the two are equal). ``yarn`` None: plain rope."""
+    if yarn is None:
+        return rope_table(positions, dim, theta)
+    from dots_ocr_tpu_torch.models.config import yarn_get_mscale
+
+    angles = positions.to(torch.float32)[..., None] * _yarn_inv_freq(dim, theta, yarn,
+                                                                      positions.device)
+    angles = torch.cat([angles, angles], dim=-1)
+    m = yarn_get_mscale(yarn.factor, yarn.mscale) / yarn_get_mscale(yarn.factor,
+                                                                   yarn.mscale_all_dim)
+    return torch.cos(angles) * m, torch.sin(angles) * m
+
+
+def apply_rope_interleaved(x: torch.Tensor, cos: torch.Tensor,
+                           sin: torch.Tensor) -> torch.Tensor:
+    """DeepSeek's rope on interleaved pairs: x [..., D] is reordered from
+    (x0, x1, x2, x3, ..) to (x0, x2, .., x1, x3, ..) and then rotated
+    half against half. cos / sin broadcast against x. Computes in float32,
+    returns x.dtype (in the reordered layout, as DeepSeek's code leaves it)."""
+    d = x.shape[-1]
+    xf = x.to(torch.float32).unflatten(-1, (d // 2, 2)).transpose(-1, -2).flatten(-2)
+    return (xf * cos + rotate_half(xf) * sin).to(x.dtype)
 
 
 def rotate_half(x: torch.Tensor) -> torch.Tensor:

@@ -110,6 +110,7 @@ def vlm_prefill(
     last_logit_only: bool = False,
     remat: bool = False,
     tp=None,
+    moe_stats: Optional[torch.Tensor] = None,
 ):
     """Full multimodal prefill. input_ids/positions [B, T]; seq_lens [B];
     vision arguments as from ``preprocess.pack_images`` and
@@ -117,6 +118,7 @@ def vlm_prefill(
 
     ``remat`` recomputes each decoder layer in the backward pass (the
     vision encoder is not rematerialized, as in the JAX package).
+    ``moe_stats``: a MoE decoder's expert counts (``decoder_prefill``).
 
     Returns (logits, cache): logits [B, T, V] float32, or [B, V] with
     ``last_logit_only``; a KVCache with k/v [L, B, T, KV, hd]."""
@@ -126,7 +128,8 @@ def vlm_prefill(
         scatter_pos=scatter_pos, attn_impl=attn_impl, tp=tp,
     )
     hidden, cache = decoder_prefill(
-        params["decoder"], config.decoder, x, positions, seq_lens, attn_impl, remat=remat, tp=tp
+        params["decoder"], config.decoder, x, positions, seq_lens, attn_impl, remat=remat, tp=tp,
+        moe_stats=moe_stats,
     )
     if last_logit_only:
         hidden = hidden[torch.arange(hidden.shape[0], device=hidden.device), seq_lens.long() - 1]

@@ -72,6 +72,9 @@ _SIGNATURES = {
     # operands (16 int64 on the host), out, rows, cols, iota, mode, minval,
     # stream
     "dots_threefry2x32": [_P, _P] + [_I] * 4 + [_F, _P],
+    # q, pool, lengths, page_tables, part_o, part_ml (scratch), out, S, H,
+    # rank, rope, page_size, max_pages, chunk, n_split, sm_scale, stream
+    "dots_mla_latent_decode_bf16": [_P] * 7 + [_I] * 8 + [_F, _P],
 }
 
 _LIB: Optional[ctypes.CDLL] = None

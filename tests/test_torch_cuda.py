@@ -1875,3 +1875,132 @@ def test_tp2_train_step_over_nccl_matches_one_process_on_two_cards(cuda, tmp_pat
     torch.backends.cuda.matmul.allow_tf32 = False
     ranks = _spawn_ranks(train_ranks.run_card_train_rank, 2, tmp_path, "card", "nccl")
     _train_ranks_hold(ranks, cuda)
+
+
+def _latent_inputs(lengths, heads, rank, rope, page_size, width, seed=0):
+    """A latent pool of random rows (unreferenced ones too) with shuffled
+    pages, bf16 queries, and each slot's table and length."""
+    g = torch.Generator().manual_seed(seed)
+    n_pages = len(lengths) * width + 1
+    pool = torch.randn(1, n_pages * page_size, rank + rope, generator=g).bfloat16()
+    tables = (torch.randperm(n_pages - 1, generator=g)[:len(lengths) * width] + 1).view(
+        len(lengths), width).int()
+    q = torch.randn(len(lengths), heads, rank + rope, generator=g).bfloat16()
+    return q, pool, tables, torch.tensor(lengths, dtype=torch.int32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lengths,page_size,width", [
+    ([1, 0, 300, 4096], 128, 32),            # an empty slot, page edges, one split and many
+    ([8191, 2, 129, 3400] * 16, 128, 64),    # the cell's 64 slots at its 64-page tables
+    ([17, 5, 64], 16, 8),                    # small pages
+])
+def test_latent_kernel_matches_plain_on_card(cuda, lengths, page_size, width):
+    """The paged latent kernel and its merge (128 heads, 512 + 64 values a
+    row) against the plain version on the same bf16 inputs, within
+    _attention_close's bound; an empty slot gives exact zeros; 20 calls
+    give the same bits; a CUDA graph replays it over new lengths."""
+    from dots_ocr_tpu_torch.ops.mla_attention import mla_decode_reference, mla_paged_decode
+
+    q, pool, tables, lens = (t.to(cuda) for t in _latent_inputs(lengths, 128, 512, 64,
+                                                                page_size, width))
+    scale = 192 ** -0.5 * 1.3689 ** 2
+    out = mla_paged_decode(q, pool, tables, lens, page_size, 512, scale)
+    ref = mla_decode_reference(q, pool, tables, lens, page_size, 512, scale)
+    live = lens > 0
+    _attention_close(out[live], ref[live])
+    assert not out[~live].any()
+    for _ in range(20):
+        assert torch.equal(mla_paged_decode(q, pool, tables, lens, page_size, 512, scale), out)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = mla_paged_decode(q, pool, tables, lens, page_size, 512, scale)
+    lens.copy_(torch.flip(lens, [0]))
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, mla_paged_decode(q, pool, tables, lens, page_size, 512, scale))
+
+
+@pytest.mark.cuda
+def test_held_experts_grouped_product_matches_plain_on_card(cuda):
+    """The MoE block's grouped expert products (torch._grouped_mm over the
+    held experts, sorted on the device) against one product an expert in
+    float32, on bf16 inputs at the published widths, and under a graph."""
+    from dots_ocr_tpu_torch.models.moe import held_experts
+
+    g = torch.Generator().manual_seed(1)
+    t, k, n_held, d, inter = 64, 8, 8, 7168, 2048
+    x = (torch.randn(t, d, generator=g)).bfloat16().to(cuda)
+    local = torch.randint(-4, 12, (t, k), generator=g).to(cuda)
+    held = (local >= 0) & (local < n_held)
+    weight = torch.rand(t, k, generator=g).to(cuda)
+    gate, up = ((torch.randn(n_held, d, inter, generator=g) * 0.02).bfloat16().to(cuda)
+                for _ in range(2))
+    down = (torch.randn(n_held, inter, d, generator=g) * 0.02).bfloat16().to(cuda)
+    got, per_expert = held_experts(x, local, weight, held, gate, up, down)
+    want = torch.zeros(t, d, device=cuda)
+    for e in range(n_held):
+        tok, slot = torch.nonzero(held & (local == e), as_tuple=True)
+        xe = x[tok].float()
+        h = torch.nn.functional.silu(xe @ gate[e].float()) * (xe @ up[e].float())
+        want.index_add_(0, tok, (h @ down[e].float()) * weight[tok, slot, None])
+        assert int(per_expert[e]) == tok.numel()
+    err = (got - want).abs()
+    assert float(err.norm()) <= 1e-2 * float(want.norm()), float(err.norm() / want.norm())
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured, _ = held_experts(x, local, weight, held, gate, up, down)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(captured, got)
+
+
+@pytest.mark.cuda
+def test_deepseek_engine_graphed_equals_eager_on_card(cuda):
+    """DeepSeek-V3's decoder (MLA over the latent pages, MoE holding 4 of 16
+    experts) through the continuous engine at a small size in bf16: the
+    engine whose decode chunks are CUDA graph replays serves the same tokens
+    as the eager one, through the latent kernel and the grouped products."""
+    from PIL import Image
+
+    from dots_ocr_tpu_torch.engine.scheduler import ContinuousBatchingEngine, SchedulerConfig
+    from dots_ocr_tpu_torch.models.config import (
+        DecoderConfig,
+        DeepseekConfig,
+        DeepseekDecoderConfig,
+        DotsOCRConfig,
+        VisionConfig,
+        YarnRope,
+    )
+    from dots_ocr_tpu_torch.models.init import init_params
+    from dots_ocr_tpu_torch.ops.mla_attention import mla_paged_decode
+
+    base = DotsOCRConfig.tiny()
+    fields = {f: getattr(base.decoder, f) for f in DecoderConfig.__dataclass_fields__}
+    decoder = DeepseekDecoderConfig(**dict(
+        fields, hidden_size=128, num_heads=32, num_kv_heads=32, intermediate_size=256,
+        qkv_bias=False, tie_word_embeddings=False, rope_theta=10000.0,
+        deepseek=DeepseekConfig(
+            q_lora_rank=64, kv_lora_rank=64, qk_nope_head_dim=32, qk_rope_head_dim=16,
+            v_head_dim=32, first_k_dense_replace=1, moe_intermediate_size=64,
+            n_routed_experts=16, experts_held=(4, 4), num_experts_per_tok=4, n_group=4,
+            topk_group=2, rope_scaling=YarnRope(original_max_position_embeddings=64))))
+    vision = VisionConfig(hidden_size=128, num_layers=2, num_heads=2, head_dim=64,
+                          intermediate_size=256)  # kernel 1 takes head dim 64 or 128
+    cfg = base.replace(vision=vision, decoder=decoder, dtype="bfloat16")
+    params = init_params(cfg, cuda, torch.Generator(device=cuda).manual_seed(0), scale=0.1)
+    page = Image.fromarray(np.random.RandomState(0).randint(0, 256, (56, 84, 3), np.uint8))
+    outs, metrics = [], []
+    for graphs in (False, True):
+        engine = ContinuousBatchingEngine(params, cfg, cuda, sched=SchedulerConfig(
+            num_pages=256, page_size=16, max_slots=4, max_pages_per_seq=32, steps_per_sync=4,
+            prefill_chunk_tokens=64, cuda_graphs=graphs))
+        if graphs:
+            engine.warmup_decode()
+        launches = mla_paged_decode.launches
+        outs.append(engine.generate_batch(["hi", "a much longer prompt " * 8], [[page], []],
+                                          temperature=0.0, max_new_tokens=24))
+        metrics.append(dict(engine.metrics, latent_launches=mla_paged_decode.launches - launches))
+    assert outs[0] == outs[1]
+    assert metrics[1]["graph_replays"] > 0 and metrics[1]["latent_launches"] > 0
+    assert metrics[0]["moe_routed_here"] == metrics[1]["moe_routed_here"] > 0
